@@ -46,8 +46,19 @@ setup(
     description="TPU-native unsupervised text tokenizer: fast Byte Pair Encoding on JAX/XLA",
     long_description=(Path(__file__).parent / "README.md").read_text(),
     long_description_content_type="text/markdown",
-    packages=find_packages(include=["youtokentome_tpu", "youtokentome_tpu.*"]),
-    package_data={"youtokentome_tpu.host": ["*.cpp", "*.so"]},
+    packages=find_packages(
+        include=[
+            "youtokentome_tpu", "youtokentome_tpu.*",
+            "youtokentome_tpu_torch", "youtokentome_tpu_torch.*",
+        ]
+    ),
+    # the torch port compiles its CUDA kernel and host helpers at first
+    # use (youtokentome_tpu_torch/_build.py), so only the sources ship
+    package_data={
+        "youtokentome_tpu.host": ["*.cpp", "*.so"],
+        "youtokentome_tpu_torch": ["csrc/*.cu"],
+        "youtokentome_tpu_torch.host": ["*.cpp"],
+    },
     ext_modules=[
         Extension(f"youtokentome_tpu.host.{n}", sources=[]) for n in NATIVE_LIBS
     ],

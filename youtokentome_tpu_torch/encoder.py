@@ -1,0 +1,695 @@
+"""Batched sentence encoding: host pipeline + device merge kernel.
+
+PyTorch counterpart of ``youtokentome_tpu/encoder.py`` (native backend
+and matrix path; BPE-dropout and the flat stream backend come in later
+slices).  The reference fans sentences out over threads and encodes
+word-by-word with a priority queue (encode_parallel bpe.cpp:1697-1738).
+Here:
+
+  1. the C++ tokenizer (host/fasttok.cpp) splits sentences into words,
+     deduplicates them against a persistent word cache, and maps chars to
+     ids, collapsing unknown-char runs into placeholder tokens >= 10**9
+     (bpe.cpp:1503-1527);
+  2. novel words are packed into padded ``[rows, cap]`` length buckets
+     and merged on the card by the CUDA kernel (ops/encode_kernel.py),
+     or on the host by the C++ merger when the batch is small
+     (``_merge_policy``);
+  3. C++ expands cached results back to occurrences and formats them.
+
+Without the C++ helpers, or for subword output, a numpy host pipeline
+(the matrix path) deduplicates words and sends the same buckets to the
+same kernel.  The encoder runs on one device, ``cuda`` unless the
+caller asks for ``cpu``; on the CPU the kernel's plain torch version
+does the merging.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .host import fasttok, preprocess
+from .models.state import BOS_TOKEN, EOS_TOKEN, SPACE_TOKEN, BPEState
+from .models.vocab import Vocabulary
+from .ops.encode_kernel import (
+    PLACEHOLDER_START,
+    U16_PAD,
+    U16_PH_FLOOR,
+    EncoderTables,
+    encode_greedy,
+    encode_greedy_u16,
+    pack_tokens_u16,
+)
+
+
+# id-mode fast-path backend: "native" = C++ tokenizer + device merge of
+# unique words; "matrix" = numpy host pipeline (always used for
+# subwords).  Read per call so tests can parameterize over backends.
+def _encode_backend() -> str:
+    backend = os.environ.get("YTTM_ENCODE_BACKEND", "native")
+    if backend == "stream":
+        raise NotImplementedError(
+            "YTTM_ENCODE_BACKEND=stream is not ported to the torch package yet; "
+            "use native or matrix"
+        )
+    return backend
+
+
+ENCODE_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
+MAX_DEVICE_LEN = ENCODE_BUCKETS[-1]
+# Largest row count of one kernel launch; bigger row sets are chunked.
+DEVICE_BATCH = 8192
+
+
+def resolve_device(device=None) -> torch.device:
+    """The encoder's device: ``cuda`` (card 0) when ``device`` is None.
+    Raises when CUDA is asked for and absent; never falls back to the
+    CPU on its own."""
+    if device is None:
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to encode "
+                "on the CPU with the kernel's plain torch version"
+            )
+        return torch.device("cuda", dev.index if dev.index is not None else 0)
+    if dev.type != "cpu":
+        raise ValueError(f"device must be cuda or cpu, not {dev}")
+    return dev
+
+
+def _pad_rows(mats: List[np.ndarray], cap: int) -> np.ndarray:
+    k = sum(m.shape[0] for m in mats)
+    kp = max(DEVICE_BATCH, -(-k // DEVICE_BATCH) * DEVICE_BATCH)
+    out = np.full((kp, cap), -1, dtype=np.int32)
+    r = 0
+    for m in mats:
+        out[r : r + m.shape[0], : m.shape[1]] = m
+        r += m.shape[0]
+    return out
+
+
+class _MergeResult:
+    """One merged chunk on its way back to the host.  On a card the
+    result lands in pinned host memory through an asynchronous copy, and
+    ``numpy()`` waits for the event recorded after it; on the CPU it is
+    ready at once."""
+
+    def __init__(self, host: torch.Tensor, event=None, inputs=()):
+        self._host = host
+        self._event = event
+        self._inputs = inputs  # pinned sources must outlive their copies
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+            self._inputs = ()
+        return self._host.numpy()
+
+
+class Encoder:
+    """Stateful encoder bound to a trained model, on one device."""
+
+    def __init__(self, state: BPEState, cache_size: int = 1 << 20, device=None):
+        self.state = state
+        self.device = resolve_device(device)
+        self.vocab = Vocabulary(state)
+        self.tables = EncoderTables.from_state(state, self.device)
+        sorted_cps = np.sort(
+            np.fromiter(state.char2id.keys(), dtype=np.uint32, count=len(state.char2id))
+        )
+        self._sorted_cps = sorted_cps
+        self._sorted_ids = np.fromiter(
+            (state.char2id[int(c)] for c in sorted_cps),
+            dtype=np.int32,
+            count=sorted_cps.size,
+        )
+        self.space_id = state.char2id[SPACE_TOKEN]
+        # reference emission quirk (bpe.cpp:1591-1593): per-word output
+        # starts at the first token with id != 0, so when id 0 belongs
+        # to a REAL token (custom special ids all >= 1 leave id 0 to ▁),
+        # an unmerged word-leading ▁ is dropped.  Reproduced for
+        # bit-exactness; the flag gates the strip.
+        st0 = state.special_tokens
+        self._zero_is_real = 0 not in (
+            st0.pad_id, st0.unk_id, st0.bos_id, st0.eos_id
+        )
+        self._cache: Dict[bytes, np.ndarray] = {}
+        self._cache_size = cache_size
+        # uint16 wire format for the id-mode merge on a card (halves the
+        # bytes each chunk moves; ops/encode_kernel.py layout note)
+        self._u16_ok = (
+            state.vocab_size() < U16_PH_FLOOR
+            and state.special_tokens.unk_id >= 0
+        )
+        # persistent cross-batch word cache for the native path (stable
+        # uids + cached results; only novel words reach the merge)
+        self._wcache: Optional[fasttok.WordCache] = None
+        # host-side rule table for the merge dispatch crossover
+        self._rtab: Optional[fasttok.RuleTable] = None
+
+    def _use_u16(self) -> bool:
+        return self._u16_ok and self.device.type == "cuda"
+
+    def _dispatch_merge(self, mat: np.ndarray, u16: bool) -> _MergeResult:
+        """Start merging one padded int32 [B, cap] chunk on the device.
+        With ``u16`` the chunk travels in the uint16 wire format and
+        comes back with placeholders mapped to unk (id mode only)."""
+        unk = self.state.special_tokens.unk_id
+        src = torch.from_numpy(pack_tokens_u16(mat) if u16 else mat)
+        on_card = self.device.type == "cuda"
+        if on_card:
+            pinned = src.pin_memory()
+            src = pinned.to(self.device, non_blocking=True)
+        out = encode_greedy_u16(self.tables, src, unk) if u16 else encode_greedy(self.tables, src)
+        if not on_card:
+            return _MergeResult(out)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return _MergeResult(host, event, (pinned,))
+
+    def _ruletab(self) -> fasttok.RuleTable:
+        if self._rtab is None:
+            self._rtab = fasttok.RuleTable(self.state.rules)
+        return self._rtab
+
+    def _merge_policy(self, n_tokens: int) -> str:
+        """Dispatch crossover for novel-word merging: "host" (C++ greedy
+        merge, the latency arm) vs "device" (batched kernel, the
+        throughput arm).  A device dispatch costs a fixed round trip, so
+        small novel-word batches (every warm-cache CLI chunk, and most
+        cold ones after dedup) merge on the host.
+        YTTM_ENCODE_MERGE=host|device forces an arm;
+        YTTM_HOST_MERGE_TOKENS moves the auto threshold."""
+        mode = os.environ.get("YTTM_ENCODE_MERGE", "auto")
+        if mode in ("host", "device"):
+            return mode
+        thr = int(os.environ.get("YTTM_HOST_MERGE_TOKENS", str(1 << 22)))
+        return "host" if n_tokens <= thr else "device"
+
+    def _word_cache(self) -> fasttok.WordCache:
+        if self._wcache is None:
+            self._wcache = fasttok.WordCache(
+                max_words=int(os.environ.get("YTTM_WORD_CACHE", str(1 << 22)))
+            )
+        return self._wcache
+
+    # -- char -> id mapping with unknown-run collapse ----------------------
+
+    def _idify_rows(self, rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """[k, L] codepoints -> ([k, L+1] ids with space prefix, lengths).
+
+        Unknown-char runs collapse to placeholder ids >= PLACEHOLDER_START,
+        numbered per word in order of appearance (bpe.cpp:1503-1527).
+        """
+        k, length = rows.shape
+        pos = np.searchsorted(self._sorted_cps, rows)
+        pos_c = np.minimum(pos, self._sorted_cps.size - 1)
+        known = (self._sorted_cps[pos_c] == rows) if self._sorted_cps.size else np.zeros(
+            rows.shape, bool
+        )
+        ids = np.where(known, self._sorted_ids[pos_c], -1).astype(np.int64)
+        unk = ~known
+        run_start = unk & ~np.concatenate([np.zeros((k, 1), bool), unk[:, :-1]], axis=1)
+        ph = np.cumsum(run_start, axis=1) - 1
+        vals = np.where(known, ids, PLACEHOLDER_START + ph)
+        keepm = known | run_start
+        newlen = keepm.sum(axis=1).astype(np.int64)
+        dest = np.cumsum(keepm, axis=1) - 1
+        out = np.full((k, length + 1), -1, dtype=np.int64)
+        out[:, 0] = self.space_id
+        rr = np.nonzero(keepm)
+        out[rr[0], dest[rr] + 1] = vals[rr]
+        return out.astype(np.int32), newlen + 1
+
+    # -- unique-word encoding (matrix path) --------------------------------
+
+    def _encode_unique(self, dd: preprocess.DedupWords) -> Tuple[np.ndarray, np.ndarray]:
+        """Encode all unique words; returns ragged results as
+        (flat_ids, offsets) with offsets of length n_unique+1."""
+        results: List[Optional[np.ndarray]] = [None] * dd.n_unique
+
+        # bucket -> list of (uids, raw rows, id-matrix)
+        buckets: Dict[int, List[Tuple[np.ndarray, np.ndarray, np.ndarray]]] = {}
+        base = 0
+        for rows in dd.group_rows:
+            k = rows.shape[0]
+            uids = np.arange(base, base + k)
+            base += k
+            todo = np.ones(k, dtype=bool)
+            if self._cache:
+                for i in range(k):
+                    hit = self._cache.get(rows[i].tobytes())
+                    if hit is not None:
+                        results[uids[i]] = hit
+                        todo[i] = False
+            if not todo.any():
+                continue
+            rows_t = rows[todo]
+            uids_t = uids[todo]
+            mat, _ = self._idify_rows(rows_t)
+            padded_len = mat.shape[1]
+            if padded_len > MAX_DEVICE_LEN:
+                # host fallback for monster words (rare)
+                for i in range(mat.shape[0]):
+                    w = mat[i][mat[i] >= 0]
+                    res = self._host_merge(w.tolist())
+                    results[uids_t[i]] = np.asarray(res, dtype=np.int64)
+                    self._maybe_cache(rows_t[i], results[uids_t[i]])
+                continue
+            cap = next(c for c in ENCODE_BUCKETS if c >= padded_len)
+            buckets.setdefault(cap, []).append((uids_t, rows_t, mat))
+
+        for cap, entries in buckets.items():
+            uids_all = np.concatenate([e[0] for e in entries])
+            raw_all = [e[1] for e in entries]
+            mat = _pad_rows([e[2] for e in entries], cap)
+            futs = [
+                self._dispatch_merge(mat[c0 : c0 + DEVICE_BATCH], u16=False)
+                for c0 in range(0, mat.shape[0], DEVICE_BATCH)
+            ]
+            k = uids_all.size
+            out = np.concatenate([f.numpy() for f in futs], axis=0)[:k]
+            # vectorized ragged extraction: one boolean mask for the whole
+            # bucket, then cheap per-row views into the flat result
+            mask = out >= 0
+            lens_b = mask.sum(axis=1)
+            flat_b = out[mask].astype(np.int64)
+            offs_b = np.zeros(k + 1, dtype=np.int64)
+            np.cumsum(lens_b, out=offs_b[1:])
+            flat_raws = [row for r in raw_all for row in r]
+            cache = self._cache
+            if len(cache) >= self._cache_size:
+                cache.clear()
+            for i in range(k):
+                v = flat_b[offs_b[i] : offs_b[i + 1]]
+                results[uids_all[i]] = v
+                cache[flat_raws[i].tobytes()] = v
+
+        lens = np.fromiter(
+            (r.size for r in results), dtype=np.int64, count=dd.n_unique
+        )
+        offsets = np.zeros(dd.n_unique + 1, dtype=np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        flat = (
+            np.concatenate(results) if dd.n_unique else np.zeros(0, dtype=np.int64)
+        )
+        if self._zero_is_real:
+            flat, offsets = self._strip_zero_heads(flat, offsets)
+        return flat, offsets
+
+    @staticmethod
+    def _strip_zero_heads(flat: np.ndarray, offsets: np.ndarray):
+        """Drop each word's leading token when its id is 0 (the
+        reference's find_if emission skip, bpe.cpp:1591-1593).  Two
+        distinct real tokens can't both have id 0, so at most one
+        leading token goes per word."""
+        lens = np.diff(offsets)
+        heads = offsets[:-1]
+        ne = lens > 0
+        dropw = np.zeros(lens.shape, bool)
+        dropw[ne] = flat[heads[ne]] == 0
+        if not dropw.any():
+            return flat, offsets
+        keep = np.ones(flat.size, bool)
+        keep[heads[dropw]] = False
+        new_off = np.zeros_like(offsets)
+        np.cumsum(lens - dropw, out=new_off[1:])
+        return flat[keep], new_off
+
+    def _maybe_cache(self, raw_row: np.ndarray, ids: np.ndarray) -> None:
+        if len(self._cache) >= self._cache_size:
+            self._cache.clear()  # simple epoch eviction
+        self._cache[raw_row.tobytes()] = ids
+
+    def _host_merge(self, word: List[int]) -> List[int]:
+        """Oracle-style greedy merge for words too long for the device."""
+        rule2id = self.vocab.rule2id
+        rules = self.state.rules
+        cur = word
+        while True:
+            best = None
+            for i in range(len(cur) - 1):
+                r = rule2id.get((cur[i], cur[i + 1]))
+                if r is not None and (best is None or r < best):
+                    best = r
+            if best is None:
+                return cur
+            x, y, z = rules[best]
+            out, i, n = [], 0, len(cur)
+            while i < n:
+                if i + 1 < n and cur[i] == x and cur[i + 1] == y:
+                    out.append(z)
+                    i += 2
+                else:
+                    out.append(cur[i])
+                    i += 1
+            cur = out
+
+    # -- public API --------------------------------------------------------
+
+    def encode(
+        self,
+        sentences: Sequence[str],
+        output_type: str = "id",
+        bos: bool = False,
+        eos: bool = False,
+        reverse: bool = False,
+        dropout_prob: float = 0.0,
+    ):
+        st = self.state.special_tokens
+        if bos and st.bos_id == -1:
+            raise ValueError("Can't add <BOS> token. Model was trained without it.")
+        if eos and st.eos_id == -1:
+            raise ValueError("Can't add <EOS> token. Model was trained without it.")
+        if dropout_prob < 0 or dropout_prob > 1:
+            raise ValueError(
+                "dropout_prob value must be in the range [0, 1]. Current value of "
+                f"dropout_prob = {dropout_prob}"
+            )
+        if dropout_prob > 0:
+            raise NotImplementedError(
+                "BPE-dropout is not ported to the torch package yet"
+            )
+        backend = _encode_backend()
+
+        n_sent = len(sentences)
+        if n_sent == 0:
+            return []
+
+        if output_type == "id" and backend == "native" and fasttok.available():
+            # the native path works on a newline-joined byte stream; no
+            # sentence may embed a newline (it would break the marking)
+            joined = "\n".join(sentences) + "\n"
+            if joined.count("\n") == n_sent:
+                return self._encode_ids_native(
+                    joined.encode("utf-8"), n_sent, bos, eos, reverse
+                )
+
+        arrs = [
+            np.frombuffer(s.encode("utf-32-le"), dtype=np.uint32) for s in sentences
+        ]
+        sep = np.asarray([32], dtype=np.uint32)
+        parts: List[np.ndarray] = []
+        sent_starts = np.zeros(n_sent, dtype=np.int64)
+        off = 0
+        for i, a in enumerate(arrs):
+            sent_starts[i] = off
+            parts.append(a)
+            parts.append(sep)
+            off += a.size + 1
+        stream = np.concatenate(parts) if parts else np.zeros(0, np.uint32)
+
+        starts, lengths = preprocess.word_spans(stream)
+        sid = np.searchsorted(sent_starts, starts, side="right") - 1
+        dd = preprocess.dedup_words(stream, starts, lengths)
+        flat, offsets = self._encode_unique(dd)
+
+        occ = dd.occurrence_uid
+        occ_lens = offsets[occ + 1] - offsets[occ]
+        occ_starts_flat = offsets[occ]
+        total = int(occ_lens.sum())
+        if total:
+            occ_off = np.cumsum(occ_lens) - occ_lens
+            pos_in_occ = np.arange(total, dtype=np.int64) - np.repeat(occ_off, occ_lens)
+            out_ids = flat[np.repeat(occ_starts_flat, occ_lens) + pos_in_occ]
+            out_sid = np.repeat(sid, occ_lens)
+        else:
+            out_ids = np.zeros(0, dtype=np.int64)
+            out_sid = np.zeros(0, dtype=np.int64)
+
+        # split at sentence boundaries
+        bounds = np.searchsorted(out_sid, np.arange(n_sent + 1))
+
+        if output_type == "id":
+            unk = st.unk_id
+            out_ids = np.where(out_ids >= PLACEHOLDER_START, unk, out_ids)
+            big = out_ids.tolist()  # one C-level conversion
+            b = bounds.tolist()
+            result = []
+            if not bos and not eos and not reverse:
+                for i in range(n_sent):
+                    result.append(big[b[i] : b[i + 1]])
+            else:
+                pre = [st.bos_id] if bos else []
+                post = [st.eos_id] if eos else []
+                for i in range(n_sent):
+                    ids = pre + big[b[i] : b[i + 1]] + post
+                    if reverse:
+                        ids.reverse()
+                    result.append(ids)
+            return result
+        elif output_type == "subword":
+            piece = self.vocab.piece
+            # raw text for placeholders, resolved per unique word
+            ph_text = self._placeholder_texts(dd)
+            result = []
+            occ_bounds = np.searchsorted(sid, np.arange(n_sent + 1))
+            for i in range(n_sent):
+                pieces: List[str] = []
+                if bos:
+                    pieces.append(BOS_TOKEN)
+                for j in range(occ_bounds[i], occ_bounds[i + 1]):
+                    u = occ[j]
+                    ids = flat[offsets[u] : offsets[u + 1]]
+                    for t in ids:
+                        t = int(t)
+                        if t >= PLACEHOLDER_START:
+                            pieces.append(ph_text[(u, t - PLACEHOLDER_START)])
+                        else:
+                            pieces.append(piece[t])
+                if eos:
+                    pieces.append(EOS_TOKEN)
+                if reverse:
+                    pieces.reverse()
+                result.append(pieces)
+            return result
+        else:
+            raise ValueError('output_type must be equal to "id" or "subword"')
+
+    # -- native (C++ host tokenizer + device merge) fast path --------------
+
+    @staticmethod
+    def _bucket_rows(words_flat: np.ndarray, word_off: np.ndarray):
+        """Pack the ragged words of length <= 512 into padded int32
+        [rows, cap] length buckets: [(uids, mat), ...], one per occupied
+        cap.  These are the kernel's inputs on the native path."""
+        lengths = np.diff(word_off).astype(np.int64)
+        out = []
+        prev_cap = 1
+        for cap in ENCODE_BUCKETS:
+            sel = np.nonzero((lengths > prev_cap) & (lengths <= cap))[0]
+            prev_cap = cap
+            if sel.size == 0:
+                continue
+            idx2d = word_off[sel][:, None].astype(np.int64) + np.arange(cap)[None, :]
+            in_row = np.arange(cap)[None, :] < lengths[sel][:, None]
+            mat = np.where(
+                in_row, words_flat[np.minimum(idx2d, words_flat.size - 1)], -1
+            ).astype(np.int32)
+            # snap the row count to a small tier first: steady-state CLI
+            # chunks have few novel words, and a full 8192-row padded
+            # batch for a handful of rows would dominate the chunk's cost
+            k = mat.shape[0]
+            kp = next(
+                (r for r in (512, 2048) if k <= r),
+                -(-k // DEVICE_BATCH) * DEVICE_BATCH,
+            )
+            if kp != k:
+                mat = np.concatenate(
+                    [mat, np.full((kp - k, cap), -1, np.int32)]
+                )
+            out.append((sel, mat))
+        return out
+
+    def _merge_dispatch(self, words_flat: np.ndarray, word_off: np.ndarray):
+        """Stage 1 of unique-word merging: pack length buckets and start
+        every device chunk.  Returns opaque state for ``_merge_collect``;
+        between the two calls the card works while the host is free (the
+        CLI stream loop tokenizes the next chunk there)."""
+        n_uniq = word_off.size - 1
+        if (
+            n_uniq
+            and fasttok.available()
+            and self._merge_policy(int(words_flat.size)) == "host"
+        ):
+            rf, ro = self._ruletab().merge_words(words_flat, word_off)
+            return ("host", rf, ro)
+        u16 = self._use_u16()
+        pending = [
+            (
+                sel,
+                [
+                    self._dispatch_merge(mat[c0 : c0 + DEVICE_BATCH], u16)
+                    for c0 in range(0, mat.shape[0], DEVICE_BATCH)
+                ],
+            )
+            for sel, mat in self._bucket_rows(words_flat, word_off)
+        ]
+        lengths = np.diff(word_off).astype(np.int64)
+        res_lens = np.zeros(n_uniq, np.int64)
+        # monster words (beyond the largest bucket) merge on the host —
+        # rare, and it overlaps the in-flight device work
+        monsters = np.nonzero(lengths > ENCODE_BUCKETS[-1])[0]
+        monster_res = {}
+        for u in monsters:
+            w = words_flat[word_off[u] : word_off[u + 1]].tolist()
+            r = self._host_merge(w)
+            monster_res[int(u)] = np.asarray(r, np.int32)
+            res_lens[u] = len(r)
+        return pending, monster_res, res_lens, n_uniq
+
+    def _merge_collect(self, st):
+        """Stage 2: wait for the device results and assemble the ragged
+        (results_flat, res_off) in uid order."""
+        if st[0] == "host":
+            _, rf, ro = st
+            if self._zero_is_real:
+                rf, ro = self._strip_zero_heads(rf, ro)
+            return rf, ro.astype(np.int32)
+        pending, monster_res, res_lens, n_uniq = st
+        parts = []
+        for sel, futs in pending:
+            out = np.concatenate([f.numpy() for f in futs], axis=0)[: sel.size]
+            if out.dtype == np.uint16:
+                mask = out != U16_PAD
+                out = out.astype(np.int32)
+            else:
+                mask = out >= 0
+            res_lens[sel] = mask.sum(axis=1)
+            parts.append((sel, out, mask))
+
+        res_off = np.zeros(n_uniq + 1, np.int64)
+        np.cumsum(res_lens, out=res_off[1:])
+        results_flat = np.empty(int(res_off[-1]), np.int32)
+        for sel, out, mask in parts:
+            row_lens = mask.sum(axis=1).astype(np.int64)
+            total = int(row_lens.sum())
+            if not total:
+                continue
+            row_off = np.cumsum(row_lens) - row_lens
+            pos = np.arange(total, dtype=np.int64) - np.repeat(row_off, row_lens)
+            dst = np.repeat(res_off[sel], row_lens) + pos
+            results_flat[dst] = out[mask]
+        for u, r in monster_res.items():
+            results_flat[res_off[u] : res_off[u + 1]] = r
+        if self._zero_is_real:
+            results_flat, res_off = self._strip_zero_heads(
+                results_flat, res_off
+            )
+        return results_flat, res_off.astype(np.int32)
+
+    def _tokenize_cached(self, data: bytes):
+        """Tokenize against the persistent word cache: merge only words
+        never seen before, register their results, return the occurrence
+        stream (global uids)."""
+        wc = self._word_cache()
+        words_flat, word_off, occ, base = wc.tokenize(
+            data, self._sorted_cps, self._sorted_ids, self.space_id
+        )
+        if word_off.size > 1:
+            rf, ro = self._merge_collect(self._merge_dispatch(words_flat, word_off))
+            unk = self.state.special_tokens.unk_id
+            rf = np.where(rf >= PLACEHOLDER_START, unk, rf)
+            wc.add_results(rf, ro, base)
+        return wc, occ
+
+    def encode_stream_cli(self, chunks):
+        """Pipelined CLI path over an iterable of newline-terminated byte
+        chunks: the host tokenize of chunk k+1 runs while the card merges
+        chunk k's novel words (the dispatch/collect split).  Yields one
+        formatted output bytes per input chunk, in order."""
+        unk = self.state.special_tokens.unk_id
+        wc = self._word_cache()
+        pending = None  # (dispatch_state, occ, base) of the previous chunk
+
+        def finish(p):
+            st, occ, base = p
+            if st is not None:
+                rf, ro = self._merge_collect(st)
+                rf = np.where(rf >= PLACEHOLDER_START, unk, rf)
+                wc.add_results(rf, ro, base)
+            return wc.format(occ)
+
+        for chunk in chunks:
+            # an eviction would invalidate the pending chunk's uids:
+            # flush it first, then let tokenize's own check fire
+            if pending is not None and wc.n_words > wc.max_words:
+                yield finish(pending)
+                pending = None
+            words_flat, word_off, occ, base = wc.tokenize(
+                chunk, self._sorted_cps, self._sorted_ids, self.space_id
+            )
+            # queue chunk k+1's device work before blocking on chunk k's
+            # results: the device stream never drains
+            st = (
+                self._merge_dispatch(words_flat, word_off)
+                if word_off.size > 1
+                else None
+            )
+            out = finish(pending) if pending is not None else None
+            pending = (st, occ, base)
+            if out is not None:
+                yield out
+        if pending is not None:
+            yield finish(pending)
+
+    def _encode_ids_native(
+        self, data: bytes, n_sent: int, bos: bool, eos: bool, reverse: bool
+    ) -> List[List[int]]:
+        wc, occ = self._tokenize_cached(data)
+        flat = wc.expand_ids(occ)
+        st = self.state.special_tokens
+        marks = np.nonzero(flat == -1)[0]
+        assert marks.size == n_sent, (marks.size, n_sent)
+        big = flat.tolist()
+        bounds = [0] + (marks + 1).tolist()
+        pre = [st.bos_id] if bos else []
+        post = [st.eos_id] if eos else []
+        result = []
+        for i in range(n_sent):
+            ids = big[bounds[i] : bounds[i + 1] - 1]
+            if bos or eos:
+                ids = pre + ids + post
+            if reverse:
+                ids.reverse()
+            result.append(ids)
+        return result
+
+    def _placeholder_texts(self, dd: preprocess.DedupWords) -> Dict[Tuple[int, int], str]:
+        """Raw text of each unknown-char run, per unique word."""
+        out: Dict[Tuple[int, int], str] = {}
+        known_set = self._sorted_cps
+        base = 0
+        for rows in dd.group_rows:
+            k, length = rows.shape
+            pos = np.searchsorted(known_set, rows)
+            pos_c = np.minimum(pos, max(known_set.size - 1, 0))
+            known = (known_set[pos_c] == rows) if known_set.size else np.zeros(
+                rows.shape, bool
+            )
+            has_unknown = ~known.all(axis=1)
+            for i in np.nonzero(has_unknown)[0]:
+                row = rows[i]
+                kn = known[i]
+                ph = 0
+                j = 0
+                while j < length:
+                    if not kn[j]:
+                        j0 = j
+                        while j < length and not kn[j]:
+                            j += 1
+                        out[(base + i, ph)] = "".join(chr(int(c)) for c in row[j0:j])
+                        ph += 1
+                    else:
+                        j += 1
+            base += k
+        return out
