@@ -5,8 +5,9 @@
 
 Run from the root of a checkout, on a machine with one CUDA card.  It
 builds the port's kernels from the sources, holds every kernel against
-its plain torch version and the C++ host merger, drives the encode path
-at the full width of a vocab-30000 model over a 100 MB corpus, and
+its plain torch version (and the encode kernel against the C++ host
+merger), drives the encode path at the full width of a vocab-30000 model
+over a 100 MB corpus, trains a vocab-30000 model on the same corpus, and
 prints timings.  Phases, in order (any failure exits nonzero):
 
   1. device and build: the card's name and power limit; nvcc/g++ builds
@@ -19,6 +20,16 @@ prints timings.  Phases, in order (any failure exits nonzero):
      10 MiB chunks equal to the host arm's bytes; a decode round trip
   4. times: MB/s of both arms, the kernel's per-launch time for each
      (R, cap) with CUDA events, and the plain version's time
+  5. training (csrc/train_delta.cu): pair_count, topk_accept (also on
+     tie-heavy tables, narrow and wide ids) and apply_delta each equal to
+     its plain version on the 100 MB corpus's state; a 10 MB prefix at
+     vocab 8000 through the kernels (small table, rebuilt) and the plain
+     round loop in lockstep, equal at every segment end; the main path
+     ``BPE.train(data, model, vocab_size=30000)``, launches counted, rules
+     equal to the plain round loop's on the card, the model's encode and
+     decode round trip; times: preprocessing, merge loop, rounds,
+     merges/s, each kernel's device ms (torch.profiler) and its plain
+     version's
 
 The second-to-last line is a JSON ``kernels`` record, the line before
 it the card; the last line is ``{"ok": true, "device": {...}}``.  It
@@ -87,8 +98,8 @@ def phase_device_and_build() -> dict:
     log(f"[1] card: {card}")
     t0 = time.perf_counter()
     # one compiler per source, all started together
-    with ThreadPoolExecutor(3) as ex:
-        futs = [ex.submit(f) for f in (_cuda.load, fasttok._load, fastio._load)]
+    with ThreadPoolExecutor(4) as ex:
+        futs = [ex.submit(f) for f in (_cuda.load, _cuda.load_train, fasttok._load, fastio._load)]
         for f in futs:
             f.result()
     build_s = time.perf_counter() - t0
@@ -302,17 +313,14 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def phase_main_path(work: Path, device=None) -> dict:
+def phase_main_path(work: Path, corpus, device=None) -> dict:
     import youtokentome_tpu_torch as yttm
     from youtokentome_tpu_torch.encoder import Encoder
     from youtokentome_tpu_torch.host import fasttok
     from youtokentome_tpu_torch.models.state import BPEState
     from youtokentome_tpu_torch.ops import encode_kernel as ek
 
-    t0 = time.perf_counter()
-    words, lines = build_corpus()
-    log(f"[3] corpus: {len(lines)} lines, {len(words)}-word list "
-        f"({time.perf_counter() - t0:.1f} s)")
+    words, lines = corpus
     t0 = time.perf_counter()
     state, n_model_words = build_model(words)
     model_path = work / "vocab30k.yttm"
@@ -521,6 +529,418 @@ def phase_times(card: str, kchk: dict, main: dict) -> list:
     return rows
 
 
+# -- phase 5: training -------------------------------------------------------
+
+TRAIN_VOCAB = 30000
+MID_MB = 10
+MID_VOCAB = 8000
+# a table this small (pcap 256, 512 slots) overflows and is rebuilt several
+# times in the mid-size run
+MID_PCAP = 256
+TRAIN_SEG = 1000  # ids per segment, as run_training_delta sets it with the merge log on
+TRAIN_KERNELS = ("pair_count", "topk_accept", "apply_delta")
+# the device functions of each wrapper, as the profiler names them
+TRAIN_DEVICE_FNS = {
+    "pair_count": ("pair_count_kernel",),
+    "topk_accept": ("topk_blocks_kernel", "topk_accept_kernel"),
+    "apply_delta": ("mark_words_kernel", "apply_words_kernel"),
+}
+# integer operations per element, for the operations bound: a table slot
+# in topk_accept (load, compare with the list's last, loop: 10), a stream
+# position in apply_delta's pass 1 (two loads, 16 compares: 20) and in
+# pair_count (loads, parity scan, hash and probe: 40)
+OPS_PER_SLOT, OPS_PER_POS, OPS_PER_COUNTED = 10, 20, 40
+TRAIN_REPLACES = "youtokentome_tpu/ops/train_delta.py:210"
+
+
+def training_buckets(path: Path):
+    """Host preprocessing of a corpus file, as ``train.train`` does it:
+    (buckets, alphabet, used_ids0)."""
+    from youtokentome_tpu_torch.host import preprocess, utf8
+
+    cps = utf8.decode_utf8_bytes(path.read_bytes(), keep_invalid=True)
+    uniq, cnt, n = preprocess.char_frequencies(cps)
+    al = preprocess.build_alphabet(uniq, cnt, n, 1.0, 4)
+    return preprocess.training_word_buckets(cps, al), al, len(al.char2id) + 4
+
+
+def clone_state(st):
+    import copy
+
+    import torch
+
+    new = copy.copy(st)
+    for k, v in vars(st).items():
+        if isinstance(v, torch.Tensor):
+            setattr(new, k, v.clone())
+    return new
+
+
+def same_state(a, b, what: str) -> None:
+    """Kernel state ``a`` and plain state ``b`` agree: stream, the table as
+    a multiset of (key, count) slots, ctl, rules and the accepted rows."""
+    import torch
+
+    check(torch.equal(a.tok, b.tok), f"{what}: streams differ")
+    ka, ca = a.table()
+    kb, cb = b.table()
+    check(np.array_equal(ka, kb) and np.array_equal(ca, cb), f"{what}: tables differ")
+    check(torch.equal(a.ctl, b.ctl), f"{what}: ctl {a.ctl.tolist()} != {b.ctl.tolist()}")
+    check(torch.equal(a.rules, b.rules), f"{what}: rules differ")
+    n = int(a.ctl[4])  # n_acc
+    check(torch.equal(a.cand[:n], b.cand[:n]), f"{what}: accepted rows differ")
+    check(int(ca.min(initial=0)) >= 0, f"{what}: a negative pair count")
+
+
+def plain_pair_count(st) -> None:
+    """pair_count's plain version behind the wrapper's table reset."""
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    st.keys.fill_(tk.EMPTY)
+    st.cnts.zero_()
+    st.ctl[tk.OCC] = 0
+    st.ctl[tk.OVERFLOW] = 0
+    tk.pair_count_plain(st)
+
+
+def tie_table(st, base: int, seed: int) -> None:
+    """Fill ``st``'s table with a quarter of its slots of unique pairs of
+    ids in [base, base + 700), counts 1-4 (many ties) and a tenth of them
+    0 (dead); equal pairs are common."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    rng = np.random.default_rng(seed)
+    n = st.cap // 4
+    x = rng.integers(0, 700, n)
+    y = np.where(rng.random(n) < 0.2, x, rng.integers(0, 700, n))
+    keys = np.unique(((x + base).astype(np.int64) << 32) | (y + base))
+    cnts = rng.integers(1, 5, keys.size).astype(np.int32)
+    cnts[rng.random(keys.size) < 0.1] = 0
+    slots = rng.permutation(st.cap)[: keys.size]
+    st.keys.fill_(tk.EMPTY)
+    st.cnts.zero_()
+    st.keys[torch.from_numpy(slots).to(st.device)] = torch.from_numpy(keys).to(st.device)
+    st.cnts[torch.from_numpy(slots).to(st.device)] = torch.from_numpy(cnts).to(st.device)
+
+
+def phase_train_kernels(buckets, used0: int, dev) -> dict:
+    """Each training kernel against its plain version on the card, on the
+    main path's state (the 100 MB corpus's stream and table)."""
+    from youtokentome_tpu_torch.ops import train_delta as td
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+    from youtokentome_tpu_torch.ops import train_stream as ts
+
+    t, wid, freq = ts.flatten_word_buckets(buckets)
+    rules = np.full((TRAIN_VOCAB, 4), -1, np.int32)
+    eng = tk.KernelEngine(t, wid, freq, rules, used0, TRAIN_VOCAB, 16, dev)
+    st = eng.st
+    log(f"[5] main-path state: {st.tok.shape[0]} stream slots, {st.n_words} words, "
+        f"table {st.cap} slots")
+    plain = clone_state(st)
+    plain_pair_count(plain)
+    same_state(st, plain, "pair_count")
+    uk, uc = td.host_count_table(t, wid, freq)
+    keys, cnts = st.table()
+    check(np.array_equal(keys, uk.astype(np.int64)) and np.array_equal(cnts, uc),
+          "pair_count != the host count table")
+    log(f"[5] pair_count == plain == host count table ({uk.size} pairs)")
+
+    # rounds on the real table: topk_accept, then apply_delta, each
+    # against its plain version from the identical state
+    k_st, p_st = clone_state(st), clone_state(st)
+    for r in range(3):
+        limit = used0 + TRAIN_SEG
+        tk.topk_accept(k_st, limit, TRAIN_VOCAB, used0)
+        tk.topk_accept_plain(p_st, limit, TRAIN_VOCAB, used0, 16)
+        same_state(k_st, p_st, f"topk_accept round {r}")
+        tk.apply_delta(k_st)
+        tk.apply_delta_plain(p_st)
+        same_state(k_st, p_st, f"apply_delta round {r}")
+        log(f"[5] round {r}: topk_accept and apply_delta == plain "
+            f"({int(k_st.ctl[tk.NACC])} accepted, {int(k_st.ctl[tk.NAFF])} words hit)")
+
+    # tie-heavy tables at the main path's size, narrow and wide ids
+    for base in (0, 70000):
+        for seed in range(3):
+            k_st = clone_state(st)
+            tie_table(k_st, base, seed)
+            p_st = clone_state(k_st)
+            tk.topk_accept(k_st, used0 + TRAIN_SEG, TRAIN_VOCAB, used0)
+            tk.topk_accept_plain(p_st, used0 + TRAIN_SEG, TRAIN_VOCAB, used0, 16)
+            same_state(k_st, p_st, f"topk_accept on a tie table (base {base}, seed {seed})")
+        log(f"[5] topk_accept == plain on tie-heavy tables of {st.cap} slots, ids from {base} "
+            f"(last: {int(k_st.ctl[tk.NACC])} accepted)")
+    return {"st": st}
+
+
+def complete_segment(eng, used: int, limit: int):
+    """Rounds up to ``limit`` (or done), rebuilding the table on overflow."""
+    while True:
+        used, done, overflow = eng.segment(used, limit)
+        if not overflow:
+            return used, done
+        eng.regrow()
+
+
+def phase_train_mid(corpus_path: Path, work: Path, dev) -> dict:
+    """A 10 MB prefix at vocab 8000: the kernel engine (with a small table,
+    so that it is rebuilt) and the plain round loop, both on the card, in
+    lockstep: stream, live table and rules equal after every segment."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_delta as td
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+    from youtokentome_tpu_torch.ops import train_stream as ts
+
+    blob = corpus_path.read_bytes()
+    cut = blob.rfind(b"\n", 0, MID_MB * 1_000_000) + 1
+    mid_path = work / "corpus_10mb.txt"
+    mid_path.write_bytes(blob[:cut])
+    buckets, _, used0 = training_buckets(mid_path)
+    t, wid, freq = ts.flatten_word_buckets(buckets)
+    rules = np.full((MID_VOCAB, 4), -1, np.int32)
+    os.environ["YTTM_TRAIN_PCAP"] = str(MID_PCAP)
+    try:
+        kern = tk.KernelEngine(t, wid, freq, rules, used0, MID_VOCAB, 16, dev)
+    finally:
+        del os.environ["YTTM_TRAIN_PCAP"]
+    plain = td.PlainEngine(t, wid, freq, rules, used0, MID_VOCAB, 16, dev)
+    used, segs, t0 = used0, 0, time.perf_counter()
+    while used < MID_VOCAB:
+        limit = min(MID_VOCAB, used + TRAIN_SEG)
+        ku, kd = complete_segment(kern, used, limit)
+        pu, pd = complete_segment(plain, used, limit)
+        check((ku, kd) == (pu, pd), f"segment to {limit}: kernel {ku, kd} != plain {pu, pd}")
+        kt, kw = kern.st.stream()
+        live = plain.t >= 0
+        check(torch.equal(kt, plain.t[live]) and torch.equal(kw, plain.wid[live]),
+              f"segment to {limit}: streams differ")
+        keys, cnts = kern.st.table()
+        check(int(cnts.min(initial=0)) >= 0, "a negative pair count")
+        n = int((plain.tc > 0).sum())
+        check(np.array_equal(keys[cnts > 0], plain.tk[:n].cpu().numpy())
+              and np.array_equal(cnts[cnts > 0], plain.tc[:n].cpu().numpy()),
+              f"segment to {limit}: live tables differ")
+        check(torch.equal(kern.rules, plain.rules), f"segment to {limit}: rules differ")
+        used, segs = ku, segs + 1
+        if kd:
+            break
+    check(kern.rebuilds >= 1, "the mid-size run never rebuilt its table")
+    log(f"[5] mid-size: {cut} bytes, vocab {MID_VOCAB}: kernels == plain round loop at all "
+        f"{segs} segment ends (stream, live table, rules); {kern.rebuilds} table rebuilds, "
+        f"final table {kern.st.cap} slots ({time.perf_counter() - t0:.1f} s)")
+    return {"rebuilds": kern.rebuilds, "segments": segs}
+
+
+def run_engine(eng, vocab: int, used: int, sizes=None):
+    """run_training_delta's loop over segments of TRAIN_SEG ids.  ``sizes``, when
+    given, collects the table's size at each count ("count_caps") and the
+    sum over active rounds of the table size ("slot_rounds")."""
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    if sizes is not None:
+        sizes.update(count_caps=[eng.st.cap], slot_rounds=0)
+    while used < vocab:
+        limit = min(vocab, used + TRAIN_SEG)
+        r0, cap = int(eng.st.ctl[tk.ROUND]), eng.st.cap
+        used, done, overflow = eng.segment(used, limit)
+        if sizes is not None:
+            sizes["slot_rounds"] += (int(eng.st.ctl[tk.ROUND]) - r0) * cap
+        if overflow:
+            eng.regrow()
+            if sizes is not None:
+                sizes["count_caps"].append(eng.st.cap)
+            continue
+        check(int(eng.st.cnts.min()) >= 0, "a negative pair count")
+        check(not int(eng.st.ctl[tk.ERROR]), "the table lost a pair")
+        if done:
+            break
+    return used
+
+
+class swapped:
+    """Replace attributes of a module for a block."""
+
+    def __init__(self, mod, **attrs):
+        self.mod, self.attrs = mod, attrs
+
+    def __enter__(self):
+        self.old = {k: getattr(self.mod, k) for k in self.attrs}
+        for k, v in self.attrs.items():
+            setattr(self.mod, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            setattr(self.mod, k, v)
+
+
+def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
+    """The main path: ``BPE.train`` on the 100 MB corpus at vocab 30000 with
+    no knob set, launches counted; its rules against the plain round loop
+    on the card; the model encodes and decodes; then timed replicas."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import youtokentome_tpu_torch as yttm
+    from youtokentome_tpu_torch.models.state import BPEState, SpecialTokens
+    from youtokentome_tpu_torch.ops import train_delta as td
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+    from youtokentome_tpu_torch.ops import train_stream as ts
+    from youtokentome_tpu_torch.train import rename_tokens
+
+    dev = torch.device("cuda", 0)
+    model_path = work / "trained30k.yttm"
+    for name in TRAIN_KERNELS:
+        getattr(tk, name).launches = 0
+    t0 = time.perf_counter()
+    bpe = yttm.BPE.train(data=str(corpus_path), model=str(model_path), vocab_size=TRAIN_VOCAB)
+    train_s = time.perf_counter() - t0
+    launches = {name: getattr(tk, name).launches for name in TRAIN_KERNELS}
+    log(f"[5] main path BPE.train: {train_s:.2f} s; launches {launches}")
+    check(bpe.device.type == "cuda", "BPE.train runs on cuda by default")
+    for name, n in launches.items():
+        check(n > 0, f"the main path did not launch {name}")
+    state = BPEState.load(str(model_path))
+    check(state.vocab_size() == TRAIN_VOCAB, f"trained vocab {state.vocab_size()}")
+
+    t0 = time.perf_counter()
+    buckets, al, used0 = training_buckets(corpus_path)
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_rules = td.run_training_delta(buckets, used0, TRAIN_VOCAB, device=dev, plain=True)
+    plain_loop_s = time.perf_counter() - t0
+    char2id, want = rename_tokens(al.char2id, plain_rules, SpecialTokens(0, 1, 2, 3), TRAIN_VOCAB)
+    check(state.rules == want and state.char2id == char2id,
+          "BPE.train's rules != the plain round loop's on the card")
+    log(f"[5] BPE.train's {len(state.rules)} rules == the plain round loop's on the card "
+        f"({plain_loop_s:.1f} s)")
+    ids = bpe.encode(sample)
+    check(bpe.decode(ids) == sample, "the trained model's decode round trip")
+    check(all(0 <= min(s) and max(s) < TRAIN_VOCAB for s in ids if s), "ids out of range")
+    log(f"[5] the trained model encodes and decodes {len(sample)} lines back")
+
+    t, wid, freq = ts.flatten_word_buckets(buckets)
+    rules = np.full((TRAIN_VOCAB, 4), -1, np.int32)
+
+    def engine():
+        return tk.KernelEngine(t, wid, freq, rules, used0, TRAIN_VOCAB, 16, dev)
+
+    # the merge loop alone, timed by the host clock
+    eng = engine()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    used = run_engine(eng, TRAIN_VOCAB, used0)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    sizes = {}
+    run_engine(engine(), TRAIN_VOCAB, used0, sizes)  # the table's sizes (syncs each segment)
+    check(torch.equal(eng.rules[: used - used0, :3].cpu(), torch.tensor(plain_rules)),
+          "the timed kernel run's rules differ")
+    rounds, st = int(eng.st.ctl[tk.ROUND]), eng.st
+    merges = used - used0
+    log(f"[5] merge loop (kernels): {loop_s:.3f} s, {rounds} rounds, {merges} merges, "
+        f"{merges / loop_s:.0f} merges/s, {eng.rebuilds} table rebuilds, table {st.cap} slots")
+
+    # device time of each kernel over the same run, from the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_engine(engine(), TRAIN_VOCAB, used0)
+        torch.cuda.synchronize()
+    dev_us = {name: 0.0 for name in TRAIN_KERNELS}
+    fn_us = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for name, fns in TRAIN_DEVICE_FNS.items():
+            for f in fns:
+                if f in ev.key:
+                    dev_us[name] += us
+                    fn_us[f] = (us, ev.count)
+    log("[5] device functions: " + ", ".join(
+        f"{f} {us / 1e3:.3f} ms / {n} calls" for f, (us, n) in sorted(fn_us.items())))
+    kernel_ms = {name: dev_us[name] / 1e3 for name in TRAIN_KERNELS}
+    source = "torch.profiler"
+    if not all(v > 0 for v in kernel_ms.values()):
+        # no device time in the trace: CUDA events around each wrapper
+        # call instead (they also count the card's waits for the host)
+        events = {name: [] for name in TRAIN_KERNELS}
+
+        def evented(name, fn):
+            def run(*a, **k):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn(*a, **k)
+                e1.record()
+                events[name].append((e0, e1))
+            return run
+
+        with swapped(tk, **{n: evented(n, getattr(tk, n)) for n in TRAIN_KERNELS}):
+            run_engine(engine(), TRAIN_VOCAB, used0)
+        torch.cuda.synchronize()
+        kernel_ms = {n: sum(a.elapsed_time(b) for a, b in v) for n, v in events.items()}
+        source = "CUDA events around each call"
+    log(f"[5] device ms summed over the run ({source}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in kernel_ms.items()))
+
+    # the plain versions over the same run, each call synchronised
+    plain_ms = {name: 0.0 for name in TRAIN_KERNELS}
+
+    def timed_plain(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*a, **k)
+            torch.cuda.synchronize()
+            plain_ms[name] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    with swapped(
+        tk,
+        pair_count=timed_plain("pair_count", plain_pair_count),
+        topk_accept=timed_plain(
+            "topk_accept", lambda st, limit, v, u0, k=16: tk.topk_accept_plain(st, limit, v, u0, k)),
+        apply_delta=timed_plain("apply_delta", tk.apply_delta_plain),
+    ):
+        eng = engine()
+        run_engine(eng, TRAIN_VOCAB, used0)
+    check(torch.equal(eng.rules, st.rules), "the plain versions' rules differ")
+    log(f"[5] plain versions over the same run (synchronised calls): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items()))
+
+    # bounds, from this run's inputs: each input read once, each output
+    # written once.  pair_count reads the stream and the word offsets and
+    # writes a table of the size at that count; topk_accept reads the
+    # table, at its size then, once a round; apply_delta reads the stream
+    # and the word offsets once a round
+    mw, nw = st.tok.shape[0], st.n_words
+    caps = sizes["count_caps"]
+    log(f"[5] table sizes at each count: {caps}; {sizes['slot_rounds']} slot-rounds")
+    bytes_ = {
+        "pair_count": sum(mw * 4 + nw * 8 + c * 12 for c in caps),
+        "topk_accept": sizes["slot_rounds"] * 12,
+        "apply_delta": rounds * (mw * 4 + nw * 4),
+    }
+    ops = {
+        "pair_count": len(caps) * mw * OPS_PER_COUNTED,
+        "topk_accept": sizes["slot_rounds"] * OPS_PER_SLOT,
+        "apply_delta": rounds * mw * OPS_PER_POS,
+    }
+    rows = []
+    for name in TRAIN_KERNELS:
+        b_ms = bytes_[name] / HBM_BYTES_PER_S * 1e3
+        o_ms = ops[name] / OPS_PER_S * 1e3
+        rows.append({"name": name, "launches": launches[name], "ms": kernel_ms[name],
+                     "plain_ms": plain_ms[name], "bound_ms": max(b_ms, o_ms),
+                     "bound_by": "bytes" if b_ms >= o_ms else "operations"})
+        log(f"[5] {name}: {launches[name]} launches, {kernel_ms[name]:.3f} ms on the card, "
+            f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain {plain_ms[name]:.1f} ms")
+    log(f"[5] times: preprocessing {prep_s:.2f} s, BPE.train {train_s:.2f} s, merge loop "
+        f"{loop_s:.3f} s, {rounds} rounds, {merges / loop_s:.0f} merges/s, "
+        f"plain round loop {plain_loop_s:.1f} s")
+    return {"rows": rows}
+
+
 def main() -> int:
     try:
         import torch
@@ -542,8 +962,22 @@ def main() -> int:
 
     info = phase_device_and_build()
     kchk = phase_kernel_checks()
-    main_res = phase_main_path(work)
+    t0 = time.perf_counter()
+    corpus = build_corpus()
+    corpus_path = work / "corpus_100mb.txt"
+    corpus_path.write_text("\n".join(corpus[1]) + "\n")
+    log(f"[3] corpus: {len(corpus[1])} lines, {len(corpus[0])}-word list "
+        f"({time.perf_counter() - t0:.1f} s)")
+    main_res = phase_main_path(work, corpus)
     times = phase_times(info["card"], kchk, main_res)
+    sample = corpus[1][:2000]
+    del corpus, main_res["buckets"]
+    dev = torch.device("cuda", 0)
+    buckets, _, used0 = training_buckets(corpus_path)
+    phase_train_kernels(buckets, used0, dev)
+    del buckets
+    phase_train_mid(corpus_path, work, dev)
+    train = phase_train_main(corpus_path, work, sample)
 
     source = "youtokentome_tpu_torch/csrc/encode_greedy.cu"
     replaces = {
@@ -559,6 +993,14 @@ def main() -> int:
             "equal": True,
         }
         for t in times
+    ] + [
+        {
+            "name": r["name"], "route": "cuda", "source": "youtokentome_tpu_torch/csrc/train_delta.cu",
+            "replaces": TRAIN_REPLACES, "launches": r["launches"], "max_abs_err": 0,
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "equal": True,
+        }
+        for r in train["rows"]
     ]
     log(f"[4] build {info['build_s']:.2f} s, whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

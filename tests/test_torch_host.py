@@ -73,6 +73,38 @@ def test_no_jax_import_in_port_sources(path):
         assert not any(n.split(".")[0] in ("click", "bench") for n in _imported_roots(path))
 
 
+def test_cpu_training_run_leaves_jax_and_click_out(tmp_path):
+    """A whole CPU training run through ``train.train`` imports neither
+    jax nor the JAX package, and the training path none of click (the
+    card's machine has no click)."""
+    data = tmp_path / "c.txt"
+    data.write_text("abab abba baab aabb cab " * 50)
+    code = (
+        "import sys\n"
+        "from youtokentome_tpu_torch.train import train\n"
+        "from youtokentome_tpu_torch.models.state import BpeConfig, SpecialTokens\n"
+        "import youtokentome_tpu_torch.api, youtokentome_tpu_torch.ops.train_kernels\n"
+        "cfg = BpeConfig(1.0, 1, SpecialTokens(0, 1, 2, 3))\n"
+        f"state = train({str(data)!r}, {str(tmp_path / 'm.yttm')!r}, 30, cfg, device='cpu')\n"
+        "assert len(state.rules) > 10, state.rules\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'youtokentome_tpu', 'click'))\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), capture_output=True, text=True
+    )
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["train.py", "api.py", "progress.py", "ops/train_stream.py", "ops/train_delta.py",
+     "ops/train_kernels.py"],
+)
+def test_training_modules_import_no_click(name):
+    assert not any(n.split(".")[0] == "click" for n in _imported_roots(PORT / name))
+
+
 # -- .yttm codec (mirrors test_state_codec.py) ------------------------------
 
 

@@ -3,10 +3,11 @@
 PyTorch counterpart of ``youtokentome_tpu/api.py``: class ``BPE`` with
 encode/decode/vocab/vocab_size/subword_to_id/id_to_subword and the
 ``OutputType`` enum, plus pickling by model path
-(youtokentome.py:90-99).  Training comes with a later slice.
+(youtokentome.py:90-99).
 
-``device`` selects where novel words are merged: ``cuda`` by default
-(the hand-written kernel), or ``cpu`` (its plain torch version).
+``device`` selects where training runs and where novel words are merged:
+``cuda`` by default (the hand-written kernels), or ``cpu`` (their plain
+torch versions).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from enum import Enum
 from typing import Collection, List, Optional, Union
 
 from .encoder import Encoder
-from .models.state import BPEState
+from .models.state import BPEState, BpeConfig, SpecialTokens
 
 
 class OutputType(Enum):
@@ -29,6 +30,31 @@ class BPE:
         self.n_threads = n_threads
         self._state = BPEState.load(model)
         self._encoder = Encoder(self._state, device=device)
+
+    @staticmethod
+    def train(
+        data: str,
+        model: str,
+        vocab_size: int,
+        coverage: float = 1.0,
+        n_threads: int = -1,
+        pad_id: int = 0,
+        unk_id: int = 1,
+        bos_id: int = 2,
+        eos_id: int = 3,
+        device=None,
+    ) -> "BPE":
+        from .train import train as train_impl
+
+        config = BpeConfig(
+            character_coverage=coverage,
+            n_threads=n_threads,
+            special_tokens=SpecialTokens(
+                pad_id=pad_id, unk_id=unk_id, bos_id=bos_id, eos_id=eos_id
+            ),
+        )
+        train_impl(data, model, vocab_size, config, device=device)
+        return BPE(model=model, n_threads=n_threads, device=device)
 
     @property
     def device(self):

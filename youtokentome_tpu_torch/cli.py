@@ -1,13 +1,12 @@
 """Command-line interface, mirroring the reference `yttm` CLI
-(youtokentome/yttm_cli.py): subcommands encode / decode / vocab, same
-options and defaults (``bpe`` comes with the training slice).  Run as
-``python -m youtokentome_tpu_torch.cli``.
+(youtokentome/yttm_cli.py): subcommands bpe / encode / decode / vocab,
+same options and defaults.  Run as ``python -m youtokentome_tpu_torch.cli``.
 
 Streaming behaviour mirrors BaseEncoder::encode_cli (bpe.cpp:1942-2014):
 ``--stream`` encodes line-by-line with a flush after each line; the
 default batch mode reads stdin in 10 MiB chunks and reports ``bytes
-processed`` progress on stderr.  ``encode --device`` picks where novel
-words merge: ``cuda`` (default) or ``cpu``.
+processed`` progress on stderr.  ``--device`` picks where ``bpe`` trains
+and ``encode`` merges novel words: ``cuda`` (default) or ``cpu``.
 """
 
 from __future__ import annotations
@@ -20,6 +19,45 @@ import click
 @click.group()
 def main():
     pass
+
+
+@click.command()
+@click.option("--data", type=click.Path(exists=True), required=True,
+              help="Path to the text corpus to train on.")
+@click.option("--model", type=click.Path(), required=True,
+              help="Where to write the trained model.")
+@click.option("--vocab_size", type=click.INT, required=True,
+              help="Total id count of the learned vocabulary.")
+@click.option("--coverage", type=click.FLOAT, default=1.0, show_default=True,
+              help="Fraction of characters the alphabet must cover (rare chars drop out).")
+@click.option("--n_threads", type=click.INT, default=-1, show_default=True,
+              help="Worker parallelism (-1 = all available).")
+@click.option("--pad_id", type=click.INT, default=0, show_default=True,
+              help="Id reserved for <PAD>.")
+@click.option("--unk_id", type=click.INT, default=1, show_default=True,
+              help="Id reserved for <UNK>.")
+@click.option("--bos_id", type=click.INT, default=2, show_default=True,
+              help="Id reserved for <BOS>.")
+@click.option("--eos_id", type=click.INT, default=3, show_default=True,
+              help="Id reserved for <EOS>.")
+@click.option("--device", type=click.STRING, default=None,
+              help="Device that runs the merge rounds: cuda (default) or cpu.")
+def bpe(data, model, vocab_size, coverage, n_threads, pad_id, unk_id, bos_id, eos_id, device):
+    """Train BPE model."""
+    from .api import BPE
+
+    BPE.train(
+        data=data,
+        model=model,
+        vocab_size=vocab_size,
+        coverage=coverage,
+        n_threads=n_threads,
+        pad_id=pad_id,
+        unk_id=unk_id,
+        bos_id=bos_id,
+        eos_id=eos_id,
+        device=device,
+    )
 
 
 @click.command()
@@ -208,6 +246,7 @@ def vocab(model, verbose):
         out.write("\n")
 
 
+main.add_command(bpe)
 main.add_command(encode)
 main.add_command(decode)
 main.add_command(vocab)

@@ -65,7 +65,7 @@ DEVICE_BATCH = 8192
 
 
 def resolve_device(device=None) -> torch.device:
-    """The encoder's device: ``cuda`` (card 0) when ``device`` is None.
+    """The device to run on: ``cuda`` (card 0) when ``device`` is None.
     Raises when CUDA is asked for and absent; never falls back to the
     CPU on its own."""
     if device is None:
@@ -74,8 +74,8 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to encode "
-                "on the CPU with the kernel's plain torch version"
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU with the kernels' plain torch versions"
             )
         return torch.device("cuda", dev.index if dev.index is not None else 0)
     if dev.type != "cpu":

@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/encode_greedy.cu`` has a plain C interface.  At first use it is
-compiled by ``nvcc`` for ``sm_90a`` into ``youtokentome_tpu_torch/build/``
-(rebuilt when the source is newer) and loaded with ctypes.  A failed
-build raises; nothing falls back.
+``csrc/encode_greedy.cu`` and ``csrc/train_delta.cu`` have plain C
+interfaces.  At first use each is compiled by ``nvcc`` for ``sm_90a``
+into ``youtokentome_tpu_torch/build/`` (rebuilt when the source is newer)
+and loaded with ctypes.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -16,14 +16,16 @@ from pathlib import Path
 
 from .._build import build_library
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "encode_greedy.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
+_train_lock = threading.Lock()  # one lock a library: builds run in parallel
 _lib = None
+_train_lib = None
 
 
 def _nvcc() -> str:
@@ -45,7 +47,9 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            so = build_library(_SRC, "libencode_greedy.so", [_nvcc(), *NVCC_FLAGS])
+            so = build_library(
+                _CSRC / "encode_greedy.cu", "libencode_greedy.so", [_nvcc(), *NVCC_FLAGS]
+            )
             lib = ctypes.CDLL(str(so))
             p, i = ctypes.c_void_p, ctypes.c_int
             # in, out, R, L, kx, ky, val, cap, max_probes, rules_z, n_rules
@@ -56,3 +60,28 @@ def load() -> ctypes.CDLL:
             lib.yttm_encode_greedy_u16.argtypes = common + [i, p]  # unk_id, stream
             _lib = lib
         return _lib
+
+
+def load_train() -> ctypes.CDLL:
+    """Build (if needed) and load the training kernels' library."""
+    global _train_lib
+    with _train_lock:
+        if _train_lib is None:
+            so = build_library(
+                _CSRC / "train_delta.cu", "libtrain_delta.so", [_nvcc(), *NVCC_FLAGS]
+            )
+            lib = ctypes.CDLL(str(so))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.yttm_train_pair_count.restype = i
+            # tok, off, fw, W, keys, cnts, cap, ctl, stream
+            lib.yttm_train_pair_count.argtypes = [p, p, p, i, p, p, i, p, p]
+            lib.yttm_train_topk_accept.restype = i
+            # keys, cnts, cap, blk_k, blk_c, n_blk, ctl, cand, rules, limit,
+            # vocab, used_ids0, k, stream
+            lib.yttm_train_topk_accept.argtypes = [p, p, i, p, p, i, p, p, p, i, i, i, i, p]
+            lib.yttm_train_apply_delta.restype = i
+            # tok, pwid, Mw, off, fw, W, keys, cnts, cap, ctl, cand, aff,
+            # wmark, stream
+            lib.yttm_train_apply_delta.argtypes = [p, p, i, p, p, i, p, p, i, p, p, p, p, p]
+            _train_lib = lib
+        return _train_lib

@@ -1,0 +1,150 @@
+"""End-to-end BPE training: host preprocessing + merge rounds on one device.
+
+PyTorch counterpart of ``youtokentome_tpu/train.py``:
+
+  read file -> UTF-8 decode (vectorized)            host    host/utf8.py
+  char frequencies + coverage alphabet              host    host/preprocess.py
+  word split + exact dedup + id mapping             host    host/preprocess.py
+  merge rounds (v2 delta trainer)                   device  ops/train_delta.py,
+                                                            ops/train_kernels.py
+  special-id renaming + model dump                  host    rename_tokens
+
+Training runs on ``cuda`` unless the caller asks for ``cpu``; on the CPU
+the kernels' plain torch versions run the rounds.  Only the v2 delta
+trainer is ported: ``YTTM_TRAIN_IMPL`` takes ``auto`` (the delta trainer
+at every size, on one device) and ``delta``.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from . import progress
+from .encoder import resolve_device
+from .host import preprocess
+from .host.utf8 import decode_utf8_bytes
+from .models.state import BPEState, BpeConfig, SpecialTokens, check_config
+from .ops.train_delta import run_training_delta
+
+# the trainers of the JAX package that are not ported yet, and the
+# ROADMAP.md item (queue 1) that ports each
+_NOT_PORTED = {
+    "tiered": "queue 1 item 4 (v5 tiered trainer)",
+    "block": "queue 1 item 7 (differential trainers)",
+    "sparse": "queue 1 item 7 (differential trainers)",
+    "stream": "queue 1 item 7 (differential trainers)",
+}
+
+
+def rename_tokens(
+    char2id: Dict[int, int],
+    rules: List[Tuple[int, int, int]],
+    special: SpecialTokens,
+    n_tokens: int,
+) -> Tuple[Dict[int, int], List[Tuple[int, int, int]]]:
+    """Permute ids so user special ids are honoured (bpe.cpp:814-837)."""
+    renaming: Dict[int, int] = {}
+    cur = special.n_special_tokens()
+    for i in range(n_tokens):
+        if not special.taken_id(i):
+            renaming[cur] = i
+            cur += 1
+    new_char2id = {ch: renaming[idx] for ch, idx in char2id.items()}
+    new_rules = [(renaming[x], renaming[y], renaming[z]) for x, y, z in rules]
+    return new_char2id, new_rules
+
+
+def train_from_codepoints(
+    cps: np.ndarray,
+    vocab_size: int,
+    config: BpeConfig,
+    device=None,
+) -> BPEState:
+    config = check_config(config, vocab_size)
+    impl = os.environ.get("YTTM_TRAIN_IMPL", "auto")
+    if impl in _NOT_PORTED:
+        raise NotImplementedError(
+            f"YTTM_TRAIN_IMPL={impl} is not ported to the torch package yet "
+            f"(ROADMAP.md, {_NOT_PORTED[impl]}); use auto or delta"
+        )
+    if impl not in ("auto", "delta"):
+        raise ValueError(f"unknown YTTM_TRAIN_IMPL={impl!r}")
+    dev = resolve_device(device)
+    special = config.special_tokens
+    n_specials = special.n_special_tokens()
+
+    uniq, cnt, data_len = preprocess.char_frequencies(cps)
+    print(
+        f"number of unique characters in the training data: {uniq.size}",
+        file=sys.stderr,
+    )
+    alphabet = preprocess.build_alphabet(
+        uniq, cnt, data_len, config.character_coverage, n_specials
+    )
+    print(f"number of deleted characters: {alphabet.removed.size}", file=sys.stderr)
+    print(
+        f"number of unique characters left: {uniq.size - alphabet.removed.size}",
+        file=sys.stderr,
+    )
+
+    used_ids0 = len(alphabet.char2id) + n_specials
+    if used_ids0 > vocab_size:
+        raise ValueError(
+            "Incorrect arguments. Vocabulary size too small. Set vocab_size>="
+            + str(used_ids0)
+            + ".  Current value for vocab_size="
+            + str(vocab_size)
+        )
+
+    buckets = preprocess.training_word_buckets(cps, alphabet)
+    rules = run_training_delta(
+        buckets,
+        used_ids0,
+        vocab_size,
+        batch_k=int(os.environ.get("YTTM_TRAIN_BATCH_K", "16")),
+        progress_every=int(os.environ.get("YTTM_TRAIN_PROGRESS", "0")),
+        checkpoint_path=os.environ.get("YTTM_TRAIN_CHECKPOINT") or None,
+        checkpoint_every=int(os.environ.get("YTTM_TRAIN_CHECKPOINT_EVERY", "0")),
+        resume_path=os.environ.get("YTTM_TRAIN_RESUME") or None,
+        # the reference logs a merge line every 1000 ids by default
+        # (bpe.cpp:1198-1219); YTTM_TRAIN_LOG=0 silences it
+        progress_cb=(
+            progress.MergeLog(alphabet.char2id) if progress.log_enabled() else None
+        ),
+        device=dev,
+    )
+    char2id, rules = rename_tokens(alphabet.char2id, rules, special, vocab_size)
+    return BPEState(char2id=char2id, rules=rules, special_tokens=special)
+
+
+def train(
+    data_path: str,
+    model_path: Optional[str],
+    vocab_size: int,
+    config: Optional[BpeConfig] = None,
+    device=None,
+) -> BPEState:
+    """File-based training (train_bpe, bpe.cpp:1368-1388)."""
+    config = config or BpeConfig()
+    config = check_config(config, vocab_size)
+    dev = resolve_device(device)
+    # the reference prints the full config before reading the corpus
+    # (print_config, bpe.cpp:1374)
+    progress.print_config(data_path, model_path or "", vocab_size, config)
+    print("reading file...", file=sys.stderr)
+    try:
+        with open(data_path, "rb") as f:
+            raw = f.read()
+    except OSError:
+        raise ValueError("Failed to open file: " + data_path) from None
+    cps = decode_utf8_bytes(raw, keep_invalid=True)
+    print("learning bpe...", file=sys.stderr)
+    state = train_from_codepoints(cps, vocab_size, config, device=dev)
+    if model_path:
+        state.dump(model_path)
+        print(f"model saved to: {model_path}", file=sys.stderr)
+    return state
