@@ -29,7 +29,8 @@ prints timings.  Phases, in order (any failure exits nonzero):
      equal to the plain round loop's on the card, the model's encode and
      decode round trip; times: preprocessing, merge loop, rounds,
      merges/s, each kernel's device ms (torch.profiler) and its plain
-     version's
+     version's; the run once more, one round at a time, to sum the work
+     that its data gives each kernel, for the bounds
 
 The second-to-last line is a JSON ``kernels`` record, the line before
 it the card; the last line is ``{"ok": true, "device": {...}}``.  It
@@ -734,30 +735,84 @@ def phase_train_mid(corpus_path: Path, work: Path, dev) -> dict:
     return {"rebuilds": kern.rebuilds, "segments": segs}
 
 
-def run_engine(eng, vocab: int, used: int, sizes=None):
-    """run_training_delta's loop over segments of TRAIN_SEG ids.  ``sizes``, when
-    given, collects the table's size at each count ("count_caps") and the
-    sum over active rounds of the table size ("slot_rounds")."""
+def run_engine(eng, vocab: int, used: int):
+    """run_training_delta's loop over segments of TRAIN_SEG ids."""
     from youtokentome_tpu_torch.ops import train_kernels as tk
 
-    if sizes is not None:
-        sizes.update(count_caps=[eng.st.cap], slot_rounds=0)
     while used < vocab:
         limit = min(vocab, used + TRAIN_SEG)
-        r0, cap = int(eng.st.ctl[tk.ROUND]), eng.st.cap
         used, done, overflow = eng.segment(used, limit)
-        if sizes is not None:
-            sizes["slot_rounds"] += (int(eng.st.ctl[tk.ROUND]) - r0) * cap
         if overflow:
             eng.regrow()
-            if sizes is not None:
-                sizes["count_caps"].append(eng.st.cap)
             continue
         check(int(eng.st.cnts.min()) >= 0, "a negative pair count")
         check(not int(eng.st.ctl[tk.ERROR]), "the table lost a pair")
         if done:
             break
     return used
+
+
+def run_work(engine, vocab: int):
+    """The main path's run once more, one round at a time (a round accepts
+    up to 16 ids whatever its segment's end, so these are the same rounds),
+    summing the work that this run's data gives each kernel, for the bounds:
+
+      pair_count   per launch: the live tokens, the words' offsets and
+                   weights, and the slots the count fills (key and count)
+      topk_accept  per round: every slot's count, the live slots' keys,
+                   the accepted rows
+      apply_delta  per round: the live tokens; per word with a hit, its
+                   offset and weight and its live slots written back; per
+                   distinct pair that the round's deltas touch, its key
+                   read and its count read and written
+    """
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    w = {"count_launches": 0, "count_bytes": 0, "count_tokens": 0, "topk_bytes": 0,
+         "topk_slots": 0, "apply_bytes": 0, "apply_tokens": 0, "rounds": 0}
+
+    count = tk.pair_count
+
+    def counted(st):
+        count(st)  # the wrapper adds its launch to the name it runs under: counted's
+        w["count_launches"] += 1
+        n_tok = int((st.tok >= 0).sum())
+        w["count_tokens"] += n_tok
+        w["count_bytes"] += n_tok * 4 + st.n_words * 8 + int(st.ctl[tk.OCC]) * 12
+
+    counted.launches = 0
+    with swapped(tk, pair_count=counted):
+        eng = engine()
+        st = eng.st
+        while True:
+            live_slots = int((st.cnts > 0).sum())
+            tk.topk_accept(st, vocab, vocab, eng.used_ids0, eng.batch_k)
+            n_acc = int(st.ctl[tk.NACC])
+            if n_acc:
+                w["rounds"] += 1
+                w["topk_slots"] += st.cap
+                w["topk_bytes"] += st.cap * 4 + live_slots * 8 + n_acc * 16
+                before = st.tok.clone()
+                tk.apply_delta(st)
+                n_aff = int(st.ctl[tk.NAFF])
+                hit = torch.zeros(st.n_words, dtype=torch.bool, device=st.device)
+                hit[st.aff[:n_aff].long()] = True
+                pos = (st.pwid >= 0) & hit[st.pwid.clamp(min=0).long()]
+                old_k, old_c = tk._counted_pairs(before)
+                new_k, new_c = tk._counted_pairs(st.tok)
+                touched = torch.unique(torch.cat([old_k[old_c & pos], new_k[new_c & pos]])).numel()
+                n_tok = int((before >= 0).sum())
+                w["apply_tokens"] += n_tok
+                w["apply_bytes"] += (n_tok * 4 + n_aff * 12 + int((before[pos] >= 0).sum()) * 4
+                                     + touched * 16)
+            used, done, overflow = (int(v) for v in st.ctl[[tk.USED, tk.DONE, tk.OVERFLOW]].tolist())
+            if overflow:
+                eng.regrow()
+            elif done or used >= vocab:
+                break
+    return eng, w
 
 
 class swapped:
@@ -834,14 +889,17 @@ def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
     used = run_engine(eng, TRAIN_VOCAB, used0)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
-    sizes = {}
-    run_engine(engine(), TRAIN_VOCAB, used0, sizes)  # the table's sizes (syncs each segment)
     check(torch.equal(eng.rules[: used - used0, :3].cpu(), torch.tensor(plain_rules)),
           "the timed kernel run's rules differ")
     rounds, st = int(eng.st.ctl[tk.ROUND]), eng.st
     merges = used - used0
     log(f"[5] merge loop (kernels): {loop_s:.3f} s, {rounds} rounds, {merges} merges, "
         f"{merges / loop_s:.0f} merges/s, {eng.rebuilds} table rebuilds, table {st.cap} slots")
+    t0 = time.perf_counter()
+    w_eng, work = run_work(engine, TRAIN_VOCAB)
+    check(torch.equal(w_eng.rules, st.rules) and work["rounds"] == rounds,
+          "the round-by-round run differs from the main path's")
+    log(f"[5] the run's work, one round at a time ({time.perf_counter() - t0:.1f} s): {work}")
 
     # device time of each kernel over the same run, from the profiler
     torch.cuda.synchronize()
@@ -860,27 +918,9 @@ def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
     log("[5] device functions: " + ", ".join(
         f"{f} {us / 1e3:.3f} ms / {n} calls" for f, (us, n) in sorted(fn_us.items())))
     kernel_ms = {name: dev_us[name] / 1e3 for name in TRAIN_KERNELS}
-    source = "torch.profiler"
-    if not all(v > 0 for v in kernel_ms.values()):
-        # no device time in the trace: CUDA events around each wrapper
-        # call instead (they also count the card's waits for the host)
-        events = {name: [] for name in TRAIN_KERNELS}
-
-        def evented(name, fn):
-            def run(*a, **k):
-                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                e0.record()
-                fn(*a, **k)
-                e1.record()
-                events[name].append((e0, e1))
-            return run
-
-        with swapped(tk, **{n: evented(n, getattr(tk, n)) for n in TRAIN_KERNELS}):
-            run_engine(engine(), TRAIN_VOCAB, used0)
-        torch.cuda.synchronize()
-        kernel_ms = {n: sum(a.elapsed_time(b) for a, b in v) for n, v in events.items()}
-        source = "CUDA events around each call"
-    log(f"[5] device ms summed over the run ({source}): "
+    for name, v in kernel_ms.items():
+        check(v > 0, f"the profiler recorded no device time for {name}")
+    log("[5] device ms summed over the run (torch.profiler): "
         + ", ".join(f"{k} {v:.3f}" for k, v in kernel_ms.items()))
 
     # the plain versions over the same run, each call synchronised
@@ -908,23 +948,14 @@ def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
     log(f"[5] plain versions over the same run (synchronised calls): "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items()))
 
-    # bounds, from this run's inputs: each input read once, each output
-    # written once.  pair_count reads the stream and the word offsets and
-    # writes a table of the size at that count; topk_accept reads the
-    # table, at its size then, once a round; apply_delta reads the stream
-    # and the word offsets once a round
-    mw, nw = st.tok.shape[0], st.n_words
-    caps = sizes["count_caps"]
-    log(f"[5] table sizes at each count: {caps}; {sizes['slot_rounds']} slot-rounds")
-    bytes_ = {
-        "pair_count": sum(mw * 4 + nw * 8 + c * 12 for c in caps),
-        "topk_accept": sizes["slot_rounds"] * 12,
-        "apply_delta": rounds * (mw * 4 + nw * 4),
-    }
+    # bounds, from this run's inputs and the work its data gave each
+    # kernel (run_work): each input read once, each output written once
+    bytes_ = {"pair_count": work["count_bytes"], "topk_accept": work["topk_bytes"],
+              "apply_delta": work["apply_bytes"]}
     ops = {
-        "pair_count": len(caps) * mw * OPS_PER_COUNTED,
-        "topk_accept": sizes["slot_rounds"] * OPS_PER_SLOT,
-        "apply_delta": rounds * mw * OPS_PER_POS,
+        "pair_count": work["count_tokens"] * OPS_PER_COUNTED,
+        "topk_accept": work["topk_slots"] * OPS_PER_SLOT,
+        "apply_delta": work["apply_tokens"] * OPS_PER_POS,
     }
     rows = []
     for name in TRAIN_KERNELS:

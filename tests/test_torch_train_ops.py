@@ -260,6 +260,7 @@ def test_kernel_rounds_equal_plain_rounds(vocab):
         assert int(kern.st.cnts.min()) >= 0 and not int(kern.st.ctl[tk.ERROR])
         if ku[1]:
             break
+    assert (rules == -1).all(), "an engine wrote into the caller's rules"
 
 
 def test_kernel_wrappers_reject_other_devices():

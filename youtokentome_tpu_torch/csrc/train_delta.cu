@@ -30,7 +30,9 @@
 //                 bpe.cpp:140-143), weighted by the word's frequency, with
 //                 atomicCAS inserts and atomicAdd counts.  Builds the table
 //                 at the start and rebuilds it from the stream after an
-//                 overflow (the JAX recount and pcap-doubling retry).
+//                 overflow (the JAX recount and pcap-doubling retry); a
+//                 count that overflows its table cuts its probes short, and
+//                 the host counts again into a table twice the size.
 //   topk_accept   pass 1: every block keeps the top 16 live slots of its
 //                 share of the table in the reference order (count desc,
 //                 max(x,y) asc, min(x,y) asc, x desc); pass 2: one block
@@ -50,10 +52,12 @@
 // be), and the host rebuilds the table from the stream, which drops the
 // count-0 slots (at twice the size when live pairs fill a quarter of it).
 //
-// Bound.  A round reads the table once in topk_accept (12 B a slot) and the
-// live stream once in apply_delta's pass 1 (4 B a position); the words with
-// a hit are read and written again.  At the 100 MB / vocab-30000 point that
-// is ~2^20 x 12 B + 9.5 M x 4 B, ~14 us at 3.35 TB/s.  What the design does
+// Bound.  A round reads every slot's count in topk_accept (4 B a slot) and
+// the keys of the live slots (8 B each), and the live stream once in
+// apply_delta's pass 1 (4 B a token); the words with a hit are written
+// again, with their offsets and the table entries their deltas touch.  At
+// the 100 MB / vocab-30000 point that is a 2^19-2^22-slot table x 4 B plus
+// up to 8.4 M x 4 B, ~10-15 us a round at 3.35 TB/s.  What the design does
 // about it: no sort and no stream-wide compaction, so a round moves the
 // table and the stream once; the words without a hit (most of them, after
 // the first rounds) cost one coalesced read.  Same-key atomics on the most
@@ -84,18 +88,29 @@ __device__ __forceinline__ unsigned long long pair_key(int32_t x, int32_t y) {
   return ((unsigned long long)(uint32_t)x << 32) | (uint32_t)y;
 }
 
-// Add `delta` to the count of `key`.  With `insert`, a missing key claims
-// the first empty slot of its probe sequence; without, a missing key is an
-// error (subtractions only touch pairs the exact table holds).
+// How table_add treats a key the table lacks.
+enum Mode {
+  kSub,    // an error: subtractions only touch pairs the exact table holds
+  kAdd,    // the key claims the first empty slot of its probe sequence
+  kCount,  // as kAdd, but a probe stops once the table overflowed:
+           // pair_count's caller recounts into a table twice the size, so a
+           // count that outgrows its table never walks a full one
+};
+
+// Add `delta` to the count of `key`.
 __device__ void table_add(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
-                          unsigned long long key, int32_t delta, bool insert) {
+                          unsigned long long key, int32_t delta, Mode mode) {
   const unsigned mask = (unsigned)cap - 1u;
   const unsigned h = (unsigned)hash64(key) & mask;
   for (int p = 0; p < cap; ++p) {
+    // a count gives up every 32 probes once the table overflowed: it may
+    // fill the table, but never probes all of it (a check before every
+    // claim would load the line of the occupancy atomics on each insert)
+    if (mode == kCount && (p & 31) == 31 && __ldcg(ctl + OVERFLOW)) return;
     const unsigned s = (h + (unsigned)p) & mask;
     unsigned long long k = __ldcg(keys + s);
     if (k == kEmpty) {
-      if (!insert) {
+      if (mode == kSub) {
         atomicExch(ctl + ERROR, 1);
         return;
       }
@@ -132,7 +147,7 @@ __device__ __forceinline__ int warp_max_scan(int v) {
 
 // Adds sign * f for every counted pair of the word tok[0, n) (live tokens
 // first, PAD after).  Called by all 32 lanes of a warp.
-__device__ void add_word(const int32_t *tok, int n, int32_t delta, bool insert,
+__device__ void add_word(const int32_t *tok, int n, int32_t delta, Mode mode,
                          unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl) {
   const int lane = threadIdx.x & 31;
   int carry = -1;  // last position < this chunk that does not start an equal pair
@@ -145,7 +160,7 @@ __device__ void add_word(const int32_t *tok, int n, int32_t delta, bool insert,
     int lne = warp_max_scan(eq ? -1 : i);
     lne = lne > carry ? lne : carry;
     if (pairv && (!eq || ((i - lne - 1) & 1) == 0))
-      table_add(keys, cnts, cap, ctl, pair_key(a, nb), delta, insert);
+      table_add(keys, cnts, cap, ctl, pair_key(a, nb), delta, mode);
     carry = __shfl_sync(0xFFFFFFFFu, lne, 31);
   }
 }
@@ -157,7 +172,7 @@ __global__ void __launch_bounds__(256)
   const int n_warps = (gridDim.x * blockDim.x) >> 5;
   for (int w = warp; w < W; w += n_warps) {
     const int base = off[w];
-    add_word(tok + base, off[w + 1] - 1 - base, fw[w], true, keys, cnts, cap, ctl);
+    add_word(tok + base, off[w + 1] - 1 - base, fw[w], kCount, keys, cnts, cap, ctl);
   }
 }
 
@@ -407,7 +422,7 @@ __global__ void __launch_bounds__(256)
       int lne = warp_max_scan(eq ? -1 : i);
       lne = lne > carry_eq ? lne : carry_eq;
       if (pairv && (!eq || ((i - lne - 1) & 1) == 0))
-        table_add(keys, cnts, cap, ctl, pair_key(a, nb), -f, false);
+        table_add(keys, cnts, cap, ctl, pair_key(a, nb), -f, kSub);
       int rix = -1;
       if (pairv)
         for (int j = 0; j < n; ++j)
@@ -430,7 +445,7 @@ __global__ void __launch_bounds__(256)
     }
     for (int i = out + lane; i < len; i += 32) t[i] = kPad;
     __syncwarp();
-    add_word(t, out, f, true, keys, cnts, cap, ctl);
+    add_word(t, out, f, kAdd, keys, cnts, cap, ctl);
   }
 }
 

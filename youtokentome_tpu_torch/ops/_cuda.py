@@ -22,10 +22,9 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_lock = threading.Lock()
-_train_lock = threading.Lock()  # one lock a library: builds run in parallel
-_lib = None
-_train_lib = None
+_libs: dict = {}  # source name -> its loaded library
+# one lock a source, so that the libraries build in parallel
+_locks = {"encode_greedy.cu": threading.Lock(), "train_delta.cu": threading.Lock()}
 
 
 def _nvcc() -> str:
@@ -42,46 +41,42 @@ def _nvcc() -> str:
     return found
 
 
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            so = build_library(
-                _CSRC / "encode_greedy.cu", "libencode_greedy.so", [_nvcc(), *NVCC_FLAGS]
-            )
+def _load(source: str, so_name: str, signatures) -> ctypes.CDLL:
+    """Build ``csrc/<source>`` (if needed) and load it once, with
+    ``signatures`` {function: (restype, argtypes)}."""
+    with _locks[source]:
+        if source not in _libs:
+            so = build_library(_CSRC / source, so_name, [_nvcc(), *NVCC_FLAGS])
             lib = ctypes.CDLL(str(so))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            # in, out, R, L, kx, ky, val, cap, max_probes, rules_z, n_rules
-            common = [p, p, i, i, p, p, p, i, i, p, i]
-            lib.yttm_encode_greedy_i32.restype = i
-            lib.yttm_encode_greedy_i32.argtypes = common + [p]  # stream
-            lib.yttm_encode_greedy_u16.restype = i
-            lib.yttm_encode_greedy_u16.argtypes = common + [i, p]  # unk_id, stream
-            _lib = lib
-        return _lib
+            for fn, (res, args) in signatures.items():
+                getattr(lib, fn).restype = res
+                getattr(lib, fn).argtypes = args
+            _libs[source] = lib
+        return _libs[source]
+
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# in, out, R, L, kx, ky, val, cap, max_probes, rules_z, n_rules
+_ENCODE_COMMON = [_p, _p, _i, _i, _p, _p, _p, _i, _i, _p, _i]
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the encode kernel's library."""
+    return _load("encode_greedy.cu", "libencode_greedy.so", {
+        "yttm_encode_greedy_i32": (_i, _ENCODE_COMMON + [_p]),  # stream
+        "yttm_encode_greedy_u16": (_i, _ENCODE_COMMON + [_i, _p]),  # unk_id, stream
+    })
 
 
 def load_train() -> ctypes.CDLL:
     """Build (if needed) and load the training kernels' library."""
-    global _train_lib
-    with _train_lock:
-        if _train_lib is None:
-            so = build_library(
-                _CSRC / "train_delta.cu", "libtrain_delta.so", [_nvcc(), *NVCC_FLAGS]
-            )
-            lib = ctypes.CDLL(str(so))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.yttm_train_pair_count.restype = i
-            # tok, off, fw, W, keys, cnts, cap, ctl, stream
-            lib.yttm_train_pair_count.argtypes = [p, p, p, i, p, p, i, p, p]
-            lib.yttm_train_topk_accept.restype = i
-            # keys, cnts, cap, blk_k, blk_c, n_blk, ctl, cand, rules, limit,
-            # vocab, used_ids0, k, stream
-            lib.yttm_train_topk_accept.argtypes = [p, p, i, p, p, i, p, p, p, i, i, i, i, p]
-            lib.yttm_train_apply_delta.restype = i
-            # tok, pwid, Mw, off, fw, W, keys, cnts, cap, ctl, cand, aff,
-            # wmark, stream
-            lib.yttm_train_apply_delta.argtypes = [p, p, i, p, p, i, p, p, i, p, p, p, p, p]
-            _train_lib = lib
-        return _train_lib
+    return _load("train_delta.cu", "libtrain_delta.so", {
+        # tok, off, fw, W, keys, cnts, cap, ctl, stream
+        "yttm_train_pair_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p]),
+        # keys, cnts, cap, blk_k, blk_c, n_blk, ctl, cand, rules, limit,
+        # vocab, used_ids0, k, stream
+        "yttm_train_topk_accept": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _p, _i, _i, _i, _i, _p]),
+        # tok, pwid, Mw, off, fw, W, keys, cnts, cap, ctl, cand, aff, wmark,
+        # stream
+        "yttm_train_apply_delta": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _i, _p, _p, _p, _p, _p]),
+    })

@@ -225,7 +225,7 @@ class PlainEngine:
         self.t = torch.from_numpy(np.ascontiguousarray(t)).to(device)
         self.wid = torch.from_numpy(np.ascontiguousarray(wid)).to(device)
         self.freq = torch.from_numpy(np.ascontiguousarray(freq, np.int32)).to(device)
-        self.rules = torch.from_numpy(np.ascontiguousarray(rules)).to(device)
+        self.rules = torch.from_numpy(np.array(rules)).to(device)  # a copy
         m = t.shape[0]
         self.dcap = int(os.environ.get("YTTM_TRAIN_DCAP", "0")) or _next_pow2(max(1 << 14, m >> 4))
         uk, uc = host_count_table(t, wid, freq)

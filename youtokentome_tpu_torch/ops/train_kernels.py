@@ -26,7 +26,9 @@ enqueues rounds in batches and reads ``ctl`` once per batch.  Each wrapper
 launches its kernel on a CUDA tensor (and counts the launch) and runs its
 plain torch version on a CPU tensor; the plain versions compute the same
 function, so the kernel and its plain version leave the same multiset of
-table entries, the same stream and the same ``ctl``.
+table entries, the same stream and the same ``ctl`` (but for a
+``pair_count`` that overflows: its table is left unfinished, to be
+counted again at twice the size).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .train_delta import _next_pow2, _pcap_budget, host_count_table
+from .train_delta import _next_pow2
 from .train_stream import (
     PAD,
     _last_index,
@@ -87,7 +89,7 @@ class TrainState:
         self.pwid = torch.from_numpy(pwid).to(dev)
         self.off = torch.from_numpy(off.astype(np.int32)).to(dev)
         self.fw = torch.from_numpy(freq[self.wids]).to(dev)
-        self.rules = torch.from_numpy(np.ascontiguousarray(rules, np.int32)).to(dev)
+        self.rules = torch.from_numpy(np.array(rules, np.int32)).to(dev)  # a copy
         self.ctl = torch.zeros(8, dtype=torch.int32, device=dev)
         self.ctl[USED] = used
         self.cand = torch.zeros((K_MAX, 4), dtype=torch.int32, device=dev)
@@ -325,9 +327,11 @@ apply_delta.launches = 0
 
 class KernelEngine:
     """Segments of rounds through the three kernels, for
-    ``train_delta.run_training_delta``.  The table starts at twice the JAX
-    package's pcap (``YTTM_TRAIN_PCAP`` overrides pcap) and is rebuilt when
-    an insert finds it more than half full (``regrow``)."""
+    ``train_delta.run_training_delta``.  The table starts at a 32nd of the
+    stream's length (at least 2^14 slots; ``YTTM_TRAIN_PCAP`` sets it to
+    twice that pcap instead) and doubles until the first count fits in half
+    of it; it is rebuilt when an insert finds it more than half full
+    (``regrow``)."""
 
     def __init__(self, t, wid, freq, rules, used_ids0, vocab_size, batch_k, device):
         self.vocab_size = vocab_size
@@ -335,11 +339,9 @@ class KernelEngine:
         self.batch_k = batch_k
         m = int(np.asarray(t).shape[0])
         pcap = int(os.environ.get("YTTM_TRAIN_PCAP", "0"))
-        if not pcap:
-            n_live0 = host_count_table(t, wid, freq)[0].size
-            pcap = min(_pcap_budget(n_live0, vocab_size - used_ids0), _next_pow2(m))
+        cap = _next_pow2(2 * pcap) if pcap else _next_pow2(max(1 << 14, m >> 5))
         used = int(np.count_nonzero(np.asarray(rules)[:, 2] >= 0)) + used_ids0
-        self.st = TrainState(t, wid, freq, rules, used, _next_pow2(2 * pcap), device)
+        self.st = TrainState(t, wid, freq, rules, used, cap, device)
         self.rebuilds = 0
         self._count()
 
