@@ -7,8 +7,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
 builds the port's kernels from the sources, holds every kernel against
 its plain torch version (and the encode kernel against the C++ host
 merger), drives the encode path at the full width of a vocab-30000 model
-over a 100 MB corpus, trains a vocab-30000 model on the same corpus, and
-prints timings.  Phases, in order (any failure exits nonzero):
+over a 100 MB corpus, trains a vocab-30000 model on the same corpus with
+the v2 and the v5 trainer, and prints timings.  Phases, in order (any failure exits nonzero):
 
   1. device and build: the card's name and power limit; nvcc/g++ builds
   2. kernel vs plain version: random rows for every cap 8..512 at
@@ -30,7 +30,22 @@ prints timings.  Phases, in order (any failure exits nonzero):
      decode round trip; times: preprocessing, merge loop, rounds,
      merges/s, each kernel's device ms (torch.profiler) and its plain
      version's; the run once more, one round at a time, to sum the work
-     that its data gives each kernel, for the bounds
+     that its data gives each kernel, for the bounds.  ``BPE.train`` runs
+     here with ``YTTM_TRAIN_IMPL=delta``: with no knob the corpus takes v5
+  6. training with the v5 tiered trainer (csrc/train_tiered.cu): the count,
+     tier_select, apply_blocks and resplit each equal to its plain version
+     on the 100 MB corpus's block stream (a refresh round, two hot rounds,
+     a forced refresh; T against both of the JAX package's definitions; a
+     resplit at a small hcap, so T > 0, and a hot round at that T whose
+     cold keys stay out of the hot table), fold_rows on its stream and on
+     a foldable cut of it; the 10 MB prefix at vocab 8000 through the
+     kernels and the plain tiered round loop in lockstep (a hot tier of
+     1024, a small pcap, folds from 64 rows: refreshes, rebuilds and a
+     fold), equal at every segment end, the hot tier exact; the main
+     path ``BPE.train(data, model, vocab_size=30000)`` with no knob takes
+     v5 (launches counted, none of v2's), its rules equal the v2 plain
+     round loop's from phase 5; times and bounds as in phase 5, with the
+     refresh rounds and folds
 
 The second-to-last line is a JSON ``kernels`` record, the line before
 it the card; the last line is ``{"ok": true, "device": {...}}``.  It
@@ -99,8 +114,9 @@ def phase_device_and_build() -> dict:
     log(f"[1] card: {card}")
     t0 = time.perf_counter()
     # one compiler per source, all started together
-    with ThreadPoolExecutor(4) as ex:
-        futs = [ex.submit(f) for f in (_cuda.load, _cuda.load_train, fasttok._load, fastio._load)]
+    with ThreadPoolExecutor(5) as ex:
+        futs = [ex.submit(f) for f in (_cuda.load, _cuda.load_train, _cuda.load_tiered,
+                                       fasttok._load, fastio._load)]
         for f in futs:
             f.result()
     build_s = time.perf_counter() - t0
@@ -702,11 +718,8 @@ def phase_train_mid(corpus_path: Path, work: Path, dev) -> dict:
     buckets, _, used0 = training_buckets(mid_path)
     t, wid, freq = ts.flatten_word_buckets(buckets)
     rules = np.full((MID_VOCAB, 4), -1, np.int32)
-    os.environ["YTTM_TRAIN_PCAP"] = str(MID_PCAP)
-    try:
+    with env_set(YTTM_TRAIN_PCAP=str(MID_PCAP)):
         kern = tk.KernelEngine(t, wid, freq, rules, used0, MID_VOCAB, 16, dev)
-    finally:
-        del os.environ["YTTM_TRAIN_PCAP"]
     plain = td.PlainEngine(t, wid, freq, rules, used0, MID_VOCAB, 16, dev)
     used, segs, t0 = used0, 0, time.perf_counter()
     while used < MID_VOCAB:
@@ -831,6 +844,24 @@ class swapped:
             setattr(self.mod, k, v)
 
 
+class env_set:
+    """Set environment variables for a block."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
     """The main path: ``BPE.train`` on the 100 MB corpus at vocab 30000 with
     no knob set, launches counted; its rules against the plain round loop
@@ -850,10 +881,11 @@ def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
     for name in TRAIN_KERNELS:
         getattr(tk, name).launches = 0
     t0 = time.perf_counter()
-    bpe = yttm.BPE.train(data=str(corpus_path), model=str(model_path), vocab_size=TRAIN_VOCAB)
+    with env_set(YTTM_TRAIN_IMPL="delta"):  # the v2 kernels' path; auto takes v5 here
+        bpe = yttm.BPE.train(data=str(corpus_path), model=str(model_path), vocab_size=TRAIN_VOCAB)
     train_s = time.perf_counter() - t0
     launches = {name: getattr(tk, name).launches for name in TRAIN_KERNELS}
-    log(f"[5] main path BPE.train: {train_s:.2f} s; launches {launches}")
+    log(f"[5] BPE.train with YTTM_TRAIN_IMPL=delta: {train_s:.2f} s; launches {launches}")
     check(bpe.device.type == "cuda", "BPE.train runs on cuda by default")
     for name, n in launches.items():
         check(n > 0, f"the main path did not launch {name}")
@@ -969,7 +1001,527 @@ def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
     log(f"[5] times: preprocessing {prep_s:.2f} s, BPE.train {train_s:.2f} s, merge loop "
         f"{loop_s:.3f} s, {rounds} rounds, {merges / loop_s:.0f} merges/s, "
         f"plain round loop {plain_loop_s:.1f} s")
+    return {"rows": rows, "plain_rules": plain_rules, "loop_s": loop_s}
+
+# -- phase 6: training with the v5 tiered trainer -----------------------------
+
+TIERED_KERNELS = ("tier_select", "apply_blocks", "resplit", "fold_rows")
+# the device functions of each wrapper, as the profiler names them
+TIERED_DEVICE_FNS = {
+    "tier_select": ("hot_blocks_kernel", "hot_select_kernel", "full_blocks_kernel",
+                    "full_select_kernel"),
+    "apply_blocks": ("sig_filter_kernel", "apply_rows_kernel", "round_end_kernel"),
+    "resplit": ("resplit_pass_kernel", "hot_clear_kernel", "hot_fill_kernel"),
+    "fold_rows": ("fold_fills_kernel", "fold_hist_kernel", "fold_scan_kernel",
+                  "fold_place_kernel", "fold_check_kernel", "fold_write_kernel"),
+}
+TIERED_REPLACES = {
+    "tier_select": "youtokentome_tpu/ops/train_tiered.py:193",
+    "apply_blocks": "youtokentome_tpu/ops/train_tiered.py:193",
+    "resplit": "youtokentome_tpu/ops/train_tiered.py:193",
+    "fold_rows": "youtokentome_tpu/ops/train_tiered.py:496",
+}
+# the 10 MB lockstep run: a hot tier of 1024 entries (refresh rounds), a
+# pcap of 1024 (the 702 initial pairs fit; the pairs that merges make do not:
+# rebuilds), folds from 64 rows on
+MID_HCAP, MID_TIERED_PCAP, MID_FOLD_MIN = 1024, 1024, 64
+# integer operations per element, for the operations bound: a table slot
+# scanned by a top-k or the resplit's radix passes (10), a row's signature
+# test (20), a position of a listed or folded row (40)
+OPS_PER_ROW, OPS_PER_ROWPOS = 20, 40
+# the phase's hot tier small enough that T comes out above 0 on the main
+# path's state (a rank of 128 among its ~1k live pairs), so that the radix
+# select runs all its passes and a hot round meets cold keys
+SMALL_HCAP = 256
+
+
+def tiered_inputs(buckets):
+    """The tiered host loop's block size and snug block stream."""
+    from youtokentome_tpu_torch.ops import train_tiered as tt
+
+    B = tt.tiered_block_size(buckets)
+    t, wid, freq = tt.flatten_word_buckets_blocked_snug(buckets, B)
+    return t, wid, freq, B
+
+
+def same_tiered(a, b, what: str) -> None:
+    """Kernel state ``a`` and plain state ``b`` agree: stream, signatures,
+    both tables as multisets of (key, count) slots (the hot one unless it
+    overflowed), ctl, rules and the accepted rows."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+    check(torch.equal(a.tok, b.tok) and torch.equal(a.wid, b.wid), f"{what}: streams differ")
+    check(torch.equal(a.sig, b.sig), f"{what}: signatures differ")
+    ka, ca = a.table()
+    kb, cb = b.table()
+    check(np.array_equal(ka, kb) and np.array_equal(ca, cb), f"{what}: full tables differ")
+    check(int(ca.min(initial=0)) >= 0, f"{what}: a negative pair count")
+    check(torch.equal(a.ctl, b.ctl), f"{what}: ctl {a.ctl.tolist()} != {b.ctl.tolist()}")
+    if not int(a.ctl[tk.HOT_OVF]):
+        ka, ca = a.hot_table()
+        kb, cb = b.hot_table()
+        check(np.array_equal(ka, kb) and np.array_equal(ca, cb), f"{what}: hot tables differ")
+    check(torch.equal(a.rules, b.rules), f"{what}: rules differ")
+    n = int(a.ctl[tk.NACC])
+    check(torch.equal(a.cand[:n], b.cand[:n]), f"{what}: accepted rows differ")
+
+
+def plain_tiered_count(st) -> None:
+    """apply_blocks's count mode, plain, behind the wrapper's table reset."""
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+    st.keys.fill_(tk.EMPTY)
+    st.cnts.zero_()
+    st.ctl[[tk.OCC, tk.OVERFLOW]] = 0
+    tk.apply_blocks_plain(st, True, 0, 0)
+
+
+def check_threshold(st, hcap: int, what: str) -> int:
+    """T after a resplit equals the JAX package's two definitions (the
+    sorted full table with its zeros, and the live entries only), and the
+    hot table holds exactly the keys above it."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+    from youtokentome_tpu_torch.ops import train_tiered as tt
+
+    T = int(st.ctl[tk.THRESH])
+    keys, cnts = st.table()
+    _, _, t_sorted = tt._resplit(st.keys.cpu(), st.cnts.cpu(), hcap)
+    live = cnts > 0
+    _, _, t_host = tt.host_resplit(keys[live].astype(np.uint64), cnts[live], hcap, "cpu")
+    check(T == t_sorted == t_host, f"{what}: T {T}, _resplit {t_sorted}, host_resplit {t_host}")
+    hk, hc = st.hot_table()
+    check(np.array_equal(hk, keys[cnts > T]) and np.array_equal(hc, cnts[cnts > T]),
+          f"{what}: the hot table is not the keys above T")
+    return T
+
+
+def check_hot_tier(st, what: str) -> int:
+    """The kernel engine's hot-tier invariant between resplits: every key of
+    the hot table is in the full table with the same count (no partial
+    count), and every key of the full table above T is in the hot table.
+    Returns the number of live cold keys (in the full table only)."""
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+    T = int(st.ctl[tk.THRESH])
+    keys, cnts = st.table()
+    hk, hc = st.hot_table()
+    at = np.minimum(np.searchsorted(keys, hk), max(keys.size - 1, 0))
+    check(keys.size > 0 and np.array_equal(keys[at], hk) and np.array_equal(cnts[at], hc),
+          f"{what}: a hot count differs from the full table's")
+    check(np.isin(keys[cnts > T], hk).all(), f"{what}: a key above T {T} is not in the hot table")
+    return int(np.count_nonzero(~np.isin(keys, hk) & (cnts > 0)))
+
+
+def phase_tiered_kernels(buckets, used0: int, dev) -> dict:
+    """Each tiered kernel against its plain version on the card, on the
+    main path's state (the 100 MB corpus's block stream and tables): the
+    count, a refresh round with its resplit, two hot rounds, a forced
+    refresh round; a resplit at a small hcap (T above 0: every pass of the
+    radix select) and a hot round at that T, which meets cold keys; and the
+    row fold (its plan on this stream, and a fold of the rows cut to their
+    first words, both through the host loop's trigger)."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+    from youtokentome_tpu_torch.ops import train_delta as td
+    from youtokentome_tpu_torch.ops import train_tiered as tt
+
+    t, wid, freq, B = tiered_inputs(buckets)
+    rules = np.full((TRAIN_VOCAB, 4), -1, np.int32)
+    eng = tk.TieredKernelEngine(t, wid, freq, rules, used0, TRAIN_VOCAB, 16, B, dev)
+    st = eng.st
+    log(f"[6] main-path state: B {B}, {st.NB} rows ({st.tok.shape[0]} slots), full table "
+        f"{st.cap} slots, hot table {st.hslots} slots (hcap {eng.hcap}), tiers {eng.sizes}")
+    plain = clone_state(st)
+    plain_tiered_count(plain)
+    same_tiered(st, plain, "apply_blocks count mode")
+    uk, uc = td.host_count_table(t, wid, freq)
+    keys, cnts = st.table()
+    check(np.array_equal(keys, uk.astype(np.int64)) and np.array_equal(cnts, uc),
+          "the count != the host count table")
+    check(torch.equal(st.sig, tt.sig_build_host(t.reshape(-1, B), dev)), "signatures != sig_build")
+    log(f"[6] apply_blocks count mode == plain == host count table ({uk.size} pairs); "
+        f"signatures == sig_build")
+
+    kb1, kb2 = eng._kb()
+    k_st, p_st = clone_state(st), clone_state(st)
+    for r in range(4):
+        if r == 3:  # force a refresh round
+            k_st.ctl[tk.HOT_OVF] = 1
+            p_st.ctl[tk.HOT_OVF] = 1
+        limit = used0 + TRAIN_SEG
+        tk.tier_select(k_st, limit, TRAIN_VOCAB, used0)
+        tk.tier_select_plain(p_st, limit, TRAIN_VOCAB, used0, 16)
+        same_tiered(k_st, p_st, f"tier_select round {r}")
+        tk.apply_blocks(k_st, kb1, kb2)
+        tk.apply_blocks_plain(p_st, False, kb1, kb2)
+        same_tiered(k_st, p_st, f"apply_blocks round {r}")
+        tk.resplit(k_st, eng.hcap)
+        tk.resplit_plain(p_st, eng.hcap // 2)
+        same_tiered(k_st, p_st, f"resplit round {r}")
+        refresh = int(k_st.ctl[tk.REFRESH])
+        check(refresh == (r in (0, 3)), f"round {r}: refresh {refresh}")
+        note = ""
+        if refresh:
+            note = f", T {check_threshold(k_st, eng.hcap, f'round {r}')} (== both JAX definitions)"
+        log(f"[6] round {r} ({'refresh' if refresh else 'hot'}): tier_select, apply_blocks and "
+            f"resplit == plain ({int(k_st.ctl[tk.NACC])} accepted, {int(k_st.ctl[tk.NBAFF])} rows "
+            f"listed{note})")
+
+    # round 3 was a refresh round that merged, so a resplit is due again:
+    # at a small hcap, T is the count at rank 128, above 0
+    tk.resplit(k_st, SMALL_HCAP)
+    tk.resplit_plain(p_st, SMALL_HCAP // 2)
+    same_tiered(k_st, p_st, f"resplit at hcap {SMALL_HCAP}")
+    T = check_threshold(k_st, SMALL_HCAP, f"resplit at hcap {SMALL_HCAP}")
+    check(T > 0, f"resplit at hcap {SMALL_HCAP}: T {T}")
+    check_hot_tier(k_st, f"resplit at hcap {SMALL_HCAP}")
+    # a hot round at that T: its words' pairs hold cold keys, whose deltas
+    # go to the full table only
+    tk.tier_select(k_st, used0 + TRAIN_SEG, TRAIN_VOCAB, used0)
+    tk.tier_select_plain(p_st, used0 + TRAIN_SEG, TRAIN_VOCAB, used0, 16)
+    same_tiered(k_st, p_st, f"tier_select at T {T}")
+    check(not int(k_st.ctl[tk.REFRESH]) and int(k_st.ctl[tk.NACC]) > 0,
+          f"the round at T {T} is not a hot round that merges")
+    before = k_st.cnts.clone()
+    tk.apply_blocks(k_st, kb1, kb2)
+    tk.apply_blocks_plain(p_st, False, kb1, kb2)
+    same_tiered(k_st, p_st, f"apply_blocks at T {T}")
+    changed = k_st.keys[k_st.cnts != before]
+    cold = int((~torch.isin(changed, k_st.hkeys)).sum())
+    check(cold > 0, f"the hot round at T {T} changed no cold key")
+    n_cold = check_hot_tier(k_st, f"the hot round at T {T}")
+    log(f"[6] resplit at hcap {SMALL_HCAP} == plain, T {T} (== both JAX definitions); a hot round "
+        f"at that T == plain ({int(k_st.ctl[tk.NACC])} accepted, {int(k_st.ctl[tk.NBAFF])} rows "
+        f"listed, {changed.numel()} counts changed, {cold} of them cold keys left out of the hot "
+        f"table); hot counts == full counts, every key above T hot, {n_cold} cold keys")
+
+    # the fold through the host loop's trigger (a low YTTM_TRAIN_FOLD_MIN):
+    # the plan on the main-path stream, then the fold of the rows cut to
+    # their first word (under 45 % full), kernel vs plain
+    with env_set(YTTM_TRAIN_FOLD_MIN="1"):
+        k_f, p_f = clone_state(k_st), clone_state(k_st)
+        folded = tk.fold_rows(k_f)
+        check(tk.fold_rows_plain(p_f) == folded, "fold_rows: plans disagree")
+        same_tiered(k_f, p_f, "fold_rows plan on the main-path stream")
+        most = int(k_f.ctl[tk.FOLD_MAX])
+        w2d = k_st.wid.reshape(-1, B)
+        first = (w2d == w2d[:, :1]) & (k_st.tok.reshape(-1, B) >= 0)
+        k_f = clone_state(k_st)
+        k_f.tok = torch.where(first, k_st.tok.reshape(-1, B), -1).reshape(-1)
+        k_f.wid = torch.where(first, w2d, -1).reshape(-1)
+        p_f = clone_state(k_f)
+        check(tk.fold_rows(k_f), "fold_rows did not fold the first-word rows")
+        check(tk.fold_rows_plain(p_f), "fold_rows_plain did not fold the first-word rows")
+        same_tiered(k_f, p_f, "fold_rows on the first-word rows")
+    log(f"[6] fold_rows == plain: the plan on the main-path stream (largest pair fill {most} "
+        f"of {B}; folded: {folded}), and the fold of the first-word rows ({k_st.NB} -> "
+        f"{k_f.NB} rows)")
+    return {"B": B}
+
+
+def tiered_full_table(plain):
+    """The plain engine's exact full table, cold + pending: sorted (keys,
+    counts) of the live pairs (numpy)."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_delta as td
+
+    keys = torch.cat([plain.ck, plain.qk])
+    fk, fc, n = td._reduce_by_key(keys, torch.cat([plain.ccold, plain.qv]), keys.shape[0])
+    return fk[:n].cpu().numpy(), fc[:n].cpu().numpy()
+
+
+def phase_tiered_mid(mid_path: Path, dev) -> dict:
+    """The 10 MB prefix at vocab 8000 through the tiered kernel engine and
+    the plain tiered round loop, both on the card, in lockstep, with a hot
+    tier of 1024 (refresh rounds), a pcap of 1024 (rebuilds) and folds
+    from 64 rows: stream, signatures, the live full table and rules
+    equal after every segment, and the kernel engine's hot tier exact
+    (``check_hot_tier``) wherever it has not overflowed."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+    from youtokentome_tpu_torch.ops import train_tiered as tt
+
+    buckets, _, used0 = training_buckets(mid_path)
+    t, wid, freq, B = tiered_inputs(buckets)
+    rules = np.full((MID_VOCAB, 4), -1, np.int32)
+    t0 = time.perf_counter()
+    with env_set(YTTM_TRAIN_HCAP=str(MID_HCAP), YTTM_TRAIN_FOLD_MIN=str(MID_FOLD_MIN),
+                 YTTM_TRAIN_PCAP=str(MID_TIERED_PCAP)):
+        kern = tk.TieredKernelEngine(t, wid, freq, rules, used0, MID_VOCAB, 16, B, dev)
+        plain = tt.PlainTieredEngine(t, wid, freq, rules, used0, MID_VOCAB, 16, B, dev)
+        used, segs, refresh, nb0, hot_ends = used0, 0, 0, kern.st.NB, 0
+        while used < MID_VOCAB:
+            limit = min(MID_VOCAB, used + TRAIN_SEG)
+            ku, kd = complete_segment(kern, used, limit)
+            refresh += kern.stats[1]
+            pu, pd = complete_segment(plain, used, limit)
+            what = f"segment to {limit}"
+            check((ku, kd) == (pu, pd), f"{what}: kernel {ku, kd} != plain {pu, pd}")
+            st = kern.st
+            check(torch.equal(st.tok, plain.t) and torch.equal(st.wid, plain.wid),
+                  f"{what}: streams differ")
+            check(torch.equal(st.sig, plain.sig), f"{what}: signatures differ")
+            keys, cnts = st.table()
+            check(int(cnts.min(initial=0)) >= 0, f"{what}: a negative pair count")
+            fk, fc = tiered_full_table(plain)
+            check(np.array_equal(keys[cnts > 0], fk) and np.array_equal(cnts[cnts > 0], fc),
+                  f"{what}: live full tables differ")
+            check(torch.equal(kern.rules, plain.rules), f"{what}: rules differ")
+            if not int(st.ctl[tk.HOT_OVF]):
+                check_hot_tier(st, what)
+                hot_ends += int(st.ctl[tk.THRESH]) > 0
+            used, segs = ku, segs + 1
+            if kd:
+                break
+    check(kern.rebuilds >= 1, "the tiered mid-size run never rebuilt its table")
+    check(kern.folds >= 1, "the tiered mid-size run never folded its rows")
+    check(refresh >= 2, "the tiered mid-size run refreshed no more than once")
+    check(hot_ends >= 1, "no segment of the tiered mid-size run ended with a hot tier above T > 0")
+    log(f"[6] mid-size tiered: vocab {MID_VOCAB}, B {B}: kernels == plain tiered round loop at "
+        f"all {segs} segment ends (stream, signatures, live full table, rules); hot counts == "
+        f"full counts and every key above T hot ({hot_ends} ends with T > 0); {refresh} "
+        f"refresh rounds, {kern.rebuilds} table rebuilds, {kern.folds} folds ({nb0} -> "
+        f"{kern.st.NB} rows) ({time.perf_counter() - t0:.1f} s)")
+    return {"segments": segs, "refresh": refresh, "rebuilds": kern.rebuilds, "folds": kern.folds}
+
+
+def run_tiered(eng, vocab: int, used: int) -> int:
+    """run_training_tiered's loop over segments of TRAIN_SEG ids."""
+    while used < vocab:
+        used, done = complete_segment(eng, used, min(vocab, used + TRAIN_SEG))
+        check(int(eng.st.cnts.min()) >= 0, "a negative pair count")
+        if done:
+            break
+    return used
+
+
+def run_tiered_work(engine, vocab: int):
+    """The main path's tiered run once more through the engine's own
+    segments, with each kernel's wrapper wrapped to read the state around
+    every call (the same rounds; each call now waits for the card), summing
+    the work that this run's data gives each kernel, for the bounds (bytes;
+    each input read once, each output written once):
+
+      tier_select   per round: the hot table's counts and its live keys; on
+                    a refresh round the full table's too; the accepted rows
+      apply_blocks  per round that merges: every row's signature; per listed
+                    row (NBAFF) its tokens and word ids read and written and
+                    its signature written; per slot whose count the round
+                    changed, in either table, its key read and its count
+                    read and written; a count: the live tokens, the filled
+                    slots and every signature
+      resplit       the full table's counts, the keys above T read and
+                    written into the hot table, the hot table cleared
+      fold_rows     the plan: the stream's tokens, fills and order; a fold:
+                    the stream read, half of it and its signatures written
+
+    Returns the engine, each kernel's bytes and operations, and the counts
+    of rounds and refresh rounds."""
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+    w = {name: 0 for name in TIERED_KERNELS}
+    ops = {name: 0 for name in TIERED_KERNELS}
+    n = {"rounds": 0, "refresh": 0}
+    real = {name: getattr(tk, name) for name in TIERED_KERNELS}
+
+    def select(st, limit, vocab_size, used_ids0, k=tk.K_MAX):
+        hot_live, full_live = int((st.hcnts > 0).sum()), int((st.cnts > 0).sum())
+        real["tier_select"](st, limit, vocab_size, used_ids0, k)
+        n_acc, refresh, active = (int(v) for v in st.ctl[[tk.NACC, tk.REFRESH, tk.ACTIVE]].tolist())
+        if active:
+            n["rounds"] += 1
+            n["refresh"] += refresh
+            w["tier_select"] += st.hslots * 4 + hot_live * 8 + n_acc * 16
+            ops["tier_select"] += st.hslots * 10
+            if refresh:
+                w["tier_select"] += st.cap * 4 + full_live * 8
+                ops["tier_select"] += st.cap * 10
+
+    def apply(st, kb1=0, kb2=0, count_mode=False):
+        if count_mode:
+            real["apply_blocks"](st, kb1, kb2, count_mode)
+            n_tok = int((st.tok >= 0).sum())
+            w["apply_blocks"] += n_tok * 8 + int(st.ctl[tk.OCC]) * 12 + st.NB * 64
+            ops["apply_blocks"] += n_tok * OPS_PER_ROWPOS
+            return
+        cnts, hcnts = st.cnts.clone(), st.hcnts.clone()
+        real["apply_blocks"](st, kb1, kb2)
+        if int(st.ctl[tk.NACC]):
+            n_rows = int(st.ctl[tk.NBAFF])
+            changed = int((st.cnts != cnts).sum()) + int((st.hcnts != hcnts).sum())
+            w["apply_blocks"] += st.NB * 64 + n_rows * (st.B * 16 + 64) + changed * 16
+            ops["apply_blocks"] += st.NB * OPS_PER_ROW + n_rows * st.B * OPS_PER_ROWPOS
+
+    def split(st, hcap):
+        refresh, n_acc, overflow = (int(v) for v in st.ctl[[tk.REFRESH, tk.NACC, tk.OVERFLOW]].tolist())
+        real["resplit"](st, hcap)
+        if refresh and n_acc and not overflow:
+            w["resplit"] += st.cap * 4 + int(st.ctl[tk.HOCC]) * 24 + st.hslots * 12
+            ops["resplit"] += st.cap * 10
+
+    def fold(st):
+        m, NB, due = st.NB * st.B, st.NB, tk._fold_due(st)
+        folded = real["fold_rows"](st)
+        if due:
+            w["fold_rows"] += m * 4 + NB * 8
+            ops["fold_rows"] += m * 2
+        if folded:
+            w["fold_rows"] += m * 8 + m // 2 * 8 + NB // 2 * 64
+            ops["fold_rows"] += m * 2
+        return folded
+
+    for f in (select, apply, split, fold):
+        f.launches = 0  # the real wrappers count their launches under these names
+    with swapped(tk, tier_select=select, apply_blocks=apply, resplit=split, fold_rows=fold):
+        eng = engine()
+        run_tiered(eng, vocab, eng.used_ids0)
+    return eng, w, ops, n
+
+
+def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
+    """The main path: ``BPE.train`` on the 100 MB corpus at vocab 30000 with
+    no knob set takes the v5 tiered trainer, launches counted (the v2
+    kernels none); its rules against the v2 plain round loop's on the card
+    (phase 5); the model encodes and decodes; then timed replicas."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import youtokentome_tpu_torch as yttm
+    from youtokentome_tpu_torch.models.state import BPEState, SpecialTokens
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+    from youtokentome_tpu_torch.ops import train_kernels as v2
+    from youtokentome_tpu_torch.train import rename_tokens
+
+    dev = torch.device("cuda", 0)
+    model_path = work / "trained30k_tiered.yttm"
+    for name in TIERED_KERNELS:
+        getattr(tk, name).launches = 0
+    for name in TRAIN_KERNELS:
+        getattr(v2, name).launches = 0
+    check("YTTM_TRAIN_IMPL" not in os.environ, "a trainer is forced")
+    t0 = time.perf_counter()
+    bpe = yttm.BPE.train(data=str(corpus_path), model=str(model_path), vocab_size=TRAIN_VOCAB)
+    train_s = time.perf_counter() - t0
+    launches = {name: getattr(tk, name).launches for name in TIERED_KERNELS}
+    v2_launches = {name: getattr(v2, name).launches for name in TRAIN_KERNELS}
+    log(f"[6] main path BPE.train (auto): {train_s:.2f} s; launches {launches}, v2 {v2_launches}")
+    check(bpe.device.type == "cuda", "BPE.train runs on cuda by default")
+    for name, n in launches.items():
+        check(n > 0, f"the main path did not launch {name}")
+    check(not any(v2_launches.values()), "the main path launched v2 kernels")
+    state = BPEState.load(str(model_path))
+    buckets, al, used0 = training_buckets(corpus_path)
+    char2id, want = rename_tokens(al.char2id, v2_rules, SpecialTokens(0, 1, 2, 3), TRAIN_VOCAB)
+    check(state.rules == want and state.char2id == char2id,
+          "BPE.train's v5 rules != the v2 plain round loop's on the card")
+    log(f"[6] BPE.train's {len(state.rules)} rules (v5 kernels) == the v2 plain round loop's")
+    ids = bpe.encode(sample)
+    check(bpe.decode(ids) == sample, "the trained model's decode round trip")
+    log(f"[6] the trained model encodes and decodes {len(sample)} lines back")
+
+    t, wid, freq, B = tiered_inputs(buckets)
+    del buckets
+    rules = np.full((TRAIN_VOCAB, 4), -1, np.int32)
+    want_rules = torch.tensor(v2_rules)
+
+    def engine():
+        return tk.TieredKernelEngine(t, wid, freq, rules, used0, TRAIN_VOCAB, 16, B, dev)
+
+    # the merge loop alone, timed by the host clock
+    eng = engine()
+    nb0 = eng.st.NB
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    used = run_tiered(eng, TRAIN_VOCAB, used0)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    check(torch.equal(eng.rules[: used - used0, :3].cpu(), want_rules),
+          "the timed tiered run's rules differ")
+    rounds, st = int(eng.st.ctl[tk.ROUND]), eng.st
+    merges = used - used0
+    log(f"[6] merge loop (tiered kernels): {loop_s:.3f} s, {rounds} rounds, {eng.folds} folds "
+        f"({nb0} -> {st.NB} rows of {B}), {eng.rebuilds} table rebuilds, {merges} merges, "
+        f"{merges / loop_s:.0f} merges/s")
+    t0 = time.perf_counter()
+    w_eng, wbytes, wops, counts = run_tiered_work(engine, TRAIN_VOCAB)
+    check(torch.equal(w_eng.rules, st.rules) and counts["rounds"] == rounds
+          and w_eng.folds == eng.folds, "the round-by-round tiered run differs from the main path's")
+    refresh = counts["refresh"]
+    log(f"[6] the run's work, one round at a time ({time.perf_counter() - t0:.1f} s): "
+        f"{refresh} refresh rounds; bytes {wbytes}, operations {wops}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_tiered(engine(), TRAIN_VOCAB, used0)
+        torch.cuda.synchronize()
+    dev_us = {name: 0.0 for name in TIERED_KERNELS}
+    fn_us = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for name, fns in TIERED_DEVICE_FNS.items():
+            for f in fns:
+                if f in ev.key:
+                    dev_us[name] += us
+                    fn_us[f] = (us, ev.count)
+    log("[6] device functions: " + ", ".join(
+        f"{f} {us / 1e3:.3f} ms / {n} calls" for f, (us, n) in sorted(fn_us.items())))
+    kernel_ms = {name: dev_us[name] / 1e3 for name in TIERED_KERNELS}
+    for name, v in kernel_ms.items():
+        check(v > 0, f"the profiler recorded no device time for {name}")
+
+    plain_ms = {name: 0.0 for name in TIERED_KERNELS}
+
+    def timed_plain(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            plain_ms[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    def apply_plain(st, kb1=0, kb2=0, count_mode=False):
+        if count_mode:
+            plain_tiered_count(st)
+        else:
+            tk.apply_blocks_plain(st, False, kb1, kb2)
+
+    with swapped(
+        tk,
+        tier_select=timed_plain(
+            "tier_select", lambda st, limit, v, u0, k=16: tk.tier_select_plain(st, limit, v, u0, k)),
+        apply_blocks=timed_plain("apply_blocks", apply_plain),
+        resplit=timed_plain("resplit", lambda st, hcap: tk.resplit_plain(st, hcap // 2)),
+        fold_rows=timed_plain("fold_rows", tk.fold_rows_plain),
+    ):
+        p_eng = engine()
+        run_tiered(p_eng, TRAIN_VOCAB, used0)
+    check(torch.equal(p_eng.rules, st.rules), "the tiered plain versions' rules differ")
+    log("[6] plain versions over the same run (synchronised calls): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items()))
+
+    rows = []
+    for name in TIERED_KERNELS:
+        b_ms = wbytes[name] / HBM_BYTES_PER_S * 1e3
+        o_ms = wops[name] / OPS_PER_S * 1e3
+        rows.append({"name": name, "launches": launches[name], "ms": kernel_ms[name],
+                     "plain_ms": plain_ms[name], "bound_ms": max(b_ms, o_ms),
+                     "bound_by": "bytes" if b_ms >= o_ms else "operations"})
+        log(f"[6] {name}: {launches[name]} launches, {kernel_ms[name]:.3f} ms on the card, "
+            f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain "
+            f"{plain_ms[name]:.1f} ms")
+    log(f"[6] times: BPE.train {train_s:.2f} s, merge loop {loop_s:.3f} s, {rounds} rounds, "
+        f"{refresh} refresh rounds, {eng.folds} folds, {merges / loop_s:.0f} merges/s")
     return {"rows": rows}
+
 
 
 def main() -> int:
@@ -1009,6 +1561,11 @@ def main() -> int:
     del buckets
     phase_train_mid(corpus_path, work, dev)
     train = phase_train_main(corpus_path, work, sample)
+    buckets, _, used0 = training_buckets(corpus_path)
+    phase_tiered_kernels(buckets, used0, dev)
+    del buckets
+    phase_tiered_mid(work / "corpus_10mb.txt", dev)
+    tiered = phase_tiered_main(corpus_path, work, sample, train["plain_rules"])
 
     source = "youtokentome_tpu_torch/csrc/encode_greedy.cu"
     replaces = {
@@ -1032,6 +1589,14 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None, "equal": True,
         }
         for r in train["rows"]
+    ] + [
+        {
+            "name": r["name"], "route": "cuda", "source": "youtokentome_tpu_torch/csrc/train_tiered.cu",
+            "replaces": TIERED_REPLACES[r["name"]], "launches": r["launches"], "max_abs_err": 0,
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "equal": True,
+        }
+        for r in tiered["rows"]
     ]
     log(f"[4] build {info['build_s']:.2f} s, whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -280,7 +280,7 @@ def test_unported_trainers_and_default_device(monkeypatch):
     import torch
 
     cfg = BpeConfig(1.0, 1, SpecialTokens(0, 1, 2, 3))
-    for impl, item in (("tiered", "item 4"), ("sparse", "item 7"), ("block", "item 7"), ("stream", "item 7")):
+    for impl, item in (("sparse", "item 7"), ("block", "item 7"), ("stream", "item 7")):
         monkeypatch.setenv("YTTM_TRAIN_IMPL", impl)
         with pytest.raises(NotImplementedError, match=item):
             port.train_from_codepoints(_cps("ab ab"), 10, cfg, "cpu")

@@ -2,7 +2,7 @@
 
 Every shared library is compiled from one source file of the checkout
 into ``youtokentome_tpu_torch/build/`` (listed in ``.gitignore``), and
-rebuilt when its source is newer than the library.  The compiler writes
+rebuilt when its source, or a header it names, is newer than the library.  The compiler writes
 to a private temporary name that is then renamed into place, so
 processes that build at the same time (test workers) never load a
 half-written file.
@@ -19,13 +19,17 @@ from typing import Sequence
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 
-def build_library(src: Path, name: str, compile_cmd: Sequence[str]) -> Path:
+def build_library(
+    src: Path, name: str, compile_cmd: Sequence[str], deps: Sequence[Path] = ()
+) -> Path:
     """Return ``BUILD_DIR/name``, compiling ``src`` with ``compile_cmd``
     (the compiler and its flags, without source and output) when the
-    library is missing or older than its source.  Raises RuntimeError
-    with the compiler's output when the build fails."""
+    library is missing or older than its source or one of ``deps`` (the
+    headers it includes).  Raises RuntimeError with the compiler's output
+    when the build fails."""
     out = BUILD_DIR / name
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in (src, *deps))
+    if out.exists() and out.stat().st_mtime >= newest:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=name + ".", suffix=".tmp")

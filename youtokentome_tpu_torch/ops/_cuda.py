@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/encode_greedy.cu`` and ``csrc/train_delta.cu`` have plain C
-interfaces.  At first use each is compiled by ``nvcc`` for ``sm_90a``
-into ``youtokentome_tpu_torch/build/`` (rebuilt when the source is newer)
-and loaded with ctypes.  A failed build raises; nothing falls back.
+``csrc/encode_greedy.cu``, ``csrc/train_delta.cu`` and
+``csrc/train_tiered.cu`` have plain C interfaces.  At first use each is
+compiled by ``nvcc`` for ``sm_90a`` into ``youtokentome_tpu_torch/build/``
+(rebuilt when the source or a ``csrc/*.cuh`` header is newer) and loaded
+with ctypes.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ NVCC_FLAGS = [
 
 _libs: dict = {}  # source name -> its loaded library
 # one lock a source, so that the libraries build in parallel
-_locks = {"encode_greedy.cu": threading.Lock(), "train_delta.cu": threading.Lock()}
+_locks = {
+    name: threading.Lock() for name in ("encode_greedy.cu", "train_delta.cu", "train_tiered.cu")
+}
 
 
 def _nvcc() -> str:
@@ -46,7 +49,9 @@ def _load(source: str, so_name: str, signatures) -> ctypes.CDLL:
     ``signatures`` {function: (restype, argtypes)}."""
     with _locks[source]:
         if source not in _libs:
-            so = build_library(_CSRC / source, so_name, [_nvcc(), *NVCC_FLAGS])
+            so = build_library(
+                _CSRC / source, so_name, [_nvcc(), *NVCC_FLAGS], sorted(_CSRC.glob("*.cuh"))
+            )
             lib = ctypes.CDLL(str(so))
             for fn, (res, args) in signatures.items():
                 getattr(lib, fn).restype = res
@@ -79,4 +84,24 @@ def load_train() -> ctypes.CDLL:
         # tok, pwid, Mw, off, fw, W, keys, cnts, cap, ctl, cand, aff, wmark,
         # stream
         "yttm_train_apply_delta": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _i, _p, _p, _p, _p, _p]),
+    })
+
+
+def load_tiered() -> ctypes.CDLL:
+    """Build (if needed) and load the tiered trainer's kernels."""
+    return _load("train_tiered.cu", "libtrain_tiered.so", {
+        # keys, cnts, cap, hkeys, hcnts, hslots, blk_k, blk_c, hn_blk, fn_blk,
+        # ctl, cand, rules, limit, vocab, used_ids0, k, stream
+        "yttm_tiered_select": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _i, _i, _p, _p, _p, _i, _i, _i,
+                                    _i, _p]),
+        # tok, wid, freq, sig, B, NB, rows, ctl, cand, keys, cnts, cap, hkeys,
+        # hcnts, hslots, count_mode, kb1, kb2, stream
+        "yttm_tiered_apply": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _i, _i,
+                                   _i, _i, _p]),
+        # keys, cnts, cap, hkeys, hcnts, hslots, ctl, sel, boundary, stream
+        "yttm_tiered_resplit": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _i, _p]),
+        # tok, B, NB, fills, ghist, order, ctl, stream
+        "yttm_tiered_fold_plan": (_i, [_p, _i, _i, _p, _p, _p, _p, _p]),
+        # tok, wid, fills, order, B, NB, tok2, wid2, sig2, stream
+        "yttm_tiered_fold_write": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _p, _p]),
     })

@@ -5,14 +5,17 @@ PyTorch counterpart of ``youtokentome_tpu/train.py``:
   read file -> UTF-8 decode (vectorized)            host    host/utf8.py
   char frequencies + coverage alphabet              host    host/preprocess.py
   word split + exact dedup + id mapping             host    host/preprocess.py
-  merge rounds (v2 delta trainer)                   device  ops/train_delta.py,
+  merge rounds (v5 tiered / v2 delta trainer)       device  ops/train_tiered.py,
+                                                            ops/tiered_kernels.py,
+                                                            ops/train_delta.py,
                                                             ops/train_kernels.py
   special-id renaming + model dump                  host    rename_tokens
 
 Training runs on ``cuda`` unless the caller asks for ``cpu``; on the CPU
-the kernels' plain torch versions run the rounds.  Only the v2 delta
-trainer is ported: ``YTTM_TRAIN_IMPL`` takes ``auto`` (the delta trainer
-at every size, on one device) and ``delta``.
+the kernels' plain torch versions run the rounds.  ``YTTM_TRAIN_IMPL``
+takes ``auto`` (as the JAX package on one device: the v5 tiered trainer
+at 2^22 or more live tokens, the v2 delta trainer below), ``tiered`` and
+``delta``.
 """
 
 from __future__ import annotations
@@ -29,11 +32,15 @@ from .host import preprocess
 from .host.utf8 import decode_utf8_bytes
 from .models.state import BPEState, BpeConfig, SpecialTokens, check_config
 from .ops.train_delta import run_training_delta
+from .ops.train_tiered import run_training_tiered
+
+# live tokens at and above which ``auto`` takes the tiered trainer
+# (youtokentome_tpu/train.py:136-144)
+TIERED_MIN_TOKENS = 1 << 22
 
 # the trainers of the JAX package that are not ported yet, and the
 # ROADMAP.md item (queue 1) that ports each
 _NOT_PORTED = {
-    "tiered": "queue 1 item 4 (v5 tiered trainer)",
     "block": "queue 1 item 7 (differential trainers)",
     "sparse": "queue 1 item 7 (differential trainers)",
     "stream": "queue 1 item 7 (differential trainers)",
@@ -69,9 +76,9 @@ def train_from_codepoints(
     if impl in _NOT_PORTED:
         raise NotImplementedError(
             f"YTTM_TRAIN_IMPL={impl} is not ported to the torch package yet "
-            f"(ROADMAP.md, {_NOT_PORTED[impl]}); use auto or delta"
+            f"(ROADMAP.md, {_NOT_PORTED[impl]}); use auto, tiered or delta"
         )
-    if impl not in ("auto", "delta"):
+    if impl not in ("auto", "tiered", "delta"):
         raise ValueError(f"unknown YTTM_TRAIN_IMPL={impl!r}")
     dev = resolve_device(device)
     special = config.special_tokens
@@ -101,7 +108,12 @@ def train_from_codepoints(
         )
 
     buckets = preprocess.training_word_buckets(cps, alphabet)
-    rules = run_training_delta(
+    tiered = impl == "tiered" or (
+        impl == "auto" and sum(int((mat >= 0).sum()) for mat, _ in buckets) >= TIERED_MIN_TOKENS
+    )
+    # run_training_tiered falls back to delta itself when a word exceeds
+    # the block cap
+    rules = (run_training_tiered if tiered else run_training_delta)(
         buckets,
         used_ids0,
         vocab_size,
