@@ -46,6 +46,24 @@ the v2 and the v5 trainer, and prints timings.  Phases, in order (any failure ex
      v5 (launches counted, none of v2's), its rules equal the v2 plain
      round loop's from phase 5; times and bounds as in phase 5, with the
      refresh rounds and folds
+  7. BPE-dropout (csrc/encode_dropout.cu), run after phase 4: the kernel
+     equals its plain version (same seed) for every cap 8..512 at R = 8192,
+     p 0.1 and 0.5; p = 0 equals the greedy kernel, p = 1 returns its input;
+     the main path ``BPE.encode(lines, dropout_prob=0.1)`` over the 100 MB
+     corpus on the native route (no launch) and with YTTM_DROPOUT_NATIVE=0
+     (the kernel, launches counted); a 2000-line sample decodes back; the
+     two routes' mean ids a line agree within 5 standard errors; a subword
+     dropout encode spells the sample; the kernel again on every input of
+     the main path, equal to its plain version; times and bounds
+  8. the flat stream backend (csrc/stream_encode.cu: stream_build,
+     stream_dedup, stream_merge), run after phase 7: each kernel equals its
+     plain version on the corpus's first 1 MiB chunk and on a crafted chunk
+     (invalid bytes, multi-byte chars, every whitespace kind, a
+     10,000-char word); the main path ``YTTM_ENCODE_BACKEND=stream
+     BPE.encode(lines)`` over 100 MB gives phase 3's ids (launches
+     counted), and the CLI's ``encode_bytes_flat`` route phase 3's CLI
+     bytes; every stage again on every chunk of the corpus, equal to its
+     plain version; times and bounds
 
 The second-to-last line is a JSON ``kernels`` record, the line before
 it the card; the last line is ``{"ok": true, "device": {...}}``.  It
@@ -114,9 +132,10 @@ def phase_device_and_build() -> dict:
     log(f"[1] card: {card}")
     t0 = time.perf_counter()
     # one compiler per source, all started together
-    with ThreadPoolExecutor(5) as ex:
-        futs = [ex.submit(f) for f in (_cuda.load, _cuda.load_train, _cuda.load_tiered,
-                                       fasttok._load, fastio._load)]
+    with ThreadPoolExecutor(7) as ex:
+        futs = [ex.submit(f) for f in (_cuda.load, _cuda.load_dropout, _cuda.load_stream,
+                                       _cuda.load_train, _cuda.load_tiered, fasttok._load,
+                                       fastio._load)]
         for f in futs:
             f.result()
     build_s = time.perf_counter() - t0
@@ -389,12 +408,12 @@ def phase_main_path(work: Path, corpus, device=None) -> dict:
     log(f"[3] subwords map to the ids and spell the text; decode round trip of "
         f"{len(sample)} lines")
 
-    # -- both arms in turns (device, host, host, device), fresh encoders
-    #    each time, outside the counted window: the API call (cold word
-    #    cache, then warm: no novel word left to merge), the CLI engine,
-    #    and the merge stage alone on all the corpus's novel words
+    # -- both arms, one turn each (device, host), fresh encoders each time,
+    #    outside the counted window: the API call (cold word cache, then
+    #    warm: no novel word left to merge), the CLI engine, and the merge
+    #    stage alone on all the corpus's novel words
     turns = []
-    for arm in ("device", "host", "host", "device"):
+    for arm in ("device", "host"):
         with merge_arm(arm):
             api = yttm.BPE(str(model_path), device=device)
             ids, api_s = timed(lambda: api.encode(lines))
@@ -419,7 +438,9 @@ def phase_main_path(work: Path, corpus, device=None) -> dict:
     # the main path's kernel inputs: the novel words' length buckets
     buckets = Encoder._bucket_rows(wf, wo)
     return {"launches": launches, "turns": turns, "main_path": main_path, "buckets": buckets,
-            "unk": state.special_tokens.unk_id, "tables": bpe._encoder.tables}
+            "unk": state.special_tokens.unk_id, "tables": bpe._encoder.tables,
+            "model_path": model_path, "state": state, "ids": ids_main, "cli": cli_main,
+            "blob": blob, "device": device}
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -1523,6 +1544,348 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
     return {"rows": rows}
 
 
+# -- phase 7: BPE-dropout ----------------------------------------------------
+
+DROPOUT_P = 0.1
+DROPOUT_SEED = 0x5EED0D20
+DROPOUT_REPLACES = "youtokentome_tpu/ops/encode_kernel.py:160"
+# integer operations of the dropout kernel beyond its pair lookups
+# (OPS_PER_PAIR each: every pair once, and the two pairs a merge makes):
+# the coin of a candidate (three murmur steps and the finalizer, ~24) and
+# its compare and min (~6)
+OPS_PER_COIN = 30
+
+
+def profiled_ms(prof, names) -> float:
+    """Device milliseconds the profiler gives the functions whose names
+    contain one of ``names``."""
+    us = 0.0
+    for ev in prof.key_averages():
+        if any(n in ev.key for n in names):
+            us += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+    return us / 1e3
+
+
+def synced(fn):
+    """(fn(), milliseconds), the card synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_dropout_kernels(kchk: dict, dev="cuda:0") -> None:
+    """The dropout kernel against its plain version on phase 2's rows
+    (R = 8192, every cap), and its two ends: p = 0 and p = 1."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import encode_kernel as ek
+
+    tables = kchk["tables"]
+    for cap, mat in kchk["rows"].items():
+        x = torch.from_numpy(mat).to(dev)
+        merges = {}
+        for p in (0.1, 0.5):
+            got = ek.encode_dropout(tables, x, p, DROPOUT_SEED, cap)
+            want = ek.encode_dropout_plain(tables, x, p, DROPOUT_SEED, cap)
+            check(torch.equal(got, want), f"dropout kernel != plain at cap {cap}, p {p}")
+            merges[p] = int((x >= 0).sum() - (got >= 0).sum())
+        check(torch.equal(ek.encode_dropout(tables, x, 0.0, DROPOUT_SEED), ek.encode_greedy(tables, x)),
+              f"dropout at p 0 != the greedy kernel at cap {cap}")
+        check(torch.equal(ek.encode_dropout(tables, x, 1.0, DROPOUT_SEED), x),
+              f"dropout at p 1 changed the rows at cap {cap}")
+        log(f"[7] cap {cap:3d} R {x.shape[0]}: dropout kernel == plain at p 0.1 and 0.5 "
+            f"({merges[0.1]} and {merges[0.5]} merges); p 0 == greedy kernel, p 1 == input")
+
+
+def phase_dropout_main(main: dict, lines, card: str) -> dict:
+    """The main path: ``BPE.encode(lines, dropout_prob=0.1)`` over the 100 MB
+    corpus on the native route and, with YTTM_DROPOUT_NATIVE=0, through the
+    kernel (launches counted); checks; then the kernel, its plain version
+    and its work on every input the main path gave it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import youtokentome_tpu_torch as yttm
+    from youtokentome_tpu_torch import encoder as encoder_mod
+    from youtokentome_tpu_torch.ops import encode_kernel as ek
+
+    n_bytes = len(main["blob"])
+    sample = lines[:2000]
+    bpe = yttm.BPE(str(main["model_path"]), device=main["device"])
+    real = ek.encode_dropout
+    calls = []
+
+    def recorded(tables, toks, p, seed, row0=0):
+        calls.append((toks, seed, row0))
+        return real(tables, toks, p, seed, row0)
+
+    ek.encode_dropout.launches = 0
+    with env_set(YTTM_DROPOUT_NATIVE="1"):
+        native, native_s = timed(lambda: bpe.encode(
+            lines, dropout_prob=DROPOUT_P, generator=torch.Generator().manual_seed(1)))
+    check(ek.encode_dropout.launches == 0, "the native dropout route launched the kernel")
+    with env_set(YTTM_DROPOUT_NATIVE="0"), swapped(encoder_mod, encode_dropout=recorded):
+        ek.encode_dropout.launches = 0
+        kern, kern_s = timed(lambda: bpe.encode(
+            lines, dropout_prob=DROPOUT_P, generator=torch.Generator().manual_seed(2)))
+        launches = ek.encode_dropout.launches
+    log(f"[7] main path BPE.encode(lines, dropout_prob={DROPOUT_P}): native route {native_s:.2f} s "
+        f"({n_bytes / 1e6 / native_s:.2f} MB/s, no launch); YTTM_DROPOUT_NATIVE=0 {kern_s:.2f} s "
+        f"({n_bytes / 1e6 / kern_s:.2f} MB/s), encode_dropout launches {launches} ({card})")
+    check(bpe.device.type != "cuda" or launches == len(calls) > 0,
+          "the kernel route did not launch encode_dropout")
+    for name, ids in (("native", native), ("kernel", kern)):
+        check(bpe.decode(ids[: len(sample)]) == sample, f"{name}-route dropout ids do not decode back")
+    ln = np.array([len(r) for r in native], np.float64)
+    lk = np.array([len(r) for r in kern], np.float64)
+    greedy = float(np.mean([len(r) for r in main["ids"]]))
+    se = float(np.sqrt(ln.var(ddof=1) / ln.size + lk.var(ddof=1) / lk.size))
+    z = (lk.mean() - ln.mean()) / se
+    check(abs(z) < 5, f"mean ids a line: kernel {lk.mean():.4f}, native {ln.mean():.4f} ({z:.2f} SE)")
+    check(min(ln.mean(), lk.mean()) > greedy, "dropout did not lengthen the encoding")
+    subs = bpe.encode(sample, output_type=yttm.OutputType.SUBWORD, dropout_prob=DROPOUT_P)
+    check(all("".join(s).replace("▁", " ")[1:] == t for s, t in zip(subs, sample)),
+          "dropout subwords do not spell the text")
+    log(f"[7] {len(sample)} lines decode back on both routes; mean ids a line: kernel "
+        f"{lk.mean():.4f}, native {ln.mean():.4f} ({z:+.2f} SE), greedy {greedy:.4f}; dropout "
+        f"subwords spell the sample")
+    del native, kern, subs
+
+    # the kernel on every input of the main path, under the profiler; the
+    # plain version on the same inputs, each call synchronised, equal
+    tables = bpe._encoder.tables
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        outs = [real(tables, x, DROPOUT_P, seed, row0) for x, seed, row0 in calls]
+        torch.cuda.synchronize()
+    k_ms = profiled_ms(prof, ("encode_dropout_kernel",))
+    check(k_ms > 0, "the profiler recorded no device time for encode_dropout")
+    p_ms, merges = 0.0, 0
+    for (x, seed, row0), out in zip(calls, outs):
+        want, ms = synced(lambda: ek.encode_dropout_plain(tables, x, DROPOUT_P, seed, row0))
+        p_ms += ms
+        check(torch.equal(out, want), "dropout kernel != plain on a main-path input")
+        merges += int((x >= 0).sum() - (out >= 0).sum())
+    del outs
+    # the work this run's data gives the kernel, counted by the kernel
+    # itself in one more pass (coins drawn, merges, initial pair lookups)
+    work = torch.zeros(3, dtype=torch.int64, device=tables.rules_z.device)
+    if work.is_cuda:
+        for x, seed, row0 in calls:
+            real(tables, x, DROPOUT_P, seed, row0, work=work)
+    coins, k_merges, pairs = work.tolist()
+    check(not work.is_cuda or k_merges == merges, f"the kernel counted {k_merges} merges, not {merges}")
+    elems = sum(x.numel() for x, _, _ in calls)
+    shapes = sorted({tuple(x.shape) for x, _, _ in calls})
+    b_ms = elems * 8 / HBM_BYTES_PER_S * 1e3
+    o_ms = ((pairs + 2 * merges) * OPS_PER_PAIR + coins * OPS_PER_COIN) / OPS_PER_S * 1e3
+    log(f"[7] main-path inputs ({launches} launches, shapes {shapes}): kernel == plain on every "
+        f"one; {pairs} pairs, {coins} coins, {merges} merges; kernel {k_ms:.3f} ms "
+        f"(torch.profiler), bytes bound {b_ms:.4f} ms, operations "
+        f"bound {o_ms:.4f} ms, plain {p_ms:.1f} ms ({card})")
+    row = {"name": "encode_dropout", "launches": launches, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+    return {"row": row, "native_mbps": n_bytes / 1e6 / native_s, "kernel_mbps": n_bytes / 1e6 / kern_s}
+
+
+# -- phase 8: the flat stream backend -----------------------------------------
+
+STREAM_KERNELS = ("stream_build", "stream_dedup", "stream_merge")
+STREAM_REPLACES = {
+    "stream_build": "youtokentome_tpu/ops/stream_kernel.py:159",
+    "stream_dedup": "youtokentome_tpu/ops/stream_kernel.py:240",
+    "stream_merge": "youtokentome_tpu/ops/stream_kernel.py:361",
+}
+# each stage is profiled in a window of its own: its kernels, the shared
+# scans, its memsets and copies
+STREAM_DEVICE_FNS = {
+    "stream_build": ("decode_kernel", "gather_chars_kernel", "classify_kernel",
+                     "segment_base_kernel", "emit_kernel"),
+    "stream_dedup": ("word_starts_kernel", "word_hash_kernel", "word_insert_kernel",
+                     "word_rep_kernel", "words_out_kernel", "tokens_out_kernel"),
+    "stream_merge": ("merge_words_kernel", "occ_len_kernel", "fill_tail_kernel", "expand_kernel"),
+}
+STREAM_SHARED_FNS = ("tile_sums_kernel", "tile_offsets_kernel", "scan_apply_kernel", "Memset",
+                     "Memcpy DtoD")
+# integer operations a byte of the build (decode, class, search: 20) and a
+# token of the dedup (two hashes and the table probe: 20)
+OPS_PER_BYTE, OPS_PER_TOKEN = 20, 20
+
+
+def crafted_chunk(lines) -> bytes:
+    """Corpus lines, then invalid bytes (a lone continuation, an invalid
+    lead, a truncated 3-byte char, a surrogate, an overlong char), 2-, 3-
+    and 4-byte chars, unknown chars, every whitespace kind and U+2581,
+    empty lines, a 10,000-char word, and a chunk that ends mid-char."""
+    rng = np.random.default_rng(SEED + 3)
+    long_word = "".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), 10_000))
+    return (("\n".join(lines[:200]) + "\n").encode()
+            + b"\x80\xff ab\xe2\x82 \xed\xa0\x80 \xc0\xaf xyz\t\r\v\f\xe2\x96\x81ab "
+            + "\u00e9t\u00e9 \u20ac \U0001F600 Qq QQ\n\n".encode()
+            + long_word.encode() + b" ab\n" + b"ab " * 50 + b"\n\xf0\x9f")
+
+
+def same_words(a, b) -> bool:
+    """Two ``StreamWords`` agree: counts, the unique stream, and the valid
+    prefixes of the per-word arrays."""
+    import torch
+
+    counts = [(int(getattr(a, f)), int(getattr(b, f))) for f in ("n_tokens", "n_words", "n_unique")]
+    if any(x != y for x, y in counts):
+        return False
+    _, nw, nu = (c[0] for c in counts)
+    return (torch.equal(a.ut, b.ut) and torch.equal(a.uwid, b.uwid)
+            and torch.equal(a.occ_uid[:nw], b.occ_uid[:nw])
+            and torch.equal(a.ustart[:nu], b.ustart[:nu]) and torch.equal(a.ulen[:nu], b.ulen[:nu]))
+
+
+def phase_stream_kernels(main: dict, lines, dev="cuda:0") -> None:
+    """Each stream kernel against its plain version on the corpus's first
+    1 MiB chunk and on a crafted chunk (fed the plain version's inputs)."""
+    import torch
+
+    from youtokentome_tpu_torch.encoder import Encoder
+    from youtokentome_tpu_torch.ops import stream_kernel as sk
+
+    enc = Encoder(main["state"], device=main["device"] or dev)
+    st = enc._stream
+    first = next(sk.StreamEncoder.chunks(main["blob"], sk.DEFAULT_CHUNK))
+    for name, data in (("first 1 MiB chunk", first), ("crafted chunk", crafted_chunk(lines))):
+        x = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+        kt, kw, kn = sk.stream_build(x, st.alpha_cps, st.alpha_ids, st.space_id)
+        pt, pw, pn = sk.build_stream(x, st.alpha_cps, st.alpha_ids, st.space_id)
+        check(int(kn) == int(pn) and torch.equal(kt, pt) and torch.equal(kw, pw),
+              f"stream_build != plain on the {name}")
+        kd, pd = sk.stream_dedup(pt, pw, pn), sk.dedup_words(pt, pw, pn)
+        check(same_words(kd, pd), f"stream_dedup != plain on the {name}")
+        for unk in (None, main["unk"]):
+            ko, kk = sk.stream_merge(enc.tables, pd, unk)
+            po, pk = sk.stream_merge_plain(enc.tables, pd, unk)
+            check(int(kk) == int(pk) and torch.equal(ko, po),
+                  f"stream_merge != plain on the {name} (unk {unk})")
+        nu = int(pd.n_unique)
+        longest = int(pd.ulen[:nu].max())
+        check(name == "first 1 MiB chunk" or longest > 512, "no word past the shared-memory path")
+        log(f"[8] {name} ({len(data)} bytes): stream_build, stream_dedup and stream_merge (int32 "
+            f"and u16) == plain ({int(pn)} tokens, {int(pd.n_words)} words, {nu} unique, longest "
+            f"{longest} tokens, {int(pk)} ids)")
+
+
+def unique_rows(w):
+    """The unique words of ``w`` as front-packed rows, for ranked_pairs."""
+    import torch
+
+    nu = int(w.n_unique)
+    start, length = w.ustart[:nu].long(), w.ulen[:nu].long()
+    width = max(int(length.max()), 2) if nu else 2
+    col = torch.arange(width, device=w.ut.device)[None, :]
+    idx = (start[:, None] + col).clamp(max=w.ut.numel() - 1)
+    return torch.where(col < length[:, None], w.ut[idx], -1).contiguous()
+
+
+def phase_stream_main(main: dict, lines, card: str) -> dict:
+    """The main path: ``YTTM_ENCODE_BACKEND=stream BPE.encode(lines)`` over
+    100 MB (launches counted) gives phase 3's ids; the CLI route
+    ``encode_bytes_flat`` + ``format_ids`` gives phase 3's CLI bytes; then
+    each stage over every chunk of the corpus: the kernel under the
+    profiler, its plain version (equal, each call synchronised), and the
+    work its data needs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import youtokentome_tpu_torch as yttm
+    from youtokentome_tpu_torch.encoder import Encoder
+    from youtokentome_tpu_torch.host.fastio import format_ids
+    from youtokentome_tpu_torch.ops import stream_kernel as sk
+
+    blob, unk = main["blob"], main["unk"]
+    n_bytes = len(blob)
+    wrappers = {name: getattr(sk, name) for name in STREAM_KERNELS}
+    with env_set(YTTM_ENCODE_BACKEND="stream"):
+        bpe = yttm.BPE(str(main["model_path"]), device=main["device"])
+        for f in wrappers.values():
+            f.launches = 0
+        ids, api_s = timed(lambda: bpe.encode(lines))
+        launches = {name: f.launches for name, f in wrappers.items()}
+    log(f"[8] main path YTTM_ENCODE_BACKEND=stream BPE.encode(lines): {api_s:.2f} s "
+        f"({n_bytes / 1e6 / api_s:.2f} MB/s); launches {launches} ({card})")
+    for name, n in launches.items():
+        check(bpe.device.type != "cuda" or n > 0, f"the stream backend did not launch {name}")
+    check(ids == main["ids"], "stream-backend ids != phase 3's")
+    del ids
+    enc = Encoder(main["state"], device=main["device"])
+    out, cli_s = timed(lambda: b"".join(format_ids(*enc.encode_bytes_flat(c))
+                                        for c in cli_chunks(blob)))
+    check(out == main["cli"], "the encode_bytes_flat CLI route's bytes != phase 3's")
+    del out
+    log(f"[8] ids == phase 3's native ids; CLI route encode_bytes_flat + format_ids: {cli_s:.2f} s "
+        f"({n_bytes / 1e6 / cli_s:.2f} MB/s), bytes == phase 3's CLI bytes ({card})")
+
+    st, tables, dev = enc._stream, enc.tables, enc.device
+    chunks = [torch.frombuffer(bytearray(c), dtype=torch.uint8).to(dev)
+              for c in sk.StreamEncoder.chunks(blob, sk.DEFAULT_CHUNK)]
+    k_ms = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        built = [sk.stream_build(x, st.alpha_cps, st.alpha_ids, st.space_id) for x in chunks]
+        torch.cuda.synchronize()
+    k_ms["stream_build"] = profiled_ms(prof, STREAM_DEVICE_FNS["stream_build"] + STREAM_SHARED_FNS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        words = [sk.stream_dedup(*b) for b in built]
+        torch.cuda.synchronize()
+    k_ms["stream_dedup"] = profiled_ms(prof, STREAM_DEVICE_FNS["stream_dedup"] + STREAM_SHARED_FNS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        merged = [sk.stream_merge(tables, w, unk) for w in words]
+        torch.cuda.synchronize()
+    k_ms["stream_merge"] = profiled_ms(prof, STREAM_DEVICE_FNS["stream_merge"] + STREAM_SHARED_FNS)
+    for name, v in k_ms.items():
+        check(v > 0, f"the profiler recorded no device time for {name}")
+
+    p_ms = dict.fromkeys(STREAM_KERNELS, 0.0)
+    n = dict.fromkeys(("tokens", "unique_tokens", "words", "unique", "ids", "pairs"), 0)
+    for x, (kt, kw, kn), w, (ko, kk) in zip(chunks, built, words, merged):
+        (pt, pw, pn), ms = synced(lambda: sk.build_stream(x, st.alpha_cps, st.alpha_ids, st.space_id))
+        p_ms["stream_build"] += ms
+        check(int(kn) == int(pn) and torch.equal(kt, pt) and torch.equal(kw, pw),
+              "stream_build != plain on a corpus chunk")
+        pd, ms = synced(lambda: sk.dedup_words(kt, kw, kn))
+        p_ms["stream_dedup"] += ms
+        check(same_words(w, pd), "stream_dedup != plain on a corpus chunk")
+        (po, pk), ms = synced(lambda: sk.stream_merge_plain(tables, w, unk))
+        p_ms["stream_merge"] += ms
+        check(int(kk) == int(pk) and torch.equal(ko, po), "stream_merge != plain on a corpus chunk")
+        n["tokens"] += int(kn)
+        n["unique_tokens"] += int(w.n_tokens)
+        n["words"] += int(w.n_words)
+        n["unique"] += int(w.n_unique)
+        n["ids"] += int(kk)
+        n["pairs"] += ranked_pairs(tables, unique_rows(w))
+    del built, words, merged
+    log(f"[8] every stage == plain on all {len(chunks)} chunks; work: {n_bytes} bytes, {n}")
+    bytes_ = {
+        "stream_build": n_bytes + 8 * n["tokens"],
+        "stream_dedup": 8 * n["tokens"] + 8 * n["unique_tokens"] + 4 * n["words"] + 8 * n["unique"],
+        "stream_merge": 4 * n["unique_tokens"] + 8 * n["unique"] + 4 * n["words"] + 2 * n["ids"],
+    }
+    ops = {"stream_build": n_bytes * OPS_PER_BYTE, "stream_dedup": n["tokens"] * OPS_PER_TOKEN,
+           "stream_merge": n["pairs"] * OPS_PER_PAIR}
+    rows = []
+    for name in STREAM_KERNELS:
+        b_ms = bytes_[name] / HBM_BYTES_PER_S * 1e3
+        o_ms = ops[name] / OPS_PER_S * 1e3
+        rows.append({"name": name, "launches": launches[name], "ms": k_ms[name],
+                     "plain_ms": p_ms[name], "bound_ms": max(b_ms, o_ms),
+                     "bound_by": "bytes" if b_ms >= o_ms else "operations"})
+        log(f"[8] {name}: {launches[name]} launches, {k_ms[name]:.3f} ms on the card "
+            f"(torch.profiler, {len(chunks)} chunks), bound {max(b_ms, o_ms):.4f} ms "
+            f"({rows[-1]['bound_by']}), plain {p_ms[name]:.1f} ms ({card})")
+    return {"rows": rows, "api_mbps": n_bytes / 1e6 / api_s, "cli_mbps": n_bytes / 1e6 / cli_s}
+
+
 
 def main() -> int:
     try:
@@ -1553,8 +1916,12 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)")
     main_res = phase_main_path(work, corpus)
     times = phase_times(info["card"], kchk, main_res)
+    phase_dropout_kernels(kchk)
+    dropout = phase_dropout_main(main_res, corpus[1], info["card"])
+    phase_stream_kernels(main_res, corpus[1])
+    stream = phase_stream_main(main_res, corpus[1], info["card"])
     sample = corpus[1][:2000]
-    del corpus, main_res["buckets"]
+    del corpus, main_res["buckets"], main_res["ids"], main_res["cli"], main_res["blob"]
     dev = torch.device("cuda", 0)
     buckets, _, used0 = training_buckets(corpus_path)
     phase_train_kernels(buckets, used0, dev)
@@ -1597,7 +1964,20 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None, "equal": True,
         }
         for r in tiered["rows"]
+    ] + [
+        {
+            "name": r["name"], "route": "cuda", "source": source_of, "replaces": replaces_of,
+            "launches": r["launches"], "max_abs_err": 0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "equal": True,
+        }
+        for r, source_of, replaces_of in
+        [(dropout["row"], "youtokentome_tpu_torch/csrc/encode_dropout.cu", DROPOUT_REPLACES)]
+        + [(r, "youtokentome_tpu_torch/csrc/stream_encode.cu", STREAM_REPLACES[r["name"]])
+           for r in stream["rows"]]
     ]
+    log(f"[7] dropout routes: native {dropout['native_mbps']:.2f} MB/s, kernel "
+        f"{dropout['kernel_mbps']:.2f} MB/s; [8] stream backend: API {stream['api_mbps']:.2f} "
+        f"MB/s, CLI {stream['cli_mbps']:.2f} MB/s ({info['card']})")
     log(f"[4] build {info['build_s']:.2f} s, whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(info["card"])

@@ -126,15 +126,18 @@ def test_device_default_is_cuda_and_raises_without_it(models, monkeypatch):
 
 
 def test_later_slices_raise(models, monkeypatch):
-    _, ts = models["base"]
-    enc = Encoder(ts, device="cpu")
-    with pytest.raises(NotImplementedError):
-        enc.encode(["ab"], "id", dropout_prob=0.5)
+    """Dropout and the stream backend, which the first slice refused, now
+    give the JAX package's results; an out-of-range dropout_prob still
+    raises."""
+    js, ts = models["base"]
+    enc, theirs = Encoder(ts, device="cpu"), JEncoder(js)
+    s = ["ab", "abc cab dd", ""]
+    assert enc.encode(s, "id", dropout_prob=1.0) == theirs.encode(s, "id", dropout_prob=1.0)
+    assert len(enc.encode(s, "id", dropout_prob=0.5)) == len(s)
     with pytest.raises(ValueError, match="dropout_prob"):
         enc.encode(["ab"], "id", dropout_prob=1.5)
     monkeypatch.setenv("YTTM_ENCODE_BACKEND", "stream")
-    with pytest.raises(NotImplementedError):
-        enc.encode(["ab"], "id")
+    assert enc.encode(s, "id") == theirs.encode(s, "id")
 
 
 def test_bpe_api_matches_jax(models, tmp_path):

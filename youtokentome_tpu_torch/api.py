@@ -68,7 +68,11 @@ class BPE:
         eos: bool = False,
         reverse: bool = False,
         dropout_prob: float = 0,
+        generator=None,
     ):
+        """As ``youtokentome.BPE.encode``; ``generator`` (a
+        ``torch.Generator``) seeds BPE-dropout, which otherwise draws its
+        seed from ``os.urandom``."""
         if not isinstance(output_type, OutputType):
             raise TypeError(
                 f"output_type must be an OutputType enum value, "
@@ -78,11 +82,13 @@ class BPE:
         # single-string convenience: flat result (yttm.pyx:95-100, 109-115)
         if isinstance(sentences, str):
             return self._encoder.encode(
-                [sentences], ot, bos, eos, reverse, dropout_prob
+                [sentences], ot, bos, eos, reverse, dropout_prob, generator
             )[0]
         if not isinstance(sentences, (list, tuple)):
             raise TypeError("sentences must be a str, list or tuple")
-        return self._encoder.encode(list(sentences), ot, bos, eos, reverse, dropout_prob)
+        return self._encoder.encode(
+            list(sentences), ot, bos, eos, reverse, dropout_prob, generator
+        )
 
     def vocab_size(self) -> int:
         return self._encoder.vocab.vocab_size()

@@ -105,16 +105,20 @@ def encode(model, output_type, n_threads, bos, eos, reverse, stream, dropout_pro
     batch_limit = 10 * 1024 * 1024  # bpe.cpp:1976
     total = 0
     progress_msg = ""
-    from .host import fasttok
+    fast = output_type == "id" and dropout_prob == 0 and not (bos or eos or reverse)
+    if fast:
+        # zero-copy path: raw bytes -> C++ tokenizer -> device merge -> C++
+        # formatter, or without the C++ tokenizer, raw bytes -> the flat
+        # stream pipeline on the device -> formatter
+        from .host import fasttok
+        from .host.fastio import format_ids
 
-    # zero-copy path: raw bytes -> C++ tokenizer -> device merge -> C++
-    # formatter.  Without the C++ helpers, take the batch path below.
-    if (
-        output_type == "id"
-        and dropout_prob == 0
-        and not (bos or eos or reverse)
-        and fasttok.available()
-    ):
+        use_native = fasttok.available()
+        if not use_native and enc._zero_is_real:
+            # the stream pipeline cannot apply the reference's id-0
+            # head-emission quirk (encoder.py): take the batch path
+            fast = False
+    if fast:
         stdin = sys.stdin.buffer
         stdout = sys.stdout.buffer
 
@@ -142,23 +146,32 @@ def encode(model, output_type, n_threads, bos, eos, reverse, stream, dropout_pro
                 if at_eof and not leftover:
                     return
 
-        # pipelined: tokenize of chunk k+1 overlaps the device merge of
-        # chunk k (Encoder.encode_stream_cli)
-        from collections import deque
+        if use_native:
+            # pipelined: tokenize of chunk k+1 overlaps the device merge
+            # of chunk k (Encoder.encode_stream_cli)
+            from collections import deque
 
-        sizes = deque()
+            sizes = deque()
 
-        def counted():
+            def counted():
+                for buf in read_chunks():
+                    sizes.append(len(buf))
+                    yield buf
+
+            for out in enc.encode_stream_cli(counted()):
+                stdout.write(out)
+                total += sizes.popleft()
+                sys.stderr.write("\b" * len(progress_msg))
+                progress_msg = f"bytes processed: {total}"
+                sys.stderr.write(progress_msg)
+        else:
             for buf in read_chunks():
-                sizes.append(len(buf))
-                yield buf
-
-        for out in enc.encode_stream_cli(counted()):
-            stdout.write(out)
-            total += sizes.popleft()
-            sys.stderr.write("\b" * len(progress_msg))
-            progress_msg = f"bytes processed: {total}"
-            sys.stderr.write(progress_msg)
+                flat, sentinel = enc.encode_bytes_flat(buf)
+                stdout.write(format_ids(flat, sentinel))
+                total += len(buf)
+                sys.stderr.write("\b" * len(progress_msg))
+                progress_msg = f"bytes processed: {total}"
+                sys.stderr.write(progress_msg)
         stdout.flush()
         sys.stderr.write("\n")
         return

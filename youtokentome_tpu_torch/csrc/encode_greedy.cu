@@ -37,100 +37,19 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "encode_common.cuh"
+
 namespace {
+
+using namespace yttm_enc;
 
 constexpr int kMaxLen = 512;
 constexpr int kMaxThreads = 128;
 constexpr int kMaxPerThread = kMaxLen / kMaxThreads;  // 4
 
-constexpr int32_t kPad = -1;
-constexpr int32_t kMiss = 0x7FFFFFFF;
-constexpr uint32_t kEmptyKey = 0xFFFFFFFFu;
-constexpr int32_t kPlaceholderStart = 1000000000;
 constexpr uint32_t kU16Pad = 0xFFFFu;
 constexpr uint32_t kU16PhTop = 0xFFFEu;
 constexpr uint32_t kU16PhFloor = 0xF000u;
-
-struct Table {
-  const uint32_t *kx;
-  const uint32_t *ky;
-  const int32_t *val;
-  uint32_t mask;  // cap - 1, cap a power of two
-  int max_probes;
-};
-
-// _mix of hashmap.py: murmur-style finalizer, modulo 2**32.
-__device__ __forceinline__ uint32_t mix(uint32_t x, uint32_t y) {
-  x *= 0x9E3779B1u;
-  y *= 0x85EBCA77u;
-  uint32_t h = (x ^ y) + 0x165667B1u;
-  h ^= h >> 15;
-  h *= 0x2545F491u;
-  h ^= h >> 13;
-  return h;
-}
-
-// Linear probe from the home slot.  The table is built wave by wave with
-// no deletions, so every slot between a key's home slot and its own slot
-// is occupied: the first empty slot proves the key absent.
-__device__ __forceinline__ int32_t lookup(const Table &t, int32_t x, int32_t y) {
-  const uint32_t ux = (uint32_t)x, uy = (uint32_t)y;
-  const uint32_t h = mix(ux, uy);
-  for (int p = 0; p < t.max_probes; ++p) {
-    const uint32_t s = (h + (uint32_t)p) & t.mask;
-    const uint32_t k = __ldg(t.kx + s);
-    if (k == kEmptyKey) return kMiss;
-    if (k == ux && __ldg(t.ky + s) == uy) return __ldg(t.val + s);
-  }
-  return kMiss;
-}
-
-struct MinOp {
-  __device__ int operator()(int a, int b) const { return a < b ? a : b; }
-};
-struct MaxOp {
-  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
-};
-struct SumOp {
-  __device__ int operator()(int a, int b) const { return a + b; }
-};
-
-template <class Op>
-__device__ __forceinline__ int warp_inclusive_scan(int v, Op op) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(0xFFFFFFFFu, v, o);
-    if (lane >= o) v = op(v, u);
-  }
-  return v;
-}
-
-// Exclusive scan over the block's threads in thread order; `*total` gets
-// the reduction of all threads.  Every thread must call it.  wbuf holds
-// one int per warp.
-template <class Op>
-__device__ __forceinline__ int block_exclusive_scan(int v, int identity, int *wbuf,
-                                                    int *total, Op op) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int incl = warp_inclusive_scan(v, op);
-  if (lane == 31) wbuf[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int w = lane < n_warps ? wbuf[lane] : identity;
-    const int wi = warp_inclusive_scan(w, op);
-    if (lane < n_warps) wbuf[lane] = wi;
-  }
-  __syncthreads();
-  int excl = __shfl_up_sync(0xFFFFFFFFu, incl, 1);
-  if (lane == 0) excl = identity;
-  const int result = op(warp ? wbuf[warp - 1] : identity, excl);
-  *total = wbuf[n_warps - 1];
-  __syncthreads();  // wbuf is reused by the next scan
-  return result;
-}
 
 template <bool kU16>
 __device__ __forceinline__ int32_t load_token(const void *in, size_t k) {

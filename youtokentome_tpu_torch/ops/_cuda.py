@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/encode_greedy.cu``, ``csrc/train_delta.cu`` and
+``csrc/encode_greedy.cu``, ``csrc/encode_dropout.cu``,
+``csrc/stream_encode.cu``, ``csrc/train_delta.cu`` and
 ``csrc/train_tiered.cu`` have plain C interfaces.  At first use each is
 compiled by ``nvcc`` for ``sm_90a`` into ``youtokentome_tpu_torch/build/``
 (rebuilt when the source or a ``csrc/*.cuh`` header is newer) and loaded
@@ -25,9 +26,11 @@ NVCC_FLAGS = [
 
 _libs: dict = {}  # source name -> its loaded library
 # one lock a source, so that the libraries build in parallel
-_locks = {
-    name: threading.Lock() for name in ("encode_greedy.cu", "train_delta.cu", "train_tiered.cu")
-}
+_SOURCES = (
+    "encode_greedy.cu", "encode_dropout.cu", "stream_encode.cu", "train_delta.cu",
+    "train_tiered.cu",
+)
+_locks = {name: threading.Lock() for name in _SOURCES}
 
 
 def _nvcc() -> str:
@@ -60,7 +63,7 @@ def _load(source: str, so_name: str, signatures) -> ctypes.CDLL:
         return _libs[source]
 
 
-_p, _i = ctypes.c_void_p, ctypes.c_int
+_p, _i, _u, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_long
 # in, out, R, L, kx, ky, val, cap, max_probes, rules_z, n_rules
 _ENCODE_COMMON = [_p, _p, _i, _i, _p, _p, _p, _i, _i, _p, _i]
 
@@ -70,6 +73,33 @@ def load() -> ctypes.CDLL:
     return _load("encode_greedy.cu", "libencode_greedy.so", {
         "yttm_encode_greedy_i32": (_i, _ENCODE_COMMON + [_p]),  # stream
         "yttm_encode_greedy_u16": (_i, _ENCODE_COMMON + [_i, _p]),  # unk_id, stream
+    })
+
+
+def load_dropout() -> ctypes.CDLL:
+    """Build (if needed) and load the BPE-dropout kernel's library."""
+    return _load("encode_dropout.cu", "libencode_dropout.so", {
+        # ..., seed_lo, seed_hi, row0, thr, work, stream
+        "yttm_encode_dropout": (_i, _ENCODE_COMMON + [_u, _u, _u, _u, _p, _p]),
+    })
+
+
+def load_stream() -> ctypes.CDLL:
+    """Build (if needed) and load the flat stream pipeline's kernels."""
+    return _load("stream_encode.cu", "libstream_encode.so", {
+        "yttm_stream_build_scratch": (_l, [_i]),
+        # bytes, n, alpha_cps, alpha_ids, a, space_id, t, wid, m, ctl,
+        # scratch, stream
+        "yttm_stream_build": (_i, [_p, _i, _p, _p, _i, _i, _p, _p, _i, _p, _p, _p]),
+        "yttm_stream_dedup_scratch": (_l, [_i]),
+        # t, wid, m, n_tokens, ut, uwid, occ_uid, ustart, ulen, ctl, scratch,
+        # stream
+        "yttm_stream_dedup": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p, _p, _p]),
+        "yttm_stream_merge_scratch": (_l, [_i]),
+        # ut, m, ustart, ulen, n_unique, occ_uid, n_words, kx, ky, val, cap,
+        # max_probes, rules_z, n_rules, out, pack, unk, ctl, scratch, stream
+        "yttm_stream_merge": (_i, [_p, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _p, _i, _p, _i,
+                                   _i, _p, _p, _p]),
     })
 
 
