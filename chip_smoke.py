@@ -8,7 +8,8 @@ builds the port's kernels from the sources, holds every kernel against
 its plain torch version (and the encode kernel against the C++ host
 merger), drives the encode path at the full width of a vocab-30000 model
 over a 100 MB corpus, trains a vocab-30000 model on the same corpus with
-the v2 and the v5 trainer, and prints timings.  Phases, in order (any failure exits nonzero):
+the v2 and the v5 trainers and the four differential trainers, and prints
+timings.  Phases, in order (any failure exits nonzero):
 
   1. device and build: the card's name and power limit; nvcc/g++ builds
   2. kernel vs plain version: random rows for every cap 8..512 at
@@ -20,7 +21,8 @@ the v2 and the v5 trainer, and prints timings.  Phases, in order (any failure ex
      10 MiB chunks equal to the host arm's bytes; a decode round trip
   4. times: MB/s of both arms, the kernel's per-launch time for each
      (R, cap) with CUDA events, and the plain version's time
-  5. training (csrc/train_delta.cu): pair_count, topk_accept (also on
+  5. training (csrc/train_delta.cu, and csrc/train_topk.cu: the top-k that
+     every trainer but v5 shares): pair_count, topk_accept (also on
      tie-heavy tables, narrow and wide ids) and apply_delta each equal to
      its plain version on the 100 MB corpus's state; a 10 MB prefix at
      vocab 8000 through the kernels (small table, rebuilt) and the plain
@@ -64,6 +66,22 @@ the v2 and the v5 trainer, and prints timings.  Phases, in order (any failure ex
      counted), and the CLI's ``encode_bytes_flat`` route phase 3's CLI
      bytes; every stage again on every chunk of the corpus, equal to its
      plain version; times and bounds
+  9. the differential trainers, run after phase 6: v1 stream
+     (csrc/train_stream.cu), v3 sparse (csrc/train_sparse.cu), v4 block
+     (csrc/train_block.cu) and v0 bucketed (csrc/train_bucketed.cu), each
+     with the shared top-k.  Each kernel equals its plain version on the
+     100 MB corpus's state for two rounds, and v4's block_apply again past
+     its full-path rounds, through a round of its block path; the 10 MB prefix at vocab 8000 through each kernel engine and
+     its plain round loop in lockstep, equal at every segment end (stream or
+     rows, the live table, rules, used and done): v3 and v4 with a small
+     table (rebuilt), v3's plain loop with tiny site buffers (its recount
+     branch), v4 with a tiny KB (its full path), v0 for its first ids; v1,
+     v3 and v0 on a crafted stream whose runs span tiles; the main path
+     ``BPE.train`` with ``YTTM_TRAIN_IMPL=stream|sparse|block`` and
+     ``ops.train_kernel.run_training`` at vocab 30000, launches counted,
+     rules equal to phase 5's v2 rules; times (merge loop, merges/s, each
+     kernel's device ms) and bounds from the work each run's data gave the
+     kernels; the plain versions timed over each run's first ids
 
 The second-to-last line is a JSON ``kernels`` record, the line before
 it the card; the last line is ``{"ok": true, "device": {...}}``.  It
@@ -132,9 +150,11 @@ def phase_device_and_build() -> dict:
     log(f"[1] card: {card}")
     t0 = time.perf_counter()
     # one compiler per source, all started together
-    with ThreadPoolExecutor(7) as ex:
+    with ThreadPoolExecutor(12) as ex:
         futs = [ex.submit(f) for f in (_cuda.load, _cuda.load_dropout, _cuda.load_stream,
-                                       _cuda.load_train, _cuda.load_tiered, fasttok._load,
+                                       _cuda.load_topk, _cuda.load_train, _cuda.load_tiered,
+                                       _cuda.load_stream_train, _cuda.load_sparse,
+                                       _cuda.load_block, _cuda.load_bucketed, fasttok._load,
                                        fastio._load)]
         for f in futs:
             f.result()
@@ -589,6 +609,8 @@ TRAIN_DEVICE_FNS = {
 # pair_count (loads, parity scan, hash and probe: 40)
 OPS_PER_SLOT, OPS_PER_POS, OPS_PER_COUNTED = 10, 20, 40
 TRAIN_REPLACES = "youtokentome_tpu/ops/train_delta.py:210"
+# the trainers' shared top-k (v2, v1, v3, v4, and v0 with k = 1)
+TOPK_SOURCE = "youtokentome_tpu_torch/csrc/train_topk.cu"
 
 
 def training_buckets(path: Path):
@@ -1887,6 +1909,568 @@ def phase_stream_main(main: dict, lines, card: str) -> dict:
 
 
 
+# -- phase 9: the differential trainers ---------------------------------------
+
+DIFF_TRAINERS = ("stream", "sparse", "block", "bucketed")
+# each trainer's kernel module, wrappers and the names of its JSON rows
+DIFF_MODULES = {
+    "stream": "stream_train_kernels", "sparse": "sparse_kernels", "block": "block_kernels",
+    "bucketed": "bucketed_kernels",
+}
+DIFF_KERNELS = {
+    "stream": ("recount", "topk_accept", "apply_compact"),
+    "sparse": ("sparse_count", "topk_accept", "sparse_apply"),
+    "block": ("block_count", "topk_accept", "block_apply"),
+    "bucketed": ("bucket_count", "topk_accept", "bucket_apply"),
+}
+DIFF_ROW_NAMES = {
+    ("stream", "topk_accept"): "stream_topk_accept",
+    ("sparse", "topk_accept"): "sparse_topk_accept",
+    ("block", "topk_accept"): "block_topk_accept",
+    ("bucketed", "topk_accept"): "bucket_topk_accept",
+}
+# the device functions of each wrapper, as the profiler names them
+DIFF_DEVICE_FNS = {
+    ("stream", "recount"): ("clear_kernel", "eq_tiles_kernel", "count_tiles_kernel"),
+    ("stream", "topk_accept"): ("topk_blocks_kernel", "topk_accept_kernel"),
+    ("stream", "apply_compact"): ("hit_tiles_kernel", "select_tiles_kernel", "scatter_kernel"),
+    ("sparse", "sparse_count"): ("count_words_kernel",),
+    ("sparse", "topk_accept"): ("topk_blocks_kernel", "topk_accept_kernel"),
+    ("sparse", "sparse_apply"): ("mark_words_kernel", "apply_words_kernel"),
+    ("block", "block_count"): ("count_all_rows_kernel",),
+    ("block", "topk_accept"): ("topk_blocks_kernel", "topk_accept_kernel"),
+    ("block", "block_apply"): ("flag_rows_kernel", "apply_rows_kernel", "full_clear_kernel",
+                               "full_recount_kernel"),
+    ("bucketed", "bucket_count"): ("clear_kernel", "count_rows_kernel"),
+    ("bucketed", "topk_accept"): ("topk_blocks_kernel", "topk_accept_kernel"),
+    ("bucketed", "bucket_apply"): ("apply_rows_kernel",),
+}
+DIFF_SOURCES = {
+    "stream": "youtokentome_tpu_torch/csrc/train_stream.cu",
+    "sparse": "youtokentome_tpu_torch/csrc/train_sparse.cu",
+    "block": "youtokentome_tpu_torch/csrc/train_block.cu",
+    "bucketed": "youtokentome_tpu_torch/csrc/train_bucketed.cu",
+}
+DIFF_REPLACES = {
+    "stream": "youtokentome_tpu/ops/train_stream.py:251",
+    "sparse": "youtokentome_tpu/ops/train_sparse.py:156",
+    "block": "youtokentome_tpu/ops/train_block.py:130",
+    "bucketed": "youtokentome_tpu/ops/train_kernel.py:97",
+}
+# scratch each plain/kernel comparison skips (filled in another order, or
+# kept only by the kernels)
+DIFF_SCRATCH = ("tmp_t", "tmp_w", "tiles", "blk_k", "blk_c", "aff", "wmark", "rows")
+MID_SITE_CAPS = ("64", "256")  # v3's plain site buffers on the 10 MB prefix
+MID_KB = 4  # v4's gather bound on the 10 MB prefix: most rounds take the full path
+MID_V0_IDS = 500  # v0's lockstep depth on the 10 MB prefix (one merge a round)
+# ids over which the plain versions of phase 9 are timed (v0: one merge a
+# round, ~50 ms a plain round at 100 MB)
+PLAIN_IDS = {"stream": 1000, "sparse": 1000, "block": 1000, "bucketed": 200}
+
+
+def diff_module(name: str):
+    import importlib
+
+    return importlib.import_module("youtokentome_tpu_torch.ops." + DIFF_MODULES[name])
+
+
+def diff_wrapper(mod, k: str):
+    """Wrapper ``k`` of a trainer's round: its module's, or the shared
+    top-k of ``train_kernels``."""
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    return getattr(tk if k == "topk_accept" else mod, k)
+
+
+def diff_engine(name: str, buckets, used0: int, vocab: int, dev, plain: bool = False):
+    """A kernel (or plain) engine of trainer ``name`` on ``buckets``."""
+    from youtokentome_tpu_torch.ops import train_block as tb
+    from youtokentome_tpu_torch.ops import train_kernel as tk0
+    from youtokentome_tpu_torch.ops import train_sparse as sp
+    from youtokentome_tpu_torch.ops import train_stream as ts
+
+    rules = np.full((vocab, 4), -1, np.int32)
+    mod = diff_module(name)
+    if name == "bucketed":
+        cls = tk0.PlainBucketedEngine if plain else mod.BucketedKernelEngine
+        return cls(buckets, rules, used0, vocab, dev)
+    if name == "block":
+        B = tb.block_size_for(buckets)
+        t, wid, freq = tb.flatten_word_buckets_blocked(buckets, B)
+        cls = tb.PlainBlockEngine if plain else mod.BlockKernelEngine
+        return cls(t, wid, freq, rules, used0, vocab, 16, B, dev)
+    t, wid, freq = ts.flatten_word_buckets(buckets)
+    if name == "sparse":
+        cls = sp.PlainSparseEngine if plain else mod.SparseKernelEngine
+    else:
+        cls = ts.PlainStreamEngine if plain else mod.StreamKernelEngine
+    return cls(t, wid, freq, rules, used0, vocab, 16, dev)
+
+
+def run_diff(eng, vocab: int, used: int, seg: int = TRAIN_SEG) -> int:
+    """The host loop over segments of ``seg`` ids."""
+    while used < vocab:
+        used, done = complete_segment(eng, used, min(vocab, used + seg))
+        if done:
+            break
+    return used
+
+
+def diff_rows(name: str, eng):
+    """The stream or rows of an engine, kernel or plain, as one tensor pair."""
+    import torch
+
+    if hasattr(eng, "st"):
+        st = eng.st
+        if name == "bucketed":
+            return st.tok, st.tok
+        if name == "block":
+            return st.tok, st.wid
+        return st.t, st.wid
+    if name == "bucketed":
+        flat = torch.cat([t.reshape(-1) for t, _ in eng.buckets])
+        return flat, flat
+    return eng.t, eng.wid
+
+
+def same_diff(name: str, kern, plain, what: str) -> None:
+    """Kernel engine and plain engine agree: stream or rows, rules, and
+    (v3, v4) the kernel table's live entries == the plain loop's table."""
+    import torch
+
+    kt, kw = diff_rows(name, kern)
+    pt, pw = diff_rows(name, plain)
+    check(torch.equal(kt, pt) and torch.equal(kw, pw), f"{what}: streams differ")
+    check(torch.equal(kern.rules, plain.rules), f"{what}: rules differ")
+    if name in ("sparse", "block"):
+        keys, cnts = kern.st.table()
+        check(int(cnts.min(initial=0)) >= 0, f"{what}: a negative pair count")
+        n = int((plain.tc > 0).sum())
+        check(np.array_equal(keys[cnts > 0], plain.tk[:n].cpu().numpy())
+              and np.array_equal(cnts[cnts > 0], plain.tc[:n].cpu().numpy()),
+              f"{what}: live tables differ")
+
+
+def lockstep(name: str, kern, plain, used0: int, vocab: int, seg: int, what: str) -> int:
+    """Both engines segment by segment to ``vocab``; equal at every end."""
+    used, segs = used0, 0
+    while used < vocab:
+        limit = min(vocab, used + seg)
+        ku, kd = complete_segment(kern, used, limit)
+        pu, pd = complete_segment(plain, used, limit)
+        check((ku, kd) == (pu, pd), f"{what}, segment to {limit}: kernel {ku, kd} != plain {pu, pd}")
+        same_diff(name, kern, plain, f"{what}, segment to {limit}")
+        used, segs = ku, segs + 1
+        if kd:
+            break
+    return segs
+
+
+def same_diff_state(a, b, what: str) -> None:
+    """Kernel state ``a`` and plain state ``b``: every tensor but scratch
+    equal, the table as a multiset of (key, count) slots."""
+    import torch
+
+    for k, v in vars(a).items():
+        if not isinstance(v, torch.Tensor) or k in DIFF_SCRATCH or k in ("keys", "cnts"):
+            continue
+        check(torch.equal(v, getattr(b, k)), f"{what}: {k} differs")
+    ka, ca = a.table()
+    kb, cb = b.table()
+    check(np.array_equal(ka, kb) and np.array_equal(ca, cb), f"{what}: tables differ")
+    check(int(ca.min(initial=0)) >= 0, f"{what}: a negative pair count")
+
+
+def diff_round(name: str, mod, st, used0: int, plain: bool, kb: int = 0) -> None:
+    """One round of trainer ``name``'s wrappers (or their plain versions;
+    ``kb`` bounds v4's block path)."""
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    V = TRAIN_VOCAB
+    topk = tk.topk_accept_plain if plain else tk.topk_accept
+    if name == "stream":
+        (mod.recount_plain if plain else mod.recount)(st, V, V)
+        topk(st, V, V, used0, 16)
+        (mod.apply_compact_plain if plain else mod.apply_compact)(st)
+    elif name == "bucketed":
+        (mod.bucket_count_plain if plain else mod.bucket_count)(st, V, V)
+        topk(st, V, V, used0, 1)
+        (mod.bucket_apply_plain if plain else mod.bucket_apply)(st)
+    else:
+        topk(st, V, V, used0, 16)
+        if name == "sparse":
+            (mod.sparse_apply_plain if plain else mod.sparse_apply)(st)
+        else:
+            (mod.block_apply_plain if plain else mod.block_apply)(st, kb)
+
+
+def count_plain(mod, name: str, st) -> None:
+    """A v3 or v4 count's plain version behind its wrapper's table reset."""
+    st.keys.fill_(mod.EMPTY)
+    st.cnts.zero_()
+    st.ctl[mod.OCC] = 0
+    st.ctl[mod.OVERFLOW] = 0
+    getattr(mod, name + "_count_plain")(st)
+
+
+def phase_diff_kernels(buckets, used0: int, dev) -> None:
+    """Each differential trainer's kernels against their plain versions on
+    the main path's state (the 100 MB corpus): its count, then two rounds,
+    each wrapper from a clone of the same state; v4 also from a later state,
+    past its full-path rounds, through rounds of its block path."""
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    for name in DIFF_TRAINERS:
+        mod = diff_module(name)
+        eng = diff_engine(name, buckets, used0, TRAIN_VOCAB, dev)
+        st = eng.st
+        if name in ("sparse", "block"):  # the count the engine made, again
+            k_st, p_st = clone_state(st), clone_state(st)
+            getattr(mod, name + "_count")(k_st)
+            count_plain(mod, name, p_st)
+            same_diff_state(k_st, p_st, f"{name}: count")
+        k_st, p_st = clone_state(st), clone_state(st)
+        for r in range(2):
+            diff_round(name, mod, k_st, used0, False, getattr(eng, "KB", 0))
+            diff_round(name, mod, p_st, used0, True, getattr(eng, "KB", 0))
+            same_diff_state(k_st, p_st, f"{name}: round {r}")
+        log(f"[9] {name}: every kernel == its plain version on the 100 MB state "
+            f"(2 rounds, {int(k_st.ctl[tk.USED]) - used0} ids, table {st.cap} slots)")
+        if name == "block":
+            block_path_rounds(mod, eng, used0)
+
+
+def block_path_rounds(mod, eng, used0: int, most: int = 8) -> None:
+    """v4's block_apply against its plain version on the 100 MB state where
+    the rounds take the block path: the engine runs on, 100 ids a segment,
+    until a segment's rounds all took the block path (the first rounds mix
+    both paths); then rounds from clones of that state, equal after each,
+    until one of them took the block path."""
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    used = used0
+    while True:
+        check(used < TRAIN_VOCAB, "v4 at 100 MB never settled on its block path")
+        rows0, full0 = int(eng.st.work[mod.W_ROWS]), int(eng.st.work[mod.W_FULL])
+        used = run_diff(eng, min(TRAIN_VOCAB, used + 100), used)
+        if int(eng.st.work[mod.W_FULL]) == full0 and int(eng.st.work[mod.W_ROWS]) > rows0:
+            break
+    k_st, p_st = clone_state(eng.st), clone_state(eng.st)
+    rows0, full0 = int(k_st.work[mod.W_ROWS]), int(k_st.work[mod.W_FULL])
+    for r in range(most):
+        diff_round("block", mod, k_st, used0, False, eng.KB)
+        diff_round("block", mod, p_st, used0, True, eng.KB)
+        same_diff_state(k_st, p_st, f"block: block-path round {r} from {used} ids")
+        if int(k_st.work[mod.W_ROWS]) > rows0:
+            break
+    rows = int(k_st.work[mod.W_ROWS]) - rows0
+    check(rows > 0, f"v4 at 100 MB took no block-path round in {most} rounds from {used} ids")
+    log(f"[9] block: block_apply == plain through {r + 1} rounds from {used} ids "
+        f"({int(k_st.ctl[tk.USED]) - used} ids, {rows} block-path rows of at most KB = {eng.KB}, "
+        f"{int(k_st.work[mod.W_FULL]) - full0} full-path rounds)")
+
+
+def crafted_buckets():
+    """Words whose runs span tiles of 8192 positions: 20,001 a's, 9,000 b's
+    then 9,000 a's, an alternation, and short words; (buckets, used0)."""
+    words = [
+        ([4] + [5] * 20001, 3),
+        ([4] + [6] * 9000 + [5] * 9000, 1),
+        ([4] + [5, 6] * 5000, 2),
+        ([4, 5, 6, 5, 6], 7),
+        ([4, 6, 6, 6, 5], 5),
+        ([4, 7, 5, 5, 7], 4),
+    ]
+    buckets = [(np.array([w], np.int32), np.array([f], np.int32)) for w, f in words]
+    return buckets, 8
+
+
+def phase_diff_mid(mid_path: Path, dev) -> dict:
+    """The 10 MB prefix at vocab 8000 through each differential trainer's
+    kernel engine and its plain round loop, both on the card, in lockstep,
+    with each forced branch; then the crafted stream."""
+    from youtokentome_tpu_torch.ops import train_sparse as sp
+
+    buckets, _, used0 = training_buckets(mid_path)
+    out = {}
+    recounts = []
+    real_recount = sp._recount
+
+    def counted_recount(*a, **k):
+        recounts.append(1)
+        return real_recount(*a, **k)
+
+    for name in DIFF_TRAINERS:
+        t0 = time.perf_counter()
+        vocab = min(MID_VOCAB, used0 + MID_V0_IDS) if name == "bucketed" else MID_VOCAB
+        env = {}
+        if name in ("sparse", "block"):
+            env["YTTM_TRAIN_PCAP"] = str(MID_PCAP)
+        if name == "block":
+            env["YTTM_TRAIN_KB"] = str(MID_KB)
+        with env_set(**env):
+            kern = diff_engine(name, buckets, used0, vocab, dev)
+        penv = {"YTTM_TRAIN_DCAP0": MID_SITE_CAPS[0], "YTTM_TRAIN_DCAP1": MID_SITE_CAPS[1]} if (
+            name == "sparse") else ({"YTTM_TRAIN_KB": str(MID_KB)} if name == "block" else {})
+        with env_set(**penv):
+            plain = diff_engine(name, buckets, used0, vocab, dev, plain=True)
+        with swapped(sp, _recount=counted_recount):
+            segs = lockstep(name, kern, plain, used0, vocab, TRAIN_SEG, f"{name} mid-size")
+        work = kern.st.work.tolist()
+        note = ""
+        if name in ("sparse", "block"):
+            check(kern.rebuilds >= 1, f"the {name} mid-size run never rebuilt its table")
+            note += f", {kern.rebuilds} table rebuilds"
+        if name == "sparse":
+            check(len(recounts) >= 1, "the v3 plain loop never took its recount branch")
+            note += f", {len(recounts)} plain recount rounds"
+        if name == "block":
+            mod = diff_module(name)
+            check(work[mod.W_FULL] >= 1 and work[mod.W_ROWS] >= 1,
+                  "the v4 mid-size run missed its block or its full path")
+            note += f", {work[mod.W_FULL]} full-path rounds, {work[mod.W_ROWS]} block-path rows"
+        out[name] = segs
+        log(f"[9] mid-size {name}: kernels == plain round loop at all {segs} segment ends to "
+            f"{vocab} (stream, rules{', live table' if name in ('sparse', 'block') else ''})"
+            f"{note} ({time.perf_counter() - t0:.1f} s)")
+
+    cb, cu0 = crafted_buckets()
+    for name in ("stream", "sparse", "bucketed"):
+        t0 = time.perf_counter()
+        kern = diff_engine(name, cb, cu0, cu0 + 120, dev)
+        plain = diff_engine(name, cb, cu0, cu0 + 120, dev, plain=True)
+        segs = lockstep(name, kern, plain, cu0, cu0 + 120, 10, f"{name} crafted")
+        log(f"[9] crafted runs across tiles, {name}: kernels == plain round loop at all {segs} "
+            f"segment ends ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def diff_work(name: str, eng, count_calls) -> tuple:
+    """Bytes and operations that the run's data gave each kernel (each
+    input read once, each output written once), from the engine's work
+    counters: {wrapper: (bytes, ops)}."""
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    mod = diff_module(name)
+    st, w = eng.st, [int(v) for v in eng.st.work.tolist()]
+    rounds, occ, slots = w[tk.W_ROUNDS], w[tk.W_OCC], w[tk.W_SLOTS]
+    topk = (slots * 4 + occ * 8 + rounds * 16 * 16, slots * OPS_PER_SLOT)
+    if name == "stream":
+        # the count reads t and wid of each live token and the word
+        # frequencies once (freq [W] stays in L2)
+        live, n_words = w[mod.W_LIVE], int(st.freq.shape[0])
+        return {"recount": (live * 8 + rounds * n_words * 4 + occ * 12, live * OPS_PER_COUNTED),
+                "topk_accept": topk,
+                "apply_compact": (live * 8 + w[mod.W_KEEP] * 8, live * OPS_PER_POS)}
+    if name == "sparse":
+        end = int(st.off[-1])
+        count_b = sum(end * 4 + o * 12 for o in count_calls)
+        return {"sparse_count": (count_b, len(count_calls) * end * OPS_PER_COUNTED),
+                "topk_accept": topk,
+                "sparse_apply": (rounds * end * 4 + w[mod.W_SITES] * 8 + w[mod.W_TOUCH] * 16,
+                                 rounds * end * OPS_PER_POS // 2 + w[mod.W_SITES] * OPS_PER_COUNTED)}
+    if name == "block":
+        m = st.NB * st.B
+        count_b = sum(m * 8 + o * 12 for o in count_calls)
+        rows = w[mod.W_ROWS] + w[mod.W_FULL] * st.NB
+        return {"block_count": (count_b, len(count_calls) * m * OPS_PER_COUNTED),
+                "topk_accept": topk,
+                "block_apply": (rounds * m * 8 + rows * st.B * 16,
+                                rounds * m * OPS_PER_POS // 2 + rows * st.B * OPS_PER_COUNTED)}
+    # apply: every slot and row offset read, the slots the merge changed
+    # written (most rows hold no hit)
+    slots_rows = int(st.tok.shape[0])
+    return {"bucket_count": (rounds * (slots_rows * 4 + st.n_rows * 8) + occ * 12,
+                             rounds * slots_rows * OPS_PER_COUNTED),
+            "topk_accept": (slots * 4 + occ * 8 + rounds * 16, slots * OPS_PER_SLOT),
+            "bucket_apply": (rounds * (slots_rows + st.n_rows + 1) * 4 + w[mod.W_WRITES] * 4,
+                             rounds * slots_rows * OPS_PER_POS)}
+
+
+def profiled(name: str, fn):
+    """Run ``fn`` under torch.profiler: (device ms of each wrapper of trainer
+    ``name``, the run's wall seconds, what ``fn`` returns)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ms = {k: 0.0 for k in DIFF_KERNELS[name]}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for k in DIFF_KERNELS[name]:
+            for f in DIFF_DEVICE_FNS[(name, k)]:
+                if re.search(r"(^|[^A-Za-z0-9_])" + f + r"\(", ev.key):
+                    ms[k] += us / 1e3
+    return ms, wall, out
+
+
+def plain_diff(name: str, engine, vocab: int, used0: int) -> dict:
+    """ms of the plain versions of trainer ``name``'s wrappers over a run to
+    ``vocab``, each call synchronised."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    mod = diff_module(name)
+    ms = {k: 0.0 for k in DIFF_KERNELS[name]}
+
+    def timed(k, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            ms[k] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    repl = {}
+    for k in DIFF_KERNELS[name]:
+        if k in ("sparse_count", "block_count"):
+            repl[k] = timed(k, lambda st: count_plain(mod, name, st))
+        elif k == "topk_accept":
+            repl[k] = timed(k, lambda st, limit, v, u0, kk=16: tk.topk_accept_plain(st, limit, v, u0, kk))
+        else:
+            repl[k] = timed(k, getattr(mod, k + "_plain"))
+    with swapped(mod, **repl):
+        eng = engine()
+        used = run_diff(eng, vocab, used0)
+    return ms, eng, used
+
+
+def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str) -> dict:
+    """The main path of each differential trainer at vocab 30000: launches
+    counted, rules against phase 5's v2 rules; the merge loop timed and the
+    device ms of each kernel over a replica of the run under the profiler
+    (v0's main path, ``run_training``, is its merge loop: it runs once,
+    under the profiler); the plain versions over the run's first PLAIN_IDS
+    ids; bounds from the run's work counters."""
+    import torch
+
+    import youtokentome_tpu_torch as yttm
+    from youtokentome_tpu_torch.models.state import BPEState, SpecialTokens
+    from youtokentome_tpu_torch.ops import train_kernel as tk0
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+    from youtokentome_tpu_torch.train import rename_tokens
+
+    dev = torch.device("cuda", 0)
+    buckets, al, used0 = training_buckets(corpus_path)
+    char2id, want = rename_tokens(al.char2id, v2_rules, SpecialTokens(0, 1, 2, 3), TRAIN_VOCAB)
+    want_rules = torch.tensor(v2_rules)
+    rows, res = [], {}
+    for name in DIFF_TRAINERS:
+        mod = diff_module(name)
+        for k in DIFF_KERNELS[name]:
+            diff_wrapper(mod, k).launches = 0
+
+        def engine(name=name):
+            return diff_engine(name, buckets, used0, TRAIN_VOCAB, dev)
+
+        def replica(vocab):
+            eng = engine()
+            return eng, run_diff(eng, vocab, used0)
+
+        count_calls = []
+        if name == "bucketed":
+            # v0's main path is its merge loop alone (~55 s on the card): it
+            # runs once, under the profiler, which gives each kernel's device
+            # time; its engine gives the run's work
+            engines = []
+
+            class Recorded(mod.BucketedKernelEngine):
+                def __init__(self, *a, **k):
+                    super().__init__(*a, **k)
+                    engines.append(self)
+
+            with swapped(mod, BucketedKernelEngine=Recorded):
+                kernel_ms, train_s, got = profiled(
+                    name, lambda: tk0.run_training(buckets, used0, TRAIN_VOCAB))
+            check(got == v2_rules, "v0 run_training's rules != phase 5's v2 rules")
+            what = "ops.train_kernel.run_training (under torch.profiler)"
+            launches = {k: diff_wrapper(mod, k).launches for k in DIFF_KERNELS[name]}
+            eng = engines[0]
+            used, loop_s = int(eng.st.ctl[tk.USED]), train_s
+        else:
+            t0 = time.perf_counter()
+            model_path = work / f"trained30k_{name}.yttm"
+            with env_set(YTTM_TRAIN_IMPL=name):
+                bpe = yttm.BPE.train(data=str(corpus_path), model=str(model_path),
+                                     vocab_size=TRAIN_VOCAB)
+            train_s = time.perf_counter() - t0
+            check(bpe.device.type == "cuda", "BPE.train runs on cuda by default")
+            state = BPEState.load(str(model_path))
+            check(state.rules == want and state.char2id == char2id,
+                  f"BPE.train's {name} rules != phase 5's v2 rules")
+            what = f"BPE.train with YTTM_TRAIN_IMPL={name}"
+            launches = {k: diff_wrapper(mod, k).launches for k in DIFF_KERNELS[name]}
+            if name in ("sparse", "block"):
+                real_count = getattr(mod, name + "_count")
+
+                def counted(st, real_count=real_count, mod=mod):
+                    real_count(st)
+                    count_calls.append(int(st.ctl[tk.OCC]))
+                counted.launches = 0
+                ctx = swapped(mod, **{name + "_count": counted})
+            else:
+                ctx = swapped(mod)
+            with ctx:
+                eng = engine()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                used = run_diff(eng, TRAIN_VOCAB, used0)
+                torch.cuda.synchronize()
+                loop_s = time.perf_counter() - t0
+            check(torch.equal(eng.rules[: used - used0, :3].cpu(), want_rules),
+                  f"the timed {name} run's rules differ")
+            kernel_ms, prof_s, (p_eng, p_used) = profiled(name, lambda: replica(TRAIN_VOCAB))
+            check(torch.equal(p_eng.rules[: p_used - used0, :3].cpu(), want_rules),
+                  f"the profiled {name} run's rules differ")
+            log(f"[9] {name}: a replica of the merge loop under torch.profiler took {prof_s:.3f} s "
+                f"against {loop_s:.3f} s without")
+        for k, n in launches.items():
+            check(n > 0, f"the {name} main path did not launch {k}")
+        log(f"[9] {what}: {train_s:.2f} s, rules == phase 5's v2 rules; launches {launches}")
+        for k, v in kernel_ms.items():
+            check(v > 0, f"the profiler recorded no device time for {name} {k}")
+        merges, rounds = used - used0, int(eng.st.ctl[tk.ROUND])
+        log(f"[9] {name} merge loop (kernels): {loop_s:.3f} s, {rounds} rounds, {merges} merges, "
+            f"{merges / loop_s:.0f} merges/s, {eng.rebuilds} table rebuilds, table "
+            f"{eng.st.cap} slots; work {eng.st.work.tolist()}")
+        work_bo = diff_work(name, eng, count_calls)
+        plain_vocab = min(TRAIN_VOCAB, used0 + PLAIN_IDS[name])
+        prefix_ms = profiled(name, lambda: replica(plain_vocab))[0]
+        plain_ms, p_eng, p_used = plain_diff(name, engine, plain_vocab, used0)
+        check(torch.equal(p_eng.rules[: p_used - used0, :3].cpu(), want_rules[: p_used - used0]),
+              f"the {name} plain versions' rules differ")
+        log(f"[9] {name} over the first {plain_vocab - used0} ids: kernels (torch.profiler) "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in prefix_ms.items())
+            + "; plain versions (synchronised) "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items()))
+        for k in DIFF_KERNELS[name]:
+            b, o = work_bo[k]
+            b_ms, o_ms = b / HBM_BYTES_PER_S * 1e3, o / OPS_PER_S * 1e3
+            row = {"name": DIFF_ROW_NAMES.get((name, k), k), "trainer": name, "kernel": k,
+                   "launches": launches[k], "ms": kernel_ms[k], "plain_ms": plain_ms[k],
+                   "plain_ids": plain_vocab - used0, "prefix_ms": prefix_ms[k],
+                   "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+            rows.append(row)
+            log(f"[9] {row['name']}: {launches[k]} launches, {kernel_ms[k]:.3f} ms on the card, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain {plain_ms[k]:.1f} ms "
+                f"over the first {row['plain_ids']} ids (kernel {prefix_ms[k]:.3f} ms) ({card})")
+        res[name] = {"train_s": train_s, "loop_s": loop_s, "rounds": rounds,
+                     "merges_per_s": merges / loop_s}
+        log(f"[9] times {name}: {what} {train_s:.2f} s, merge loop {loop_s:.3f} s, {rounds} "
+            f"rounds, {merges / loop_s:.0f} merges/s ({card})")
+    return {"rows": rows, "times": res}
+
+
 def main() -> int:
     try:
         import torch
@@ -1933,6 +2517,11 @@ def main() -> int:
     del buckets
     phase_tiered_mid(work / "corpus_10mb.txt", dev)
     tiered = phase_tiered_main(corpus_path, work, sample, train["plain_rules"])
+    buckets, _, used0 = training_buckets(corpus_path)
+    phase_diff_kernels(buckets, used0, dev)
+    del buckets
+    phase_diff_mid(work / "corpus_10mb.txt", dev)
+    diff = phase_diff_main(corpus_path, work, sample, train["plain_rules"], info["card"])
 
     source = "youtokentome_tpu_torch/csrc/encode_greedy.cu"
     replaces = {
@@ -1950,7 +2539,9 @@ def main() -> int:
         for t in times
     ] + [
         {
-            "name": r["name"], "route": "cuda", "source": "youtokentome_tpu_torch/csrc/train_delta.cu",
+            "name": r["name"], "route": "cuda",
+            "source": TOPK_SOURCE if r["name"] == "topk_accept" else (
+                "youtokentome_tpu_torch/csrc/train_delta.cu"),
             "replaces": TRAIN_REPLACES, "launches": r["launches"], "max_abs_err": 0,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "equal": True,
@@ -1974,10 +2565,23 @@ def main() -> int:
         [(dropout["row"], "youtokentome_tpu_torch/csrc/encode_dropout.cu", DROPOUT_REPLACES)]
         + [(r, "youtokentome_tpu_torch/csrc/stream_encode.cu", STREAM_REPLACES[r["name"]])
            for r in stream["rows"]]
+    ] + [
+        {
+            "name": r["name"], "route": "cuda",
+            "source": TOPK_SOURCE if r["kernel"] == "topk_accept" else DIFF_SOURCES[r["trainer"]],
+            "replaces": DIFF_REPLACES[r["trainer"]], "launches": r["launches"], "max_abs_err": 0,
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_ids": r["plain_ids"],
+            "prefix_ms": r["prefix_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "equal": True,
+        }
+        for r in diff["rows"]
     ]
     log(f"[7] dropout routes: native {dropout['native_mbps']:.2f} MB/s, kernel "
         f"{dropout['kernel_mbps']:.2f} MB/s; [8] stream backend: API {stream['api_mbps']:.2f} "
         f"MB/s, CLI {stream['cli_mbps']:.2f} MB/s ({info['card']})")
+    log("[9] merge loops: " + ", ".join(
+        f"{k} {v['loop_s']:.3f} s ({v['merges_per_s']:.0f} merges/s)"
+        for k, v in diff["times"].items()) + f" ({info['card']})")
     log(f"[4] build {info['build_s']:.2f} s, whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(info["card"])

@@ -277,13 +277,18 @@ def test_training_stderr_matches(tmp_path, capsys, monkeypatch):
 
 
 def test_unported_trainers_and_default_device(monkeypatch):
+    """The differential trainers (v3 sparse, v4 block, v1 stream) train on
+    the CPU with the JAX package's rules; with no device, training takes
+    cuda and raises without a card."""
     import torch
 
     cfg = BpeConfig(1.0, 1, SpecialTokens(0, 1, 2, 3))
-    for impl, item in (("sparse", "item 7"), ("block", "item 7"), ("stream", "item 7")):
+    text = _run_heavy(5, n=600)
+    for impl in ("sparse", "block", "stream"):
         monkeypatch.setenv("YTTM_TRAIN_IMPL", impl)
-        with pytest.raises(NotImplementedError, match=item):
-            port.train_from_codepoints(_cps("ab ab"), 10, cfg, "cpu")
+        a = jax_train(_cps(text), 40, JConfig(1.0, 1, JSpecial(0, 1, 2, 3)))
+        b = port.train_from_codepoints(_cps(text), 40, cfg, "cpu")
+        _assert_same(a, b)
     monkeypatch.setenv("YTTM_TRAIN_IMPL", "auto")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

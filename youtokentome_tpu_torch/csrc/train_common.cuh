@@ -1,6 +1,8 @@
-// Device code shared by the trainers' kernels (train_delta.cu, train_tiered.cu):
-// the open-addressing pair-count table, the warp scan of the run parity, and
-// the tie-ordered top-16 with prefix acceptance.
+// Device code shared by the trainers' kernels (train_topk.cu, train_delta.cu,
+// train_tiered.cu, train_stream.cu, train_sparse.cu, train_block.cu,
+// train_bucketed.cu): the round control, the open-addressing pair-count
+// table, the warp scan of the run parity, a word's pair count, and the
+// tie-ordered top-16 with prefix acceptance.
 //
 // Pair keys are x << 32 | y (unsigned 64-bit); an empty slot holds all ones.
 // The top-k keeps the reference order (train_stream.py _topk_candidates):
@@ -18,6 +20,57 @@ constexpr int kK = 16;            // candidates per round (batch_k <= 16)
 constexpr int kTopThreads = 128;  // threads of a top-k block
 constexpr int32_t kPad = -1;
 constexpr unsigned long long kEmpty = ~0ull;
+
+// -- round control -----------------------------------------------------------
+
+// Every trainer's ctl (int32) opens with these slots; its own follow from
+// CTL_OWN (train_tiered.cu keeps a layout of its own with the first five).
+enum Ctl { USED = 0, DONE, OVERFLOW, ROUND, NACC, OCC, ERROR, CTL_OWN };
+// work (int64) opens with these counters, summed over the active rounds by
+// the shared top-k; a trainer's own follow from W_OWN.
+enum Work { W_ROUNDS = 0, W_OCC, W_SLOTS, W_OWN };
+
+// The round loop still runs: not done, no overflow, `used` below
+// min(vocab, limit).
+__device__ __forceinline__ bool round_active(const int32_t *ctl, int limit, int vocab) {
+  const int lim = limit < vocab ? limit : vocab;
+  return !ctl[DONE] && !ctl[OVERFLOW] && ctl[USED] < lim;
+}
+
+// round_active decided once for the whole block: a count's other blocks may
+// set `overflow` while this one starts.  Every thread must call it.
+__device__ __forceinline__ bool block_active(const int32_t *ctl, int limit, int vocab) {
+  __shared__ int active;
+  if (threadIdx.x == 0) active = round_active(ctl, limit, vocab);
+  __syncthreads();
+  return active;
+}
+
+// The round's accepted candidates, in shared memory.
+struct Cands {
+  int32_t x[kK], y[kK], z[kK];
+};
+
+// Loads the round's accepted candidates; returns their number (every thread
+// calls it).
+__device__ __forceinline__ int load_cands(Cands &c, const int32_t *ctl, const int32_t *cand) {
+  const int n = ctl[NACC];
+  if (threadIdx.x < n) {
+    c.x[threadIdx.x] = cand[threadIdx.x * 4];
+    c.y[threadIdx.x] = cand[threadIdx.x * 4 + 1];
+    c.z[threadIdx.x] = cand[threadIdx.x * 4 + 2];
+  }
+  __syncthreads();
+  return n;
+}
+
+// Blocks of `threads` for n items, at most `per_sm` blocks on each of the
+// 132 SMs (the kernels stride over the rest).
+inline int grid_for(long long n, int threads, int per_sm = 8) {
+  const long long blocks = (n + threads - 1) / threads;
+  const long long most = 132ll * per_sm;
+  return (int)(blocks < 1 ? 1 : (blocks < most ? blocks : most));
+}
 
 __device__ __forceinline__ unsigned long long hash64(unsigned long long k) {
   k ^= k >> 33;
@@ -85,6 +138,29 @@ __device__ __forceinline__ int warp_max_scan(int v) {
     if (lane >= o) v = v > u ? v : u;
   }
   return v;
+}
+
+// Adds `delta` for every counted pair of the word tok[0, n) (PAD slots break
+// pairs; run parity: floor(r/2) pairs in a run of r equal tokens,
+// bpe.cpp:140-143).  Called by all 32 lanes of a warp, which walk the word 32
+// positions at a time.
+template <int OCC, int OVF, int ERR>
+__device__ void add_word(const int32_t *tok, int n, int32_t delta, Mode mode,
+                         unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl) {
+  const int lane = threadIdx.x & 31;
+  int carry = -1;  // last position < this chunk that does not start an equal pair
+  for (int b = 0; b < n; b += 32) {
+    const int i = b + lane;
+    const int32_t a = i < n ? tok[i] : kPad;
+    const int32_t nb = i + 1 < n ? tok[i + 1] : kPad;
+    const bool pairv = a >= 0 && nb >= 0;
+    const bool eq = pairv && a == nb;
+    int lne = warp_max_scan(eq ? -1 : i);
+    lne = lne > carry ? lne : carry;
+    if (pairv && (!eq || ((i - lne - 1) & 1) == 0))
+      table_add<OCC, OVF, ERR>(keys, cnts, cap, ctl, pair_key(a, nb), delta, mode);
+    carry = __shfl_sync(0xFFFFFFFFu, lne, 31);
+  }
 }
 
 // -- top-k -------------------------------------------------------------------

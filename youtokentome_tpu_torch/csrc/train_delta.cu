@@ -1,4 +1,5 @@
-// The v2 delta trainer's merge round, on Hopper: three kernels.
+// The v2 delta trainer's merge round, on Hopper: two kernels here and the
+// shared top-k of train_topk.cu.
 //
 // Replaces the JAX device program
 //   youtokentome_tpu/ops/train_delta.py:210 train_rounds_delta
@@ -6,8 +7,8 @@
 // pair_keys_and_weights_fw, _topk_candidates, accept_prefix, store_rules,
 // pair_hits, apply_accepted, sort_compact, and train_delta.py
 // _reduce_by_key, _compact_kv, _full_recount, _affected_positions,
-// _delta_contributions.  The plain torch versions of the three kernels
-// are in youtokentome_tpu_torch/ops/train_kernels.py.
+// _delta_contributions.  The plain torch versions of the kernels are in
+// youtokentome_tpu_torch/ops/train_kernels.py.
 //
 // State (all on the card; the host reads `ctl` once per batch of rounds):
 //   tok [Mw] int32   the word-laid stream: word w owns tok[off[w], off[w+1]-1),
@@ -21,7 +22,8 @@
 //                    linear probing, EMPTY = all ones, no deletions: a key
 //                    whose count falls to 0 keeps its slot (it can never
 //                    reach the top-k, which takes counts > 0 only).
-//   ctl [8] int32    used, done, overflow, round, n_acc, n_aff, occupied, error
+//   ctl [8] int32    used, done, overflow, round, n_acc, occupied, error
+//                    (train_common.cuh), n_aff
 //   cand [16, 4]     this round's accepted [x, y, z, count]
 //
 // Kernels:
@@ -33,11 +35,8 @@
 //                 overflow (the JAX recount and pcap-doubling retry); a
 //                 count that overflows its table cuts its probes short, and
 //                 the host counts again into a table twice the size.
-//   topk_accept   pass 1: every block keeps the top 16 live slots of its
-//                 share of the table in the reference order (count desc,
-//                 max(x,y) asc, min(x,y) asc, x desc); pass 2: one block
-//                 merges them and one thread runs accept_prefix (equal-pair
-//                 guard, count floor, id budget) and writes rules, cand, ctl.
+//   topk_accept   (train_topk.cu) the top 16 live slots in the reference
+//                 order and accept_prefix; writes rules, cand, ctl.
 //   apply_delta   pass 1: threads walk the stream's positions and mark the
 //                 words holding an accepted pair and list them; pass 2: one warp per
 //                 listed word subtracts the word's old contributions, merges
@@ -72,7 +71,7 @@ namespace {
 
 using namespace yttm;
 
-enum { USED = 0, DONE, OVERFLOW, ROUND, NACC, NAFF, OCC, ERROR };
+enum { NAFF = CTL_OWN };  // the round's listed words
 
 __device__ __forceinline__ void table_add(unsigned long long *keys, int32_t *cnts, int cap,
                                           int32_t *ctl, unsigned long long key, int32_t delta,
@@ -80,29 +79,12 @@ __device__ __forceinline__ void table_add(unsigned long long *keys, int32_t *cnt
   yttm::table_add<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, key, delta, mode);
 }
 
-__device__ __forceinline__ bool round_active(const int32_t *ctl, int limit, int vocab) {
-  const int lim = limit < vocab ? limit : vocab;
-  return !ctl[DONE] && !ctl[OVERFLOW] && ctl[USED] < lim;
-}
-
-// Adds sign * f for every counted pair of the word tok[0, n) (live tokens
+// Adds delta for every counted pair of the word tok[0, n) (live tokens
 // first, PAD after).  Called by all 32 lanes of a warp.
-__device__ void add_word(const int32_t *tok, int n, int32_t delta, Mode mode,
-                         unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl) {
-  const int lane = threadIdx.x & 31;
-  int carry = -1;  // last position < this chunk that does not start an equal pair
-  for (int b = 0; b < n; b += 32) {
-    const int i = b + lane;
-    const int32_t a = i < n ? tok[i] : kPad;
-    const int32_t nb = i + 1 < n ? tok[i + 1] : kPad;
-    const bool pairv = a >= 0 && nb >= 0;
-    const bool eq = pairv && a == nb;
-    int lne = warp_max_scan(eq ? -1 : i);
-    lne = lne > carry ? lne : carry;
-    if (pairv && (!eq || ((i - lne - 1) & 1) == 0))
-      table_add(keys, cnts, cap, ctl, pair_key(a, nb), delta, mode);
-    carry = __shfl_sync(0xFFFFFFFFu, lne, 31);
-  }
+__device__ __forceinline__ void add_word(const int32_t *tok, int n, int32_t delta, Mode mode,
+                                         unsigned long long *keys, int32_t *cnts, int cap,
+                                         int32_t *ctl) {
+  yttm::add_word<OCC, OVERFLOW, ERROR>(tok, n, delta, mode, keys, cnts, cap, ctl);
 }
 
 __global__ void __launch_bounds__(256)
@@ -114,38 +96,6 @@ __global__ void __launch_bounds__(256)
     const int base = off[w];
     add_word(tok + base, off[w + 1] - 1 - base, fw[w], kCount, keys, cnts, cap, ctl);
   }
-}
-
-// -- top-k -------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kTopThreads)
-    topk_blocks_kernel(const unsigned long long *keys, const int32_t *cnts, int cap,
-                       unsigned long long *blk_k, int32_t *blk_c, const int32_t *ctl, int limit,
-                       int vocab) {
-  if (!round_active(ctl, limit, vocab)) return;
-  topk_scan(keys, cnts, cap, blk_k, blk_c);
-}
-
-__global__ void __launch_bounds__(kTopThreads)
-    topk_accept_kernel(const unsigned long long *blk_k, const int32_t *blk_c, int n_blk,
-                       int32_t *ctl, int32_t *cand, int32_t *rules, int limit, int vocab,
-                       int used_ids0, int k) {
-  __shared__ int top_c[kK];
-  __shared__ unsigned long long top_k[kK];
-  if (!round_active(ctl, limit, vocab)) {
-    if (threadIdx.x == 0) ctl[NACC] = 0;
-    return;
-  }
-  topk_merge(blk_k, blk_c, n_blk, top_c, top_k);
-  if (threadIdx.x != 0) return;
-  const int used = ctl[USED];
-  const int n_acc =
-      accept_prefix_dev(top_c, top_k, k, used, vocab, 0, cand, rules, used_ids0);
-  ctl[USED] = used + n_acc;
-  ctl[DONE] = n_acc == 0;
-  ctl[NACC] = n_acc;
-  ctl[ROUND] += 1;
-  ctl[NAFF] = 0;
 }
 
 // -- apply -------------------------------------------------------------------
@@ -254,24 +204,6 @@ int yttm_train_pair_count(const void *tok, const void *off, const void *fw, int 
   pair_count_kernel<<<grid_for_warps(W), 256, 0, (cudaStream_t)stream>>>(
       (const int32_t *)tok, (const int32_t *)off, (const int32_t *)fw, W,
       (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl);
-  return (int)cudaGetLastError();
-}
-
-// One round's candidate selection and acceptance.  blk_* hold n_blk * 16
-// entries of scratch.
-int yttm_train_topk_accept(const void *keys, const void *cnts, int cap, void *blk_k, void *blk_c,
-                           int n_blk, void *ctl, void *cand, void *rules, int limit, int vocab,
-                           int used_ids0, int k, void *stream) {
-  if (cap <= 0 || n_blk <= 0 || k <= 0 || k > kK) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  topk_blocks_kernel<<<n_blk, kTopThreads, 0, s>>>(
-      (const unsigned long long *)keys, (const int32_t *)cnts, cap,
-      (unsigned long long *)blk_k, (int32_t *)blk_c, (const int32_t *)ctl, limit, vocab);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  topk_accept_kernel<<<1, kTopThreads, 0, s>>>(
-      (const unsigned long long *)blk_k, (const int32_t *)blk_c, n_blk, (int32_t *)ctl,
-      (int32_t *)cand, (int32_t *)rules, limit, vocab, used_ids0, k);
   return (int)cudaGetLastError();
 }
 

@@ -100,11 +100,6 @@ __device__ __forceinline__ int sig_pos(int32_t tok) {
   return (int)(((uint32_t)tok * 2654435761u) >> 23) & 511;
 }
 
-__device__ __forceinline__ bool round_active(const int32_t *ctl, int limit, int vocab) {
-  const int lim = limit < vocab ? limit : vocab;
-  return !ctl[DONE] && !ctl[OVERFLOW] && ctl[USED] < lim;
-}
-
 __device__ __forceinline__ bool resplit_due(const int32_t *ctl) {
   return ctl[REFRESH] && ctl[NACC] > 0 && !ctl[OVERFLOW];
 }
@@ -647,12 +642,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-int grid_for(long long n, int per_block) {
-  const long long blocks = (n + per_block - 1) / per_block;
-  const long long most = 132 * 16;
-  return (int)(blocks < 1 ? 1 : (blocks < most ? blocks : most));
-}
-
 }  // namespace
 
 extern "C" {
@@ -693,10 +682,10 @@ int yttm_tiered_apply(void *tok, void *wid, const void *freq, void *sig, int B, 
   cudaStream_t s = (cudaStream_t)stream;
   int32_t *c = (int32_t *)ctl;
   if (!count_mode) {
-    sig_filter_kernel<<<grid_for(NB, 256), 256, 0, s>>>((const uint32_t *)sig, NB, c,
+    sig_filter_kernel<<<grid_for(NB, 256, 16), 256, 0, s>>>((const uint32_t *)sig, NB, c,
                                                         (const int32_t *)cand, (int32_t *)rows);
   }
-  apply_rows_kernel<<<grid_for((long long)NB * 32, 32 * kApplyWarps), 32 * kApplyWarps, 0, s>>>(
+  apply_rows_kernel<<<grid_for((long long)NB * 32, 32 * kApplyWarps, 16), 32 * kApplyWarps, 0, s>>>(
       (int32_t *)tok, (int32_t *)wid, (const int32_t *)freq, (uint32_t *)sig, B, NB,
       (const int32_t *)rows, c, (const int32_t *)cand, (unsigned long long *)keys,
       (int32_t *)cnts, cap, (unsigned long long *)hkeys, (int32_t *)hcnts, hslots, count_mode);
@@ -711,11 +700,11 @@ int yttm_tiered_resplit(const void *keys, const void *cnts, int cap, void *hkeys
   if (cap <= 0 || hslots <= 0 || boundary < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int32_t *c = (int32_t *)ctl;
-  const int scan = grid_for(cap, 256) < kScanBlocks ? grid_for(cap, 256) : kScanBlocks;
+  const int scan = grid_for(cap, 256, 16) < kScanBlocks ? grid_for(cap, 256, 16) : kScanBlocks;
   for (int pass = 0; pass < 3; ++pass)
     resplit_pass_kernel<<<scan, 256, 0, s>>>((const int32_t *)cnts, cap, c, (int32_t *)sel, pass,
                                              boundary);
-  hot_clear_kernel<<<grid_for(hslots, 256), 256, 0, s>>>((unsigned long long *)hkeys,
+  hot_clear_kernel<<<grid_for(hslots, 256, 16), 256, 0, s>>>((unsigned long long *)hkeys,
                                                          (int32_t *)hcnts, hslots, c);
   hot_fill_kernel<<<scan, 256, 0, s>>>(
       (const unsigned long long *)keys, (const int32_t *)cnts, cap, (unsigned long long *)hkeys,
@@ -733,13 +722,13 @@ int yttm_tiered_fold_plan(const void *tok, int B, int NB, void *fills, void *ghi
   cudaError_t e = cudaMemsetAsync(c + LIVE, 0, 2 * sizeof(int32_t), s);
   if (e != cudaSuccess) return (int)e;
   const int G = (NB + kFoldChunk - 1) / kFoldChunk;
-  fold_fills_kernel<<<grid_for((long long)NB * 32, 256), 256, 0, s>>>((const int32_t *)tok, B, NB,
-                                                                    (int32_t *)fills, c);
+  fold_fills_kernel<<<grid_for((long long)NB * 32, 256, 16), 256, 0, s>>>(
+      (const int32_t *)tok, B, NB, (int32_t *)fills, c);
   fold_hist_kernel<<<G, 32, 0, s>>>((const int32_t *)fills, NB, B, (int32_t *)ghist);
   fold_scan_kernel<<<1, 1024, 0, s>>>((int32_t *)ghist, G, B);
   fold_place_kernel<<<G, 32, 0, s>>>((const int32_t *)fills, NB, B, (const int32_t *)ghist,
                                      (int32_t *)order);
-  fold_check_kernel<<<grid_for(NB / 2, 256), 256, 0, s>>>((const int32_t *)fills,
+  fold_check_kernel<<<grid_for(NB / 2, 256, 16), 256, 0, s>>>((const int32_t *)fills,
                                                           (const int32_t *)order, NB, c);
   return (int)cudaGetLastError();
 }
@@ -748,7 +737,7 @@ int yttm_tiered_fold_plan(const void *tok, int B, int NB, void *fills, void *ghi
 int yttm_tiered_fold_write(const void *tok, const void *wid, const void *fills, const void *order,
                            int B, int NB, void *tok2, void *wid2, void *sig2, void *stream) {
   if (B < 1 || B > kMaxB || NB < 2) return (int)cudaErrorInvalidValue;
-  fold_write_kernel<<<grid_for((long long)(NB / 2) * 32, 256), 256, 0, (cudaStream_t)stream>>>(
+  fold_write_kernel<<<grid_for((long long)(NB / 2) * 32, 256, 16), 256, 0, (cudaStream_t)stream>>>(
       (const int32_t *)tok, (const int32_t *)wid, (const int32_t *)fills, (const int32_t *)order, B,
       NB, (int32_t *)tok2, (int32_t *)wid2, (uint32_t *)sig2);
   return (int)cudaGetLastError();

@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 ``csrc/encode_greedy.cu``, ``csrc/encode_dropout.cu``,
-``csrc/stream_encode.cu``, ``csrc/train_delta.cu`` and
-``csrc/train_tiered.cu`` have plain C interfaces.  At first use each is
+``csrc/stream_encode.cu``, ``csrc/train_topk.cu``, ``csrc/train_delta.cu``,
+``csrc/train_tiered.cu``, ``csrc/train_stream.cu``, ``csrc/train_sparse.cu``,
+``csrc/train_block.cu`` and ``csrc/train_bucketed.cu`` have plain C
+interfaces.  At first use each is
 compiled by ``nvcc`` for ``sm_90a`` into ``youtokentome_tpu_torch/build/``
 (rebuilt when the source or a ``csrc/*.cuh`` header is newer) and loaded
 with ctypes.  A failed build raises; nothing falls back.
@@ -27,8 +29,9 @@ NVCC_FLAGS = [
 _libs: dict = {}  # source name -> its loaded library
 # one lock a source, so that the libraries build in parallel
 _SOURCES = (
-    "encode_greedy.cu", "encode_dropout.cu", "stream_encode.cu", "train_delta.cu",
-    "train_tiered.cu",
+    "encode_greedy.cu", "encode_dropout.cu", "stream_encode.cu", "train_topk.cu",
+    "train_delta.cu", "train_tiered.cu", "train_stream.cu", "train_sparse.cu", "train_block.cu",
+    "train_bucketed.cu",
 )
 _locks = {name: threading.Lock() for name in _SOURCES}
 
@@ -103,14 +106,20 @@ def load_stream() -> ctypes.CDLL:
     })
 
 
+def load_topk() -> ctypes.CDLL:
+    """Build (if needed) and load the trainers' shared top-k."""
+    return _load("train_topk.cu", "libtrain_topk.so", {
+        # keys, cnts, cap, blk_k, blk_c, n_blk, ctl, cand, rules, limit,
+        # vocab, used_ids0, k, n_own, work, stream
+        "yttm_topk_accept": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _p, _i, _i, _i, _i, _i, _p, _p]),
+    })
+
+
 def load_train() -> ctypes.CDLL:
-    """Build (if needed) and load the training kernels' library."""
+    """Build (if needed) and load the v2 delta trainer's kernels."""
     return _load("train_delta.cu", "libtrain_delta.so", {
         # tok, off, fw, W, keys, cnts, cap, ctl, stream
         "yttm_train_pair_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p]),
-        # keys, cnts, cap, blk_k, blk_c, n_blk, ctl, cand, rules, limit,
-        # vocab, used_ids0, k, stream
-        "yttm_train_topk_accept": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _p, _i, _i, _i, _i, _p]),
         # tok, pwid, Mw, off, fw, W, keys, cnts, cap, ctl, cand, aff, wmark,
         # stream
         "yttm_train_apply_delta": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _i, _p, _p, _p, _p, _p]),
@@ -134,4 +143,46 @@ def load_tiered() -> ctypes.CDLL:
         "yttm_tiered_fold_plan": (_i, [_p, _i, _i, _p, _p, _p, _p, _p]),
         # tok, wid, fills, order, B, NB, tok2, wid2, sig2, stream
         "yttm_tiered_fold_write": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _p, _p]),
+    })
+
+
+def load_stream_train() -> ctypes.CDLL:
+    """Build (if needed) and load the v1 stream trainer's kernels."""
+    return _load("train_stream.cu", "libtrain_stream.so", {
+        # t, wid, freq, M, keys, cnts, cap, ctl, tiles, limit, vocab, stream
+        "yttm_stream_recount": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p, _i, _i, _p]),
+        # t, wid, M, tmp_t, tmp_w, tiles, ctl, cand, work, stream
+        "yttm_stream_apply": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p]),
+    })
+
+
+def load_sparse() -> ctypes.CDLL:
+    """Build (if needed) and load the v3 sparse trainer's kernels."""
+    return _load("train_sparse.cu", "libtrain_sparse.so", {
+        # t, off, fw, W, keys, cnts, cap, ctl, stream
+        "yttm_sparse_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p]),
+        # t, pw, off, fw, W, keys, cnts, cap, ctl, cand, aff, wmark, work,
+        # stream
+        "yttm_sparse_apply": (_i, [_p, _p, _p, _p, _i, _p, _p, _i, _p, _p, _p, _p, _p, _p]),
+    })
+
+
+def load_block() -> ctypes.CDLL:
+    """Build (if needed) and load the v4 block trainer's kernels."""
+    return _load("train_block.cu", "libtrain_block.so", {
+        # tok, wid, freq, B, NB, keys, cnts, cap, ctl, stream
+        "yttm_block_count": (_i, [_p, _p, _p, _i, _i, _p, _p, _i, _p, _p]),
+        # tok, wid, freq, B, NB, rows, KB, keys, cnts, cap, ctl, cand, work,
+        # stream
+        "yttm_block_apply": (_i, [_p, _p, _p, _i, _i, _p, _i, _p, _p, _i, _p, _p, _p, _p]),
+    })
+
+
+def load_bucketed() -> ctypes.CDLL:
+    """Build (if needed) and load the v0 bucketed trainer's kernels."""
+    return _load("train_bucketed.cu", "libtrain_bucketed.so", {
+        # tok, roff, rfreq, R, keys, cnts, cap, ctl, limit, vocab, stream
+        "yttm_bucket_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _i, _i, _p]),
+        # tok, roff, R, ctl, cand, work, stream
+        "yttm_bucket_apply": (_i, [_p, _p, _i, _p, _p, _p, _p]),
     })

@@ -6,9 +6,14 @@ PyTorch counterparts of ``youtokentome_tpu/ops/segment.py``:
   matches" mask into the subset a left-to-right non-overlapping scan
   would merge (even offsets inside each run of consecutive hits, the
   floor(run/2) rule for equal pairs);
-* ``compact_rows`` front-packs the surviving tokens of each row.
+* ``pair_count_mask`` says which adjacent positions count for pair
+  statistics (the same rule for runs of equal tokens);
+* ``compact_rows`` front-packs the surviving tokens of each row;
+* ``apply_merge_rows`` merges one pair in every row (the v0 trainer's
+  apply).
 
-The CUDA encode kernel does both inside a thread block; these are its
+The CUDA encode kernel does the first and third inside a thread block, and
+``csrc/train_bucketed.cu`` the last two a warp a row; these are their
 plain versions.
 """
 
@@ -38,3 +43,25 @@ def compact_rows(vals: torch.Tensor, keep: torch.Tensor, pad_val: int = PAD) -> 
     out = torch.full((b, n + 1), pad_val, dtype=vals.dtype, device=vals.device)
     out.scatter_(1, dest, torch.where(keep, vals, torch.full_like(vals, pad_val)))
     return out[:, :n]
+
+
+def pair_count_mask(left: torch.Tensor, right: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Which adjacent positions count for pair statistics: inside a run of
+    equal tokens only even offsets count (the reference skips i+1 whenever
+    v[i] == v[i+1] == v[i+2]); pairs of unequal tokens always count."""
+    eq = (left == right) & valid
+    return valid & (~eq | select_leftmost_nonoverlapping(eq))
+
+
+def apply_merge_rows(tokens: torch.Tensor, x, y, z) -> torch.Tensor:
+    """Merge occurrences of pair (x, y) -> z in each row [B, L], left to
+    right and non-overlapping, then front-pack each row."""
+    left = tokens[:, :-1]
+    right = tokens[:, 1:]
+    valid = (left != PAD) & (right != PAD)
+    sel = select_leftmost_nonoverlapping(valid & (left == x) & (right == y))
+    pad = torch.zeros((tokens.shape[0], 1), dtype=torch.bool, device=tokens.device)
+    sel_l = torch.cat([sel, pad], dim=1)  # aligned with token i
+    sel_r = torch.cat([pad, sel], dim=1)  # aligned with token i + 1
+    merged = torch.where(sel_l, torch.full_like(tokens, int(z)), tokens)
+    return compact_rows(merged, ~sel_r & (tokens != PAD))

@@ -2,8 +2,9 @@
 
 The JAX program ``youtokentome_tpu/ops/train_delta.py:210
 train_rounds_delta`` sorts the whole stream and the whole table every
-round, because scatters serialise on a TPU.  On a card the round is three
-hand-written CUDA kernels (``csrc/train_delta.cu``) over a state that
+round, because scatters serialise on a TPU.  On a card the round is
+hand-written CUDA (``csrc/train_delta.cu``, and the top-k of
+``csrc/train_topk.cu`` that every trainer but v5 shares) over a state that
 needs no sort:
 
   * a word-laid stream: word w owns ``tok[off[w], off[w+1]-1)``, live
@@ -17,12 +18,16 @@ needs no sort:
   pair_count   count every pair into an empty table (start, and rebuild
                after an overflow)
   topk_accept  top-16 live entries in the reference order, accept_prefix,
-               store_rules; writes ``cand``, ``rules`` and ``ctl``
+               store_rules; writes ``cand``, ``rules``, ``ctl`` and ``work``
+               (v1, v3, v4 and v0, with k = 1, call it too)
   apply_delta  words with a hit: old contributions out, merge, compact,
                new contributions in
 
 ``ctl`` (int32 [8]) holds the round control on the device, so the host
-enqueues rounds in batches and reads ``ctl`` once per batch.  Each wrapper
+enqueues rounds in batches and reads ``ctl`` once per batch.  Every
+trainer's ``ctl`` but v5's opens with the slots USED .. ERROR below
+(``csrc/train_common.cuh``); its own follow from CTL_OWN.  ``work`` (int64)
+sums what the rounds' data gives the kernels, for the bounds.  Each wrapper
 launches its kernel on a CUDA tensor (and counts the launch) and runs its
 plain torch version on a CPU tensor; the plain versions compute the same
 function, so the kernel and its plain version leave the same multiset of
@@ -50,13 +55,68 @@ from .train_stream import (
     store_rules,
 )
 
-USED, DONE, OVERFLOW, ROUND, NACC, NAFF, OCC, ERROR = range(8)
+USED, DONE, OVERFLOW, ROUND, NACC, OCC, ERROR, CTL_OWN = range(8)
+NAFF = CTL_OWN  # v2's own slot: the round's listed words
+# work: summed over the active rounds by the top-k; a trainer's own from W_OWN
+W_ROUNDS, W_OCC, W_SLOTS, W_OWN = range(4)
 EMPTY = -1  # int64 all ones: the key of an empty slot
 K_MAX = 16  # the kernels' candidates per round
 
 
-class TrainState:
+class TableState:
+    """The open-addressing pair-count table of a kernel trainer's state:
+    ``keys`` (int64, EMPTY when free) and ``cnts`` (int32) of ``cap``
+    slots, with the top-k's per-block scratch, and the round control.  The
+    state sets ``device``; ``n_own`` of its ``ctl`` slots from CTL_OWN start
+    every round at 0."""
+
+    n_own = 0
+
+    def control(self, rules, used: int, ctl_n: int = 8):
+        """``rules`` (a copy), ``ctl``, ``cand`` and ``work`` on the device."""
+        dev = self.device
+        self.rules = torch.from_numpy(np.array(rules, np.int32)).to(dev)
+        self.ctl = torch.zeros(ctl_n, dtype=torch.int32, device=dev)
+        self.ctl[USED] = used
+        self.cand = torch.zeros((K_MAX, 4), dtype=torch.int32, device=dev)
+        self.work = torch.zeros(8, dtype=torch.int64, device=dev)
+
+    def resize(self, cap: int):
+        """An empty table of ``cap`` slots (a power of two)."""
+        self.cap = cap
+        self.keys = torch.full((cap,), EMPTY, dtype=torch.int64, device=self.device)
+        self.cnts = torch.zeros(cap, dtype=torch.int32, device=self.device)
+        # top-k pass 1: one block per 4096 slots, at most 256 blocks
+        self.n_blk = max(1, min(256, cap // 4096))
+        self.blk_k = torch.empty(self.n_blk * K_MAX, dtype=torch.int64, device=self.device)
+        self.blk_c = torch.empty(self.n_blk * K_MAX, dtype=torch.int32, device=self.device)
+
+    def table(self):
+        """The table's slots as a sorted (key, count) multiset (numpy),
+        count-0 slots included."""
+        keys = self.keys.cpu().numpy()
+        cnts = self.cnts.cpu().numpy()
+        used = keys != EMPTY
+        order = np.argsort(keys[used], kind="stable")
+        return keys[used][order], cnts[used][order]
+
+
+def initial_cap(m: int) -> int:
+    """A kernel engine's first table: twice ``YTTM_TRAIN_PCAP`` slots when
+    it is set, else a 32nd of the stream's ``m`` slots (at least 2^14)."""
+    pcap = int(os.environ.get("YTTM_TRAIN_PCAP", "0"))
+    return _next_pow2(2 * pcap) if pcap else _next_pow2(max(1 << 14, m >> 5))
+
+
+def rules_used(rules, used_ids0: int) -> int:
+    """The ids a (possibly resumed) rule array already holds."""
+    return int(np.count_nonzero(np.asarray(rules)[:, 2] >= 0)) + used_ids0
+
+
+class TrainState(TableState):
     """The kernel trainer's state on one device (see the module note)."""
+
+    n_own = 1  # NAFF
 
     def __init__(self, t, wid, freq, rules, used: int, cap: int, device):
         t = np.asarray(t)
@@ -89,23 +149,10 @@ class TrainState:
         self.pwid = torch.from_numpy(pwid).to(dev)
         self.off = torch.from_numpy(off.astype(np.int32)).to(dev)
         self.fw = torch.from_numpy(freq[self.wids]).to(dev)
-        self.rules = torch.from_numpy(np.array(rules, np.int32)).to(dev)  # a copy
-        self.ctl = torch.zeros(8, dtype=torch.int32, device=dev)
-        self.ctl[USED] = used
-        self.cand = torch.zeros((K_MAX, 4), dtype=torch.int32, device=dev)
+        self.control(rules, used)
         self.aff = torch.zeros(max(n_words, 1), dtype=torch.int32, device=dev)
         self.wmark = torch.zeros(max(n_words, 1), dtype=torch.int32, device=dev)
         self.resize(cap)
-
-    def resize(self, cap: int):
-        """An empty table of ``cap`` slots (a power of two)."""
-        self.cap = cap
-        self.keys = torch.full((cap,), EMPTY, dtype=torch.int64, device=self.device)
-        self.cnts = torch.zeros(cap, dtype=torch.int32, device=self.device)
-        # top-k pass 1: one block per 4096 slots, at most 256 blocks
-        self.n_blk = max(1, min(256, cap // 4096))
-        self.blk_k = torch.empty(self.n_blk * K_MAX, dtype=torch.int64, device=self.device)
-        self.blk_c = torch.empty(self.n_blk * K_MAX, dtype=torch.int32, device=self.device)
 
     def stream(self):
         """The live stream, front-compacted as the JAX trainer keeps it:
@@ -113,15 +160,6 @@ class TrainState:
         live = self.tok >= 0
         wids = torch.from_numpy(self.wids).to(self.device)
         return self.tok[live], wids[self.pwid[live].long()]
-
-    def table(self):
-        """The table's slots as a sorted (key, count) multiset (numpy),
-        count-0 slots included."""
-        keys = self.keys.cpu().numpy()
-        cnts = self.cnts.cpu().numpy()
-        used = keys != EMPTY
-        order = np.argsort(keys[used], kind="stable")
-        return keys[used][order], cnts[used][order]
 
 
 # -- plain torch versions -----------------------------------------------------
@@ -174,11 +212,19 @@ def pair_count_plain(st: TrainState):
     _table_update(st, counted_keys[counted], w[counted])
 
 
-def topk_accept_plain(st: TrainState, limit: int, vocab_size: int, used_ids0: int, k: int):
+def round_active(st, limit: int, vocab_size: int) -> bool:
+    """The round loop of a kernel state still runs: not done, no overflow,
+    and ``used`` below ``min(vocab_size, limit)``."""
     used, done, overflow = (int(v) for v in st.ctl[[USED, DONE, OVERFLOW]].tolist())
-    if done or overflow or used >= min(vocab_size, limit):
+    return not done and not overflow and used < min(vocab_size, limit)
+
+
+def topk_accept_plain(st: TableState, limit: int, vocab_size: int, used_ids0: int, k: int):
+    st.ctl[CTL_OWN : CTL_OWN + st.n_own] = 0
+    if not round_active(st, limit, vocab_size):
         st.ctl[NACC] = 0
         return
+    used = int(st.ctl[USED])
     live = st.keys != EMPTY
     xs = torch.where(live, st.keys >> 32, torch.zeros_like(st.keys)).to(torch.int32)
     ys = torch.where(live, st.keys & 0xFFFFFFFF, torch.zeros_like(st.keys)).to(torch.int32)
@@ -190,7 +236,9 @@ def topk_accept_plain(st: TrainState, limit: int, vocab_size: int, used_ids0: in
     st.ctl[DONE] = int(n_acc == 0)
     st.ctl[NACC] = n_acc
     st.ctl[ROUND] += 1
-    st.ctl[NAFF] = 0
+    st.work[W_ROUNDS] += 1
+    st.work[W_OCC] += int(st.ctl[OCC])
+    st.work[W_SLOTS] += st.cap
 
 
 def apply_delta_plain(st: TrainState):
@@ -280,20 +328,21 @@ def pair_count(st: TrainState):
     pair_count.launches += 1
 
 
-def topk_accept(st: TrainState, limit: int, vocab_size: int, used_ids0: int, k: int = K_MAX):
-    """One round's candidates and acceptance (no-op once the round loop
-    stopped: done, overflow, or ``used`` at ``min(vocab_size, limit)``)."""
+def topk_accept(st: TableState, limit: int, vocab_size: int, used_ids0: int, k: int = K_MAX):
+    """One round's candidates and acceptance, for every trainer but v5 (a
+    no-op once the round loop stopped: done, overflow, or ``used`` at
+    ``min(vocab_size, limit)``); zeroes the state's own ``n_own`` slots."""
     if not 0 < k <= K_MAX:
         raise ValueError(f"batch_k must be in 1..{K_MAX}, got {k}")
     if not _on(st, "topk_accept"):
         return topk_accept_plain(st, limit, vocab_size, used_ids0, k)
-    lib = _cuda.load_train()
+    lib = _cuda.load_topk()
     with torch.cuda.device(st.device):
-        err = lib.yttm_train_topk_accept(
+        err = lib.yttm_topk_accept(
             st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.blk_k.data_ptr(),
             st.blk_c.data_ptr(), st.n_blk, st.ctl.data_ptr(), st.cand.data_ptr(),
             st.rules.data_ptr(), int(limit), int(vocab_size), int(used_ids0), int(k),
-            _stream_ptr(st.device),
+            st.n_own, st.work.data_ptr(), _stream_ptr(st.device),
         )
     _check(err, "topk_accept")
     topk_accept.launches += 1
@@ -325,25 +374,16 @@ apply_delta.launches = 0
 # -- host loop ----------------------------------------------------------------
 
 
-class KernelEngine:
-    """Segments of rounds through the three kernels, for
-    ``train_delta.run_training_delta``.  The table starts at a 32nd of the
-    stream's length (at least 2^14 slots; ``YTTM_TRAIN_PCAP`` sets it to
-    twice that pcap instead) and doubles until the first count fits in half
-    of it; it is rebuilt when an insert finds it more than half full
-    (``regrow``)."""
+class TableEngine:
+    """The host loop of a kernel engine that keeps its exact table across
+    rounds (v2 here, v3 in ``sparse_kernels``, v4 in ``block_kernels``):
+    the first count doubles the table until it fits in half of it,
+    rounds are enqueued in batches with ``ctl`` read once a batch, and an
+    overflow rebuilds the table.  A subclass sets ``st``, ``vocab_size``,
+    ``used_ids0`` and ``batch_k`` and defines ``count()`` (empty the table
+    and count the stream into it) and ``round(limit)``."""
 
-    def __init__(self, t, wid, freq, rules, used_ids0, vocab_size, batch_k, device):
-        self.vocab_size = vocab_size
-        self.used_ids0 = used_ids0
-        self.batch_k = batch_k
-        m = int(np.asarray(t).shape[0])
-        pcap = int(os.environ.get("YTTM_TRAIN_PCAP", "0"))
-        cap = _next_pow2(2 * pcap) if pcap else _next_pow2(max(1 << 14, m >> 5))
-        used = int(np.count_nonzero(np.asarray(rules)[:, 2] >= 0)) + used_ids0
-        self.st = TrainState(t, wid, freq, rules, used, cap, device)
-        self.rebuilds = 0
-        self._count()
+    rebuilds = 0
 
     @property
     def rules(self):
@@ -351,7 +391,7 @@ class KernelEngine:
 
     def _count(self):
         while True:
-            pair_count(self.st)
+            self.count()
             if not int(self.st.ctl[OVERFLOW]):
                 return
             self.st.resize(self.st.cap * 2)
@@ -364,8 +404,7 @@ class KernelEngine:
             # rounds never run past the segment's end
             n = max(1, math.ceil((limit - used) / self.batch_k)) if on_card else 1
             for _ in range(n):
-                topk_accept(st, limit, self.vocab_size, self.used_ids0, self.batch_k)
-                apply_delta(st)
+                self.round(limit)
             used, done, overflow, error = (
                 int(v) for v in st.ctl[[USED, DONE, OVERFLOW, ERROR]].tolist()
             )
@@ -383,6 +422,28 @@ class KernelEngine:
         n_live = int((self.st.cnts > 0).sum())
         self.st.resize(self.st.cap * 2 if 4 * n_live > self.st.cap else self.st.cap)
         self._count()
+
+
+class KernelEngine(TableEngine):
+    """Segments of rounds through the three kernels, for
+    ``train_delta.run_training_delta``.  The table starts at
+    ``initial_cap`` slots; it is rebuilt when an insert finds it more than
+    half full (``regrow``)."""
+
+    def __init__(self, t, wid, freq, rules, used_ids0, vocab_size, batch_k, device):
+        self.vocab_size = vocab_size
+        self.used_ids0 = used_ids0
+        self.batch_k = batch_k
+        cap = initial_cap(int(np.asarray(t).shape[0]))
+        self.st = TrainState(t, wid, freq, rules, rules_used(rules, used_ids0), cap, device)
+        self._count()
+
+    def count(self):
+        pair_count(self.st)
+
+    def round(self, limit: int):
+        topk_accept(self.st, limit, self.vocab_size, self.used_ids0, self.batch_k)
+        apply_delta(self.st)
 
     def stream(self):
         t, wid = self.st.stream()

@@ -1,16 +1,18 @@
-"""Flat-stream training primitives, in plain torch.
+"""Flat-stream training: the shared primitives and the v1 trainer.
 
-PyTorch counterpart of what the v2 delta trainer takes from
-``youtokentome_tpu/ops/train_stream.py`` (the v1 round loop
-``train_rounds_resumable`` comes with a later slice):
+PyTorch counterpart of ``youtokentome_tpu/ops/train_stream.py``:
 
   state:  t [M] int32   concatenated unique words (space-prefixed)
           wid [M] int32 word id per token (-1 padding)
           freq [WCAP]   occurrence count per word id
 
-Every function runs on any device and computes exactly what its JAX
-namesake computes; the CUDA kernels of the trainer (``ops/train_kernels.py``)
-are held against these.  Pair keys are int64 ``x << 32 | y`` here and in
+The v1 trainer recounts every pair each round (``_segment_counts_flat``),
+takes the tie-ordered top-k, accepts a prefix, applies it and compacts the
+stream (``train_rounds_resumable``, its plain round loop);
+``run_training_stream`` is its host loop, by default through the kernels
+of ``ops/stream_train_kernels.py``.  Every function runs on any device and
+computes exactly what its JAX namesake computes; the CUDA kernels of the
+trainers are held against these.  Pair keys are int64 ``x << 32 | y`` here and in
 the trainer: torch has no ``>>`` on uint32 on the CPU, and one layout
 serves every vocab size.  ``flatten_word_buckets`` and the snapshot files
 are the JAX package's, byte for byte, so either package resumes the
@@ -19,7 +21,9 @@ other's checkpoints.
 
 from __future__ import annotations
 
-from typing import Tuple
+import sys
+import time
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +76,31 @@ def pair_keys_and_weights_fw(t, wid, fw):
     w = torch.where(counted, fw, torch.zeros_like(fw)).to(torch.int32)
     big = torch.full_like(t, BIG)
     return torch.where(valid, t, big), torch.where(valid, nxt_t, big), w
+
+
+def pair_keys_and_weights(t, wid, freq):
+    """``pair_keys_and_weights_fw`` with the weights gathered from the word
+    frequencies."""
+    return pair_keys_and_weights_fw(t, wid, freq[wid.clamp(min=0).long()])
+
+
+def _segment_counts_flat(kx, ky, wf):
+    """Sorted reduce-by-key of the pair keys: (cnt, x, y) in key order,
+    each key's total at the last entry of its segment and 0 elsewhere
+    (invalid BIG keys sort last and total 0)."""
+    key = (kx.long() << 32) | ky.long()
+    key_s, order = torch.sort(key)
+    w_s = wf[order].long()
+    is_end = torch.ones_like(key_s, dtype=torch.bool)
+    is_end[:-1] = key_s[1:] != key_s[:-1]
+    cw = torch.cumsum(w_s, 0)
+    ends = torch.nonzero(is_end).flatten()
+    tot = torch.diff(cw[ends], prepend=torch.zeros(1, dtype=cw.dtype, device=cw.device))
+    cnt = torch.zeros_like(w_s)
+    cnt[ends] = tot
+    kx_s = (key_s >> 32).to(torch.int32)
+    cnt = torch.where(kx_s != BIG, cnt, torch.zeros_like(cnt))
+    return cnt.to(torch.int32), kx_s, (key_s & 0xFFFFFFFF).to(torch.int32)
 
 
 def accept_prefix(cc, cx, cy, used, vocab_size, kb, min_count=None):
@@ -168,6 +197,31 @@ def _topk_candidates(cnt, xs, ys, k):
     return cc, cx, cy
 
 
+def train_rounds_resumable(t, wid, freq, rules, used, used_ids0, limit, vocab_size, batch_k=16):
+    """Merge rounds until ``used`` reaches ``min(vocab_size, limit)`` or no
+    candidate is accepted (done).  Plain torch version of the JAX program
+    on any device: each round counts every pair of the front-compacted
+    stream ``t``/``wid`` [M] int32, takes the top ``batch_k`` candidates,
+    accepts the longest non-intersecting prefix, merges it and compacts
+    the stream; ``rules`` [vocab_size, 4] int32 is updated in place.
+    Returns (t, wid, rules, used, done)."""
+    used = int(used)
+    t = t.to(torch.int32)
+    wid = wid.to(torch.int32)
+    done = False
+    while not done and used < min(vocab_size, int(limit)):
+        kx, ky, w = pair_keys_and_weights(t, wid, freq)
+        cnt, xs, ys = _segment_counts_flat(kx, ky, w)
+        cc, cx, cy = _topk_candidates(cnt, xs, ys, batch_k)
+        acc, zs, n_acc = accept_prefix(cc, cx, cy, used, vocab_size, batch_k)
+        done = n_acc == 0
+        if n_acc:  # with nothing accepted the compacted stream stays as it is
+            t, wid = apply_accepted(t, wid, acc, cx, cy, zs)
+        store_rules(rules, acc, cx, cy, cc, zs, int(used_ids0), vocab_size)
+        used += n_acc
+    return t, wid, rules, used, done
+
+
 def flatten_word_buckets(buckets) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """[(tokens [W, L], freq [W])...] -> (t [M], wid [M], freq [WCAP]).
 
@@ -257,3 +311,116 @@ def load_snapshot(path, used_ids0: int, vocab_size: int):
     stored = np.asarray(snap["rules"], np.int32)
     rules_h[: stored.shape[0], : stored.shape[1]] = stored[: used - used_ids0]
     return tp, wp, freq, rules_h, used
+
+
+def run_segments(engine, used: int, used_ids0: int, vocab_size: int, seg: int,
+                 progress_every: int = 0, checkpoint_path=None, checkpoint_every: int = 0,
+                 progress_cb=None, detail=None) -> int:
+    """The JAX package's host loop over segments of at most ``seg`` ids:
+    after an overflow the engine regrows and the segment runs again; after
+    each segment come the merge log, the progress line (``detail()`` adds
+    to it) and the checkpoint.  ``engine`` has ``segment(used, limit) ->
+    (used, done, overflow)``, ``regrow()``, ``rules`` and ``stream()``.
+    Returns ``used``."""
+    t_start = time.time()
+    while used < vocab_size:
+        limit = min(vocab_size, used + seg)
+        used, done, overflow = engine.segment(used, limit)
+        if overflow:
+            engine.regrow()
+            continue
+        if progress_cb:
+            progress_cb(engine.rules.cpu().numpy(), used)
+        if progress_every:
+            n_merges = used - used_ids0
+            dt = time.time() - t_start
+            print(
+                f"id: {used}/{vocab_size}  merges: {n_merges}  "
+                f"({dt:.1f}s, {n_merges / max(dt, 1e-9):.0f} merges/s"
+                f"{detail() if detail else ''})",
+                file=sys.stderr,
+            )
+        if checkpoint_path and checkpoint_every and used < vocab_size:
+            st_t, st_w, st_f = engine.stream()
+            save_snapshot(checkpoint_path, st_t, st_w, st_f, engine.rules, used, used_ids0)
+        if done:
+            break
+    return used
+
+
+def segment_ids(progress_every: int, checkpoint_every: int, progress_cb, vocab_size: int) -> int:
+    """The JAX host loops' segment length: the smallest of the progress and
+    checkpoint intervals, 1000 with the merge log, and the vocab size."""
+    return min(
+        x for x in (progress_every, checkpoint_every, 1000 if progress_cb else 0, vocab_size) if x
+    )
+
+
+def learned_rules(rules: torch.Tensor, used: int, used_ids0: int, vocab_size: int):
+    """The (x, y, z) rule list, with the JAX host loops' early-stop warning."""
+    n = used - used_ids0
+    if n < vocab_size - used_ids0:
+        print(f"WARNING merged only: {used} pairs of tokens", file=sys.stderr)
+    return [tuple(map(int, r)) for r in rules[:n, :3].cpu().numpy()]
+
+
+class PlainStreamEngine:
+    """Segments of ``train_rounds_resumable`` (never an overflow: v1 keeps
+    no table across rounds)."""
+
+    def __init__(self, t, wid, freq, rules, used_ids0, vocab_size, batch_k, device):
+        self.vocab_size, self.used_ids0, self.batch_k = vocab_size, used_ids0, batch_k
+        self.t = torch.from_numpy(np.array(t, np.int32)).to(device)
+        self.wid = torch.from_numpy(np.array(wid, np.int32)).to(device)
+        self.freq = torch.from_numpy(np.array(freq, np.int32)).to(device)
+        self.rules = torch.from_numpy(np.array(rules, np.int32)).to(device)
+
+    def segment(self, used: int, limit: int):
+        self.t, self.wid, self.rules, used, done = train_rounds_resumable(
+            self.t, self.wid, self.freq, self.rules, used, self.used_ids0, limit,
+            self.vocab_size, self.batch_k,
+        )
+        return used, done, False
+
+    def stream(self):
+        return self.t, self.wid, self.freq
+
+
+def run_training_stream(
+    buckets,
+    used_ids0: int,
+    vocab_size: int,
+    batch_k: int = 16,
+    progress_every: int = 0,
+    checkpoint_path: str | None = None,
+    checkpoint_every: int = 0,
+    resume_path: str | None = None,
+    progress_cb=None,
+    device="cpu",
+    plain: bool = False,
+) -> List[Tuple[int, int, int]]:
+    """The v1 host loop, with the JAX package's contract: segments of at
+    most ``progress_every``, ``checkpoint_every`` or 1000 ids (the merge
+    log), and after each the merge log, the progress line and the
+    checkpoint (the shared snapshot files).  ``device`` holds the training
+    state; ``plain`` picks the plain round loop over the kernels."""
+    if not buckets:
+        print(f"WARNING merged only: {used_ids0} pairs of tokens", file=sys.stderr)
+        return []
+    if resume_path:
+        t, wid, freq, rules, used = load_snapshot(resume_path, used_ids0, vocab_size)
+    else:
+        t, wid, freq = flatten_word_buckets(buckets)
+        rules = np.full((vocab_size, 4), -1, dtype=np.int32)
+        used = used_ids0
+    if plain:
+        engine_cls = PlainStreamEngine
+    else:
+        from .stream_train_kernels import StreamKernelEngine as engine_cls
+    engine = engine_cls(t, wid, freq, rules, used_ids0, vocab_size, batch_k, torch.device(device))
+    used = run_segments(
+        engine, used, used_ids0, vocab_size,
+        segment_ids(progress_every, checkpoint_every, progress_cb, vocab_size),
+        progress_every, checkpoint_path, checkpoint_every, progress_cb,
+    )
+    return learned_rules(engine.rules, used, used_ids0, vocab_size)

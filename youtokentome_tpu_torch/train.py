@@ -5,17 +5,18 @@ PyTorch counterpart of ``youtokentome_tpu/train.py``:
   read file -> UTF-8 decode (vectorized)            host    host/utf8.py
   char frequencies + coverage alphabet              host    host/preprocess.py
   word split + exact dedup + id mapping             host    host/preprocess.py
-  merge rounds (v5 tiered / v2 delta trainer)       device  ops/train_tiered.py,
-                                                            ops/tiered_kernels.py,
-                                                            ops/train_delta.py,
-                                                            ops/train_kernels.py
+  merge rounds (one device)                         device  ops/train_*.py and
+                                                            their kernels
   special-id renaming + model dump                  host    rename_tokens
 
 Training runs on ``cuda`` unless the caller asks for ``cpu``; on the CPU
 the kernels' plain torch versions run the rounds.  ``YTTM_TRAIN_IMPL``
-takes ``auto`` (as the JAX package on one device: the v5 tiered trainer
-at 2^22 or more live tokens, the v2 delta trainer below), ``tiered`` and
-``delta``.
+picks the trainer as the JAX package does on one device: ``auto`` (the v5
+tiered trainer at 2^22 or more live tokens, the v2 delta trainer below),
+``tiered`` (v5), ``delta`` (v2), ``sparse`` (v3 tombstones), ``stream``
+(v1, a full recount every round) and ``block`` (v4); any other value
+trains with v2.  All give the same rules; v1, v3 and v4 are independent
+checks of v2 and v5.
 """
 
 from __future__ import annotations
@@ -31,20 +32,15 @@ from .encoder import resolve_device
 from .host import preprocess
 from .host.utf8 import decode_utf8_bytes
 from .models.state import BPEState, BpeConfig, SpecialTokens, check_config
+from .ops.train_block import run_training_block
 from .ops.train_delta import run_training_delta
+from .ops.train_sparse import run_training_sparse
+from .ops.train_stream import run_training_stream
 from .ops.train_tiered import run_training_tiered
 
 # live tokens at and above which ``auto`` takes the tiered trainer
 # (youtokentome_tpu/train.py:136-144)
 TIERED_MIN_TOKENS = 1 << 22
-
-# the trainers of the JAX package that are not ported yet, and the
-# ROADMAP.md item (queue 1) that ports each
-_NOT_PORTED = {
-    "block": "queue 1 item 7 (differential trainers)",
-    "sparse": "queue 1 item 7 (differential trainers)",
-    "stream": "queue 1 item 7 (differential trainers)",
-}
 
 
 def rename_tokens(
@@ -73,13 +69,6 @@ def train_from_codepoints(
 ) -> BPEState:
     config = check_config(config, vocab_size)
     impl = os.environ.get("YTTM_TRAIN_IMPL", "auto")
-    if impl in _NOT_PORTED:
-        raise NotImplementedError(
-            f"YTTM_TRAIN_IMPL={impl} is not ported to the torch package yet "
-            f"(ROADMAP.md, {_NOT_PORTED[impl]}); use auto, tiered or delta"
-        )
-    if impl not in ("auto", "tiered", "delta"):
-        raise ValueError(f"unknown YTTM_TRAIN_IMPL={impl!r}")
     dev = resolve_device(device)
     special = config.special_tokens
     n_specials = special.n_special_tokens()
@@ -108,12 +97,20 @@ def train_from_codepoints(
         )
 
     buckets = preprocess.training_word_buckets(cps, alphabet)
-    tiered = impl == "tiered" or (
-        impl == "auto" and sum(int((mat >= 0).sum()) for mat, _ in buckets) >= TIERED_MIN_TOKENS
-    )
-    # run_training_tiered falls back to delta itself when a word exceeds
-    # the block cap
-    rules = (run_training_tiered if tiered else run_training_delta)(
+    if impl == "auto":
+        tiered = sum(int((mat >= 0).sum()) for mat, _ in buckets) >= TIERED_MIN_TOKENS
+        impl = "tiered" if tiered else "delta"
+    # YTTM_TRAIN_IMPL -> its trainer (youtokentome_tpu/train.py:128-146); an
+    # unknown name trains with v2, as in the JAX package; the tiered and
+    # block trainers fall back to v2 themselves when a word exceeds their
+    # block cap
+    trainer = {
+        "sparse": run_training_sparse,
+        "stream": run_training_stream,
+        "block": run_training_block,
+        "tiered": run_training_tiered,
+    }.get(impl, run_training_delta)
+    rules = trainer(
         buckets,
         used_ids0,
         vocab_size,
