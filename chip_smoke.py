@@ -8,8 +8,9 @@ builds the port's kernels from the sources, holds every kernel against
 its plain torch version (and the encode kernel against the C++ host
 merger), drives the encode path at the full width of a vocab-30000 model
 over a 100 MB corpus, trains a vocab-30000 model on the same corpus with
-the v2 and the v5 trainers and the four differential trainers, and prints
-timings.  Phases, in order (any failure exits nonzero):
+the v2 and the v5 trainers, the four differential trainers and v2 sharded
+over a 4-shard data mesh on the one card, and prints timings.  Phases, in
+order (any failure exits nonzero):
 
   1. device and build: the card's name and power limit; nvcc/g++ builds
   2. kernel vs plain version: random rows for every cap 8..512 at
@@ -82,6 +83,23 @@ timings.  Phases, in order (any failure exits nonzero):
      rules equal to phase 5's v2 rules; times (merge loop, merges/s, each
      kernel's device ms) and bounds from the work each run's data gave the
      kernels; the plain versions timed over each run's first ids
+ 10. the data mesh, 4 shards on card 0 (one card: the sharded engine and its
+     exchange, not multi-card scaling).  Encode (row 11, run after phase 8):
+     every main-path chunk through the sharded route equals the one-device
+     kernel; ``BPE.encode(lines)`` through an Encoder on the mesh gives
+     phase 3's ids; times and bounds.  Training (rows 12a-b, run after
+     phase 9; csrc/train_delta_sharded.cu): on the 100 MB state,
+     delta_emit, shard_recount and shard_fold each equal their plain
+     versions for two rounds in both branches (the recount branch forced by
+     a tiny dcap), and shard_relay at the first re-pack; the 10 MB prefix at
+     vocab 8000 with 2 and 4 shards, the kernel engine and the plain sharded
+     loop in lockstep (tiny dcap, small kernel tables: recount rounds and
+     rebuilds), every replica's table equal to the plain loop's live table
+     at every segment end; the main path ``train.train(corpus, model,
+     30000, mesh=...)`` with no knob takes the sharded trainer, launches
+     counted, rules equal to phase 5's v2 rules; times (merge loop,
+     merges/s, recount rounds, exchange volume), each kernel's device ms,
+     bounds from the run's work counters, plain versions over its first ids
 
 The second-to-last line is a JSON ``kernels`` record, the line before
 it the card; the last line is ``{"ok": true, "device": {...}}``.  It
@@ -150,12 +168,12 @@ def phase_device_and_build() -> dict:
     log(f"[1] card: {card}")
     t0 = time.perf_counter()
     # one compiler per source, all started together
-    with ThreadPoolExecutor(12) as ex:
+    with ThreadPoolExecutor(13) as ex:
         futs = [ex.submit(f) for f in (_cuda.load, _cuda.load_dropout, _cuda.load_stream,
                                        _cuda.load_topk, _cuda.load_train, _cuda.load_tiered,
                                        _cuda.load_stream_train, _cuda.load_sparse,
-                                       _cuda.load_block, _cuda.load_bucketed, fasttok._load,
-                                       fastio._load)]
+                                       _cuda.load_block, _cuda.load_bucketed,
+                                       _cuda.load_sharded, fasttok._load, fastio._load)]
         for f in futs:
             f.result()
     build_s = time.perf_counter() - t0
@@ -573,7 +591,7 @@ def phase_times(card: str, kchk: dict, main: dict) -> list:
         p_ms = event_ms(lambda: [fp(x) for x in xs], 1)
         b_ms = elems * nb / HBM_BYTES_PER_S * 1e3
         rows.append({"name": name, "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_ms, ops_ms),
-                     "bound_by": "bytes" if b_ms >= ops_ms else "operations"})
+                     "bound_by": "bytes" if b_ms >= ops_ms else "operations", "ops_ms": ops_ms})
         log(f"[4] main-path inputs ({len(xs)} launches, shapes {shapes}): {name} "
             f"kernel {k_ms:.4f} ms, bytes bound {b_ms:.5f} ms, plain {p_ms:.3f} ms")
     mp = main["main_path"]
@@ -2471,6 +2489,518 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str) 
     return {"rows": rows, "times": res}
 
 
+# -- phase 10: the data mesh (sharded encode, sharded v2 training) -----------
+
+SHARDS = 4  # shards of the data mesh, all on card 0
+SHARD_SOURCE = "youtokentome_tpu_torch/csrc/train_delta_sharded.cu"
+SHARD_KERNELS = ("delta_emit", "shard_recount", "shard_fold", "shard_relay")
+# the device functions of each wrapper, as the profiler names them
+SHARD_DEVICE_FNS = {
+    "topk_accept": ("topk_blocks_kernel", "topk_accept_kernel"),
+    "delta_emit": ("mark_words_kernel", "emit_words_kernel"),
+    "shard_recount": ("recount_clear_kernel", "recount_kernel"),
+    "shard_fold": ("fold_prep_kernel", "fold_kernel"),
+    "shard_relay": ("relay_len_kernel", "relay_write_kernel", "tile_sums_kernel",
+                    "tile_offsets_kernel", "scan_apply_kernel"),
+}
+SHARD_REPLACES = {
+    "topk_accept": "youtokentome_tpu/parallel/train_delta_sharded.py:81",
+    "delta_emit": "youtokentome_tpu/parallel/train_delta_sharded.py:81",
+    "shard_recount": "youtokentome_tpu/parallel/train_delta_sharded.py:81",
+    "shard_fold": "youtokentome_tpu/parallel/train_delta_sharded.py:81",
+    "shard_relay": "youtokentome_tpu/parallel/train_delta_sharded.py:212",
+}
+SHARD_ENCODE_REPLACES = "youtokentome_tpu/parallel/encode_sharded.py:40"
+MID_DCAP = 64  # the 10 MB lockstep's delta buffers: most rounds take the recount branch
+SHARD_PLAIN_IDS = 200  # ids the plain versions are timed over
+SHARD_PLAIN_EVERY = 4  # the sharded merge's plain version is timed on every 4th chunk
+
+
+def card_mesh(n: int = SHARDS, dev="cuda:0"):
+    """n shards, all on ``dev``."""
+    from youtokentome_tpu_torch.parallel.mesh import DataMesh
+
+    return DataMesh([dev] * n)
+
+
+def phase_shard_encode(main: dict, lines, times: list, card: str, dev="cuda:0") -> dict:
+    """Row 11: the greedy merges sharded over 4 shards on the card.  Every
+    main-path chunk through the sharded route (int32 and uint16 wire, and
+    encode_batch_sharded's padding) equals the one-device kernel; the main
+    path ``BPE.encode(lines)`` through an Encoder on the mesh gives phase
+    3's ids, its merges launched through the sharded route; the merge
+    kernel's device ms over the main path's chunks (torch.profiler), and
+    over every SHARD_PLAIN_EVERY-th chunk beside the plain version's on
+    those chunks' shards."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import youtokentome_tpu_torch as yttm
+    from youtokentome_tpu_torch.encoder import DEVICE_BATCH, Encoder
+    from youtokentome_tpu_torch.ops import encode_kernel as ek
+    from youtokentome_tpu_torch.parallel import encode_sharded as es
+
+    mesh = card_mesh(dev=dev)
+    tables, unk = main["tables"], main["unk"]
+    chunks = [np.ascontiguousarray(mat[c0 : c0 + DEVICE_BATCH])
+              for _, mat in main["buckets"] for c0 in range(0, mat.shape[0], DEVICE_BATCH)]
+    check(all(c.shape[0] % SHARDS == 0 for c in chunks), "a main-path chunk does not split")
+    x16 = [torch.from_numpy(ek.pack_tokens_u16(c)).to(dev) for c in chunks]
+    for c, x in zip(chunks, x16):
+        x32 = torch.from_numpy(c).to(dev)
+        check(torch.equal(torch.cat(es.encode_greedy_sharded(tables, x32, mesh)),
+                          ek.encode_greedy(tables, x32)), "sharded int32 merge != one device")
+        check(torch.equal(torch.cat(es.encode_greedy_sharded_u16(tables, x, unk, mesh)),
+                          ek.encode_greedy_u16(tables, x, unk)), "sharded u16 merge != one device")
+    odd = chunks[0][: chunks[0].shape[0] - 1]
+    check(np.array_equal(es.encode_batch_sharded(tables, odd, mesh),
+                         ek.encode_greedy(tables, torch.from_numpy(odd).to(dev)).cpu().numpy()),
+          "encode_batch_sharded (padded rows) != one device")
+    log(f"[10] sharded merges ({SHARDS} shards on cuda:0) == one device on all {len(chunks)} "
+        f"main-path chunks, int32 and u16, and a padded batch")
+
+    # the main path, counted
+    calls = []
+    route = es.encode_greedy_sharded_u16
+
+    def spy(*a):
+        calls.append(1)
+        return route(*a)
+
+    bpe = yttm.BPE(str(main["model_path"]), device=dev)
+    bpe._encoder = Encoder(main["state"], device=dev, mesh=mesh)
+    ek.encode_greedy_u16.launches = 0
+    with swapped(es, encode_greedy_sharded_u16=spy):
+        ids, enc_s = timed(lambda: bpe.encode(lines))
+    launches = ek.encode_greedy_u16.launches
+    check(ids == main["ids"], "the sharded encode's ids != phase 3's")
+    check(len(calls) > 0 and launches == SHARDS * len(calls),
+          f"the sharded encode launched {launches} merges in {len(calls)} sharded calls")
+    n_bytes = len(main["blob"])
+    log(f"[10] BPE.encode over {n_bytes} bytes with a {SHARDS}-shard mesh: ids == phase 3's; "
+        f"{len(calls)} sharded merges, {launches} kernel launches; {n_bytes / 1e6 / enc_s:.2f} MB/s "
+        f"({card})")
+    del ids
+
+    # the merge kernel's device ms from torch.profiler: through the sharded
+    # route and on one device over every main-path chunk, and through the
+    # sharded route over every SHARD_PLAIN_EVERY-th chunk, the chunks the
+    # plain version is timed on
+    def merge_ms(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return profiled_ms(prof, ("encode_greedy_kernel",))
+
+    k_ms = merge_ms(lambda: [es.encode_greedy_sharded_u16(tables, x, unk, mesh) for x in x16])
+    one_ms = merge_ms(lambda: [ek.encode_greedy_u16(tables, x, unk) for x in x16])
+    part = x16[::SHARD_PLAIN_EVERY]
+    part_ms = merge_ms(lambda: [es.encode_greedy_sharded_u16(tables, x, unk, mesh) for x in part])
+    check(min(k_ms, one_ms, part_ms) > 0, "the profiler recorded no device time for the merge")
+    _, p_ms = synced(lambda: [ek.encode_greedy_u16_plain(tables, p, unk)
+                              for x in part for p in x.chunk(SHARDS)])
+    row2 = next(t for t in times if t["name"] == "encode_greedy_u16")
+    elems = sum(c.size for c in chunks)
+    b_ms = elems * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = row2["ops_ms"]
+    row = {"name": "encode_greedy_u16_sharded", "launches": launches, "ms": k_ms, "plain_ms": p_ms,
+           "plain_chunks": len(part), "prefix_ms": part_ms, "bound_ms": max(b_ms, ops_ms),
+           "bound_by": "bytes" if b_ms >= ops_ms else "operations"}
+    log(f"[10] sharded u16 merge over the main path's {len(x16)} chunks ({SHARDS * len(x16)} "
+        f"launches): kernel {k_ms:.4f} ms (torch.profiler; one device, same chunks: {one_ms:.4f} "
+        f"ms), bound {row['bound_ms']:.5f} ms; plain {p_ms:.1f} ms over every "
+        f"{SHARD_PLAIN_EVERY}th chunk ({len(part)} chunks; kernel {part_ms:.4f} ms) ({card})")
+    return {"row": row, "mbps": n_bytes / 1e6 / enc_s}
+
+
+def shard_engine(buckets, used0: int, vocab: int, n: int = SHARDS, plain: bool = False,
+                 dev="cuda:0"):
+    """The sharded trainer's kernel (or plain) engine on ``buckets``, its
+    shards on ``dev``, as ``run_training_delta_sharded`` builds it."""
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import train_delta as td
+    from youtokentome_tpu_torch.ops import train_stream as ts
+    from youtokentome_tpu_torch.parallel import train_delta_sharded as tds
+
+    t, wid, freq = (np.asarray(x) for x in ts.flatten_word_buckets(buckets))
+    seg_t, seg_w, per, dcap = tds.shard_plan(t, wid, n)
+    rules = np.full((vocab, 4), -1, np.int32)
+    if plain:
+        uk, uc = td.host_count_table(t, wid, freq)
+        pcap = int(os.environ.get("YTTM_TRAIN_PCAP", "0")) or min(
+            td._pcap_budget(uk.size, vocab - used0), td._next_pow2(int((wid >= 0).sum())))
+        return tds.PlainShardedEngine(seg_t, seg_w, per, freq, rules, used0, vocab, 16,
+                                      card_mesh(n, dev), pcap, dcap, (uk, uc))
+    return dsk.ShardedKernelEngine(seg_t, seg_w, per, freq, rules, used0, vocab, 16,
+                                   card_mesh(n, dev), dcap, t.shape[0])
+
+
+def clone_shards(shards, dcap: int = 0):
+    """Copies of a kernel engine's shard states (new buffers of ``dcap``
+    entries a side when given)."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    out = []
+    for st in shards:
+        c = clone_state(st)
+        c._links = None
+        if dcap:
+            c.dcap = dcap
+            c.dk = torch.full((2 * dcap,), tk.EMPTY, dtype=torch.int64, device=st.device)
+            c.dv = torch.zeros(2 * dcap, dtype=torch.int32, device=st.device)
+        out.append(c)
+    return out
+
+
+def scratch_table(st):
+    """A shard's scratch table as a sorted (key, count) multiset (numpy)."""
+    keys, cnts = st.rkeys.cpu().numpy(), st.rcnts.cpu().numpy()
+    used = keys != -1
+    order = np.argsort(keys[used], kind="stable")
+    return keys[used][order], cnts[used][order]
+
+
+def same_shard(a, b, what: str, buffers: bool = True) -> None:
+    """Kernel and plain shard states agree: stream, the replica and the
+    scratch table as multisets, ctl, work, rules and (when no side passed
+    dcap) each side of the delta buffer as a multiset."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+
+    check(torch.equal(a.tok, b.tok), f"{what}: streams differ")
+    for t, (ka, ca), (kb, cb) in (("table", a.table(), b.table()),
+                                  ("scratch table", scratch_table(a), scratch_table(b))):
+        check(np.array_equal(ka, kb) and np.array_equal(ca, cb), f"{what}: {t}s differ")
+    check(torch.equal(a.ctl, b.ctl), f"{what}: ctl {a.ctl.tolist()} != {b.ctl.tolist()}")
+    check(torch.equal(a.work, b.work), f"{what}: work {a.work.tolist()} != {b.work.tolist()}")
+    check(torch.equal(a.rules, b.rules), f"{what}: rules differ")
+    if buffers and not int(a.ctl[dsk.DOVF]):
+        for side in (0, 1):
+            (ka, va), (kb, vb) = a.buffer(side), b.buffer(side)
+            ia, ib = np.lexsort((va.cpu().numpy(), ka.cpu().numpy())), np.lexsort(
+                (vb.cpu().numpy(), kb.cpu().numpy()))
+            check(np.array_equal(ka.cpu().numpy()[ia], kb.cpu().numpy()[ib])
+                  and np.array_equal(va.cpu().numpy()[ia], vb.cpu().numpy()[ib]),
+                  f"{what}: buffer side {side} differs")
+
+
+def shard_round(ks, ps, used0: int, limit: int, what: str) -> bool:
+    """One round through the kernels on ``ks`` and the plain versions on
+    ``ps``, compared after each step; returns whether it recounted."""
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    for a, b in zip(ks, ps):
+        tk.topk_accept(a, limit, TRAIN_VOCAB, used0)
+        tk.topk_accept_plain(b, limit, TRAIN_VOCAB, used0, 16)
+    for i, (a, b) in enumerate(zip(ks, ps)):
+        dsk.delta_emit(a)
+        dsk.delta_emit_plain(b)
+        same_shard(a, b, f"{what}, delta_emit shard {i}")
+    recount = any(int(a.ctl[dsk.DOVF]) for a in ks)
+    for i, (a, b) in enumerate(zip(ks, ps)):
+        dsk.shard_recount(a, ks)
+        dsk.shard_recount_plain(b, ps)
+        same_shard(a, b, f"{what}, shard_recount shard {i}")
+    for i, (a, b) in enumerate(zip(ks, ps)):
+        dsk.shard_fold(a, ks)
+        dsk.shard_fold_plain(b, ps)
+        same_shard(a, b, f"{what}, shard_fold replica {i}")
+    return recount
+
+
+class checked_relay:
+    """Within the block, each shard_relay is held against its plain version
+    on a copy of the state it relays; counts the relays checked."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __enter__(self):
+        import torch
+
+        from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+
+        self.dsk, self.real = dsk, dsk.shard_relay
+
+        def relay(st):
+            plain = clone_shards([st])[0]
+            self.real(st)
+            dsk.shard_relay_plain(plain)
+            for k in ("tok", "pwid", "off", "fw", "wid_dev", "ctl", "work"):
+                check(torch.equal(getattr(st, k), getattr(plain, k)), f"shard_relay: {k} differs")
+            check(st.n_words == plain.n_words, "shard_relay: word counts differ")
+            self.n += 1
+
+        relay.launches = 0
+        dsk.shard_relay = relay
+        return self
+
+    def __exit__(self, *exc):
+        self.dsk.shard_relay = self.real
+
+
+def phase_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
+    """Each sharded kernel against its plain version on the 100 MB corpus's
+    state split into 4 shards on the card: the replicas' first count (the
+    recount branch, forced) against the host table; two rounds with tiny
+    buffers (dcap MID_DCAP: the recount branch) and two with buffers
+    large enough for the delta branch, every step compared; shard_relay at
+    the first re-pack (the largest shard's live tokens halved)."""
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import train_delta as td
+    from youtokentome_tpu_torch.ops import train_stream as ts
+
+    t, wid, freq = ts.flatten_word_buckets(buckets)
+    uk, uc = td.host_count_table(t, wid, freq)
+    eng = shard_engine(buckets, used0, TRAIN_VOCAB, dev=dev)
+    for i, st in enumerate(eng.shards):
+        keys, cnts = st.table()
+        check(np.array_equal(keys, uk.astype(np.int64)) and np.array_equal(cnts, uc),
+              f"replica {i}'s first count != the host count table")
+    log(f"[10] {SHARDS} shards of {[st.n_words for st in eng.shards]} words, dcap {eng.dcap}, "
+        f"tables {eng.shards[0].cap} slots: every replica's first count == the host table "
+        f"({uk.size} pairs)")
+    branches = {}
+    for dcap in (MID_DCAP, 1 << 22):
+        ks, ps = clone_shards(eng.shards, dcap), clone_shards(eng.shards, dcap)
+        for r in range(2):
+            rec = shard_round(ks, ps, used0, used0 + TRAIN_SEG, f"dcap {dcap}, round {r}")
+            branches.setdefault(dcap, []).append("recount" if rec else "delta")
+        log(f"[10] dcap {dcap}: two rounds, delta_emit, shard_recount and shard_fold == plain "
+            f"on every shard ({branches[dcap]}; {[int(a.ctl[dsk.DN_OLD]) for a in ks]} old "
+            f"entries)")
+    check(branches[MID_DCAP] == ["recount"] * 2 and branches[1 << 22] == ["delta", "delta"],
+          f"the kernel checks did not take both branches: {branches}")
+    used = used0
+    with checked_relay() as rel:
+        while eng.relays == 0:
+            used, done = complete_segment(eng, used, min(TRAIN_VOCAB, used + TRAIN_SEG))
+            check(not done and used < TRAIN_VOCAB, "no relay before the end")
+    check(rel.n == SHARDS, f"{rel.n} relays checked")
+    log(f"[10] shard_relay == plain on every shard at {used} ids (streams of "
+        f"{[int(st.off[-1]) for st in eng.shards]} slots)")
+
+
+def phase_shard_mid(mid_path: Path, dev="cuda:0") -> dict:
+    """The 10 MB prefix at vocab MID_VOCAB with 2 and 4 shards on the card: the
+    kernel engine and the plain sharded loop in lockstep, with tiny delta
+    buffers (recount rounds) and small kernel tables (rebuilds):
+    rules, used and done equal at every segment end, and every replica's
+    table equal to the plain loop's live table (the engine checks that its
+    replicas agree); every relay held against its plain version."""
+    import torch
+
+    buckets, _, used0 = training_buckets(mid_path)
+    out = {}
+    t0 = time.perf_counter()
+    for n in (2, 4):
+        # the plain loop keeps the JAX host loop's pcap: its recount fold drops
+        # the keys past pcap of each shard's count unseen (ROADMAP.md)
+        with env_set(YTTM_TRAIN_DCAP=str(MID_DCAP)):
+            plain = shard_engine(buckets, used0, MID_VOCAB, n, plain=True, dev=dev)
+            with env_set(YTTM_TRAIN_PCAP=str(MID_PCAP)):
+                kern = shard_engine(buckets, used0, MID_VOCAB, n, dev=dev)
+        used, segs, nrec = used0, 0, 0
+        with checked_relay() as rel:
+            while used < MID_VOCAB:
+                limit = min(MID_VOCAB, used + TRAIN_SEG)
+                ku, kd = complete_segment(kern, used, limit)
+                pu, pd = complete_segment(plain, used, limit)
+                check((ku, kd) == (pu, pd), f"{n} shards, segment to {limit}: {ku, kd} != {pu, pd}")
+                check(torch.equal(kern.rules, plain.rules), f"{n} shards, to {limit}: rules differ")
+                m = int((plain.tc > 0).sum())
+                for i, st in enumerate(kern.shards):
+                    keys, cnts = st.table()
+                    check(int(cnts.min(initial=0)) >= 0, "a negative pair count")
+                    check(np.array_equal(keys[cnts > 0], plain.tk[:m].cpu().numpy())
+                          and np.array_equal(cnts[cnts > 0], plain.tc[:m].cpu().numpy()),
+                          f"{n} shards, to {limit}: replica {i} != the plain loop's live table")
+                used, segs, nrec = ku, segs + 1, nrec + kern.nrec
+                if kd:
+                    break
+        check(kern.rebuilds >= 1 and nrec > 0,
+              f"{n} shards: {kern.rebuilds} rebuilds, {nrec} recount rounds")
+        out[n] = {"segments": segs, "rebuilds": kern.rebuilds, "recounts": nrec, "relays": rel.n}
+        log(f"[10] 10 MB, vocab {MID_VOCAB}, {n} shards, dcap {MID_DCAP}: kernels == plain sharded "
+            f"loop at all {segs} segment ends (rules, every replica's live table); "
+            f"{kern.rebuilds} rebuilds, {nrec} recount rounds, {rel.n} relays checked, plain "
+            f"pcap {plain.pcap}")
+    log(f"[10] 10 MB lockstep: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def run_shards(eng, vocab: int, used: int) -> tuple:
+    """The sharded host loop over segments of TRAIN_SEG ids: (used,
+    recount rounds)."""
+    nrec = 0
+    while used < vocab:
+        while True:
+            used, done, overflow = eng.segment(used, min(vocab, used + TRAIN_SEG))
+            nrec += eng.nrec
+            if not overflow:
+                break
+            eng.regrow()
+        if done:
+            break
+    return used, nrec
+
+
+def shard_profiled(fn):
+    """(device ms of each sharded wrapper, what ``fn`` returns), from
+    torch.profiler."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ms = {k: 0.0 for k in SHARD_DEVICE_FNS}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for k, fns in SHARD_DEVICE_FNS.items():
+            if any(re.search(r"(^|[^A-Za-z0-9_])" + f + r"[(<]", ev.key) for f in fns):
+                ms[k] += us / 1e3
+    return ms, out
+
+
+def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
+                     dev="cuda:0") -> dict:
+    """The main path: ``train.train(corpus, model, vocab_size=30000,
+    mesh=<4 shards on cuda:0>)`` with no knob takes the sharded trainer
+    (not v5), launches counted, rules equal to phase 5's v2 rules, the
+    model encodes and decodes; the merge loop timed; each kernel's device
+    ms over a replica under the profiler; bounds from the run's work
+    counters; the plain versions over the first SHARD_PLAIN_IDS ids."""
+    import torch
+
+    import youtokentome_tpu_torch as yttm
+    from youtokentome_tpu_torch import train as tr
+    from youtokentome_tpu_torch.models.state import BPEState, BpeConfig, SpecialTokens
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+    from youtokentome_tpu_torch.train import rename_tokens
+
+    wrappers = {"topk_accept": tk.topk_accept, **{k: getattr(dsk, k) for k in SHARD_KERNELS}}
+    for w in wrappers.values():
+        w.launches = 0
+    calls = {"sharded": 0, "tiered": 0}
+    real_sharded, real_tiered = tr.run_training_delta_sharded, tr.run_training_tiered
+
+    def sharded(*a, **k):
+        calls["sharded"] += 1
+        return real_sharded(*a, **k)
+
+    def tiered(*a, **k):
+        calls["tiered"] += 1
+        return real_tiered(*a, **k)
+
+    model_path = work / "trained30k_sharded.yttm"
+    check("YTTM_TRAIN_IMPL" not in os.environ, "YTTM_TRAIN_IMPL is set")
+    t0 = time.perf_counter()
+    with swapped(tr, run_training_delta_sharded=sharded, run_training_tiered=tiered):
+        tr.train(str(corpus_path), str(model_path), TRAIN_VOCAB,
+                 BpeConfig(1.0, -1, SpecialTokens(0, 1, 2, 3)), device=dev, mesh=card_mesh(dev=dev))
+    train_s = time.perf_counter() - t0
+    t_phase = time.perf_counter()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(calls == {"sharded": 1, "tiered": 0}, f"auto on a mesh took {calls}")
+    for k, n in launches.items():
+        check(n > 0, f"the sharded main path did not launch {k}")
+    buckets, al, used0 = training_buckets(corpus_path)
+    char2id, want = rename_tokens(al.char2id, v2_rules, SpecialTokens(0, 1, 2, 3), TRAIN_VOCAB)
+    state = BPEState.load(str(model_path))
+    check(state.rules == want and state.char2id == char2id,
+          "the sharded train.train's rules != phase 5's v2 rules")
+    bpe = yttm.BPE(str(model_path), device=dev)
+    ids = bpe.encode(sample)
+    check(bpe.decode(ids) == sample, "the sharded model's decode round trip")
+    log(f"[10] train.train on a {SHARDS}-shard mesh, no knob: the sharded trainer (not v5), "
+        f"{train_s:.2f} s, rules == phase 5's v2 rules, {len(sample)} lines decode back; "
+        f"launches {launches}")
+
+    want_rules = torch.tensor(v2_rules)
+    eng = shard_engine(buckets, used0, TRAIN_VOCAB, dev=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    used, nrec = run_shards(eng, TRAIN_VOCAB, used0)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    check(torch.equal(eng.rules[: used - used0, :3].cpu(), want_rules), "the timed run's rules differ")
+    rounds, merges = int(eng.shards[0].ctl[tk.ROUND]), used - used0
+    w = np.sum([st.work.cpu().numpy() for st in eng.shards], axis=0)
+    entries = int(w[dsk.W_ENTRIES])
+    log(f"[10] merge loop ({SHARDS} shards): {loop_s:.3f} s, {rounds} rounds, {merges} merges, "
+        f"{merges / loop_s:.0f} merges/s, {nrec} recount rounds, {eng.rebuilds} rebuilds, "
+        f"{eng.relays} relays, dcap {eng.dcap}, tables {eng.shards[0].cap} slots ({card})")
+    log(f"[10] exchange: {entries} buffer entries written ({entries * 12 / max(rounds, 1):.0f} B a "
+        f"round, each read by {SHARDS} replicas); capacity {SHARDS}x{2 * eng.dcap} entries "
+        f"({SHARDS * 2 * eng.dcap * 12} B) a delta round, {SHARDS}x{eng.shards[0].cap} slots "
+        f"({SHARDS * eng.shards[0].cap * 12} B) a recount round")
+
+    def replica(vocab):
+        e = shard_engine(buckets, used0, vocab, dev=dev)
+        return e, run_shards(e, vocab, used0)[0]
+
+    kernel_ms, (p_eng, p_used) = shard_profiled(lambda: replica(TRAIN_VOCAB))
+    check(torch.equal(p_eng.rules[: p_used - used0, :3].cpu(), want_rules),
+          "the profiled run's rules differ")
+    for k, v in kernel_ms.items():
+        check(v > 0, f"the profiler recorded no device time for {k}")
+    plain_vocab = used0 + SHARD_PLAIN_IDS
+    prefix_ms, _ = shard_profiled(lambda: replica(plain_vocab))
+    plain_ms = {k: 0.0 for k in SHARD_DEVICE_FNS}
+
+    def timed_plain(k, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*a, **kw)
+            torch.cuda.synchronize()
+            plain_ms[k] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    with swapped(dsk, topk_accept=timed_plain(
+            "topk_accept", lambda st, limit, v, u0, kk=16: tk.topk_accept_plain(st, limit, v, u0, kk)),
+            **{k: timed_plain(k, getattr(dsk, k + "_plain")) for k in SHARD_KERNELS}):
+        pe = shard_engine(buckets, used0, plain_vocab, dev=dev)
+        pu, _ = run_shards(pe, plain_vocab, used0)
+    check(torch.equal(pe.rules[: pu - used0, :3].cpu(), want_rules[: pu - used0]),
+          "the plain versions' rules differ")
+
+    # bounds: the bytes each kernel must move, from the run's work counters
+    # (each input read once, each output written once), operations at
+    # OPS_PER_POS a 4-byte word
+    rounds_all, occ, slots = int(w[tk.W_ROUNDS]), int(w[tk.W_OCC]), int(w[tk.W_SLOTS])
+    bytes_ = {"topk_accept": slots * 4 + occ * 8 + rounds_all * 16 * 16,
+              "delta_emit": int(w[dsk.W_EMIT]), "shard_recount": int(w[dsk.W_COUNT]),
+              "shard_fold": int(w[dsk.W_FOLD]), "shard_relay": int(w[dsk.W_RELAY])}
+    ops = {k: (slots * OPS_PER_SLOT if k == "topk_accept" else b // 4 * OPS_PER_POS)
+           for k, b in bytes_.items()}
+    rows = []
+    for k in SHARD_DEVICE_FNS:
+        b_ms, o_ms = bytes_[k] / HBM_BYTES_PER_S * 1e3, ops[k] / OPS_PER_S * 1e3
+        row = {"name": "topk_accept_sharded" if k == "topk_accept" else k, "kernel": k,
+               "launches": launches[k], "ms": kernel_ms[k], "plain_ms": plain_ms[k],
+               "plain_ids": SHARD_PLAIN_IDS, "prefix_ms": prefix_ms[k],
+               "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+        rows.append(row)
+        log(f"[10] {row['name']}: {launches[k]} launches, {kernel_ms[k]:.3f} ms on the card, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {plain_ms[k]:.1f} ms over the "
+            f"first {SHARD_PLAIN_IDS} ids (kernel {prefix_ms[k]:.3f} ms) ({card})")
+    log(f"[10] the main path's timings took {time.perf_counter() - t_phase:.1f} s after train.train")
+    return {"rows": rows, "train_s": train_s, "loop_s": loop_s, "rounds": rounds,
+            "merges_per_s": merges / loop_s, "recounts": nrec}
+
+
+
 def main() -> int:
     try:
         import torch
@@ -2504,6 +3034,7 @@ def main() -> int:
     dropout = phase_dropout_main(main_res, corpus[1], info["card"])
     phase_stream_kernels(main_res, corpus[1])
     stream = phase_stream_main(main_res, corpus[1], info["card"])
+    shard_enc = phase_shard_encode(main_res, corpus[1], times, info["card"])
     sample = corpus[1][:2000]
     del corpus, main_res["buckets"], main_res["ids"], main_res["cli"], main_res["blob"]
     dev = torch.device("cuda", 0)
@@ -2522,6 +3053,11 @@ def main() -> int:
     del buckets
     phase_diff_mid(work / "corpus_10mb.txt", dev)
     diff = phase_diff_main(corpus_path, work, sample, train["plain_rules"], info["card"])
+    buckets, _, used0 = training_buckets(corpus_path)
+    phase_shard_kernels(buckets, used0)
+    del buckets
+    phase_shard_mid(work / "corpus_10mb.txt")
+    shard = phase_shard_main(corpus_path, work, sample, train["plain_rules"], info["card"])
 
     source = "youtokentome_tpu_torch/csrc/encode_greedy.cu"
     replaces = {
@@ -2575,6 +3111,24 @@ def main() -> int:
             "library_ms": None, "equal": True,
         }
         for r in diff["rows"]
+    ] + [
+        {
+            "name": r["name"], "route": "cuda", "source": source, "replaces": SHARD_ENCODE_REPLACES,
+            "launches": r["launches"], "max_abs_err": 0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "plain_chunks": r["plain_chunks"], "prefix_ms": r["prefix_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "equal": True,
+        }
+        for r in [shard_enc["row"]]
+    ] + [
+        {
+            "name": r["name"], "route": "cuda",
+            "source": TOPK_SOURCE if r["kernel"] == "topk_accept" else SHARD_SOURCE,
+            "replaces": SHARD_REPLACES[r["kernel"]], "launches": r["launches"], "max_abs_err": 0,
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_ids": r["plain_ids"],
+            "prefix_ms": r["prefix_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "equal": True,
+        }
+        for r in shard["rows"]
     ]
     log(f"[7] dropout routes: native {dropout['native_mbps']:.2f} MB/s, kernel "
         f"{dropout['kernel_mbps']:.2f} MB/s; [8] stream backend: API {stream['api_mbps']:.2f} "
@@ -2582,6 +3136,9 @@ def main() -> int:
     log("[9] merge loops: " + ", ".join(
         f"{k} {v['loop_s']:.3f} s ({v['merges_per_s']:.0f} merges/s)"
         for k, v in diff["times"].items()) + f" ({info['card']})")
+    log(f"[10] {SHARDS} shards on cuda:0: encode {shard_enc['mbps']:.2f} MB/s; train.train "
+        f"{shard['train_s']:.2f} s, merge loop {shard['loop_s']:.3f} s ({shard['merges_per_s']:.0f} "
+        f"merges/s, {shard['rounds']} rounds, {shard['recounts']} recount rounds) ({info['card']})")
     log(f"[4] build {info['build_s']:.2f} s, whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(info["card"])

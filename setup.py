@@ -52,11 +52,12 @@ setup(
             "youtokentome_tpu_torch", "youtokentome_tpu_torch.*",
         ]
     ),
-    # the torch port compiles its CUDA kernel and host helpers at first
-    # use (youtokentome_tpu_torch/_build.py), so only the sources ship
+    # the torch port compiles its CUDA kernels and host helpers at first
+    # use (youtokentome_tpu_torch/_build.py), so only the sources ship:
+    # every .cu file and the .cuh headers they include
     package_data={
         "youtokentome_tpu.host": ["*.cpp", "*.so"],
-        "youtokentome_tpu_torch": ["csrc/*.cu"],
+        "youtokentome_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
         "youtokentome_tpu_torch.host": ["*.cpp"],
     },
     ext_modules=[
@@ -65,8 +66,13 @@ setup(
     cmdclass={"build_ext": BuildCtypesLibs},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "click>=4.0"],
+    # the PyTorch/CUDA port: pip install "youtokentome_tpu[torch]"
+    extras_require={"torch": ["torch"]},
     entry_points={
-        "console_scripts": ["yttm-tpu = youtokentome_tpu.cli:main"],
+        "console_scripts": [
+            "yttm-tpu = youtokentome_tpu.cli:main",
+            "yttm-torch = youtokentome_tpu_torch.cli:main",
+        ],
     },
     classifiers=[
         "Programming Language :: Python :: 3",

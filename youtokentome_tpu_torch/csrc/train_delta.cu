@@ -42,7 +42,9 @@
 //                 listed word subtracts the word's old contributions, merges
 //                 (even offsets inside runs of hits), compacts the word in
 //                 place, and adds its new contributions.  A word of any
-//                 length is walked 32 positions at a time by its warp.
+//                 length is walked 32 positions at a time by its warp.  Both
+//                 passes are in word_apply.cuh, shared with the sharded
+//                 engine's delta_emit (train_delta_sharded.cu).
 //
 // Every kernel does nothing once `done` or `overflow` is set or `used`
 // reached min(vocab, limit), so the host can enqueue rounds in batches.
@@ -66,6 +68,7 @@
 #include <cuda_runtime.h>
 
 #include "train_common.cuh"
+#include "word_apply.cuh"
 
 namespace {
 
@@ -101,93 +104,25 @@ __global__ void __launch_bounds__(256)
 // -- apply -------------------------------------------------------------------
 
 __global__ void __launch_bounds__(256)
-    mark_words_kernel(const int32_t *tok, const int32_t *pwid, int Mw, int32_t *ctl,
-                      const int32_t *cand, int32_t *aff, int32_t *wmark) {
-  __shared__ int32_t sx[kK], sy[kK];
-  const int n = ctl[NACC];
-  if (n == 0) return;
-  if (threadIdx.x < n) {
-    sx[threadIdx.x] = cand[threadIdx.x * 4];
-    sy[threadIdx.x] = cand[threadIdx.x * 4 + 1];
-  }
-  __syncthreads();
-  const int tag = ctl[ROUND];
-  // a grid of a few blocks per SM walks the stream: the prologue above
-  // (two dependent loads and a barrier) runs once per block, not once per
-  // 256 positions
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < Mw - 1; i += gridDim.x * blockDim.x) {
-    const int32_t a = tok[i];
-    const int32_t b = tok[i + 1];
-    if (a < 0 || b < 0) continue;
-    bool hit = false;
-    for (int j = 0; j < n; ++j) hit |= a == sx[j] && b == sy[j];
-    if (!hit) continue;
-    const int w = pwid[i];
-    if (atomicExch(wmark + w, tag) != tag) aff[atomicAdd(ctl + NAFF, 1)] = w;
-  }
-}
-
-__global__ void __launch_bounds__(256)
     apply_words_kernel(int32_t *tok, const int32_t *off, const int32_t *fw,
                        unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
                        const int32_t *cand, const int32_t *aff) {
-  __shared__ int32_t sx[kK], sy[kK], sz[kK];
-  const int n = ctl[NACC];
+  __shared__ Cands c;
+  const int n = load_cands(c, ctl, cand);
   if (n == 0) return;
-  if (threadIdx.x < n) {
-    sx[threadIdx.x] = cand[threadIdx.x * 4];
-    sy[threadIdx.x] = cand[threadIdx.x * 4 + 1];
-    sz[threadIdx.x] = cand[threadIdx.x * 4 + 2];
-  }
-  __syncthreads();
   const int n_aff = ctl[NAFF];
-  const int lane = threadIdx.x & 31;
-  const unsigned lt = (1u << lane) - 1u;
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int n_warps = (gridDim.x * blockDim.x) >> 5;
   for (int a_i = warp; a_i < n_aff; a_i += n_warps) {
     const int w = aff[a_i];
     const int base = off[w];
-    const int len = off[w + 1] - 1 - base;
     const int32_t f = fw[w];
     int32_t *t = tok + base;
-    int carry_eq = -1, carry_hit = -1, out = 0;
-    bool carry_sel = false;
-    // old contributions out, merge, compact in place; all lanes read a
-    // chunk (and the next chunk's first token) before any lane writes, and
-    // writes land at or before the positions read
-    for (int b = 0; b < len; b += 32) {
-      const int i = b + lane;
-      const int32_t a = i < len ? t[i] : kPad;
-      const int32_t nb = i + 1 < len ? t[i + 1] : kPad;
-      const bool pairv = a >= 0 && nb >= 0;
-      const bool eq = pairv && a == nb;
-      int lne = warp_max_scan(eq ? -1 : i);
-      lne = lne > carry_eq ? lne : carry_eq;
-      if (pairv && (!eq || ((i - lne - 1) & 1) == 0))
-        table_add(keys, cnts, cap, ctl, pair_key(a, nb), -f, kSub);
-      int rix = -1;
-      if (pairv)
-        for (int j = 0; j < n; ++j)
-          if (rix < 0 && a == sx[j] && nb == sy[j]) rix = j;
-      const bool hit = rix >= 0;
-      int lnh = warp_max_scan(hit ? -1 : i);
-      lnh = lnh > carry_hit ? lnh : carry_hit;
-      const bool sel = hit && ((i - lnh - 1) & 1) == 0;
-      bool prev_sel = __shfl_up_sync(0xFFFFFFFFu, sel, 1);
-      if (lane == 0) prev_sel = carry_sel;
-      const bool keep = a >= 0 && !prev_sel;
-      const unsigned kmask = __ballot_sync(0xFFFFFFFFu, keep);
-      __syncwarp();
-      if (keep) t[out + __popc(kmask & lt)] = sel ? sz[rix] : a;
-      __syncwarp();
-      out += __popc(kmask);
-      carry_eq = __shfl_sync(0xFFFFFFFFu, lne, 31);
-      carry_hit = __shfl_sync(0xFFFFFFFFu, lnh, 31);
-      carry_sel = __shfl_sync(0xFFFFFFFFu, sel, 31);
-    }
-    for (int i = out + lane; i < len; i += 32) t[i] = kPad;
-    __syncwarp();
+    // old contributions out, merge, compact in place, new contributions in
+    const int out = merge_word(t, off[w + 1] - 1 - base, c, n,
+                               [&](bool counted, unsigned long long key) {
+                                 if (counted) table_add(keys, cnts, cap, ctl, key, -f, kSub);
+                               });
     add_word(t, out, f, kAdd, keys, cnts, cap, ctl);
   }
 }
@@ -213,7 +148,7 @@ int yttm_train_apply_delta(void *tok, const void *pwid, int Mw, const void *off,
                            void *aff, void *wmark, void *stream) {
   if (Mw < 2 || W <= 0 || cap <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  mark_words_kernel<<<grid_for_warps((Mw - 1 + 31) / 32), 256, 0, s>>>(
+  mark_words_kernel<NAFF><<<grid_for_warps((Mw - 1 + 31) / 32), 256, 0, s>>>(
       (const int32_t *)tok, (const int32_t *)pwid, Mw, (int32_t *)ctl, (const int32_t *)cand,
       (int32_t *)aff, (int32_t *)wmark);
   cudaError_t e = cudaGetLastError();

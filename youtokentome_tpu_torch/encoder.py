@@ -27,8 +27,12 @@ and zero-is-real models take the matrix path with one row per
 occurrence and the dropout kernel.  The seed of one call is drawn from
 the caller's ``torch.Generator``, or from ``os.urandom``.
 
-The encoder runs on one device, ``cuda`` unless the caller asks for
-``cpu``; on the CPU the kernels' plain torch versions run.
+The encoder runs on ``cuda`` unless the caller asks for ``cpu``; on the
+CPU the kernels' plain torch versions run.  With more than one visible
+card (at most ``YTTM_DEVICES``) the greedy merges of the native and the
+matrix path shard their rows over a data mesh of the cards
+(parallel/encode_sharded.py), as the JAX package does over its devices;
+dropout merges and the stream backend stay on one device.
 """
 
 from __future__ import annotations
@@ -131,29 +135,54 @@ def _pad_rows(mats: List[np.ndarray], cap: int) -> np.ndarray:
 
 class _MergeResult:
     """One merged chunk on its way back to the host.  On a card the
-    result lands in pinned host memory through an asynchronous copy, and
-    ``numpy()`` waits for the event recorded after it; on the CPU it is
-    ready at once."""
+    result lands in pinned host memory through asynchronous copies, and
+    ``numpy()`` waits for the events recorded after them (one a card);
+    on the CPU it is ready at once."""
 
-    def __init__(self, host: torch.Tensor, event=None, inputs=()):
+    def __init__(self, host: torch.Tensor, events=(), inputs=()):
         self._host = host
-        self._event = event
+        self._events = events
         self._inputs = inputs  # pinned sources must outlive their copies
 
     def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-            self._event = None
-            self._inputs = ()
+        for event in self._events:
+            event.synchronize()
+        self._events = self._inputs = ()
         return self._host.numpy()
 
 
-class Encoder:
-    """Stateful encoder bound to a trained model, on one device."""
+def _to_host(outs: List[torch.Tensor], inputs=()) -> _MergeResult:
+    """Start copying the row blocks ``outs`` (in row order, each on its
+    device) into one host array."""
+    if outs[0].device.type == "cpu":
+        return _MergeResult(torch.cat(outs) if len(outs) > 1 else outs[0])
+    rows = sum(o.shape[0] for o in outs)
+    host = torch.empty((rows, *outs[0].shape[1:]), dtype=outs[0].dtype, pin_memory=True)
+    r = 0
+    for o in outs:
+        host[r : r + o.shape[0]].copy_(o, non_blocking=True)
+        r += o.shape[0]
+    events = []
+    for dev in dict.fromkeys(o.device for o in outs):
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+        events.append(event)
+    return _MergeResult(host, events, inputs)
 
-    def __init__(self, state: BPEState, cache_size: int = 1 << 20, device=None):
+
+class Encoder:
+    """Stateful encoder bound to a trained model, on one device (its
+    greedy merges sharded over a data mesh when there is one).  ``mesh``
+    (a ``parallel.mesh.DataMesh``) overrides the default mesh of
+    ``device``'s cards."""
+
+    def __init__(self, state: BPEState, cache_size: int = 1 << 20, device=None, mesh=None):
         self.state = state
         self.device = resolve_device(device)
+        # resolved lazily (the JAX package's _get_mesh), so that building
+        # an Encoder never touches the cards
+        self._mesh = mesh
+        self._mesh_resolved = mesh is not None
         self.vocab = Vocabulary(state)
         self.tables = EncoderTables.from_state(state, self.device)
         sorted_cps = np.sort(
@@ -195,6 +224,18 @@ class Encoder:
     def _use_u16(self) -> bool:
         return self._u16_ok and self.device.type == "cuda"
 
+    def _get_mesh(self):
+        """The data mesh that greedy merges shard over, or None: every
+        visible card of the encoder's device (at most ``YTTM_DEVICES``;
+        one card, the CPU or ``YTTM_DEVICES=1`` give None), unless the
+        caller gave a mesh."""
+        if not self._mesh_resolved:
+            self._mesh_resolved = True
+            from .parallel.mesh import default_mesh
+
+            self._mesh = default_mesh(self.device)
+        return self._mesh
+
     def _dispatch_merge(self, mat: np.ndarray, u16: bool, dropout=None) -> _MergeResult:
         """Start merging one padded int32 [B, cap] chunk on the device.
         With ``u16`` the chunk travels in the uint16 wire format and
@@ -203,23 +244,26 @@ class Encoder:
         rows drawing the coins of global rows row0, row0 + 1, ..."""
         unk = self.state.special_tokens.unk_id
         src = torch.from_numpy(pack_tokens_u16(mat) if u16 else mat)
-        on_card = self.device.type == "cuda"
-        if on_card:
-            pinned = src.pin_memory()
-            src = pinned.to(self.device, non_blocking=True)
+        mesh = self._get_mesh() if dropout is None else None
+        if mesh is not None and mat.shape[0] % mesh.size == 0:
+            # the rows sharded over the mesh (the JAX package's
+            # _dispatch_greedy; it too shards only when the rows divide)
+            from .parallel import encode_sharded as es
+
+            if u16:
+                return _to_host(es.encode_greedy_sharded_u16(self.tables, src, unk, mesh))
+            return _to_host(es.encode_greedy_sharded(self.tables, src, mesh))
+        inputs = ()
+        if self.device.type == "cuda":
+            inputs = (src.pin_memory(),)
+            src = inputs[0].to(self.device, non_blocking=True)
         if dropout is not None:
             out = encode_dropout(self.tables, src, *dropout)
         elif u16:
             out = encode_greedy_u16(self.tables, src, unk)
         else:
             out = encode_greedy(self.tables, src)
-        if not on_card:
-            return _MergeResult(out)
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return _MergeResult(host, event, (pinned,))
+        return _to_host([out], inputs)
 
     def _ruletab(self) -> fasttok.RuleTable:
         if self._rtab is None:

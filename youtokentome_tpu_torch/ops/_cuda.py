@@ -3,11 +3,12 @@
 ``csrc/encode_greedy.cu``, ``csrc/encode_dropout.cu``,
 ``csrc/stream_encode.cu``, ``csrc/train_topk.cu``, ``csrc/train_delta.cu``,
 ``csrc/train_tiered.cu``, ``csrc/train_stream.cu``, ``csrc/train_sparse.cu``,
-``csrc/train_block.cu`` and ``csrc/train_bucketed.cu`` have plain C
-interfaces.  At first use each is
-compiled by ``nvcc`` for ``sm_90a`` into ``youtokentome_tpu_torch/build/``
-(rebuilt when the source or a ``csrc/*.cuh`` header is newer) and loaded
-with ctypes.  A failed build raises; nothing falls back.
+``csrc/train_block.cu``, ``csrc/train_bucketed.cu`` and
+``csrc/train_delta_sharded.cu`` have plain C interfaces.  At first use
+each is compiled by ``nvcc`` for ``sm_90a`` into the build directory
+(``_build.build_dir()``; rebuilt when the source or a ``csrc/*.cuh``
+header is newer) and loaded with ctypes.  A failed build raises; nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ _libs: dict = {}  # source name -> its loaded library
 _SOURCES = (
     "encode_greedy.cu", "encode_dropout.cu", "stream_encode.cu", "train_topk.cu",
     "train_delta.cu", "train_tiered.cu", "train_stream.cu", "train_sparse.cu", "train_block.cu",
-    "train_bucketed.cu",
+    "train_bucketed.cu", "train_delta_sharded.cu",
 )
 _locks = {name: threading.Lock() for name in _SOURCES}
 
@@ -185,4 +186,28 @@ def load_bucketed() -> ctypes.CDLL:
         "yttm_bucket_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _i, _i, _p]),
         # tok, roff, R, ctl, cand, work, stream
         "yttm_bucket_apply": (_i, [_p, _p, _i, _p, _p, _p, _p]),
+    })
+
+
+def load_sharded() -> ctypes.CDLL:
+    """Build (if needed) and load the sharded v2 trainer's kernels."""
+    return _load("train_delta_sharded.cu", "libtrain_delta_sharded.so", {
+        # tok, pwid, Mw, off, fw, W, ctl, cand, aff, wmark, dk, dv, dcap, work,
+        # stream
+        "yttm_shard_delta_emit": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _p, _p, _p, _p, _i, _p,
+                                       _p]),
+        # tok, Mw, off, fw, W, rkeys, rcnts, cap, ctl, ctls, n_sh, work, stream
+        "yttm_shard_recount": (_i, [_p, _i, _p, _p, _i, _p, _p, _i, _p, _p, _i, _p, _p]),
+        # keys, cnts, cap, ctl, ctls, dks, dvs, dcap, rkeys, rcnts, n_sh, work,
+        # stream
+        "yttm_shard_fold": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _p, _p, _i, _p, _p]),
+        "yttm_shard_relay_scratch": (_l, [_i]),
+        # tok, off, W, lens, keep, new_off, new_idx, scratch, totals, stream
+        "yttm_shard_relay_plan": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p]),
+        # tok, off, fw, wids, W, lens, new_off, new_idx, tok2, pwid2, off2,
+        # fw2, wids2, W2, Mw2, stream
+        "yttm_shard_relay_write": (_i, [_p, _p, _p, _p, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i,
+                                        _i, _p]),
+        # device, peer
+        "yttm_shard_enable_peer": (_i, [_i, _i]),
     })

@@ -177,33 +177,39 @@ def _counted_pairs(tok: torch.Tensor):
     return (tok.long() << 32) | nxt.long().clamp(min=0), counted
 
 
-def _table_update(st: TrainState, dk: torch.Tensor, dv: torch.Tensor):
-    """Add dv per key into the table: present keys add, missing keys (net
-    delta > 0) take empty slots and count toward the occupancy; overflow
-    as the kernel sets it (occupancy above half the table, or full)."""
+def _table_add(keys, cnts, ctl, dk: torch.Tensor, dv: torch.Tensor, occ_slot=OCC, ovf_slot=OVERFLOW):
+    """Add dv per key into the table ``keys``/``cnts``: present keys add,
+    missing keys (net delta > 0) take empty slots and count toward the
+    occupancy ``ctl[occ_slot]``; ``ctl[ovf_slot]`` set as the kernel sets
+    it (occupancy above half the table, or full)."""
     if dk.numel() == 0:
         return
     uk, inv = torch.unique(dk, sorted=True, return_inverse=True)
     ud = torch.zeros(uk.shape[0], dtype=torch.int64, device=dk.device).index_add_(0, inv, dv.long())
-    slots = torch.nonzero(st.keys != EMPTY).flatten()
+    slots = torch.nonzero(keys != EMPTY).flatten()
     present = torch.zeros(uk.shape[0], dtype=torch.bool, device=dk.device)
     if slots.numel():
-        sk, order = torch.sort(st.keys[slots])
+        sk, order = torch.sort(keys[slots])
         slots = slots[order]
         where = torch.searchsorted(sk, uk).clamp(max=sk.numel() - 1)
         present = sk[where] == uk
-        st.cnts.index_add_(0, slots[where[present]], ud[present].to(torch.int32))
+        cnts.index_add_(0, slots[where[present]], ud[present].to(torch.int32))
     new_k, new_d = uk[~present], ud[~present]
     if bool((new_d <= 0).any()):
-        st.ctl[ERROR] = 1  # a subtraction from a pair the table lacks
-    free = torch.nonzero(st.keys == EMPTY).flatten()
+        ctl[ERROR] = 1  # a subtraction from a pair the table lacks
+    free = torch.nonzero(keys == EMPTY).flatten()
     fit = min(free.numel(), new_k.numel())
-    st.keys[free[:fit]] = new_k[:fit]
-    st.cnts[free[:fit]] = new_d[:fit].to(torch.int32)
-    occ = int(st.ctl[OCC]) + fit
-    st.ctl[OCC] = occ
-    if fit < new_k.numel() or 2 * occ > st.cap:
-        st.ctl[OVERFLOW] = 1
+    keys[free[:fit]] = new_k[:fit]
+    cnts[free[:fit]] = new_d[:fit].to(torch.int32)
+    occ = int(ctl[occ_slot]) + fit
+    ctl[occ_slot] = occ
+    if fit < new_k.numel() or 2 * occ > keys.shape[0]:
+        ctl[ovf_slot] = 1
+
+
+def _table_update(st: TrainState, dk: torch.Tensor, dv: torch.Tensor):
+    """``_table_add`` into the state's table."""
+    _table_add(st.keys, st.cnts, st.ctl, dk, dv)
 
 
 def pair_count_plain(st: TrainState):
@@ -241,12 +247,14 @@ def topk_accept_plain(st: TableState, limit: int, vocab_size: int, used_ids0: in
     st.work[W_SLOTS] += st.cap
 
 
-def apply_delta_plain(st: TrainState):
+def merge_listed_plain(st: TrainState):
+    """apply_delta's merge, plain: lists the words with an accepted pair
+    (``ctl[NAFF]``), merges and compacts them in ``st.tok``.  Returns the
+    stream before and after, the listed words' positions and each
+    position's word weight, for the caller's contributions."""
     n_acc = int(st.ctl[NACC])
-    if n_acc == 0:
-        return
     cx, cy, zs = st.cand[:n_acc, 0], st.cand[:n_acc, 1], st.cand[:n_acc, 2]
-    t = st.tok
+    t = st.tok.clone()
     m = t.shape[0]
     idx = torch.arange(m, device=t.device)
     nxt = _shift_left(t, PAD)
@@ -260,9 +268,6 @@ def apply_delta_plain(st: TrainState):
     aff = (pw >= 0) & aff_w[pw.clamp(min=0)]
     st.ctl[NAFF] = int(aff_w.sum())
     w = st.fw[pw.clamp(min=0)]
-
-    old_keys, old_counted = _counted_pairs(t)
-    old = old_counted & aff
     # merge: even offsets inside runs of hits take z, their right
     # neighbours drop, and each word front-compacts in its own slots
     sel = hit & ((idx - _last_index(~hit) - 1) % 2 == 0)
@@ -275,7 +280,15 @@ def apply_delta_plain(st: TrainState):
     t2 = torch.full_like(t, PAD)
     t2[dst] = new_t[keep]
     st.tok.copy_(t2)
+    return t, t2, aff, w
 
+
+def apply_delta_plain(st: TrainState):
+    if int(st.ctl[NACC]) == 0:
+        return
+    t, t2, aff, w = merge_listed_plain(st)
+    old_keys, old_counted = _counted_pairs(t)
+    old = old_counted & aff
     new_keys, new_counted = _counted_pairs(t2)
     new = new_counted & aff
     _table_update(
