@@ -8,8 +8,9 @@ builds the port's kernels from the sources, holds every kernel against
 its plain torch version (and the encode kernel against the C++ host
 merger), drives the encode path at the full width of a vocab-30000 model
 over a 100 MB corpus, trains a vocab-30000 model on the same corpus with
-the v2 and the v5 trainers, the four differential trainers and v2 sharded
-over a 4-shard data mesh on the one card, and prints timings.  Phases, in
+the v2 and the v5 trainers, the four differential trainers, and v2, v3, v1
+and v0 sharded over a 4-shard data mesh on the one card, and prints
+timings.  Phases, in
 order (any failure exits nonzero):
 
   1. device and build: the card's name and power limit; nvcc/g++ builds
@@ -57,7 +58,8 @@ order (any failure exits nonzero):
      (the kernel, launches counted); a 2000-line sample decodes back; the
      two routes' mean ids a line agree within 5 standard errors; a subword
      dropout encode spells the sample; the kernel again on every input of
-     the main path, equal to its plain version; times and bounds
+     the main path, equal to its plain version on every 3rd; times and
+     bounds
   8. the flat stream backend (csrc/stream_encode.cu: stream_build,
      stream_dedup, stream_merge), run after phase 7: each kernel equals its
      plain version on the corpus's first 1 MiB chunk and on a crafted chunk
@@ -92,7 +94,7 @@ order (any failure exits nonzero):
      delta_emit, shard_recount and shard_fold each equal their plain
      versions for two rounds in both branches (the recount branch forced by
      a tiny dcap), and shard_relay at the first re-pack; the 10 MB prefix at
-     vocab 8000 with 2 and 4 shards, the kernel engine and the plain sharded
+     vocab 4000 with 2 and 4 shards, the kernel engine and the plain sharded
      loop in lockstep (tiny dcap, small kernel tables: recount rounds and
      rebuilds), every replica's table equal to the plain loop's live table
      at every segment end; the main path ``train.train(corpus, model,
@@ -100,6 +102,23 @@ order (any failure exits nonzero):
      counted, rules equal to phase 5's v2 rules; times (merge loop,
      merges/s, recount rounds, exchange volume), each kernel's device ms,
      bounds from the run's work counters, plain versions over its first ids
+ 11. the other sharded trainers on 4 shards of card 0, run after phase 10:
+     v3 (csrc/train_sparse_sharded.cu: sparse_emit, sparse_shard_recount,
+     with phase 10's shard_fold), v1 and v0 (their shard counts in
+     csrc/train_stream.cu and csrc/train_bucketed.cu, the always-rebuild
+     shard_fold, the top-k and the applies on every shard).  On the 100 MB
+     state each kernel equals its plain version for two rounds (v3 in both
+     of shard_fold's branches, the recount branch forced by a tiny dcap);
+     the 10 MB prefix at vocab 4000 (v0: its first ids) with 2 and 4 shards,
+     each kernel engine and its plain sharded loop in lockstep, equal at
+     every segment end (streams or rows, every replica's live table, rules;
+     v3 with tiny dcap and small tables); the main paths at vocab 30000,
+     each run once under torch.profiler with launches counted:
+     ``train.train`` with ``YTTM_TRAIN_IMPL=sparse`` on the mesh,
+     ``run_training_stream_sharded`` and ``run_training_sharded``, rules
+     equal to phase 5's v2 rules; times, bounds and plain versions as in
+     phase 10.  ``python3 chip_smoke.py --phase11`` runs phase 11 alone
+     after the build, against the v2 kernel engine's rules
 
 The second-to-last line is a JSON ``kernels`` record, the line before
 it the card; the last line is ``{"ok": true, "device": {...}}``.  It
@@ -168,12 +187,13 @@ def phase_device_and_build() -> dict:
     log(f"[1] card: {card}")
     t0 = time.perf_counter()
     # one compiler per source, all started together
-    with ThreadPoolExecutor(13) as ex:
+    with ThreadPoolExecutor(14) as ex:
         futs = [ex.submit(f) for f in (_cuda.load, _cuda.load_dropout, _cuda.load_stream,
                                        _cuda.load_topk, _cuda.load_train, _cuda.load_tiered,
                                        _cuda.load_stream_train, _cuda.load_sparse,
                                        _cuda.load_block, _cuda.load_bucketed,
-                                       _cuda.load_sharded, fasttok._load, fastio._load)]
+                                       _cuda.load_sharded, _cuda.load_sparse_sharded,
+                                       fasttok._load, fastio._load)]
         for f in futs:
             f.result()
     build_s = time.perf_counter() - t0
@@ -614,6 +634,9 @@ MID_VOCAB = 8000
 # times in the mid-size run
 MID_PCAP = 256
 TRAIN_SEG = 1000  # ids per segment, as run_training_delta sets it with the merge log on
+# ids over which phases 5 and 6 time the plain versions (the whole run took
+# 88 s of the script's 1200; phases 9-11 time theirs over a prefix too)
+HEAD_IDS = 1000
 TRAIN_KERNELS = ("pair_count", "topk_accept", "apply_delta")
 # the device functions of each wrapper, as the profiler names them
 TRAIN_DEVICE_FNS = {
@@ -1016,7 +1039,10 @@ def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
     log("[5] device ms summed over the run (torch.profiler): "
         + ", ".join(f"{k} {v:.3f}" for k, v in kernel_ms.items()))
 
-    # the plain versions over the same run, each call synchronised
+    # the plain versions over the run's first HEAD_IDS ids, each call
+    # synchronised, beside the kernels' device ms over the same ids
+    head = used0 + HEAD_IDS
+    prefix_ms = traced(lambda: run_engine(engine(), head, used0), TRAIN_DEVICE_FNS)[0]
     plain_ms = {name: 0.0 for name in TRAIN_KERNELS}
 
     def timed_plain(name, fn):
@@ -1036,9 +1062,12 @@ def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
         apply_delta=timed_plain("apply_delta", tk.apply_delta_plain),
     ):
         eng = engine()
-        run_engine(eng, TRAIN_VOCAB, used0)
-    check(torch.equal(eng.rules, st.rules), "the plain versions' rules differ")
-    log(f"[5] plain versions over the same run (synchronised calls): "
+        p_used = run_engine(eng, head, used0)
+    check(torch.equal(eng.rules[: p_used - used0], st.rules[: p_used - used0]),
+          "the plain versions' rules differ")
+    log(f"[5] over the first {HEAD_IDS} ids: kernels (torch.profiler) "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in prefix_ms.items())
+        + "; plain versions (synchronised calls) "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items()))
 
     # bounds, from this run's inputs and the work its data gave each
@@ -1055,10 +1084,12 @@ def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
         b_ms = bytes_[name] / HBM_BYTES_PER_S * 1e3
         o_ms = ops[name] / OPS_PER_S * 1e3
         rows.append({"name": name, "launches": launches[name], "ms": kernel_ms[name],
-                     "plain_ms": plain_ms[name], "bound_ms": max(b_ms, o_ms),
+                     "plain_ms": plain_ms[name], "plain_ids": HEAD_IDS,
+                     "prefix_ms": prefix_ms[name], "bound_ms": max(b_ms, o_ms),
                      "bound_by": "bytes" if b_ms >= o_ms else "operations"})
         log(f"[5] {name}: {launches[name]} launches, {kernel_ms[name]:.3f} ms on the card, "
-            f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain {plain_ms[name]:.1f} ms")
+            f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain {plain_ms[name]:.1f} ms "
+            f"over the first {HEAD_IDS} ids (kernel {prefix_ms[name]:.3f} ms)")
     log(f"[5] times: preprocessing {prep_s:.2f} s, BPE.train {train_s:.2f} s, merge loop "
         f"{loop_s:.3f} s, {rounds} rounds, {merges / loop_s:.0f} merges/s, "
         f"plain round loop {plain_loop_s:.1f} s")
@@ -1549,6 +1580,9 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
             return out
         return run
 
+    head = used0 + HEAD_IDS
+    prefix_ms = traced(lambda: run_tiered(engine(), head, used0), TIERED_DEVICE_FNS)[0]
+
     def apply_plain(st, kb1=0, kb2=0, count_mode=False):
         if count_mode:
             plain_tiered_count(st)
@@ -1564,9 +1598,12 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
         fold_rows=timed_plain("fold_rows", tk.fold_rows_plain),
     ):
         p_eng = engine()
-        run_tiered(p_eng, TRAIN_VOCAB, used0)
-    check(torch.equal(p_eng.rules, st.rules), "the tiered plain versions' rules differ")
-    log("[6] plain versions over the same run (synchronised calls): "
+        p_used = run_tiered(p_eng, head, used0)
+    check(torch.equal(p_eng.rules[: p_used - used0], st.rules[: p_used - used0]),
+          "the tiered plain versions' rules differ")
+    log(f"[6] over the first {HEAD_IDS} ids: kernels (torch.profiler) "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in prefix_ms.items())
+        + "; plain versions (synchronised calls) "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items()))
 
     rows = []
@@ -1574,11 +1611,13 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
         b_ms = wbytes[name] / HBM_BYTES_PER_S * 1e3
         o_ms = wops[name] / OPS_PER_S * 1e3
         rows.append({"name": name, "launches": launches[name], "ms": kernel_ms[name],
-                     "plain_ms": plain_ms[name], "bound_ms": max(b_ms, o_ms),
+                     "plain_ms": plain_ms[name], "plain_ids": HEAD_IDS,
+                     "prefix_ms": prefix_ms[name], "bound_ms": max(b_ms, o_ms),
                      "bound_by": "bytes" if b_ms >= o_ms else "operations"})
         log(f"[6] {name}: {launches[name]} launches, {kernel_ms[name]:.3f} ms on the card, "
             f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain "
-            f"{plain_ms[name]:.1f} ms")
+            f"{plain_ms[name]:.1f} ms over the first {HEAD_IDS} ids (kernel "
+            f"{prefix_ms[name]:.3f} ms)")
     log(f"[6] times: BPE.train {train_s:.2f} s, merge loop {loop_s:.3f} s, {rounds} rounds, "
         f"{refresh} refresh rounds, {eng.folds} folds, {merges / loop_s:.0f} merges/s")
     return {"rows": rows}
@@ -1589,6 +1628,10 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
 DROPOUT_P = 0.1
 DROPOUT_SEED = 0x5EED0D20
 DROPOUT_REPLACES = "youtokentome_tpu/ops/encode_kernel.py:160"
+# the kernel is held against its plain version on every 3rd main-path input
+# (every input takes ~89 s, which the script's 1200 s cannot spare beside
+# phase 11)
+DROPOUT_PLAIN_EVERY = 3
 # integer operations of the dropout kernel beyond its pair lookups
 # (OPS_PER_PAIR each: every pair once, and the two pairs a merge makes):
 # the coin of a candidate (three murmur steps and the finalizer, ~24) and
@@ -1695,21 +1738,28 @@ def phase_dropout_main(main: dict, lines, card: str) -> dict:
         f"subwords spell the sample")
     del native, kern, subs
 
-    # the kernel on every input of the main path, under the profiler; the
-    # plain version on the same inputs, each call synchronised, equal
+    # the kernel on every input of the main path, under the profiler, and on
+    # every DROPOUT_PLAIN_EVERY-th; the plain version on those, each call
+    # synchronised, equal
     tables = bpe._encoder.tables
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        outs = [real(tables, x, DROPOUT_P, seed, row0) for x, seed, row0 in calls]
+    part = calls[::DROPOUT_PLAIN_EVERY]
+    kms = []
+    for inputs in (part, calls):
         torch.cuda.synchronize()
-    k_ms = profiled_ms(prof, ("encode_dropout_kernel",))
-    check(k_ms > 0, "the profiler recorded no device time for encode_dropout")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            outs = [real(tables, x, DROPOUT_P, seed, row0) for x, seed, row0 in inputs]
+            torch.cuda.synchronize()
+        kms.append(profiled_ms(prof, ("encode_dropout_kernel",)))
+    part_ms, k_ms = kms
+    check(min(kms) > 0, "the profiler recorded no device time for encode_dropout")
     p_ms, merges = 0.0, 0
-    for (x, seed, row0), out in zip(calls, outs):
+    for i, ((x, seed, row0), out) in enumerate(zip(calls, outs)):
+        merges += int((x >= 0).sum() - (out >= 0).sum())
+        if i % DROPOUT_PLAIN_EVERY:
+            continue
         want, ms = synced(lambda: ek.encode_dropout_plain(tables, x, DROPOUT_P, seed, row0))
         p_ms += ms
         check(torch.equal(out, want), "dropout kernel != plain on a main-path input")
-        merges += int((x >= 0).sum() - (out >= 0).sum())
     del outs
     # the work this run's data gives the kernel, counted by the kernel
     # itself in one more pass (coins drawn, merges, initial pair lookups)
@@ -1724,10 +1774,12 @@ def phase_dropout_main(main: dict, lines, card: str) -> dict:
     b_ms = elems * 8 / HBM_BYTES_PER_S * 1e3
     o_ms = ((pairs + 2 * merges) * OPS_PER_PAIR + coins * OPS_PER_COIN) / OPS_PER_S * 1e3
     log(f"[7] main-path inputs ({launches} launches, shapes {shapes}): kernel == plain on every "
-        f"one; {pairs} pairs, {coins} coins, {merges} merges; kernel {k_ms:.3f} ms "
-        f"(torch.profiler), bytes bound {b_ms:.4f} ms, operations "
-        f"bound {o_ms:.4f} ms, plain {p_ms:.1f} ms ({card})")
+        f"{DROPOUT_PLAIN_EVERY}rd one ({len(part)}); {pairs} pairs, {coins} coins, {merges} merges; "
+        f"kernel {k_ms:.3f} ms (torch.profiler), bytes bound {b_ms:.4f} ms, operations "
+        f"bound {o_ms:.4f} ms, plain {p_ms:.1f} ms over {len(part)} inputs (kernel {part_ms:.3f} "
+        f"ms) ({card})")
     row = {"name": "encode_dropout", "launches": launches, "ms": k_ms, "plain_ms": p_ms,
+           "plain_inputs": len(part), "prefix_ms": part_ms,
            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
     return {"row": row, "native_mbps": n_bytes / 1e6 / native_s, "kernel_mbps": n_bytes / 1e6 / kern_s}
 
@@ -1954,7 +2006,7 @@ DIFF_DEVICE_FNS = {
     ("stream", "apply_compact"): ("hit_tiles_kernel", "select_tiles_kernel", "scatter_kernel"),
     ("sparse", "sparse_count"): ("count_words_kernel",),
     ("sparse", "topk_accept"): ("topk_blocks_kernel", "topk_accept_kernel"),
-    ("sparse", "sparse_apply"): ("mark_words_kernel", "apply_words_kernel"),
+    ("sparse", "sparse_apply"): ("mark_live_words_kernel", "apply_words_kernel"),
     ("block", "block_count"): ("count_all_rows_kernel",),
     ("block", "topk_accept"): ("topk_blocks_kernel", "topk_accept_kernel"),
     ("block", "block_apply"): ("flag_rows_kernel", "apply_rows_kernel", "full_clear_kernel",
@@ -2305,28 +2357,80 @@ def diff_work(name: str, eng, count_calls) -> tuple:
                              rounds * slots_rows * OPS_PER_POS)}
 
 
-def profiled(name: str, fn):
-    """Run ``fn`` under torch.profiler: (device ms of each wrapper of trainer
-    ``name``, the run's wall seconds, what ``fn`` returns)."""
-    import re
+class Tracer:
+    """The PyTorch profiler's kineto tracer (CUDA activity) over a run:
+    each kernel's duration summed by name from the tracer's raw events
+    (building the profiler's event tree for key_averages takes minutes on a
+    run of a million launches).  ``cycle()`` closes the tracer's window and
+    opens the next, so that a long run's records are taken in parts."""
 
+    def __init__(self):
+        import collections
+
+        self.by_name = collections.Counter()
+
+    def _start(self):
+        from torch.autograd.profiler import profile
+
+        tracer = profile(use_cpu=False, use_device="cuda", use_kineto=True)
+        tracer._prepare_trace()
+        tracer._start_trace()
+
+    def _stop(self):
+        from torch._C._autograd import _disable_profiler
+
+        for ev in _disable_profiler().events():
+            if str(ev.device_type()).endswith("CUDA"):
+                self.by_name[ev.name()] += ev.duration_ns()
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.synchronize()
+        self._start()
+        return self
+
+    def cycle(self):
+        self._stop()
+        self._start()
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.synchronize()
+        self._stop()
+
+    def ms(self, fns: dict) -> dict:
+        """Device ms of each key of ``fns``, summed over the kernels whose
+        names hold one of its function names."""
+        import re
+
+        ms = {k: 0.0 for k in fns}
+        for fn_name, ns in self.by_name.items():
+            for k, names in fns.items():
+                if any(re.search(r"(^|[^A-Za-z0-9_])" + f + r"[(<]", fn_name) for f in names):
+                    ms[k] += ns / 1e6
+        return ms
+
+
+def traced(fn, fns: dict, tracer=None):
+    """Run ``fn`` under a Tracer (``tracer``, when given, for ``fn`` to
+    cycle): (device ms of each key of ``fns``, the run's wall seconds, what
+    ``fn`` returns)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with tracer or Tracer() as tr:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ms = {k: 0.0 for k in DIFF_KERNELS[name]}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        for k in DIFF_KERNELS[name]:
-            for f in DIFF_DEVICE_FNS[(name, k)]:
-                if re.search(r"(^|[^A-Za-z0-9_])" + f + r"\(", ev.key):
-                    ms[k] += us / 1e3
-    return ms, wall, out
+    return tr.ms(fns), wall, out
+
+
+def profiled(name: str, fn):
+    """Run ``fn`` under the profiler: (device ms of each wrapper of trainer
+    ``name``, the run's wall seconds, what ``fn`` returns)."""
+    return traced(fn, {k: DIFF_DEVICE_FNS[(name, k)] for k in DIFF_KERNELS[name]})
 
 
 def plain_diff(name: str, engine, vocab: int, used0: int) -> dict:
@@ -2512,6 +2616,10 @@ SHARD_REPLACES = {
 }
 SHARD_ENCODE_REPLACES = "youtokentome_tpu/parallel/encode_sharded.py:40"
 MID_DCAP = 64  # the 10 MB lockstep's delta buffers: most rounds take the recount branch
+# the sharded 10 MB lockstep's depth (phases 10 and 11), below MID_VOCAB so
+# that the script, with phase 11's ~200 s v0 main path, stays well inside
+# its 1200 s
+SHARD_MID_VOCAB = 4000
 SHARD_PLAIN_IDS = 200  # ids the plain versions are timed over
 SHARD_PLAIN_EVERY = 4  # the sharded merge's plain version is timed on every 4th chunk
 
@@ -2663,15 +2771,17 @@ def scratch_table(st):
     return keys[used][order], cnts[used][order]
 
 
-def same_shard(a, b, what: str, buffers: bool = True) -> None:
-    """Kernel and plain shard states agree: stream, the replica and the
-    scratch table as multisets, ctl, work, rules and (when no side passed
-    dcap) each side of the delta buffer as a multiset."""
+def same_shard(a, b, what: str, buffers: bool = True, stream=("tok",)) -> None:
+    """Kernel and plain shard states agree: stream (the attributes named in
+    ``stream``), the replica and the scratch table as multisets, ctl, work,
+    rules and (when no side passed dcap) each side of the delta buffer as a
+    multiset."""
     import torch
 
     from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
 
-    check(torch.equal(a.tok, b.tok), f"{what}: streams differ")
+    for k in stream:
+        check(torch.equal(getattr(a, k), getattr(b, k)), f"{what}: streams ({k}) differ")
     for t, (ka, ca), (kb, cb) in (("table", a.table(), b.table()),
                                   ("scratch table", scratch_table(a), scratch_table(b))):
         check(np.array_equal(ka, kb) and np.array_equal(ca, cb), f"{what}: {t}s differ")
@@ -2787,7 +2897,7 @@ def phase_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
 
 
 def phase_shard_mid(mid_path: Path, dev="cuda:0") -> dict:
-    """The 10 MB prefix at vocab MID_VOCAB with 2 and 4 shards on the card: the
+    """The 10 MB prefix at vocab SHARD_MID_VOCAB with 2 and 4 shards on the card: the
     kernel engine and the plain sharded loop in lockstep, with tiny delta
     buffers (recount rounds) and small kernel tables (rebuilds):
     rules, used and done equal at every segment end, and every replica's
@@ -2802,13 +2912,13 @@ def phase_shard_mid(mid_path: Path, dev="cuda:0") -> dict:
         # the plain loop keeps the JAX host loop's pcap: its recount fold drops
         # the keys past pcap of each shard's count unseen (ROADMAP.md)
         with env_set(YTTM_TRAIN_DCAP=str(MID_DCAP)):
-            plain = shard_engine(buckets, used0, MID_VOCAB, n, plain=True, dev=dev)
+            plain = shard_engine(buckets, used0, SHARD_MID_VOCAB, n, plain=True, dev=dev)
             with env_set(YTTM_TRAIN_PCAP=str(MID_PCAP)):
-                kern = shard_engine(buckets, used0, MID_VOCAB, n, dev=dev)
+                kern = shard_engine(buckets, used0, SHARD_MID_VOCAB, n, dev=dev)
         used, segs, nrec = used0, 0, 0
         with checked_relay() as rel:
-            while used < MID_VOCAB:
-                limit = min(MID_VOCAB, used + TRAIN_SEG)
+            while used < SHARD_MID_VOCAB:
+                limit = min(SHARD_MID_VOCAB, used + TRAIN_SEG)
                 ku, kd = complete_segment(kern, used, limit)
                 pu, pd = complete_segment(plain, used, limit)
                 check((ku, kd) == (pu, pd), f"{n} shards, segment to {limit}: {ku, kd} != {pu, pd}")
@@ -2826,7 +2936,7 @@ def phase_shard_mid(mid_path: Path, dev="cuda:0") -> dict:
         check(kern.rebuilds >= 1 and nrec > 0,
               f"{n} shards: {kern.rebuilds} rebuilds, {nrec} recount rounds")
         out[n] = {"segments": segs, "rebuilds": kern.rebuilds, "recounts": nrec, "relays": rel.n}
-        log(f"[10] 10 MB, vocab {MID_VOCAB}, {n} shards, dcap {MID_DCAP}: kernels == plain sharded "
+        log(f"[10] 10 MB, vocab {SHARD_MID_VOCAB}, {n} shards, dcap {MID_DCAP}: kernels == plain sharded "
             f"loop at all {segs} segment ends (rules, every replica's live table); "
             f"{kern.rebuilds} rebuilds, {nrec} recount rounds, {rel.n} relays checked, plain "
             f"pcap {plain.pcap}")
@@ -2851,23 +2961,9 @@ def run_shards(eng, vocab: int, used: int) -> tuple:
 
 
 def shard_profiled(fn):
-    """(device ms of each sharded wrapper, what ``fn`` returns), from
-    torch.profiler."""
-    import re
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    ms = {k: 0.0 for k in SHARD_DEVICE_FNS}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        for k, fns in SHARD_DEVICE_FNS.items():
-            if any(re.search(r"(^|[^A-Za-z0-9_])" + f + r"[(<]", ev.key) for f in fns):
-                ms[k] += us / 1e3
+    """(device ms of each sharded wrapper, what ``fn`` returns), from the
+    profiler."""
+    ms, _, out = traced(fn, SHARD_DEVICE_FNS)
     return ms, out
 
 
@@ -3000,6 +3096,540 @@ def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
             "merges_per_s": merges / loop_s, "recounts": nrec}
 
 
+# -- phase 11: the other sharded trainers (v3, v1, v0) on the data mesh ------
+
+OTHER_TRAINERS = ("sparse", "stream", "bucketed")
+# each trainer's wrappers, in round order
+OTHER_KERNELS = {
+    "sparse": ("topk_accept", "sparse_emit", "sparse_shard_recount", "shard_fold"),
+    "stream": ("stream_shard_count", "shard_fold", "topk_accept", "apply_compact"),
+    "bucketed": ("bucket_shard_count", "shard_fold", "topk_accept", "bucket_apply"),
+}
+# the names of their JSON rows (the new kernels keep their own)
+OTHER_ROW_NAMES = {
+    ("sparse", "topk_accept"): "sparse_sharded_topk_accept",
+    ("sparse", "shard_fold"): "sparse_sharded_shard_fold",
+    ("stream", "shard_fold"): "stream_sharded_shard_fold",
+    ("stream", "topk_accept"): "stream_sharded_topk_accept",
+    ("stream", "apply_compact"): "stream_sharded_apply_compact",
+    ("bucketed", "shard_fold"): "bucket_sharded_shard_fold",
+    ("bucketed", "topk_accept"): "bucket_sharded_topk_accept",
+    ("bucketed", "bucket_apply"): "bucket_sharded_apply",
+}
+# the device functions of each wrapper, as the profiler names them
+OTHER_DEVICE_FNS = {
+    "topk_accept": ("topk_blocks_kernel", "topk_accept_kernel"),
+    "shard_fold": ("fold_prep_kernel", "fold_kernel"),
+    "sparse_emit": ("mark_live_words_kernel", "emit_live_words_kernel"),
+    "sparse_shard_recount": ("sparse_recount_clear_kernel", "sparse_recount_kernel"),
+    "stream_shard_count": ("clear_kernel", "eq_tiles_kernel", "count_tiles_kernel"),
+    "apply_compact": ("hit_tiles_kernel", "select_tiles_kernel", "scatter_kernel"),
+    "bucket_shard_count": ("clear_kernel", "count_rows_kernel"),
+    "bucket_apply": ("apply_rows_kernel",),
+}
+OTHER_SOURCES = {
+    "topk_accept": TOPK_SOURCE,
+    "shard_fold": SHARD_SOURCE,
+    "sparse_emit": "youtokentome_tpu_torch/csrc/train_sparse_sharded.cu",
+    "sparse_shard_recount": "youtokentome_tpu_torch/csrc/train_sparse_sharded.cu",
+    "stream_shard_count": "youtokentome_tpu_torch/csrc/train_stream.cu",
+    "apply_compact": "youtokentome_tpu_torch/csrc/train_stream.cu",
+    "bucket_shard_count": "youtokentome_tpu_torch/csrc/train_bucketed.cu",
+    "bucket_apply": "youtokentome_tpu_torch/csrc/train_bucketed.cu",
+}
+OTHER_REPLACES = {
+    "sparse": "youtokentome_tpu/parallel/train_sparse_sharded.py:86",
+    "stream": "youtokentome_tpu/parallel/train_stream_sharded.py:42",
+    "bucketed": "youtokentome_tpu/parallel/train_sharded.py:38",
+}
+OTHER_STREAMS = {"sparse": ("t",), "stream": ("t", "wid"), "bucketed": ("tok",)}
+# v0's depth in the sharded 10 MB lockstep, and the ids the plain versions
+# are timed over (v0's below SHARD_PLAIN_IDS: one merge a round)
+OTHER_V0_IDS = 300
+OTHER_PLAIN_IDS = {"sparse": SHARD_PLAIN_IDS, "stream": SHARD_PLAIN_IDS, "bucketed": 50}
+# rounds a window of the tracer over a main path holds: held in one window,
+# the v0 main path's ~30,000 rounds ran about a quarter longer
+TRACE_WINDOW = 4096
+
+
+def other_wrapper(name: str, k: str):
+    """Wrapper ``k`` of the sharded trainer ``name``: (its module, the
+    wrapper)."""
+    from youtokentome_tpu_torch.ops import bucketed_kernels as bk
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
+    from youtokentome_tpu_torch.ops import sparse_sharded_kernels as ssk
+    from youtokentome_tpu_torch.ops import stream_train_kernels as stk
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    home = {"topk_accept": tk, "shard_fold": dsk, "sparse_emit": ssk,
+            "sparse_shard_recount": ssk, "stream_shard_count": rsk, "bucket_shard_count": rsk,
+            "apply_compact": stk, "bucket_apply": bk}[k]
+    return home, getattr(home, k)
+
+
+def other_engine(name: str, buckets, used0: int, vocab: int, n: int = SHARDS,
+                 plain: bool = False, dev="cuda:0"):
+    """The kernel (or plain) engine of sharded trainer ``name`` on
+    ``buckets``, its shards on ``dev``, as its host loop builds it."""
+    from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
+    from youtokentome_tpu_torch.ops import sparse_sharded_kernels as ssk
+    from youtokentome_tpu_torch.ops import train_delta as td
+    from youtokentome_tpu_torch.ops import train_sparse as sp
+    from youtokentome_tpu_torch.ops import train_stream as ts
+    from youtokentome_tpu_torch.parallel import train_delta_sharded as tds
+    from youtokentome_tpu_torch.parallel import train_sharded as tsh
+    from youtokentome_tpu_torch.parallel import train_sparse_sharded as tss
+    from youtokentome_tpu_torch.parallel import train_stream_sharded as tst
+
+    rules = np.full((vocab, 4), -1, np.int32)
+    mesh = card_mesh(n, dev)
+    if name == "bucketed":
+        sb = tsh.shard_rows(buckets, n)
+        if plain:
+            return tsh.PlainBucketedShardedEngine(sb, rules, used0, vocab, mesh)
+        return rsk.BucketedShardedKernelEngine(sb, rules, used0, vocab, mesh)
+    t, wid, freq = (np.asarray(x) for x in ts.flatten_word_buckets(buckets))
+    seg_t, seg_w, per, dcap = tds.shard_plan(t, wid, n)
+    if name == "stream":
+        if plain:
+            return tst.PlainStreamShardedEngine(seg_t, seg_w, freq, rules, used0, vocab, 16, mesh)
+        return rsk.StreamShardedKernelEngine(seg_t, seg_w, freq, rules, used0, vocab, 16, mesh,
+                                             t.shape[0])
+    if plain:
+        uk, uc = sp._host_table_tomb(t, wid, freq)
+        pcap = int(os.environ.get("YTTM_TRAIN_PCAP", "0")) or min(
+            td._pcap_budget(uk.size, vocab - used0), td._next_pow2(int((wid >= 0).sum())))
+        return tss.PlainSparseShardedEngine(seg_t, seg_w, per, freq, rules, used0, vocab, 16, mesh,
+                                            pcap, dcap, (uk, uc))
+    return ssk.SparseShardedKernelEngine(seg_t, seg_w, freq, rules, used0, vocab, 16, mesh, dcap,
+                                         t.shape[0])
+
+
+def other_round(name: str, ks, ps, used0: int, limit: int, what: str) -> bool:
+    """One round of sharded trainer ``name`` through the kernels on ``ks``
+    and the plain versions on ``ps``, compared after each step; returns
+    whether the fold took its recount branch."""
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+
+    stream = OTHER_STREAMS[name]
+    V, kb = TRAIN_VOCAB, (1 if name == "bucketed" else 16)
+    for k in OTHER_KERNELS[name]:
+        home, fn = other_wrapper(name, k)
+        plain = getattr(home, k + "_plain")
+        rec = any(int(a.ctl[dsk.DOVF]) for a in ks)
+        for i, (a, b) in enumerate(zip(ks, ps)):
+            if k == "topk_accept":
+                fn(a, limit, V, used0, kb)
+                plain(b, limit, V, used0, kb)
+            elif k in ("sparse_shard_recount", "shard_fold"):
+                fn(a, ks)
+                plain(b, ps)
+            elif k in ("stream_shard_count", "bucket_shard_count"):
+                fn(a, limit, V)
+                plain(b, limit, V)
+            else:
+                fn(a)
+                plain(b)
+            same_shard(a, b, f"{what}, {k} on shard {i}", buffers=name == "sparse", stream=stream)
+    return rec
+
+
+def phase_other_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
+    """Row 13: each kernel of the sharded v3, v1 and v0 trainers against its
+    plain version on the 100 MB corpus's state split into 4 shards on the
+    card, for two rounds, every step compared: v3 with tiny buffers (dcap
+    MID_DCAP: sparse_shard_recount and shard_fold's recount branch) and with
+    buffers large enough for the delta branch, after its replicas' first
+    count against the host table; v1's and v0's shard counts and the
+    always-rebuild fold, the top-k and the applies."""
+    from youtokentome_tpu_torch.ops import train_sparse as sp
+    from youtokentome_tpu_torch.ops import train_stream as ts
+
+    t0 = time.perf_counter()
+    t, wid, freq = ts.flatten_word_buckets(buckets)
+    uk, uc = sp._host_table_tomb(np.asarray(t), np.asarray(wid), np.asarray(freq))
+    for name in OTHER_TRAINERS:
+        eng = other_engine(name, buckets, used0, TRAIN_VOCAB, dev=dev)
+        if name == "sparse":
+            for i, st in enumerate(eng.shards):
+                keys, cnts = st.table()
+                check(np.array_equal(keys, uk.astype(np.int64)) and np.array_equal(cnts, uc),
+                      f"v3 replica {i}'s first count != the host count table")
+        branches = []
+        for dcap in ((MID_DCAP, 1 << 22) if name == "sparse" else (0,)):
+            ks, ps = clone_shards(eng.shards, dcap), clone_shards(eng.shards, dcap)
+            for r in range(2):
+                rec = other_round(name, ks, ps, used0, used0 + TRAIN_SEG,
+                                  f"{name} sharded, dcap {dcap}, round {r}")
+                branches.append("recount" if rec else "delta")
+        want = ["recount"] * 2 + ["delta"] * 2 if name == "sparse" else ["recount"] * 2
+        check(branches == want, f"{name} sharded: the fold took {branches}, not {want}")
+        sizes = [st.n_rows if name == "bucketed" else int((st.t >= 0).sum()) for st in eng.shards]
+        log(f"[11] {name} sharded ({SHARDS} shards of {sizes} {'rows' if name == 'bucketed' else 'tokens'}, "
+            f"tables {eng.shards[0].cap} slots): every kernel == its plain version for 2 rounds "
+            f"({branches})")
+    log(f"[11] kernel checks: {time.perf_counter() - t0:.1f} s")
+
+
+def other_live_table(name: str, plain):
+    """The plain loop's live table (v3) or last count (v1, v0) as sorted
+    (keys, counts) numpy arrays."""
+    import torch
+
+    if name == "sparse":
+        live = plain.tc > 0
+        return plain.tk[live].cpu().numpy(), plain.tc[live].cpu().numpy()
+    cnt, xs, ys = plain.count
+    on = cnt > 0
+    keys = (xs[on].long() << 32) | ys[on].long()
+    order = torch.argsort(keys)
+    return keys[order].cpu().numpy(), cnt[on][order].cpu().numpy()
+
+
+def other_streams(name: str, plain):
+    """Each shard's stream or rows of a plain engine, as the kernel states'
+    OTHER_STREAMS attributes hold them."""
+    import torch
+
+    if name == "bucketed":
+        return [(torch.cat([t.reshape(-1) for t, _ in bks]),) for bks in plain.shards]
+    if name == "stream":
+        return list(zip(plain.ts, plain.ws))
+    return [(t,) for t in plain.ts]
+
+
+def phase_other_shard_mid(mid_path: Path, dev="cuda:0") -> dict:
+    """The 10 MB prefix at vocab SHARD_MID_VOCAB (v0: its first OTHER_V0_IDS
+    ids) with 2 and 4 shards on the card: each sharded trainer's kernel engine
+    and its plain sharded loop in lockstep, equal at every segment end:
+    each shard's stream or rows, every replica's live table (v1, v0: the
+    last round's count), rules, used and done.  v3 runs with tiny delta
+    buffers (recount rounds) and small kernel tables (rebuilds)."""
+    import torch
+
+    buckets, _, used0 = training_buckets(mid_path)
+    out = {}
+    for name in OTHER_TRAINERS:
+        t0 = time.perf_counter()
+        vocab = min(SHARD_MID_VOCAB, used0 + OTHER_V0_IDS) if name == "bucketed" else SHARD_MID_VOCAB
+        for n in (2, 4):
+            env = {"YTTM_TRAIN_DCAP": str(MID_DCAP)} if name == "sparse" else {}
+            with env_set(**env):
+                plain = other_engine(name, buckets, used0, vocab, n, plain=True, dev=dev)
+                with env_set(YTTM_TRAIN_PCAP=str(MID_PCAP)):
+                    kern = other_engine(name, buckets, used0, vocab, n, dev=dev)
+            used, segs, nrec = used0, 0, 0
+            while used < vocab:
+                limit = min(vocab, used + TRAIN_SEG)
+                ku, kd = complete_segment(kern, used, limit)
+                pu, pd = complete_segment(plain, used, limit)
+                what = f"{name}, {n} shards, segment to {limit}"
+                check((ku, kd) == (pu, pd), f"{what}: {ku, kd} != {pu, pd}")
+                check(torch.equal(kern.rules, plain.rules), f"{what}: rules differ")
+                pk, pc = other_live_table(name, plain)
+                for i, st in enumerate(kern.shards):
+                    keys, cnts = st.table()
+                    check(int(cnts.min(initial=0)) >= 0, f"{what}: a negative pair count")
+                    check(np.array_equal(keys[cnts > 0], pk) and np.array_equal(cnts[cnts > 0], pc),
+                          f"{what}: replica {i}'s live table differs")
+                for i, (st, want) in enumerate(zip(kern.shards, other_streams(name, plain))):
+                    for k, w in zip(OTHER_STREAMS[name], want):
+                        check(torch.equal(getattr(st, k), w), f"{what}: shard {i}'s {k} differs")
+                used, segs, nrec = ku, segs + 1, nrec + kern.nrec
+                if kd:
+                    break
+            if name == "sparse":
+                check(kern.rebuilds >= 1 and nrec > 0,
+                      f"v3, {n} shards: {kern.rebuilds} rebuilds, {nrec} recount rounds")
+            out[(name, n)] = {"segments": segs, "rebuilds": kern.rebuilds, "recounts": nrec}
+            log(f"[11] 10 MB, {name} sharded to {vocab}, {n} shards: kernels == plain sharded loop "
+                f"at all {segs} segment ends (streams, every replica's live table, rules); "
+                f"{kern.rebuilds} rebuilds, {nrec} recount rounds, tables {kern.shards[0].cap} slots")
+        log(f"[11] 10 MB lockstep, {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def other_profiled(name: str, fn, tracer=None):
+    """Run ``fn`` under the profiler: (device ms of each wrapper of the
+    sharded trainer ``name``, the run's wall seconds, what ``fn``
+    returns)."""
+    return traced(fn, {k: OTHER_DEVICE_FNS[k] for k in OTHER_KERNELS[name]}, tracer)
+
+
+def other_work(name: str, eng) -> dict:
+    """Bytes and operations that the run's data gave each kernel of the
+    sharded trainer ``name`` (each input read once, each output written
+    once), from the shards' work counters: {wrapper: (bytes, ops)}."""
+    from youtokentome_tpu_torch.ops import bucketed_kernels as bk
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import stream_train_kernels as stk
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    w = np.sum([st.work.cpu().numpy() for st in eng.shards], axis=0).astype(np.int64)
+    head = eng.shards[0].work.cpu().numpy().astype(np.int64)
+    rounds, occ, slots = int(w[tk.W_ROUNDS]), int(w[tk.W_OCC]), int(w[tk.W_SLOTS])
+    kb = 1 if name == "bucketed" else 16
+    out = {"topk_accept": (slots * 4 + occ * 8 + rounds * 16 * kb, slots * OPS_PER_SLOT),
+           "shard_fold": (int(w[dsk.W_FOLD]), int(w[dsk.W_FOLD]) // 4 * OPS_PER_POS)}
+    # the counts write each round's live pairs at least once (the replica's
+    # occupancy, summed over the rounds)
+    head_occ = int(head[tk.W_OCC])
+    if name == "sparse":
+        out["sparse_emit"] = (int(w[dsk.W_EMIT]), int(w[dsk.W_EMIT]) // 4 * OPS_PER_POS)
+        out["sparse_shard_recount"] = (int(w[dsk.W_COUNT]), int(w[dsk.W_COUNT]) // 4 * OPS_PER_COUNTED)
+    elif name == "stream":
+        live = int(w[stk.W_LIVE])
+        out["stream_shard_count"] = (live * 8 + head_occ * 12, live * OPS_PER_COUNTED)
+        out["apply_compact"] = (live * 8 + int(w[stk.W_KEEP]) * 8, live * OPS_PER_POS)
+    else:
+        head_rounds = int(head[tk.W_ROUNDS])
+        slots_rows = sum(int(st.tok.shape[0]) for st in eng.shards)
+        rows = sum(st.n_rows for st in eng.shards)
+        out["bucket_shard_count"] = (head_rounds * (slots_rows * 4 + rows * 8) + head_occ * 12,
+                                     head_rounds * slots_rows * OPS_PER_COUNTED)
+        out["bucket_apply"] = (head_rounds * (slots_rows + rows + len(eng.shards)) * 4
+                               + int(w[bk.W_WRITES]) * 4, head_rounds * slots_rows * OPS_PER_POS)
+    return out
+
+
+def plain_other(name: str, engine, vocab: int, used0: int):
+    """ms of the plain versions of the sharded trainer ``name``'s wrappers
+    over a run to ``vocab``, each call synchronised: (ms, engine, used)."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
+    from youtokentome_tpu_torch.ops import sparse_sharded_kernels as ssk
+    from youtokentome_tpu_torch.ops import train_stream as ts
+
+    ms = {k: 0.0 for k in OTHER_KERNELS[name]}
+
+    def timed(k, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            ms[k] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    plain = {k: timed(k, getattr(other_wrapper(name, k)[0], k + "_plain"))
+             for k in OTHER_KERNELS[name]}
+    mod = ssk if name == "sparse" else rsk  # where the engine finds its wrappers
+    own = {k: f for k, f in plain.items() if k != "shard_fold"}
+    with swapped(mod, **own), swapped(dsk, shard_fold=plain["shard_fold"]):
+        eng = engine(vocab)
+        used = ts.run_to_end(eng, used0, vocab)
+    return ms, eng, used
+
+
+def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
+                           dev="cuda:0", prepared=None) -> dict:
+    """The main paths of row 13 on 4 shards of the card at vocab 30000, each
+    run once under torch.profiler, its launches counted: ``train.train``
+    with ``YTTM_TRAIN_IMPL=sparse`` and a mesh (the sharded v3 trainer; its
+    model's rules equal phase 5's v2 rules, and it encodes and decodes),
+    ``run_training_stream_sharded`` and ``run_training_sharded`` (rules
+    equal phase 5's v2 rules); the merge loop timed inside each run (from
+    the engine's first count to the end); each kernel's device ms from the
+    profiler; bounds from the run's work counters; the plain versions over
+    the first OTHER_PLAIN_IDS ids beside the kernels' device ms there.
+    ``prepared`` is the corpus's (buckets, alphabet, used_ids0) when the
+    caller has them."""
+    import torch
+
+    import youtokentome_tpu_torch as yttm
+    from youtokentome_tpu_torch import train as tr
+    from youtokentome_tpu_torch.models.state import BPEState, BpeConfig, SpecialTokens
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
+    from youtokentome_tpu_torch.ops import sparse_sharded_kernels as ssk
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+    from youtokentome_tpu_torch.ops import train_stream as ts
+    from youtokentome_tpu_torch.parallel import train_sharded as tsh
+    from youtokentome_tpu_torch.parallel import train_stream_sharded as tst
+    from youtokentome_tpu_torch.train import rename_tokens
+
+    buckets, al, used0 = prepared or training_buckets(corpus_path)
+    char2id, want = rename_tokens(al.char2id, v2_rules, SpecialTokens(0, 1, 2, 3), TRAIN_VOCAB)
+    want_rules = torch.tensor(v2_rules)
+    engine_cls = {"sparse": (ssk, "SparseShardedKernelEngine"),
+                  "stream": (rsk, "StreamShardedKernelEngine"),
+                  "bucketed": (rsk, "BucketedShardedKernelEngine")}
+    rows, res = [], {}
+    for name in OTHER_TRAINERS:
+        for k in OTHER_KERNELS[name]:
+            other_wrapper(name, k)[1].launches = 0
+        mod, cls_name = engine_cls[name]
+        engines, marks = [], []
+
+        tracer = Tracer()
+
+        class Recorded(getattr(mod, cls_name)):
+            total_nrec = 0
+            rounds = 0
+
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                engines.append(self)
+
+            def round(self, limit):
+                super().round(limit)
+                self.rounds += 1
+                if self.rounds % TRACE_WINDOW == 0:
+                    tracer.cycle()
+
+            def segment(self, used, limit):
+                out = super().segment(used, limit)
+                self.total_nrec += self.nrec
+                return out
+
+        mesh = card_mesh(dev=dev)
+        t0 = time.perf_counter()
+        with swapped(mod, **{cls_name: Recorded}):
+            if name == "sparse":
+                model_path = work / "trained30k_sparse_sharded.yttm"
+                calls = []
+                real = tr.run_training_sparse_sharded
+
+                def spy(*a, **kw):
+                    calls.append(1)
+                    return real(*a, **kw)
+
+                with env_set(YTTM_TRAIN_IMPL="sparse"), swapped(tr, run_training_sparse_sharded=spy):
+                    kernel_ms, wall, _ = other_profiled(name, lambda: tr.train(
+                        str(corpus_path), str(model_path), TRAIN_VOCAB,
+                        BpeConfig(1.0, -1, SpecialTokens(0, 1, 2, 3)), device=dev, mesh=mesh),
+                        tracer)
+                check(calls == [1], "train.train with YTTM_TRAIN_IMPL=sparse on a mesh did not take "
+                      "the sharded v3 trainer")
+                state = BPEState.load(str(model_path))
+                check(state.rules == want and state.char2id == char2id,
+                      "the sharded v3 train.train's rules != phase 5's v2 rules")
+                bpe = yttm.BPE(str(model_path), device=dev)
+                check(bpe.decode(bpe.encode(sample)) == sample, "the sharded v3 model's round trip")
+                what = "train.train with YTTM_TRAIN_IMPL=sparse"
+            else:
+                run = tst.run_training_stream_sharded if name == "stream" else tsh.run_training_sharded
+                kernel_ms, wall, got = other_profiled(
+                    name, lambda: run(buckets, used0, TRAIN_VOCAB, mesh), tracer)
+                check(got == v2_rules, f"{name} sharded rules != phase 5's v2 rules")
+                what = f"parallel.{run.__module__.rsplit('.', 1)[1]}.{run.__name__}"
+        end = time.perf_counter()
+        train_s = end - t0
+        eng = engines[0]
+        loop_s = end - marks[0]
+        launches = {k: other_wrapper(name, k)[1].launches for k in OTHER_KERNELS[name]}
+        for k, n in launches.items():
+            check(n > 0, f"the {name} sharded main path did not launch {k}")
+        for k, v in kernel_ms.items():
+            check(v > 0, f"the profiler recorded no device time for {name} sharded {k}")
+        head = eng.shards[0]
+        used = int(head.ctl[tk.USED])
+        check(torch.equal(eng.rules[: used - used0, :3].cpu(), want_rules),
+              f"the {name} sharded engine's rules differ")
+        merges, rounds = used - used0, int(head.ctl[tk.ROUND])
+        w = np.sum([st.work.cpu().numpy() for st in eng.shards], axis=0)
+        extra, res_extra = "", {}
+        if name == "sparse":
+            entries = int(w[dsk.W_ENTRIES])
+            res_extra = {"recounts": eng.total_nrec, "exchange_b": entries * 12 / max(rounds, 1)}
+            extra = (f", {eng.total_nrec} recount rounds, {entries} buffer entries "
+                     f"({res_extra['exchange_b']:.0f} B a round, each read by {SHARDS} replicas), "
+                     f"dcap {eng.dcap}")
+        log(f"[11] {what} on {SHARDS} shards of {dev}: {train_s:.2f} s under torch.profiler, "
+            f"launches {launches}")
+        log(f"[11] {name} sharded merge loop: {loop_s:.3f} s (under torch.profiler), {rounds} rounds, "
+            f"{merges} merges, {merges / loop_s:.0f} merges/s, {eng.rebuilds} table rebuilds, tables "
+            f"{head.cap} slots{extra} ({card})")
+        work_bo = other_work(name, eng)
+
+        def engine(vocab, name=name):
+            return other_engine(name, buckets, used0, vocab, dev=dev)
+
+        def replica(vocab):
+            e = engine(vocab)
+            return e, ts.run_to_end(e, used0, vocab)
+
+        plain_ids = OTHER_PLAIN_IDS[name]
+        plain_vocab = used0 + plain_ids
+        prefix_ms = other_profiled(name, lambda: replica(plain_vocab))[0]
+        plain_ms, p_eng, p_used = plain_other(name, engine, plain_vocab, used0)
+        check(torch.equal(p_eng.rules[: p_used - used0, :3].cpu(), want_rules[: p_used - used0]),
+              f"the {name} sharded plain versions' rules differ")
+        for k in OTHER_KERNELS[name]:
+            b, o = work_bo[k]
+            b_ms, o_ms = b / HBM_BYTES_PER_S * 1e3, o / OPS_PER_S * 1e3
+            row = {"name": OTHER_ROW_NAMES.get((name, k), k), "trainer": name, "kernel": k,
+                   "launches": launches[k], "ms": kernel_ms[k], "plain_ms": plain_ms[k],
+                   "plain_ids": plain_ids, "prefix_ms": prefix_ms[k],
+                   "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+            rows.append(row)
+            log(f"[11] {row['name']}: {launches[k]} launches, {kernel_ms[k]:.3f} ms on the card, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {plain_ms[k]:.1f} ms over the "
+                f"first {plain_ids} ids (kernel {prefix_ms[k]:.3f} ms) ({card})")
+        res[name] = {"train_s": train_s, "loop_s": loop_s, "rounds": rounds,
+                     "merges_per_s": merges / loop_s, **res_extra}
+        del engines[:]
+    return {"rows": rows, "times": res}
+
+
+def other_rows(other: dict) -> list:
+    """Phase 11's rows of the ``kernels`` record."""
+    return [
+        {
+            "name": r["name"], "route": "cuda", "source": OTHER_SOURCES[r["kernel"]],
+            "replaces": OTHER_REPLACES[r["trainer"]], "launches": r["launches"], "max_abs_err": 0,
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_ids": r["plain_ids"],
+            "prefix_ms": r["prefix_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "equal": True,
+        }
+        for r in other["rows"]
+    ]
+
+
+def log_other(other: dict, card: str) -> None:
+    log(f"[11] {SHARDS} shards on cuda:0, merge loops (under torch.profiler): " + ", ".join(
+        f"{k} {v['loop_s']:.3f} s ({v['merges_per_s']:.0f} merges/s, {v['rounds']} rounds)"
+        for k, v in other["times"].items()) + f" ({card})")
+
+
+def phase11_alone(info: dict, work: Path, t_start: float) -> int:
+    """``python3 chip_smoke.py --phase11``: phase 11 alone after the build,
+    against the v2 kernel engine's rules (a quicker check of the sharded
+    v3, v1 and v0 trainers; the full run holds them against phase 5's
+    plain round loop)."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_delta as td
+
+    corpus = build_corpus()
+    corpus_path = work / "corpus_100mb.txt"
+    corpus_path.write_text("\n".join(corpus[1]) + "\n")
+    sample = corpus[1][:2000]
+    del corpus
+    blob = corpus_path.read_bytes()
+    (work / "corpus_10mb.txt").write_bytes(blob[: blob.rfind(b"\n", 0, MID_MB * 1_000_000) + 1])
+    dev = torch.device("cuda", 0)
+    prepared = training_buckets(corpus_path)
+    v2_rules = td.run_training_delta(prepared[0], prepared[2], TRAIN_VOCAB, device=dev)
+    phase_other_shard_kernels(prepared[0], prepared[2])
+    phase_other_shard_mid(work / "corpus_10mb.txt")
+    other = phase_other_shard_main(corpus_path, work, sample, v2_rules, info["card"],
+                                   prepared=prepared)
+    log_other(other, info["card"])
+    log(f"[4] build {info['build_s']:.2f} s, whole run {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": other_rows(other)}))
+    print(info["card"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
 
 def main() -> int:
     try:
@@ -3021,6 +3651,8 @@ def main() -> int:
     work.mkdir(parents=True, exist_ok=True)
 
     info = phase_device_and_build()
+    if sys.argv[1:] == ["--phase11"]:
+        return phase11_alone(info, work, t_start)
     kchk = phase_kernel_checks()
     t0 = time.perf_counter()
     corpus = build_corpus()
@@ -3058,6 +3690,11 @@ def main() -> int:
     del buckets
     phase_shard_mid(work / "corpus_10mb.txt")
     shard = phase_shard_main(corpus_path, work, sample, train["plain_rules"], info["card"])
+    prepared = training_buckets(corpus_path)
+    phase_other_shard_kernels(prepared[0], prepared[2])
+    phase_other_shard_mid(work / "corpus_10mb.txt")
+    other = phase_other_shard_main(corpus_path, work, sample, train["plain_rules"], info["card"],
+                                   prepared=prepared)
 
     source = "youtokentome_tpu_torch/csrc/encode_greedy.cu"
     replaces = {
@@ -3079,7 +3716,8 @@ def main() -> int:
             "source": TOPK_SOURCE if r["name"] == "topk_accept" else (
                 "youtokentome_tpu_torch/csrc/train_delta.cu"),
             "replaces": TRAIN_REPLACES, "launches": r["launches"], "max_abs_err": 0,
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_ids": r["plain_ids"],
+            "prefix_ms": r["prefix_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "equal": True,
         }
         for r in train["rows"]
@@ -3087,7 +3725,8 @@ def main() -> int:
         {
             "name": r["name"], "route": "cuda", "source": "youtokentome_tpu_torch/csrc/train_tiered.cu",
             "replaces": TIERED_REPLACES[r["name"]], "launches": r["launches"], "max_abs_err": 0,
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_ids": r["plain_ids"],
+            "prefix_ms": r["prefix_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "equal": True,
         }
         for r in tiered["rows"]
@@ -3095,6 +3734,7 @@ def main() -> int:
         {
             "name": r["name"], "route": "cuda", "source": source_of, "replaces": replaces_of,
             "launches": r["launches"], "max_abs_err": 0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            **{k: r[k] for k in ("plain_inputs", "prefix_ms") if k in r},
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "equal": True,
         }
         for r, source_of, replaces_of in
@@ -3129,7 +3769,7 @@ def main() -> int:
             "library_ms": None, "equal": True,
         }
         for r in shard["rows"]
-    ]
+    ] + other_rows(other)
     log(f"[7] dropout routes: native {dropout['native_mbps']:.2f} MB/s, kernel "
         f"{dropout['kernel_mbps']:.2f} MB/s; [8] stream backend: API {stream['api_mbps']:.2f} "
         f"MB/s, CLI {stream['cli_mbps']:.2f} MB/s ({info['card']})")
@@ -3139,6 +3779,7 @@ def main() -> int:
     log(f"[10] {SHARDS} shards on cuda:0: encode {shard_enc['mbps']:.2f} MB/s; train.train "
         f"{shard['train_s']:.2f} s, merge loop {shard['loop_s']:.3f} s ({shard['merges_per_s']:.0f} "
         f"merges/s, {shard['rounds']} rounds, {shard['recounts']} recount rounds) ({info['card']})")
+    log_other(other, info["card"])
     log(f"[4] build {info['build_s']:.2f} s, whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(info["card"])

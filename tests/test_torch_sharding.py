@@ -247,7 +247,8 @@ def _state_pair(corpus):
 def test_dispatch(corpus, monkeypatch):
     """``auto`` on a mesh of 8 visible devices takes the sharded trainer;
     YTTM_DEVICES=1 takes none; rules and char2id equal each other and the
-    JAX package's; ``sparse`` on a mesh is not ported yet."""
+    JAX package's; ``sparse`` on the mesh takes the sharded v3 trainer, with
+    the JAX package's rules and char2id."""
     cps = corpus[0]
     cfg = BpeConfig(1.0, -1, SpecialTokens(0, 1, 2, 3))
     monkeypatch.setenv("YTTM_SHARD_MIN_TOKENS", "1")
@@ -274,8 +275,17 @@ def test_dispatch(corpus, monkeypatch):
     assert seen == [8]  # below the serial cutoff
     monkeypatch.setenv("YTTM_SHARD_MIN_TOKENS", "1")
     monkeypatch.setenv("YTTM_TRAIN_IMPL", "sparse")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        port.train_from_codepoints(cps, VOCAB, cfg, "cpu")
+    orig_sparse = port.run_training_sparse_sharded
+
+    def spy_sparse(buckets, used0, vocab, mesh, **kw):
+        seen.append(("sparse", mesh.size))
+        return orig_sparse(buckets, used0, vocab, mesh, **kw)
+
+    monkeypatch.setattr(port, "run_training_sparse_sharded", spy_sparse)
+    sparse = port.train_from_codepoints(cps, VOCAB, cfg, "cpu")
+    assert seen == [8, ("sparse", 8)]
+    want = j_train(cps, VOCAB, JConfig(1.0, -1, JSpecial(0, 1, 2, 3)))
+    assert sparse.rules == want.rules and sparse.char2id == want.char2id
 
 
 @pytest.mark.parametrize("n", SHARDS)

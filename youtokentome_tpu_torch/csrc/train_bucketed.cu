@@ -38,6 +38,14 @@
 //                  row is front-packed in place; a slot is written only
 //                  where its value changes
 //
+// The sharded v0 engine (ops/recount_sharded_kernels.py, replacing
+// youtokentome_tpu/parallel/train_sharded.py:38 _train_rounds_sharded) runs
+// the same count on each shard's rows into the shard's scratch table
+// (bucket_shard_count: its occupancy and overflow in ctl's scratch slots);
+// train_delta_sharded.cu's shard_fold rebuilds every replica of the table
+// from the N scratch tables, the top-k (k = 1) runs on every replica and
+// bucket_apply on every shard.
+//
 // Every kernel does nothing once `done` or `overflow` is set or `used`
 // reached min(vocab, limit), so the host enqueues rounds in batches.  A count
 // that fills more than half the table sets `overflow` and stops probing; the
@@ -64,6 +72,10 @@ using namespace yttm;
 
 enum { W_WRITES = W_OWN };
 
+// OCC_ and OVF_: the table's occupancy and overflow slots (the state's own
+// table; a shard's scratch table in the sharded engine, whose overflow flag
+// is cleared with it)
+template <int OCC_, int OVF_>
 __global__ void __launch_bounds__(256)
     clear_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl, int limit,
                  int vocab) {
@@ -72,9 +84,13 @@ __global__ void __launch_bounds__(256)
     keys[s] = kEmpty;
     cnts[s] = 0;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) ctl[OCC] = 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    ctl[OCC_] = 0;
+    if (OVF_ != OVERFLOW) ctl[OVF_] = 0;
+  }
 }
 
+template <int OCC_, int OVF_>
 __global__ void __launch_bounds__(256)
     count_rows_kernel(const int32_t *tok, const int32_t *roff, const int32_t *rfreq, int R,
                       unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl, int limit,
@@ -86,8 +102,7 @@ __global__ void __launch_bounds__(256)
     const int32_t f = rfreq[r];
     if (f == 0) continue;  // a padding row: no pairs
     const int base = roff[r];
-    add_word<OCC, OVERFLOW, ERROR>(tok + base, roff[r + 1] - base, f, kCount, keys, cnts, cap,
-                                   ctl);
+    add_word<OCC_, OVF_, ERROR>(tok + base, roff[r + 1] - base, f, kCount, keys, cnts, cap, ctl);
   }
 }
 
@@ -152,6 +167,21 @@ __global__ void __launch_bounds__(256)
     atomicAdd((unsigned long long *)work + W_WRITES, (unsigned long long)writes);
 }
 
+template <int OCC_, int OVF_>
+int count(const void *tok, const void *roff, const void *rfreq, int R, void *keys, void *cnts,
+          int cap, void *ctl, int limit, int vocab, void *stream) {
+  if (R <= 0 || cap <= 0 || (cap & (cap - 1)) != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  clear_kernel<OCC_, OVF_><<<grid_for(cap, 256), 256, 0, s>>>(
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, limit, vocab);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  count_rows_kernel<OCC_, OVF_><<<grid_for_warps(R), 256, 0, s>>>(
+      (const int32_t *)tok, (const int32_t *)roff, (const int32_t *)rfreq, R,
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, limit, vocab);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -159,16 +189,17 @@ extern "C" {
 // One round's count: the table emptied, every row's pairs counted into it.
 int yttm_bucket_count(const void *tok, const void *roff, const void *rfreq, int R, void *keys,
                       void *cnts, int cap, void *ctl, int limit, int vocab, void *stream) {
-  if (R <= 0 || cap <= 0 || (cap & (cap - 1)) != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  clear_kernel<<<grid_for(cap, 256), 256, 0, s>>>((unsigned long long *)keys, (int32_t *)cnts,
-                                                  cap, (int32_t *)ctl, limit, vocab);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  count_rows_kernel<<<grid_for_warps(R), 256, 0, s>>>(
-      (const int32_t *)tok, (const int32_t *)roff, (const int32_t *)rfreq, R,
-      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, limit, vocab);
-  return (int)cudaGetLastError();
+  return count<OCC, OVERFLOW>(tok, roff, rfreq, R, keys, cnts, cap, ctl, limit, vocab, stream);
+}
+
+// The sharded v0 engine's count of one shard's rows into its scratch table
+// (rkeys, rcnts), the occupancy and overflow in ctl's scratch slots;
+// shard_fold then rebuilds every replica.
+int yttm_bucket_shard_count(const void *tok, const void *roff, const void *rfreq, int R,
+                            void *rkeys, void *rcnts, int cap, void *ctl, int limit, int vocab,
+                            void *stream) {
+  return count<kShardRocc, kShardRovf>(tok, roff, rfreq, R, rkeys, rcnts, cap, ctl, limit, vocab,
+                                       stream);
 }
 
 // One round's apply: the pair merged in every row, the rows front-packed.

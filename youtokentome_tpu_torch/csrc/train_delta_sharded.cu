@@ -41,11 +41,12 @@
 //                  adds every shard's buffer entries into the replica (a
 //                  subtraction from a missing key sets ERROR; inserts that
 //                  fill more than half the table set OVERFLOW, as in the
-//                  one-device engine).  Some set (the recount branch): clears
-//                  the replica and adds the N scratch tables into it, so it
-//                  holds exactly the live keys; a scratch table that
-//                  overflowed sets OVERFLOW (the host counts again into
-//                  tables twice the size).
+//                  one-device engine).  Some set (the recount branch): copies
+//                  its own shard's scratch table into the replica (same
+//                  capacity and hash: a copy, not a rebuild) and adds the
+//                  other N-1 scratch tables into it, so it holds exactly the
+//                  live keys; a scratch table that overflowed sets OVERFLOW
+//                  (the host counts again into tables twice the size).
 //   shard_relay    a scan and a scatter that lay a shard's stream out again
 //                  over its live tokens: words with fewer than two live
 //                  tokens (which hold no pair and never will) are dropped,
@@ -74,56 +75,13 @@
 #include <cuda_runtime.h>
 
 #include "scan.cuh"
+#include "shard_exchange.cuh"
 #include "train_common.cuh"
 #include "word_apply.cuh"
 
 namespace {
 
 using namespace yttm;
-
-// ctl: the common slots, then NAFF .. DOVF, which every round's top-k zeroes
-// (n_own = 4), then the engine's own
-enum { NAFF = CTL_OWN, DN_OLD, DN_NEW, DOVF, NREC, LIVE, ROCC, ROVF };
-// work (int64): the bytes each kernel must move, summed over the rounds
-// (W_RELAY, which the host adds, then W_ENTRIES: the buffer entries written)
-enum { W_EMIT = W_OWN, W_COUNT, W_FOLD, W_RELAY, W_ENTRIES };
-
-__device__ __forceinline__ bool any_flag(const int32_t *const *ctls, int n, int slot) {
-  bool any = false;
-  for (int s = 0; s < n; ++s) any |= __ldcg(ctls[s] + slot) != 0;
-  return any;
-}
-
-// Warp-aggregated append of (key, val) for the lanes with pred to one side
-// of the buffer (side DN_OLD at [0, dcap), DN_NEW at [dcap, 2*dcap)); the
-// side's count may pass dcap, which sets DOVF.  Called by all 32 lanes.
-__device__ __forceinline__ void emit(bool pred, unsigned long long key, int32_t val, int side,
-                                     unsigned long long *dk, int32_t *dv, int dcap, int32_t *ctl,
-                                     long long *work) {
-  const unsigned m = __ballot_sync(0xFFFFFFFFu, pred);
-  if (m == 0) return;
-  const int lane = threadIdx.x & 31;
-  const int leader = __ffs(m) - 1;
-  const int k = __popc(m);
-  int base = 0;
-  if (lane == leader) {
-    base = atomicAdd(ctl + side, k);
-    if (base + k > dcap) atomicExch(ctl + DOVF, 1);
-    const int kept = base >= dcap ? 0 : (base + k > dcap ? dcap - base : k);
-    if (kept) {
-      atomicAdd((unsigned long long *)(work + W_EMIT), 12ull * kept);
-      atomicAdd((unsigned long long *)(work + W_ENTRIES), (unsigned long long)kept);
-    }
-  }
-  base = __shfl_sync(0xFFFFFFFFu, base, leader);
-  if (!pred) return;
-  const int slot = base + __popc(m & ((1u << lane) - 1u));
-  if (slot < dcap) {
-    const int at = (side == DN_NEW ? dcap : 0) + slot;
-    dk[at] = key;
-    dv[at] = val;
-  }
-}
 
 __global__ void __launch_bounds__(256)
     emit_words_kernel(int32_t *tok, const int32_t *off, const int32_t *fw, int Mw, int32_t *ctl,
@@ -196,7 +154,9 @@ __global__ void __launch_bounds__(256)
 
 __global__ void __launch_bounds__(256)
     fold_prep_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
-                     const int32_t *const *ctls, int n_sh, int dcap, long long *work) {
+                     const int32_t *const *ctls, int n_sh, int dcap,
+                     const unsigned long long *own_keys, const int32_t *own_cnts,
+                     long long *work) {
   if (!any_flag(ctls, n_sh, DOVF)) {
     if (blockIdx.x == 0 && threadIdx.x == 0) {
       long long n = 0;
@@ -206,15 +166,17 @@ __global__ void __launch_bounds__(256)
     }
     return;
   }
+  // the shard's own scratch table, counted into a table of the replica's
+  // capacity and hash, is the replica's first part as it lies
   for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < cap; s += gridDim.x * blockDim.x) {
-    keys[s] = kEmpty;
-    cnts[s] = 0;
+    keys[s] = own_keys[s];
+    cnts[s] = own_cnts[s];
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    ctl[OCC] = 0;
+    ctl[OCC] = ctl[ROCC];
     ctl[NREC] += 1;
     if (any_flag(ctls, n_sh, ROVF)) ctl[OVERFLOW] = 1;
-    work[W_FOLD] += 12ll * cap * (n_sh + 1);  // the clear and the N scratch tables
+    work[W_FOLD] += 12ll * cap * (n_sh + 1);  // the N scratch tables read, the replica written
   }
 }
 
@@ -222,16 +184,18 @@ __global__ void __launch_bounds__(256)
     fold_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
                 const int32_t *const *ctls, const unsigned long long *const *dks,
                 const int32_t *const *dvs, int dcap, const unsigned long long *const *rkeys,
-                const int32_t *const *rcnts, int n_sh) {
+                const int32_t *const *rcnts, int n_sh, int self) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (any_flag(ctls, n_sh, DOVF)) {
-    for (long long i = i0; i < (long long)n_sh * cap; i += stride) {
-      const int s = (int)(i / cap), j = (int)(i % cap);
-      const unsigned long long k = rkeys[s][j];
-      const int32_t c = rcnts[s][j];
-      if (k != kEmpty && c > 0)
-        table_add<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, k, c, kAdd);
+    for (int s = 0; s < n_sh; ++s) {
+      if (s == self) continue;  // copied by fold_prep
+      for (long long j = i0; j < cap; j += stride) {
+        const unsigned long long k = rkeys[s][j];
+        const int32_t c = rcnts[s][j];
+        if (k != kEmpty && c > 0)
+          table_add<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, k, c, kAdd);
+      }
     }
     return;
   }
@@ -333,25 +297,28 @@ int yttm_shard_recount(const void *tok, int Mw, const void *off, const void *fw,
   return (int)cudaGetLastError();
 }
 
-// The exchange and fold into one replica.  ctls, dks, dvs, rkeys, rcnts:
-// device arrays of the n_sh shards' pointers.
+// The exchange and fold into the replica of shard `self`.  ctls, dks, dvs,
+// rkeys, rcnts: device arrays of the n_sh shards' pointers; own_keys,
+// own_cnts: shard self's scratch table (the self-th of rkeys, rcnts).
 int yttm_shard_fold(void *keys, void *cnts, int cap, void *ctl, const void *ctls, const void *dks,
                     const void *dvs, int dcap, const void *rkeys, const void *rcnts, int n_sh,
-                    void *work, void *stream) {
-  if (cap <= 0 || (cap & (cap - 1)) != 0 || dcap <= 0 || n_sh <= 0)
+                    int self, const void *own_keys, const void *own_cnts, void *work,
+                    void *stream) {
+  if (cap <= 0 || (cap & (cap - 1)) != 0 || dcap <= 0 || n_sh <= 0 || self < 0 || self >= n_sh)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   fold_prep_kernel<<<grid_for(cap, 256), 256, 0, s>>>(
       (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl,
-      (const int32_t *const *)ctls, n_sh, dcap, (long long *)work);
+      (const int32_t *const *)ctls, n_sh, dcap, (const unsigned long long *)own_keys,
+      (const int32_t *)own_cnts, (long long *)work);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long items = (long long)n_sh * (cap > 2 * dcap ? cap : 2 * dcap);
+  const long long items = cap > 2ll * n_sh * dcap ? cap : 2ll * n_sh * dcap;
   fold_kernel<<<grid_for(items, 256), 256, 0, s>>>(
       (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl,
       (const int32_t *const *)ctls, (const unsigned long long *const *)dks,
       (const int32_t *const *)dvs, dcap, (const unsigned long long *const *)rkeys,
-      (const int32_t *const *)rcnts, n_sh);
+      (const int32_t *const *)rcnts, n_sh, self);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,8 @@
 //                      top-k's), positions walked in pass 2, table updates
 //                      (summed over the rounds)
 //
-// Kernels:
+// Kernels (their word walks in sparse_word.cuh, shared with the sharded
+// engine's train_sparse_sharded.cu):
 //   sparse_count   one warp a word walks its live pairs (below) and counts
 //                  them into an empty table (start, and rebuild after an
 //                  overflow)
@@ -65,6 +66,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "sparse_word.cuh"
 #include "train_common.cuh"
 
 namespace {
@@ -80,75 +82,18 @@ __device__ __forceinline__ void table_add(unsigned long long *keys, int32_t *cnt
   yttm::table_add<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, key, delta, mode);
 }
 
-// The walk of a word's live tokens, 32 positions a chunk: each live lane
-// learns its left partner (the previous live token of the word: the previous
-// live lane of the chunk, or the last live token of earlier chunks) and the
-// live rank of that partner.
-struct LiveWalk {
-  int32_t carry_tok = kPad;  // the last live token of earlier chunks
-  int carry_pos = -1;        // its position
-  int rank_base = 0;         // live tokens in earlier chunks
-
-  // For the lane's token `a` at position i: sets (pa, pp, r) = the left
-  // partner's token, position and live rank; returns whether the lane holds
-  // a live pair.  All 32 lanes call it; then `advance`.
-  __device__ __forceinline__ bool step(int32_t a, int i, unsigned kmask, int32_t &pa, int &pp,
-                                       int &r) const {
-    const int lane = threadIdx.x & 31;
-    const unsigned lower = kmask & ((1u << lane) - 1u);
-    const int src = lower ? 31 - __clz(lower) : 0;
-    pa = __shfl_sync(0xFFFFFFFFu, a, src);
-    pp = __shfl_sync(0xFFFFFFFFu, i, src);
-    if (!lower) {
-      pa = carry_tok;
-      pp = carry_pos;
-    }
-    r = rank_base + __popc(lower) - 1;
-    return a >= 0 && pa >= 0;
-  }
-
-  __device__ __forceinline__ void advance(int32_t a, int i, unsigned kmask) {
-    const int last = kmask ? 31 - __clz(kmask) : 0;
-    const int32_t lt = __shfl_sync(0xFFFFFFFFu, a, last);
-    const int lp = __shfl_sync(0xFFFFFFFFu, i, last);
-    if (kmask) {
-      carry_tok = lt;
-      carry_pos = lp;
-    }
-    rank_base += __popc(kmask);
-  }
-};
-
-// Adds delta for every counted live pair of the word t[0, n) (run parity in
-// live-rank space); returns the lane's number of table updates.  All 32 lanes.
+// Adds delta for every counted live pair of the word t[0, n); returns the
+// lane's number of table updates.  All 32 lanes.
 __device__ int walk_add(const int32_t *t, int n, int32_t delta, Mode mode,
                         unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl) {
-  LiveWalk lw;
-  int carry_lne = -1, ops = 0;
-  for (int b = 0; b < n; b += 32) {
-    const int i = b + (threadIdx.x & 31);
-    const int32_t a = i < n ? t[i] : kPad;
-    const unsigned kmask = __ballot_sync(0xFFFFFFFFu, a >= 0);
-    int32_t pa;
-    int pp, r;
-    const bool pair = lw.step(a, i, kmask, pa, pp, r);
-    const bool eq = pair && pa == a;
-    int lne = warp_max_scan(pair && !eq ? r : -1);
-    lne = lne > carry_lne ? lne : carry_lne;
-    if (pair && (!eq || ((r - lne - 1) & 1) == 0)) {
-      table_add(keys, cnts, cap, ctl, pair_key(pa, a), delta, mode);
+  int ops = 0;
+  for_live_pairs(t, n, [&](bool counted, unsigned long long key) {
+    if (counted) {
+      table_add(keys, cnts, cap, ctl, key, delta, mode);
       ++ops;
     }
-    carry_lne = __shfl_sync(0xFFFFFFFFu, lne, 31);
-    lw.advance(a, i, kmask);
-  }
+  });
   return ops;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
-  return v;
 }
 
 __global__ void __launch_bounds__(256)
@@ -161,33 +106,6 @@ __global__ void __launch_bounds__(256)
 }
 
 // -- apply ---------------------------------------------------------------------
-
-__global__ void __launch_bounds__(256)
-    mark_words_kernel(const int32_t *t, const int32_t *pw, const int32_t *off, int W,
-                      int32_t *ctl, const int32_t *cand, int32_t *aff, int32_t *wmark) {
-  __shared__ Cands c;
-  const int n = load_cands(c, ctl, cand);
-  if (n == 0) return;
-  const int tag = ctl[ROUND];
-  const int end = off[W];
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < end; i += gridDim.x * blockDim.x) {
-    const int32_t a = t[i];
-    if (a < 0) continue;
-    bool is_x = false;
-    for (int j = 0; j < n; ++j) is_x |= a == c.x[j];
-    if (!is_x) continue;
-    const int w = pw[i];
-    if (w < 0) continue;
-    const int wend = off[w + 1];
-    int nx = i + 1;
-    while (nx < wend && t[nx] < 0) ++nx;  // tombstones: each walked by one token
-    if (nx >= wend) continue;
-    const int32_t b = t[nx];
-    bool hit = false;
-    for (int j = 0; j < n; ++j) hit |= a == c.x[j] && b == c.y[j];
-    if (hit && atomicExch(wmark + w, tag) != tag) aff[atomicAdd(ctl + NAFF, 1)] = w;
-  }
-}
 
 __global__ void __launch_bounds__(256)
     apply_words_kernel(int32_t *t, const int32_t *off, const int32_t *fw,
@@ -204,42 +122,13 @@ __global__ void __launch_bounds__(256)
     int32_t *tw = t + off[w];
     const int len = off[w + 1] - off[w];
     const int32_t f = fw[w];
-    // one walk over the old tokens: old pairs out, hits, z and PAD written
-    // (only at or before the lane's own position, after all lanes read the
-    // chunk; the partners of later chunks come from the walk's carry)
-    LiveWalk lw;
-    int carry_lne = -1, carry_lnh = -1, ops = 0;
-    for (int b = 0; b < len; b += 32) {
-      const int i = b + (threadIdx.x & 31);
-      const int32_t a = i < len ? tw[i] : kPad;
-      const unsigned kmask = __ballot_sync(0xFFFFFFFFu, a >= 0);
-      int32_t pa;
-      int pp, r;
-      const bool pair = lw.step(a, i, kmask, pa, pp, r);
-      const bool eq = pair && pa == a;
-      int lne = warp_max_scan(pair && !eq ? r : -1);
-      lne = lne > carry_lne ? lne : carry_lne;
-      if (pair && (!eq || ((r - lne - 1) & 1) == 0)) {
-        table_add(keys, cnts, cap, ctl, pair_key(pa, a), -f, kSub);
+    int ops = 0;
+    merge_live_word(tw, len, c, n, [&](bool counted, unsigned long long key) {
+      if (counted) {
+        table_add(keys, cnts, cap, ctl, key, -f, kSub);
         ++ops;
       }
-      int rix = -1;
-      if (pair)
-        for (int j = 0; j < n; ++j)
-          if (rix < 0 && pa == c.x[j] && a == c.y[j]) rix = j;
-      int lnh = warp_max_scan(pair && rix < 0 ? r : -1);
-      lnh = lnh > carry_lnh ? lnh : carry_lnh;
-      const bool sel = rix >= 0 && ((r - lnh - 1) & 1) == 0;
-      __syncwarp();
-      if (sel) {
-        tw[pp] = c.z[rix];
-        tw[i] = kPad;
-      }
-      carry_lne = __shfl_sync(0xFFFFFFFFu, lne, 31);
-      carry_lnh = __shfl_sync(0xFFFFFFFFu, lnh, 31);
-      lw.advance(a, i, kmask);
-    }
-    __syncwarp();
+    });
     ops += walk_add(tw, len, f, kAdd, keys, cnts, cap, ctl);
     ops = warp_sum(ops);
     if ((threadIdx.x & 31) == 0) {
@@ -272,7 +161,7 @@ int yttm_sparse_apply(void *t, const void *pw, const void *off, const void *fw, 
                       void *wmark, void *work, void *stream) {
   if (W <= 0 || cap <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  mark_words_kernel<<<grid_for_warps(W), 256, 0, s>>>(
+  mark_live_words_kernel<<<grid_for_warps(W), 256, 0, s>>>(
       (const int32_t *)t, (const int32_t *)pw, (const int32_t *)off, W, (int32_t *)ctl,
       (const int32_t *)cand, (int32_t *)aff, (int32_t *)wmark);
   cudaError_t e = cudaGetLastError();

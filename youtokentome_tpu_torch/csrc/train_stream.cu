@@ -42,6 +42,14 @@
 //                  tokens written in order at (earlier tiles' counts + a
 //                  block exclusive scan), PAD after the new live end
 //
+// The sharded v1 engine (ops/recount_sharded_kernels.py, replacing
+// youtokentome_tpu/parallel/train_stream_sharded.py:42 _train_sharded) runs
+// the same count on each shard into the shard's scratch table
+// (stream_shard_count: its occupancy and overflow in ctl's scratch slots);
+// train_delta_sharded.cu's shard_fold rebuilds every replica of the table
+// from the N scratch tables, the top-k runs on every replica and
+// apply_compact on every shard.
+//
 // Every kernel does nothing once `done` or `overflow` is set or `used`
 // reached min(vocab, limit), so the host enqueues rounds in batches.  A count
 // that fills more than half the table sets `overflow` and stops probing;
@@ -101,6 +109,10 @@ __device__ __forceinline__ bool pair_at(const int32_t *wid, int i, int n) {
 
 // -- recount -------------------------------------------------------------------
 
+// OCC_ and OVF_: the table's occupancy and overflow slots (the state's own
+// table; a shard's scratch table in the sharded engine, whose overflow flag
+// is cleared with it)
+template <int OCC_, int OVF_>
 __global__ void __launch_bounds__(256)
     clear_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl, int limit,
                  int vocab) {
@@ -110,7 +122,10 @@ __global__ void __launch_bounds__(256)
     keys[s] = kEmpty;
     cnts[s] = 0;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) ctl[OCC] = 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    ctl[OCC_] = 0;
+    if (OVF_ != OVERFLOW) ctl[OVF_] = 0;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -132,6 +147,7 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) tiles[blockIdx.x] = m;
 }
 
+template <int OCC_, int OVF_>
 __global__ void __launch_bounds__(kThreads)
     count_tiles_kernel(const int32_t *t, const int32_t *wid, const int32_t *freq,
                        const int32_t *tiles, unsigned long long *keys, int32_t *cnts, int cap,
@@ -165,7 +181,8 @@ __global__ void __launch_bounds__(kThreads)
     if (pv[k] && (!eq || ((i - run - 1) & 1) == 0)) {
       const int32_t f = freq[wid[i]];
       if (f > 0)
-        table_add<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, pair_key(a[k], a[k + 1]), f, kCount);
+        table_add<OCC_, OVF_, ERROR>(keys, cnts, cap, ctl, pair_key(a[k], a[k + 1]), f,
+                                         kCount);
     }
   }
 }
@@ -288,6 +305,25 @@ __global__ void __launch_bounds__(kThreads)
 
 inline int n_tiles(int M) { return (M + kTile - 1) / kTile; }
 
+template <int OCC_, int OVF_>
+int recount(const void *t, const void *wid, const void *freq, int M, void *keys, void *cnts,
+            int cap, void *ctl, void *tiles, int limit, int vocab, void *stream) {
+  if (M <= 0 || cap <= 0 || (cap & (cap - 1)) != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  clear_kernel<OCC_, OVF_><<<grid_for(cap, 256), 256, 0, s>>>(
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, limit, vocab);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  eq_tiles_kernel<<<n_tiles(M), kThreads, 0, s>>>((const int32_t *)t, (const int32_t *)wid,
+                                                  (const int32_t *)ctl, (int32_t *)tiles, limit,
+                                                  vocab);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  count_tiles_kernel<OCC_, OVF_><<<n_tiles(M), kThreads, 0, s>>>(
+      (const int32_t *)t, (const int32_t *)wid, (const int32_t *)freq, (const int32_t *)tiles,
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, limit, vocab);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -297,20 +333,18 @@ extern "C" {
 int yttm_stream_recount(const void *t, const void *wid, const void *freq, int M, void *keys,
                         void *cnts, int cap, void *ctl, void *tiles, int limit, int vocab,
                         void *stream) {
-  if (M <= 0 || cap <= 0 || (cap & (cap - 1)) != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  clear_kernel<<<grid_for(cap, 256), 256, 0, s>>>((unsigned long long *)keys, (int32_t *)cnts,
-                                                  cap, (int32_t *)ctl, limit, vocab);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  eq_tiles_kernel<<<n_tiles(M), kThreads, 0, s>>>((const int32_t *)t, (const int32_t *)wid,
-                                                  (const int32_t *)ctl, (int32_t *)tiles, limit,
-                                                  vocab);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  count_tiles_kernel<<<n_tiles(M), kThreads, 0, s>>>(
-      (const int32_t *)t, (const int32_t *)wid, (const int32_t *)freq, (const int32_t *)tiles,
-      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, limit, vocab);
-  return (int)cudaGetLastError();
+  return recount<OCC, OVERFLOW>(t, wid, freq, M, keys, cnts, cap, ctl, tiles, limit, vocab,
+                                stream);
+}
+
+// The sharded v1 engine's count of one shard: its scratch table (rkeys,
+// rcnts) emptied and its live pairs counted into it, the occupancy and
+// overflow in ctl's scratch slots; shard_fold then rebuilds every replica.
+int yttm_stream_shard_count(const void *t, const void *wid, const void *freq, int M,
+                            void *rkeys, void *rcnts, int cap, void *ctl, void *tiles, int limit,
+                            int vocab, void *stream) {
+  return recount<kShardRocc, kShardRovf>(t, wid, freq, M, rkeys, rcnts, cap, ctl, tiles, limit,
+                                         vocab, stream);
 }
 
 // One round's merge of the accepted candidates and the stream's compaction.

@@ -3,8 +3,9 @@
 ``csrc/encode_greedy.cu``, ``csrc/encode_dropout.cu``,
 ``csrc/stream_encode.cu``, ``csrc/train_topk.cu``, ``csrc/train_delta.cu``,
 ``csrc/train_tiered.cu``, ``csrc/train_stream.cu``, ``csrc/train_sparse.cu``,
-``csrc/train_block.cu``, ``csrc/train_bucketed.cu`` and
-``csrc/train_delta_sharded.cu`` have plain C interfaces.  At first use
+``csrc/train_block.cu``, ``csrc/train_bucketed.cu``,
+``csrc/train_delta_sharded.cu`` and ``csrc/train_sparse_sharded.cu`` have
+plain C interfaces.  At first use
 each is compiled by ``nvcc`` for ``sm_90a`` into the build directory
 (``_build.build_dir()``; rebuilt when the source or a ``csrc/*.cuh``
 header is newer) and loaded with ctypes.  A failed build raises; nothing
@@ -32,7 +33,7 @@ _libs: dict = {}  # source name -> its loaded library
 _SOURCES = (
     "encode_greedy.cu", "encode_dropout.cu", "stream_encode.cu", "train_topk.cu",
     "train_delta.cu", "train_tiered.cu", "train_stream.cu", "train_sparse.cu", "train_block.cu",
-    "train_bucketed.cu", "train_delta_sharded.cu",
+    "train_bucketed.cu", "train_delta_sharded.cu", "train_sparse_sharded.cu",
 )
 _locks = {name: threading.Lock() for name in _SOURCES}
 
@@ -152,6 +153,8 @@ def load_stream_train() -> ctypes.CDLL:
     return _load("train_stream.cu", "libtrain_stream.so", {
         # t, wid, freq, M, keys, cnts, cap, ctl, tiles, limit, vocab, stream
         "yttm_stream_recount": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p, _i, _i, _p]),
+        # t, wid, freq, M, rkeys, rcnts, cap, ctl, tiles, limit, vocab, stream
+        "yttm_stream_shard_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p, _i, _i, _p]),
         # t, wid, M, tmp_t, tmp_w, tiles, ctl, cand, work, stream
         "yttm_stream_apply": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p]),
     })
@@ -184,6 +187,8 @@ def load_bucketed() -> ctypes.CDLL:
     return _load("train_bucketed.cu", "libtrain_bucketed.so", {
         # tok, roff, rfreq, R, keys, cnts, cap, ctl, limit, vocab, stream
         "yttm_bucket_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _i, _i, _p]),
+        # tok, roff, rfreq, R, rkeys, rcnts, cap, ctl, limit, vocab, stream
+        "yttm_bucket_shard_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _i, _i, _p]),
         # tok, roff, R, ctl, cand, work, stream
         "yttm_bucket_apply": (_i, [_p, _p, _i, _p, _p, _p, _p]),
     })
@@ -198,9 +203,9 @@ def load_sharded() -> ctypes.CDLL:
                                        _p]),
         # tok, Mw, off, fw, W, rkeys, rcnts, cap, ctl, ctls, n_sh, work, stream
         "yttm_shard_recount": (_i, [_p, _i, _p, _p, _i, _p, _p, _i, _p, _p, _i, _p, _p]),
-        # keys, cnts, cap, ctl, ctls, dks, dvs, dcap, rkeys, rcnts, n_sh, work,
-        # stream
-        "yttm_shard_fold": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _p, _p, _i, _p, _p]),
+        # keys, cnts, cap, ctl, ctls, dks, dvs, dcap, rkeys, rcnts, n_sh, self,
+        # own_keys, own_cnts, work, stream
+        "yttm_shard_fold": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _p, _p, _i, _i, _p, _p, _p, _p]),
         "yttm_shard_relay_scratch": (_l, [_i]),
         # tok, off, W, lens, keep, new_off, new_idx, scratch, totals, stream
         "yttm_shard_relay_plan": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p]),
@@ -210,4 +215,16 @@ def load_sharded() -> ctypes.CDLL:
                                         _i, _p]),
         # device, peer
         "yttm_shard_enable_peer": (_i, [_i, _i]),
+    })
+
+
+def load_sparse_sharded() -> ctypes.CDLL:
+    """Build (if needed) and load the sharded v3 trainer's kernels."""
+    return _load("train_sparse_sharded.cu", "libtrain_sparse_sharded.so", {
+        # t, pw, off, fw, W, end, ctl, cand, aff, wmark, dk, dv, dcap, work,
+        # stream
+        "yttm_sparse_shard_emit": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p, _i, _p,
+                                        _p]),
+        # t, off, fw, W, end, rkeys, rcnts, cap, ctl, ctls, n_sh, work, stream
+        "yttm_sparse_shard_recount": (_i, [_p, _p, _p, _i, _i, _p, _p, _i, _p, _p, _i, _p, _p]),
     })

@@ -93,12 +93,8 @@ class BucketedState(TableState):
 # -- plain torch versions -----------------------------------------------------
 
 
-def bucket_count_plain(st: BucketedState, limit: int, vocab_size: int):
-    if not round_active(st, limit, vocab_size):
-        return
-    st.keys.fill_(EMPTY)
-    st.cnts.zero_()
-    st.ctl[OCC] = 0
+def row_pairs(st: BucketedState):
+    """The keys and weights of every row's counted pairs."""
     freqs = torch.split(st.rfreq, [w for w, _ in st.shapes])
     keys, ws = [], []
     for mat, f in zip(st.buckets(), freqs):
@@ -106,7 +102,16 @@ def bucket_count_plain(st: BucketedState, limit: int, vocab_size: int):
         on = w > 0
         keys.append((kx[on].long() << 32) | ky[on].long())
         ws.append(w[on])
-    _hash_update(st.keys, st.cnts, st.ctl, OCC, OVERFLOW, torch.cat(keys), torch.cat(ws))
+    return torch.cat(keys), torch.cat(ws)
+
+
+def bucket_count_plain(st: BucketedState, limit: int, vocab_size: int):
+    if not round_active(st, limit, vocab_size):
+        return
+    st.keys.fill_(EMPTY)
+    st.cnts.zero_()
+    st.ctl[OCC] = 0
+    _hash_update(st.keys, st.cnts, st.ctl, OCC, OVERFLOW, *row_pairs(st))
 
 
 def bucket_apply_plain(st: BucketedState):

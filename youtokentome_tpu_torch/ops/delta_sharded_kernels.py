@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from . import _cuda
+from .bucketed_kernels import BATCH
 from .train_delta import _next_pow2
 from .train_kernels import (
     CTL_OWN,
@@ -76,40 +77,51 @@ CTL_N = 16
 W_EMIT, W_COUNT, W_FOLD, W_RELAY, W_ENTRIES = range(W_OWN, W_OWN + 5)
 
 
-class ShardState(TrainState):
-    """One shard of the sharded trainer on its device: the shard's stream
-    and the replica of the table (``TrainState``), the delta buffer
-    ``dk``/``dv`` (old entries at ``[0, dcap)``, new at ``[dcap, 2*dcap)``)
-    and the scratch table ``rkeys``/``rcnts`` of the recount branch."""
+class Exchange:
+    """What a shard's state adds to its trainer's state for the exchange:
+    ``ctl`` of CTL_N slots (every replica's shard_fold reads DN_OLD ..
+    DOVF and ROVF of every shard), the delta buffer ``dk``/``dv`` (old
+    entries at ``[0, dcap)``, new at ``[dcap, 2*dcap)``; ``buffers``) and
+    the scratch table ``rkeys``/``rcnts`` of the recount branch, as large
+    as the replica.  Mixed in before the trainer's state class."""
 
-    n_own = 4
-
-    def __init__(self, t, wid, freq, rules, used: int, cap: int, dcap: int, device):
-        super().__init__(t, wid, freq, rules, used, cap, device)
-        self.wid_dev = torch.from_numpy(self.wids).to(self.device)
-        self.dcap = dcap
-        self.dk = torch.full((2 * dcap,), EMPTY, dtype=torch.int64, device=self.device)
-        self.dv = torch.zeros(2 * dcap, dtype=torch.int32, device=self.device)
-        self.ctl[LIVE] = int((np.asarray(wid) >= 0).sum())
-        self._links = None
+    n_own = 4  # NAFF .. DOVF, zeroed by every round's top-k
+    _links = None
 
     def control(self, rules, used: int, ctl_n: int = CTL_N):
-        super().control(rules, used, ctl_n)
+        super().control(rules, used, max(ctl_n, CTL_N))
 
     def resize(self, cap: int):
         super().resize(cap)
         self.rkeys = torch.full((cap,), EMPTY, dtype=torch.int64, device=self.device)
         self.rcnts = torch.zeros(cap, dtype=torch.int32, device=self.device)
 
-    def stream(self):
-        live = self.tok >= 0
-        return self.tok[live], self.wid_dev[self.pwid[live].long()]
+    def buffers(self, dcap: int):
+        self.dcap = dcap
+        self.dk = torch.full((2 * dcap,), EMPTY, dtype=torch.int64, device=self.device)
+        self.dv = torch.zeros(2 * dcap, dtype=torch.int32, device=self.device)
 
     def buffer(self, side: int):
         """The entries of one side (0 old, 1 new) of the delta buffer."""
         n = min(int(self.ctl[DN_OLD + side]), self.dcap)
         o = side * self.dcap
         return self.dk[o : o + n], self.dv[o : o + n]
+
+
+class ShardState(Exchange, TrainState):
+    """One shard of the sharded v2 trainer on its device: the shard's
+    stream and the replica of the table (``TrainState``), with the
+    exchange's buffers (``Exchange``)."""
+
+    def __init__(self, t, wid, freq, rules, used: int, cap: int, dcap: int, device):
+        super().__init__(t, wid, freq, rules, used, cap, device)
+        self.wid_dev = torch.from_numpy(self.wids).to(self.device)
+        self.buffers(dcap)
+        self.ctl[LIVE] = int((np.asarray(wid) >= 0).sum())
+
+    def stream(self):
+        live = self.tok >= 0
+        return self.tok[live], self.wid_dev[self.pwid[live].long()]
 
 
 def _any(shards, slot: int) -> bool:
@@ -271,16 +283,18 @@ def shard_recount(st: ShardState, shards):
 def shard_fold(st: ShardState, shards):
     """Fold the round's exchange into the shard's replica: every shard's
     buffer entries, or, when some buffer overflowed, the table rebuilt from
-    every shard's scratch table."""
+    every shard's scratch table (its own copied, the others added)."""
     if not _on(st, "shard_fold"):
         return shard_fold_plain(st, shards)
     ctls, dks, dvs, rks, rcs = _links(st, shards)
+    own = next(i for i, s in enumerate(shards) if s is st)
     lib = _cuda.load_sharded()
     with torch.cuda.device(st.device):
         err = lib.yttm_shard_fold(
             st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(), ctls.data_ptr(),
             dks.data_ptr(), dvs.data_ptr(), st.dcap, rks.data_ptr(), rcs.data_ptr(), len(shards),
-            st.work.data_ptr(), _stream_ptr(st.device),
+            own, st.rkeys.data_ptr(), st.rcnts.data_ptr(), st.work.data_ptr(),
+            _stream_ptr(st.device),
         )
     _check(err, "shard_fold")
     shard_fold.launches += 1
@@ -352,36 +366,29 @@ def _enable_peers(devices):
             _check(lib.yttm_shard_enable_peer(a, b), "enable_peer")
 
 
-class ShardedKernelEngine:
-    """Segments of rounds through the kernels over the mesh's shards, for
-    ``parallel.train_delta_sharded.run_training_delta_sharded``.  Every
-    replica starts at ``initial_cap`` slots of the whole stream's ``m``
-    and is rebuilt when an insert finds it more than half full; ``per`` is
-    the JAX host loop's padded shard length, which sets the re-pack trigger."""
+class ShardEngine:
+    """The host loop of a sharded kernel engine over ``shards``, one state a
+    shard of the mesh, each with its replica of the table: rounds enqueued
+    in batches with shard 0's ``ctl`` read once a batch, the replicas
+    checked at each segment end (after every round on the CPU), and the
+    exchange (``recount`` on every shard, then ``shard_fold`` on every
+    replica).  A subclass calls ``_setup``, sets ``shards`` and defines
+    ``recount(st, limit)`` and ``round(limit)`` (and ``stream()`` for
+    checkpoints).  With
+    ``recount_every_round`` every shard's DOVF is held set, so that
+    shard_fold rebuilds the replicas from the shards' scratch tables every
+    round (the v1 and v0 engines)."""
 
     rebuilds = 0
-    relays = 0
     nrec = 0
+    recount_every_round = False
 
-    def __init__(self, seg_t, seg_w, per: int, freq, rules, used_ids0: int, vocab_size: int,
-                 batch_k: int, mesh, dcap: int, m: int):
+    def _setup(self, mesh, vocab_size: int, used_ids0: int, batch_k: int):
         self.vocab_size = vocab_size
         self.used_ids0 = used_ids0
         self.batch_k = batch_k
-        self.dcap = dcap
-        self.per = per
-        self.repack = os.environ.get("YTTM_TRAIN_REPACK", "1") != "0"
-        self.repack_min = int(os.environ.get("YTTM_TRAIN_REPACK_MIN", str(1 << 14)))
         self._devices = mesh.distinct()
         _enable_peers(self._devices)
-        used = rules_used(rules, used_ids0)
-        cap = initial_cap(m)
-        self.shards = [
-            ShardState(seg_t[d], seg_w[d], freq, rules, used, cap, dcap, dev)
-            for d, dev in enumerate(mesh.devices)
-        ]
-        self.dropped = [0] * len(self.shards)  # live tokens the relays dropped
-        self._count()
 
     @property
     def rules(self):
@@ -401,10 +408,10 @@ class ShardedKernelEngine:
             for ev in events:
                 torch.cuda.current_stream(dev).wait_event(ev)
 
-    def _exchange(self):
+    def _exchange(self, limit: int):
         shards = self.shards
         for st in shards:
-            shard_recount(st, shards)
+            self.recount(st, limit)
         self._barrier()
         for st in shards:
             shard_fold(st, shards)
@@ -417,23 +424,15 @@ class ShardedKernelEngine:
             for st in self.shards:
                 st.ctl[DOVF] = 1
                 st.ctl[OVERFLOW] = 0
-            self._exchange()
+            self._exchange(self.vocab_size)
             overflow = int(self.shards[0].ctl[OVERFLOW])
             for st in self.shards:
-                st.ctl[DOVF] = 0
+                st.ctl[DOVF] = int(self.recount_every_round)
                 st.ctl[NREC] = 0
             if not overflow:
                 return
             for st in self.shards:
                 st.resize(st.cap * 2)
-
-    def round(self, limit: int):
-        for st in self.shards:
-            topk_accept(st, limit, self.vocab_size, self.used_ids0, self.batch_k)
-        for st in self.shards:
-            delta_emit(st)
-        self._barrier()
-        self._exchange()
 
     def check_replicas(self):
         """Every replica holds the same round control and rules."""
@@ -454,7 +453,7 @@ class ShardedKernelEngine:
         while True:
             # each active round accepts at most batch_k ids, so this many
             # rounds never run past the segment's end
-            n = max(1, math.ceil((limit - used) / self.batch_k)) if on_card else 1
+            n = min(BATCH, max(1, math.ceil((limit - used) / self.batch_k))) if on_card else 1
             for _ in range(n):
                 self.round(limit)
                 if not on_card:
@@ -468,24 +467,11 @@ class ShardedKernelEngine:
                 self.check_replicas()
                 self.nrec = int(head.ctl[NREC])
                 if not overflow:
-                    self._relay()
+                    self._segment_end()
                 return used, bool(done), bool(overflow)
 
-    def _relay(self):
-        """At the JAX host loop's re-pack trigger (the largest shard's live
-        tokens, relaid words' included, halved past ``per``): relay every
-        shard."""
-        if not self.repack:
-            return
-        live = [int(st.ctl[LIVE]) for st in self.shards]
-        md = _next_pow2(max(max(n + d for n, d in zip(live, self.dropped)), self.repack_min))
-        if md >= self.per:
-            return
-        for i, st in enumerate(self.shards):
-            shard_relay(st)
-            self.dropped[i] += live[i] - int(st.ctl[LIVE])
-        self.per = md
-        self.relays += 1
+    def _segment_end(self):
+        """What the engine does at the end of a segment without overflow."""
 
     def regrow(self):
         """After an overflow: rebuild every replica from the streams, at
@@ -504,6 +490,59 @@ class ShardedKernelEngine:
             f"; {self.nrec} recount rounds this segment, exchange "
             f"{n}x{2 * self.dcap} delta / {n}x{self.shards[0].cap // 2} recount keys"
         )
+
+
+class ShardedKernelEngine(ShardEngine):
+    """Segments of rounds through the kernels over the mesh's shards, for
+    ``parallel.train_delta_sharded.run_training_delta_sharded``.  Every
+    replica starts at ``initial_cap`` slots of the whole stream's ``m``
+    and is rebuilt when an insert finds it more than half full; ``per`` is
+    the JAX host loop's padded shard length, which sets the re-pack trigger."""
+
+    relays = 0
+
+    def __init__(self, seg_t, seg_w, per: int, freq, rules, used_ids0: int, vocab_size: int,
+                 batch_k: int, mesh, dcap: int, m: int):
+        self._setup(mesh, vocab_size, used_ids0, batch_k)
+        self.dcap = dcap
+        self.per = per
+        self.repack = os.environ.get("YTTM_TRAIN_REPACK", "1") != "0"
+        self.repack_min = int(os.environ.get("YTTM_TRAIN_REPACK_MIN", str(1 << 14)))
+        used = rules_used(rules, used_ids0)
+        cap = initial_cap(m)
+        self.shards = [
+            ShardState(seg_t[d], seg_w[d], freq, rules, used, cap, dcap, dev)
+            for d, dev in enumerate(mesh.devices)
+        ]
+        self.dropped = [0] * len(self.shards)  # live tokens the relays dropped
+        self._count()
+
+    def recount(self, st, limit: int):
+        shard_recount(st, self.shards)
+
+    def round(self, limit: int):
+        for st in self.shards:
+            topk_accept(st, limit, self.vocab_size, self.used_ids0, self.batch_k)
+        for st in self.shards:
+            delta_emit(st)
+        self._barrier()
+        self._exchange(limit)
+
+    def _segment_end(self):
+        """At the JAX host loop's re-pack trigger (the largest shard's live
+        tokens, relaid words' included, halved past ``per``): relay every
+        shard."""
+        if not self.repack:
+            return
+        live = [int(st.ctl[LIVE]) for st in self.shards]
+        md = _next_pow2(max(max(n + d for n, d in zip(live, self.dropped)), self.repack_min))
+        if md >= self.per:
+            return
+        for i, st in enumerate(self.shards):
+            shard_relay(st)
+            self.dropped[i] += live[i] - int(st.ctl[LIVE])
+        self.per = md
+        self.relays += 1
 
     def stream(self):
         parts = [st.stream() for st in self.shards]

@@ -89,6 +89,14 @@ class StreamState(TableState):
 # -- plain torch versions -----------------------------------------------------
 
 
+def live_pairs(st: StreamState):
+    """The keys and weights of the live stream's counted pairs."""
+    n = int(st.ctl[LIVE])
+    kx, ky, w = pair_keys_and_weights(st.t[:n], st.wid[:n], st.freq)
+    on = w > 0
+    return (kx[on].long() << 32) | ky[on].long(), w[on]
+
+
 def recount_plain(st: StreamState, limit: int, vocab_size: int):
     st.ctl[LIVE] = st.ctl[NEXT_LIVE]
     if not round_active(st, limit, vocab_size):
@@ -96,10 +104,7 @@ def recount_plain(st: StreamState, limit: int, vocab_size: int):
     st.keys.fill_(EMPTY)
     st.cnts.zero_()
     st.ctl[OCC] = 0
-    n = int(st.ctl[LIVE])
-    kx, ky, w = pair_keys_and_weights(st.t[:n], st.wid[:n], st.freq)
-    on = w > 0
-    _hash_update(st.keys, st.cnts, st.ctl, OCC, OVERFLOW, (kx[on].long() << 32) | ky[on].long(), w[on])
+    _hash_update(st.keys, st.cnts, st.ctl, OCC, OVERFLOW, *live_pairs(st))
 
 
 def apply_compact_plain(st: StreamState):

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .segment import PAD, apply_merge_rows, pair_count_mask
-from .train_stream import BIG, _segment_counts_flat
+from .train_stream import BIG, _segment_counts_flat, learned_rules, run_to_end
 
 # _segment_counts_flat sorts the pair keys and totals each segment, as the
 # JAX package's _segment_counts does for the bucketed pairs
@@ -121,13 +121,5 @@ def run_training(
         from .bucketed_kernels import BucketedKernelEngine
 
         engine = BucketedKernelEngine(buckets, rules, used_ids0, vocab_size, dev)
-    used = used_ids0
-    while used < vocab_size:
-        used, done, overflow = engine.segment(used, vocab_size)
-        if overflow:
-            engine.regrow()
-        elif done:
-            break
-    if used < vocab_size:
-        print(f"WARNING merged only: {used} pairs of tokens", file=sys.stderr)
-    return [tuple(map(int, r)) for r in engine.rules[: used - used_ids0, :3].cpu().numpy()]
+    used = run_to_end(engine, used_ids0, vocab_size)
+    return learned_rules(engine.rules, used, used_ids0, vocab_size)

@@ -100,10 +100,10 @@ def _gather_affected(cs: torch.Tensor, dcap: int):
     return pos, tgt <= cs[-1]
 
 
-def _tier_update(dcap, t2, wid, fw, keys, w, cs, tk, tc, pcap):
-    """A site-buffer round: the old contributions of the affected
-    positions (gathered from the pre-apply pairs) out, the gathered
-    mini-stream's new contributions in, folded into the table."""
+def _site_buffers(dcap, t2, wid, fw, keys, w, cs):
+    """The site buffers of the first ``dcap`` affected positions: their old
+    contributions (keys ``ko``, weights ``wo``, gathered from the pre-apply
+    pairs) and the gathered mini-stream's new ones (``kn``, ``wn``)."""
     pos, validj = _gather_affected(cs, dcap)
     posc = pos.clamp(max=t2.shape[0] - 1)
     ko = torch.where(validj, keys[posc], torch.full_like(keys[posc], PADKEY))
@@ -112,6 +112,14 @@ def _tier_update(dcap, t2, wid, fw, keys, w, cs, tk, tc, pcap):
     twid = torch.where(validj, wid[posc], torch.full_like(wid[posc], -1))
     tfw = torch.where(validj, fw[posc], torch.zeros_like(fw[posc]))
     kn, wn, _, _ = _pairs_tomb(tt, twid, tfw)
+    return ko, wo, kn, wn
+
+
+def _tier_update(dcap, t2, wid, fw, keys, w, cs, tk, tc, pcap):
+    """A site-buffer round: the old contributions of the affected
+    positions out, the gathered mini-stream's new contributions in,
+    folded into the table."""
+    ko, wo, kn, wn = _site_buffers(dcap, t2, wid, fw, keys, w, cs)
     return _reduce_by_key(torch.cat([tk, ko, kn]), torch.cat([tc, -wo, wn]), pcap)
 
 

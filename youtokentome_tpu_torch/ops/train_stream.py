@@ -348,6 +348,19 @@ def run_segments(engine, used: int, used_ids0: int, vocab_size: int, seg: int,
     return used
 
 
+def run_to_end(engine, used: int, vocab_size: int) -> int:
+    """The host loop of the trainers that report no progress (v0, the
+    sharded v1 and v0): segments to ``vocab_size``, the engine regrown
+    after an overflow, until done.  Returns ``used``."""
+    while used < vocab_size:
+        used, done, overflow = engine.segment(used, vocab_size)
+        if overflow:
+            engine.regrow()
+        elif done:
+            break
+    return used
+
+
 def segment_ids(progress_every: int, checkpoint_every: int, progress_cb, vocab_size: int) -> int:
     """The JAX host loops' segment length: the smallest of the progress and
     checkpoint intervals, 1000 with the merge log, and the vocab size."""

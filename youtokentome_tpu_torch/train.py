@@ -15,11 +15,13 @@ picks the trainer as the JAX package does: ``auto`` (the v2 trainer
 sharded over a data mesh of the cards when more than one is visible, at
 most ``YTTM_DEVICES``, and the stream has ``YTTM_SHARD_MIN_TOKENS`` live
 tokens; else the v5 tiered trainer at 2^22 or more live tokens, the v2
-delta trainer below),
-``tiered`` (v5), ``delta`` (v2), ``sparse`` (v3 tombstones), ``stream``
-(v1, a full recount every round) and ``block`` (v4); any other value
-trains with v2.  All give the same rules; v1, v3 and v4 are independent
-checks of v2 and v5.
+delta trainer below), ``tiered`` (v5), ``delta`` (v2), ``sparse`` (v3
+tombstones; on the data mesh that ``auto`` would take, or on ``mesh=``,
+the sharded v3 trainer), ``stream`` (v1, a full recount every round) and
+``block`` (v4); any other value trains with v2.  All give the same rules;
+v1, v3 and v4 are independent checks of v2 and v5.  The sharded v1 and v0
+trainers (``parallel.train_stream_sharded``, ``parallel.train_sharded``)
+are reached by their own entry points, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from .ops.train_sparse import run_training_sparse
 from .ops.train_stream import run_training_stream
 from .ops.train_tiered import run_training_tiered
 from .parallel.train_delta_sharded import run_training_delta_sharded
+from .parallel.train_sparse_sharded import run_training_sparse_sharded
 
 # live tokens at and above which ``auto`` takes the tiered trainer
 # (youtokentome_tpu/train.py:136-144)
@@ -89,7 +92,8 @@ def train_from_codepoints(
     mesh=None,
 ) -> BPEState:
     """``mesh`` (a ``parallel.mesh.DataMesh``) replaces the mesh that
-    ``auto`` and ``sparse`` discover."""
+    ``auto`` and ``sparse`` discover: on a mesh ``auto`` trains the sharded
+    v2 trainer and ``sparse`` the sharded v3 trainer."""
     config = check_config(config, vocab_size)
     impl = os.environ.get("YTTM_TRAIN_IMPL", "auto")
     dev = resolve_device(device)
@@ -125,13 +129,9 @@ def train_from_codepoints(
         mesh = mesh or _training_mesh(buckets, dev)
     else:
         mesh = None
-    if mesh is not None and impl == "sparse":
-        raise NotImplementedError(
-            "YTTM_TRAIN_IMPL=sparse on a data mesh (the sharded v3 trainer) is not "
-            "ported yet (ROADMAP.md, queue 1 item 2); use auto, or YTTM_DEVICES=1"
-        )
     if mesh is not None:
-        trainer = run_training_delta_sharded
+        # sparse on a mesh trains the sharded v3 trainer, auto the sharded v2
+        trainer = run_training_sparse_sharded if impl == "sparse" else run_training_delta_sharded
         where = dict(mesh=mesh)
     else:
         if impl == "auto":
