@@ -58,8 +58,7 @@ order (any failure exits nonzero):
      (the kernel, launches counted); a 2000-line sample decodes back; the
      two routes' mean ids a line agree within 5 standard errors; a subword
      dropout encode spells the sample; the kernel again on every input of
-     the main path, equal to its plain version on every 3rd; times and
-     bounds
+     the main path, equal to its plain version; times and bounds
   8. the flat stream backend (csrc/stream_encode.cu: stream_build,
      stream_dedup, stream_merge), run after phase 7: each kernel equals its
      plain version on the corpus's first 1 MiB chunk and on a crafted chunk
@@ -94,7 +93,7 @@ order (any failure exits nonzero):
      delta_emit, shard_recount and shard_fold each equal their plain
      versions for two rounds in both branches (the recount branch forced by
      a tiny dcap), and shard_relay at the first re-pack; the 10 MB prefix at
-     vocab 4000 with 2 and 4 shards, the kernel engine and the plain sharded
+     vocab 8000 with 2 and 4 shards, the kernel engine and the plain sharded
      loop in lockstep (tiny dcap, small kernel tables: recount rounds and
      rebuilds), every replica's table equal to the plain loop's live table
      at every segment end; the main path ``train.train(corpus, model,
@@ -105,11 +104,12 @@ order (any failure exits nonzero):
  11. the other sharded trainers on 4 shards of card 0, run after phase 10:
      v3 (csrc/train_sparse_sharded.cu: sparse_emit, sparse_shard_recount,
      with phase 10's shard_fold), v1 and v0 (their shard counts in
-     csrc/train_stream.cu and csrc/train_bucketed.cu, the always-rebuild
-     shard_fold, the top-k and the applies on every shard).  On the 100 MB
+     csrc/train_stream.cu and csrc/train_bucketed.cu, the partitioned fold
+     shard_part_fold and shard_gather, the top-k and the applies on every
+     shard).  On the 100 MB
      state each kernel equals its plain version for two rounds (v3 in both
      of shard_fold's branches, the recount branch forced by a tiny dcap);
-     the 10 MB prefix at vocab 4000 (v0: its first ids) with 2 and 4 shards,
+     the 10 MB prefix at vocab 8000 (v0: its first ids) with 2 and 4 shards,
      each kernel engine and its plain sharded loop in lockstep, equal at
      every segment end (streams or rows, every replica's live table, rules;
      v3 with tiny dcap and small tables); the main paths at vocab 30000,
@@ -117,8 +117,7 @@ order (any failure exits nonzero):
      ``train.train`` with ``YTTM_TRAIN_IMPL=sparse`` on the mesh,
      ``run_training_stream_sharded`` and ``run_training_sharded``, rules
      equal to phase 5's v2 rules; times, bounds and plain versions as in
-     phase 10.  ``python3 chip_smoke.py --phase11`` runs phase 11 alone
-     after the build, against the v2 kernel engine's rules
+     phase 10
 
 The second-to-last line is a JSON ``kernels`` record, the line before
 it the card; the last line is ``{"ok": true, "device": {...}}``.  It
@@ -634,9 +633,6 @@ MID_VOCAB = 8000
 # times in the mid-size run
 MID_PCAP = 256
 TRAIN_SEG = 1000  # ids per segment, as run_training_delta sets it with the merge log on
-# ids over which phases 5 and 6 time the plain versions (the whole run took
-# 88 s of the script's 1200; phases 9-11 time theirs over a prefix too)
-HEAD_IDS = 1000
 TRAIN_KERNELS = ("pair_count", "topk_accept", "apply_delta")
 # the device functions of each wrapper, as the profiler names them
 TRAIN_DEVICE_FNS = {
@@ -654,15 +650,23 @@ TRAIN_REPLACES = "youtokentome_tpu/ops/train_delta.py:210"
 TOPK_SOURCE = "youtokentome_tpu_torch/csrc/train_topk.cu"
 
 
-def training_buckets(path: Path):
+_PREPARED = {}  # training_buckets' results by path: the phases only read them
+
+
+def training_buckets(path: Path, fresh: bool = False):
     """Host preprocessing of a corpus file, as ``train.train`` does it:
-    (buckets, alphabet, used_ids0)."""
+    (buckets, alphabet, used_ids0), kept per path; ``fresh`` does it again
+    (phase 5 times it)."""
     from youtokentome_tpu_torch.host import preprocess, utf8
 
+    if not fresh and str(path) in _PREPARED:
+        return _PREPARED[str(path)]
     cps = utf8.decode_utf8_bytes(path.read_bytes(), keep_invalid=True)
     uniq, cnt, n = preprocess.char_frequencies(cps)
     al = preprocess.build_alphabet(uniq, cnt, n, 1.0, 4)
-    return preprocess.training_word_buckets(cps, al), al, len(al.char2id) + 4
+    out = preprocess.training_word_buckets(cps, al), al, len(al.char2id) + 4
+    _PREPARED[str(path)] = out
+    return out
 
 
 def clone_state(st):
@@ -785,7 +789,15 @@ def complete_segment(eng, used: int, limit: int):
         eng.regrow()
 
 
-def phase_train_mid(corpus_path: Path, work: Path, dev) -> dict:
+def write_prefix(corpus_path: Path, work: Path) -> Path:
+    """The corpus's first MID_MB MB (whole lines), for the mid-size runs."""
+    blob = corpus_path.read_bytes()
+    mid_path = work / "corpus_10mb.txt"
+    mid_path.write_bytes(blob[: blob.rfind(b"\n", 0, MID_MB * 1_000_000) + 1])
+    return mid_path
+
+
+def phase_train_mid(mid_path: Path, dev) -> dict:
     """A 10 MB prefix at vocab 8000: the kernel engine (with a small table,
     so that it is rebuilt) and the plain round loop, both on the card, in
     lockstep: stream, live table and rules equal after every segment."""
@@ -795,10 +807,7 @@ def phase_train_mid(corpus_path: Path, work: Path, dev) -> dict:
     from youtokentome_tpu_torch.ops import train_kernels as tk
     from youtokentome_tpu_torch.ops import train_stream as ts
 
-    blob = corpus_path.read_bytes()
-    cut = blob.rfind(b"\n", 0, MID_MB * 1_000_000) + 1
-    mid_path = work / "corpus_10mb.txt"
-    mid_path.write_bytes(blob[:cut])
+    cut = mid_path.stat().st_size
     buckets, _, used0 = training_buckets(mid_path)
     t, wid, freq = ts.flatten_word_buckets(buckets)
     rules = np.full((MID_VOCAB, 4), -1, np.int32)
@@ -946,10 +955,25 @@ class env_set:
                 os.environ[k] = v
 
 
-def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
+def plain_v2_rules(corpus_path: Path):
+    """The v2 plain round loop on the card over the 100 MB corpus at vocab
+    30000 (phase 5's reference rules): (rules, seconds)."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_delta as td
+
+    buckets, _, used0 = training_buckets(corpus_path)
+    t0 = time.perf_counter()
+    rules = td.run_training_delta(buckets, used0, TRAIN_VOCAB, device=torch.device("cuda", 0),
+                                  plain=True)
+    return rules, time.perf_counter() - t0
+
+
+def phase_train_main(corpus_path: Path, work: Path, sample, plain) -> dict:
     """The main path: ``BPE.train`` on the 100 MB corpus at vocab 30000 with
     no knob set, launches counted; its rules against the plain round loop
-    on the card; the model encodes and decodes; then timed replicas."""
+    on the card (``plain``: ``plain_v2_rules``, run beside the other
+    checks); the model encodes and decodes; then timed replicas."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -977,16 +1001,14 @@ def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
     check(state.vocab_size() == TRAIN_VOCAB, f"trained vocab {state.vocab_size()}")
 
     t0 = time.perf_counter()
-    buckets, al, used0 = training_buckets(corpus_path)
+    buckets, al, used0 = training_buckets(corpus_path, fresh=True)
     prep_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    plain_rules = td.run_training_delta(buckets, used0, TRAIN_VOCAB, device=dev, plain=True)
-    plain_loop_s = time.perf_counter() - t0
+    plain_rules, plain_loop_s = plain
     char2id, want = rename_tokens(al.char2id, plain_rules, SpecialTokens(0, 1, 2, 3), TRAIN_VOCAB)
     check(state.rules == want and state.char2id == char2id,
           "BPE.train's rules != the plain round loop's on the card")
     log(f"[5] BPE.train's {len(state.rules)} rules == the plain round loop's on the card "
-        f"({plain_loop_s:.1f} s)")
+        f"({plain_loop_s:.1f} s, in a worker process beside the other checks)")
     ids = bpe.encode(sample)
     check(bpe.decode(ids) == sample, "the trained model's decode round trip")
     check(all(0 <= min(s) and max(s) < TRAIN_VOCAB for s in ids if s), "ids out of range")
@@ -1039,10 +1061,7 @@ def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
     log("[5] device ms summed over the run (torch.profiler): "
         + ", ".join(f"{k} {v:.3f}" for k, v in kernel_ms.items()))
 
-    # the plain versions over the run's first HEAD_IDS ids, each call
-    # synchronised, beside the kernels' device ms over the same ids
-    head = used0 + HEAD_IDS
-    prefix_ms = traced(lambda: run_engine(engine(), head, used0), TRAIN_DEVICE_FNS)[0]
+    # the plain versions over the same run, each call synchronised
     plain_ms = {name: 0.0 for name in TRAIN_KERNELS}
 
     def timed_plain(name, fn):
@@ -1062,12 +1081,9 @@ def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
         apply_delta=timed_plain("apply_delta", tk.apply_delta_plain),
     ):
         eng = engine()
-        p_used = run_engine(eng, head, used0)
-    check(torch.equal(eng.rules[: p_used - used0], st.rules[: p_used - used0]),
-          "the plain versions' rules differ")
-    log(f"[5] over the first {HEAD_IDS} ids: kernels (torch.profiler) "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in prefix_ms.items())
-        + "; plain versions (synchronised calls) "
+        run_engine(eng, TRAIN_VOCAB, used0)
+    check(torch.equal(eng.rules, st.rules), "the plain versions' rules differ")
+    log(f"[5] plain versions over the same run (synchronised calls): "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items()))
 
     # bounds, from this run's inputs and the work its data gave each
@@ -1084,12 +1100,10 @@ def phase_train_main(corpus_path: Path, work: Path, sample) -> dict:
         b_ms = bytes_[name] / HBM_BYTES_PER_S * 1e3
         o_ms = ops[name] / OPS_PER_S * 1e3
         rows.append({"name": name, "launches": launches[name], "ms": kernel_ms[name],
-                     "plain_ms": plain_ms[name], "plain_ids": HEAD_IDS,
-                     "prefix_ms": prefix_ms[name], "bound_ms": max(b_ms, o_ms),
+                     "plain_ms": plain_ms[name], "bound_ms": max(b_ms, o_ms),
                      "bound_by": "bytes" if b_ms >= o_ms else "operations"})
         log(f"[5] {name}: {launches[name]} launches, {kernel_ms[name]:.3f} ms on the card, "
-            f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain {plain_ms[name]:.1f} ms "
-            f"over the first {HEAD_IDS} ids (kernel {prefix_ms[name]:.3f} ms)")
+            f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain {plain_ms[name]:.1f} ms")
     log(f"[5] times: preprocessing {prep_s:.2f} s, BPE.train {train_s:.2f} s, merge loop "
         f"{loop_s:.3f} s, {rounds} rounds, {merges / loop_s:.0f} merges/s, "
         f"plain round loop {plain_loop_s:.1f} s")
@@ -1580,9 +1594,6 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
             return out
         return run
 
-    head = used0 + HEAD_IDS
-    prefix_ms = traced(lambda: run_tiered(engine(), head, used0), TIERED_DEVICE_FNS)[0]
-
     def apply_plain(st, kb1=0, kb2=0, count_mode=False):
         if count_mode:
             plain_tiered_count(st)
@@ -1598,12 +1609,9 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
         fold_rows=timed_plain("fold_rows", tk.fold_rows_plain),
     ):
         p_eng = engine()
-        p_used = run_tiered(p_eng, head, used0)
-    check(torch.equal(p_eng.rules[: p_used - used0], st.rules[: p_used - used0]),
-          "the tiered plain versions' rules differ")
-    log(f"[6] over the first {HEAD_IDS} ids: kernels (torch.profiler) "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in prefix_ms.items())
-        + "; plain versions (synchronised calls) "
+        run_tiered(p_eng, TRAIN_VOCAB, used0)
+    check(torch.equal(p_eng.rules, st.rules), "the tiered plain versions' rules differ")
+    log("[6] plain versions over the same run (synchronised calls): "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items()))
 
     rows = []
@@ -1611,13 +1619,11 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
         b_ms = wbytes[name] / HBM_BYTES_PER_S * 1e3
         o_ms = wops[name] / OPS_PER_S * 1e3
         rows.append({"name": name, "launches": launches[name], "ms": kernel_ms[name],
-                     "plain_ms": plain_ms[name], "plain_ids": HEAD_IDS,
-                     "prefix_ms": prefix_ms[name], "bound_ms": max(b_ms, o_ms),
+                     "plain_ms": plain_ms[name], "bound_ms": max(b_ms, o_ms),
                      "bound_by": "bytes" if b_ms >= o_ms else "operations"})
         log(f"[6] {name}: {launches[name]} launches, {kernel_ms[name]:.3f} ms on the card, "
             f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain "
-            f"{plain_ms[name]:.1f} ms over the first {HEAD_IDS} ids (kernel "
-            f"{prefix_ms[name]:.3f} ms)")
+            f"{plain_ms[name]:.1f} ms")
     log(f"[6] times: BPE.train {train_s:.2f} s, merge loop {loop_s:.3f} s, {rounds} rounds, "
         f"{refresh} refresh rounds, {eng.folds} folds, {merges / loop_s:.0f} merges/s")
     return {"rows": rows}
@@ -1628,10 +1634,6 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
 DROPOUT_P = 0.1
 DROPOUT_SEED = 0x5EED0D20
 DROPOUT_REPLACES = "youtokentome_tpu/ops/encode_kernel.py:160"
-# the kernel is held against its plain version on every 3rd main-path input
-# (every input takes ~89 s, which the script's 1200 s cannot spare beside
-# phase 11)
-DROPOUT_PLAIN_EVERY = 3
 # integer operations of the dropout kernel beyond its pair lookups
 # (OPS_PER_PAIR each: every pair once, and the two pairs a merge makes):
 # the coin of a candidate (three murmur steps and the finalizer, ~24) and
@@ -1738,28 +1740,21 @@ def phase_dropout_main(main: dict, lines, card: str) -> dict:
         f"subwords spell the sample")
     del native, kern, subs
 
-    # the kernel on every input of the main path, under the profiler, and on
-    # every DROPOUT_PLAIN_EVERY-th; the plain version on those, each call
-    # synchronised, equal
+    # the kernel on every input of the main path, under the profiler; the
+    # plain version on the same inputs, each call synchronised, equal
     tables = bpe._encoder.tables
-    part = calls[::DROPOUT_PLAIN_EVERY]
-    kms = []
-    for inputs in (part, calls):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        outs = [real(tables, x, DROPOUT_P, seed, row0) for x, seed, row0 in calls]
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            outs = [real(tables, x, DROPOUT_P, seed, row0) for x, seed, row0 in inputs]
-            torch.cuda.synchronize()
-        kms.append(profiled_ms(prof, ("encode_dropout_kernel",)))
-    part_ms, k_ms = kms
-    check(min(kms) > 0, "the profiler recorded no device time for encode_dropout")
+    k_ms = profiled_ms(prof, ("encode_dropout_kernel",))
+    check(k_ms > 0, "the profiler recorded no device time for encode_dropout")
     p_ms, merges = 0.0, 0
-    for i, ((x, seed, row0), out) in enumerate(zip(calls, outs)):
-        merges += int((x >= 0).sum() - (out >= 0).sum())
-        if i % DROPOUT_PLAIN_EVERY:
-            continue
+    for (x, seed, row0), out in zip(calls, outs):
         want, ms = synced(lambda: ek.encode_dropout_plain(tables, x, DROPOUT_P, seed, row0))
         p_ms += ms
         check(torch.equal(out, want), "dropout kernel != plain on a main-path input")
+        merges += int((x >= 0).sum() - (out >= 0).sum())
     del outs
     # the work this run's data gives the kernel, counted by the kernel
     # itself in one more pass (coins drawn, merges, initial pair lookups)
@@ -1774,12 +1769,10 @@ def phase_dropout_main(main: dict, lines, card: str) -> dict:
     b_ms = elems * 8 / HBM_BYTES_PER_S * 1e3
     o_ms = ((pairs + 2 * merges) * OPS_PER_PAIR + coins * OPS_PER_COIN) / OPS_PER_S * 1e3
     log(f"[7] main-path inputs ({launches} launches, shapes {shapes}): kernel == plain on every "
-        f"{DROPOUT_PLAIN_EVERY}rd one ({len(part)}); {pairs} pairs, {coins} coins, {merges} merges; "
-        f"kernel {k_ms:.3f} ms (torch.profiler), bytes bound {b_ms:.4f} ms, operations "
-        f"bound {o_ms:.4f} ms, plain {p_ms:.1f} ms over {len(part)} inputs (kernel {part_ms:.3f} "
-        f"ms) ({card})")
+        f"one; {pairs} pairs, {coins} coins, {merges} merges; kernel {k_ms:.3f} ms "
+        f"(torch.profiler), bytes bound {b_ms:.4f} ms, operations "
+        f"bound {o_ms:.4f} ms, plain {p_ms:.1f} ms ({card})")
     row = {"name": "encode_dropout", "launches": launches, "ms": k_ms, "plain_ms": p_ms,
-           "plain_inputs": len(part), "prefix_ms": part_ms,
            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
     return {"row": row, "native_mbps": n_bytes / 1e6 / native_s, "kernel_mbps": n_bytes / 1e6 / kern_s}
 
@@ -2603,7 +2596,7 @@ SHARD_DEVICE_FNS = {
     "topk_accept": ("topk_blocks_kernel", "topk_accept_kernel"),
     "delta_emit": ("mark_words_kernel", "emit_words_kernel"),
     "shard_recount": ("recount_clear_kernel", "recount_kernel"),
-    "shard_fold": ("fold_prep_kernel", "fold_kernel"),
+    "shard_fold": ("fold_prep_kernel", "fold_kernel", "fold_done_kernel"),
     "shard_relay": ("relay_len_kernel", "relay_write_kernel", "tile_sums_kernel",
                     "tile_offsets_kernel", "scan_apply_kernel"),
 }
@@ -2616,10 +2609,6 @@ SHARD_REPLACES = {
 }
 SHARD_ENCODE_REPLACES = "youtokentome_tpu/parallel/encode_sharded.py:40"
 MID_DCAP = 64  # the 10 MB lockstep's delta buffers: most rounds take the recount branch
-# the sharded 10 MB lockstep's depth (phases 10 and 11), below MID_VOCAB so
-# that the script, with phase 11's ~200 s v0 main path, stays well inside
-# its 1200 s
-SHARD_MID_VOCAB = 4000
 SHARD_PLAIN_IDS = 200  # ids the plain versions are timed over
 SHARD_PLAIN_EVERY = 4  # the sharded merge's plain version is timed on every 4th chunk
 
@@ -2726,22 +2715,12 @@ def shard_engine(buckets, used0: int, vocab: int, n: int = SHARDS, plain: bool =
                  dev="cuda:0"):
     """The sharded trainer's kernel (or plain) engine on ``buckets``, its
     shards on ``dev``, as ``run_training_delta_sharded`` builds it."""
-    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
-    from youtokentome_tpu_torch.ops import train_delta as td
     from youtokentome_tpu_torch.ops import train_stream as ts
     from youtokentome_tpu_torch.parallel import train_delta_sharded as tds
 
-    t, wid, freq = (np.asarray(x) for x in ts.flatten_word_buckets(buckets))
-    seg_t, seg_w, per, dcap = tds.shard_plan(t, wid, n)
+    t, wid, freq = ts.flatten_word_buckets(buckets)
     rules = np.full((vocab, 4), -1, np.int32)
-    if plain:
-        uk, uc = td.host_count_table(t, wid, freq)
-        pcap = int(os.environ.get("YTTM_TRAIN_PCAP", "0")) or min(
-            td._pcap_budget(uk.size, vocab - used0), td._next_pow2(int((wid >= 0).sum())))
-        return tds.PlainShardedEngine(seg_t, seg_w, per, freq, rules, used0, vocab, 16,
-                                      card_mesh(n, dev), pcap, dcap, (uk, uc))
-    return dsk.ShardedKernelEngine(seg_t, seg_w, per, freq, rules, used0, vocab, 16,
-                                   card_mesh(n, dev), dcap, t.shape[0])
+    return tds.make_engine(t, wid, freq, rules, used0, used0, vocab, card_mesh(n, dev), 16, plain)
 
 
 def clone_shards(shards, dcap: int = 0):
@@ -2896,8 +2875,8 @@ def phase_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
         f"{[int(st.off[-1]) for st in eng.shards]} slots)")
 
 
-def phase_shard_mid(mid_path: Path, dev="cuda:0") -> dict:
-    """The 10 MB prefix at vocab SHARD_MID_VOCAB with 2 and 4 shards on the card: the
+def phase_shard_mid(mid_path: Path, dev="cuda:0", ns=(2, 4)) -> dict:
+    """The 10 MB prefix at vocab MID_VOCAB with ``ns`` shards on the card: the
     kernel engine and the plain sharded loop in lockstep, with tiny delta
     buffers (recount rounds) and small kernel tables (rebuilds):
     rules, used and done equal at every segment end, and every replica's
@@ -2908,17 +2887,17 @@ def phase_shard_mid(mid_path: Path, dev="cuda:0") -> dict:
     buckets, _, used0 = training_buckets(mid_path)
     out = {}
     t0 = time.perf_counter()
-    for n in (2, 4):
+    for n in ns:
         # the plain loop keeps the JAX host loop's pcap: its recount fold drops
         # the keys past pcap of each shard's count unseen (ROADMAP.md)
         with env_set(YTTM_TRAIN_DCAP=str(MID_DCAP)):
-            plain = shard_engine(buckets, used0, SHARD_MID_VOCAB, n, plain=True, dev=dev)
+            plain = shard_engine(buckets, used0, MID_VOCAB, n, plain=True, dev=dev)
             with env_set(YTTM_TRAIN_PCAP=str(MID_PCAP)):
-                kern = shard_engine(buckets, used0, SHARD_MID_VOCAB, n, dev=dev)
+                kern = shard_engine(buckets, used0, MID_VOCAB, n, dev=dev)
         used, segs, nrec = used0, 0, 0
         with checked_relay() as rel:
-            while used < SHARD_MID_VOCAB:
-                limit = min(SHARD_MID_VOCAB, used + TRAIN_SEG)
+            while used < MID_VOCAB:
+                limit = min(MID_VOCAB, used + TRAIN_SEG)
                 ku, kd = complete_segment(kern, used, limit)
                 pu, pd = complete_segment(plain, used, limit)
                 check((ku, kd) == (pu, pd), f"{n} shards, segment to {limit}: {ku, kd} != {pu, pd}")
@@ -2936,11 +2915,11 @@ def phase_shard_mid(mid_path: Path, dev="cuda:0") -> dict:
         check(kern.rebuilds >= 1 and nrec > 0,
               f"{n} shards: {kern.rebuilds} rebuilds, {nrec} recount rounds")
         out[n] = {"segments": segs, "rebuilds": kern.rebuilds, "recounts": nrec, "relays": rel.n}
-        log(f"[10] 10 MB, vocab {SHARD_MID_VOCAB}, {n} shards, dcap {MID_DCAP}: kernels == plain sharded "
+        log(f"[10] 10 MB, vocab {MID_VOCAB}, {n} shards, dcap {MID_DCAP}: kernels == plain sharded "
             f"loop at all {segs} segment ends (rules, every replica's live table); "
             f"{kern.rebuilds} rebuilds, {nrec} recount rounds, {rel.n} relays checked, plain "
             f"pcap {plain.pcap}")
-    log(f"[10] 10 MB lockstep: {time.perf_counter() - t0:.1f} s")
+    log(f"[10] 10 MB lockstep, {ns} shards: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3102,24 +3081,30 @@ OTHER_TRAINERS = ("sparse", "stream", "bucketed")
 # each trainer's wrappers, in round order
 OTHER_KERNELS = {
     "sparse": ("topk_accept", "sparse_emit", "sparse_shard_recount", "shard_fold"),
-    "stream": ("stream_shard_count", "shard_fold", "topk_accept", "apply_compact"),
-    "bucketed": ("bucket_shard_count", "shard_fold", "topk_accept", "bucket_apply"),
+    "stream": ("stream_shard_count", "shard_part_fold", "shard_gather", "topk_accept",
+               "apply_compact"),
+    "bucketed": ("bucket_shard_count", "shard_part_fold", "shard_gather", "topk_accept",
+                 "bucket_apply"),
 }
 # the names of their JSON rows (the new kernels keep their own)
 OTHER_ROW_NAMES = {
     ("sparse", "topk_accept"): "sparse_sharded_topk_accept",
     ("sparse", "shard_fold"): "sparse_sharded_shard_fold",
-    ("stream", "shard_fold"): "stream_sharded_shard_fold",
+    ("stream", "shard_part_fold"): "stream_sharded_part_fold",
+    ("stream", "shard_gather"): "stream_sharded_gather",
     ("stream", "topk_accept"): "stream_sharded_topk_accept",
     ("stream", "apply_compact"): "stream_sharded_apply_compact",
-    ("bucketed", "shard_fold"): "bucket_sharded_shard_fold",
+    ("bucketed", "shard_part_fold"): "bucket_sharded_part_fold",
+    ("bucketed", "shard_gather"): "bucket_sharded_gather",
     ("bucketed", "topk_accept"): "bucket_sharded_topk_accept",
     ("bucketed", "bucket_apply"): "bucket_sharded_apply",
 }
 # the device functions of each wrapper, as the profiler names them
 OTHER_DEVICE_FNS = {
     "topk_accept": ("topk_blocks_kernel", "topk_accept_kernel"),
-    "shard_fold": ("fold_prep_kernel", "fold_kernel"),
+    "shard_fold": ("fold_prep_kernel", "fold_kernel", "fold_done_kernel"),
+    "shard_part_fold": ("part_prep_kernel", "part_fold_kernel"),
+    "shard_gather": ("gather_kernel",),
     "sparse_emit": ("mark_live_words_kernel", "emit_live_words_kernel"),
     "sparse_shard_recount": ("sparse_recount_clear_kernel", "sparse_recount_kernel"),
     "stream_shard_count": ("clear_kernel", "eq_tiles_kernel", "count_tiles_kernel"),
@@ -3130,6 +3115,8 @@ OTHER_DEVICE_FNS = {
 OTHER_SOURCES = {
     "topk_accept": TOPK_SOURCE,
     "shard_fold": SHARD_SOURCE,
+    "shard_part_fold": SHARD_SOURCE,
+    "shard_gather": SHARD_SOURCE,
     "sparse_emit": "youtokentome_tpu_torch/csrc/train_sparse_sharded.cu",
     "sparse_shard_recount": "youtokentome_tpu_torch/csrc/train_sparse_sharded.cu",
     "stream_shard_count": "youtokentome_tpu_torch/csrc/train_stream.cu",
@@ -3162,7 +3149,8 @@ def other_wrapper(name: str, k: str):
     from youtokentome_tpu_torch.ops import stream_train_kernels as stk
     from youtokentome_tpu_torch.ops import train_kernels as tk
 
-    home = {"topk_accept": tk, "shard_fold": dsk, "sparse_emit": ssk,
+    home = {"topk_accept": tk, "shard_fold": dsk, "shard_part_fold": dsk, "shard_gather": dsk,
+            "sparse_emit": ssk,
             "sparse_shard_recount": ssk, "stream_shard_count": rsk, "bucket_shard_count": rsk,
             "apply_compact": stk, "bucket_apply": bk}[k]
     return home, getattr(home, k)
@@ -3172,44 +3160,25 @@ def other_engine(name: str, buckets, used0: int, vocab: int, n: int = SHARDS,
                  plain: bool = False, dev="cuda:0"):
     """The kernel (or plain) engine of sharded trainer ``name`` on
     ``buckets``, its shards on ``dev``, as its host loop builds it."""
-    from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
-    from youtokentome_tpu_torch.ops import sparse_sharded_kernels as ssk
-    from youtokentome_tpu_torch.ops import train_delta as td
-    from youtokentome_tpu_torch.ops import train_sparse as sp
     from youtokentome_tpu_torch.ops import train_stream as ts
-    from youtokentome_tpu_torch.parallel import train_delta_sharded as tds
     from youtokentome_tpu_torch.parallel import train_sharded as tsh
     from youtokentome_tpu_torch.parallel import train_sparse_sharded as tss
     from youtokentome_tpu_torch.parallel import train_stream_sharded as tst
 
-    rules = np.full((vocab, 4), -1, np.int32)
     mesh = card_mesh(n, dev)
     if name == "bucketed":
-        sb = tsh.shard_rows(buckets, n)
-        if plain:
-            return tsh.PlainBucketedShardedEngine(sb, rules, used0, vocab, mesh)
-        return rsk.BucketedShardedKernelEngine(sb, rules, used0, vocab, mesh)
-    t, wid, freq = (np.asarray(x) for x in ts.flatten_word_buckets(buckets))
-    seg_t, seg_w, per, dcap = tds.shard_plan(t, wid, n)
+        return tsh.make_engine(buckets, used0, vocab, mesh, plain)
     if name == "stream":
-        if plain:
-            return tst.PlainStreamShardedEngine(seg_t, seg_w, freq, rules, used0, vocab, 16, mesh)
-        return rsk.StreamShardedKernelEngine(seg_t, seg_w, freq, rules, used0, vocab, 16, mesh,
-                                             t.shape[0])
-    if plain:
-        uk, uc = sp._host_table_tomb(t, wid, freq)
-        pcap = int(os.environ.get("YTTM_TRAIN_PCAP", "0")) or min(
-            td._pcap_budget(uk.size, vocab - used0), td._next_pow2(int((wid >= 0).sum())))
-        return tss.PlainSparseShardedEngine(seg_t, seg_w, per, freq, rules, used0, vocab, 16, mesh,
-                                            pcap, dcap, (uk, uc))
-    return ssk.SparseShardedKernelEngine(seg_t, seg_w, freq, rules, used0, vocab, 16, mesh, dcap,
-                                         t.shape[0])
+        return tst.make_engine(buckets, used0, vocab, mesh, 16, plain)
+    t, wid, freq = ts.flatten_word_buckets(buckets)
+    rules = np.full((vocab, 4), -1, np.int32)
+    return tss.make_engine(t, wid, freq, rules, used0, used0, vocab, mesh, 16, plain)
 
 
 def other_round(name: str, ks, ps, used0: int, limit: int, what: str) -> bool:
     """One round of sharded trainer ``name`` through the kernels on ``ks``
     and the plain versions on ``ps``, compared after each step; returns
-    whether the fold took its recount branch."""
+    the branch that v3's fold took (the others fold in parts)."""
     from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
 
     stream = OTHER_STREAMS[name]
@@ -3222,7 +3191,7 @@ def other_round(name: str, ks, ps, used0: int, limit: int, what: str) -> bool:
             if k == "topk_accept":
                 fn(a, limit, V, used0, kb)
                 plain(b, limit, V, used0, kb)
-            elif k in ("sparse_shard_recount", "shard_fold"):
+            elif k in ("sparse_shard_recount", "shard_fold", "shard_part_fold", "shard_gather"):
                 fn(a, ks)
                 plain(b, ps)
             elif k in ("stream_shard_count", "bucket_shard_count"):
@@ -3232,7 +3201,7 @@ def other_round(name: str, ks, ps, used0: int, limit: int, what: str) -> bool:
                 fn(a)
                 plain(b)
             same_shard(a, b, f"{what}, {k} on shard {i}", buffers=name == "sparse", stream=stream)
-    return rec
+    return ("recount" if rec else "delta") if name == "sparse" else "parts"
 
 
 def phase_other_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
@@ -3242,7 +3211,8 @@ def phase_other_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
     MID_DCAP: sparse_shard_recount and shard_fold's recount branch) and with
     buffers large enough for the delta branch, after its replicas' first
     count against the host table; v1's and v0's shard counts and the
-    always-rebuild fold, the top-k and the applies."""
+    partitioned fold (shard_part_fold, shard_gather), the top-k and the
+    applies."""
     from youtokentome_tpu_torch.ops import train_sparse as sp
     from youtokentome_tpu_torch.ops import train_stream as ts
 
@@ -3260,10 +3230,9 @@ def phase_other_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
         for dcap in ((MID_DCAP, 1 << 22) if name == "sparse" else (0,)):
             ks, ps = clone_shards(eng.shards, dcap), clone_shards(eng.shards, dcap)
             for r in range(2):
-                rec = other_round(name, ks, ps, used0, used0 + TRAIN_SEG,
-                                  f"{name} sharded, dcap {dcap}, round {r}")
-                branches.append("recount" if rec else "delta")
-        want = ["recount"] * 2 + ["delta"] * 2 if name == "sparse" else ["recount"] * 2
+                branches.append(other_round(name, ks, ps, used0, used0 + TRAIN_SEG,
+                                            f"{name} sharded, dcap {dcap}, round {r}"))
+        want = ["recount"] * 2 + ["delta"] * 2 if name == "sparse" else ["parts"] * 2
         check(branches == want, f"{name} sharded: the fold took {branches}, not {want}")
         sizes = [st.n_rows if name == "bucketed" else int((st.t >= 0).sum()) for st in eng.shards]
         log(f"[11] {name} sharded ({SHARDS} shards of {sizes} {'rows' if name == 'bucketed' else 'tokens'}, "
@@ -3299,10 +3268,12 @@ def other_streams(name: str, plain):
     return [(t,) for t in plain.ts]
 
 
-def phase_other_shard_mid(mid_path: Path, dev="cuda:0") -> dict:
-    """The 10 MB prefix at vocab SHARD_MID_VOCAB (v0: its first OTHER_V0_IDS
-    ids) with 2 and 4 shards on the card: each sharded trainer's kernel engine
-    and its plain sharded loop in lockstep, equal at every segment end:
+def phase_other_shard_mid(mid_path: Path, dev="cuda:0", names=OTHER_TRAINERS,
+                          ns=(2, 4)) -> dict:
+    """The 10 MB prefix at vocab MID_VOCAB (v0: its first OTHER_V0_IDS
+    ids) with ``ns`` shards on the card: the kernel engine of each sharded
+    trainer of ``names`` and its plain sharded loop in lockstep, equal at
+    every segment end:
     each shard's stream or rows, every replica's live table (v1, v0: the
     last round's count), rules, used and done.  v3 runs with tiny delta
     buffers (recount rounds) and small kernel tables (rebuilds)."""
@@ -3310,10 +3281,10 @@ def phase_other_shard_mid(mid_path: Path, dev="cuda:0") -> dict:
 
     buckets, _, used0 = training_buckets(mid_path)
     out = {}
-    for name in OTHER_TRAINERS:
+    for name in names:
         t0 = time.perf_counter()
-        vocab = min(SHARD_MID_VOCAB, used0 + OTHER_V0_IDS) if name == "bucketed" else SHARD_MID_VOCAB
-        for n in (2, 4):
+        vocab = min(MID_VOCAB, used0 + OTHER_V0_IDS) if name == "bucketed" else MID_VOCAB
+        for n in ns:
             env = {"YTTM_TRAIN_DCAP": str(MID_DCAP)} if name == "sparse" else {}
             with env_set(**env):
                 plain = other_engine(name, buckets, used0, vocab, n, plain=True, dev=dev)
@@ -3346,7 +3317,7 @@ def phase_other_shard_mid(mid_path: Path, dev="cuda:0") -> dict:
             log(f"[11] 10 MB, {name} sharded to {vocab}, {n} shards: kernels == plain sharded loop "
                 f"at all {segs} segment ends (streams, every replica's live table, rules); "
                 f"{kern.rebuilds} rebuilds, {nrec} recount rounds, tables {kern.shards[0].cap} slots")
-        log(f"[11] 10 MB lockstep, {name}: {time.perf_counter() - t0:.1f} s")
+        log(f"[11] 10 MB lockstep, {name}, {ns} shards: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3370,8 +3341,15 @@ def other_work(name: str, eng) -> dict:
     head = eng.shards[0].work.cpu().numpy().astype(np.int64)
     rounds, occ, slots = int(w[tk.W_ROUNDS]), int(w[tk.W_OCC]), int(w[tk.W_SLOTS])
     kb = 1 if name == "bucketed" else 16
-    out = {"topk_accept": (slots * 4 + occ * 8 + rounds * 16 * kb, slots * OPS_PER_SLOT),
-           "shard_fold": (int(w[dsk.W_FOLD]), int(w[dsk.W_FOLD]) // 4 * OPS_PER_POS)}
+    fold = (int(w[dsk.W_FOLD]), int(w[dsk.W_FOLD]) // 4 * OPS_PER_POS)
+    out = {"topk_accept": (slots * 4 + occ * 8 + rounds * 16 * kb, slots * OPS_PER_SLOT)}
+    if name == "sparse":
+        out["shard_fold"] = fold
+    else:
+        # each shard's live pairs read once, then every replica's live
+        # entries written (its occupancy, which the top-k sums)
+        out["shard_part_fold"] = fold
+        out["shard_gather"] = (occ * 12, occ * OPS_PER_POS)
     # the counts write each round's live pairs at least once (the replica's
     # occupancy, summed over the rounds)
     head_occ = int(head[tk.W_OCC])
@@ -3419,7 +3397,7 @@ def plain_other(name: str, engine, vocab: int, used0: int):
              for k in OTHER_KERNELS[name]}
     mod = ssk if name == "sparse" else rsk  # where the engine finds its wrappers
     own = {k: f for k, f in plain.items() if k != "shard_fold"}
-    with swapped(mod, **own), swapped(dsk, shard_fold=plain["shard_fold"]):
+    with swapped(mod, **own), swapped(dsk, **{k: plain[k] for k in ("shard_fold",) if k in plain}):
         eng = engine(vocab)
         used = ts.run_to_end(eng, used0, vocab)
     return ms, eng, used
@@ -3598,37 +3576,50 @@ def log_other(other: dict, card: str) -> None:
         for k, v in other["times"].items()) + f" ({card})")
 
 
-def phase11_alone(info: dict, work: Path, t_start: float) -> int:
-    """``python3 chip_smoke.py --phase11``: phase 11 alone after the build,
-    against the v2 kernel engine's rules (a quicker check of the sharded
-    v3, v1 and v0 trainers; the full run holds them against phase 5's
-    plain round loop)."""
+
+# -- the check-only phases, run side by side -----------------------------------
+
+# worker processes for the mid-size lockstep runs and phase 5's plain round
+# loop: they time nothing that the record keeps, so they run side by side
+# (each on the card), before any timed phase and with none beside them
+CHECK_WORKERS = 6
+
+
+def _check_worker_init() -> None:
     import torch
 
-    from youtokentome_tpu_torch.ops import train_delta as td
+    torch.set_num_threads(1)
 
-    corpus = build_corpus()
-    corpus_path = work / "corpus_100mb.txt"
-    corpus_path.write_text("\n".join(corpus[1]) + "\n")
-    sample = corpus[1][:2000]
-    del corpus
-    blob = corpus_path.read_bytes()
-    (work / "corpus_10mb.txt").write_bytes(blob[: blob.rfind(b"\n", 0, MID_MB * 1_000_000) + 1])
+
+def run_checks(corpus_path: Path, mid_path: Path) -> dict:
+    """Phase 5's v2 plain round loop over the 100 MB corpus and every
+    mid-size lockstep run (phases 5, 6, 9, 10 and 11 on the 10 MB prefix),
+    in CHECK_WORKERS spawned processes; a failed check fails the run.
+    Returns {"plain_v2": (rules, seconds)}."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
     dev = torch.device("cuda", 0)
-    prepared = training_buckets(corpus_path)
-    v2_rules = td.run_training_delta(prepared[0], prepared[2], TRAIN_VOCAB, device=dev)
-    phase_other_shard_kernels(prepared[0], prepared[2])
-    phase_other_shard_mid(work / "corpus_10mb.txt")
-    other = phase_other_shard_main(corpus_path, work, sample, v2_rules, info["card"],
-                                   prepared=prepared)
-    log_other(other, info["card"])
-    log(f"[4] build {info['build_s']:.2f} s, whole run {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": other_rows(other)}))
-    print(info["card"])
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    jobs = {
+        "plain_v2": (plain_v2_rules, corpus_path),
+        "shard_mid_4": (phase_shard_mid, mid_path, dev, (4,)),
+        "shard_mid_2": (phase_shard_mid, mid_path, dev, (2,)),
+        "diff_mid": (phase_diff_mid, mid_path, dev),
+        **{f"other_mid_{name}_{n}": (phase_other_shard_mid, mid_path, dev, (name,), (n,))
+           for name in OTHER_TRAINERS for n in (4, 2)},
+        "train_mid": (phase_train_mid, mid_path, dev),
+        "tiered_mid": (phase_tiered_mid, mid_path, dev),
+    }
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(CHECK_WORKERS, mp_context=mp.get_context("spawn"),
+                             initializer=_check_worker_init) as ex:
+        futs = {k: ex.submit(*job) for k, job in jobs.items()}
+        out = {k: f.result() for k, f in futs.items()}
+    log(f"[2] the check-only runs ({len(jobs)}) in {CHECK_WORKERS} worker processes: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -3651,8 +3642,6 @@ def main() -> int:
     work.mkdir(parents=True, exist_ok=True)
 
     info = phase_device_and_build()
-    if sys.argv[1:] == ["--phase11"]:
-        return phase11_alone(info, work, t_start)
     kchk = phase_kernel_checks()
     t0 = time.perf_counter()
     corpus = build_corpus()
@@ -3660,6 +3649,8 @@ def main() -> int:
     corpus_path.write_text("\n".join(corpus[1]) + "\n")
     log(f"[3] corpus: {len(corpus[1])} lines, {len(corpus[0])}-word list "
         f"({time.perf_counter() - t0:.1f} s)")
+    mid_path = write_prefix(corpus_path, work)
+    checks = run_checks(corpus_path, mid_path)
     main_res = phase_main_path(work, corpus)
     times = phase_times(info["card"], kchk, main_res)
     phase_dropout_kernels(kchk)
@@ -3673,26 +3664,21 @@ def main() -> int:
     buckets, _, used0 = training_buckets(corpus_path)
     phase_train_kernels(buckets, used0, dev)
     del buckets
-    phase_train_mid(corpus_path, work, dev)
-    train = phase_train_main(corpus_path, work, sample)
+    train = phase_train_main(corpus_path, work, sample, checks["plain_v2"])
     buckets, _, used0 = training_buckets(corpus_path)
     phase_tiered_kernels(buckets, used0, dev)
     del buckets
-    phase_tiered_mid(work / "corpus_10mb.txt", dev)
     tiered = phase_tiered_main(corpus_path, work, sample, train["plain_rules"])
     buckets, _, used0 = training_buckets(corpus_path)
     phase_diff_kernels(buckets, used0, dev)
     del buckets
-    phase_diff_mid(work / "corpus_10mb.txt", dev)
     diff = phase_diff_main(corpus_path, work, sample, train["plain_rules"], info["card"])
     buckets, _, used0 = training_buckets(corpus_path)
     phase_shard_kernels(buckets, used0)
     del buckets
-    phase_shard_mid(work / "corpus_10mb.txt")
     shard = phase_shard_main(corpus_path, work, sample, train["plain_rules"], info["card"])
     prepared = training_buckets(corpus_path)
     phase_other_shard_kernels(prepared[0], prepared[2])
-    phase_other_shard_mid(work / "corpus_10mb.txt")
     other = phase_other_shard_main(corpus_path, work, sample, train["plain_rules"], info["card"],
                                    prepared=prepared)
 
@@ -3716,8 +3702,7 @@ def main() -> int:
             "source": TOPK_SOURCE if r["name"] == "topk_accept" else (
                 "youtokentome_tpu_torch/csrc/train_delta.cu"),
             "replaces": TRAIN_REPLACES, "launches": r["launches"], "max_abs_err": 0,
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_ids": r["plain_ids"],
-            "prefix_ms": r["prefix_ms"], "bound_ms": r["bound_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "equal": True,
         }
         for r in train["rows"]
@@ -3725,8 +3710,7 @@ def main() -> int:
         {
             "name": r["name"], "route": "cuda", "source": "youtokentome_tpu_torch/csrc/train_tiered.cu",
             "replaces": TIERED_REPLACES[r["name"]], "launches": r["launches"], "max_abs_err": 0,
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_ids": r["plain_ids"],
-            "prefix_ms": r["prefix_ms"], "bound_ms": r["bound_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "equal": True,
         }
         for r in tiered["rows"]
@@ -3734,7 +3718,6 @@ def main() -> int:
         {
             "name": r["name"], "route": "cuda", "source": source_of, "replaces": replaces_of,
             "launches": r["launches"], "max_abs_err": 0, "ms": r["ms"], "plain_ms": r["plain_ms"],
-            **{k: r[k] for k in ("plain_inputs", "prefix_ms") if k in r},
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "equal": True,
         }
         for r, source_of, replaces_of in

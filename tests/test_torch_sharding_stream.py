@@ -223,3 +223,35 @@ def test_shard_counts_fill_the_scratch_table():
             np.testing.assert_array_equal(cnts, uc)
             assert int(st.ctl[rsk.ROCC]) == int((st.rkeys != rsk.EMPTY).sum()) > 0
         assert sum(int(st.rcnts.sum()) for st in eng.shards) == int(uc.sum())
+
+
+@pytest.mark.parametrize("n", [3, 8])
+def test_part_fold_lays_each_key_in_its_part(n):
+    """shard_part_fold and shard_gather (their plain versions): every
+    replica is the same table of the shards' summed counts, part p of it
+    (the slots [p*cap/n, (p+1)*cap/n)) holds exactly the keys whose
+    key_part is p, and the occupancy is the parts' counts summed; with an
+    odd shard count, the parts are not all of one size."""
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops.train_delta import host_count_table
+
+    buckets, used0 = _corpus()
+    t, wid, freq = (np.asarray(x) for x in j_flatten(buckets))
+    uk, uc = host_count_table(t, wid, freq)
+    seg_t, seg_w, _ = _shard_stream(t, wid, n)
+    rules = np.full((VOCAB, 4), -1, np.int32)
+    eng = rsk.StreamShardedKernelEngine(seg_t, seg_w, freq, rules, used0, VOCAB, 16, _cpu(n),
+                                        t.shape[0])
+    head = eng.shards[0]
+    for st in eng.shards:
+        assert torch.equal(st.keys, head.keys) and torch.equal(st.cnts, head.cnts)
+        keys, cnts = _live_table(st)
+        np.testing.assert_array_equal(keys, np.asarray(uk, np.int64))
+        np.testing.assert_array_equal(cnts, uc)
+        assert int(st.ctl[tk.OCC]) == len(uk) == sum(int(s.ctl[dsk.POCC]) for s in eng.shards)
+    for p in range(n):
+        lo, hi = dsk.part_lo(p, head.cap, n), dsk.part_lo(p + 1, head.cap, n)
+        part = head.keys[lo:hi]
+        part = part[part != tk.EMPTY]
+        assert bool((dsk.key_part(part, n) == p).all())
+        assert part.numel() == int(eng.shards[p].ctl[dsk.POCC])

@@ -26,7 +26,7 @@
 //                    (summed over the rounds)
 //
 // Kernels:
-//   bucket_count   clear: every slot emptied; count: one warp a row adds
+//   bucket_count   clear: every slot emptied; count: one thread a row adds
 //                  the row's pairs (run parity: floor(r/2) pairs in a run
 //                  of r equal tokens) weighted by the row's frequency, with
 //                  atomicCAS inserts and atomicAdd counts
@@ -90,19 +90,33 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// One thread a row: rows are short (a bucket's width), so a warp a row
+// would leave most lanes idle and each row's chain of loads and probes
+// exposed; a thread walks its row keeping the run of equal pairs
+// (for_word_pairs' parity: in a run of equal pairs every other one counts,
+// from its first).
 template <int OCC_, int OVF_>
 __global__ void __launch_bounds__(256)
     count_rows_kernel(const int32_t *tok, const int32_t *roff, const int32_t *rfreq, int R,
                       unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl, int limit,
                       int vocab) {
   if (!block_active(ctl, limit, vocab)) return;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int n_warps = (gridDim.x * blockDim.x) >> 5;
-  for (int r = warp; r < R; r += n_warps) {
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R; r += gridDim.x * blockDim.x) {
     const int32_t f = rfreq[r];
     if (f == 0) continue;  // a padding row: no pairs
-    const int base = roff[r];
-    add_word<OCC_, OVF_, ERROR>(tok + base, roff[r + 1] - base, f, kCount, keys, cnts, cap, ctl);
+    const int base = roff[r], n = roff[r + 1] - base;
+    const int32_t *t = tok + base;
+    int32_t a = n > 0 ? t[0] : kPad;
+    int run = 0;  // equal pairs since the last position that starts none
+    for (int i = 0; i + 1 < n; ++i) {
+      const int32_t b = t[i + 1];
+      const bool pairv = a >= 0 && b >= 0;
+      const bool eq = pairv && a == b;
+      if (pairv && (!eq || (run & 1) == 0))
+        table_add<OCC_, OVF_, ERROR>(keys, cnts, cap, ctl, pair_key(a, b), f, kCount);
+      run = eq ? run + 1 : 0;
+      a = b;
+    }
   }
 }
 
@@ -176,7 +190,7 @@ int count(const void *tok, const void *roff, const void *rfreq, int R, void *key
       (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, limit, vocab);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  count_rows_kernel<OCC_, OVF_><<<grid_for_warps(R), 256, 0, s>>>(
+  count_rows_kernel<OCC_, OVF_><<<grid_for(R, 256), 256, 0, s>>>(
       (const int32_t *)tok, (const int32_t *)roff, (const int32_t *)rfreq, R,
       (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, limit, vocab);
   return (int)cudaGetLastError();

@@ -193,35 +193,38 @@ __device__ __forceinline__ bool better(int ca, unsigned long long ka, int cb,
   return xa > xb;
 }
 
+// A thread's best K entries in the reference order (K = kK, or 1 for a
+// top-1: the same first entry, without the list's upkeep).
+template <int K = kK>
 struct TopList {
-  int c[kK];
-  unsigned long long k[kK];
+  int c[K];
+  unsigned long long k[K];
 
   __device__ __forceinline__ void clear() {
 #pragma unroll
-    for (int j = 0; j < kK; ++j) {
+    for (int j = 0; j < K; ++j) {
       c[j] = 0;
       k[j] = kEmpty;
     }
   }
 
   // Inserts (cv, kv) in order, dropping the last entry.  The position
-  // comes from kK independent comparisons and the shift is predicated, so
-  // an insert is a short dependency chain (a bubble pass is kK long).
+  // comes from K independent comparisons and the shift is predicated, so
+  // an insert is a short dependency chain (a bubble pass is K long).
   __device__ __forceinline__ void offer(int cv, unsigned long long kv) {
-    if (!better(cv, kv, c[kK - 1], k[kK - 1])) return;
+    if (!better(cv, kv, c[K - 1], k[K - 1])) return;
     int pos = 0;
 #pragma unroll
-    for (int j = 0; j < kK - 1; ++j) pos += better(c[j], k[j], cv, kv);
+    for (int j = 0; j < K - 1; ++j) pos += better(c[j], k[j], cv, kv);
 #pragma unroll
-    for (int j = kK - 1; j > 0; --j) {
+    for (int j = K - 1; j > 0; --j) {
       if (j > pos) {
         c[j] = c[j - 1];
         k[j] = k[j - 1];
       }
     }
 #pragma unroll
-    for (int j = 0; j < kK; ++j) {
+    for (int j = 0; j < K; ++j) {
       if (j == pos) {
         c[j] = cv;
         k[j] = kv;
@@ -230,26 +233,27 @@ struct TopList {
   }
 };
 
-// Merges the sorted lists of the block's threads into the block's top kK,
+// Merges the sorted lists of the block's threads into the block's top K,
 // written to out_c/out_k (shared or global).  Every thread must call it.
-__device__ void block_merge(const TopList &lst, int *out_c, unsigned long long *out_k) {
-  __shared__ int sc[kTopThreads * kK];
-  __shared__ unsigned long long sk[kTopThreads * kK];
+template <int K>
+__device__ void block_merge(const TopList<K> &lst, int *out_c, unsigned long long *out_k) {
+  __shared__ int sc[kTopThreads * K];
+  __shared__ unsigned long long sk[kTopThreads * K];
   __shared__ int wc[kTopThreads / 32];
   __shared__ unsigned long long wk[kTopThreads / 32];
   __shared__ int wt[kTopThreads / 32];
   __shared__ int winner;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
 #pragma unroll
-  for (int j = 0; j < kK; ++j) {
-    sc[t * kK + j] = lst.c[j];
-    sk[t * kK + j] = lst.k[j];
+  for (int j = 0; j < K; ++j) {
+    sc[t * K + j] = lst.c[j];
+    sk[t * K + j] = lst.k[j];
   }
   int head = 0;
   __syncthreads();
-  for (int r = 0; r < kK; ++r) {
-    int c = head < kK ? sc[t * kK + head] : 0;
-    unsigned long long k = head < kK ? sk[t * kK + head] : kEmpty;
+  for (int r = 0; r < K; ++r) {
+    int c = head < K ? sc[t * K + head] : 0;
+    unsigned long long k = head < K ? sk[t * K + head] : kEmpty;
     int who = t;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
@@ -287,11 +291,12 @@ __device__ void block_merge(const TopList &lst, int *out_c, unsigned long long *
   }
 }
 
-// Pass 1 of a top-k: the calling block's top kK of its grid-stride share of
-// the table, to blk_c/blk_k + blockIdx.x * kK.  Every thread must call it.
+// Pass 1 of a top-k: the calling block's top K of its grid-stride share of
+// the table, to blk_c/blk_k + blockIdx.x * K.  Every thread must call it.
+template <int K = kK>
 __device__ void topk_scan(const unsigned long long *keys, const int32_t *cnts, int cap,
                           unsigned long long *blk_k, int32_t *blk_c) {
-  TopList lst;
+  TopList<K> lst;
   lst.clear();
   // a block or two per SM: each thread keeps kUnroll loads in flight, or
   // the scan waits on one load's latency per slot
@@ -308,16 +313,17 @@ __device__ void topk_scan(const unsigned long long *keys, const int32_t *cnts, i
     for (int u = 0; u < kUnroll; ++u)
       if (c[u] > 0) lst.offer(c[u], keys[s0 + u * stride]);
   }
-  block_merge(lst, blk_c + blockIdx.x * kK, blk_k + blockIdx.x * kK);
+  block_merge(lst, blk_c + blockIdx.x * K, blk_k + blockIdx.x * K);
 }
 
-// Pass 2: the top kK of the n_blk block lists, to top_c/top_k (shared).
+// Pass 2: the top K of the n_blk block lists, to top_c/top_k (shared).
 // Every thread must call it.
+template <int K = kK>
 __device__ void topk_merge(const unsigned long long *blk_k, const int32_t *blk_c, int n_blk,
                            int *top_c, unsigned long long *top_k) {
-  TopList lst;
+  TopList<K> lst;
   lst.clear();
-  for (int s = threadIdx.x; s < n_blk * kK; s += blockDim.x) lst.offer(blk_c[s], blk_k[s]);
+  for (int s = threadIdx.x; s < n_blk * K; s += blockDim.x) lst.offer(blk_c[s], blk_k[s]);
   block_merge(lst, top_c, top_k);
 }
 

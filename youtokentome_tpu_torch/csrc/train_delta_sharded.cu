@@ -47,6 +47,19 @@
 //                  other N-1 scratch tables into it, so it holds exactly the
 //                  live keys; a scratch table that overflowed sets OVERFLOW
 //                  (the host counts again into tables twice the size).
+//   shard_part_fold, shard_gather
+//                  the fold of the engines that recount every round (v1 and
+//                  v0, recount_sharded_kernels.py), a reduce-scatter and an
+//                  all-gather: a replica's table is cut into N parts (part p
+//                  the slots [p*cap/N, (p+1)*cap/N), the keys with
+//                  key_part == p, probed inside the part).  shard_part_fold
+//                  on replica r empties its part r and adds every shard's
+//                  scratch entries of part r into it, so each entry is
+//                  inserted once over all replicas (the recount branch
+//                  above inserts N-1 tables on every replica); once every
+//                  replica has, shard_gather copies every other part p from
+//                  replica p and sums the parts' counts into OCC (more than
+//                  half the table, or a full part, sets OVERFLOW).
 //   shard_relay    a scan and a scatter that lay a shard's stream out again
 //                  over its live tokens: words with fewer than two live
 //                  tokens (which hold no pair and never will) are dropped,
@@ -64,9 +77,11 @@
 // Bound.  A round's emit reads the shard's stream once (4 B a slot) and
 // reads and writes the listed words (8 B a slot) and writes its buffer
 // entries (12 B each); a delta fold reads every shard's entries and updates
-// a table slot for each (24 B an entry); a recount round clears and reads
-// the tables (12 B a slot) and reads the streams.  The kernels add these
-// bytes to work[W_EMIT], work[W_COUNT] and work[W_FOLD].  What the design
+// a table slot for each (24 B an entry); a recount round reads the streams,
+// writes each shard's live pairs to its scratch table and reads them once
+// (12 B a pair), and writes every replica's live entries (12 B each): the
+// slots that hold no pair are not work the function needs.  The kernels add
+// these bytes to work[W_EMIT], work[W_COUNT] and work[W_FOLD].  What the design
 // does about it: the host reads shard 0's ctl once per batch of rounds (the
 // branch is picked on the card), and the exchange moves the bounded buffers,
 // not tables, in every round without a buffer overflow.
@@ -131,8 +146,9 @@ __global__ void __launch_bounds__(256)
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     ctl[ROCC] = 0;
     ctl[ROVF] = 0;
-    // the clear, and the stream with its offsets and weights read once
-    work[W_COUNT] += 12ll * cap + 4ll * Mw + 8ll * W;
+    // the stream with its offsets and weights read once (the live pairs
+    // written are added by shard_fold, which reads ROCC)
+    work[W_COUNT] += 4ll * Mw + 8ll * W;
   }
 }
 
@@ -176,8 +192,17 @@ __global__ void __launch_bounds__(256)
     ctl[OCC] = ctl[ROCC];
     ctl[NREC] += 1;
     if (any_flag(ctls, n_sh, ROVF)) ctl[OVERFLOW] = 1;
-    work[W_FOLD] += 12ll * cap * (n_sh + 1);  // the N scratch tables read, the replica written
+    // the shard's count wrote its live pairs; the fold reads them once
+    // (fold_done adds the replica's entries written)
+    work[W_COUNT] += 12ll * ctl[ROCC];
+    work[W_FOLD] += 12ll * ctl[ROCC];
   }
+}
+
+// The recount branch's last step: the replica's live entries written.
+__global__ void fold_done_kernel(const int32_t *ctl, const int32_t *const *ctls, int n_sh,
+                                 long long *work) {
+  if (any_flag(ctls, n_sh, DOVF)) work[W_FOLD] += 12ll * ctl[OCC];
 }
 
 __global__ void __launch_bounds__(256)
@@ -206,6 +231,111 @@ __global__ void __launch_bounds__(256)
     if (j - side * dcap >= n) continue;
     const int32_t v = dvs[s][j];
     table_add<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, dks[s][j], v, v < 0 ? kSub : kAdd);
+  }
+}
+
+// -- partitioned fold (v1, v0) ---------------------------------------------------
+
+// Add `delta` to `key` in part [lo, lo + size) of the table: table_add's
+// probe, wrapped inside the part; returns 1 when the key claimed a slot (the
+// caller sums the claims into POCC).  A part with no free slot sets POCC
+// past its size (the host then doubles the tables).
+__device__ int part_add(unsigned long long *keys, int32_t *cnts, long long lo, int size,
+                        int32_t *ctl, unsigned long long key, int32_t delta) {
+  const unsigned h = (unsigned)hash64(key) % (unsigned)size;
+  for (int p = 0; p < size; ++p) {
+    if ((p & 31) == 31 && __ldcg(ctl + POCC) > size) return 0;
+    unsigned s = h + (unsigned)p;
+    if (s >= (unsigned)size) s -= (unsigned)size;
+    unsigned long long *slot = keys + lo + s;
+    unsigned long long k = __ldcg(slot);
+    if (k == kEmpty) {
+      k = atomicCAS(slot, kEmpty, key);
+      if (k == kEmpty) {
+        atomicAdd(cnts + lo + s, delta);
+        return 1;
+      }
+    }
+    if (k == key) {
+      atomicAdd(cnts + lo + s, delta);
+      return 0;
+    }
+  }
+  atomicExch(ctl + POCC, size + 1);
+  return 0;
+}
+
+// Empties the replica's own part and opens the round's count of it.
+__global__ void __launch_bounds__(256)
+    part_prep_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
+                     const int32_t *const *ctls, int n_sh, int self, long long *work) {
+  const long long lo = part_lo(self, cap, n_sh), hi = part_lo(self + 1, cap, n_sh);
+  for (long long s = lo + blockIdx.x * blockDim.x + threadIdx.x; s < hi;
+       s += (long long)gridDim.x * blockDim.x) {
+    keys[s] = kEmpty;
+    cnts[s] = 0;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    ctl[POCC] = 0;
+    ctl[NREC] += 1;
+    if (any_flag(ctls, n_sh, ROVF)) ctl[OVERFLOW] = 1;
+    work[W_FOLD] += 12ll * ctl[ROCC];  // the shard's live pairs, read once
+  }
+}
+
+// Every shard's scratch entries of the replica's part, added into it; the
+// claims are summed a warp at a time into POCC (an atomic on one address
+// for every claim would serialise them).
+__global__ void __launch_bounds__(256)
+    part_fold_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
+                     const unsigned long long *const *rkeys, const int32_t *const *rcnts,
+                     int n_sh, int self) {
+  const long long lo = part_lo(self, cap, n_sh);
+  const int size = (int)(part_lo(self + 1, cap, n_sh) - lo);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  int claims = 0;
+  for (int s = 0; s < n_sh; ++s) {
+    const unsigned long long *rk = rkeys[s];
+    const int32_t *rc = rcnts[s];
+    for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < cap; j += stride) {
+      const unsigned long long k = rk[j];
+      if (k == kEmpty || key_part(k, n_sh) != self) continue;
+      const int32_t c = rc[j];
+      if (c > 0) claims += part_add(keys, cnts, lo, size, ctl, k, c);
+    }
+  }
+  claims = __reduce_add_sync(0xFFFFFFFFu, claims);
+  if ((threadIdx.x & 31) == 0 && claims) atomicAdd(ctl + POCC, claims);
+}
+
+// The other replicas' parts copied in; occupancy and overflow from every
+// part's count (the same on every replica).  Its bytes, the replica's live
+// entries written, are the occupancy that the next top-k sums (W_OCC).
+__global__ void __launch_bounds__(256)
+    gather_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
+                  const int32_t *const *ctls, const unsigned long long *const *pkeys,
+                  const int32_t *const *pcnts, int n_sh, int self) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (int p = 0; p < n_sh; ++p) {
+    if (p == self) continue;
+    const long long lo = part_lo(p, cap, n_sh), hi = part_lo(p + 1, cap, n_sh);
+    const unsigned long long *pk = pkeys[p];
+    const int32_t *pc = pcnts[p];
+    for (long long j = lo + (long long)blockIdx.x * blockDim.x + threadIdx.x; j < hi; j += stride) {
+      keys[j] = pk[j];
+      cnts[j] = pc[j];
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    long long occ = 0;
+    bool full = false;
+    for (int p = 0; p < n_sh; ++p) {
+      const int n = __ldcg(ctls[p] + POCC);
+      full |= n > part_lo(p + 1, cap, n_sh) - part_lo(p, cap, n_sh);
+      occ += n;
+    }
+    ctl[OCC] = (int32_t)(occ < cap ? occ : cap);
+    if (full || 2 * occ > cap) ctl[OVERFLOW] = 1;
   }
 }
 
@@ -319,6 +449,45 @@ int yttm_shard_fold(void *keys, void *cnts, int cap, void *ctl, const void *ctls
       (const int32_t *const *)ctls, (const unsigned long long *const *)dks,
       (const int32_t *const *)dvs, dcap, (const unsigned long long *const *)rkeys,
       (const int32_t *const *)rcnts, n_sh, self);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  fold_done_kernel<<<1, 1, 0, s>>>((const int32_t *)ctl, (const int32_t *const *)ctls, n_sh,
+                                   (long long *)work);
+  return (int)cudaGetLastError();
+}
+
+// The partitioned fold's first half on the replica of shard `self` (the
+// engines that recount every round): its part emptied, then every shard's
+// scratch entries of that part added.  rkeys, rcnts: device arrays of the
+// n_sh scratch tables.  shard_gather follows once every replica ran this.
+int yttm_shard_part_fold(void *keys, void *cnts, int cap, void *ctl, const void *ctls,
+                         const void *rkeys, const void *rcnts, int n_sh, int self, void *work,
+                         void *stream) {
+  if (cap < n_sh || (cap & (cap - 1)) != 0 || n_sh <= 0 || self < 0 || self >= n_sh)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  part_prep_kernel<<<grid_for(cap / n_sh + 1, 256), 256, 0, s>>>(
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl,
+      (const int32_t *const *)ctls, n_sh, self, (long long *)work);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  part_fold_kernel<<<grid_for(cap, 256), 256, 0, s>>>(
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl,
+      (const unsigned long long *const *)rkeys, (const int32_t *const *)rcnts, n_sh, self);
+  return (int)cudaGetLastError();
+}
+
+// The partitioned fold's second half on the replica of shard `self`: every
+// other replica's own part copied in.  pkeys, pcnts: device arrays of the
+// n_sh replicas' tables.
+int yttm_shard_gather(void *keys, void *cnts, int cap, void *ctl, const void *ctls,
+                      const void *pkeys, const void *pcnts, int n_sh, int self, void *stream) {
+  if (cap < n_sh || (cap & (cap - 1)) != 0 || n_sh <= 0 || self < 0 || self >= n_sh)
+    return (int)cudaErrorInvalidValue;
+  gather_kernel<<<grid_for(cap, 256), 256, 0, (cudaStream_t)stream>>>(
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl,
+      (const int32_t *const *)ctls, (const unsigned long long *const *)pkeys,
+      (const int32_t *const *)pcnts, n_sh, self);
   return (int)cudaGetLastError();
 }
 

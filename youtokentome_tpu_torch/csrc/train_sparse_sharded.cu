@@ -38,11 +38,12 @@
 //
 // Bound.  A round's emit reads the shard's positions once (4 B) and reads
 // and writes the listed words (8 B a position) and writes its buffer entries
-// (12 B each); a recount round clears the scratch table (12 B a slot) and
-// reads the stream and the words' offsets and weights.  The kernels add
-// these bytes to work[W_EMIT] and work[W_COUNT].  What the design does about
-// it: the exchange moves the bounded buffers, not tables, in every round
-// without a DOVF, and the branch is picked on the card.
+// (12 B each); a recount round reads the stream and the words' offsets and
+// weights and writes the shard's live pairs (12 B each; shard_fold adds
+// those, from ROCC).  The kernels add these bytes to work[W_EMIT] and
+// work[W_COUNT].  What the design does about it: the exchange moves the
+// bounded buffers, not tables, in every round without a DOVF, and the
+// branch is picked on the card.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -102,8 +103,9 @@ __global__ void __launch_bounds__(256)
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     ctl[ROCC] = 0;
     ctl[ROVF] = 0;
-    // the clear, and the stream with its offsets and weights read once
-    work[W_COUNT] += 12ll * cap + 4ll * end + 8ll * W;
+    // the stream with its offsets and weights read once (the live pairs
+    // written are added by shard_fold, which reads ROCC)
+    work[W_COUNT] += 4ll * end + 8ll * W;
   }
 }
 

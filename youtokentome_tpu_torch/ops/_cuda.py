@@ -206,6 +206,10 @@ def load_sharded() -> ctypes.CDLL:
         # keys, cnts, cap, ctl, ctls, dks, dvs, dcap, rkeys, rcnts, n_sh, self,
         # own_keys, own_cnts, work, stream
         "yttm_shard_fold": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _p, _p, _i, _i, _p, _p, _p, _p]),
+        # keys, cnts, cap, ctl, ctls, rkeys, rcnts, n_sh, self, work, stream
+        "yttm_shard_part_fold": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _i, _p, _p]),
+        # keys, cnts, cap, ctl, ctls, pkeys, pcnts, n_sh, self, stream
+        "yttm_shard_gather": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _i, _p]),
         "yttm_shard_relay_scratch": (_l, [_i]),
         # tok, off, W, lens, keep, new_off, new_idx, scratch, totals, stream
         "yttm_shard_relay_plan": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p]),

@@ -38,6 +38,7 @@ from .segment import apply_merge_rows
 from .tiered_kernels import _hash_update
 from .train_kernel import _pair_arrays
 from .train_kernels import (
+    BATCH,
     DONE,
     EMPTY,
     NACC,
@@ -56,7 +57,6 @@ from .train_kernels import (
 )
 
 W_WRITES = W_OWN  # work: the slots the applies changed
-BATCH = 1024  # rounds enqueued between two reads of ctl
 
 
 class BucketedState(TableState):

@@ -43,9 +43,9 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .bucketed_kernels import BATCH
 from .train_delta import _next_pow2
 from .train_kernels import (
+    BATCH,
     CTL_OWN,
     DONE,
     EMPTY,
@@ -69,8 +69,9 @@ from .train_kernels import (
 )
 from .train_stream import PAD
 
-# ctl: NAFF .. DOVF are zeroed by every round's top-k (n_own = 4)
-NAFF, DN_OLD, DN_NEW, DOVF, NREC, LIVE, ROCC, ROVF = range(CTL_OWN, CTL_OWN + 8)
+# ctl: NAFF .. DOVF are zeroed by every round's top-k (n_own = 4); POCC is
+# the partitioned fold's count of the replica's own part
+NAFF, DN_OLD, DN_NEW, DOVF, NREC, LIVE, ROCC, ROVF, POCC = range(CTL_OWN, CTL_OWN + 9)
 CTL_N = 16
 # work: bytes each kernel must move, summed over the rounds, and the
 # buffer entries written
@@ -160,7 +161,7 @@ def shard_recount_plain(st: ShardState, shards):
     st.rcnts.zero_()
     st.ctl[ROCC] = 0
     st.ctl[ROVF] = 0
-    st.work[W_COUNT] += 12 * st.cap + 4 * st.tok.shape[0] + 8 * st.n_words
+    st.work[W_COUNT] += 4 * st.tok.shape[0] + 8 * st.n_words
     keys, counted = _counted_pairs(st.tok)
     w = st.fw[st.pwid.clamp(min=0).long()]
     _table_add(st.rkeys, st.rcnts, st.ctl, keys[counted], w[counted], ROCC, ROVF)
@@ -175,17 +176,76 @@ def shard_fold_plain(st: ShardState, shards):
         st.ctl[NREC] += 1
         if _any(shards, ROVF):
             st.ctl[OVERFLOW] = 1
-        st.work[W_FOLD] += 12 * st.cap * (len(shards) + 1)
+        rocc = 12 * int(st.ctl[ROCC])
+        st.work[W_COUNT] += rocc
+        st.work[W_FOLD] += rocc
         ks = torch.cat([s.rkeys.to(dev) for s in shards])
         cs = torch.cat([s.rcnts.to(dev) for s in shards])
         sel = (ks != EMPTY) & (cs > 0)
         _table_update(st, ks[sel], cs[sel])
+        st.work[W_FOLD] += 12 * int(st.ctl[OCC])
         return
     parts = [s.buffer(side) for s in shards for side in (0, 1)]
     ks = torch.cat([k.to(dev) for k, _ in parts])
     vs = torch.cat([v.to(dev) for _, v in parts])
     st.work[W_FOLD] += 24 * ks.numel()
     _table_update(st, ks, vs)
+
+
+def part_lo(p: int, cap: int, n: int) -> int:
+    """The first slot of part ``p`` of a table of ``cap`` slots cut in ``n``."""
+    return p * cap // n
+
+
+def key_part(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """The part of each key among ``n`` (csrc/shard_exchange.cuh key_part;
+    every product stays below 2^63)."""
+    m32 = 0xFFFFFFFF
+    h = (((keys >> 32) * 0x9E3779B1) & m32) ^ (((keys & m32) * 0x85EBCA77) & m32)
+    h = ((h ^ (h >> 15)) * 0x2C1B3C6D) & m32
+    return (h * n) >> 32
+
+
+def _index(st, shards) -> int:
+    return next(i for i, s in enumerate(shards) if s is st)
+
+
+def shard_part_fold_plain(st: ShardState, shards):
+    dev, n, cap = st.device, len(shards), st.cap
+    r = _index(st, shards)
+    lo, hi = part_lo(r, cap, n), part_lo(r + 1, cap, n)
+    st.keys[lo:hi] = EMPTY
+    st.cnts[lo:hi] = 0
+    st.ctl[NREC] += 1
+    if _any(shards, ROVF):
+        st.ctl[OVERFLOW] = 1
+    st.work[W_FOLD] += 12 * int(st.ctl[ROCC])
+    ks = torch.cat([s.rkeys.to(dev) for s in shards])
+    cs = torch.cat([s.rcnts.to(dev) for s in shards])
+    sel = (ks != EMPTY) & (cs > 0)
+    sel &= key_part(ks, n) == r
+    uk, inv = torch.unique(ks[sel], return_inverse=True)
+    uc = torch.zeros(uk.shape[0], dtype=torch.int64, device=dev).index_add_(0, inv, cs[sel].long())
+    fit = min(hi - lo, uk.shape[0])
+    st.keys[lo : lo + fit] = uk[:fit]
+    st.cnts[lo : lo + fit] = uc[:fit].to(torch.int32)
+    st.ctl[POCC] = uk.shape[0] if fit == uk.shape[0] else hi - lo + 1
+
+
+def shard_gather_plain(st: ShardState, shards):
+    dev, n, cap = st.device, len(shards), st.cap
+    r = _index(st, shards)
+    for p, o in enumerate(shards):
+        if p != r:
+            lo, hi = part_lo(p, cap, n), part_lo(p + 1, cap, n)
+            st.keys[lo:hi] = o.keys[lo:hi].to(dev)
+            st.cnts[lo:hi] = o.cnts[lo:hi].to(dev)
+    pocc = [int(o.ctl[POCC]) for o in shards]
+    full = any(c > part_lo(p + 1, cap, n) - part_lo(p, cap, n) for p, c in enumerate(pocc))
+    occ = sum(pocc)
+    st.ctl[OCC] = min(occ, cap)
+    if full or 2 * occ > cap:
+        st.ctl[OVERFLOW] = 1
 
 
 def _relay_bytes(st: ShardState, mw: int, w: int) -> int:
@@ -234,11 +294,12 @@ def shard_relay_plain(st: ShardState):
 
 def _links(st: ShardState, shards):
     """Device arrays (on ``st``'s device) of every shard's pointers: ctl,
-    delta buffer keys and values, scratch keys and counts.  Rebuilt when a
-    buffer moved (a resize)."""
+    delta buffer keys and values, scratch keys and counts, replica keys and
+    counts.  Rebuilt when a buffer moved (a resize)."""
     ptrs = [[s.ctl.data_ptr() for s in shards], [s.dk.data_ptr() for s in shards],
             [s.dv.data_ptr() for s in shards], [s.rkeys.data_ptr() for s in shards],
-            [s.rcnts.data_ptr() for s in shards]]
+            [s.rcnts.data_ptr() for s in shards], [s.keys.data_ptr() for s in shards],
+            [s.cnts.data_ptr() for s in shards]]
     if st._links is None or st._links[0] != ptrs:
         st._links = (ptrs, [torch.tensor(p, dtype=torch.int64, device=st.device) for p in ptrs])
     return st._links[1]
@@ -286,8 +347,8 @@ def shard_fold(st: ShardState, shards):
     every shard's scratch table (its own copied, the others added)."""
     if not _on(st, "shard_fold"):
         return shard_fold_plain(st, shards)
-    ctls, dks, dvs, rks, rcs = _links(st, shards)
-    own = next(i for i, s in enumerate(shards) if s is st)
+    ctls, dks, dvs, rks, rcs = _links(st, shards)[:5]
+    own = _index(st, shards)
     lib = _cuda.load_sharded()
     with torch.cuda.device(st.device):
         err = lib.yttm_shard_fold(
@@ -298,6 +359,42 @@ def shard_fold(st: ShardState, shards):
         )
     _check(err, "shard_fold")
     shard_fold.launches += 1
+
+
+def shard_part_fold(st: ShardState, shards):
+    """The partitioned fold's first half (the engines that recount every
+    round): empty the replica's own part and add every shard's scratch
+    entries of that part into it."""
+    if not _on(st, "shard_part_fold"):
+        return shard_part_fold_plain(st, shards)
+    ctls, _, _, rks, rcs = _links(st, shards)[:5]
+    lib = _cuda.load_sharded()
+    with torch.cuda.device(st.device):
+        err = lib.yttm_shard_part_fold(
+            st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(), ctls.data_ptr(),
+            rks.data_ptr(), rcs.data_ptr(), len(shards), _index(st, shards), st.work.data_ptr(),
+            _stream_ptr(st.device),
+        )
+    _check(err, "shard_part_fold")
+    shard_part_fold.launches += 1
+
+
+def shard_gather(st: ShardState, shards):
+    """The partitioned fold's second half, once every replica folded its
+    part: copy every other replica's own part in; the occupancy and
+    overflow from every part's count."""
+    if not _on(st, "shard_gather"):
+        return shard_gather_plain(st, shards)
+    links = _links(st, shards)
+    lib = _cuda.load_sharded()
+    with torch.cuda.device(st.device):
+        err = lib.yttm_shard_gather(
+            st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(),
+            links[0].data_ptr(), links[5].data_ptr(), links[6].data_ptr(), len(shards),
+            _index(st, shards), _stream_ptr(st.device),
+        )
+    _check(err, "shard_gather")
+    shard_gather.launches += 1
 
 
 def shard_relay(st: ShardState):
@@ -341,6 +438,8 @@ def shard_relay(st: ShardState):
 delta_emit.launches = 0
 shard_recount.launches = 0
 shard_fold.launches = 0
+shard_part_fold.launches = 0
+shard_gather.launches = 0
 shard_relay.launches = 0
 
 
@@ -372,16 +471,12 @@ class ShardEngine:
     in batches with shard 0's ``ctl`` read once a batch, the replicas
     checked at each segment end (after every round on the CPU), and the
     exchange (``recount`` on every shard, then ``shard_fold`` on every
-    replica).  A subclass calls ``_setup``, sets ``shards`` and defines
-    ``recount(st, limit)`` and ``round(limit)`` (and ``stream()`` for
-    checkpoints).  With
-    ``recount_every_round`` every shard's DOVF is held set, so that
-    shard_fold rebuilds the replicas from the shards' scratch tables every
-    round (the v1 and v0 engines)."""
+    replica; the engines that recount every round replace it).  A subclass
+    calls ``_setup``, sets ``shards`` and defines ``recount(st, limit)``
+    and ``round(limit)`` (and ``stream()`` for checkpoints)."""
 
     rebuilds = 0
     nrec = 0
-    recount_every_round = False
 
     def _setup(self, mesh, vocab_size: int, used_ids0: int, batch_k: int):
         self.vocab_size = vocab_size
@@ -427,7 +522,7 @@ class ShardEngine:
             self._exchange(self.vocab_size)
             overflow = int(self.shards[0].ctl[OVERFLOW])
             for st in self.shards:
-                st.ctl[DOVF] = int(self.recount_every_round)
+                st.ctl[DOVF] = 0
                 st.ctl[NREC] = 0
             if not overflow:
                 return

@@ -16,12 +16,17 @@ A round, all in hand-written CUDA:
   bucket_shard_count  (v0: ``csrc/train_bucketed.cu``'s count) into the
                       shard's scratch table, its occupancy and overflow in
                       ``ctl``'s scratch slots
-  shard_fold          on every replica (``csrc/train_delta_sharded.cu``):
-                      every shard's DOVF is held set, so the fold always
-                      takes its recount branch and rebuilds the replica from
-                      the N scratch tables (an overflowed scratch table sets
-                      OVERFLOW on every replica; the host doubles the tables
-                      and the segment runs again, nothing applied)
+  shard_part_fold     on every replica (``csrc/train_delta_sharded.cu``):
+                      the replica's own part of the table (part r of N, the
+                      keys whose ``key_part`` is r) emptied and rebuilt from
+                      every shard's scratch entries of that part, so each
+                      entry is inserted once over all replicas
+  shard_gather        on every replica, once all parts are folded: every
+                      other replica's part copied in, the parts' counts
+                      summed into the occupancy (an overflowed scratch table
+                      or a table more than half full sets OVERFLOW on every
+                      replica; the host doubles the tables and the segment
+                      runs again, nothing applied)
   topk_accept         on every replica (k = 1 for v0)
   apply_compact       on every shard (v0: ``bucket_apply``)
 
@@ -38,7 +43,14 @@ import torch
 
 from . import _cuda
 from .bucketed_kernels import BucketedState, bucket_apply, row_pairs
-from .delta_sharded_kernels import DOVF, ROCC, ROVF, Exchange, ShardEngine
+from .delta_sharded_kernels import (
+    ROCC,
+    ROVF,
+    Exchange,
+    ShardEngine,
+    shard_gather,
+    shard_part_fold,
+)
 from .stream_train_kernels import (
     LIVE,
     NEXT_LIVE,
@@ -61,15 +73,11 @@ from .train_kernels import (
 
 
 class RecountShard(Exchange):
-    """A shard that counts into its scratch table every round: its DOVF is
-    held set and the top-k zeroes none of its own slots (v1's LIVE and
-    NEXT_LIVE carry over rounds); its delta buffer is never read."""
+    """A shard that counts into its scratch table every round: the top-k
+    zeroes none of its own slots (v1's LIVE and NEXT_LIVE carry over
+    rounds); its delta buffer (one entry) is never read."""
 
     n_own = 0
-
-    def hold(self):
-        self.buffers(1)
-        self.ctl[DOVF] = 1
 
 
 class StreamShardState(RecountShard, StreamState):
@@ -77,7 +85,7 @@ class StreamShardState(RecountShard, StreamState):
 
     def __init__(self, t, wid, freq, rules, used: int, cap: int, device):
         super().__init__(t, wid, freq, rules, used, cap, device)
-        self.hold()
+        self.buffers(1)
 
 
 class BucketedShardState(RecountShard, BucketedState):
@@ -85,7 +93,7 @@ class BucketedShardState(RecountShard, BucketedState):
 
     def __init__(self, buckets, rules, used: int, cap: int, device):
         super().__init__(buckets, rules, used, cap, device)
-        self.hold()
+        self.buffers(1)
 
 
 def _clear_scratch(st):
@@ -161,11 +169,22 @@ bucket_shard_count.launches = 0
 
 class RecountShardEngine(ShardEngine):
     """A round: every shard counted into its scratch table, every replica
-    rebuilt from them, the top-k on every replica, the apply on every shard.
-    The tables start at ``initial_cap`` slots and double when a count
-    overflows (at the start, and whenever a round's count does)."""
+    rebuilt from them (each its own part, then the others' parts copied),
+    the top-k on every replica, the apply on every shard.  The tables start
+    at ``initial_cap`` slots and double when a count overflows (at the
+    start, and whenever a round's count does)."""
 
-    recount_every_round = True
+    def _exchange(self, limit: int):
+        shards = self.shards
+        for st in shards:
+            self.recount(st, limit)
+        self._barrier()
+        for st in shards:
+            shard_part_fold(st, shards)
+        self._barrier()
+        for st in shards:
+            shard_gather(st, shards)
+        self._barrier()
 
     def round(self, limit: int):
         self._exchange(limit)

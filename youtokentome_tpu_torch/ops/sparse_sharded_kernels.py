@@ -126,7 +126,7 @@ def sparse_shard_recount_plain(st: SparseShardState, shards):
     st.rcnts.zero_()
     st.ctl[ROCC] = 0
     st.ctl[ROVF] = 0
-    st.work[W_COUNT] += 12 * st.cap + 4 * st.end + 8 * st.n_words
+    st.work[W_COUNT] += 4 * st.end + 8 * st.n_words
     keys, w, _, _ = _pairs_tomb(st.t, st.wid, st.fw_pos())
     on = w > 0
     _hash_update(st.rkeys, st.rcnts, st.ctl, ROCC, ROVF, keys[on], w[on])

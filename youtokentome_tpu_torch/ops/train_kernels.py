@@ -61,6 +61,7 @@ NAFF = CTL_OWN  # v2's own slot: the round's listed words
 W_ROUNDS, W_OCC, W_SLOTS, W_OWN = range(4)
 EMPTY = -1  # int64 all ones: the key of an empty slot
 K_MAX = 16  # the kernels' candidates per round
+BATCH = 1024  # rounds an engine enqueues between two reads of ctl
 
 
 class TableState:

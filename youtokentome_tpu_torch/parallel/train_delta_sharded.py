@@ -217,6 +217,32 @@ class PlainShardedEngine:
         return t, wid, self.freqs[0]
 
 
+def make_engine(t, wid, freq, rules, used: int, used_ids0: int, vocab_size: int,
+                mesh: DataMesh, batch_k: int = 16, plain: bool = False):
+    """The engine that the host loop drives over ``mesh`` from the stream
+    ``t``/``wid`` (``used`` ids learned): the stream split by
+    ``shard_plan``, then the plain round loop with the JAX host loop's
+    ``pcap`` (``plain``) or the kernel engine."""
+    t, wid = np.asarray(t), np.asarray(wid)
+    seg_t, seg_w, per, dcap = shard_plan(t, wid, mesh.size)
+    if plain:
+        uk, uc = host_count_table(t, wid, freq)
+        # the JAX host loop's budget: its merges left are counted from `used`
+        pcap = int(os.environ.get("YTTM_TRAIN_PCAP", "0")) or min(
+            _pcap_budget(uk.size, vocab_size - used), _next_pow2(int((wid >= 0).sum()) or 1)
+        )
+        return PlainShardedEngine(
+            seg_t, seg_w, per, freq, rules, used_ids0, vocab_size, batch_k, mesh, pcap, dcap,
+            (uk, uc),
+        )
+    from ..ops.delta_sharded_kernels import ShardedKernelEngine
+
+    return ShardedKernelEngine(
+        seg_t, seg_w, per, freq, rules, used_ids0, vocab_size, batch_k, mesh, dcap,
+        int(t.shape[0]),
+    )
+
+
 def run_training_delta_sharded(
     buckets,
     used_ids0: int,
@@ -239,7 +265,6 @@ def run_training_delta_sharded(
     to every visible card; ``plain`` picks the plain round loop over the
     kernels."""
     mesh = mesh or data_mesh()
-    n_dev = mesh.size
     if not buckets:
         print(f"WARNING merged only: {used_ids0} pairs of tokens", file=sys.stderr)
         return []
@@ -249,25 +274,7 @@ def run_training_delta_sharded(
         t, wid, freq = flatten_word_buckets(buckets)
         rules = np.full((vocab_size, 4), -1, dtype=np.int32)
         used = used_ids0
-    t, wid = np.asarray(t), np.asarray(wid)
-    seg_t, seg_w, per, dcap = shard_plan(t, wid, n_dev)
-    if plain:
-        uk, uc = host_count_table(t, wid, freq)
-        # the JAX host loop's budget: its merges left are counted from `used`
-        pcap = int(os.environ.get("YTTM_TRAIN_PCAP", "0")) or min(
-            _pcap_budget(uk.size, vocab_size - used), _next_pow2(int((wid >= 0).sum()) or 1)
-        )
-        engine = PlainShardedEngine(
-            seg_t, seg_w, per, freq, rules, used_ids0, vocab_size, batch_k, mesh, pcap, dcap,
-            (uk, uc),
-        )
-    else:
-        from ..ops.delta_sharded_kernels import ShardedKernelEngine
-
-        engine = ShardedKernelEngine(
-            seg_t, seg_w, per, freq, rules, used_ids0, vocab_size, batch_k, mesh, dcap,
-            int(t.shape[0]),
-        )
+    engine = make_engine(t, wid, freq, rules, used, used_ids0, vocab_size, mesh, batch_k, plain)
     repack = os.environ.get("YTTM_TRAIN_REPACK", "1") != "0"
     seg = min(
         x

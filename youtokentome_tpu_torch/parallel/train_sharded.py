@@ -98,6 +98,19 @@ class PlainBucketedShardedEngine:
         return used, done, False
 
 
+def make_engine(buckets, used_ids0: int, vocab_size: int, mesh: DataMesh, plain: bool = False):
+    """The engine that the host loop drives over ``mesh``: the rows split
+    by ``shard_rows``, then the plain round loop (``plain``) or the kernel
+    engine."""
+    shard_buckets = shard_rows(buckets, mesh.size)
+    rules = np.full((vocab_size, 4), -1, dtype=np.int32)
+    if plain:
+        return PlainBucketedShardedEngine(shard_buckets, rules, used_ids0, vocab_size, mesh)
+    from ..ops.recount_sharded_kernels import BucketedShardedKernelEngine
+
+    return BucketedShardedKernelEngine(shard_buckets, rules, used_ids0, vocab_size, mesh)
+
+
 def run_training_sharded(
     buckets: Sequence[Tuple[np.ndarray, np.ndarray]],
     used_ids0: int,
@@ -112,13 +125,6 @@ def run_training_sharded(
     if not buckets:
         print(f"WARNING merged only: {used_ids0} pairs of tokens", file=sys.stderr)
         return []
-    shard_buckets = shard_rows(buckets, mesh.size)
-    rules = np.full((vocab_size, 4), -1, dtype=np.int32)
-    if plain:
-        engine = PlainBucketedShardedEngine(shard_buckets, rules, used_ids0, vocab_size, mesh)
-    else:
-        from ..ops.recount_sharded_kernels import BucketedShardedKernelEngine
-
-        engine = BucketedShardedKernelEngine(shard_buckets, rules, used_ids0, vocab_size, mesh)
+    engine = make_engine(buckets, used_ids0, vocab_size, mesh, plain)
     used = run_to_end(engine, used_ids0, vocab_size)
     return learned_rules(engine.rules, used, used_ids0, vocab_size)

@@ -97,6 +97,23 @@ class PlainStreamShardedEngine:
         return used, done, False
 
 
+def make_engine(buckets, used_ids0: int, vocab_size: int, mesh: DataMesh, batch_k: int = 16,
+                plain: bool = False):
+    """The engine that the host loop drives over ``mesh``: the flattened
+    stream split as the JAX driver splits it, then the plain round loop
+    (``plain``) or the kernel engine."""
+    t, wid, freq = flatten_word_buckets(buckets)
+    seg_t, seg_w, _ = _shard_stream(np.asarray(t), np.asarray(wid), mesh.size)
+    rules = np.full((vocab_size, 4), -1, dtype=np.int32)
+    if plain:
+        return PlainStreamShardedEngine(seg_t, seg_w, freq, rules, used_ids0, vocab_size,
+                                        batch_k, mesh)
+    from ..ops.recount_sharded_kernels import StreamShardedKernelEngine
+
+    return StreamShardedKernelEngine(seg_t, seg_w, freq, rules, used_ids0, vocab_size, batch_k,
+                                     mesh, int(np.asarray(t).shape[0]))
+
+
 def run_training_stream_sharded(
     buckets,
     used_ids0: int,
@@ -112,16 +129,6 @@ def run_training_stream_sharded(
     if not buckets:
         print(f"WARNING merged only: {used_ids0} pairs of tokens", file=sys.stderr)
         return []
-    t, wid, freq = flatten_word_buckets(buckets)
-    seg_t, seg_w, _ = _shard_stream(np.asarray(t), np.asarray(wid), mesh.size)
-    rules = np.full((vocab_size, 4), -1, dtype=np.int32)
-    if plain:
-        engine = PlainStreamShardedEngine(seg_t, seg_w, freq, rules, used_ids0, vocab_size,
-                                          batch_k, mesh)
-    else:
-        from ..ops.recount_sharded_kernels import StreamShardedKernelEngine
-
-        engine = StreamShardedKernelEngine(seg_t, seg_w, freq, rules, used_ids0, vocab_size,
-                                           batch_k, mesh, int(np.asarray(t).shape[0]))
+    engine = make_engine(buckets, used_ids0, vocab_size, mesh, batch_k, plain)
     used = run_to_end(engine, used_ids0, vocab_size)
     return learned_rules(engine.rules, used, used_ids0, vocab_size)
