@@ -25,8 +25,13 @@ order (any failure exits nonzero):
      (R, cap) with CUDA events, and the plain version's time
   5. training (csrc/train_delta.cu, and csrc/train_topk.cu: the top-k that
      every trainer but v5 shares): pair_count, topk_accept (also on
-     tie-heavy tables, narrow and wide ids) and apply_delta each equal to
-     its plain version on the 100 MB corpus's state; a 10 MB prefix at
+     tie-heavy tables, narrow and wide ids, at k = 1, 2, 15 and 16) and
+     apply_delta each equal to its plain version on the 100 MB corpus's
+     state; the selection's edge tables (``phase_select_checks``: 2^14,
+     2^17 and 2^22 slots, ids from 0, up to 65535 and from 70000, no live
+     slot, one, 15, a tie at the 16th place across blocks; tier_select's
+     hot, refresh and hot-overflow rounds on tie-heavy hot and full
+     tables); a 10 MB prefix at
      vocab 8000 through the kernels (small table, rebuilt) and the plain
      round loop in lockstep, equal at every segment end; the main path
      ``BPE.train(data, model, vocab_size=30000)``, launches counted, rules
@@ -34,7 +39,9 @@ order (any failure exits nonzero):
      decode round trip; times: preprocessing, merge loop, rounds,
      merges/s, each kernel's device ms (torch.profiler) and its plain
      version's; the run once more, one round at a time, to sum the work
-     that its data gives each kernel, for the bounds.  ``BPE.train`` runs
+     that its data gives each kernel, for the bounds, and to time the
+     selection's library yardstick (one ``torch.topk`` of the table's
+     packed words a round; v5: of the hot table's).  ``BPE.train`` runs
      here with ``YTTM_TRAIN_IMPL=delta``: with no knob the corpus takes v5
   6. training with the v5 tiered trainer (csrc/train_tiered.cu): the count,
      tier_select, apply_blocks and resplit each equal to its plain version
@@ -637,7 +644,7 @@ TRAIN_KERNELS = ("pair_count", "topk_accept", "apply_delta")
 # the device functions of each wrapper, as the profiler names them
 TRAIN_DEVICE_FNS = {
     "pair_count": ("pair_count_kernel",),
-    "topk_accept": ("topk_blocks_kernel", "topk_accept_kernel"),
+    "topk_accept": ("topk_select_kernel",),
     "apply_delta": ("mark_words_kernel", "apply_words_kernel"),
 }
 # integer operations per element, for the operations bound: a table slot
@@ -708,27 +715,197 @@ def plain_pair_count(st) -> None:
     tk.pair_count_plain(st)
 
 
-def tie_table(st, base: int, seed: int) -> None:
-    """Fill ``st``'s table with a quarter of its slots of unique pairs of
-    ids in [base, base + 700), counts 1-4 (many ties) and a tenth of them
-    0 (dead); equal pairs are common."""
-    import torch
-
-    from youtokentome_tpu_torch.ops import train_kernels as tk
-
-    rng = np.random.default_rng(seed)
-    n = st.cap // 4
+def tie_entries(n: int, base: int, rng):
+    """Unique pairs of ids in [base, base + 700) from n draws, equal pairs
+    common, with counts 1-4 (many ties) and a tenth of them 0 (dead)."""
     x = rng.integers(0, 700, n)
     y = np.where(rng.random(n) < 0.2, x, rng.integers(0, 700, n))
     keys = np.unique(((x + base).astype(np.int64) << 32) | (y + base))
     cnts = rng.integers(1, 5, keys.size).astype(np.int32)
     cnts[rng.random(keys.size) < 0.1] = 0
-    slots = rng.permutation(st.cap)[: keys.size]
-    st.keys.fill_(tk.EMPTY)
-    st.cnts.zero_()
-    st.keys[torch.from_numpy(slots).to(st.device)] = torch.from_numpy(keys).to(st.device)
-    st.cnts[torch.from_numpy(slots).to(st.device)] = torch.from_numpy(cnts).to(st.device)
+    return keys, cnts
 
+
+def tie_table(st, base: int, seed: int) -> None:
+    """Fill ``st``'s table with tie_entries from a quarter of its slots."""
+    rng = np.random.default_rng(seed)
+    keys, cnts = tie_entries(st.cap // 4, base, rng)
+    place(st.keys, st.cnts, keys, cnts, rng.permutation(st.cap)[: keys.size])
+
+
+# the selection's edge tables: the minimum table (2^14 slots), v5's hot
+# table (2^17) and v2's last table (2^22); ids on both sides of the narrow
+# word's limit (65535) and above it; batch sizes k
+SELECT_CAPS = (1 << 14, 1 << 17, 1 << 22)
+SELECT_BASES = (0, 65535 - 699, 70000)
+SELECT_KS = (1, 2, 15, 16)
+SELECT_USED0 = 30  # ids an edge table's round starts from
+
+
+def select_state(cap: int, dev, vocab: int = TRAIN_VOCAB):
+    """An empty table state of ``cap`` slots for the shared top-k alone."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    st = tk.TableState()
+    st.device = torch.device(dev)
+    st.control(np.full((vocab, 4), -1, np.int32), SELECT_USED0)
+    st.resize(cap)
+    return st
+
+
+def place(keys_t, cnts_t, keys: np.ndarray, cnts: np.ndarray, slots: np.ndarray) -> None:
+    """Empty the table keys_t/cnts_t and put keys/cnts at ``slots``."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    keys_t.fill_(tk.EMPTY)
+    cnts_t.zero_()
+    at = torch.from_numpy(slots).to(keys_t.device)
+    keys_t[at] = torch.from_numpy(keys.astype(np.int64)).to(keys_t.device)
+    cnts_t[at] = torch.from_numpy(cnts.astype(np.int32)).to(keys_t.device)
+
+
+def edge_tables(cap: int, base: int, seed: int):
+    """(what, keys, counts, slots) of the selection's edge tables at ``cap``
+    slots, ids from ``base``: no live slot (dead keys only), one, 15, and a
+    tie at the 16th place that spans blocks (10 keys above 40 of one
+    count, spread evenly over the table: over the blocks of the selection,
+    which take 1024 slots each in turn)."""
+    rng = np.random.default_rng(seed)
+    x = rng.permutation(700)[:100] + base
+    y = rng.permutation(700)[:100] + base
+    keys = (x.astype(np.int64) << 32) | y
+    out = [("no live slot", keys[:20], np.zeros(20, np.int32), rng.permutation(cap)[:20]),
+           ("one live slot", keys[:1], np.array([3], np.int32), np.array([cap - 1]))]
+    c15 = rng.integers(1, 4, 15)
+    out.append(("15 live slots", keys[:15], c15, rng.permutation(cap)[:15]))
+    cnt = np.concatenate([rng.integers(20, 30, 10), np.full(40, 7)]).astype(np.int32)
+    spread = rng.permutation(np.linspace(0, cap - 1, 50).astype(np.int64))
+    out.append(("a tie at the 16th place across blocks", keys[:50], cnt, spread))
+    return out
+
+
+def same_select(a, b, what: str) -> None:
+    """Kernel and plain table states agree after a top-k: the table, ctl,
+    rules, the accepted rows and the work counters."""
+    import torch
+
+    ka, ca = a.table()
+    kb, cb = b.table()
+    check(np.array_equal(ka, kb) and np.array_equal(ca, cb), f"{what}: tables differ")
+    check(torch.equal(a.ctl, b.ctl), f"{what}: ctl {a.ctl.tolist()} != {b.ctl.tolist()}")
+    check(torch.equal(a.rules, b.rules), f"{what}: rules differ")
+    n = int(a.ctl[4])  # n_acc
+    check(torch.equal(a.cand[:n], b.cand[:n]), f"{what}: accepted rows differ")
+    check(torch.equal(a.work, b.work), f"{what}: work {a.work.tolist()} != {b.work.tolist()}")
+
+
+def select_pair(st, what: str, k: int, vocab: int = TRAIN_VOCAB) -> int:
+    """topk_accept and its plain version from clones of ``st``; returns the
+    number accepted."""
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    a, b = clone_state(st), clone_state(st)
+    limit = SELECT_USED0 + TRAIN_SEG
+    tk.topk_accept(a, limit, vocab, SELECT_USED0, k)
+    tk.topk_accept_plain(b, limit, vocab, SELECT_USED0, k)
+    same_select(a, b, f"topk_accept k {k}, {what}")
+    check(int(a.ticket[0]) == 0, f"topk_accept k {k}, {what}: the ticket was left at {a.ticket}")
+    return int(a.ctl[4])
+
+
+def phase_select_checks(dev) -> dict:
+    """The selection (topk_accept and tier_select) against its plain
+    version on its edge tables: at the minimum table, v5's hot-table size
+    and v2's last table, with ids from 0, up to 65535 and from 70000 (both
+    the narrow words and the wide ones, chosen at launch from vocab or
+    after a block met a wide id), at k = 1, 2, 15 and 16: tie-heavy tables,
+    no live slot, one, 15, and a tie at the 16th place across blocks; then
+    tier_select's hot round with T > 0, refresh round and hot overflow on
+    tie-heavy hot and full tables."""
+    t0 = time.perf_counter()
+    n = 0
+    for cap in SELECT_CAPS:
+        for base in SELECT_BASES:
+            vocabs = (TRAIN_VOCAB, 80000) if base >= 65536 else (TRAIN_VOCAB,)
+            for vocab in vocabs:
+                st = select_state(cap, dev, vocab)
+                tie_table(st, base, cap + base)
+                for k in SELECT_KS:
+                    select_pair(st, f"a tie table of {cap} slots, ids from {base}, vocab {vocab}",
+                                k, vocab)
+                    n += 1
+                for what, keys, cnts, slots in edge_tables(cap, base, cap + base):
+                    place(st.keys, st.cnts, keys, cnts, slots)
+                    for k in SELECT_KS:
+                        got = select_pair(st, f"{what}, {cap} slots, ids from {base}", k, vocab)
+                        n += 1
+                        if what == "no live slot":
+                            check(got == 0, f"{what}: {got} accepted")
+    log(f"[5] topk_accept == plain on {n} edge cases: tie tables, no live slot, one, 15, a tie "
+        f"at the 16th place across blocks; {SELECT_CAPS} slots, ids from {SELECT_BASES}, "
+        f"k {SELECT_KS} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    m = tiered_select_checks(dev)
+    log(f"[6] tier_select == plain on {m} tie-heavy hot and full tables: hot rounds at T > 0, "
+        f"refresh rounds, hot overflows ({time.perf_counter() - t0:.1f} s)")
+    return {"topk": n, "tiered": m}
+
+
+# tier_select's tie tables: (full slots, hot slots) at the minimum and at
+# the main path's sizes
+TIERED_SELECT_CAPS = ((1 << 14, 1 << 14), (1 << 23, 1 << 17))
+
+
+def tiered_tie_tables(st, base: int, seed: int, T: int) -> None:
+    """Fill ``st``'s full table with tie_entries from a quarter of its
+    slots (as tie_table), lift up to a quarter of the hot table's slots of
+    them to counts 5-8, and make the hot table every key above ``T`` with
+    its count (T in 4..8: a valid hot tier)."""
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+    rng = np.random.default_rng(seed)
+    keys, cnts = tie_entries(st.cap // 4, base, rng)
+    hot = rng.permutation(keys.size)[: min(st.hslots // 4, keys.size // 8)]
+    cnts[hot] = rng.integers(5, 9, hot.size)
+    place(st.keys, st.cnts, keys, cnts, rng.permutation(st.cap)[: keys.size])
+    up = cnts > T
+    place(st.hkeys, st.hcnts, keys[up], cnts[up], rng.permutation(st.hslots)[: int(up.sum())])
+    st.ctl[tk.THRESH] = T
+
+
+def tiered_select_checks(dev) -> int:
+    """tier_select against its plain version on tiered_tie_tables: a hot
+    round at T = 4 (the floor cuts its acceptance), a refresh round (T = 8:
+    no hot key), a hot overflow; narrow ids, ids up to 65535, wide ids."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+    n = 0
+    for cap, hslots in TIERED_SELECT_CAPS:
+        for base in SELECT_BASES:
+            rules = np.full((TRAIN_VOCAB, 4), -1, np.int32)
+            st = tk.TieredState(np.full(64, -1), np.full(64, -1), np.ones(1, np.int32), rules,
+                                SELECT_USED0, 16, cap, hslots, dev)
+            for case, T, ovf in (("hot", 4, 0), ("refresh", 8, 0), ("hot overflow", 4, 1)):
+                tiered_tie_tables(st, base, cap + base + T, T)
+                st.ctl[tk.HOT_OVF] = ovf
+                a, b = clone_state(st), clone_state(st)
+                limit = SELECT_USED0 + TRAIN_SEG
+                tk.tier_select(a, limit, TRAIN_VOCAB, SELECT_USED0)
+                tk.tier_select_plain(b, limit, TRAIN_VOCAB, SELECT_USED0, 16)
+                what = f"tier_select, {case}, {cap}/{hslots} slots, ids from {base}"
+                same_tiered(a, b, what)
+                check(int(a.ticket[0]) == 0, f"{what}: the ticket was left at {a.ticket}")
+                refresh = int(a.ctl[tk.REFRESH])
+                check(refresh == (case != "hot") and int(a.ctl[tk.NACC]) > 0,
+                      f"{what}: refresh {refresh}, {int(a.ctl[tk.NACC])} accepted")
+                n += 1
+    return n
 
 def phase_train_kernels(buckets, used0: int, dev) -> dict:
     """Each training kernel against its plain version on the card, on the
@@ -766,17 +943,20 @@ def phase_train_kernels(buckets, used0: int, dev) -> dict:
         log(f"[5] round {r}: topk_accept and apply_delta == plain "
             f"({int(k_st.ctl[tk.NACC])} accepted, {int(k_st.ctl[tk.NAFF])} words hit)")
 
-    # tie-heavy tables at the main path's size, narrow and wide ids
+    # tie-heavy tables at the main path's size, narrow and wide ids, for
+    # every batch size the selection's two queues serve
     for base in (0, 70000):
         for seed in range(3):
-            k_st = clone_state(st)
-            tie_table(k_st, base, seed)
-            p_st = clone_state(k_st)
-            tk.topk_accept(k_st, used0 + TRAIN_SEG, TRAIN_VOCAB, used0)
-            tk.topk_accept_plain(p_st, used0 + TRAIN_SEG, TRAIN_VOCAB, used0, 16)
-            same_state(k_st, p_st, f"topk_accept on a tie table (base {base}, seed {seed})")
-        log(f"[5] topk_accept == plain on tie-heavy tables of {st.cap} slots, ids from {base} "
-            f"(last: {int(k_st.ctl[tk.NACC])} accepted)")
+            for k in SELECT_KS:
+                k_st = clone_state(st)
+                tie_table(k_st, base, seed)
+                p_st = clone_state(k_st)
+                tk.topk_accept(k_st, used0 + TRAIN_SEG, TRAIN_VOCAB, used0, k)
+                tk.topk_accept_plain(p_st, used0 + TRAIN_SEG, TRAIN_VOCAB, used0, k)
+                same_state(k_st, p_st,
+                           f"topk_accept k {k} on a tie table (base {base}, seed {seed})")
+        log(f"[5] topk_accept == plain on tie-heavy tables of {st.cap} slots, ids from {base}, "
+            f"k {SELECT_KS} (last: {int(k_st.ctl[tk.NACC])} accepted)")
     return {"st": st}
 
 
@@ -858,6 +1038,29 @@ def run_engine(eng, vocab: int, used: int):
     return used
 
 
+def library_topk_ms(keys, cnts, k: int = 16) -> float:
+    """The library yardstick of a round's selection half: ms of one
+    ``torch.topk`` (CUDA events) over the table's words in the selection's
+    order (``train_kernels.order_words``, made outside the timed window).
+    It ranks candidates only, without the acceptance; the port never calls
+    it."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    live = keys != tk.EMPTY
+    zero = torch.zeros_like(keys)
+    xs = torch.where(live, keys >> 32, zero).to(torch.int32)
+    ys = torch.where(live, keys & 0xFFFFFFFF, zero).to(torch.int32)
+    words = tk.order_words(cnts, xs, ys)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.topk(words, k)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
 def run_work(engine, vocab: int):
     """The main path's run once more, one round at a time (a round accepts
     up to 16 ids whatever its segment's end, so these are the same rounds),
@@ -866,7 +1069,7 @@ def run_work(engine, vocab: int):
       pair_count   per launch: the live tokens, the words' offsets and
                    weights, and the slots the count fills (key and count)
       topk_accept  per round: every slot's count, the live slots' keys,
-                   the accepted rows
+                   the accepted rows; and library_topk_ms before each call
       apply_delta  per round: the live tokens; per word with a hit, its
                    offset and weight and its live slots written back; per
                    distinct pair that the round's deltas touch, its key
@@ -877,7 +1080,7 @@ def run_work(engine, vocab: int):
     from youtokentome_tpu_torch.ops import train_kernels as tk
 
     w = {"count_launches": 0, "count_bytes": 0, "count_tokens": 0, "topk_bytes": 0,
-         "topk_slots": 0, "apply_bytes": 0, "apply_tokens": 0, "rounds": 0}
+         "topk_slots": 0, "apply_bytes": 0, "apply_tokens": 0, "rounds": 0, "library_ms": 0.0}
 
     count = tk.pair_count
 
@@ -894,6 +1097,7 @@ def run_work(engine, vocab: int):
         st = eng.st
         while True:
             live_slots = int((st.cnts > 0).sum())
+            w["library_ms"] += library_topk_ms(st.keys, st.cnts)
             tk.topk_accept(st, vocab, vocab, eng.used_ids0, eng.batch_k)
             n_acc = int(st.ctl[tk.NACC])
             if n_acc:
@@ -1101,9 +1305,12 @@ def phase_train_main(corpus_path: Path, work: Path, sample, plain) -> dict:
         o_ms = ops[name] / OPS_PER_S * 1e3
         rows.append({"name": name, "launches": launches[name], "ms": kernel_ms[name],
                      "plain_ms": plain_ms[name], "bound_ms": max(b_ms, o_ms),
-                     "bound_by": "bytes" if b_ms >= o_ms else "operations"})
+                     "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                     "library_ms": work["library_ms"] if name == "topk_accept" else None})
         log(f"[5] {name}: {launches[name]} launches, {kernel_ms[name]:.3f} ms on the card, "
-            f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain {plain_ms[name]:.1f} ms")
+            f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain {plain_ms[name]:.1f} ms"
+            + (f", library (torch.topk of the packed words, selection only) "
+               f"{work['library_ms']:.3f} ms" if name == "topk_accept" else ""))
     log(f"[5] times: preprocessing {prep_s:.2f} s, BPE.train {train_s:.2f} s, merge loop "
         f"{loop_s:.3f} s, {rounds} rounds, {merges / loop_s:.0f} merges/s, "
         f"plain round loop {plain_loop_s:.1f} s")
@@ -1114,8 +1321,7 @@ def phase_train_main(corpus_path: Path, work: Path, sample, plain) -> dict:
 TIERED_KERNELS = ("tier_select", "apply_blocks", "resplit", "fold_rows")
 # the device functions of each wrapper, as the profiler names them
 TIERED_DEVICE_FNS = {
-    "tier_select": ("hot_blocks_kernel", "hot_select_kernel", "full_blocks_kernel",
-                    "full_select_kernel"),
+    "tier_select": ("tier_hot_kernel", "tier_full_kernel"),
     "apply_blocks": ("sig_filter_kernel", "apply_rows_kernel", "round_end_kernel"),
     "resplit": ("resplit_pass_kernel", "hot_clear_kernel", "hot_fill_kernel"),
     "fold_rows": ("fold_fills_kernel", "fold_hist_kernel", "fold_scan_kernel",
@@ -1429,16 +1635,18 @@ def run_tiered_work(engine, vocab: int):
                     the stream read, half of it and its signatures written
 
     Returns the engine, each kernel's bytes and operations, and the counts
-    of rounds and refresh rounds."""
+    of rounds and refresh rounds, with library_topk_ms summed over the hot
+    tables before each tier_select."""
     from youtokentome_tpu_torch.ops import tiered_kernels as tk
 
     w = {name: 0 for name in TIERED_KERNELS}
     ops = {name: 0 for name in TIERED_KERNELS}
-    n = {"rounds": 0, "refresh": 0}
+    n = {"rounds": 0, "refresh": 0, "library_ms": 0.0}
     real = {name: getattr(tk, name) for name in TIERED_KERNELS}
 
     def select(st, limit, vocab_size, used_ids0, k=tk.K_MAX):
         hot_live, full_live = int((st.hcnts > 0).sum()), int((st.cnts > 0).sum())
+        n["library_ms"] += library_topk_ms(st.hkeys, st.hcnts)  # the hot pass's yardstick
         real["tier_select"](st, limit, vocab_size, used_ids0, k)
         n_acc, refresh, active = (int(v) for v in st.ctl[[tk.NACC, tk.REFRESH, tk.ACTIVE]].tolist())
         if active:
@@ -1620,7 +1828,8 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
         o_ms = wops[name] / OPS_PER_S * 1e3
         rows.append({"name": name, "launches": launches[name], "ms": kernel_ms[name],
                      "plain_ms": plain_ms[name], "bound_ms": max(b_ms, o_ms),
-                     "bound_by": "bytes" if b_ms >= o_ms else "operations"})
+                     "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                     "library_ms": counts["library_ms"] if name == "tier_select" else None})
         log(f"[6] {name}: {launches[name]} launches, {kernel_ms[name]:.3f} ms on the card, "
             f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain "
             f"{plain_ms[name]:.1f} ms")
@@ -1995,17 +2204,17 @@ DIFF_ROW_NAMES = {
 # the device functions of each wrapper, as the profiler names them
 DIFF_DEVICE_FNS = {
     ("stream", "recount"): ("clear_kernel", "eq_tiles_kernel", "count_tiles_kernel"),
-    ("stream", "topk_accept"): ("topk_blocks_kernel", "topk_accept_kernel"),
+    ("stream", "topk_accept"): ("topk_select_kernel",),
     ("stream", "apply_compact"): ("hit_tiles_kernel", "select_tiles_kernel", "scatter_kernel"),
     ("sparse", "sparse_count"): ("count_words_kernel",),
-    ("sparse", "topk_accept"): ("topk_blocks_kernel", "topk_accept_kernel"),
+    ("sparse", "topk_accept"): ("topk_select_kernel",),
     ("sparse", "sparse_apply"): ("mark_live_words_kernel", "apply_words_kernel"),
     ("block", "block_count"): ("count_all_rows_kernel",),
-    ("block", "topk_accept"): ("topk_blocks_kernel", "topk_accept_kernel"),
+    ("block", "topk_accept"): ("topk_select_kernel",),
     ("block", "block_apply"): ("flag_rows_kernel", "apply_rows_kernel", "full_clear_kernel",
                                "full_recount_kernel"),
     ("bucketed", "bucket_count"): ("clear_kernel", "count_rows_kernel"),
-    ("bucketed", "topk_accept"): ("topk_blocks_kernel", "topk_accept_kernel"),
+    ("bucketed", "topk_accept"): ("topk_select_kernel",),
     ("bucketed", "bucket_apply"): ("apply_rows_kernel",),
 }
 DIFF_SOURCES = {
@@ -2022,7 +2231,7 @@ DIFF_REPLACES = {
 }
 # scratch each plain/kernel comparison skips (filled in another order, or
 # kept only by the kernels)
-DIFF_SCRATCH = ("tmp_t", "tmp_w", "tiles", "blk_k", "blk_c", "aff", "wmark", "rows")
+DIFF_SCRATCH = ("tmp_t", "tmp_w", "tiles", "blk_hi", "blk_lo", "aff", "wmark", "rows")
 MID_SITE_CAPS = ("64", "256")  # v3's plain site buffers on the 10 MB prefix
 MID_KB = 4  # v4's gather bound on the 10 MB prefix: most rounds take the full path
 MID_V0_IDS = 500  # v0's lockstep depth on the 10 MB prefix (one merge a round)
@@ -2593,7 +2802,7 @@ SHARD_SOURCE = "youtokentome_tpu_torch/csrc/train_delta_sharded.cu"
 SHARD_KERNELS = ("delta_emit", "shard_recount", "shard_fold", "shard_relay")
 # the device functions of each wrapper, as the profiler names them
 SHARD_DEVICE_FNS = {
-    "topk_accept": ("topk_blocks_kernel", "topk_accept_kernel"),
+    "topk_accept": ("topk_select_kernel",),
     "delta_emit": ("mark_words_kernel", "emit_words_kernel"),
     "shard_recount": ("recount_clear_kernel", "recount_kernel"),
     "shard_fold": ("fold_prep_kernel", "fold_kernel", "fold_done_kernel"),
@@ -3101,7 +3310,7 @@ OTHER_ROW_NAMES = {
 }
 # the device functions of each wrapper, as the profiler names them
 OTHER_DEVICE_FNS = {
-    "topk_accept": ("topk_blocks_kernel", "topk_accept_kernel"),
+    "topk_accept": ("topk_select_kernel",),
     "shard_fold": ("fold_prep_kernel", "fold_kernel", "fold_done_kernel"),
     "shard_part_fold": ("part_prep_kernel", "part_fold_kernel"),
     "shard_gather": ("gather_kernel",),
@@ -3664,6 +3873,7 @@ def main() -> int:
     buckets, _, used0 = training_buckets(corpus_path)
     phase_train_kernels(buckets, used0, dev)
     del buckets
+    phase_select_checks(dev)
     train = phase_train_main(corpus_path, work, sample, checks["plain_v2"])
     buckets, _, used0 = training_buckets(corpus_path)
     phase_tiered_kernels(buckets, used0, dev)
@@ -3703,7 +3913,7 @@ def main() -> int:
                 "youtokentome_tpu_torch/csrc/train_delta.cu"),
             "replaces": TRAIN_REPLACES, "launches": r["launches"], "max_abs_err": 0,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None, "equal": True,
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "equal": True,
         }
         for r in train["rows"]
     ] + [
@@ -3711,7 +3921,7 @@ def main() -> int:
             "name": r["name"], "route": "cuda", "source": "youtokentome_tpu_torch/csrc/train_tiered.cu",
             "replaces": TIERED_REPLACES[r["name"]], "launches": r["launches"], "max_abs_err": 0,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None, "equal": True,
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "equal": True,
         }
         for r in tiered["rows"]
     ] + [

@@ -104,6 +104,52 @@ def test_topk_candidates_with_ties(wide, seed):
         assert bool((pc[n_live:] <= 0).all())
 
 
+def _words_topk(cnt, xs, ys, k, wide):
+    """The top ``k`` entries by the selection kernels' words: (cc, cx, cy)."""
+    words = tk.order_words(_T(cnt), _T(xs), _T(ys), wide)
+    if not wide:
+        return tk.words_decode(torch.sort(words, descending=True).values[:k])
+    hi, lo = words
+    order = torch.sort(lo, descending=True, stable=True).indices
+    order = order[torch.sort(hi[order], descending=True, stable=True).indices][:k]
+    return tk.words_decode((hi[order], lo[order]), True)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("seed", range(3))
+def test_packed_order_with_ties(wide, seed):
+    """The selection kernels' words (``order_words``, the twin of
+    ``csrc/train_common.cuh``'s NarrowOrder and WideOrder) rank a tie-heavy
+    table with dead entries as the JAX ``_topk_candidates`` does, in narrow
+    form (ids up to 65535) and wide form, and decode back to its entries."""
+    rng = np.random.default_rng(30 + seed)
+    base = WIDE_BASE if wide else (0, 65535 - 39, 0)[seed]
+    pairs = np.unique(rng.integers(0, 40, (600, 2)) + base, axis=0)
+    xs, ys = pairs[:, 0].astype(np.int32), pairs[:, 1].astype(np.int32)
+    cnt = rng.integers(-1, 4, xs.size).astype(np.int32)  # many ties, dead entries
+    cnt[:3] = 50  # a tie at the top
+    cnt[3] = 2**31 - 1  # the largest count a word holds
+    forms = (True,) if wide else (False, True)  # narrow ids rank alike in wide form
+    n_all = int((cnt > 0).sum())
+    for k in (1, 16, 64):
+        jc, jx, jy = jts._topk_candidates(
+            jnp.asarray(cnt), jnp.asarray(xs), jnp.asarray(ys), k, narrow=not wide
+        )
+        n_live = min(k, n_all)
+        for form in forms:
+            pc, px, py = _words_topk(cnt, xs, ys, k, form)
+            for a, b in ((jc, pc), (jx, px), (jy, py)):
+                _eq(np.asarray(a)[:n_live], b[:n_live])
+            assert bool((pc[n_live:] == 0).all())
+    live = cnt > 0
+    for form in forms:
+        c, x, y = tk.words_decode(tk.order_words(_T(cnt), _T(xs), _T(ys), form), form)
+        _eq(c.numpy()[live], cnt[live])
+        _eq(x.numpy()[live], xs[live])
+        _eq(y.numpy()[live], ys[live])
+        assert bool((c[torch.from_numpy(~live)] == 0).all())
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_accept_prefix_guard_floor_budget(seed):
     rng = np.random.default_rng(20 + seed)

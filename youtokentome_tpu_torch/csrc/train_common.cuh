@@ -18,7 +18,6 @@
 namespace yttm {
 
 constexpr int kK = 16;            // candidates per round (batch_k <= 16)
-constexpr int kTopThreads = 128;  // threads of a top-k block
 constexpr int32_t kPad = -1;
 constexpr unsigned long long kEmpty = ~0ull;
 
@@ -177,181 +176,517 @@ __device__ void add_word(const int32_t *tok, int n, int32_t delta, Mode mode,
 }
 
 // -- top-k -------------------------------------------------------------------
+//
+// A round's top-K (K = 16, or 1 for v0) of a pair-count table in the
+// reference order, in one launch: train_topk.cu's topk_select and
+// train_tiered.cu's tier_hot / tier_full call grid_topk.
+//
+// Bound.  The round must read every slot's count (4 B) and the key (8 B) of
+// each slot it ranks: on v2's table of 2^22 slots, ~5 us at 3.35 TB/s;
+// on v5's hot table of 2^17 slots, ~0.2 us.
+//
+// What held the old design back (measured with select_bench.py and a
+// timer trace inside the kernels; H100 80GB HBM3, 700 W): two launches a
+// round, pass 1 (the scan, 150 us a round on v2's run) with a thread's
+// sorted list of 16 (count, key) pairs (80 registers) whose key loaded
+// inside each insert, one memory latency after another, and block merges
+// of 16 argmax rounds with three barriers each; pass 2 (53 us) one block of
+// 128 threads over up to 4,096 entries.  v5's hot pass ran 32 blocks.
+//
+// The new design, one launch a round:
+//  * one comparable word a slot.  While every id fits 16 bits the
+//    reference order is one unsigned 64-bit word, NarrowOrder:
+//      count << 33 | (0xFFFF - max) << 17 | (0xFFFF - min) << 1 | (x == max),
+//    0 for a dead slot, (x, y) decoded from it (the card-side form of the
+//    JAX package's narrow packing, train_stream.py _topk_candidates).
+//    Wider ids take WideOrder, a 64-bit word and a 32-bit one compared in
+//    turn.  The launch picks narrow when vocab <= 65536; a block that meets
+//    an id above 65535 in narrow order scans its share again in wide order.
+//  * the selection in warps.  A warp keeps its top 16 over lanes 0-15 and
+//    reads 4 int4 of counts a lane at a time (512 slots), the next chunk's
+//    loads in flight while a chunk is handled.  A slot is offered only when
+//    its count reaches a bar: at first the 16th largest of the block's
+//    lanes' largest counts in their first chunk, then the warp's 16th.  The
+//    passing slots gather in a buffer and their keys load together (the
+//    trace showed the scan waiting out a key latency in every chunk
+//    otherwise); they merge into the queue by a bitonic sort of the batch
+//    when many lanes offer, by ballot and shuffle inserts when few do.
+//  * the block's warps' queues merge by bitonic merges in shared memory
+//    (log2 of 8 steps); its 16 words go to the scratch; the last block to
+//    finish (a ticket in the scratch) reads whole only the lists whose head
+//    count reaches the 16th largest head count, merges them with the same
+//    queues, and accepts on one warp, a lane a candidate (the trace showed
+//    one thread's acceptance at 7.8 us of a hot round, re-reading its rows
+//    from device memory).
+//  * a grid of 256-thread blocks, one per 1024 slots and at most two an SM,
+//    so that v5's hot table of 2^17 slots spreads over 128 SMs.
+//  * K = 1 keeps one word a lane, the block's largest count as its bar, and
+//    a 64-bit warp max by shuffles.
 
-// a before b in the reference order; dead entries (count <= 0) last
-__device__ __forceinline__ bool better(int ca, unsigned long long ka, int cb,
-                                       unsigned long long kb) {
-  if (cb <= 0) return ca > 0;
-  if (ca <= 0) return false;
-  if (ca != cb) return ca > cb;
-  const uint32_t xa = (uint32_t)(ka >> 32), ya = (uint32_t)ka;
-  const uint32_t xb = (uint32_t)(kb >> 32), yb = (uint32_t)kb;
-  const uint32_t mxa = xa > ya ? xa : ya, mxb = xb > yb ? xb : yb;
-  if (mxa != mxb) return mxa < mxb;
-  const uint32_t mna = xa < ya ? xa : ya, mnb = xb < yb ? xb : yb;
-  if (mna != mnb) return mna < mnb;
-  return xa > xb;
-}
+constexpr int kSelThreads = 256;  // threads of a selection block
+constexpr int kSelWarps = kSelThreads / 32;
+constexpr int kSelVec = 4;        // int4 loads of counts a lane keeps in flight
+constexpr int kSelBuf = 64;       // slots a warp gathers before it loads their keys
+constexpr int kSelMaxBlocks = 2 * kSelThreads;  // lists the last block can pick from
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
-// A thread's best K entries in the reference order (K = kK, or 1 for a
-// top-1: the same first entry, without the list's upkeep).
-template <int K = kK>
-struct TopList {
-  int c[K];
-  unsigned long long k[K];
+// A wide word: hi = count << 31 | (2^31 - 1 - max), lo = (2^31 - 1 - min)
+// << 1 | (x == max), compared hi first.  Ids are below 2^31.
+struct Wide {
+  unsigned long long hi;
+  uint32_t lo;
+};
 
-  __device__ __forceinline__ void clear() {
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      c[j] = 0;
-      k[j] = kEmpty;
-    }
+struct WideOrder {
+  typedef Wide W;
+  __device__ static __forceinline__ W zero() { return Wide{0ull, 0u}; }
+  __device__ static __forceinline__ bool fits(unsigned long long) { return true; }
+  __device__ static __forceinline__ W pack(int c, unsigned long long key) {
+    const uint32_t x = (uint32_t)(key >> 32), y = (uint32_t)key;
+    const uint32_t mx = x > y ? x : y, mn = x < y ? x : y;
+    return Wide{(unsigned long long)(uint32_t)c << 31 | (0x7FFFFFFFu - mx),
+                (0x7FFFFFFFu - mn) << 1 | (uint32_t)(x == mx)};
   }
+  __device__ static __forceinline__ uint32_t count(W w) { return (uint32_t)(w.hi >> 31); }
+  __device__ static __forceinline__ bool gt(W a, W b) {
+    return a.hi > b.hi || (a.hi == b.hi && a.lo > b.lo);
+  }
+  __device__ static __forceinline__ W shfl(W w, int src) {
+    return Wide{__shfl_sync(kFullMask, w.hi, src), __shfl_sync(kFullMask, w.lo, src)};
+  }
+  __device__ static __forceinline__ W shfl_up(W w, int d) {
+    return Wide{__shfl_up_sync(kFullMask, w.hi, d), __shfl_up_sync(kFullMask, w.lo, d)};
+  }
+  __device__ static __forceinline__ W shfl_xor(W w, int m) {
+    return Wide{__shfl_xor_sync(kFullMask, w.hi, m), __shfl_xor_sync(kFullMask, w.lo, m)};
+  }
+  __device__ static __forceinline__ Wide widen(W w) { return w; }
+};
 
-  // Inserts (cv, kv) in order, dropping the last entry.  The position
-  // comes from K independent comparisons and the shift is predicated, so
-  // an insert is a short dependency chain (a bubble pass is K long).
-  __device__ __forceinline__ void offer(int cv, unsigned long long kv) {
-    if (!better(cv, kv, c[K - 1], k[K - 1])) return;
-    int pos = 0;
-#pragma unroll
-    for (int j = 0; j < K - 1; ++j) pos += better(c[j], k[j], cv, kv);
-#pragma unroll
-    for (int j = K - 1; j > 0; --j) {
-      if (j > pos) {
-        c[j] = c[j - 1];
-        k[j] = k[j - 1];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      if (j == pos) {
-        c[j] = cv;
-        k[j] = kv;
-      }
-    }
+struct NarrowOrder {
+  typedef unsigned long long W;
+  __device__ static __forceinline__ W zero() { return 0ull; }
+  // both ids below 65536
+  __device__ static __forceinline__ bool fits(unsigned long long key) {
+    return (key & 0xFFFF0000FFFF0000ull) == 0ull;
+  }
+  __device__ static __forceinline__ W pack(int c, unsigned long long key) {
+    const uint32_t x = (uint32_t)(key >> 32), y = (uint32_t)key;
+    const uint32_t mx = x > y ? x : y, mn = x < y ? x : y;
+    return (W)(uint32_t)c << 33 | (W)((0xFFFFu - mx) & 0xFFFFu) << 17 |
+           (W)((0xFFFFu - mn) & 0xFFFFu) << 1 | (W)(x == mx);
+  }
+  __device__ static __forceinline__ uint32_t count(W w) { return (uint32_t)(w >> 33); }
+  __device__ static __forceinline__ bool gt(W a, W b) { return a > b; }
+  __device__ static __forceinline__ W shfl(W w, int src) { return __shfl_sync(kFullMask, w, src); }
+  __device__ static __forceinline__ W shfl_up(W w, int d) { return __shfl_up_sync(kFullMask, w, d); }
+  __device__ static __forceinline__ W shfl_xor(W w, int m) { return __shfl_xor_sync(kFullMask, w, m); }
+  __device__ static __forceinline__ Wide widen(W w) {
+    const uint32_t c = count(w);
+    if (c == 0) return WideOrder::zero();
+    const uint32_t mx = 0xFFFFu - (uint32_t)((w >> 17) & 0xFFFFu);
+    const uint32_t mn = 0xFFFFu - (uint32_t)((w >> 1) & 0xFFFFu);
+    return Wide{(unsigned long long)c << 31 | (0x7FFFFFFFu - mx),
+                (0x7FFFFFFFu - mn) << 1 | (uint32_t)(w & 1ull)};
   }
 };
 
-// Merges the sorted lists of the block's threads into the block's top K,
-// written to out_c/out_k (shared or global).  Every thread must call it.
-template <int K>
-__device__ void block_merge(const TopList<K> &lst, int *out_c, unsigned long long *out_k) {
-  __shared__ int sc[kTopThreads * K];
-  __shared__ unsigned long long sk[kTopThreads * K];
-  __shared__ int wc[kTopThreads / 32];
-  __shared__ unsigned long long wk[kTopThreads / 32];
-  __shared__ int wt[kTopThreads / 32];
-  __shared__ int winner;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+// (count, key x << 32 | y) of a wide word; count 0 for a dead one
+__device__ __forceinline__ int unpack_wide(Wide w, unsigned long long *key) {
+  const uint32_t mx = 0x7FFFFFFFu - (uint32_t)(w.hi & 0x7FFFFFFFull);
+  const uint32_t mn = 0x7FFFFFFFu - (w.lo >> 1);
+  *key = (w.lo & 1u) ? pair_key((int32_t)mx, (int32_t)mn) : pair_key((int32_t)mn, (int32_t)mx);
+  return (int)(w.hi >> 31);
+}
+
+// Sorts a 32-word bitonic sequence over the warp's lanes descending (every
+// lane calls it): a bitonic merge, 5 compare-exchange steps.
+template <class O>
+__device__ __forceinline__ typename O::W bitonic_merge32(typename O::W v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    sc[t * K + j] = lst.c[j];
-    sk[t * K + j] = lst.k[j];
+  for (int s = 16; s > 0; s >>= 1) {
+    const typename O::W o = O::shfl_xor(v, s);
+    if (((lane & s) == 0) == O::gt(o, v)) v = o;  // the lower lane keeps the larger
   }
-  int head = 0;
+  return v;
+}
+
+// Sorts 32 words over the warp's lanes descending: 15 steps.
+template <class O>
+__device__ __forceinline__ typename O::W bitonic_sort32(typename O::W v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int s = k >> 1; s > 0; s >>= 1) {
+      const typename O::W o = O::shfl_xor(v, s);
+      const bool desc = (lane & k) == 0, lower = (lane & s) == 0;
+      if (lower == desc ? O::gt(o, v) : O::gt(v, o)) v = o;
+    }
+  }
+  return v;
+}
+
+// Counts as words (a block's bar).
+struct CountOrder {
+  typedef uint32_t W;
+  __device__ static __forceinline__ W zero() { return 0u; }
+  __device__ static __forceinline__ bool gt(W a, W b) { return a > b; }
+  __device__ static __forceinline__ W shfl_xor(W w, int m) { return __shfl_xor_sync(kFullMask, w, m); }
+};
+
+template <class O>
+__device__ __forceinline__ typename O::W warp_max(typename O::W v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const typename O::W u = O::shfl_xor(v, o);
+    if (O::gt(u, v)) v = u;
+  }
+  return v;
+}
+
+// The block's largest v, to every thread (every thread calls it).
+template <class O>
+__device__ typename O::W block_max(typename O::W v) {
+  __shared__ typename O::W buf[kSelWarps];
+  const int lane = threadIdx.x & 31;
+  v = warp_max<O>(v);
+  if (lane == 0) buf[threadIdx.x >> 5] = v;
   __syncthreads();
-  for (int r = 0; r < K; ++r) {
-    int c = head < K ? sc[t * K + head] : 0;
-    unsigned long long k = head < K ? sk[t * K + head] : kEmpty;
-    int who = t;
+  v = warp_max<O>(buf[lane < kSelWarps ? lane : 0]);
+  __syncthreads();
+  return v;
+}
+
+// Merges the block's warps' sorted lists of 16 (lane j < 16 of each warp
+// holds its j-th word in q) by bitonic merges in shared memory, log2 of
+// kSelWarps steps; the block's best 16 are left in buf[0][0, 16).  Every
+// thread calls it.
+template <class O>
+__device__ void merge_warp_lists(typename O::W q, typename O::W (*buf)[kK]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane < kK) buf[warp][lane] = q;
+  __syncthreads();
+  // warps w < n merge the lists w and w + n, the second reversed
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const int c2 = __shfl_down_sync(0xFFFFFFFFu, c, o);
-      const unsigned long long k2 = __shfl_down_sync(0xFFFFFFFFu, k, o);
-      const int w2 = __shfl_down_sync(0xFFFFFFFFu, who, o);
-      if (better(c2, k2, c, k)) {
-        c = c2;
-        k = k2;
-        who = w2;
+  for (int n = kSelWarps / 2; n > 0; n >>= 1) {
+    typename O::W v = O::zero();
+    if (warp < n) v = bitonic_merge32<O>(lane < kK ? buf[warp][lane] : buf[warp + n][31 - lane]);
+    __syncthreads();
+    if (warp < n && lane < kK) buf[warp][lane] = v;
+    __syncthreads();
+  }
+}
+
+// The K-th largest of the block's threads' v (K = 16, or 1), to every
+// thread (every thread calls it).
+template <class O, int K>
+__device__ typename O::W block_kth(typename O::W v) {
+  if constexpr (K == 1) {
+    return block_max<O>(v);
+  } else {
+    __shared__ typename O::W buf[kSelWarps][kK];
+    merge_warp_lists<O>(bitonic_sort32<O>(v), buf);
+    const typename O::W r = buf[0][kK - 1];
+    __syncthreads();
+    return r;
+  }
+}
+
+// A warp's best K words (K = 16: the j-th best in lane j < 16, 0 in lanes
+// 16-31, sorted; K = 1: each lane's own best).  `bar` is the count a slot
+// must reach to be offered: the count of the K-th best, at least `floor`.
+template <class O, int K>
+struct WarpTop {
+  static_assert(K == 1 || K == kK, "the warp queue holds 1 or 16 words");
+  typename O::W q, last;
+  uint32_t bar, floor;
+
+  __device__ __forceinline__ void clear(uint32_t f = 0) {
+    q = last = O::zero();
+    bar = floor = f;
+  }
+
+  __device__ __forceinline__ void raise(typename O::W w) {
+    const uint32_t c = O::count(w);
+    bar = c > floor ? c : floor;
+  }
+
+  // Offers w from each lane where `has`; every lane calls it.
+  __device__ __forceinline__ void offer(bool has, typename O::W w) {
+    if constexpr (K == 1) {
+      if (has && O::gt(w, q)) {
+        q = w;
+        raise(w);
       }
+    } else {
+      offer_warp(has, w);
     }
-    if (lane == 0) {
-      wc[warp] = c;
-      wk[warp] = k;
-      wt[warp] = who;
+  }
+
+  __device__ __forceinline__ void offer_warp(bool has, typename O::W w) {
+    const int lane = threadIdx.x & 31;
+    bool want = has && O::gt(w, last);
+    unsigned m = __ballot_sync(kFullMask, want);
+    if (__popc(m) > 4) {
+      // many at once: sort the batch, then one bitonic merge of its top 16
+      // (reversed into lanes 16-31) with the queue
+      const typename O::W s = bitonic_sort32<O>(want ? w : O::zero());
+      const typename O::W r = O::shfl(s, 31 - lane);
+      q = bitonic_merge32<O>(lane < kK ? q : r);
+      if (lane >= kK) q = O::zero();
+      last = O::shfl(q, kK - 1);
+      raise(last);
+      return;
     }
-    __syncthreads();
-    if (t == 0) {
-      int bc = wc[0], bw = wt[0];
-      unsigned long long bk = wk[0];
-      for (int w = 1; w < kTopThreads / 32; ++w)
-        if (better(wc[w], wk[w], bc, bk)) {
-          bc = wc[w];
-          bk = wk[w];
-          bw = wt[w];
-        }
-      out_c[r] = bc;
-      out_k[r] = bk;
-      winner = bc > 0 ? bw : -1;
+    while (m) {
+      const int src = __ffs(m) - 1;
+      const typename O::W c = O::shfl(w, src);
+      const int pos = __popc(__ballot_sync(kFullMask, lane < kK && O::gt(q, c)));
+      const typename O::W up = O::shfl_up(q, 1);
+      if (lane == pos) q = c;
+      else if (lane > pos && lane < kK) q = up;
+      last = O::shfl(q, kK - 1);
+      if (lane == src) want = false;
+      want = want && O::gt(w, last);
+      m = __ballot_sync(kFullMask, want);
     }
-    __syncthreads();
-    if (winner == t) ++head;
-    __syncthreads();
+    raise(last);
+  }
+};
+
+// Four counts from slot 4g on (0 past the table's end).
+__device__ __forceinline__ int4 load_counts(const int32_t *cnts, int cap, int g) {
+  if (4 * g + 3 < cap) return __ldg(reinterpret_cast<const int4 *>(cnts) + g);
+  int4 r = make_int4(0, 0, 0, 0);
+  if (4 * g < cap) r.x = cnts[4 * g];
+  if (4 * g + 1 < cap) r.y = cnts[4 * g + 1];
+  if (4 * g + 2 < cap) r.z = cnts[4 * g + 2];
+  return r;
+}
+
+// A lane's kSelVec int4 of counts of the chunk at group b (groups of 4
+// slots, a warp's 32 lanes side by side, chunks `step` groups apart).
+__device__ __forceinline__ void load_chunk(int (&c)[4 * kSelVec], const int32_t *cnts, int cap,
+                                           int b, int step) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int v = 0; v < kSelVec; ++v) {
+    const int4 q = load_counts(cnts, cap, b + v * step + lane);
+    c[4 * v] = q.x;
+    c[4 * v + 1] = q.y;
+    c[4 * v + 2] = q.z;
+    c[4 * v + 3] = q.w;
   }
 }
 
-// Pass 1 of a top-k: the calling block's top K of its grid-stride share of
-// the table, to blk_c/blk_k + blockIdx.x * K.  Every thread must call it.
-template <int K = kK>
-__device__ void topk_scan(const unsigned long long *keys, const int32_t *cnts, int cap,
-                          unsigned long long *blk_k, int32_t *blk_c) {
-  TopList<K> lst;
-  lst.clear();
-  // a block or two per SM: each thread keeps kUnroll loads in flight, or
-  // the scan waits on one load's latency per slot
-  constexpr int kUnroll = 8;
-  const int stride = gridDim.x * blockDim.x;
-  for (int s0 = blockIdx.x * blockDim.x + threadIdx.x; s0 < cap; s0 += kUnroll * stride) {
-    int c[kUnroll];
+// Offers every slot of warp `warp`'s share of the table whose count
+// reaches the queue's bar to `top`.  The bar starts at the K-th largest of
+// the block's lanes' largest counts in its first chunk (K distinct slots
+// reach it, so the block's K-th best does).  The next chunk's counts load
+// while a chunk is handled.  The slots that pass wait in a buffer of the
+// warp's (kSelBuf) and their keys load together when it fills, and at the
+// end; a chunk with more passing slots than that is offered at once.
+// Returns false when a key it ranked does not fit the order (narrow order
+// only).  Every thread calls it.
+template <class O, int K>
+__device__ bool scan_share(const unsigned long long *keys, const int32_t *cnts, int cap, int warp,
+                           int n_warps, WarpTop<O, K> &top) {
+  constexpr int kN = 4 * kSelVec;
+  __shared__ int2 sbuf[kSelWarps][kSelBuf];  // (slot, count)
+  int2 *buf = sbuf[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  const int n4 = (cap + 3) >> 2, step = n_warps * 32, b0 = warp * 32;
+  int c[kN];
+  load_chunk(c, cnts, cap, b0, step);
+  uint32_t lmax = 0;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int s = s0 + u * stride;
-      c[u] = s < cap ? cnts[s] : 0;
+  for (int i = 0; i < kN; ++i) lmax = c[i] > (int)lmax ? (uint32_t)c[i] : lmax;
+  top.clear(block_kth<CountOrder, K>(lmax));
+  bool fit = true;
+  int n_buf = 0;  // the same in every lane
+  // the buffered slots' keys, kSelBuf / 32 a lane in flight, then offered
+  auto flush = [&]() {
+    unsigned long long key[kSelBuf / 32];
+    int cb[kSelBuf / 32];
+#pragma unroll
+    for (int u = 0; u < kSelBuf / 32; ++u) {
+      const int i = u * 32 + lane;
+      const int2 e = i < n_buf ? buf[i] : make_int2(0, 0);
+      cb[u] = e.y;
+      key[u] = i < n_buf ? keys[e.x] : 0ull;
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (c[u] > 0) lst.offer(c[u], keys[s0 + u * stride]);
+    for (int u = 0; u < kSelBuf / 32; ++u) {
+      const bool has = u * 32 + lane < n_buf && (uint32_t)cb[u] >= top.bar;
+      fit &= !has || O::fits(key[u]);
+      top.offer(has, O::pack(cb[u], key[u]));
+    }
+    n_buf = 0;
+    __syncwarp();
+  };
+  for (int b = b0; b < n4; b += step * kSelVec) {
+    int cn[kN];
+    load_chunk(cn, cnts, cap, b + step * kSelVec, step);
+    unsigned pend = 0;
+#pragma unroll
+    for (int i = 0; i < kN; ++i) pend |= (unsigned)(c[i] > 0 && (uint32_t)c[i] >= top.bar) << i;
+    // this lane's place among the warp's passing slots
+    const int mine = __popc(pend);
+    int off = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFullMask, off, o);
+      if (lane >= o) off += u;
+    }
+    const int total = __shfl_sync(kFullMask, off, 31);
+    off -= mine;
+    if (total > kSelBuf) {  // a dense chunk: every passing key in flight, offered at once
+      unsigned long long key[kN];
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+        key[i] = (pend >> i) & 1u ? keys[4 * (b + (i >> 2) * step + lane) + (i & 3)] : 0ull;
+#pragma unroll
+      for (int i = 0; i < kN; ++i) {
+        const bool has = ((pend >> i) & 1u) && (uint32_t)c[i] >= top.bar;
+        fit &= !has || O::fits(key[i]);
+        top.offer(has, O::pack(c[i], key[i]));
+      }
+    } else if (total > 0) {
+      if (n_buf + total > kSelBuf) flush();
+      int at = n_buf + off;
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+        if ((pend >> i) & 1u) buf[at++] = make_int2(4 * (b + (i >> 2) * step + lane) + (i & 3), c[i]);
+      n_buf += total;
+      __syncwarp();
+    }
+#pragma unroll
+    for (int i = 0; i < kN; ++i) c[i] = cn[i];
   }
-  block_merge(lst, blk_c + blockIdx.x * K, blk_k + blockIdx.x * K);
+  if (__any_sync(kFullMask, n_buf > 0)) flush();
+  return fit;
 }
 
-// Pass 2: the top K of the n_blk block lists, to top_c/top_k (shared).
-// Every thread must call it.
-template <int K = kK>
-__device__ void topk_merge(const unsigned long long *blk_k, const int32_t *blk_c, int n_blk,
-                           int *top_c, unsigned long long *top_k) {
-  TopList<K> lst;
-  lst.clear();
-  for (int s = threadIdx.x; s < n_blk * K; s += blockDim.x) lst.offer(blk_c[s], blk_k[s]);
-  block_merge(lst, top_c, top_k);
+// The block's best K of its warps' words, wide, to out[0, K) (shared).
+// Every thread calls it.
+template <class O, int K>
+__device__ void block_top(const WarpTop<O, K> &top, Wide *out) {
+  if constexpr (K == 1) {
+    const typename O::W v = block_max<O>(top.q);
+    if (threadIdx.x == 0) out[0] = O::widen(v);
+  } else {
+    __shared__ typename O::W buf[kSelWarps][kK];
+    merge_warp_lists<O>(top.q, buf);
+    if (threadIdx.x < K) out[threadIdx.x] = O::widen(buf[0][threadIdx.x]);
+  }
+  __syncthreads();
 }
 
-// accept_prefix (train_stream.py:120) and store_rules on one thread: the
-// longest prefix of the candidates with no failure (a count at or below
-// `floor`, the id budget, an intersection with an earlier candidate, the
-// equal-pair guard).  Writes the accepted [x, y, z, count] rows to cand and
-// rules; returns their number.
-__device__ int accept_prefix_dev(const int *top_c, const unsigned long long *top_k, int k,
-                                 int used, int vocab, int floor, int32_t *cand, int32_t *rules,
-                                 int used_ids0) {
-  const int remaining = vocab - used;
-  int prev_eq = -1, n_acc = 0;
-  for (int j = 0; j < k; ++j) {
-    const int c = top_c[j];
-    if (c <= floor || c <= 0 || j >= remaining || c < prev_eq) break;
-    const int32_t x = (int32_t)(top_k[j] >> 32), y = (int32_t)(uint32_t)top_k[j];
-    bool inter = false;
-    for (int i = 0; i < j; ++i) inter |= cand[i * 4 + 1] == x || cand[i * 4] == y;
-    if (inter) break;
+// A round's top K of the table keys/cnts [cap] over the whole grid: each
+// block ranks its share (narrow order unless `wide` or an id above 65535)
+// and writes its K wide words to blk_hi/blk_lo + blockIdx.x * K; the last
+// block to take a ticket (*ticket, 0 before the launch and after it)
+// merges the gridDim.x lists into top_c/top_k (shared, K entries, count 0
+// past the live slots) and returns true; every other block returns false.
+// Every thread calls it.
+template <int K>
+__device__ bool grid_topk(const unsigned long long *keys, const int32_t *cnts, int cap, bool wide,
+                          unsigned long long *blk_hi, uint32_t *blk_lo, unsigned *ticket,
+                          int *top_c, unsigned long long *top_k) {
+  __shared__ Wide list[K];
+  __shared__ bool last;
+  const int warp = blockIdx.x * kSelWarps + (threadIdx.x >> 5), n_warps = gridDim.x * kSelWarps;
+  bool fit = false;
+  if (!wide) {
+    WarpTop<NarrowOrder, K> top;
+    fit = __syncthreads_and(scan_share(keys, cnts, cap, warp, n_warps, top));
+    if (fit) block_top(top, list);
+  }
+  if (!fit) {
+    WarpTop<WideOrder, K> top;
+    scan_share(keys, cnts, cap, warp, n_warps, top);
+    block_top(top, list);
+  }
+  if (threadIdx.x < K) {
+    blk_hi[blockIdx.x * K + threadIdx.x] = list[threadIdx.x].hi;
+    blk_lo[blockIdx.x * K + threadIdx.x] = list[threadIdx.x].lo;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return false;
+  // the last block: every list through L2.  The K-th largest count of the
+  // threads' best list heads is a bar (K lists reach it with their first
+  // word); only the lists whose head reaches it are read whole, 32 / K
+  // lists a warp at a time.
+  __shared__ int lists[kSelMaxBlocks];
+  __shared__ int n_lists;
+  const int lane = threadIdx.x & 31, n_blk = gridDim.x;
+  constexpr int kR = kSelMaxBlocks / kSelThreads;  // lists a thread heads
+  uint32_t h[kR], head = 0;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int b = threadIdx.x + r * kSelThreads;
+    h[r] = b < n_blk ? (uint32_t)(__ldcg(blk_hi + b * K) >> 31) : 0u;
+    head = h[r] > head ? h[r] : head;
+  }
+  if (threadIdx.x == 0) n_lists = 0;
+  const uint32_t bar = block_kth<CountOrder, K>(head);  // (its barriers order n_lists)
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+    if (h[r] > 0 && h[r] >= bar) lists[atomicAdd(&n_lists, 1)] = threadIdx.x + r * kSelThreads;
+  __syncthreads();
+  WarpTop<WideOrder, K> top;
+  top.clear(bar);
+  for (int p = (threadIdx.x >> 5) * (32 / K); p < n_lists; p += kSelWarps * (32 / K)) {
+    const int li = p + lane / K;
+    const int i = li < n_lists ? lists[li] * K + lane % K : -1;
+    const Wide w = i >= 0 ? Wide{__ldcg(blk_hi + i), __ldcg(blk_lo + i)} : WideOrder::zero();
+    top.offer(w.hi != 0ull && WideOrder::count(w) >= bar, w);
+  }
+  block_top(top, list);
+  if (threadIdx.x < K) top_c[threadIdx.x] = unpack_wide(list[threadIdx.x], top_k + threadIdx.x);
+  if (threadIdx.x == 0) *ticket = 0u;
+  __syncthreads();
+  return true;
+}
+
+// accept_prefix (train_stream.py:120) and store_rules on one warp: the
+// longest prefix of the candidates top_c/top_k (shared, sorted) with no
+// failure (a count at or below `floor`, the id budget, an intersection with
+// an earlier candidate, the equal-pair guard: an earlier equal pair of a
+// larger count).  Lane j tests candidate j against every earlier one (a
+// failure past the prefix does not matter); the first failing lane ends it.
+// Writes the accepted [x, y, z, count] rows to cand and rules; returns
+// their number.  Every lane of the calling warp calls it (k <= 16).
+__device__ int accept_prefix_warp(const int *top_c, const unsigned long long *top_k, int k,
+                                  int used, int vocab, int floor, int32_t *cand, int32_t *rules,
+                                  int used_ids0) {
+  const int j = threadIdx.x & 31;
+  bool fail = true;
+  int c = 0;
+  int32_t x = 0, y = 0;
+  if (j < k) {
+    c = top_c[j];
+    x = (int32_t)(top_k[j] >> 32);
+    y = (int32_t)(uint32_t)top_k[j];
+    fail = c <= floor || c <= 0 || j >= vocab - used;
+    for (int i = 0; i < j; ++i) {
+      const int32_t xi = (int32_t)(top_k[i] >> 32), yi = (int32_t)(uint32_t)top_k[i];
+      fail |= yi == x || xi == y || (xi == yi && top_c[i] > c);
+    }
+  }
+  const int n_acc = __ffs(__ballot_sync(kFullMask, fail)) - 1;  // lane k fails
+  if (j < n_acc) {
     const int z = used + j;
     int32_t *row = rules + (size_t)(z - used_ids0) * 4;
     cand[j * 4] = row[0] = x;
     cand[j * 4 + 1] = row[1] = y;
     cand[j * 4 + 2] = row[2] = z;
     cand[j * 4 + 3] = row[3] = c;
-    if (x == y && c > prev_eq) prev_eq = c;
-    ++n_acc;
   }
   return n_acc;
 }

@@ -37,7 +37,8 @@
 // Kernels (one wrapper each in tiered_kernels.py):
 //   tier_select   top-16 of the hot table; when its top count is <= T or the
 //                 hot table overflowed, a refresh round: top-16 of the full
-//                 table with no floor.  accept_prefix + store_rules.
+//                 table with no floor.  accept_prefix + store_rules.  Two
+//                 launches a round (see its section).
 //   apply_blocks  one thread a row tests the row's signature against the
 //                 accepted pairs and lists the rows that may hold one; one
 //                 warp a listed row finds the hits (pairs never cross a word:
@@ -133,74 +134,89 @@ __device__ void hot_add(unsigned long long *keys, int32_t *cnts, int cap, int32_
 }
 
 // -- tier_select -------------------------------------------------------------
+//
+// Two launches a round (four before): tier_hot ranks the hot table and
+// accepts from it, or marks a refresh round; tier_full ranks the full table
+// on a refresh round and returns at once on a hot round.  Both are
+// grid_topk (train_common.cuh) with the acceptance in the last block.
+//
+// Bound.  A hot round reads the hot table's counts (2^17 slots at the 100 MB
+// point: 0.5 MB) and the keys of its live slots, ~0.45 us a round at 3.35
+// TB/s (PERF.md row 6a: 1.464 ms over 3247 rounds); a refresh round reads
+// the full table's as well.  The old design took ~75 us a round
+// (select_bench.py, H100 80GB HBM3, 700 W: hot_blocks 42 us, hot_select 25
+// us): four launches, two of them a single block merging up to 4096
+// entries, 32 blocks of 128 threads on the hot table, and lists of 16 whose
+// keys loaded one insert at a time.  The new one is train_common.cuh's
+// top-k section, on 128 blocks of 256 threads for the hot table (one per
+// 1024 slots), with the merge of the block lists and the acceptance in the
+// last block of the same launch.
 
-__global__ void __launch_bounds__(kTopThreads)
-    hot_blocks_kernel(const unsigned long long *hkeys, const int32_t *hcnts, int hslots,
-                      unsigned long long *blk_k, int32_t *blk_c, const int32_t *ctl, int limit,
-                      int vocab) {
-  if (!round_active(ctl, limit, vocab)) return;
-  topk_scan(hkeys, hcnts, hslots, blk_k, blk_c);
-}
-
-__global__ void __launch_bounds__(kTopThreads)
-    hot_select_kernel(const unsigned long long *blk_k, const int32_t *blk_c, int n_blk,
-                      int32_t *ctl, int32_t *cand, int32_t *rules, int limit, int vocab,
-                      int used_ids0, int k) {
+__global__ void __launch_bounds__(kSelThreads, 2)
+    tier_hot_kernel(const unsigned long long *hkeys, const int32_t *hcnts, int hslots,
+                    unsigned long long *blk_hi, uint32_t *blk_lo, unsigned *ticket, int32_t *ctl,
+                    int32_t *cand, int32_t *rules, int limit, int vocab, int used_ids0, int k,
+                    bool wide) {
   __shared__ int top_c[kK];
   __shared__ unsigned long long top_k[kK];
-  const bool active = round_active(ctl, limit, vocab);
-  __syncthreads();
-  if (!active) {
-    if (threadIdx.x == 0) {
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  // every block reads the round control before it takes its ticket; only
+  // block 0's lead (on the early exits, slots no block reads) and the last
+  // block write it
+  if (!round_active(ctl, limit, vocab)) {
+    if (lead) {
       ctl[NACC] = 0;
       ctl[ACTIVE] = 0;
       ctl[REFRESH] = 0;
     }
     return;
   }
-  topk_merge(blk_k, blk_c, n_blk, top_c, top_k);
-  if (threadIdx.x != 0) return;
-  ctl[ACTIVE] = 1;
-  const int T = ctl[THRESH];
-  if (ctl[HOT_OVF] || top_c[0] <= T) {
-    ctl[REFRESH] = 1;
-    ctl[NACC] = 0;
+  if (ctl[HOT_OVF]) {  // a refresh round, whatever the hot table holds
+    if (lead) {
+      ctl[ACTIVE] = 1;
+      ctl[REFRESH] = 1;
+      ctl[NACC] = 0;
+    }
     return;
   }
+  const int used = ctl[USED], T = ctl[THRESH];  // loaded now, used by the last block
+  if (!grid_topk<kK>(hkeys, hcnts, hslots, wide, blk_hi, blk_lo, ticket, top_c, top_k)) return;
+  if (threadIdx.x >= 32) return;
+  if (top_c[0] <= T) {
+    if (threadIdx.x == 0) {
+      ctl[ACTIVE] = 1;
+      ctl[REFRESH] = 1;
+      ctl[NACC] = 0;
+    }
+    return;
+  }
+  const int n_acc = accept_prefix_warp(top_c, top_k, k, used, vocab, T, cand, rules, used_ids0);
+  if (threadIdx.x != 0) return;
+  ctl[ACTIVE] = 1;
   ctl[REFRESH] = 0;
-  const int used = ctl[USED];
-  const int n_acc = accept_prefix_dev(top_c, top_k, k, used, vocab, T, cand, rules, used_ids0);
   ctl[USED] = used + n_acc;
   ctl[NACC] = n_acc;
-  ctl[ROUND] += 1;
+  atomicAdd(ctl + ROUND, 1);
   ctl[NBAFF] = 0;
   ctl[ZLO] = used;
 }
 
-__global__ void __launch_bounds__(kTopThreads)
-    full_blocks_kernel(const unsigned long long *keys, const int32_t *cnts, int cap,
-                       unsigned long long *blk_k, int32_t *blk_c, const int32_t *ctl) {
-  if (!ctl[ACTIVE] || !ctl[REFRESH]) return;
-  topk_scan(keys, cnts, cap, blk_k, blk_c);
-}
-
-__global__ void __launch_bounds__(kTopThreads)
-    full_select_kernel(const unsigned long long *blk_k, const int32_t *blk_c, int n_blk,
-                       int32_t *ctl, int32_t *cand, int32_t *rules, int vocab, int used_ids0,
-                       int k) {
+__global__ void __launch_bounds__(kSelThreads, 2)
+    tier_full_kernel(const unsigned long long *keys, const int32_t *cnts, int cap,
+                     unsigned long long *blk_hi, uint32_t *blk_lo, unsigned *ticket, int32_t *ctl,
+                     int32_t *cand, int32_t *rules, int vocab, int used_ids0, int k, bool wide) {
   __shared__ int top_c[kK];
   __shared__ unsigned long long top_k[kK];
-  const bool go = ctl[ACTIVE] && ctl[REFRESH];
-  __syncthreads();
-  if (!go) return;
-  topk_merge(blk_k, blk_c, n_blk, top_c, top_k);
+  if (!ctl[ACTIVE] || !ctl[REFRESH]) return;
+  const int used = ctl[USED];  // loaded now, used by the last block
+  if (!grid_topk<kK>(keys, cnts, cap, wide, blk_hi, blk_lo, ticket, top_c, top_k)) return;
+  if (threadIdx.x >= 32) return;
+  const int n_acc = accept_prefix_warp(top_c, top_k, k, used, vocab, 0, cand, rules, used_ids0);
   if (threadIdx.x != 0) return;
-  const int used = ctl[USED];
-  const int n_acc = accept_prefix_dev(top_c, top_k, k, used, vocab, 0, cand, rules, used_ids0);
   ctl[USED] = used + n_acc;
   ctl[NACC] = n_acc;
   ctl[DONE] = n_acc == 0;
-  ctl[ROUND] += 1;
+  atomicAdd(ctl + ROUND, 1);
   ctl[NBAFF] = 0;
   ctl[ZLO] = used;
 }
@@ -646,28 +662,29 @@ __global__ void __launch_bounds__(256)
 
 extern "C" {
 
-// One round's selection: hot_blocks, hot_select, and (refresh rounds only)
-// full_blocks, full_select.  blk_* hold max(hn_blk, fn_blk) * 16 entries.
+// One round's selection: tier_hot on hn_blk blocks, then tier_full on
+// fn_blk blocks (a no-op but on refresh rounds).  blk_hi and blk_lo hold
+// max(hn_blk, fn_blk) * 16 entries of scratch; *ticket is 0 (each launch
+// leaves it so).  cnts and hcnts are 16-byte aligned.
 int yttm_tiered_select(const void *keys, const void *cnts, int cap, const void *hkeys,
-                       const void *hcnts, int hslots, void *blk_k, void *blk_c, int hn_blk,
-                       int fn_blk, void *ctl, void *cand, void *rules, int limit, int vocab,
-                       int used_ids0, int k, void *stream) {
-  if (cap <= 0 || hslots <= 0 || hn_blk <= 0 || fn_blk <= 0 || k <= 0 || k > kK)
+                       const void *hcnts, int hslots, void *blk_hi, void *blk_lo, int hn_blk,
+                       int fn_blk, void *ticket, void *ctl, void *cand, void *rules, int limit,
+                       int vocab, int used_ids0, int k, void *stream) {
+  if (cap <= 0 || hslots <= 0 || hn_blk <= 0 || fn_blk <= 0 || hn_blk > kSelMaxBlocks ||
+      fn_blk > kSelMaxBlocks || k <= 0 || k > kK ||
+      ((uintptr_t)cnts & 15u) || ((uintptr_t)hcnts & 15u))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int32_t *c = (int32_t *)ctl;
-  hot_blocks_kernel<<<hn_blk, kTopThreads, 0, s>>>(
+  const bool wide = vocab > 65536;  // ids below vocab: narrow words hold them all
+  tier_hot_kernel<<<hn_blk, kSelThreads, 0, s>>>(
       (const unsigned long long *)hkeys, (const int32_t *)hcnts, hslots,
-      (unsigned long long *)blk_k, (int32_t *)blk_c, c, limit, vocab);
-  hot_select_kernel<<<1, kTopThreads, 0, s>>>(
-      (const unsigned long long *)blk_k, (const int32_t *)blk_c, hn_blk, c, (int32_t *)cand,
-      (int32_t *)rules, limit, vocab, used_ids0, k);
-  full_blocks_kernel<<<fn_blk, kTopThreads, 0, s>>>(
-      (const unsigned long long *)keys, (const int32_t *)cnts, cap,
-      (unsigned long long *)blk_k, (int32_t *)blk_c, c);
-  full_select_kernel<<<1, kTopThreads, 0, s>>>(
-      (const unsigned long long *)blk_k, (const int32_t *)blk_c, fn_blk, c, (int32_t *)cand,
-      (int32_t *)rules, vocab, used_ids0, k);
+      (unsigned long long *)blk_hi, (uint32_t *)blk_lo, (unsigned *)ticket, c, (int32_t *)cand,
+      (int32_t *)rules, limit, vocab, used_ids0, k, wide);
+  tier_full_kernel<<<fn_blk, kSelThreads, 0, s>>>(
+      (const unsigned long long *)keys, (const int32_t *)cnts, cap, (unsigned long long *)blk_hi,
+      (uint32_t *)blk_lo, (unsigned *)ticket, c, (int32_t *)cand, (int32_t *)rules, vocab,
+      used_ids0, k, wide);
   return (int)cudaGetLastError();
 }
 

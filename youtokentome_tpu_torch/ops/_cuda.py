@@ -111,9 +111,10 @@ def load_stream() -> ctypes.CDLL:
 def load_topk() -> ctypes.CDLL:
     """Build (if needed) and load the trainers' shared top-k."""
     return _load("train_topk.cu", "libtrain_topk.so", {
-        # keys, cnts, cap, blk_k, blk_c, n_blk, ctl, cand, rules, limit,
-        # vocab, used_ids0, k, n_own, work, stream
-        "yttm_topk_accept": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _p, _i, _i, _i, _i, _i, _p, _p]),
+        # keys, cnts, cap, blk_hi, blk_lo, n_blk, ticket, ctl, cand, rules,
+        # limit, vocab, used_ids0, k, n_own, work, stream
+        "yttm_topk_accept": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p,
+                                  _p]),
     })
 
 
@@ -131,10 +132,10 @@ def load_train() -> ctypes.CDLL:
 def load_tiered() -> ctypes.CDLL:
     """Build (if needed) and load the tiered trainer's kernels."""
     return _load("train_tiered.cu", "libtrain_tiered.so", {
-        # keys, cnts, cap, hkeys, hcnts, hslots, blk_k, blk_c, hn_blk, fn_blk,
-        # ctl, cand, rules, limit, vocab, used_ids0, k, stream
-        "yttm_tiered_select": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _i, _i, _p, _p, _p, _i, _i, _i,
-                                    _i, _p]),
+        # keys, cnts, cap, hkeys, hcnts, hslots, blk_hi, blk_lo, hn_blk,
+        # fn_blk, ticket, ctl, cand, rules, limit, vocab, used_ids0, k, stream
+        "yttm_tiered_select": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _i, _i, _p, _p, _p, _p, _i, _i,
+                                    _i, _i, _p]),
         # tok, wid, freq, sig, B, NB, rows, ctl, cand, keys, cnts, cap, hkeys,
         # hcnts, hslots, count_mode, kb1, kb2, stream
         "yttm_tiered_apply": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _i, _i,

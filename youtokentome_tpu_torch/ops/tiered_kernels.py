@@ -49,6 +49,7 @@ import torch
 from . import _cuda
 from .train_block import _apply_rowwise
 from .train_delta import _next_pow2
+from .train_kernels import select_blocks, select_scratch
 from .train_stream import (
     _topk_candidates,
     accept_prefix,
@@ -73,11 +74,6 @@ EMPTY = -1  # int64 all ones: the key of an empty slot
 K_MAX = 16  # the kernels' candidates per round
 FOLD_CHUNK = 256  # rows a block of the fold's counting sort takes
 SEL_N = 2048 + 8  # the resplit's scratch: a radix histogram and its state
-
-
-def _n_blk(slots: int) -> int:
-    """Top-k pass 1: one block per 4096 slots, at most 256 blocks."""
-    return max(1, min(256, slots // 4096))
 
 
 class TieredState:
@@ -111,9 +107,8 @@ class TieredState:
         self.cnts = torch.zeros(cap, dtype=torch.int32, device=self.device)
         self.hkeys = torch.full((hslots,), EMPTY, dtype=torch.int64, device=self.device)
         self.hcnts = torch.zeros(hslots, dtype=torch.int32, device=self.device)
-        n = max(_n_blk(cap), _n_blk(hslots)) * K_MAX
-        self.blk_k = torch.empty(n, dtype=torch.int64, device=self.device)
-        self.blk_c = torch.empty(n, dtype=torch.int32, device=self.device)
+        n_blk = max(select_blocks(cap), select_blocks(hslots))
+        self.blk_hi, self.blk_lo, self.ticket = select_scratch(n_blk, self.device)
 
     def set_stream(self, tok, wid, sig):
         self.tok, self.wid, self.sig = tok, wid, sig
@@ -319,8 +314,9 @@ def tier_select(st: TieredState, limit: int, vocab_size: int, used_ids0: int, k:
     with torch.cuda.device(st.device):
         err = lib.yttm_tiered_select(
             st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.hkeys.data_ptr(),
-            st.hcnts.data_ptr(), st.hslots, st.blk_k.data_ptr(), st.blk_c.data_ptr(),
-            _n_blk(st.hslots), _n_blk(st.cap), st.ctl.data_ptr(), st.cand.data_ptr(),
+            st.hcnts.data_ptr(), st.hslots, st.blk_hi.data_ptr(), st.blk_lo.data_ptr(),
+            select_blocks(st.hslots), select_blocks(st.cap), st.ticket.data_ptr(),
+            st.ctl.data_ptr(), st.cand.data_ptr(),
             st.rules.data_ptr(), int(limit), int(vocab_size), int(used_ids0), int(k),
             _stream_ptr(st.device),
         )

@@ -62,12 +62,30 @@ W_ROUNDS, W_OCC, W_SLOTS, W_OWN = range(4)
 EMPTY = -1  # int64 all ones: the key of an empty slot
 K_MAX = 16  # the kernels' candidates per round
 BATCH = 1024  # rounds an engine enqueues between two reads of ctl
+# the selection's grid (csrc/train_common.cuh grid_topk): a 256-thread block
+# per 1024 slots, at most two on each of the H100's 132 SMs
+SEL_SLOTS, SEL_MAX_BLOCKS = 1024, 264
+
+
+def select_blocks(slots: int) -> int:
+    """Blocks of the selection over a table of ``slots``: the number of
+    lists of K_MAX words its scratch holds."""
+    return max(1, min(SEL_MAX_BLOCKS, -(-slots // SEL_SLOTS)))
+
+
+def select_scratch(n_blk: int, device):
+    """The selection's scratch for ``n_blk`` blocks: each block's K_MAX
+    words (hi int64, lo int32) and the ticket of the last block (0 between
+    launches)."""
+    return (torch.empty(n_blk * K_MAX, dtype=torch.int64, device=device),
+            torch.empty(n_blk * K_MAX, dtype=torch.int32, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device))
 
 
 class TableState:
     """The open-addressing pair-count table of a kernel trainer's state:
     ``keys`` (int64, EMPTY when free) and ``cnts`` (int32) of ``cap``
-    slots, with the top-k's per-block scratch, and the round control.  The
+    slots, with the top-k's scratch, and the round control.  The
     state sets ``device``; ``n_own`` of its ``ctl`` slots from CTL_OWN start
     every round at 0."""
 
@@ -87,10 +105,8 @@ class TableState:
         self.cap = cap
         self.keys = torch.full((cap,), EMPTY, dtype=torch.int64, device=self.device)
         self.cnts = torch.zeros(cap, dtype=torch.int32, device=self.device)
-        # top-k pass 1: one block per 4096 slots, at most 256 blocks
-        self.n_blk = max(1, min(256, cap // 4096))
-        self.blk_k = torch.empty(self.n_blk * K_MAX, dtype=torch.int64, device=self.device)
-        self.blk_c = torch.empty(self.n_blk * K_MAX, dtype=torch.int32, device=self.device)
+        self.n_blk = select_blocks(cap)
+        self.blk_hi, self.blk_lo, self.ticket = select_scratch(self.n_blk, self.device)
 
     def table(self):
         """The table's slots as a sorted (key, count) multiset (numpy),
@@ -248,6 +264,48 @@ def topk_accept_plain(st: TableState, limit: int, vocab_size: int, used_ids0: in
     st.work[W_SLOTS] += st.cap
 
 
+def order_words(cnt: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor, wide: bool = False):
+    """The selection kernels' words for the reference order
+    (``csrc/train_common.cuh`` NarrowOrder, WideOrder): a larger word ranks
+    first, a dead entry (count <= 0) is the smallest.  Narrow, for ids below
+    65536: the unsigned 64-bit word ``count << 33 | (0xFFFF - max) << 17 |
+    (0xFFFF - min) << 1 | (x == max)`` (0 when dead), returned as one int64
+    tensor less 2**63, which keeps its order.  Wide: (hi, lo) int64 tensors,
+    ``count << 31 | (2**31 - 1 - max)`` and ``(2**31 - 1 - min) << 1 | (x ==
+    max)``, compared hi first."""
+    live = cnt > 0
+    c = torch.where(live, cnt, torch.zeros_like(cnt)).long()
+    x, y = xs.long(), ys.long()
+    mx, mn = torch.maximum(x, y), torch.minimum(x, y)
+    xbit = (x == mx).long()
+    zero = torch.zeros_like(c)
+    if not wide:
+        rest = torch.where(live, ((0xFFFF - mx) << 17) | ((0xFFFF - mn) << 1) | xbit, zero)
+        return (c - (1 << 30)) * (1 << 33) + rest
+    hi = torch.where(live, (c << 31) | (0x7FFFFFFF - mx), zero)
+    lo = torch.where(live, ((0x7FFFFFFF - mn) << 1) | xbit, zero)
+    return hi, lo
+
+
+def words_decode(words, wide: bool = False):
+    """(cc, cx, cy) int32 of ``order_words``' words; a dead word gives count
+    0 (and ids that mean nothing)."""
+    if not wide:
+        c = (words >> 33) + (1 << 30)
+        mx = 0xFFFF - ((words >> 17) & 0xFFFF)
+        mn = 0xFFFF - ((words >> 1) & 0xFFFF)
+        xbit = (words & 1).bool()
+    else:
+        hi, lo = words
+        c = hi >> 31
+        mx = 0x7FFFFFFF - (hi & 0x7FFFFFFF)
+        mn = 0x7FFFFFFF - (lo >> 1)
+        xbit = (lo & 1).bool()
+    cx = torch.where(xbit, mx, mn)
+    cy = torch.where(xbit, mn, mx)
+    return c.to(torch.int32), cx.to(torch.int32), cy.to(torch.int32)
+
+
 def merge_listed_plain(st: TrainState):
     """apply_delta's merge, plain: lists the words with an accepted pair
     (``ctl[NAFF]``), merges and compacts them in ``st.tok``.  Returns the
@@ -353,8 +411,8 @@ def topk_accept(st: TableState, limit: int, vocab_size: int, used_ids0: int, k: 
     lib = _cuda.load_topk()
     with torch.cuda.device(st.device):
         err = lib.yttm_topk_accept(
-            st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.blk_k.data_ptr(),
-            st.blk_c.data_ptr(), st.n_blk, st.ctl.data_ptr(), st.cand.data_ptr(),
+            st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.blk_hi.data_ptr(),
+            st.blk_lo.data_ptr(), st.n_blk, st.ticket.data_ptr(), st.ctl.data_ptr(), st.cand.data_ptr(),
             st.rules.data_ptr(), int(limit), int(vocab_size), int(used_ids0), int(k),
             st.n_own, st.work.data_ptr(), _stream_ptr(st.device),
         )
