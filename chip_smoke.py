@@ -13,7 +13,9 @@ and v0 sharded over a 4-shard data mesh on the one card, and prints
 timings.  Phases, in
 order (any failure exits nonzero):
 
-  1. device and build: the card's name and power limit; nvcc/g++ builds
+  1. device and build: the card's name and power limit; nvcc/g++ builds;
+     the selection kernels' registers, shared and local memory
+     (``cuobjdump -res-usage``)
   2. kernel vs plain version: random rows for every cap 8..512 at
      R = 8192, int32 and uint16 wire, exact equality with the plain torch
      version (on the card) and with the C++ ``RuleTable.merge_words``
@@ -90,7 +92,9 @@ order (any failure exits nonzero):
      ``ops.train_kernel.run_training`` at vocab 30000, launches counted,
      rules equal to phase 5's v2 rules; times (merge loop, merges/s, each
      kernel's device ms) and bounds from the work each run's data gave the
-     kernels; the plain versions timed over each run's first ids
+     kernels (the top-k's keys: at k = 16 phase 5's, whose rounds see the
+     same live counts; at k = 1 counted in v0's run, on the card); the
+     plain versions timed over each run's first ids
  10. the data mesh, 4 shards on card 0 (one card: the sharded engine and its
      exchange, not multi-card scaling).  Encode (row 11, run after phase 8):
      every main-path chunk through the sharded route equals the one-device
@@ -105,9 +109,10 @@ order (any failure exits nonzero):
      rebuilds), every replica's table equal to the plain loop's live table
      at every segment end; the main path ``train.train(corpus, model,
      30000, mesh=...)`` with no knob takes the sharded trainer, launches
-     counted, rules equal to phase 5's v2 rules; times (merge loop,
-     merges/s, recount rounds, exchange volume), each kernel's device ms,
-     bounds from the run's work counters, plain versions over its first ids
+     counted, rules equal to phase 5's v2 rules; times (merge loop twice,
+     merges/s, recount rounds, exchange volume), each kernel's device ms
+     beside the loop's time, bounds from the run's work counters, plain
+     versions over its first ids
  11. the other sharded trainers on 4 shards of card 0, run after phase 10:
      v3 (csrc/train_sparse_sharded.cu: sparse_emit, sparse_shard_recount,
      with phase 10's shard_fold), v1 and v0 (their shard counts in
@@ -124,7 +129,7 @@ order (any failure exits nonzero):
      ``train.train`` with ``YTTM_TRAIN_IMPL=sparse`` on the mesh,
      ``run_training_stream_sharded`` and ``run_training_sharded``, rules
      equal to phase 5's v2 rules; times, bounds and plain versions as in
-     phase 10
+     phase 10, and v3's merge loop twice more without the profiler
 
 The second-to-last line is a JSON ``kernels`` record, the line before
 it the card; the last line is ``{"ok": true, "device": {...}}``.  It
@@ -206,7 +211,32 @@ def phase_device_and_build() -> dict:
     check(fasttok.available(), "the C++ tokenizer did not build")
     check(fastio._load() is not None, "the C++ formatter did not build")
     log(f"[1] kernels and host helpers built in {build_s:.2f} s")
+    for line in resource_usage([_cuda.load_topk()._name, _cuda.load_tiered()._name],
+                               ("topk_select_kernel", "tier_hot_kernel", "tier_full_kernel")):
+        log(f"[1] {line}")
     return {"card": card, "build_s": build_s}
+
+
+def resource_usage(libs, kernels) -> list:
+    """What ``cuobjdump -res-usage`` reports of the named kernels in the
+    built libraries: registers, shared memory and local memory (spills) a
+    thread.  A line saying so when the toolkit has no cuobjdump."""
+    from youtokentome_tpu_torch.ops import _cuda
+
+    tool = Path(_cuda._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return [f"resource usage: no {tool}"]
+    out = []
+    for lib in libs:
+        res = subprocess.run([str(tool), "-res-usage", lib], capture_output=True, text=True)
+        lines = res.stdout.splitlines()
+        for fn_line, use in zip(lines, lines[1:]):
+            name = next((k for k in kernels if k in fn_line), None)
+            if name and fn_line.strip().startswith("Function"):
+                tmpl = "<1>" if "ILi1E" in fn_line else ("<16>" if "ILi16E" in fn_line else "")
+                out.append(f"resource usage {name}{tmpl}: " + " ".join(
+                    f for f in use.split() if f.split(":")[0] in ("REG", "SHARED", "LOCAL", "STACK")))
+    return out
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -1061,6 +1091,42 @@ def library_topk_ms(keys, cnts, k: int = 16) -> float:
     return a.elapsed_time(b)
 
 
+def selection_keys(cnts, k: int):
+    """The keys that one round's selection over the counts ``cnts`` must
+    read (a 0-d tensor on their device; no sync): those of the live slots
+    whose count reaches the k-th largest count (every live slot while
+    fewer than k live).  A slot below that count ranks after k others
+    whatever its key, so its count alone rules it out."""
+    import torch
+
+    if k == 1:
+        bar = cnts.max()
+    else:
+        bar = torch.topk(cnts, min(k, cnts.numel()), sorted=False).values.min()
+    return (cnts >= bar.clamp(min=1)).sum()
+
+
+class KeyTally:
+    """A topk_accept that also sums, on the device, the keys each active
+    round's selection must read (``selection_keys``; a round is active
+    when the top-k counts it in ``work``).  Swapped in for the name an
+    engine module calls, it leaves the launch counts to the real wrapper."""
+
+    def __init__(self, real):
+        self.real, self.total = real, None
+
+    def __call__(self, st, limit, vocab_size, used_ids0, k=16):
+        from youtokentome_tpu_torch.ops import train_kernels as tk
+
+        r0 = st.work[tk.W_ROUNDS].clone()
+        self.real(st, limit, vocab_size, used_ids0, k)
+        add = selection_keys(st.cnts, k) * (st.work[tk.W_ROUNDS] - r0)
+        self.total = add if self.total is None else self.total + add
+
+    def keys(self) -> int:
+        return int(self.total) if self.total is not None else 0
+
+
 def run_work(engine, vocab: int):
     """The main path's run once more, one round at a time (a round accepts
     up to 16 ids whatever its segment's end, so these are the same rounds),
@@ -1068,7 +1134,8 @@ def run_work(engine, vocab: int):
 
       pair_count   per launch: the live tokens, the words' offsets and
                    weights, and the slots the count fills (key and count)
-      topk_accept  per round: every slot's count, the live slots' keys,
+      topk_accept  per round: every slot's count, the keys of the slots
+                   whose count reaches the round's 16th (selection_keys),
                    the accepted rows; and library_topk_ms before each call
       apply_delta  per round: the live tokens; per word with a hit, its
                    offset and weight and its live slots written back; per
@@ -1080,7 +1147,8 @@ def run_work(engine, vocab: int):
     from youtokentome_tpu_torch.ops import train_kernels as tk
 
     w = {"count_launches": 0, "count_bytes": 0, "count_tokens": 0, "topk_bytes": 0,
-         "topk_slots": 0, "apply_bytes": 0, "apply_tokens": 0, "rounds": 0, "library_ms": 0.0}
+         "topk_slots": 0, "topk_keys": 0, "apply_bytes": 0, "apply_tokens": 0, "rounds": 0,
+         "library_ms": 0.0}
 
     count = tk.pair_count
 
@@ -1096,14 +1164,15 @@ def run_work(engine, vocab: int):
         eng = engine()
         st = eng.st
         while True:
-            live_slots = int((st.cnts > 0).sum())
+            keys = int(selection_keys(st.cnts, eng.batch_k))
             w["library_ms"] += library_topk_ms(st.keys, st.cnts)
             tk.topk_accept(st, vocab, vocab, eng.used_ids0, eng.batch_k)
             n_acc = int(st.ctl[tk.NACC])
             if n_acc:
                 w["rounds"] += 1
                 w["topk_slots"] += st.cap
-                w["topk_bytes"] += st.cap * 4 + live_slots * 8 + n_acc * 16
+                w["topk_keys"] += keys
+                w["topk_bytes"] += st.cap * 4 + keys * 8 + n_acc * 16
                 before = st.tok.clone()
                 tk.apply_delta(st)
                 n_aff = int(st.ctl[tk.NAFF])
@@ -1314,7 +1383,24 @@ def phase_train_main(corpus_path: Path, work: Path, sample, plain) -> dict:
     log(f"[5] times: preprocessing {prep_s:.2f} s, BPE.train {train_s:.2f} s, merge loop "
         f"{loop_s:.3f} s, {rounds} rounds, {merges / loop_s:.0f} merges/s, "
         f"plain round loop {plain_loop_s:.1f} s")
-    return {"rows": rows, "plain_rules": plain_rules, "loop_s": loop_s}
+    # the keys each round's selection must read, for the other trainers at
+    # k = 16: their rounds see the same live counts (the same rules, round
+    # by round; select_keys_of checks the round count)
+    return {"rows": rows, "plain_rules": plain_rules, "loop_s": loop_s,
+            "select_keys": {"rounds": work["rounds"], "keys": work["topk_keys"]}}
+
+
+def select_keys_of(w, select_keys: dict, replicas: int, what: str) -> int:
+    """The keys that a run's top-k rounds must read (each replica its own),
+    from another run over the same rounds: ``select_keys`` is that run's
+    {"rounds", "keys"}; ``w`` this run's work counters, summed over its
+    replicas, whose rounds must be ``replicas`` times as many."""
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    rounds = int(w[tk.W_ROUNDS])
+    check(rounds == replicas * select_keys["rounds"],
+          f"{what}: {rounds} top-k rounds, not {replicas} x {select_keys['rounds']}")
+    return replicas * select_keys["keys"]
 
 # -- phase 6: training with the v5 tiered trainer -----------------------------
 
@@ -1621,7 +1707,8 @@ def run_tiered_work(engine, vocab: int):
     the work that this run's data gives each kernel, for the bounds (bytes;
     each input read once, each output written once):
 
-      tier_select   per round: the hot table's counts and its live keys; on
+      tier_select   per round: the hot table's counts and the keys of its
+                    slots whose count reaches its 16th (selection_keys); on
                     a refresh round the full table's too; the accepted rows
       apply_blocks  per round that merges: every row's signature; per listed
                     row (NBAFF) its tokens and word ids read and written and
@@ -1645,17 +1732,16 @@ def run_tiered_work(engine, vocab: int):
     real = {name: getattr(tk, name) for name in TIERED_KERNELS}
 
     def select(st, limit, vocab_size, used_ids0, k=tk.K_MAX):
-        hot_live, full_live = int((st.hcnts > 0).sum()), int((st.cnts > 0).sum())
         n["library_ms"] += library_topk_ms(st.hkeys, st.hcnts)  # the hot pass's yardstick
-        real["tier_select"](st, limit, vocab_size, used_ids0, k)
+        real["tier_select"](st, limit, vocab_size, used_ids0, k)  # it moves no count
         n_acc, refresh, active = (int(v) for v in st.ctl[[tk.NACC, tk.REFRESH, tk.ACTIVE]].tolist())
         if active:
             n["rounds"] += 1
             n["refresh"] += refresh
-            w["tier_select"] += st.hslots * 4 + hot_live * 8 + n_acc * 16
+            w["tier_select"] += st.hslots * 4 + int(selection_keys(st.hcnts, k)) * 8 + n_acc * 16
             ops["tier_select"] += st.hslots * 10
             if refresh:
-                w["tier_select"] += st.cap * 4 + full_live * 8
+                w["tier_select"] += st.cap * 4 + int(selection_keys(st.cnts, k)) * 8
                 ops["tier_select"] += st.cap * 10
 
     def apply(st, kb1=0, kb2=0, count_mode=False):
@@ -2517,16 +2603,17 @@ def phase_diff_mid(mid_path: Path, dev) -> dict:
     return out
 
 
-def diff_work(name: str, eng, count_calls) -> tuple:
+def diff_work(name: str, eng, count_calls, keys: int) -> tuple:
     """Bytes and operations that the run's data gave each kernel (each
     input read once, each output written once), from the engine's work
-    counters: {wrapper: (bytes, ops)}."""
+    counters and ``keys``, the keys its top-k rounds must read:
+    {wrapper: (bytes, ops)}."""
     from youtokentome_tpu_torch.ops import train_kernels as tk
 
     mod = diff_module(name)
     st, w = eng.st, [int(v) for v in eng.st.work.tolist()]
     rounds, occ, slots = w[tk.W_ROUNDS], w[tk.W_OCC], w[tk.W_SLOTS]
-    topk = (slots * 4 + occ * 8 + rounds * 16 * 16, slots * OPS_PER_SLOT)
+    topk = (slots * 4 + keys * 8 + rounds * 16 * 16, slots * OPS_PER_SLOT)
     if name == "stream":
         # the count reads t and wid of each live token and the word
         # frequencies once (freq [W] stays in L2)
@@ -2554,7 +2641,7 @@ def diff_work(name: str, eng, count_calls) -> tuple:
     slots_rows = int(st.tok.shape[0])
     return {"bucket_count": (rounds * (slots_rows * 4 + st.n_rows * 8) + occ * 12,
                              rounds * slots_rows * OPS_PER_COUNTED),
-            "topk_accept": (slots * 4 + occ * 8 + rounds * 16, slots * OPS_PER_SLOT),
+            "topk_accept": (slots * 4 + keys * 8 + rounds * 16, slots * OPS_PER_SLOT),
             "bucket_apply": (rounds * (slots_rows + st.n_rows + 1) * 4 + w[mod.W_WRITES] * 4,
                              rounds * slots_rows * OPS_PER_POS)}
 
@@ -2669,13 +2756,17 @@ def plain_diff(name: str, engine, vocab: int, used0: int) -> dict:
     return ms, eng, used
 
 
-def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str) -> dict:
+def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
+                    select_keys: dict) -> dict:
     """The main path of each differential trainer at vocab 30000: launches
     counted, rules against phase 5's v2 rules; the merge loop timed and the
     device ms of each kernel over a replica of the run under the profiler
     (v0's main path, ``run_training``, is its merge loop: it runs once,
     under the profiler); the plain versions over the run's first PLAIN_IDS
-    ids; bounds from the run's work counters."""
+    ids; bounds from the run's work counters, the top-k's keys at k = 16
+    from phase 5's rounds (``select_keys``) and at k = 1 counted in v0's
+    run (KeyTally: a few reductions a round on the card, inside its time).
+    Returns the rows, the times and v0's {"rounds", "keys"}."""
     import torch
 
     import youtokentome_tpu_torch as yttm
@@ -2688,7 +2779,7 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str) 
     buckets, al, used0 = training_buckets(corpus_path)
     char2id, want = rename_tokens(al.char2id, v2_rules, SpecialTokens(0, 1, 2, 3), TRAIN_VOCAB)
     want_rules = torch.tensor(v2_rules)
-    rows, res = [], {}
+    rows, res, keys1 = [], {}, None
     for name in DIFF_TRAINERS:
         mod = diff_module(name)
         for k in DIFF_KERNELS[name]:
@@ -2713,7 +2804,8 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str) 
                     super().__init__(*a, **k)
                     engines.append(self)
 
-            with swapped(mod, BucketedKernelEngine=Recorded):
+            tally = KeyTally(mod.topk_accept)
+            with swapped(mod, BucketedKernelEngine=Recorded, topk_accept=tally):
                 kernel_ms, train_s, got = profiled(
                     name, lambda: tk0.run_training(buckets, used0, TRAIN_VOCAB))
             check(got == v2_rules, "v0 run_training's rules != phase 5's v2 rules")
@@ -2767,7 +2859,12 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str) 
         log(f"[9] {name} merge loop (kernels): {loop_s:.3f} s, {rounds} rounds, {merges} merges, "
             f"{merges / loop_s:.0f} merges/s, {eng.rebuilds} table rebuilds, table "
             f"{eng.st.cap} slots; work {eng.st.work.tolist()}")
-        work_bo = diff_work(name, eng, count_calls)
+        if name == "bucketed":
+            keys1 = {"rounds": int(eng.st.work[tk.W_ROUNDS]), "keys": tally.keys()}
+            keys = keys1["keys"]
+        else:
+            keys = select_keys_of(eng.st.work, select_keys, 1, f"the {name} run")
+        work_bo = diff_work(name, eng, count_calls, keys)
         plain_vocab = min(TRAIN_VOCAB, used0 + PLAIN_IDS[name])
         prefix_ms = profiled(name, lambda: replica(plain_vocab))[0]
         plain_ms, p_eng, p_used = plain_diff(name, engine, plain_vocab, used0)
@@ -2792,7 +2889,7 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str) 
                      "merges_per_s": merges / loop_s}
         log(f"[9] times {name}: {what} {train_s:.2f} s, merge loop {loop_s:.3f} s, {rounds} "
             f"rounds, {merges / loop_s:.0f} merges/s ({card})")
-    return {"rows": rows, "times": res}
+    return {"rows": rows, "times": res, "select_keys1": keys1}
 
 
 # -- phase 10: the data mesh (sharded encode, sharded v2 training) -----------
@@ -3156,13 +3253,15 @@ def shard_profiled(fn):
 
 
 def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
-                     dev="cuda:0") -> dict:
+                     select_keys: dict, dev="cuda:0") -> dict:
     """The main path: ``train.train(corpus, model, vocab_size=30000,
     mesh=<4 shards on cuda:0>)`` with no knob takes the sharded trainer
     (not v5), launches counted, rules equal to phase 5's v2 rules, the
-    model encodes and decodes; the merge loop timed; each kernel's device
-    ms over a replica under the profiler; bounds from the run's work
-    counters; the plain versions over the first SHARD_PLAIN_IDS ids."""
+    model encodes and decodes; the merge loop timed twice; each kernel's
+    device ms over a replica under the profiler, beside the loop's time;
+    bounds from the run's work counters, the top-k's keys from phase 5's
+    rounds (``select_keys``); the plain versions over the first
+    SHARD_PLAIN_IDS ids."""
     import torch
 
     import youtokentome_tpu_torch as yttm
@@ -3211,17 +3310,22 @@ def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
         f"launches {launches}")
 
     want_rules = torch.tensor(v2_rules)
-    eng = shard_engine(buckets, used0, TRAIN_VOCAB, dev=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    used, nrec = run_shards(eng, TRAIN_VOCAB, used0)
-    torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t0
-    check(torch.equal(eng.rules[: used - used0, :3].cpu(), want_rules), "the timed run's rules differ")
+    loops = []
+    for _ in range(2):  # twice, so that the host's spread shows beside the loop's time
+        eng = shard_engine(buckets, used0, TRAIN_VOCAB, dev=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        used, nrec = run_shards(eng, TRAIN_VOCAB, used0)
+        torch.cuda.synchronize()
+        loops.append(time.perf_counter() - t0)
+        check(torch.equal(eng.rules[: used - used0, :3].cpu(), want_rules),
+              "the timed run's rules differ")
+    loop_s = loops[0]
     rounds, merges = int(eng.shards[0].ctl[tk.ROUND]), used - used0
     w = np.sum([st.work.cpu().numpy() for st in eng.shards], axis=0)
     entries = int(w[dsk.W_ENTRIES])
-    log(f"[10] merge loop ({SHARDS} shards): {loop_s:.3f} s, {rounds} rounds, {merges} merges, "
+    log(f"[10] merge loop ({SHARDS} shards): {loop_s:.3f} s (again: {loops[1]:.3f} s), {rounds} "
+        f"rounds, {merges} merges, "
         f"{merges / loop_s:.0f} merges/s, {nrec} recount rounds, {eng.rebuilds} rebuilds, "
         f"{eng.relays} relays, dcap {eng.dcap}, tables {eng.shards[0].cap} slots ({card})")
     log(f"[10] exchange: {entries} buffer entries written ({entries * 12 / max(rounds, 1):.0f} B a "
@@ -3233,11 +3337,15 @@ def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
         e = shard_engine(buckets, used0, vocab, dev=dev)
         return e, run_shards(e, vocab, used0)[0]
 
-    kernel_ms, (p_eng, p_used) = shard_profiled(lambda: replica(TRAIN_VOCAB))
+    kernel_ms, prof_s, (p_eng, p_used) = traced(lambda: replica(TRAIN_VOCAB), SHARD_DEVICE_FNS)
     check(torch.equal(p_eng.rules[: p_used - used0, :3].cpu(), want_rules),
           "the profiled run's rules differ")
     for k, v in kernel_ms.items():
         check(v > 0, f"the profiler recorded no device time for {k}")
+    busy_s = sum(kernel_ms.values()) / 1e3
+    log(f"[10] the loop's kernels: {busy_s:.3f} s on the card, {busy_s / min(loops):.1%} of the "
+        f"faster unprofiled loop ({min(loops):.3f} s); the replica under torch.profiler took "
+        f"{prof_s:.3f} s ({card})")
     plain_vocab = used0 + SHARD_PLAIN_IDS
     prefix_ms, _ = shard_profiled(lambda: replica(plain_vocab))
     plain_ms = {k: 0.0 for k in SHARD_DEVICE_FNS}
@@ -3262,8 +3370,9 @@ def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
     # bounds: the bytes each kernel must move, from the run's work counters
     # (each input read once, each output written once), operations at
     # OPS_PER_POS a 4-byte word
-    rounds_all, occ, slots = int(w[tk.W_ROUNDS]), int(w[tk.W_OCC]), int(w[tk.W_SLOTS])
-    bytes_ = {"topk_accept": slots * 4 + occ * 8 + rounds_all * 16 * 16,
+    rounds_all, slots = int(w[tk.W_ROUNDS]), int(w[tk.W_SLOTS])
+    keys = select_keys_of(w, select_keys, SHARDS, "the sharded v2 run")
+    bytes_ = {"topk_accept": slots * 4 + keys * 8 + rounds_all * 16 * 16,
               "delta_emit": int(w[dsk.W_EMIT]), "shard_recount": int(w[dsk.W_COUNT]),
               "shard_fold": int(w[dsk.W_FOLD]), "shard_relay": int(w[dsk.W_RELAY])}
     ops = {k: (slots * OPS_PER_SLOT if k == "topk_accept" else b // 4 * OPS_PER_POS)
@@ -3280,8 +3389,8 @@ def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {plain_ms[k]:.1f} ms over the "
             f"first {SHARD_PLAIN_IDS} ids (kernel {prefix_ms[k]:.3f} ms) ({card})")
     log(f"[10] the main path's timings took {time.perf_counter() - t_phase:.1f} s after train.train")
-    return {"rows": rows, "train_s": train_s, "loop_s": loop_s, "rounds": rounds,
-            "merges_per_s": merges / loop_s, "recounts": nrec}
+    return {"rows": rows, "train_s": train_s, "loop_s": loop_s, "loop2_s": loops[1],
+            "busy_s": busy_s, "rounds": rounds, "merges_per_s": merges / loop_s, "recounts": nrec}
 
 
 # -- phase 11: the other sharded trainers (v3, v1, v0) on the data mesh ------
@@ -3537,10 +3646,11 @@ def other_profiled(name: str, fn, tracer=None):
     return traced(fn, {k: OTHER_DEVICE_FNS[k] for k in OTHER_KERNELS[name]}, tracer)
 
 
-def other_work(name: str, eng) -> dict:
+def other_work(name: str, eng, keys: int) -> dict:
     """Bytes and operations that the run's data gave each kernel of the
     sharded trainer ``name`` (each input read once, each output written
-    once), from the shards' work counters: {wrapper: (bytes, ops)}."""
+    once), from the shards' work counters and ``keys``, the keys its top-k
+    rounds must read: {wrapper: (bytes, ops)}."""
     from youtokentome_tpu_torch.ops import bucketed_kernels as bk
     from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
     from youtokentome_tpu_torch.ops import stream_train_kernels as stk
@@ -3551,7 +3661,7 @@ def other_work(name: str, eng) -> dict:
     rounds, occ, slots = int(w[tk.W_ROUNDS]), int(w[tk.W_OCC]), int(w[tk.W_SLOTS])
     kb = 1 if name == "bucketed" else 16
     fold = (int(w[dsk.W_FOLD]), int(w[dsk.W_FOLD]) // 4 * OPS_PER_POS)
-    out = {"topk_accept": (slots * 4 + occ * 8 + rounds * 16 * kb, slots * OPS_PER_SLOT)}
+    out = {"topk_accept": (slots * 4 + keys * 8 + rounds * 16 * kb, slots * OPS_PER_SLOT)}
     if name == "sparse":
         out["shard_fold"] = fold
     else:
@@ -3613,7 +3723,7 @@ def plain_other(name: str, engine, vocab: int, used0: int):
 
 
 def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
-                           dev="cuda:0", prepared=None) -> dict:
+                           select_keys: dict, dev="cuda:0", prepared=None) -> dict:
     """The main paths of row 13 on 4 shards of the card at vocab 30000, each
     run once under torch.profiler, its launches counted: ``train.train``
     with ``YTTM_TRAIN_IMPL=sparse`` and a mesh (the sharded v3 trainer; its
@@ -3621,10 +3731,13 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
     ``run_training_stream_sharded`` and ``run_training_sharded`` (rules
     equal phase 5's v2 rules); the merge loop timed inside each run (from
     the engine's first count to the end); each kernel's device ms from the
-    profiler; bounds from the run's work counters; the plain versions over
-    the first OTHER_PLAIN_IDS ids beside the kernels' device ms there.
-    ``prepared`` is the corpus's (buckets, alphabet, used_ids0) when the
-    caller has them."""
+    profiler; bounds from the run's work counters, the top-k's keys from
+    the rounds of phase 5 (k = 16) and of v0 in phase 9 (k = 1):
+    ``select_keys`` {16: ..., 1: ...}; the plain versions over the first
+    OTHER_PLAIN_IDS ids beside the kernels' device ms there; v3's merge
+    loop twice more without the profiler, beside its kernels' device
+    time.  ``prepared`` is the corpus's (buckets, alphabet, used_ids0) when
+    the caller has them."""
     import torch
 
     import youtokentome_tpu_torch as yttm
@@ -3733,7 +3846,9 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
         log(f"[11] {name} sharded merge loop: {loop_s:.3f} s (under torch.profiler), {rounds} rounds, "
             f"{merges} merges, {merges / loop_s:.0f} merges/s, {eng.rebuilds} table rebuilds, tables "
             f"{head.cap} slots{extra} ({card})")
-        work_bo = other_work(name, eng)
+        kb = 1 if name == "bucketed" else 16
+        work_bo = other_work(name, eng, select_keys_of(
+            w, select_keys[kb], SHARDS, f"the {name} sharded run"))
 
         def engine(vocab, name=name):
             return other_engine(name, buckets, used0, vocab, dev=dev)
@@ -3741,6 +3856,23 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
         def replica(vocab):
             e = engine(vocab)
             return e, ts.run_to_end(e, used0, vocab)
+
+        if name == "sparse":
+            loops = []
+            for _ in range(2):
+                e = engine(TRAIN_VOCAB)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                u = ts.run_to_end(e, used0, TRAIN_VOCAB)
+                torch.cuda.synchronize()
+                loops.append(time.perf_counter() - t0)
+                check(torch.equal(e.rules[: u - used0, :3].cpu(), want_rules),
+                      "the unprofiled sharded v3 run's rules differ")
+            busy_s = sum(kernel_ms.values()) / 1e3
+            res_extra.update(loops_s=loops, busy_s=busy_s)
+            log(f"[11] sparse sharded merge loop without the profiler: {loops[0]:.3f} s, "
+                f"{loops[1]:.3f} s; its kernels {busy_s:.3f} s on the card under the profiler, "
+                f"{busy_s / min(loops):.1%} of the faster loop ({card})")
 
         plain_ids = OTHER_PLAIN_IDS[name]
         plain_vocab = used0 + plain_ids
@@ -3781,7 +3913,9 @@ def other_rows(other: dict) -> list:
 
 def log_other(other: dict, card: str) -> None:
     log(f"[11] {SHARDS} shards on cuda:0, merge loops (under torch.profiler): " + ", ".join(
-        f"{k} {v['loop_s']:.3f} s ({v['merges_per_s']:.0f} merges/s, {v['rounds']} rounds)"
+        f"{k} {v['loop_s']:.3f} s ({v['merges_per_s']:.0f} merges/s, {v['rounds']} rounds"
+        + (", without the profiler " + ", ".join(f"{x:.3f} s" for x in v["loops_s"])
+           if "loops_s" in v else "") + ")"
         for k, v in other["times"].items()) + f" ({card})")
 
 
@@ -3882,14 +4016,17 @@ def main() -> int:
     buckets, _, used0 = training_buckets(corpus_path)
     phase_diff_kernels(buckets, used0, dev)
     del buckets
-    diff = phase_diff_main(corpus_path, work, sample, train["plain_rules"], info["card"])
+    diff = phase_diff_main(corpus_path, work, sample, train["plain_rules"], info["card"],
+                           train["select_keys"])
     buckets, _, used0 = training_buckets(corpus_path)
     phase_shard_kernels(buckets, used0)
     del buckets
-    shard = phase_shard_main(corpus_path, work, sample, train["plain_rules"], info["card"])
+    shard = phase_shard_main(corpus_path, work, sample, train["plain_rules"], info["card"],
+                             train["select_keys"])
     prepared = training_buckets(corpus_path)
     phase_other_shard_kernels(prepared[0], prepared[2])
     other = phase_other_shard_main(corpus_path, work, sample, train["plain_rules"], info["card"],
+                                   {16: train["select_keys"], 1: diff["select_keys1"]},
                                    prepared=prepared)
 
     source = "youtokentome_tpu_torch/csrc/encode_greedy.cu"
@@ -3970,7 +4107,8 @@ def main() -> int:
         f"{k} {v['loop_s']:.3f} s ({v['merges_per_s']:.0f} merges/s)"
         for k, v in diff["times"].items()) + f" ({info['card']})")
     log(f"[10] {SHARDS} shards on cuda:0: encode {shard_enc['mbps']:.2f} MB/s; train.train "
-        f"{shard['train_s']:.2f} s, merge loop {shard['loop_s']:.3f} s ({shard['merges_per_s']:.0f} "
+        f"{shard['train_s']:.2f} s, merge loop {shard['loop_s']:.3f} s and {shard['loop2_s']:.3f} s "
+        f"({shard['merges_per_s']:.0f} "
         f"merges/s, {shard['rounds']} rounds, {shard['recounts']} recount rounds) ({info['card']})")
     log_other(other, info["card"])
     log(f"[4] build {info['build_s']:.2f} s, whole run {time.perf_counter() - t_start:.1f} s")

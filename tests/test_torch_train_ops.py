@@ -5,6 +5,9 @@ delta trainer's table and delta helpers and one segment of its round loop
 (ops/train_kernels.py).  Inputs are made from seeds with numpy; every
 comparison is exact."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -317,6 +320,21 @@ def test_kernel_wrappers_reject_other_devices():
         tk.apply_delta(st)
     with pytest.raises(ValueError, match="batch_k"):
         tk.topk_accept(st, 20, 20, 10, k=17)
+
+
+@pytest.mark.parametrize("slots,want", [(1, 1), (1 << 14, 16), ((1 << 14) + 1, 17),
+                                        (1 << 22, tk.SEL_MAX_BLOCKS)])
+def test_select_blocks_and_scratch(slots, want):
+    """The selection's grid: a block per SEL_SLOTS slots, at least one, at
+    most SEL_MAX_BLOCKS, which is the kernels' kSelMaxBlocks (the lists
+    their last block can pick from; on a card, two blocks an SM below it);
+    the scratch holds K_MAX words a block and a zero ticket."""
+    src = (Path(tk.__file__).resolve().parent.parent / "csrc" / "train_common.cuh").read_text()
+    threads = int(re.search(r"kSelThreads = (\d+);", src).group(1))
+    assert "kSelMaxBlocks = 2 * kSelThreads;" in src and tk.SEL_MAX_BLOCKS == 2 * threads
+    assert tk.select_blocks(slots, "cpu") == want
+    hi, lo, ticket = tk.select_scratch(want, "cpu")
+    assert hi.shape == lo.shape == (want * tk.K_MAX,) and int(ticket.sum()) == 0
 
 
 # -- host preprocessing of the training corpus (the JAX package's) -----------

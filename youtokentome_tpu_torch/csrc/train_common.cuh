@@ -182,11 +182,12 @@ __device__ void add_word(const int32_t *tok, int n, int32_t delta, Mode mode,
 // train_tiered.cu's tier_hot / tier_full call grid_topk.
 //
 // Bound.  The round must read every slot's count (4 B) and the key (8 B) of
-// each slot it ranks: on v2's table of 2^22 slots, ~5 us at 3.35 TB/s;
-// on v5's hot table of 2^17 slots, ~0.2 us.
+// each slot whose count reaches the K-th largest (a slot below it ranks
+// after K others whatever its key): on v2's table of 2^22 slots, ~5 us at
+// 3.35 TB/s; on v5's hot table of 2^17 slots, ~0.2 us.
 //
-// What held the old design back (measured with select_bench.py and a
-// timer trace inside the kernels; H100 80GB HBM3, 700 W): two launches a
+// What held the old design back (measured with torch.profiler and a timer
+// trace inside the kernels; H100 80GB HBM3, 700 W): two launches a
 // round, pass 1 (the scan, 150 us a round on v2's run) with a thread's
 // sorted list of 16 (count, key) pairs (80 registers) whose key loaded
 // inside each insert, one memory latency after another, and block merges
@@ -201,7 +202,9 @@ __device__ void add_word(const int32_t *tok, int n, int32_t delta, Mode mode,
 //    JAX package's narrow packing, train_stream.py _topk_candidates).
 //    Wider ids take WideOrder, a 64-bit word and a 32-bit one compared in
 //    turn.  The launch picks narrow when vocab <= 65536; a block that meets
-//    an id above 65535 in narrow order scans its share again in wide order.
+//    an id above 65535 in narrow order scans its share again in wide order
+//    (training never does, its ids being below vocab; tables built for the
+//    checks put ids from 70000 under vocab 30000).
 //  * the selection in warps.  A warp keeps its top 16 over lanes 0-15 and
 //    reads 4 int4 of counts a lane at a time (512 slots), the next chunk's
 //    loads in flight while a chunk is handled.  A slot is offered only when

@@ -141,11 +141,11 @@ __device__ void hot_add(unsigned long long *keys, int32_t *cnts, int cap, int32_
 // grid_topk (train_common.cuh) with the acceptance in the last block.
 //
 // Bound.  A hot round reads the hot table's counts (2^17 slots at the 100 MB
-// point: 0.5 MB) and the keys of its live slots, ~0.45 us a round at 3.35
-// TB/s (PERF.md row 6a: 1.464 ms over 3247 rounds); a refresh round reads
-// the full table's as well.  The old design took ~75 us a round
-// (select_bench.py, H100 80GB HBM3, 700 W: hot_blocks 42 us, hot_select 25
-// us): four launches, two of them a single block merging up to 4096
+// point: 0.5 MB) and the keys of its slots whose count reaches the 16th
+// largest, ~0.2 us a round at 3.35 TB/s (PERF.md row 6a sums it over the
+// run's rounds); a refresh round reads the full table's as well.  The old
+// design took ~75 us a round (torch.profiler, H100 80GB HBM3, 700 W:
+// hot_blocks 42 us, hot_select 25 us): four launches, two of them a single block merging up to 4096
 // entries, 32 blocks of 128 threads on the hot table, and lists of 16 whose
 // keys loaded one insert at a time.  The new one is train_common.cuh's
 // top-k section, on 128 blocks of 256 threads for the hot table (one per

@@ -17,18 +17,20 @@
 //                order (count desc, max(x,y) asc, min(x,y) asc, x desc) and
 //                keeps its top 16 (with k = 1 its top one); the last block
 //                to finish merges the block lists (grid_topk,
-//                train_common.cuh), and one of its threads runs
-//                accept_prefix (the equal-pair guard, count floor, id
-//                budget, intersections), writes rules, cand and ctl, and
-//                sums the round's work
+//                train_common.cuh), and one of its warps runs
+//                accept_prefix_warp (the equal-pair guard, count floor, id
+//                budget, intersections; a lane a candidate), writes rules,
+//                cand and ctl, and sums the round's work
 //
-// Bound.  A round reads every slot's count (4 B a slot) and the keys of the
-// live slots (8 B each): on v2's 100 MB / vocab-30000 table, 2^22 slots at
-// the end, ~6 us a round at 3.35 TB/s (PERF.md row 5b: 20.16 ms over 3317
-// rounds).  The old design took ~200 us a round (select_bench.py, H100
-// 80GB HBM3, 700 W: pass 1 150 us, pass 2 53 us): two launches, a
-// thread's list of 16 with a key loaded inside each insert, block merges of
-// 16 argmax rounds, and a second pass on one block.  The new one is
+// Bound.  A round reads every slot's count (4 B a slot) and the keys (8 B
+// each) of the slots whose count reaches the round's 16th largest, since
+// any other slot ranks below 16 others whatever its key: on v2's 100 MB /
+// vocab-30000 table, 2^22 slots at the end, ~5 us a round at 3.35 TB/s
+// (PERF.md row 5b sums it over the run's rounds).  The old design took ~200
+// us a round (torch.profiler, H100 80GB HBM3, 700 W: pass 1 150 us, pass 2
+// 53 us): two launches, a thread's list of 16 with a key loaded inside each
+// insert, block merges of 16 argmax rounds, and a second pass on one
+// block.  The new one is
 // train_common.cuh's top-k section: one word a slot, warp queues behind a
 // count bar, keys loaded in batches, bitonic merges, and the cross-block
 // merge and a warp's acceptance in the last block of the same launch.

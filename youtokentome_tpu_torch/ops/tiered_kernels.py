@@ -107,7 +107,7 @@ class TieredState:
         self.cnts = torch.zeros(cap, dtype=torch.int32, device=self.device)
         self.hkeys = torch.full((hslots,), EMPTY, dtype=torch.int64, device=self.device)
         self.hcnts = torch.zeros(hslots, dtype=torch.int32, device=self.device)
-        n_blk = max(select_blocks(cap), select_blocks(hslots))
+        n_blk = max(select_blocks(cap, self.device), select_blocks(hslots, self.device))
         self.blk_hi, self.blk_lo, self.ticket = select_scratch(n_blk, self.device)
 
     def set_stream(self, tok, wid, sig):
@@ -315,7 +315,7 @@ def tier_select(st: TieredState, limit: int, vocab_size: int, used_ids0: int, k:
         err = lib.yttm_tiered_select(
             st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.hkeys.data_ptr(),
             st.hcnts.data_ptr(), st.hslots, st.blk_hi.data_ptr(), st.blk_lo.data_ptr(),
-            select_blocks(st.hslots), select_blocks(st.cap), st.ticket.data_ptr(),
+            select_blocks(st.hslots, st.device), select_blocks(st.cap, st.device), st.ticket.data_ptr(),
             st.ctl.data_ptr(), st.cand.data_ptr(),
             st.rules.data_ptr(), int(limit), int(vocab_size), int(used_ids0), int(k),
             _stream_ptr(st.device),

@@ -38,6 +38,7 @@ counted again at twice the size).
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 
@@ -63,14 +64,26 @@ EMPTY = -1  # int64 all ones: the key of an empty slot
 K_MAX = 16  # the kernels' candidates per round
 BATCH = 1024  # rounds an engine enqueues between two reads of ctl
 # the selection's grid (csrc/train_common.cuh grid_topk): a 256-thread block
-# per 1024 slots, at most two on each of the H100's 132 SMs
-SEL_SLOTS, SEL_MAX_BLOCKS = 1024, 264
+# per 1024 slots, at most SEL_BLOCKS_PER_SM on each SM (the kernels'
+# __launch_bounds__: two blocks an SM fit their registers), and at most
+# SEL_MAX_BLOCKS (kSelMaxBlocks: the lists the last block can pick from)
+SEL_SLOTS, SEL_BLOCKS_PER_SM, SEL_MAX_BLOCKS = 1024, 2, 512
 
 
-def select_blocks(slots: int) -> int:
-    """Blocks of the selection over a table of ``slots``: the number of
-    lists of K_MAX words its scratch holds."""
-    return max(1, min(SEL_MAX_BLOCKS, -(-slots // SEL_SLOTS)))
+@functools.lru_cache(maxsize=None)
+def _sel_max_blocks(device: torch.device) -> int:
+    """The selection's most blocks on ``device``: two an SM of a card,
+    SEL_MAX_BLOCKS on the CPU (where the plain versions use no scratch)."""
+    if device.type != "cuda":
+        return SEL_MAX_BLOCKS
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(SEL_MAX_BLOCKS, SEL_BLOCKS_PER_SM * sms)
+
+
+def select_blocks(slots: int, device) -> int:
+    """Blocks of the selection over a table of ``slots`` on ``device``: the
+    number of lists of K_MAX words its scratch holds."""
+    return max(1, min(_sel_max_blocks(torch.device(device)), -(-slots // SEL_SLOTS)))
 
 
 def select_scratch(n_blk: int, device):
@@ -105,7 +118,7 @@ class TableState:
         self.cap = cap
         self.keys = torch.full((cap,), EMPTY, dtype=torch.int64, device=self.device)
         self.cnts = torch.zeros(cap, dtype=torch.int32, device=self.device)
-        self.n_blk = select_blocks(cap)
+        self.n_blk = select_blocks(cap, self.device)
         self.blk_hi, self.blk_lo, self.ticket = select_scratch(self.n_blk, self.device)
 
     def table(self):
