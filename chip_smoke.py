@@ -14,8 +14,9 @@ timings.  Phases, in
 order (any failure exits nonzero):
 
   1. device and build: the card's name and power limit; nvcc/g++ builds;
-     the selection kernels' registers, shared and local memory
-     (``cuobjdump -res-usage``)
+     the selection and apply kernels' registers, shared and local memory
+     (``cuobjdump -res-usage``); every device function that a phase times
+     by name is a kernel of the built libraries
   2. kernel vs plain version: random rows for every cap 8..512 at
      R = 8192, int32 and uint16 wire, exact equality with the plain torch
      version (on the card) and with the C++ ``RuleTable.merge_words``
@@ -27,16 +28,22 @@ order (any failure exits nonzero):
      (R, cap) with CUDA events, and the plain version's time
   5. training (csrc/train_delta.cu, and csrc/train_topk.cu: the top-k that
      every trainer but v5 shares): pair_count, topk_accept (also on
-     tie-heavy tables, narrow and wide ids, at k = 1, 2, 15 and 16) and
-     apply_delta each equal to its plain version on the 100 MB corpus's
-     state; the selection's edge tables (``phase_select_checks``: 2^14,
+     tie-heavy tables, narrow and wide ids, at k = 1, 2, 15 and 16),
+     apply_delta and relay each equal to its plain version on the 100 MB
+     corpus's state; the selection's edge tables (``phase_select_checks``: 2^14,
      2^17 and 2^22 slots, ids from 0, up to 65535 and from 70000, no live
      slot, one, 15, a tie at the 16th place across blocks; tier_select's
      hot, refresh and hot-overflow rounds on tie-heavy hot and full
-     tables); a 10 MB prefix at
+     tables); the applies' edge rounds (``phase_apply_checks``: apply_delta
+     and phase 6's apply_blocks on crafted streams, ids from 5 and from
+     70000: runs of equal ids, chained candidates, words of 33-600 tokens,
+     rows of 64 and 128 slots full and nearly empty, a round hitting nearly
+     every word, one hitting none, a v2 table that the round fills past
+     half); a 10 MB prefix at
      vocab 8000 through the kernels (small table, rebuilt) and the plain
      round loop in lockstep, equal at every segment end; the main path
-     ``BPE.train(data, model, vocab_size=30000)``, launches counted, rules
+     ``BPE.train(data, model, vocab_size=30000)``, launches counted (the
+     stream's relay among them), rules
      equal to the plain round loop's on the card, the model's encode and
      decode round trip; times: preprocessing, merge loop, rounds,
      merges/s, each kernel's device ms (torch.profiler) and its plain
@@ -211,9 +218,13 @@ def phase_device_and_build() -> dict:
     check(fasttok.available(), "the C++ tokenizer did not build")
     check(fastio._load() is not None, "the C++ formatter did not build")
     log(f"[1] kernels and host helpers built in {build_s:.2f} s")
-    for line in resource_usage([_cuda.load_topk()._name, _cuda.load_tiered()._name],
-                               ("topk_select_kernel", "tier_hot_kernel", "tier_full_kernel")):
+    libs = [lib._name for lib in _cuda._libs.values()]
+    for line in resource_usage(libs, ("topk_select_kernel", "tier_hot_kernel", "tier_full_kernel",
+                                      "delta_apply_kernel", "tier_apply_kernel",
+                                      "mark_words_kernel", "emit_words_kernel")):
         log(f"[1] {line}")
+    log(f"[1] name maps: the {check_name_maps(libs)} device functions the phases time by name "
+        f"are kernels of the built libraries")
     return {"card": card, "build_s": build_s}
 
 
@@ -237,6 +248,45 @@ def resource_usage(libs, kernels) -> list:
                 out.append(f"resource usage {name}{tmpl}: " + " ".join(
                     f for f in use.split() if f.split(":")[0] in ("REG", "SHARED", "LOCAL", "STACK")))
     return out
+
+
+def device_functions(libs) -> set:
+    """The device functions (mangled names) that ``cuobjdump -res-usage``
+    lists in the built libraries; None without cuobjdump."""
+    from youtokentome_tpu_torch.ops import _cuda
+
+    tool = Path(_cuda._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    names = set()
+    for lib in libs:
+        res = subprocess.run([str(tool), "-res-usage", lib], capture_output=True, text=True,
+                             check=True)
+        names.update(ln.split()[1].rstrip(":") for ln in res.stdout.splitlines()
+                     if ln.strip().startswith("Function"))
+    return names
+
+
+def check_name_maps(libs) -> int:
+    """Every device function name that a phase sums the profiler's times
+    by (the *_DEVICE_FNS maps, the stream stages' shared scans, the encode
+    and dropout kernels) is a kernel of the built libraries: a kernel
+    renamed or merged without its map would read 0 ms, or part of its
+    time, without an error."""
+    built = device_functions(libs)
+    if built is None:
+        log("[1] name maps: no cuobjdump, not checked")
+        return 0
+    maps = [TRAIN_DEVICE_FNS, TIERED_DEVICE_FNS, DIFF_DEVICE_FNS, STREAM_DEVICE_FNS,
+            SHARD_DEVICE_FNS, OTHER_DEVICE_FNS,
+            {"shared": tuple(f for f in STREAM_SHARED_FNS if f.endswith("_kernel")),
+             "encode": ("encode_greedy_kernel", "encode_dropout_kernel")}]
+    listed = {f for m in maps for names in m.values() for f in names}
+    # a mangled name holds the function's name after its length
+    missing = sorted(f for f in listed
+                     if not any(f"{len(f)}{f}" in name for name in built))
+    check(not missing, f"device functions listed for the profiler but not built: {missing}")
+    return len(listed)
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -670,19 +720,24 @@ MID_VOCAB = 8000
 # times in the mid-size run
 MID_PCAP = 256
 TRAIN_SEG = 1000  # ids per segment, as run_training_delta sets it with the merge log on
-TRAIN_KERNELS = ("pair_count", "topk_accept", "apply_delta")
+TRAIN_KERNELS = ("pair_count", "topk_accept", "apply_delta", "relay")
 # the device functions of each wrapper, as the profiler names them
 TRAIN_DEVICE_FNS = {
     "pair_count": ("pair_count_kernel",),
     "topk_accept": ("topk_select_kernel",),
-    "apply_delta": ("mark_words_kernel", "apply_words_kernel"),
+    "apply_delta": ("delta_apply_kernel",),
+    "relay": ("relay_len_kernel", "relay_write_kernel", "tile_sums_kernel", "tile_offsets_kernel",
+              "scan_apply_kernel"),
 }
 # integer operations per element, for the operations bound: a table slot
 # in topk_accept (load, compare with the list's last, loop: 10), a stream
 # position in apply_delta's pass 1 (two loads, 16 compares: 20) and in
 # pair_count (loads, parity scan, hash and probe: 40)
 OPS_PER_SLOT, OPS_PER_POS, OPS_PER_COUNTED = 10, 20, 40
-TRAIN_REPLACES = "youtokentome_tpu/ops/train_delta.py:210"
+TRAIN_REPLACES = {name: "youtokentome_tpu/ops/train_delta.py:210" for name in TRAIN_KERNELS}
+# the kernel engine lays its word-laid stream out again where the JAX host
+# loop slices its front-compacted one (the re-pack)
+TRAIN_REPLACES["relay"] = "youtokentome_tpu/ops/train_delta.py:473"
 # the trainers' shared top-k (v2, v1, v3, v4, and v0 with k = 1)
 TOPK_SOURCE = "youtokentome_tpu_torch/csrc/train_topk.cu"
 
@@ -937,9 +992,177 @@ def tiered_select_checks(dev) -> int:
                 n += 1
     return n
 
+# the applies' edge checks: ids from 5 and from 70000 (above the narrow
+# words' 65535), v5 rows of these sizes
+APPLY_BASES = (5, 70000)
+APPLY_BS = (64, 128)
+APPLY_HCAP = 64  # T is the count at rank 32: cold keys in every round
+
+
+def edge_words(base: int, rng, long_v2: bool):
+    """Words (lists of ids from ``base``) for the applies' edge checks: runs
+    of one id of every length 1-9 inside other ids (run parity), chains of
+    candidates, words of 33-60 tokens (and one of 600 when ``long_v2``), and
+    2,000 random words over six ids (nearly every one holds a candidate)."""
+    a, b, c, d = base, base + 1, base + 2, base + 3
+    words = [[d] + [a] * r + [b] for r in range(1, 10)]
+    words += [[a] * 7, [a, a, d, a, a, a, d, a], [b, c, d], [b, c, d, c, d], [c, d, b, c],
+              [b, c, c, d], [d, a, a, b, c, d]]
+    for n in (33, 40, 60):
+        words.append([base + int(v) for v in rng.integers(0, 4, n)])
+    if long_v2:
+        words.append([base + int(v) for v in rng.integers(0, 4, 600)])
+    for n in rng.integers(2, 15, 2000):
+        words.append([base + int(v) for v in rng.integers(0, 6, n)])
+    return words
+
+
+def edge_rounds(base: int):
+    """(what, candidates [x, y]) of the applies' edge rounds: equal ids in
+    runs, chains ((b, c) with (c, d), (d, a) with (a, a)) and a pair
+    absent from the words; then 16 pairs of the six ids, which nearly every
+    word holds (the contended keys); then pairs that no word holds."""
+    a, b, c, d = base, base + 1, base + 2, base + 3
+    many = [(base + i, base + j) for i in range(6) for j in range(6) if i != j][:15]
+    return [("run parity and chains", [(a, a), (b, c), (c, d), (d, a), (base + 50, base + 51)]),
+            ("nearly every word hit", [(a, a)] + many),
+            ("no word hit", [(base + 60, base + 61), (base + 62, base + 60)])]
+
+
+def set_round(st, cands, used: int) -> None:
+    """Make ``cands`` ([x, y] pairs) the accepted rows of a new round of
+    kernel state ``st`` (z from ``used`` on); ctl slots as a selection
+    leaves them (v2 and v5 share the slots below CTL_OWN)."""
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    rows = np.array([[x, y, used + j, 1] for j, (x, y) in enumerate(cands)], np.int32)
+    st.cand.zero_()
+    st.cand[: len(cands)] = torch_of(rows, st.device)
+    st.ctl[tk.NACC] = len(cands)
+    st.ctl[tk.ROUND] += 1
+
+
+def torch_of(a: np.ndarray, dev):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def flat_words(words, rng):
+    """(t, wid, freq) of a flat stream holding ``words`` in order, weights
+    1-5."""
+    t = np.concatenate([np.asarray(w, np.int32) for w in words])
+    wid = np.repeat(np.arange(len(words), dtype=np.int32), [len(w) for w in words])
+    return t, wid, rng.integers(1, 6, len(words)).astype(np.int32)
+
+
+def row_words(words, B: int, rng):
+    """(t, wid, freq) of a block stream of rows of B slots holding
+    ``words`` in order: words packed while they fit, every fifth row holding
+    one word only (nearly empty), a row of B tokens first (full)."""
+    full = [[words[0][0]] * B]
+    rows, cur = [], []
+    for w in full + list(words):
+        if cur and (sum(map(len, cur)) + len(w) > B or len(rows) % 5 == 4):
+            rows.append(cur)
+            cur = []
+        cur.append(w)
+    rows.append(cur)
+    t = np.full((len(rows), B), -1, np.int32)
+    wid = np.full((len(rows), B), -1, np.int32)
+    k = 0
+    for r, row in enumerate(rows):
+        at = 0
+        for w in row:
+            t[r, at : at + len(w)] = w
+            wid[r, at : at + len(w)] = k
+            at += len(w)
+            k += 1
+    return t.reshape(-1), wid.reshape(-1), rng.integers(1, 6, k).astype(np.int32)
+
+
+def phase_apply_checks(dev) -> dict:
+    """apply_delta (v2) and apply_blocks (v5) against their plain versions
+    on crafted streams (``edge_words``, ids from 5 and from 70000), in each
+    of ``edge_rounds``: v2 with a table of twice the count's slots and
+    one snug to them (the round's new pairs may pass half of it: the
+    overflow flag), v5 with rows of 64 and 128 slots, full and nearly
+    empty, in a hot round (T above 0: cold keys stay out of the hot table) and
+    a refresh round.  The tables as key -> count maps (count-0 slots
+    included), the streams, signatures and ctl (OCC, OVERFLOW, the hot
+    table's, NBAFF and the round's stats) must be equal."""
+    from youtokentome_tpu_torch.ops import tiered_kernels as tdk
+    from youtokentome_tpu_torch.ops import train_delta as td
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    t0 = time.perf_counter()
+    n, ovf = 0, 0
+    for base in APPLY_BASES:
+        rng = np.random.default_rng(base)
+        used = base + 100
+        t, wid, freq = flat_words(edge_words(base, rng, True), rng)
+        rules = np.full((used + 64, 4), -1, np.int32)
+        for what, cands in edge_rounds(base):
+            cap = 1 << 14
+            for snug in (False, True):
+                st = tk.TrainState(t, wid, freq, rules, used, cap, dev)
+                tk.pair_count(st)
+                occ0 = int(st.ctl[tk.OCC])
+                check(not int(st.ctl[tk.OVERFLOW]), "the edge count overflowed")
+                set_round(st, cands, used)
+                p_st = clone_state(st)
+                tk.apply_delta(st)
+                tk.apply_delta_plain(p_st)
+                label = f"apply_delta, {what}, ids from {base}, {cap} slots"
+                same_state(st, p_st, label)
+                check(not int(st.ctl[tk.ERROR]), f"{label}: the table lost a pair")
+                ovf += int(st.ctl[tk.OVERFLOW])
+                n += 1
+                # then a table snug to the slots the count and the round
+                # take (never full), which the round may fill past half
+                cap = max(td._next_pow2(2 * occ0), td._next_pow2(int(st.ctl[tk.OCC])))
+        for B in APPLY_BS:
+            t, wid, freq = row_words(edge_words(base, rng, False), B, rng)
+            st = tdk.TieredState(t, wid, freq, rules, used, B, 1 << 14, 1 << 12, dev)
+            p_st = clone_state(st)
+            tdk.apply_blocks(st, count_mode=True)
+            plain_tiered_count(p_st)
+            same_tiered(st, p_st, f"apply_blocks count mode, B {B}, ids from {base}")
+            # the hot tier as a refresh round's resplit leaves it, T above 0
+            st.ctl[[tdk.REFRESH, tdk.NACC]] = 1
+            tdk.resplit(st, APPLY_HCAP)
+            st.ctl[[tdk.REFRESH, tdk.NACC]] = 0
+            check(int(st.ctl[tdk.THRESH]) > 0 and not int(st.ctl[tdk.HOT_OVF]),
+                  f"the edge rows' hot tier: T {int(st.ctl[tdk.THRESH])}")
+            for what, cands in edge_rounds(base):
+                for refresh in (0, 1):
+                    k_st = clone_state(st)
+                    set_round(k_st, cands, used)
+                    k_st.ctl[[tdk.REFRESH, tdk.ACTIVE, tdk.ZLO, tdk.NBAFF]] = torch_of(
+                        np.array([refresh, 1, used, 0], np.int32), dev)
+                    p_st = clone_state(k_st)
+                    tdk.apply_blocks(k_st, 4, 64)
+                    tdk.apply_blocks_plain(p_st, False, 4, 64)
+                    label = (f"apply_blocks, {what}, {'refresh' if refresh else 'hot'} round, "
+                             f"B {B}, ids from {base}")
+                    same_tiered(k_st, p_st, label)
+                    check(int(k_st.ticket[0]) == 0 and int(k_st.hits[0]) == 0,
+                          f"{label}: the ticket and row count were left at {k_st.ticket}, {k_st.hits}")
+                    if not refresh and not int(k_st.ctl[tdk.HOT_OVF]):
+                        check_hot_tier(k_st, label)
+                    n += 1
+    log(f"[5-6] apply_delta and apply_blocks == plain on {n} edge rounds: run parity, chained "
+        f"candidates, words of 33-600 tokens, rows of {APPLY_BS} slots full and nearly empty, "
+        f"ids from {APPLY_BASES}, a round hitting nearly every word, one hitting none; "
+        f"{ovf} of the v2 rounds set the overflow flag ({time.perf_counter() - t0:.1f} s)")
+    return {"rounds": n, "overflows": ovf}
+
+
 def phase_train_kernels(buckets, used0: int, dev) -> dict:
     """Each training kernel against its plain version on the card, on the
     main path's state (the 100 MB corpus's stream and table)."""
+    import torch
+
     from youtokentome_tpu_torch.ops import train_delta as td
     from youtokentome_tpu_torch.ops import train_kernels as tk
     from youtokentome_tpu_torch.ops import train_stream as ts
@@ -972,6 +1195,17 @@ def phase_train_kernels(buckets, used0: int, dev) -> dict:
         same_state(k_st, p_st, f"apply_delta round {r}")
         log(f"[5] round {r}: topk_accept and apply_delta == plain "
             f"({int(k_st.ctl[tk.NACC])} accepted, {int(k_st.ctl[tk.NAFF])} words hit)")
+    # the stream laid out again over its live tokens
+    k_r, p_r = clone_state(k_st), clone_state(k_st)
+    tk.relay(k_r)
+    tk.relay_plain(p_r)
+    check(all(torch.equal(getattr(k_r, f), getattr(p_r, f)) for f in ("tok", "pwid", "off", "fw")),
+          "relay: the relaid streams differ")
+    kt, kw = k_r.stream()
+    pt, pw = k_st.stream()
+    check(torch.equal(kt, pt) and torch.equal(kw, pw), "relay: the live stream changed")
+    log(f"[5] relay == plain ({k_st.tok.shape[0]} -> {k_r.tok.shape[0]} slots, the live stream "
+        f"unchanged)")
 
     # tie-heavy tables at the main path's size, narrow and wide ids, for
     # every batch size the selection's two queues serve
@@ -1176,8 +1410,10 @@ def run_work(engine, vocab: int):
                 before = st.tok.clone()
                 tk.apply_delta(st)
                 n_aff = int(st.ctl[tk.NAFF])
+                # a word with a hit changes: the words whose slots changed
                 hit = torch.zeros(st.n_words, dtype=torch.bool, device=st.device)
-                hit[st.aff[:n_aff].long()] = True
+                hit[st.pwid[(before != st.tok) & (st.pwid >= 0)].long()] = True
+                check(int(hit.sum()) == n_aff, f"{n_aff} words hit, {int(hit.sum())} changed")
                 pos = (st.pwid >= 0) & hit[st.pwid.clamp(min=0).long()]
                 old_k, old_c = tk._counted_pairs(before)
                 new_k, new_c = tk._counted_pairs(st.tok)
@@ -1302,10 +1538,11 @@ def phase_train_main(corpus_path: Path, work: Path, sample, plain) -> dict:
     loop_s = time.perf_counter() - t0
     check(torch.equal(eng.rules[: used - used0, :3].cpu(), torch.tensor(plain_rules)),
           "the timed kernel run's rules differ")
-    rounds, st = int(eng.st.ctl[tk.ROUND]), eng.st
+    rounds, st, relaid = int(eng.st.ctl[tk.ROUND]), eng.st, eng.relaid
     merges = used - used0
     log(f"[5] merge loop (kernels): {loop_s:.3f} s, {rounds} rounds, {merges} merges, "
-        f"{merges / loop_s:.0f} merges/s, {eng.rebuilds} table rebuilds, table {st.cap} slots")
+        f"{merges / loop_s:.0f} merges/s, {eng.rebuilds} table rebuilds, table {st.cap} slots, "
+        f"relays (slots before, after) {relaid}")
     t0 = time.perf_counter()
     w_eng, work = run_work(engine, TRAIN_VOCAB)
     check(torch.equal(w_eng.rules, st.rules) and work["rounds"] == rounds,
@@ -1352,6 +1589,7 @@ def phase_train_main(corpus_path: Path, work: Path, sample, plain) -> dict:
         topk_accept=timed_plain(
             "topk_accept", lambda st, limit, v, u0, k=16: tk.topk_accept_plain(st, limit, v, u0, k)),
         apply_delta=timed_plain("apply_delta", tk.apply_delta_plain),
+        relay=timed_plain("relay", tk.relay_plain),
     ):
         eng = engine()
         run_engine(eng, TRAIN_VOCAB, used0)
@@ -1361,12 +1599,16 @@ def phase_train_main(corpus_path: Path, work: Path, sample, plain) -> dict:
 
     # bounds, from this run's inputs and the work its data gave each
     # kernel (run_work): each input read once, each output written once
+    # (a relay: the stream read, the new one with its word of each slot
+    # written, the words' offsets and weights read and written)
     bytes_ = {"pair_count": work["count_bytes"], "topk_accept": work["topk_bytes"],
-              "apply_delta": work["apply_bytes"]}
+              "apply_delta": work["apply_bytes"],
+              "relay": sum(4 * m + 8 * m2 + 16 * st.n_words for m, m2 in relaid)}
     ops = {
         "pair_count": work["count_tokens"] * OPS_PER_COUNTED,
         "topk_accept": work["topk_slots"] * OPS_PER_SLOT,
         "apply_delta": work["apply_tokens"] * OPS_PER_POS,
+        "relay": sum(m for m, _ in relaid) * OPS_PER_POS,
     }
     rows = []
     for name in TRAIN_KERNELS:
@@ -1408,7 +1650,7 @@ TIERED_KERNELS = ("tier_select", "apply_blocks", "resplit", "fold_rows")
 # the device functions of each wrapper, as the profiler names them
 TIERED_DEVICE_FNS = {
     "tier_select": ("tier_hot_kernel", "tier_full_kernel"),
-    "apply_blocks": ("sig_filter_kernel", "apply_rows_kernel", "round_end_kernel"),
+    "apply_blocks": ("tier_find_kernel", "tier_apply_kernel", "tier_count_kernel"),
     "resplit": ("resplit_pass_kernel", "hot_clear_kernel", "hot_fill_kernel"),
     "fold_rows": ("fold_fills_kernel", "fold_hist_kernel", "fold_scan_kernel",
                   "fold_place_kernel", "fold_check_kernel", "fold_write_kernel"),
@@ -4008,6 +4250,7 @@ def main() -> int:
     phase_train_kernels(buckets, used0, dev)
     del buckets
     phase_select_checks(dev)
+    phase_apply_checks(dev)
     train = phase_train_main(corpus_path, work, sample, checks["plain_v2"])
     buckets, _, used0 = training_buckets(corpus_path)
     phase_tiered_kernels(buckets, used0, dev)
@@ -4048,7 +4291,7 @@ def main() -> int:
             "name": r["name"], "route": "cuda",
             "source": TOPK_SOURCE if r["name"] == "topk_accept" else (
                 "youtokentome_tpu_torch/csrc/train_delta.cu"),
-            "replaces": TRAIN_REPLACES, "launches": r["launches"], "max_abs_err": 0,
+            "replaces": TRAIN_REPLACES[r["name"]], "launches": r["launches"], "max_abs_err": 0,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "equal": True,
         }

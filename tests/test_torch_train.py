@@ -125,9 +125,13 @@ def test_tiny_capacities(knob, engine, monkeypatch):
         assert regrows
 
 
-def test_repack_invariance(monkeypatch):
-    """The plain engine's re-packing (halving the padded stream) changes
-    nothing: forced to re-pack often, it equals the JAX run without."""
+def test_repack_invariance(engine, monkeypatch):
+    """Laying the stream out again changes nothing: the plain engine's
+    re-packing (halving the padded stream), forced often, and the kernel
+    engine's relay (once the live tokens fill less than half the word-laid
+    stream), each equal the JAX run without re-packing."""
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
     rng = random.Random(11)
     text = " ".join("".join(rng.choice("abcd") for _ in range(rng.randint(2, 9))) for _ in range(600))
     monkeypatch.setenv("YTTM_TRAIN_REPACK", "0")
@@ -135,10 +139,11 @@ def test_repack_invariance(monkeypatch):
     monkeypatch.setenv("YTTM_TRAIN_REPACK", "1")
     monkeypatch.setenv("YTTM_TRAIN_REPACK_MIN", "16")
     monkeypatch.setenv("YTTM_TRAIN_PROGRESS", "8")
-    orig = td.run_training_delta
-    monkeypatch.setattr(port, "run_training_delta", lambda *a, **k: orig(*a, **k, plain=True))
+    relays = []
+    monkeypatch.setattr(tk, "relay", lambda st, f=tk.relay: (relays.append(st.tok.shape[0]), f(st)))
     b = port.train_from_codepoints(_cps(text), 120, BpeConfig(1.0, 1, SpecialTokens(0, 1, 2, 3)), "cpu")
     _assert_same(a, b)
+    assert bool(relays) == (engine == "kernels")
 
 
 def _text(seed, n=600, alphabet="abc "):
@@ -219,12 +224,19 @@ def test_wide_vocab():
         assert td.run_training_delta(buckets, used0, vocab, plain=plain) == want
 
 
-@pytest.mark.parametrize("writer", ["jax", "port"])
-def test_checkpoint_resumes_across_packages(writer, tmp_path):
+@pytest.fixture(scope="module")
+def checkpoint_case():
+    """The checkpoint tests' corpus and the JAX rules, computed once for both
+    writers."""
     buckets, used0 = _buckets(_zipf_text(9, n=2000), 0)
     vocab = used0 + 150
+    return buckets, used0, vocab, jtd.run_training_delta(buckets, used0, vocab)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_checkpoint_resumes_across_packages(writer, tmp_path, checkpoint_case):
+    buckets, used0, vocab, want = checkpoint_case
     ck = str(tmp_path / "ck.npz")
-    want = jtd.run_training_delta(buckets, used0, vocab)
     if writer == "jax":
         jtd.run_training_delta(buckets, used0, vocab, checkpoint_path=ck, checkpoint_every=40)
         snap_used = int(np.load(ck)["used"])

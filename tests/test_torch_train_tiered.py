@@ -211,14 +211,23 @@ def test_long_word_falls_back_to_delta(plain, monkeypatch):
     assert calls and calls[0]["plain"] == plain
 
 
-@pytest.mark.parametrize("writer", ["jax", "port"])
-def test_checkpoint_resumes_across_packages(writer, tmp_path):
-    """A checkpoint written by one package resumes in the other; the two
-    packages' checkpoints at the same id are byte for byte the same arrays."""
+@pytest.fixture(scope="module")
+def jax_checkpoint(tmp_path_factory):
+    """The checkpoint tests' corpus, the JAX tiered run's rules and the
+    checkpoint it wrote, computed once for both writers."""
     buckets, u0 = _buckets(9)
     vocab = u0 + 150
-    ck_j, ck_p = str(tmp_path / "j.npz"), str(tmp_path / "p.npz")
+    ck_j = str(tmp_path_factory.mktemp("jax_checkpoint") / "j.npz")
     want = jtt.run_training_tiered(buckets, u0, vocab, checkpoint_path=ck_j, checkpoint_every=40)
+    return buckets, u0, vocab, ck_j, want
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_checkpoint_resumes_across_packages(writer, tmp_path, jax_checkpoint):
+    """A checkpoint written by one package resumes in the other; the two
+    packages' checkpoints at the same id are byte for byte the same arrays."""
+    buckets, u0, vocab, ck_j, want = jax_checkpoint
+    ck_p = str(tmp_path / "p.npz")
     tt.run_training_tiered(buckets, u0, vocab, checkpoint_path=ck_p, checkpoint_every=40)
     j, p = np.load(ck_j), np.load(ck_p)
     assert u0 < int(j["used"]) < vocab

@@ -134,6 +134,30 @@ __device__ void table_add(unsigned long long *keys, int32_t *cnts, int cap, int3
   atomicExch(ctl + OVF, 1);  // the table is full: rebuilt by the host
 }
 
+// The first slot of a key's probe sequence and the key it holds, loaded
+// ahead so that a lane's several updates have their loads in flight together
+// (table_add_from).
+struct Probe {
+  unsigned s;
+  unsigned long long k;
+};
+
+__device__ __forceinline__ Probe probe_first(const unsigned long long *keys, int cap,
+                                             unsigned long long key) {
+  const unsigned s = (unsigned)hash64(key) & ((unsigned)cap - 1u);
+  return Probe{s, __ldcg(keys + s)};
+}
+
+// table_add after probe_first: a key found in its first slot takes the
+// delta there; any other walks the probe sequence as table_add does.
+template <int OCC, int OVF, int ERR>
+__device__ __forceinline__ void table_add_from(unsigned long long *keys, int32_t *cnts, int cap,
+                                               int32_t *ctl, unsigned long long key,
+                                               int32_t delta, Mode mode, Probe p) {
+  if (p.k == key) atomicAdd(cnts + p.s, delta);
+  else table_add<OCC, OVF, ERR>(keys, cnts, cap, ctl, key, delta, mode);
+}
+
 __device__ __forceinline__ int warp_max_scan(int v) {
   const int lane = threadIdx.x & 31;
 #pragma unroll

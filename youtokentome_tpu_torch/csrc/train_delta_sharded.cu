@@ -60,8 +60,9 @@
 //                  replica has, shard_gather copies every other part p from
 //                  replica p and sums the parts' counts into OCC (more than
 //                  half the table, or a full part, sets OVERFLOW).
-//   shard_relay    a scan and a scatter that lay a shard's stream out again
-//                  over its live tokens: words with fewer than two live
+//   shard_relay    a scan and a scatter (word_apply.cuh's relay kernels, the
+//                  one-device v2 engine's too) that lay a shard's stream out
+//                  again over its live tokens: words with fewer than two live
 //                  tokens (which hold no pair and never will) are dropped,
 //                  every other word gets live + 1 slots.  Run at the JAX
 //                  host loop's repack trigger; the JAX program slices its
@@ -102,8 +103,8 @@ __global__ void __launch_bounds__(256)
     emit_words_kernel(int32_t *tok, const int32_t *off, const int32_t *fw, int Mw, int32_t *ctl,
                       const int32_t *cand, const int32_t *aff, unsigned long long *dk, int32_t *dv,
                       int dcap, long long *work) {
-  __shared__ Cands c;
-  const int n = load_cands(c, ctl, cand);
+  __shared__ CandSet c;
+  const int n = load_cand_set(c, ctl, cand);
   if (n == 0) return;
   const int lane = threadIdx.x & 31;
   if (blockIdx.x == 0 && threadIdx.x == 0)
@@ -120,7 +121,7 @@ __global__ void __launch_bounds__(256)
     int live = 0;
     for (int b = 0; b < len; b += 32)
       live += __popc(__ballot_sync(0xFFFFFFFFu, b + lane < len && t[b + lane] >= 0));
-    const int out = merge_word(t, len, c, n, [&](bool counted, unsigned long long key) {
+    const int out = merge_word(t, len, c, n, [&](bool counted, unsigned long long key, int) {
       emit(counted && f > 0, key, -f, DN_OLD, dk, dv, dcap, ctl, work);
     });
     for_word_pairs(t, out, [&](bool counted, unsigned long long key) {
@@ -339,49 +340,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// -- relay -------------------------------------------------------------------
-
-// Per word: its new slot count (live + 1, or 0 when it holds fewer than two
-// live tokens) and whether it is kept.
-__global__ void __launch_bounds__(256)
-    relay_len_kernel(const int32_t *tok, const int32_t *off, int W, int32_t *lens,
-                     int32_t *keep) {
-  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < W; w += gridDim.x * blockDim.x) {
-    const int end = off[w + 1] - 1;
-    int i = off[w];
-    while (i < end && tok[i] >= 0) ++i;
-    const int live = i - off[w];
-    lens[w] = live >= 2 ? live + 1 : 0;
-    keep[w] = live >= 2;
-  }
-}
-
-// One warp a kept word copies its live tokens to their new slots.
-__global__ void __launch_bounds__(256)
-    relay_write_kernel(const int32_t *tok, const int32_t *off, const int32_t *fw,
-                       const int32_t *wids, int W, const int32_t *lens, const int32_t *new_off,
-                       const int32_t *new_idx, int32_t *tok2, int32_t *pwid2, int32_t *off2,
-                       int32_t *fw2, int32_t *wids2, int W2, int Mw2) {
-  const int lane = threadIdx.x & 31;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int n_warps = (gridDim.x * blockDim.x) >> 5;
-  if (blockIdx.x == 0 && threadIdx.x == 0) off2[W2] = Mw2;
-  for (int w = warp; w < W; w += n_warps) {
-    const int n = lens[w];
-    if (n == 0) continue;
-    const int k = new_idx[w], src = off[w], dst = new_off[w];
-    for (int i = lane; i < n; i += 32) {
-      tok2[dst + i] = i < n - 1 ? tok[src + i] : kPad;
-      pwid2[dst + i] = i < n - 1 ? k : kPad;
-    }
-    if (lane == 0) {
-      off2[k] = dst;
-      fw2[k] = fw[w];
-      wids2[k] = wids[w];
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -393,9 +351,8 @@ int yttm_shard_delta_emit(void *tok, const void *pwid, int Mw, const void *off, 
                           void *dv, int dcap, void *work, void *stream) {
   if (Mw < 2 || W <= 0 || dcap <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  mark_words_kernel<NAFF><<<grid_for_warps((Mw - 1 + 31) / 32), 256, 0, s>>>(
-      (const int32_t *)tok, (const int32_t *)pwid, Mw, (int32_t *)ctl, (const int32_t *)cand,
-      (int32_t *)aff, (int32_t *)wmark);
+  launch_mark_words<NAFF>((const int32_t *)tok, (const int32_t *)pwid, Mw, (int32_t *)ctl,
+                          (const int32_t *)cand, (int32_t *)aff, (int32_t *)wmark, s);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   emit_words_kernel<<<grid_for_warps(W), 256, 0, s>>>(
@@ -503,7 +460,7 @@ int yttm_shard_relay_plan(const void *tok, const void *off, int W, void *lens, v
   if (W <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   relay_len_kernel<<<grid_for(W, 256), 256, 0, s>>>((const int32_t *)tok, (const int32_t *)off, W,
-                                                  (int32_t *)lens, (int32_t *)keep);
+                                                  (int32_t *)lens, (int32_t *)keep, 2);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   e = yttm_scan::exclusive_scan((const int32_t *)lens, (int32_t *)new_off, W, (int32_t *)scratch,

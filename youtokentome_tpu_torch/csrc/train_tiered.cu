@@ -39,15 +39,16 @@
 //                 hot table overflowed, a refresh round: top-16 of the full
 //                 table with no floor.  accept_prefix + store_rules.  Two
 //                 launches a round (see its section).
-//   apply_blocks  one thread a row tests the row's signature against the
-//                 accepted pairs and lists the rows that may hold one; one
-//                 warp a listed row finds the hits (pairs never cross a word:
-//                 wid equality guards every pair), takes the words with a
-//                 hit out of both tables, merges (run parity per word),
-//                 front-compacts the row in order, puts the words back, and
-//                 rebuilds the row's signature; a last thread counts the
-//                 round's stats.  In count mode (start, rebuild) every row's
-//                 pairs go into an empty full table.
+//   apply_blocks  two launches a round (its section below): every row's
+//                 signature tested against the accepted pairs (NBAFF counts
+//                 the rows that may hold one) and the rows that do hold one
+//                 listed; those merged (run parity per word; pairs never
+//                 cross a word: wid equality guards every pair) and
+//                 front-compacted in order, both tables moved by the net
+//                 deltas of the words with a hit, the rows' signatures
+//                 rebuilt, the round's stats counted by the last block.  In
+//                 count mode (start, rebuild: tier_count_kernel) every
+//                 row's pairs go into an empty full table.
 //   resplit       after a refresh round: T = the count at rank hcap/2 of the
 //                 full table (radix select, 3 passes of 11/11/10 bits over
 //                 the whole grid, the last block of each picks the bin; 0
@@ -68,12 +69,16 @@
 // the full table as well.  What the design does about it: the per-round table
 // work is the hot table's, not the full table's (train_delta.cu scans all of
 // it each round), and the stream work is a signature read a row plus the rows
-// that may hold a hit.
+// that may hold a hit.  On the H100 the apply is held back by latency, not
+// bytes: the chain of dependent loads of a listed row, its words' weights
+// and its table probes, and the first rounds' same-key atomics;
+// apply_blocks' section says what its design does about it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "train_common.cuh"
+#include "word_apply.cuh"
 
 namespace {
 
@@ -95,7 +100,6 @@ enum {
 
 constexpr int kSigW = 16;
 constexpr int kMaxB = 512;
-constexpr int kApplyWarps = 4;
 
 __device__ __forceinline__ int sig_pos(int32_t tok) {
   return (int)(((uint32_t)tok * 2654435761u) >> 23) & 511;
@@ -222,224 +226,477 @@ __global__ void __launch_bounds__(kSelThreads, 2)
 }
 
 // -- apply_blocks ------------------------------------------------------------
+//
+// Two launches a round (three before: the filter, the apply, and a
+// one-thread launch for the stats), each a wave of the blocks the card
+// holds at once, 64 registers a thread:
+//  * tier_find_kernel: a warp's 32 rows at a time, their signatures staged
+//    in shared memory by four 16-byte loads a lane in flight together, the
+//    test of sig_prefilter on 2 rows x 16 candidates over the lanes (NBAFF
+//    summed a block: same-address atomics serialise); the
+//    listed rows' tokens (their loads in flight together) and the
+//    candidate test (word_apply.cuh cand_of: one shared load and a bit a
+//    pair).  Once the first rounds are past most listed rows hold no
+//    candidate pair (the signature says only that both ids occur); the
+//    ones that do are listed for the second launch;
+//  * tier_apply_kernel: the listed rows spread evenly over the warps (a
+//    warp that meets several of them in turn would hold the round back:
+//    each is a chain of dependent loads), merge_row on each: its word ids
+//    and weights, the words that hold a hit, the merge and the row's front
+//    compaction into the warp's scratch, the new pairs and the signature,
+//    the changed slots written back.  Only the words with a hit move the
+//    tables, by their net deltas (a pair that survives the merge moves only
+//    when run parity changed its count: see apply_pack in
+//    train_delta.cu); a lane's two updates load their first probes in both
+//    tables together; the candidates' own keys are summed in shared memory
+//    and sent once a block.  The tables stay exact after the round, and
+//    the hot table claims exactly the keys holding a z, as when every old
+//    pair was subtracted and every new one added.  The last block to take
+//    a ticket counts the round's stats.
 
-__global__ void __launch_bounds__(256)
-    sig_filter_kernel(const uint32_t *sig, int NB, int32_t *ctl, const int32_t *cand,
-                      int32_t *rows) {
-  __shared__ int wx[kK], wy[kK];
-  __shared__ uint32_t bx[kK], by[kK];
-  const int n = ctl[NACC];
-  if (n == 0) return;
-  if (threadIdx.x < n) {
-    const int px = sig_pos(cand[threadIdx.x * 4]), py = sig_pos(cand[threadIdx.x * 4 + 1]);
-    wx[threadIdx.x] = px >> 5;
-    bx[threadIdx.x] = 1u << (px & 31);
-    wy[threadIdx.x] = py >> 5;
-    by[threadIdx.x] = 1u << (py & 31);
-  }
-  __syncthreads();
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < NB; r += gridDim.x * blockDim.x) {
-    uint32_t w[kSigW];
-    const uint4 *src = reinterpret_cast<const uint4 *>(sig + (size_t)r * kSigW);
-#pragma unroll
-    for (int q = 0; q < kSigW / 4; ++q) {
-      const uint4 v = src[q];
-      w[4 * q] = v.x;
-      w[4 * q + 1] = v.y;
-      w[4 * q + 2] = v.z;
-      w[4 * q + 3] = v.w;
-    }
-    bool flag = false;
-    for (int j = 0; j < n && !flag; ++j) {
-      uint32_t ax = 0, ay = 0;
-#pragma unroll
-      for (int q = 0; q < kSigW; ++q) {
-        ax |= q == wx[j] ? w[q] : 0u;
-        ay |= q == wy[j] ? w[q] : 0u;
-      }
-      flag = (ax & bx[j]) && (ay & by[j]);
-    }
-    if (flag) rows[atomicAdd(ctl + NBAFF, 1)] = r;
-  }
-}
+constexpr int kRowThreads = 256;
+constexpr int kRowWarps = kRowThreads / 32;
 
-// A warp's row in shared memory.
-struct RowBuf {
-  int32_t t[kMaxB];
-  int32_t w[kMaxB];
-  int16_t ws[kMaxB];  // start of the word at each position (before the merge)
-  uint8_t wa[kMaxB];  // by word start: the word holds a hit
-  uint8_t pa[kMaxB];  // by position, after the merge: its word held a hit
-  uint32_t sig[kSigW];
+// A warp's scratch for a row (dynamic shared memory, B slots): the compacted
+// row t2/w2, wa (by word start: the word holds a hit), so (by new position:
+// 0 or 1, an old pair that survives with that old count; 2, a new pair of a
+// word with a hit; 3, a word without one) and the new signature.
+__host__ __device__ inline int row_scratch_bytes(int B) { return (10 * B + 4 * kSigW + 15) & ~15; }
+
+struct RowScratch {
+  int32_t *t2, *w2;
+  uint32_t *sig;
+  uint8_t *wa, *so;
+  __device__ RowScratch(unsigned char *p, int B)
+      : t2((int32_t *)p), w2(t2 + B), sig((uint32_t *)(w2 + B)), wa((uint8_t *)(sig + kSigW)),
+        so(wa + B) {}
 };
 
-// The token after position i within its word (PAD at a word's end).
-__device__ __forceinline__ int32_t next_in_word(const RowBuf &rb, int i, int B, int32_t w) {
-  return (i + 1 < B && rb.w[i + 1] == w) ? rb.t[i + 1] : kPad;
+// A row's signature in the find kernel's shared memory: kSigW + 1 words, so
+// that the lanes' rows fall in distinct banks.
+constexpr int kSigPitch = kSigW + 1;
+
+// Token (or word id) v of the slot after each lane's, in chunk c of the
+// row held as v[P] (chunk c: slots 32c..32c+31): lane 31 takes the next
+// chunk's first, `end` past the row.
+template <int P>
+__device__ __forceinline__ int32_t next_slot(const int32_t (&v)[P], int c, int32_t end) {
+  int32_t head = end;
+  if (c + 1 < P) head = __shfl_sync(kFullMask, v[c + 1 < P ? c + 1 : c], 0);
+  const int32_t d = __shfl_down_sync(kFullMask, v[c], 1);
+  return (threadIdx.x & 31) == 31 ? head : d;
 }
 
-// Adds +f (kind kAdd or kCount) for every counted pair of the row's words
-// that `all` or pa[] selects, into the full table, and (hot) into the hot
-// table; rebuilds the row's signature in rb.sig.  All 32 lanes call it.
-__device__ void add_row(RowBuf &rb, int B, const int32_t *freq, unsigned long long *keys,
-                        int32_t *cnts, int cap, unsigned long long *hkeys, int32_t *hcnts,
-                        int hslots, int32_t *ctl, bool all, bool hot, int zlo, Mode mode) {
+// One update of both tables, its first probes loaded ahead (probe_first):
+// the full table by delta (kAdd or kSub by its sign), the hot table only when
+// hot, claiming a slot only when `insert` (the key holds one of this round's
+// ids).
+struct Move {
+  unsigned long long key;
+  int32_t delta;
+  bool insert;
+  Probe full, hot;
+};
+
+__device__ __forceinline__ void move_probe(Move &m, const unsigned long long *keys, int cap,
+                                           const unsigned long long *hkeys, int hslots, bool hot) {
+  if (!m.delta) return;
+  m.full = probe_first(keys, cap, m.key);
+  if (hot) m.hot = probe_first(hkeys, hslots, m.key);
+}
+
+__device__ __forceinline__ void move_apply(const Move &m, unsigned long long *keys, int32_t *cnts,
+                                           int cap, unsigned long long *hkeys, int32_t *hcnts,
+                                           int hslots, int32_t *ctl, bool hot) {
+  if (!m.delta) return;
+  table_add_from<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, m.key, m.delta,
+                                       m.delta > 0 ? kAdd : kSub, m.full);
+  if (!hot) return;
+  if (m.hot.k == m.key) atomicAdd(hcnts + m.hot.s, m.delta);
+  else hot_add(hkeys, hcnts, hslots, ctl, m.key, m.delta, m.insert);
+}
+
+// Row r's tokens (or word ids), B / 32 a lane (chunk k: slots 32k..32k+31),
+// `pad` past B.
+template <int P>
+__device__ __forceinline__ void load_row(int r, int B, const int32_t *src, int32_t pad,
+                                         int32_t (&v)[P]) {
   const int lane = threadIdx.x & 31;
-  if (lane < kSigW) rb.sig[lane] = 0u;
-  __syncwarp();
-  int carry = -1;
-  for (int b = 0; b < B; b += 32) {
-    const int i = b + lane;
-    const int32_t a = i < B ? rb.t[i] : kPad;
-    const int32_t w = i < B ? rb.w[i] : -1;
-    const int32_t nb = i < B ? next_in_word(rb, i, B, w) : kPad;
-    const bool pairv = a >= 0 && nb >= 0;
-    const bool eq = pairv && a == nb;
-    int lne = warp_max_scan(eq ? -1 : i);
-    lne = lne > carry ? lne : carry;
-    if (pairv && (!eq || ((i - lne - 1) & 1) == 0) && (all || rb.pa[i])) {
-      const unsigned long long key = pair_key(a, nb);
-      const int32_t f = freq[w];
-      table_add<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, key, f, mode);
-      if (hot) hot_add(hkeys, hcnts, hslots, ctl, key, f, a >= zlo || nb >= zlo);
-    }
-    if (a >= 0) {
-      const int p = sig_pos(a);
-      atomicOr(rb.sig + (p >> 5), 1u << (p & 31));
-    }
-    carry = __shfl_sync(0xFFFFFFFFu, lne, 31);
-  }
-  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < P; ++k) v[k] = k * 32 + lane < B ? src[(size_t)r * B + k * 32 + lane] : pad;
 }
 
-__global__ void __launch_bounds__(32 * kApplyWarps)
-    apply_rows_kernel(int32_t *tok, int32_t *wid, const int32_t *freq, uint32_t *sig, int B,
-                      int NB, const int32_t *rows, int32_t *ctl, const int32_t *cand,
-                      unsigned long long *keys, int32_t *cnts, int cap,
-                      unsigned long long *hkeys, int32_t *hcnts, int hslots, int count_mode) {
-  __shared__ RowBuf bufs[kApplyWarps];
-  __shared__ int32_t sx[kK], sy[kK], sz[kK];
-  const int n = count_mode ? 0 : ctl[NACC];
-  if (!count_mode && n == 0) return;
-  if (threadIdx.x < n) {
-    sx[threadIdx.x] = cand[threadIdx.x * 4];
-    sy[threadIdx.x] = cand[threadIdx.x * 4 + 1];
-    sz[threadIdx.x] = cand[threadIdx.x * 4 + 2];
-  }
-  __syncthreads();
-  const int n_rows = count_mode ? NB : ctl[NBAFF];
-  const bool hot = !count_mode && !ctl[REFRESH];
-  const int zlo = ctl[ZLO];
+// Some pair of row r's tokens t is an accepted pair, word boundaries aside
+// (all 32 lanes of a warp).
+template <int P>
+__device__ __forceinline__ bool row_has_cand(const int32_t (&t)[P], const CandSet &c, int n) {
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < P; ++k) any |= cand_of(c, n, t[k], next_slot(t, k, kPad)) >= 0;
+  return __any_sync(kFullMask, any);
+}
+
+// The round's apply of row r, which holds a candidate pair (all 32 lanes of
+// a warp).  A lane's updates of the tables (one for its old pair, one at its new
+// position) wait to the end, so that their first probes load together.
+template <int P>
+__device__ void merge_row(int r, int B, int32_t *tok, int32_t *wid,
+                                       const int32_t *freq, uint32_t *sig, const CandSet &c,
+                                       int n, int32_t *acc, RowScratch rs,
+                                       unsigned long long *keys, int32_t *cnts, int cap,
+                                       unsigned long long *hkeys, int32_t *hcnts, int hslots,
+                                       int32_t *ctl, bool hot, int zlo) {
   const int lane = threadIdx.x & 31;
   const unsigned lt = (1u << lane) - 1u;
-  RowBuf &rb = bufs[threadIdx.x >> 5];
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int n_warps = (gridDim.x * blockDim.x) >> 5;
-  for (int li = warp; li < n_rows; li += n_warps) {
-    const int r = count_mode ? li : rows[li];
-    int32_t *trow = tok + (size_t)r * B;
-    int32_t *wrow = wid + (size_t)r * B;
-    for (int i = lane; i < B; i += 32) {
-      rb.t[i] = trow[i];
-      rb.w[i] = wrow[i];
-      rb.wa[i] = 0;
-    }
-    __syncwarp();
-    if (count_mode) {
-      add_row(rb, B, freq, keys, cnts, cap, hkeys, hcnts, hslots, ctl, true, false, 0, kCount);
-      if (lane < kSigW) sig[(size_t)r * kSigW + lane] = rb.sig[lane];
-      __syncwarp();
-      continue;
-    }
-    // pass A: hits, word starts, the words that hold a hit
-    int carry_ws = -1;
-    for (int b = 0; b < B; b += 32) {
-      const int i = b + lane;
-      const int32_t a = i < B ? rb.t[i] : kPad;
-      const int32_t w = i < B ? rb.w[i] : -1;
-      const int32_t nb = i < B ? next_in_word(rb, i, B, w) : kPad;
-      const bool start = i < B && (i == 0 || rb.w[i - 1] != w);
-      int ws = warp_max_scan(start ? i : -1);
-      ws = ws > carry_ws ? ws : carry_ws;
-      if (i < B) rb.ws[i] = (int16_t)ws;
-      bool hit = false;
-      if (a >= 0 && nb >= 0)
-        for (int j = 0; j < n; ++j) hit |= a == sx[j] && nb == sy[j];
-      if (hit) rb.wa[ws] = 1;
-      carry_ws = __shfl_sync(0xFFFFFFFFu, ws, 31);
-    }
-    __syncwarp();
-    // pass B: old pairs of the hit words out, merge, compact in place; all
-    // lanes read a chunk before any lane writes, and writes land at or
-    // before the positions read
-    int carry_eq = -1, carry_hit = -1, out = 0;
-    bool carry_sel = false;
-    for (int b = 0; b < B; b += 32) {
-      const int i = b + lane;
-      const int32_t a = i < B ? rb.t[i] : kPad;
-      const int32_t w = i < B ? rb.w[i] : -1;
-      const int32_t nb = i < B ? next_in_word(rb, i, B, w) : kPad;
-      const bool aff = a >= 0 && rb.wa[rb.ws[i]];
-      const bool pairv = a >= 0 && nb >= 0;
-      const bool eq = pairv && a == nb;
-      int lne = warp_max_scan(eq ? -1 : i);
-      lne = lne > carry_eq ? lne : carry_eq;
-      if (aff && pairv && (!eq || ((i - lne - 1) & 1) == 0)) {
-        const unsigned long long key = pair_key(a, nb);
-        const int32_t f = freq[w];
-        table_add<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, key, -f, kSub);
-        if (hot) hot_add(hkeys, hcnts, hslots, ctl, key, -f, false);
-      }
-      int rix = -1;
-      if (pairv)
-        for (int j = 0; j < n; ++j)
-          if (rix < 0 && a == sx[j] && nb == sy[j]) rix = j;
-      const bool hit = rix >= 0;
-      int lnh = warp_max_scan(hit ? -1 : i);
-      lnh = lnh > carry_hit ? lnh : carry_hit;
-      const bool sel = hit && ((i - lnh - 1) & 1) == 0;
-      bool prev_sel = __shfl_up_sync(0xFFFFFFFFu, sel, 1);
-      if (lane == 0) prev_sel = carry_sel;
-      const bool keep = a >= 0 && !prev_sel;
-      const unsigned kmask = __ballot_sync(0xFFFFFFFFu, keep);
-      __syncwarp();
-      if (keep) {
-        const int o = out + __popc(kmask & lt);
-        rb.t[o] = sel ? sz[rix] : a;
-        rb.w[o] = w;
-        rb.pa[o] = aff;
-      }
-      __syncwarp();
-      out += __popc(kmask);
-      carry_eq = __shfl_sync(0xFFFFFFFFu, lne, 31);
-      carry_hit = __shfl_sync(0xFFFFFFFFu, lnh, 31);
-      carry_sel = __shfl_sync(0xFFFFFFFFu, sel, 31);
-    }
-    for (int i = out + lane; i < B; i += 32) {
-      rb.t[i] = kPad;
-      rb.w[i] = -1;
-      rb.pa[i] = 0;
-    }
-    __syncwarp();
-    // pass C: new pairs of the hit words in, the signature rebuilt
-    add_row(rb, B, freq, keys, cnts, cap, hkeys, hcnts, hslots, ctl, false, hot, zlo, kAdd);
-    for (int i = lane; i < B; i += 32) {
-      trow[i] = rb.t[i];
-      wrow[i] = rb.w[i];
-    }
-    if (lane < kSigW) sig[(size_t)r * kSigW + lane] = rb.sig[lane];
-    __syncwarp();
+  int32_t *trow = tok + (size_t)r * B, *wrow = wid + (size_t)r * B;
+  int32_t t[P], w[P];
+  load_row<P>(r, B, tok, kPad, t);
+  load_row<P>(r, B, wid, -1, w);
+  for (int i = lane; i < B; i += 32) rs.wa[i] = 0;
+  __syncwarp();
+  // hits (pairs never cross a word), word starts, the words with a hit
+  int32_t nb[P], f[P];
+  int ws[P], rix[P];
+  int carry = -1;
+  int32_t wprev = -2;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int i = k * 32 + lane;
+    f[k] = w[k] >= 0 ? freq[w[k]] : 0;
+    const int32_t wn = next_slot(w, k, -2), tn = next_slot(t, k, kPad);
+    int32_t wp = __shfl_up_sync(kFullMask, w[k], 1);
+    if (lane == 0) wp = wprev;
+    wprev = __shfl_sync(kFullMask, w[k], 31);
+    int s = warp_max_scan(i < B && wp != w[k] ? i : -1);
+    ws[k] = s = s > carry ? s : carry;
+    carry = __shfl_sync(kFullMask, s, 31);
+    nb[k] = i + 1 < B && wn == w[k] ? tn : kPad;
+    rix[k] = cand_of(c, n, t[k], nb[k]);
+    if (rix[k] >= 0) rs.wa[s] = 1;
   }
+  // the merge: even offsets inside runs of hits
+  bool sel[P];
+  carry = -1;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int i = k * 32 + lane;
+    int lnh = warp_max_scan(rix[k] >= 0 ? -1 : i);
+    lnh = lnh > carry ? lnh : carry;
+    sel[k] = rix[k] >= 0 && ((i - lnh - 1) & 1) == 0;
+    carry = __shfl_sync(kFullMask, lnh, 31);
+  }
+  __syncwarp();
+  // old pairs of the words with a hit, front compaction into the scratch
+  Move old[P], fresh[P];
+  carry = -1;
+  bool carry_sel = false;
+  int out = 0;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int i = k * 32 + lane;
+    const int32_t a = t[k];
+    const bool aff = a >= 0 && rs.wa[ws[k]];
+    const bool pairv = a >= 0 && nb[k] >= 0;
+    const bool eq = pairv && a == nb[k];
+    int lne = warp_max_scan(eq ? -1 : i);
+    lne = lne > carry ? lne : carry;
+    carry = __shfl_sync(kFullMask, lne, 31);
+    const bool co = pairv && (!eq || ((i - lne - 1) & 1) == 0);
+    bool prev_sel = __shfl_up_sync(kFullMask, sel[k], 1);
+    if (lane == 0) prev_sel = carry_sel;
+    carry_sel = __shfl_sync(kFullMask, sel[k], 31);
+    bool sel_next = __shfl_down_sync(kFullMask, sel[k], 1);
+    if (k + 1 < P) {
+      const bool h = __shfl_sync(kFullMask, sel[k + 1 < P ? k + 1 : k], 0);
+      if (lane == 31) sel_next = h;
+    }
+    const bool keep = a >= 0 && !prev_sel;
+    const bool same = keep && !sel[k] && nb[k] >= 0 && !sel_next;
+    const bool out_pair = aff && co && !same;
+    if (out_pair && rix[k] >= 0) atomicAdd(acc + rix[k], f[k]);
+    old[k] = Move{pair_key(a, nb[k]), out_pair && rix[k] < 0 ? -f[k] : 0, false, {}, {}};
+    const unsigned kmask = __ballot_sync(kFullMask, keep);
+    if (keep) {
+      const int o = out + __popc(kmask & lt);
+      rs.t2[o] = sel[k] ? c.z[rix[k]] : a;
+      rs.w2[o] = w[k];
+      rs.so[o] = aff ? (same ? (uint8_t)co : 2) : 3;
+    }
+    out += __popc(kmask);
+  }
+  for (int i = out + lane; i < B; i += 32) {
+    rs.t2[i] = kPad;
+    rs.w2[i] = -1;
+    rs.so[i] = 3;
+  }
+  if (lane < kSigW) rs.sig[lane] = 0u;
+  __syncwarp();
+  // new pairs of the words with a hit, the signature, the changed slots back
+  carry = -1;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int i = k * 32 + lane;
+    const int32_t a = i < B ? rs.t2[i] : kPad, wv = i < B ? rs.w2[i] : -1;
+    const int32_t b = i + 1 < B && rs.w2[i + 1] == wv ? rs.t2[i + 1] : kPad;
+    const bool pairv = a >= 0 && b >= 0;
+    const bool eq = pairv && a == b;
+    int lne = warp_max_scan(eq ? -1 : i);
+    lne = lne > carry ? lne : carry;
+    carry = __shfl_sync(kFullMask, lne, 31);
+    const int cn = pairv && (!eq || ((i - lne - 1) & 1) == 0);
+    const int s = i < B ? rs.so[i] : 3;
+    // a surviving pair moves by its change of count; a new one comes in
+    const int d = s <= 1 ? cn - s : (s == 2 ? cn : 0);
+    fresh[k] = Move{pair_key(a, b), d ? d * freq[wv] : 0, s == 2 && (a >= zlo || b >= zlo), {}, {}};
+    if (a >= 0) {
+      const int p = sig_pos(a);
+      atomicOr(rs.sig + (p >> 5), 1u << (p & 31));
+    }
+    if (i < B && (a != t[k] || wv != w[k])) {
+      trow[i] = a;
+      wrow[i] = wv;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    move_probe(old[k], keys, cap, hkeys, hslots, hot);
+    move_probe(fresh[k], keys, cap, hkeys, hslots, hot);
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    move_apply(old[k], keys, cnts, cap, hkeys, hcnts, hslots, ctl, hot);
+    move_apply(fresh[k], keys, cnts, cap, hkeys, hcnts, hslots, ctl, hot);
+  }
+  __syncwarp();
+  if (lane < kSigW) sig[(size_t)r * kSigW + lane] = rs.sig[lane];
+  __syncwarp();
 }
 
-__global__ void round_end_kernel(int32_t *ctl, int kb1, int kb2) {
+__device__ __forceinline__ void round_end(int32_t *ctl, int kb1, int kb2) {
   if (!ctl[ACTIVE]) return;
-  const int nb = ctl[NBAFF];
+  const int nb = __ldcg(ctl + NBAFF);
   ctl[ST_ROUNDS] += 1;
   ctl[ST_REFRESH] += ctl[REFRESH];
   ctl[ST_MID] += nb > kb1 && nb <= kb2;
   ctl[ST_FULL] += nb > kb2;
   ctl[ACTIVE] = 0;
+}
+
+// Pass 1: a warp's 32 rows at a time, their signatures into shared memory
+// (four 16-byte loads a lane, in flight together), the test of
+// sig_prefilter on 2 rows x 16 candidates over the warp's lanes (NBAFF by
+// one atomic a warp), then the listed rows' tokens (R rows' loads in
+// flight together) and the candidate test (cand_of).  Most listed rows
+// hold no candidate pair once the first rounds are past (the signature
+// only says that both ids occur); the others are listed in rows, their
+// number in *hits.
+template <int P>
+__global__ void __launch_bounds__(kRowThreads, 4)
+    tier_find_kernel(const int32_t *tok, const uint32_t *sig, int B, int NB, int32_t *ctl,
+                     const int32_t *cand, int32_t *rows, int32_t *hits) {
+  __shared__ CandSet c;
+  __shared__ int16_t spx[kK], spy[kK];
+  __shared__ uint32_t sigs[kRowWarps][32 * kSigPitch];
+  __shared__ int n_listed;  // the block's listed rows: one atomic a block on NBAFF
+  const int n = load_cand_set(c, ctl, cand);
+  if (n == 0) return;
+  if (threadIdx.x == 0) n_listed = 0;
+  if (threadIdx.x < n) {
+    spx[threadIdx.x] = (int16_t)sig_pos(c.x[threadIdx.x]);
+    spy[threadIdx.x] = (int16_t)sig_pos(c.y[threadIdx.x]);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, j = lane & 15;
+  const int px = j < n ? spx[j] : 0, py = j < n ? spy[j] : 0;
+  uint32_t *ws = sigs[threadIdx.x >> 5];
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int n_warps = (gridDim.x * blockDim.x) >> 5;
+  constexpr int R = P <= 2 ? 4 : (P <= 4 ? 2 : 1);  // rows whose loads fly together
+  for (int r0 = warp * 32; r0 < NB; r0 += n_warps * 32) {
+    if (r0 + lane < NB) {
+      const uint4 *src = reinterpret_cast<const uint4 *>(sig + (size_t)(r0 + lane) * kSigW);
+      uint4 v[kSigW / 4];
+#pragma unroll
+      for (int q = 0; q < kSigW / 4; ++q) v[q] = src[q];
+#pragma unroll
+      for (int q = 0; q < kSigW / 4; ++q) {
+        uint32_t *d = ws + lane * kSigPitch + 4 * q;
+        d[0] = v[q].x;
+        d[1] = v[q].y;
+        d[2] = v[q].z;
+        d[3] = v[q].w;
+      }
+    }
+    __syncwarp();
+    // lanes 0-15 test one row against the candidates, 16-31 the next
+    unsigned listed = 0;
+#pragma unroll
+    for (int h = 0; h < 16; ++h) {
+      const int rl = 2 * h + (lane >> 4);
+      const uint32_t *sg = ws + rl * kSigPitch;
+      const bool f = r0 + rl < NB && j < n &&
+                     ((sg[px >> 5] >> (px & 31)) & (sg[py >> 5] >> (py & 31)) & 1u);
+      const unsigned b = __ballot_sync(kFullMask, f);
+      listed |= (unsigned)((b & 0xFFFFu) != 0) << (2 * h) | (unsigned)((b >> 16) != 0) << (2 * h + 1);
+    }
+    __syncwarp();
+    if (lane == 0 && listed) atomicAdd(&n_listed, __popc(listed));
+    unsigned hit = 0;
+    while (listed) {
+      int rr[R];
+      int32_t t[R][P];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        rr[q] = listed ? r0 + __ffs(listed) - 1 : -1;
+        listed &= listed - 1;
+        if (rr[q] >= 0) load_row<P>(rr[q], B, tok, kPad, t[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        if (rr[q] >= 0 && row_has_cand<P>(t[q], c, n)) hit |= 1u << (rr[q] - r0);
+    }
+    if (!hit) continue;
+    int base = 0;
+    if (lane == 0) base = atomicAdd(hits, __popc(hit));
+    base = __shfl_sync(kFullMask, base, 0);
+    if ((hit >> lane) & 1u) rows[base + __popc(hit & ((1u << lane) - 1u))] = r0 + lane;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && n_listed) atomicAdd(ctl + NBAFF, n_listed);
+}
+
+// Pass 2: the rows with a candidate pair, spread evenly over the warps
+// (merge_row); the candidates' keys summed in shared memory, sent once a
+// block; the last block to take a ticket counts the round's stats and
+// clears *hits for the next round.
+template <int P>
+__global__ void __launch_bounds__(kRowThreads, 4)
+    tier_apply_kernel(int32_t *tok, int32_t *wid, const int32_t *freq, uint32_t *sig, int B,
+                      int32_t *ctl, const int32_t *cand, unsigned long long *keys, int32_t *cnts,
+                      int cap, unsigned long long *hkeys, int32_t *hcnts, int hslots,
+                      const int32_t *rows, int32_t *hits, unsigned *ticket, int kb1, int kb2) {
+  extern __shared__ __align__(16) unsigned char scratch[];
+  __shared__ CandSet c;
+  __shared__ int32_t acc[kK];
+  __shared__ bool last;
+  const int n = load_cand_set(c, ctl, cand);
+  if (n == 0) {  // no merge: the round's stats alone
+    if (blockIdx.x == 0 && threadIdx.x == 0) round_end(ctl, kb1, kb2);
+    return;
+  }
+  if (threadIdx.x < kK) acc[threadIdx.x] = 0;
+  __syncthreads();
+  const bool hot = !ctl[REFRESH];
+  const int zlo = ctl[ZLO], n_hit = *hits;
+  const RowScratch rs(scratch + (threadIdx.x >> 5) * row_scratch_bytes(B), B);
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int n_warps = (gridDim.x * blockDim.x) >> 5;
+  for (int i = warp; i < n_hit; i += n_warps)
+    merge_row<P>(rows[i], B, tok, wid, freq, sig, c, n, acc, rs, keys, cnts, cap, hkeys, hcnts,
+                 hslots, ctl, hot, zlo);
+  __syncthreads();
+  if (threadIdx.x < n && acc[threadIdx.x] != 0) {
+    Move m{pair_key(c.x[threadIdx.x], c.y[threadIdx.x]), -acc[threadIdx.x], false, {}, {}};
+    move_probe(m, keys, cap, hkeys, hslots, hot);
+    move_apply(m, keys, cnts, cap, hkeys, hcnts, hslots, ctl, hot);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (last && threadIdx.x == 0) {
+    round_end(ctl, kb1, kb2);
+    *hits = 0;
+    *ticket = 0u;
+  }
+}
+
+// Count mode: every row's counted pairs into the (emptied) full table, every
+// signature rebuilt; a warp a row.
+template <int P>
+__global__ void __launch_bounds__(kRowThreads)
+    tier_count_kernel(const int32_t *tok, const int32_t *wid, const int32_t *freq, uint32_t *sig,
+                      int B, int NB, int32_t *ctl, unsigned long long *keys, int32_t *cnts,
+                      int cap) {
+  __shared__ uint32_t ssig[kRowWarps][kSigW];
+  uint32_t *sg = ssig[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int n_warps = (gridDim.x * blockDim.x) >> 5;
+  for (int r = warp; r < NB; r += n_warps) {
+    const int32_t *trow = tok + (size_t)r * B, *wrow = wid + (size_t)r * B;
+    int32_t t[P], w[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      t[k] = k * 32 + lane < B ? trow[k * 32 + lane] : kPad;
+      w[k] = k * 32 + lane < B ? wrow[k * 32 + lane] : -1;
+    }
+    if (lane < kSigW) sg[lane] = 0u;
+    __syncwarp();
+    int carry = -1;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int i = k * 32 + lane;
+      const int32_t wn = next_slot(w, k, -2), tn = next_slot(t, k, kPad);
+      const int32_t b = i + 1 < B && wn == w[k] ? tn : kPad;
+      const bool pairv = t[k] >= 0 && b >= 0;
+      const bool eq = pairv && t[k] == b;
+      int lne = warp_max_scan(eq ? -1 : i);
+      lne = lne > carry ? lne : carry;
+      carry = __shfl_sync(kFullMask, lne, 31);
+      if (pairv && (!eq || ((i - lne - 1) & 1) == 0))
+        table_add<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, pair_key(t[k], b), freq[w[k]], kCount);
+      if (t[k] >= 0) {
+        const int p = sig_pos(t[k]);
+        atomicOr(sg + (p >> 5), 1u << (p & 31));
+      }
+    }
+    __syncwarp();
+    if (lane < kSigW) sig[(size_t)r * kSigW + lane] = sg[lane];
+    __syncwarp();
+  }
+}
+
+// Blocks of `kernel` the card holds at once with `smem` bytes of dynamic
+// shared memory a block.
+template <class K>
+int one_wave(K kernel, int smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRowThreads, smem);
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+template <int P>
+cudaError_t launch_apply(int32_t *tok, int32_t *wid, const int32_t *freq, uint32_t *sig, int B,
+                         int NB, int32_t *rows, int32_t *hits, unsigned *ticket, int32_t *ctl,
+                         const int32_t *cand, unsigned long long *keys, int32_t *cnts, int cap,
+                         unsigned long long *hkeys, int32_t *hcnts, int hslots, int count_mode,
+                         int kb1, int kb2, cudaStream_t s) {
+  if (count_mode) {
+    tier_count_kernel<P><<<grid_for((long long)NB * 32, kRowThreads, 16), kRowThreads, 0, s>>>(
+        tok, wid, freq, sig, B, NB, ctl, keys, cnts, cap);
+    return cudaGetLastError();
+  }
+  // one wave each: the blocks the card holds at once (the rows' scratch of
+  // the largest B may pass 48 KB)
+  static int find_blocks = 0, apply_blocks = 0;
+  const int smem = kRowWarps * row_scratch_bytes(kMaxB);
+  if (!apply_blocks) {
+    cudaError_t e = cudaFuncSetAttribute(tier_apply_kernel<P>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    find_blocks = one_wave(tier_find_kernel<P>, 0);
+    apply_blocks = one_wave(tier_apply_kernel<P>, smem);
+  }
+  const long long need = ((NB + 31) / 32 + kRowWarps - 1) / kRowWarps;
+  tier_find_kernel<P><<<(int)(need < find_blocks ? need : find_blocks), kRowThreads, 0, s>>>(
+      tok, sig, B, NB, ctl, cand, rows, hits);
+  tier_apply_kernel<P><<<apply_blocks, kRowThreads, kRowWarps * row_scratch_bytes(B), s>>>(
+      tok, wid, freq, sig, B, ctl, cand, keys, cnts, cap, hkeys, hcnts, hslots, rows, hits, ticket,
+      kb1, kb2);
+  return cudaGetLastError();
 }
 
 // -- resplit -----------------------------------------------------------------
@@ -690,24 +947,24 @@ int yttm_tiered_select(const void *keys, const void *cnts, int cap, const void *
 
 // One round's apply (count_mode: count every row into the full table and
 // rebuild every signature; the caller emptied the table and zeroed OCC and
-// OVERFLOW).  rows holds NB entries of scratch.
+// OVERFLOW).  rows holds NB entries of scratch; *hits and *ticket are 0
+// (each round leaves them so).
 int yttm_tiered_apply(void *tok, void *wid, const void *freq, void *sig, int B, int NB,
-                      void *rows, void *ctl, const void *cand, void *keys, void *cnts, int cap,
-                      void *hkeys, void *hcnts, int hslots, int count_mode, int kb1, int kb2,
-                      void *stream) {
+                      void *rows, void *hits, void *ticket, void *ctl, const void *cand,
+                      void *keys, void *cnts, int cap, void *hkeys, void *hcnts, int hslots,
+                      int count_mode, int kb1, int kb2, void *stream) {
   if (B < 1 || B > kMaxB || NB <= 0 || cap <= 0 || hslots <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int32_t *c = (int32_t *)ctl;
-  if (!count_mode) {
-    sig_filter_kernel<<<grid_for(NB, 256, 16), 256, 0, s>>>((const uint32_t *)sig, NB, c,
-                                                        (const int32_t *)cand, (int32_t *)rows);
-  }
-  apply_rows_kernel<<<grid_for((long long)NB * 32, 32 * kApplyWarps, 16), 32 * kApplyWarps, 0, s>>>(
-      (int32_t *)tok, (int32_t *)wid, (const int32_t *)freq, (uint32_t *)sig, B, NB,
-      (const int32_t *)rows, c, (const int32_t *)cand, (unsigned long long *)keys,
-      (int32_t *)cnts, cap, (unsigned long long *)hkeys, (int32_t *)hcnts, hslots, count_mode);
-  if (!count_mode) round_end_kernel<<<1, 1, 0, s>>>(c, kb1, kb2);
-  return (int)cudaGetLastError();
+  cudaError_t (*launch)(int32_t *, int32_t *, const int32_t *, uint32_t *, int, int, int32_t *,
+                        int32_t *, unsigned *, int32_t *, const int32_t *, unsigned long long *,
+                        int32_t *, int, unsigned long long *, int32_t *, int, int, int, int,
+                        cudaStream_t) =
+      B <= 32 ? &launch_apply<1> : B <= 64 ? &launch_apply<2> : B <= 128 ? &launch_apply<4>
+      : B <= 256 ? &launch_apply<8> : &launch_apply<16>;
+  return (int)launch((int32_t *)tok, (int32_t *)wid, (const int32_t *)freq, (uint32_t *)sig, B, NB,
+                     (int32_t *)rows, (int32_t *)hits, (unsigned *)ticket, (int32_t *)ctl,
+                     (const int32_t *)cand, (unsigned long long *)keys, (int32_t *)cnts, cap,
+                     (unsigned long long *)hkeys, (int32_t *)hcnts, hslots, count_mode, kb1, kb2,
+                     (cudaStream_t)stream);
 }
 
 // After a refresh round that merged: T and the hot table.  sel holds SEL_N

@@ -123,9 +123,14 @@ def load_train() -> ctypes.CDLL:
     return _load("train_delta.cu", "libtrain_delta.so", {
         # tok, off, fw, W, keys, cnts, cap, ctl, stream
         "yttm_train_pair_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p]),
-        # tok, pwid, Mw, off, fw, W, keys, cnts, cap, ctl, cand, aff, wmark,
+        # tok, pwid, Mw, off, fw, keys, cnts, cap, ctl, cand, wmark, stream
+        "yttm_train_apply_delta": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _p, _p, _p, _p]),
+        "yttm_train_relay_scratch": (_l, [_i]),
+        # tok, off, W, lens, keep, new_off, new_idx, scratch, totals, stream
+        "yttm_train_relay_plan": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p]),
+        # tok, off, fw, W, lens, new_off, new_idx, tok2, pwid2, off2, fw2, Mw2,
         # stream
-        "yttm_train_apply_delta": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _i, _p, _p, _p, _p, _p]),
+        "yttm_train_relay_write": (_i, [_p, _p, _p, _i, _p, _p, _p, _p, _p, _p, _p, _i, _p]),
     })
 
 
@@ -136,10 +141,10 @@ def load_tiered() -> ctypes.CDLL:
         # fn_blk, ticket, ctl, cand, rules, limit, vocab, used_ids0, k, stream
         "yttm_tiered_select": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _i, _i, _p, _p, _p, _p, _i, _i,
                                     _i, _i, _p]),
-        # tok, wid, freq, sig, B, NB, rows, ctl, cand, keys, cnts, cap, hkeys,
-        # hcnts, hslots, count_mode, kb1, kb2, stream
-        "yttm_tiered_apply": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _i, _i,
-                                   _i, _i, _p]),
+        # tok, wid, freq, sig, B, NB, rows, hits, ticket, ctl, cand, keys, cnts,
+        # cap, hkeys, hcnts, hslots, count_mode, kb1, kb2, stream
+        "yttm_tiered_apply": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p,
+                                   _i, _i, _i, _i, _p]),
         # keys, cnts, cap, hkeys, hcnts, hslots, ctl, sel, boundary, stream
         "yttm_tiered_resplit": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _i, _p]),
         # tok, B, NB, fills, ghist, order, ctl, stream

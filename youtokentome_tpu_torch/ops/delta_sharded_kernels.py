@@ -116,6 +116,8 @@ class ShardState(Exchange, TrainState):
 
     def __init__(self, t, wid, freq, rules, used: int, cap: int, dcap: int, device):
         super().__init__(t, wid, freq, rules, used, cap, device)
+        # delta_emit's list of the round's words with a hit
+        self.aff = torch.zeros(max(self.n_words, 1), dtype=torch.int32, device=self.device)
         self.wid_dev = torch.from_numpy(self.wids).to(self.device)
         self.buffers(dcap)
         self.ctl[LIVE] = int((np.asarray(wid) >= 0).sum())

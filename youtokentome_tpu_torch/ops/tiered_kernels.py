@@ -20,10 +20,11 @@ over a state that needs neither:
   tier_select   top-16 of the hot table with the floor T; a refresh round
                 (hot top count <= T, hot overflow, or the first round after
                 a count) takes the full table's top-16 with no floor
-  apply_blocks  signature test of every row, then the listed rows: hits,
-                old pairs out, merge, row compaction, new pairs in, the
-                row's signature; the round's stats.  In count mode every
-                row's pairs go into an empty full table
+  apply_blocks  signature test of every row and the rows with a candidate
+                pair listed; those merged and compacted, the tables moved by
+                the hit words' net deltas, the rows' signatures; the round's
+                stats.  In count mode every row's pairs go into an empty
+                full table
   resplit       after a refresh round that merged: T = the count at rank
                 hcap/2 of the full table, the hot table rebuilt from it
   fold_rows     the row fold of the JAX host loop (fills, stable order by
@@ -91,7 +92,9 @@ class TieredState:
         self.ctl = torch.zeros(CTL_N, dtype=torch.int32, device=dev)
         self.ctl[USED] = used
         self.cand = torch.zeros((K_MAX, 4), dtype=torch.int32, device=dev)
+        # apply_blocks' list of the rows with a candidate pair, and their number
         self.rows = torch.zeros(self.NB, dtype=torch.int32, device=dev)
+        self.hits = torch.zeros(1, dtype=torch.int32, device=dev)
         self.sel = torch.zeros(SEL_N, dtype=torch.int32, device=dev)
         self.resize(cap, hslots)
 
@@ -112,7 +115,6 @@ class TieredState:
 
     def set_stream(self, tok, wid, sig):
         self.tok, self.wid, self.sig = tok, wid, sig
-        self.rows = torch.zeros(self.NB, dtype=torch.int32, device=self.device)
 
     @staticmethod
     def _slots(keys, cnts):
@@ -340,7 +342,8 @@ def apply_blocks(st: TieredState, kb1: int = 0, kb2: int = 0, count_mode: bool =
     with torch.cuda.device(st.device):
         err = lib.yttm_tiered_apply(
             st.tok.data_ptr(), st.wid.data_ptr(), st.freq.data_ptr(), st.sig.data_ptr(), st.B,
-            st.NB, st.rows.data_ptr(), st.ctl.data_ptr(), st.cand.data_ptr(),
+            st.NB, st.rows.data_ptr(), st.hits.data_ptr(), st.ticket.data_ptr(), st.ctl.data_ptr(),
+            st.cand.data_ptr(),
             st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.hkeys.data_ptr(),
             st.hcnts.data_ptr(), st.hslots, int(count_mode), int(kb1), int(kb2),
             _stream_ptr(st.device),

@@ -1,4 +1,4 @@
-"""The v2 delta trainer's round as three kernels, and the loop that drives them.
+"""The v2 delta trainer's round as hand-written kernels, and the loop that drives them.
 
 The JAX program ``youtokentome_tpu/ops/train_delta.py:210
 train_rounds_delta`` sorts the whole stream and the whole table every
@@ -20,8 +20,11 @@ needs no sort:
   topk_accept  top-16 live entries in the reference order, accept_prefix,
                store_rules; writes ``cand``, ``rules``, ``ctl`` and ``work``
                (v1, v3, v4 and v0, with k = 1, call it too)
-  apply_delta  words with a hit: old contributions out, merge, compact,
-               new contributions in
+  apply_delta  one launch: the words with a hit found, merged and
+               compacted in place, the table moved by their net deltas
+  relay        at a segment end where the live tokens fill less than half
+               the stream's slots: the stream laid out again over them (the
+               JAX host loop slices its stream there)
 
 ``ctl`` (int32 [8]) holds the round control on the device, so the host
 enqueues rounds in batches and reads ``ctl`` once per batch.  Every
@@ -180,7 +183,6 @@ class TrainState(TableState):
         self.off = torch.from_numpy(off.astype(np.int32)).to(dev)
         self.fw = torch.from_numpy(freq[self.wids]).to(dev)
         self.control(rules, used)
-        self.aff = torch.zeros(max(n_words, 1), dtype=torch.int32, device=dev)
         self.wmark = torch.zeros(max(n_words, 1), dtype=torch.int32, device=dev)
         self.resize(cap)
 
@@ -370,6 +372,28 @@ def apply_delta_plain(st: TrainState):
     )
 
 
+def relay_plain(st: TrainState):
+    live = st.tok >= 0
+    pw = st.pwid.long()
+    dev = st.device
+    lens = torch.zeros(st.n_words, dtype=torch.int64, device=dev).index_add_(
+        0, pw[live], torch.ones(int(live.sum()), dtype=torch.int64, device=dev)
+    ) + 1
+    new_off = torch.cumsum(lens, 0) - lens
+    mw2 = int(lens.sum())
+    tok2 = torch.full((mw2,), PAD, dtype=torch.int32, device=dev)
+    pwid2 = torch.full((mw2,), PAD, dtype=torch.int32, device=dev)
+    # live tokens are front-packed in their words: a token's rank in its
+    # word is its distance from the word's first slot
+    pos = torch.nonzero(live).flatten()
+    wm = pw[pos]
+    dst = new_off[wm] + (pos - st.off[wm].long())
+    tok2[dst] = st.tok[pos]
+    pwid2[dst] = wm.to(torch.int32)
+    off2 = torch.cat([new_off, torch.tensor([mw2], device=dev)]).to(torch.int32)
+    st.tok, st.pwid, st.off = tok2, pwid2, off2
+
+
 # -- wrappers -----------------------------------------------------------------
 
 
@@ -435,25 +459,59 @@ def topk_accept(st: TableState, limit: int, vocab_size: int, used_ids0: int, k: 
 
 def apply_delta(st: TrainState):
     """Merge the round's accepted candidates into the stream and move the
-    table by the affected words' deltas."""
+    table by the affected words' deltas; ``ctl[NAFF]`` counts those words."""
     if not _on(st, "apply_delta"):
         return apply_delta_plain(st)
     lib = _cuda.load_train()
     with torch.cuda.device(st.device):
         err = lib.yttm_train_apply_delta(
             st.tok.data_ptr(), st.pwid.data_ptr(), st.tok.shape[0], st.off.data_ptr(),
-            st.fw.data_ptr(), st.n_words, st.keys.data_ptr(), st.cnts.data_ptr(), st.cap,
-            st.ctl.data_ptr(), st.cand.data_ptr(), st.aff.data_ptr(), st.wmark.data_ptr(),
-            _stream_ptr(st.device),
+            st.fw.data_ptr(), st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(),
+            st.cand.data_ptr(), st.wmark.data_ptr(), _stream_ptr(st.device),
         )
     _check(err, "apply_delta")
     apply_delta.launches += 1
+
+
+def relay(st: TrainState):
+    """Lay the stream out again over its live tokens: every word keeps its
+    live tokens and a separator, in order.  Reads the new size back (the
+    host is at a segment end)."""
+    if not _on(st, "relay"):
+        return relay_plain(st)
+    lib = _cuda.load_train()
+    dev, w = st.device, st.n_words
+    i32 = dict(dtype=torch.int32, device=dev)
+    lens, keep, new_off, new_idx = (torch.empty(w, **i32) for _ in range(4))
+    scratch = torch.empty(lib.yttm_train_relay_scratch(w), **i32)
+    totals = torch.zeros(2, **i32)
+    stream = _stream_ptr(dev)
+    with torch.cuda.device(dev):
+        err = lib.yttm_train_relay_plan(
+            st.tok.data_ptr(), st.off.data_ptr(), w, lens.data_ptr(), keep.data_ptr(),
+            new_off.data_ptr(), new_idx.data_ptr(), scratch.data_ptr(), totals.data_ptr(), stream,
+        )
+        _check(err, "relay")
+        mw2 = int(totals[0])
+        tok2 = torch.full((mw2,), PAD, **i32)
+        pwid2 = torch.full((mw2,), PAD, **i32)
+        off2 = torch.empty(w + 1, **i32)
+        fw2 = torch.empty(w, **i32)
+        err = lib.yttm_train_relay_write(
+            st.tok.data_ptr(), st.off.data_ptr(), st.fw.data_ptr(), w, lens.data_ptr(),
+            new_off.data_ptr(), new_idx.data_ptr(), tok2.data_ptr(), pwid2.data_ptr(),
+            off2.data_ptr(), fw2.data_ptr(), mw2, stream,
+        )
+    _check(err, "relay")
+    relay.launches += 1
+    st.tok, st.pwid, st.off, st.fw = tok2, pwid2, off2, fw2
 
 
 # launches of the CUDA kernels through each wrapper (plain calls not counted)
 pair_count.launches = 0
 topk_accept.launches = 0
 apply_delta.launches = 0
+relay.launches = 0
 
 
 # -- host loop ----------------------------------------------------------------
@@ -510,10 +568,11 @@ class TableEngine:
 
 
 class KernelEngine(TableEngine):
-    """Segments of rounds through the three kernels, for
+    """Segments of rounds through the kernels, for
     ``train_delta.run_training_delta``.  The table starts at
     ``initial_cap`` slots; it is rebuilt when an insert finds it more than
-    half full (``regrow``)."""
+    half full (``regrow``); the stream is relaid at segment ends
+    (``segment``)."""
 
     def __init__(self, t, wid, freq, rules, used_ids0, vocab_size, batch_k, device):
         self.vocab_size = vocab_size
@@ -521,6 +580,7 @@ class KernelEngine(TableEngine):
         self.batch_k = batch_k
         cap = initial_cap(int(np.asarray(t).shape[0]))
         self.st = TrainState(t, wid, freq, rules, rules_used(rules, used_ids0), cap, device)
+        self.relaid = []  # (slots before, slots after) of each relay
         self._count()
 
     def count(self):
@@ -529,6 +589,18 @@ class KernelEngine(TableEngine):
     def round(self, limit: int):
         topk_accept(self.st, limit, self.vocab_size, self.used_ids0, self.batch_k)
         apply_delta(self.st)
+
+    def segment(self, used: int, limit: int):
+        """A segment of rounds; then, when the live tokens fill less than
+        half the stream's slots, the stream laid out again over them
+        (``relay``): a round reads every slot of the stream, live or not."""
+        used, done, overflow = super().segment(used, limit)
+        st = self.st
+        if not overflow and st.n_words and 2 * int((st.tok >= 0).sum()) < st.tok.shape[0]:
+            m = st.tok.shape[0]
+            relay(st)
+            self.relaid.append((m, st.tok.shape[0]))
+        return used, done, overflow
 
     def stream(self):
         t, wid = self.st.stream()
