@@ -46,8 +46,9 @@ order (any failure exits nonzero):
      stream's relay among them), rules
      equal to the plain round loop's on the card, the model's encode and
      decode round trip; times: preprocessing, merge loop, rounds,
-     merges/s, each kernel's device ms (torch.profiler) and its plain
-     version's; the run once more, one round at a time, to sum the work
+     merges/s, each kernel's device ms (torch.profiler; the apply's
+     device functions also over the first 100 rounds and the rest) and
+     its plain version's; the run once more, one round at a time, to sum the work
      that its data gives each kernel, for the bounds, and to time the
      selection's library yardstick (one ``torch.topk`` of the table's
      packed words a round; v5: of the hot table's).  ``BPE.train`` runs
@@ -64,8 +65,10 @@ order (any failure exits nonzero):
      fold), equal at every segment end, the hot tier exact; the main
      path ``BPE.train(data, model, vocab_size=30000)`` with no knob takes
      v5 (launches counted, none of v2's), its rules equal the v2 plain
-     round loop's from phase 5; times and bounds as in phase 5, with the
-     refresh rounds and folds
+     round loop's from phase 5, ``BPE.train`` timed twice and split
+     (``train_split``: reading, preprocessing, the trainer's layout and
+     engine, merge loop, the rest); times and bounds as in phase 5, with
+     the refresh rounds and folds
   7. BPE-dropout (csrc/encode_dropout.cu), run after phase 4: the kernel
      equals its plain version (same seed) for every cap 8..512 at R = 8192,
      p 0.1 and 0.5; p = 0 equals the greedy kernel, p = 1 returns its input;
@@ -1373,8 +1376,9 @@ def run_work(engine, vocab: int):
                    the accepted rows; and library_topk_ms before each call
       apply_delta  per round: the live tokens; per word with a hit, its
                    offset and weight and its live slots written back; per
-                   distinct pair that the round's deltas touch, its key
-                   read and its count read and written
+                   slot whose count the round changes (a key whose net
+                   delta is not 0), its key read and its count read and
+                   written
     """
     import torch
 
@@ -1382,7 +1386,7 @@ def run_work(engine, vocab: int):
 
     w = {"count_launches": 0, "count_bytes": 0, "count_tokens": 0, "topk_bytes": 0,
          "topk_slots": 0, "topk_keys": 0, "apply_bytes": 0, "apply_tokens": 0, "rounds": 0,
-         "library_ms": 0.0}
+         "apply_keys": 0, "apply_union_keys": 0, "library_ms": 0.0}
 
     count = tk.pair_count
 
@@ -1407,7 +1411,7 @@ def run_work(engine, vocab: int):
                 w["topk_slots"] += st.cap
                 w["topk_keys"] += keys
                 w["topk_bytes"] += st.cap * 4 + keys * 8 + n_acc * 16
-                before = st.tok.clone()
+                before, keys0, cnts0 = st.tok.clone(), st.keys.clone(), st.cnts.clone()
                 tk.apply_delta(st)
                 n_aff = int(st.ctl[tk.NAFF])
                 # a word with a hit changes: the words whose slots changed
@@ -1417,11 +1421,16 @@ def run_work(engine, vocab: int):
                 pos = (st.pwid >= 0) & hit[st.pwid.clamp(min=0).long()]
                 old_k, old_c = tk._counted_pairs(before)
                 new_k, new_c = tk._counted_pairs(st.tok)
-                touched = torch.unique(torch.cat([old_k[old_c & pos], new_k[new_c & pos]])).numel()
+                # the keys the round's net deltas move, against the union
+                # of the hit words' old and new pairs (logged only)
+                changed = int(((st.cnts != cnts0) | (st.keys != keys0)).sum())
+                w["apply_keys"] += changed
+                w["apply_union_keys"] += torch.unique(
+                    torch.cat([old_k[old_c & pos], new_k[new_c & pos]])).numel()
                 n_tok = int((before >= 0).sum())
                 w["apply_tokens"] += n_tok
                 w["apply_bytes"] += (n_tok * 4 + n_aff * 12 + int((before[pos] >= 0).sum()) * 4
-                                     + touched * 16)
+                                     + changed * 16)
             used, done, overflow = (int(v) for v in st.ctl[[tk.USED, tk.DONE, tk.OVERFLOW]].tolist())
             if overflow:
                 eng.regrow()
@@ -1565,6 +1574,9 @@ def phase_train_main(corpus_path: Path, work: Path, sample, plain) -> dict:
                     fn_us[f] = (us, ev.count)
     log("[5] device functions: " + ", ".join(
         f"{f} {us / 1e3:.3f} ms / {n} calls" for f, (us, n) in sorted(fn_us.items())))
+    log(f"[5] apply_delta, first {SPLIT_ROUNDS} launches / the rest, ms: " + ", ".join(
+        f"{f} {a:.3f} / {b:.3f}" for f, (a, b) in sorted(first_rest_ms(
+            prof, TRAIN_DEVICE_FNS["apply_delta"]).items())))
     kernel_ms = {name: dev_us[name] / 1e3 for name in TRAIN_KERNELS}
     for name, v in kernel_ms.items():
         check(v > 0, f"the profiler recorded no device time for {name}")
@@ -1599,16 +1611,17 @@ def phase_train_main(corpus_path: Path, work: Path, sample, plain) -> dict:
 
     # bounds, from this run's inputs and the work its data gave each
     # kernel (run_work): each input read once, each output written once
-    # (a relay: the stream read, the new one with its word of each slot
-    # written, the words' offsets and weights read and written)
+    # (a relay: each word's live tokens and one separator read, the m2
+    # slots of the new stream and their words written, the words' offsets
+    # and weights read and written; the dead slots are never needed)
     bytes_ = {"pair_count": work["count_bytes"], "topk_accept": work["topk_bytes"],
               "apply_delta": work["apply_bytes"],
-              "relay": sum(4 * m + 8 * m2 + 16 * st.n_words for m, m2 in relaid)}
+              "relay": sum(4 * m2 + 8 * m2 + 16 * st.n_words for _, m2 in relaid)}
     ops = {
         "pair_count": work["count_tokens"] * OPS_PER_COUNTED,
         "topk_accept": work["topk_slots"] * OPS_PER_SLOT,
         "apply_delta": work["apply_tokens"] * OPS_PER_POS,
-        "relay": sum(m for m, _ in relaid) * OPS_PER_POS,
+        "relay": sum(m2 for _, m2 in relaid) * OPS_PER_POS,
     }
     rows = []
     for name in TRAIN_KERNELS:
@@ -1645,6 +1658,78 @@ def select_keys_of(w, select_keys: dict, replicas: int, what: str) -> int:
     return replicas * select_keys["keys"]
 
 # -- phase 6: training with the v5 tiered trainer -----------------------------
+
+SPLIT_ROUNDS = 100  # the first rounds, timed apart from the rest
+
+
+def first_rest_ms(prof, fns, n: int = SPLIT_ROUNDS) -> dict:
+    """Per device function whose name contains one of ``fns``: the ms of its
+    first ``n`` launches (a round launches each apply function once: the
+    first ``n`` rounds) and of the rest, from the profiler's events."""
+    import torch
+
+    evs = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        for f in fns:
+            if f in ev.name:
+                evs.setdefault(f, []).append((ev.time_range.start, ev.time_range.elapsed_us()))
+    out = {}
+    for f, v in evs.items():
+        v.sort()
+        out[f] = (sum(us for _, us in v[:n]) / 1e3, sum(us for _, us in v[n:]) / 1e3)
+    return out
+
+
+def train_split(corpus_path: Path, model_path: Path):
+    """``BPE.train`` on the corpus at vocab TRAIN_VOCAB with no knob, its
+    seconds split by the host clock: reading and decoding the file,
+    preprocessing (characters, alphabet, word buckets), the trainer's own
+    set-up (its stream laid out on the host, then the engine built on the
+    card, synchronised), the merge loop, and the rest (the rules renamed,
+    the model written).  Works on any checkout of the package whose trainer
+    is v5 or v2 (``ops/train_tiered.py``, ``ops/train_delta.py``).  Returns
+    the split and the trained ``BPE``."""
+    import torch
+
+    import youtokentome_tpu_torch as yttm
+    from youtokentome_tpu_torch import train as tr
+    from youtokentome_tpu_torch.ops import tiered_kernels as tdk
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    at = {}
+
+    def marked(key, fn):
+        def run(*a, **k):
+            at[key] = time.perf_counter()
+            out = fn(*a, **k)
+            at[key + "_end"] = time.perf_counter()
+            return out
+        return run
+
+    def built(cls):
+        class Built(cls):
+            def __init__(self, *a, **k):
+                at["engine"] = time.perf_counter()
+                super().__init__(*a, **k)
+                torch.cuda.synchronize()
+                at["engine_end"] = time.perf_counter()
+        return Built
+
+    t0 = time.perf_counter()
+    with swapped(tr, train_from_codepoints=marked("prep", tr.train_from_codepoints),
+                 run_training_tiered=marked("trainer", tr.run_training_tiered),
+                 run_training_delta=marked("trainer", tr.run_training_delta)), \
+            swapped(tdk, TieredKernelEngine=built(tdk.TieredKernelEngine)), \
+            swapped(tk, KernelEngine=built(tk.KernelEngine)):
+        bpe = yttm.BPE.train(data=str(corpus_path), model=str(model_path), vocab_size=TRAIN_VOCAB)
+    end = time.perf_counter()
+    return bpe, {
+        "total_s": end - t0, "read_s": at["prep"] - t0, "prep_s": at["trainer"] - at["prep"],
+        "layout_s": at["engine"] - at["trainer"], "engine_s": at["engine_end"] - at["engine"],
+        "loop_s": at["trainer_end"] - at["engine_end"], "rest_s": end - at["trainer_end"]}
+
 
 TIERED_KERNELS = ("tier_select", "apply_blocks", "resplit", "fold_rows")
 # the device functions of each wrapper, as the profiler names them
@@ -2035,7 +2120,6 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    import youtokentome_tpu_torch as yttm
     from youtokentome_tpu_torch.models.state import BPEState, SpecialTokens
     from youtokentome_tpu_torch.ops import tiered_kernels as tk
     from youtokentome_tpu_torch.ops import train_kernels as v2
@@ -2048,9 +2132,8 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
     for name in TRAIN_KERNELS:
         getattr(v2, name).launches = 0
     check("YTTM_TRAIN_IMPL" not in os.environ, "a trainer is forced")
-    t0 = time.perf_counter()
-    bpe = yttm.BPE.train(data=str(corpus_path), model=str(model_path), vocab_size=TRAIN_VOCAB)
-    train_s = time.perf_counter() - t0
+    bpe, split = train_split(corpus_path, model_path)
+    train_s = split["total_s"]
     launches = {name: getattr(tk, name).launches for name in TIERED_KERNELS}
     v2_launches = {name: getattr(v2, name).launches for name in TRAIN_KERNELS}
     log(f"[6] main path BPE.train (auto): {train_s:.2f} s; launches {launches}, v2 {v2_launches}")
@@ -2058,7 +2141,12 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
     for name, n in launches.items():
         check(n > 0, f"the main path did not launch {name}")
     check(not any(v2_launches.values()), "the main path launched v2 kernels")
+    _, again = train_split(corpus_path, work / "trained30k_tiered_again.yttm")
+    log("[6] BPE.train (auto) split by the host clock, s (first run, second run): " + ", ".join(
+        f"{k[:-2]} {split[k]:.3f}, {again[k]:.3f}" for k in split))
     state = BPEState.load(str(model_path))
+    check(BPEState.load(str(work / "trained30k_tiered_again.yttm")).rules == state.rules,
+          "the second BPE.train's rules differ")
     buckets, al, used0 = training_buckets(corpus_path)
     char2id, want = rename_tokens(al.char2id, v2_rules, SpecialTokens(0, 1, 2, 3), TRAIN_VOCAB)
     check(state.rules == want and state.char2id == char2id,
@@ -2114,6 +2202,9 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
                     fn_us[f] = (us, ev.count)
     log("[6] device functions: " + ", ".join(
         f"{f} {us / 1e3:.3f} ms / {n} calls" for f, (us, n) in sorted(fn_us.items())))
+    log(f"[6] apply_blocks, first {SPLIT_ROUNDS} launches / the rest, ms: " + ", ".join(
+        f"{f} {a:.3f} / {b:.3f}" for f, (a, b) in sorted(first_rest_ms(
+            prof, TIERED_DEVICE_FNS["apply_blocks"]).items())))
     kernel_ms = {name: dev_us[name] / 1e3 for name in TIERED_KERNELS}
     for name, v in kernel_ms.items():
         check(v > 0, f"the profiler recorded no device time for {name}")

@@ -247,7 +247,6 @@ __device__ void apply_words(int w, int cnt, int32_t *tok, const int32_t *off, co
 // keys, so a block sums those in shared memory and adds them to the table
 // once.  Registers are held to 32 a thread (8 blocks an SM): the walk is
 // bound by its loads' latency, and more warps keep more of them in flight.
-template <bool VEC>
 __global__ void __launch_bounds__(256, 8)
     delta_apply_kernel(int32_t *tok, const int32_t *pwid, int Mw, const int32_t *off,
                        const int32_t *fw, unsigned long long *keys, int32_t *cnts, int cap,
@@ -268,7 +267,7 @@ __global__ void __launch_bounds__(256, 8)
   for (int g0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31); g0 < n_grp;
        g0 += gridDim.x * blockDim.x) {
     int32_t t[5], w[4];
-    load_group<VEC>(tok, Mw, g0 + lane, t);
+    load_group(tok, Mw, g0 + lane, t);
     const unsigned mine = claim_words(t, pwid, Mw, g0 + lane, c, n, tag, wmark, w);
     int total;
     int at = warp_exclusive(__popc(mine), total);
@@ -294,14 +293,13 @@ __global__ void __launch_bounds__(256, 8)
 
 // Blocks of delta_apply_kernel that the card holds at once: the launch is
 // one wave, each thread walking its share of the stream.
-template <bool VEC>
 int apply_grid() {
   static int blocks = 0;
   if (!blocks) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, delta_apply_kernel<VEC>, 256, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, delta_apply_kernel, 256, 0);
     blocks = sms * (per_sm > 0 ? per_sm : 1);
   }
   return blocks;
@@ -322,26 +320,19 @@ int yttm_train_pair_count(const void *tok, const void *off, const void *fw, int 
   return (int)cudaGetLastError();
 }
 
-// One round's merge of the accepted candidates with the table's deltas.
+// One round's merge of the accepted candidates with the table's deltas; tok
+// is 16-byte aligned (a fresh allocation).
 int yttm_train_apply_delta(void *tok, const void *pwid, int Mw, const void *off, const void *fw,
                            void *keys, void *cnts, int cap, void *ctl, const void *cand,
                            void *wmark, void *stream) {
-  if (Mw < 2 || cap <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+  if (Mw < 2 || cap <= 0 || ((uintptr_t)tok & 15u)) return (int)cudaErrorInvalidValue;
   const long long warps = ((Mw - 1 + 3) / 4 + 31) / 32;
-  if (((uintptr_t)tok & 15u) == 0) {
-    const long long most = apply_grid<true>();
-    delta_apply_kernel<true><<<(int)((warps + 7) / 8 < most ? (warps + 7) / 8 : most), 256, 0, s>>>(
-        (int32_t *)tok, (const int32_t *)pwid, Mw, (const int32_t *)off, (const int32_t *)fw,
-        (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, (const int32_t *)cand,
-        (int32_t *)wmark);
-  } else {
-    const long long most = apply_grid<false>();
-    delta_apply_kernel<false><<<(int)((warps + 7) / 8 < most ? (warps + 7) / 8 : most), 256, 0, s>>>(
-        (int32_t *)tok, (const int32_t *)pwid, Mw, (const int32_t *)off, (const int32_t *)fw,
-        (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, (const int32_t *)cand,
-        (int32_t *)wmark);
-  }
+  const long long most = apply_grid();
+  delta_apply_kernel<<<(int)((warps + 7) / 8 < most ? (warps + 7) / 8 : most), 256, 0,
+                       (cudaStream_t)stream>>>(
+      (int32_t *)tok, (const int32_t *)pwid, Mw, (const int32_t *)off, (const int32_t *)fw,
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, (const int32_t *)cand,
+      (int32_t *)wmark);
   return (int)cudaGetLastError();
 }
 

@@ -345,11 +345,12 @@ __global__ void __launch_bounds__(256)
 extern "C" {
 
 // One round's shard-local half: list the words with an accepted pair, merge
-// them, and append their old and new contributions to the buffer.
+// them, and append their old and new contributions to the buffer; tok is
+// 16-byte aligned (a fresh allocation).
 int yttm_shard_delta_emit(void *tok, const void *pwid, int Mw, const void *off, const void *fw,
                           int W, void *ctl, const void *cand, void *aff, void *wmark, void *dk,
                           void *dv, int dcap, void *work, void *stream) {
-  if (Mw < 2 || W <= 0 || dcap <= 0) return (int)cudaErrorInvalidValue;
+  if (Mw < 2 || W <= 0 || dcap <= 0 || ((uintptr_t)tok & 15u)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   launch_mark_words<NAFF>((const int32_t *)tok, (const int32_t *)pwid, Mw, (int32_t *)ctl,
                           (const int32_t *)cand, (int32_t *)aff, (int32_t *)wmark, s);

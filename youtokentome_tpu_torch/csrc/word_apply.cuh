@@ -69,11 +69,10 @@ __device__ __forceinline__ int cand_of(const CandSet &c, int n, int32_t a, int32
 }
 
 // The four positions from 4g of the stream and the token after them, PAD
-// past its end: one 16-byte load (VEC: tok is 16-byte aligned) and one more.
-template <bool VEC>
+// past its end: one 16-byte load (tok is 16-byte aligned) and one more.
 __device__ __forceinline__ void load_group(const int32_t *tok, int Mw, int g, int32_t (&t)[5]) {
   const int i = 4 * g;
-  if (VEC && i + 4 < Mw) {
+  if (i + 4 < Mw) {
     const int4 v = *reinterpret_cast<const int4 *>(tok + i);
     t[0] = v.x;
     t[1] = v.y;
@@ -128,7 +127,7 @@ __device__ __forceinline__ int warp_exclusive(int v, int &total) {
 
 // Lists in aff (their number in ctl[NAFF]) the words of the stream that hold
 // an accepted pair this round; a warp lists its new words with one atomic.
-template <int NAFF, bool VEC>
+template <int NAFF>
 __global__ void __launch_bounds__(256)
     mark_words_kernel(const int32_t *tok, const int32_t *pwid, int Mw, int32_t *ctl,
                       const int32_t *cand, int32_t *aff, int32_t *wmark) {
@@ -142,7 +141,7 @@ __global__ void __launch_bounds__(256)
   for (int g0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31); g0 < n_grp;
        g0 += gridDim.x * blockDim.x) {
     int32_t t[5], w[4];
-    load_group<VEC>(tok, Mw, g0 + lane, t);
+    load_group(tok, Mw, g0 + lane, t);
     const unsigned mine = claim_words(t, pwid, Mw, g0 + lane, c, n, tag, wmark, w);
     int total;
     int at = warp_exclusive(__popc(mine), total);
@@ -244,17 +243,14 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// A mark_words_kernel launch over a stream of Mw slots: the vector loads when
-// tok is 16-byte aligned.
+// A mark_words_kernel launch over a stream of Mw slots; tok is 16-byte
+// aligned (the caller checks).
 template <int NAFF>
 inline void launch_mark_words(const int32_t *tok, const int32_t *pwid, int Mw, int32_t *ctl,
                               const int32_t *cand, int32_t *aff, int32_t *wmark,
                               cudaStream_t s) {
   const int grid = grid_for_warps(((Mw - 1 + 3) / 4 + 31) / 32);
-  if (((uintptr_t)tok & 15u) == 0)
-    mark_words_kernel<NAFF, true><<<grid, 256, 0, s>>>(tok, pwid, Mw, ctl, cand, aff, wmark);
-  else
-    mark_words_kernel<NAFF, false><<<grid, 256, 0, s>>>(tok, pwid, Mw, ctl, cand, aff, wmark);
+  mark_words_kernel<NAFF><<<grid, 256, 0, s>>>(tok, pwid, Mw, ctl, cand, aff, wmark);
 }
 
 }  // namespace yttm
