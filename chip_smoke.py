@@ -19,7 +19,10 @@ order (any failure exits nonzero):
      by name is a kernel of the built libraries
   2. kernel vs plain version: random rows for every cap 8..512 at
      R = 8192, int32 and uint16 wire, exact equality with the plain torch
-     version (on the card) and with the C++ ``RuleTable.merge_words``
+     version (on the card) and with the C++ ``RuleTable.merge_words``; edge
+     rows at every cap (``phase_encode_edges``: all-PAD rows, runs of equal
+     pairs, placeholders on both wires, full rows, rows that merge to one
+     token), with the model's rules and with none
   3. main path: ``BPE(model).encode(lines)`` with no knob set takes the
      device arm (novel tokens > 2**22); ids equal the host arm's; a
      subword encode (matrix path); ``Encoder.encode_stream_cli`` over
@@ -59,16 +62,27 @@ order (any failure exits nonzero):
      a forced refresh; T against both of the JAX package's definitions; a
      resplit at a small hcap, so T > 0, and a hot round at that T whose
      cold keys stay out of the hot table), fold_rows on its stream and on
-     a foldable cut of it; the 10 MB prefix at vocab 8000 through the
-     kernels and the plain tiered round loop in lockstep (a hot tier of
-     1024, a small pcap, folds from 64 rows: refreshes, rebuilds and a
-     fold), equal at every segment end, the hot tier exact; the main
-     path ``BPE.train(data, model, vocab_size=30000)`` with no knob takes
-     v5 (launches counted, none of v2's), its rules equal the v2 plain
-     round loop's from phase 5, ``BPE.train`` timed twice and split
-     (``train_split``: reading, preprocessing, the trainer's layout and
-     engine, merge loop, the rest); times and bounds as in phase 5, with
-     the refresh rounds and folds
+     a foldable cut of it; the resplit on crafted tables
+     (``phase_resplit_checks``: one, two and three passes, ties, a top count
+     below the table's, fewer live keys than the boundary, a full list, the
+     full table's size; no run after a round with no refresh, no merge or
+     an overflow); the 10 MB prefix at vocab 8000 through the kernel engine
+     (the round graph), the same engine through the per-call wrappers and
+     the plain tiered round loop in lockstep (a hot tier of 1024, a small
+     pcap, folds from 64 rows: refreshes, rebuilds and a fold), the two
+     kernel routes equal in every field and the plain loop's stream, table
+     and rules at every segment end, the hot tier exact; the main path
+     ``BPE.train(data, model, vocab_size=30000)`` with no knob takes v5
+     (launches counted, none of v2's; the resplit's runs read from the
+     card equal the rounds where one was due; its device ms by CUDA events
+     at those runs), its rules equal the v2 plain round loop's from phase
+     5,
+     ``BPE.train`` timed twice and split (``train_split``: reading,
+     preprocessing, the trainer's layout and engine, merge loop, the rest);
+     the merge loop through the round graph and through the per-call
+     wrappers; times and bounds as in phase 5, with the refresh rounds and
+     folds, and the resplit's library yardstick (one ``torch.kthvalue`` of
+     the live counts a due round)
   7. BPE-dropout (csrc/encode_dropout.cu), run after phase 4: the kernel
      equals its plain version (same seed) for every cap 8..512 at R = 8192,
      p 0.1 and 0.5; p = 0 equals the greedy kernel, p = 1 returns its input;
@@ -142,7 +156,10 @@ order (any failure exits nonzero):
      phase 10, and v3's merge loop twice more without the profiler
 
 The second-to-last line is a JSON ``kernels`` record, the line before
-it the card; the last line is ``{"ok": true, "device": {...}}``.  It
+it the card; the last line is ``{"ok": true, "device": {...}}``.
+``compare_tree`` is not part of the run: called from a parent's and a
+change's unpacked trees in turns, it prints the numbers the greedy merge
+and v5's round are compared by (``.claude/skills/verify/SKILL.md``).  It
 exits nonzero without printing a result when no CUDA card is present or
 the port is not importable.  Imports neither JAX nor the JAX package.
 """
@@ -151,6 +168,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -178,6 +196,9 @@ CORPUS_MB = 100
 WORD_LIST = 2_000_000
 WORDS_PER_LINE = 12
 CLI_CHUNK = 10 * 1024 * 1024
+# the greedy merge's device functions (csrc/encode_greedy.cu), as the
+# profiler names them: rows of up to 32 slots, and longer rows
+ENCODE_DEVICE_FNS = ("encode_short_kernel", "encode_long_kernel")
 
 
 def log(msg: str) -> None:
@@ -224,7 +245,8 @@ def phase_device_and_build() -> dict:
     libs = [lib._name for lib in _cuda._libs.values()]
     for line in resource_usage(libs, ("topk_select_kernel", "tier_hot_kernel", "tier_full_kernel",
                                       "delta_apply_kernel", "tier_apply_kernel",
-                                      "mark_words_kernel", "emit_words_kernel")):
+                                      "mark_words_kernel", "emit_words_kernel", "resplit_kernel",
+                                      "encode_short_kernel", "encode_long_kernel")):
         log(f"[1] {line}")
     log(f"[1] name maps: the {check_name_maps(libs)} device functions the phases time by name "
         f"are kernels of the built libraries")
@@ -247,7 +269,8 @@ def resource_usage(libs, kernels) -> list:
         for fn_line, use in zip(lines, lines[1:]):
             name = next((k for k in kernels if k in fn_line), None)
             if name and fn_line.strip().startswith("Function"):
-                tmpl = "<1>" if "ILi1E" in fn_line else ("<16>" if "ILi16E" in fn_line else "")
+                args = re.search(r"I((?:L[a-z]\d+E)+)E", fn_line)
+                tmpl = f"<{','.join(re.findall(r'L[a-z](\d+)E', args.group(1)))}>" if args else ""
                 out.append(f"resource usage {name}{tmpl}: " + " ".join(
                     f for f in use.split() if f.split(":")[0] in ("REG", "SHARED", "LOCAL", "STACK")))
     return out
@@ -283,7 +306,7 @@ def check_name_maps(libs) -> int:
     maps = [TRAIN_DEVICE_FNS, TIERED_DEVICE_FNS, DIFF_DEVICE_FNS, STREAM_DEVICE_FNS,
             SHARD_DEVICE_FNS, OTHER_DEVICE_FNS,
             {"shared": tuple(f for f in STREAM_SHARED_FNS if f.endswith("_kernel")),
-             "encode": ("encode_greedy_kernel", "encode_dropout_kernel")}]
+             "encode": ENCODE_DEVICE_FNS + ("encode_dropout_kernel",)}]
     listed = {f for m in maps for names in m.values() for f in names}
     # a mangled name holds the function's name after its length
     missing = sorted(f for f in listed
@@ -389,6 +412,92 @@ def phase_kernel_checks(caps=CAPS, n_rows=TIERS[-1], dev="cuda:0") -> dict:
         log(f"[2] cap {cap:3d} R {n_rows}: int32 and u16 kernels == plain == C++ "
             f"merger ({merged} merges)")
     return {"tables": tables, "rows": rows_by_cap, "max_err": max_err, "unk": unk}
+
+
+def edge_rows(state, cap: int, rng) -> tuple:
+    """Front-packed edge rows of width ``cap`` for the hand model: all-PAD
+    rows, one and two tokens, runs of one letter of every length (run
+    parity) and of two alternating letters, unknown-run placeholders first,
+    last, side by side and inside runs, full rows, and the letters of rules
+    whose words merge back to one token.  Returns the rows and the count of
+    rule words that merge back."""
+    from youtokentome_tpu_torch.host import fasttok
+
+    letters = list(range(5, 13))
+    ph = 10**9
+    rows = [[], [], [], [5], [4, 5], [ph], [ph, ph + 1], [5, ph], [ph, 5]]
+    for n in range(2, cap + 1, 1 if cap <= 32 else max(1, cap // 24)):
+        a, b = (int(v) for v in rng.choice(letters, 2, replace=False))
+        rows += [[a] * n, [4] + [a] * (n - 1), [a, b] * (n // 2) + [a] * (n % 2)]
+        run = [a] * n
+        run[int(rng.integers(0, n))] = ph
+        rows.append(run)
+        rows.append([ph + i if i % 3 == 0 else a for i in range(n)])
+    for _ in range(8):
+        n = cap
+        row = [int(v) for v in rng.choice(letters, n)]
+        k = int(rng.integers(0, n))
+        row[k:k + 2] = [ph + 7, ph + 8][: len(row[k:k + 2])]
+        rows.append(row)
+    # the letters of a rule's token, when the greedy merge gives it back
+    expand = {t: [t] for t in [4] + letters}
+    for x, y, z in state.rules:
+        expand[z] = expand[x] + expand[y]
+    cands = [v for v in expand.values() if 2 <= len(v) <= cap]
+    rtab = fasttok.RuleTable(state.rules)
+    wf = np.concatenate([np.asarray(v, np.int32) for v in cands])
+    off = np.zeros(len(cands) + 1, np.int64)
+    np.cumsum([len(v) for v in cands], out=off[1:])
+    _, ro = rtab.merge_words(wf, off)
+    whole = [v for v, n in zip(cands, np.diff(ro)) if n == 1]
+    rows += whole[:64]
+    mat = np.full((len(rows), cap), -1, np.int32)
+    for i, r in enumerate(rows):
+        mat[i, : len(r)] = r[:cap]
+    return mat, len(whole)
+
+
+def phase_encode_edges(dev="cuda:0") -> int:
+    """The greedy kernel on edge rows at every bucket width 8..512, both
+    wires: equal to its plain version and to the C++ merger, with the
+    model's rules and with none (the rows come back unchanged, placeholders
+    as unk on the uint16 wire).  Returns the rows checked."""
+    import torch
+
+    from youtokentome_tpu_torch.host import fasttok
+    from youtokentome_tpu_torch.models.state import BPEState
+    from youtokentome_tpu_torch.ops import encode_kernel as ek
+
+    state = hand_model()
+    bare = BPEState(state.char2id, [], state.special_tokens)
+    unk = state.special_tokens.unk_id
+    rtab = fasttok.RuleTable(state.rules)
+    rng = np.random.default_rng(SEED + 3)
+    n_rows = 0
+    for cap in CAPS:
+        mat, n_whole = edge_rows(state, cap, rng)
+        want = host_merge_rows(rtab, mat)
+        check(n_whole > 0 and bool(((want >= 0).sum(axis=1) == 1).any()),
+              f"cap {cap}: no edge row merges to one token")
+        for st, ref in ((state, want), (bare, mat)):
+            tables = ek.EncoderTables.from_state(st, dev)
+            x = torch.from_numpy(mat).to(dev)
+            got = ek.encode_greedy(tables, x)
+            check(torch.equal(got, ek.encode_greedy_plain(tables, x)),
+                  f"edge rows, cap {cap}, {len(st.rules)} rules: int32 kernel != plain version")
+            check(np.array_equal(got.cpu().numpy(), ref),
+                  f"edge rows, cap {cap}, {len(st.rules)} rules: int32 kernel != C++ merger")
+            x16 = torch.from_numpy(ek.pack_tokens_u16(mat)).to(dev)
+            got16 = ek.encode_greedy_u16(tables, x16, unk)
+            check(torch.equal(got16, ek.encode_greedy_u16_plain(tables, x16, unk)),
+                  f"edge rows, cap {cap}, {len(st.rules)} rules: u16 kernel != plain version")
+            ref16 = np.where(ref < 0, ek.U16_PAD, np.where(ref >= ek.PLACEHOLDER_START, unk, ref))
+            check(np.array_equal(got16.cpu().numpy().astype(np.int64), ref16),
+                  f"edge rows, cap {cap}, {len(st.rules)} rules: u16 kernel != C++ merger")
+        n_rows += mat.shape[0]
+        log(f"[2] edge rows, cap {cap:3d}: {mat.shape[0]} rows ({n_whole} merging to one token), "
+            f"int32 and u16 kernels == plain == C++ merger, with the rules and with none")
+    return n_rows
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -647,6 +756,24 @@ def ranked_pairs(tables, x) -> int:
     return total
 
 
+def bucket_split(tables, unk, chunks, dev) -> dict:
+    """The greedy kernel's device ms over the chunks of each bucket width
+    (CUDA events), both wires: {cap: (launches, rows, int32 ms, u16 ms)}."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import encode_kernel as ek
+
+    out = {}
+    for cap in sorted({c.shape[1] for c in chunks}):
+        mine = [c for c in chunks if c.shape[1] == cap]
+        x32 = [torch.from_numpy(c).to(dev) for c in mine]
+        x16 = [torch.from_numpy(ek.pack_tokens_u16(c)).to(dev) for c in mine]
+        out[cap] = (len(mine), sum(c.shape[0] for c in mine),
+                    event_ms(lambda: [ek.encode_greedy(tables, x) for x in x32], 5),
+                    event_ms(lambda: [ek.encode_greedy_u16(tables, x, unk) for x in x16], 5))
+    return out
+
+
 def phase_times(card: str, kchk: dict, main: dict) -> list:
     import torch
 
@@ -703,6 +830,10 @@ def phase_times(card: str, kchk: dict, main: dict) -> list:
                      "bound_by": "bytes" if b_ms >= ops_ms else "operations", "ops_ms": ops_ms})
         log(f"[4] main-path inputs ({len(xs)} launches, shapes {shapes}): {name} "
             f"kernel {k_ms:.4f} ms, bytes bound {b_ms:.5f} ms, plain {p_ms:.3f} ms")
+    for cap, (n, r, ms32, ms16) in bucket_split(tables, unk, chunks, dev).items():
+        log(f"[4] main-path bucket {cap}: {n} launches, {r} rows: encode_greedy {ms32:.4f} ms "
+            f"({ms32 / n * 1e3:.2f} us a launch), encode_greedy_u16 {ms16:.4f} ms "
+            f"({ms16 / n * 1e3:.2f} us a launch) ({card})")
     mp = main["main_path"]
     log(f"[4] main path (default policy): API {mp['api_mbps']:.2f} MB/s; CLI engine, device "
         f"arm: {mp['cli_device_mbps']:.2f} MB/s; C++ tokenize {mp['tokenize_s']:.3f} s; "
@@ -1736,7 +1867,7 @@ TIERED_KERNELS = ("tier_select", "apply_blocks", "resplit", "fold_rows")
 TIERED_DEVICE_FNS = {
     "tier_select": ("tier_hot_kernel", "tier_full_kernel"),
     "apply_blocks": ("tier_find_kernel", "tier_apply_kernel", "tier_count_kernel"),
-    "resplit": ("resplit_pass_kernel", "hot_clear_kernel", "hot_fill_kernel"),
+    "resplit": ("resplit_kernel",),
     "fold_rows": ("fold_fills_kernel", "fold_hist_kernel", "fold_scan_kernel",
                   "fold_place_kernel", "fold_check_kernel", "fold_write_kernel"),
 }
@@ -1754,6 +1885,9 @@ MID_HCAP, MID_TIERED_PCAP, MID_FOLD_MIN = 1024, 1024, 64
 # scanned by a top-k or the resplit's radix passes (10), a row's signature
 # test (20), a position of a listed or folded row (40)
 OPS_PER_ROW, OPS_PER_ROWPOS = 20, 40
+# ~1 ms of card time ahead of each timed resplit: longer than the host takes
+# to enqueue the launch and its events
+SPLIT_SLEEP_CYCLES = 2_000_000
 # the phase's hot tier small enough that T comes out above 0 on the main
 # path's state (a rank of 128 among its ~1k live pairs), so that the radix
 # select runs all its passes and a hot round meets cold keys
@@ -1949,6 +2083,102 @@ def phase_tiered_kernels(buckets, used0: int, dev) -> dict:
     return {"B": B}
 
 
+# the resplit's crafted tables: (name, slots, live keys, count range, boundary,
+# the top count the round claims: None for the true one)
+RESPLIT_CASES = (
+    ("one pass", 1 << 14, 5000, (1, 2000), 300, None),
+    ("two passes", 1 << 14, 5000, (1, 1 << 20), 300, None),
+    ("three passes", 1 << 14, 5000, (1, 1 << 30), 300, None),
+    ("ties at T", 1 << 14, 5000, (7, 9), 1000, None),
+    ("a top count below the table's", 1 << 14, 5000, (1, 1 << 20), 300, 50),
+    ("fewer live keys, one pass", 1 << 14, 200, (1, 1500), 1000, None),
+    ("fewer live keys, two passes", 1 << 14, 200, (1, 1 << 22), 1000, None),
+    ("a list past its capacity", 1 << 14, 5000, (1, 1 << 20), 300, None),
+    ("one key", 1 << 12, 1, (5, 5), 1, None),
+    ("the full table's size", 1 << 23, 1_500_000, (1, 1 << 19), 32768, None),
+)
+
+
+def resplit_state(dev, cap: int, n_live: int, lo_hi, boundary: int, top, rng):
+    """A tiered state whose full table holds ``n_live`` distinct keys at
+    random slots with counts drawn from ``lo_hi`` (and count-0 slots), a
+    hot table of 4 * boundary slots, and a round that refreshed and merged
+    (the resplit is due), its first accepted count ``top``."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+    t = np.array([5, 6, -1, -1, -1, -1, -1, -1], np.int32)
+    hslots = max(1 << 10, 1 << int(np.ceil(np.log2(4 * boundary))))
+    st = tk.TieredState(t, np.array([0, 0, -1, -1, -1, -1, -1, -1], np.int32),
+                        np.ones(1, np.int32), np.full((8, 4), -1, np.int32), 100, 8, cap,
+                        hslots, dev)
+    slots = rng.choice(cap, size=min(cap // 2, n_live + n_live // 8), replace=False)
+    keys = (rng.choice(1 << 24, size=slots.size, replace=False).astype(np.int64) << 32) | 7
+    cnts = rng.integers(lo_hi[0], lo_hi[1] + 1, slots.size).astype(np.int32)
+    cnts[n_live:] = 0  # claimed slots whose count fell to 0
+    place(st.keys, st.cnts, keys, cnts, slots)
+    st.ctl[tk.OCC] = slots.size
+    st.ctl[tk.REFRESH] = 1
+    st.ctl[tk.NACC] = 1
+    st.cand[0, 3] = int(cnts.max()) if top is None else top
+    # a stale hot table and T, which the resplit replaces
+    st.hkeys[:4] = torch.arange(4, device=st.hkeys.device)
+    st.hcnts[:4] = 1
+    st.ctl[tk.THRESH] = 3
+    return st
+
+
+def phase_resplit_checks(dev) -> int:
+    """The resplit kernel against its plain version on crafted tables: one,
+    two and three passes, ties at T, a claimed top count below the table's
+    (the pass that finds counts above it), fewer live keys than the
+    boundary (T = 0) with one pass and with more, a list past its capacity
+    (the table scanned again), one key, the full table's size; a round that
+    needs no resplit (no refresh, no merge, an overflow) leaves the state as
+    it was.  Each due run adds one to the kernel's count of runs and leaves
+    its scratch zeroed.  Returns the cases checked."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+    rng = np.random.default_rng(SEED + 4)
+    for name, cap, n_live, lo_hi, boundary, top in RESPLIT_CASES:
+        st = resplit_state(dev, cap, n_live, lo_hi, boundary, top, rng)
+        if name == "a list past its capacity":  # OCC understated: the list is tried
+            st.slots = st.slots[:3]
+            st.ctl[tk.OCC] = 0
+        plain = clone_state(st)
+        runs = int(st.sel[tk.SEL_RUNS])
+        tk.resplit(st, 2 * boundary)
+        tk.resplit_plain(plain, boundary)
+        same_tiered(st, plain, f"resplit, {name}")
+        live = st.cnts[st.cnts > 0]
+        T = int(st.ctl[tk.THRESH])
+        want = tk.resplit_threshold(st.cnts, boundary)
+        check(T == want, f"resplit, {name}: T {T} != {want}")
+        check((T == 0) == (live.numel() < boundary), f"resplit, {name}: T {T}, {live.numel()} live")
+        on_card = st.device.type == "cuda"
+        check(int(st.sel[tk.SEL_RUNS]) == runs + on_card, f"resplit, {name}: runs not counted")
+        rest = torch.ones(tk.SEL_N, dtype=torch.bool, device=st.sel.device)
+        rest[[tk.SEL_GEN, tk.SEL_RUNS]] = False  # the barrier's generation, the runs
+        check(not bool(st.sel[rest].any()), f"resplit, {name}: the scratch was not left zeroed")
+        log(f"[6] resplit, {name}: {cap} slots, {live.numel()} live keys, boundary {boundary}: "
+            f"T {T}, {int(st.ctl[tk.HOCC])} hot keys == plain")
+    for what, slot, value in (("no refresh", tk.REFRESH, 0), ("no merge", tk.NACC, 0),
+                              ("an overflow", tk.OVERFLOW, 1)):
+        st = resplit_state(dev, 1 << 14, 5000, (1, 1 << 20), 300, None, rng)
+        st.ctl[slot] = value
+        before = clone_state(st)
+        tk.resplit(st, 600)
+        tk.resplit_plain(before, 300)
+        same_tiered(st, before, f"resplit after {what}")
+        check(torch.equal(st.hkeys, before.hkeys) and int(st.ctl[tk.THRESH]) == 3
+              and int(st.sel[tk.SEL_RUNS]) == 0, f"resplit after {what} changed the state")
+    log("[6] resplit after no refresh, no merge or an overflow: no run, the state unchanged")
+    return len(RESPLIT_CASES) + 3
+
+
 def tiered_full_table(plain):
     """The plain engine's exact full table, cold + pending: sorted (keys,
     counts) of the live pairs (numpy)."""
@@ -1961,12 +2191,27 @@ def tiered_full_table(plain):
     return fk[:n].cpu().numpy(), fc[:n].cpu().numpy()
 
 
+def same_routes(a, b, what: str) -> None:
+    """Two kernel engines' states after the same rounds, one through the
+    round graph and one through the per-call wrappers: stream, signatures,
+    ctl (T among it), both tables as multisets, rules and the resplit's
+    runs on the card."""
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+    same_tiered(a, b, what)
+    check(int(a.sel[tk.SEL_RUNS]) == int(b.sel[tk.SEL_RUNS]),
+          f"{what}: resplit runs {int(a.sel[tk.SEL_RUNS])} != {int(b.sel[tk.SEL_RUNS])}")
+
+
 def phase_tiered_mid(mid_path: Path, dev) -> dict:
-    """The 10 MB prefix at vocab 8000 through the tiered kernel engine and
-    the plain tiered round loop, both on the card, in lockstep, with a hot
-    tier of 1024 (refresh rounds), a pcap of 1024 (rebuilds) and folds
-    from 64 rows: stream, signatures, the live full table and rules
-    equal after every segment, and the kernel engine's hot tier exact
+    """The 10 MB prefix at vocab 8000 through the tiered kernel engine (the
+    round graph), the same engine through the per-call wrappers, and the
+    plain tiered round loop, all on the card, in lockstep, with a hot tier
+    of 1024 (refresh rounds), a pcap of 1024 (rebuilds) and folds from 64
+    rows: the two kernel routes' states equal after every segment
+    (``same_routes``: stream, signatures, ctl with T, both tables, rules,
+    resplit runs); stream, signatures, the live full table and rules equal
+    to the plain loop's; and the kernel engine's hot tier exact
     (``check_hot_tier``) wherever it has not overflowed."""
     import torch
 
@@ -1980,15 +2225,21 @@ def phase_tiered_mid(mid_path: Path, dev) -> dict:
     with env_set(YTTM_TRAIN_HCAP=str(MID_HCAP), YTTM_TRAIN_FOLD_MIN=str(MID_FOLD_MIN),
                  YTTM_TRAIN_PCAP=str(MID_TIERED_PCAP)):
         kern = tk.TieredKernelEngine(t, wid, freq, rules, used0, MID_VOCAB, 16, B, dev)
+        calls = tk.TieredKernelEngine(t, wid, freq, rules, used0, MID_VOCAB, 16, B, dev)
+        calls.graph = False
         plain = tt.PlainTieredEngine(t, wid, freq, rules, used0, MID_VOCAB, 16, B, dev)
         used, segs, refresh, nb0, hot_ends = used0, 0, 0, kern.st.NB, 0
         while used < MID_VOCAB:
             limit = min(MID_VOCAB, used + TRAIN_SEG)
             ku, kd = complete_segment(kern, used, limit)
             refresh += kern.stats[1]
+            cu, cd = complete_segment(calls, used, limit)
             pu, pd = complete_segment(plain, used, limit)
             what = f"segment to {limit}"
-            check((ku, kd) == (pu, pd), f"{what}: kernel {ku, kd} != plain {pu, pd}")
+            check((ku, kd) == (cu, cd) == (pu, pd),
+                  f"{what}: graph {ku, kd}, per call {cu, cd}, plain {pu, pd}")
+            check(kern.stats == calls.stats, f"{what}: stats {kern.stats} != {calls.stats}")
+            same_routes(kern.st, calls.st, what)
             st = kern.st
             check(torch.equal(st.tok, plain.t) and torch.equal(st.wid, plain.wid),
                   f"{what}: streams differ")
@@ -2009,11 +2260,14 @@ def phase_tiered_mid(mid_path: Path, dev) -> dict:
     check(kern.folds >= 1, "the tiered mid-size run never folded its rows")
     check(refresh >= 2, "the tiered mid-size run refreshed no more than once")
     check(hot_ends >= 1, "no segment of the tiered mid-size run ended with a hot tier above T > 0")
-    log(f"[6] mid-size tiered: vocab {MID_VOCAB}, B {B}: kernels == plain tiered round loop at "
-        f"all {segs} segment ends (stream, signatures, live full table, rules); hot counts == "
-        f"full counts and every key above T hot ({hot_ends} ends with T > 0); {refresh} "
-        f"refresh rounds, {kern.rebuilds} table rebuilds, {kern.folds} folds ({nb0} -> "
-        f"{kern.st.NB} rows) ({time.perf_counter() - t0:.1f} s)")
+    runs = int(kern.st.sel[tk.SEL_RUNS]) if kern.st.device.type == "cuda" else None
+    check(runs is None or runs >= 2, f"the tiered mid-size run resplit {runs} times")
+    log(f"[6] mid-size tiered: vocab {MID_VOCAB}, B {B}: the round graph == the per-call "
+        f"route (stream, signatures, ctl and T, both tables, rules, {runs} resplit runs) == "
+        f"plain tiered round loop at all {segs} segment ends (stream, signatures, live full "
+        f"table, rules); hot counts == full counts and every key above T hot ({hot_ends} ends "
+        f"with T > 0); {refresh} refresh rounds, {kern.rebuilds} table rebuilds, {kern.folds} "
+        f"folds ({nb0} -> {kern.st.NB} rows) ({time.perf_counter() - t0:.1f} s)")
     return {"segments": segs, "refresh": refresh, "rebuilds": kern.rebuilds, "folds": kern.folds}
 
 
@@ -2048,14 +2302,21 @@ def run_tiered_work(engine, vocab: int):
       fold_rows     the plan: the stream's tokens, fills and order; a fold:
                     the stream read, half of it and its signatures written
 
+    The engine takes the per-call route (the round graph would bypass the
+    wrapped wrappers; both routes run the same kernels on the same rounds).
     Returns the engine, each kernel's bytes and operations, and the counts
-    of rounds and refresh rounds, with library_topk_ms summed over the hot
-    tables before each tier_select."""
+    of rounds, refresh rounds and rounds where a resplit was due, with the
+    resplit's device ms over those (CUDA events), with
+    library_topk_ms summed over the hot tables before each tier_select and
+    library_kth_ms over the live counts of each due round."""
+    import torch
+
     from youtokentome_tpu_torch.ops import tiered_kernels as tk
 
     w = {name: 0 for name in TIERED_KERNELS}
     ops = {name: 0 for name in TIERED_KERNELS}
-    n = {"rounds": 0, "refresh": 0, "library_ms": 0.0}
+    n = {"rounds": 0, "refresh": 0, "due": 0, "library_ms": 0.0, "split_library_ms": 0.0,
+         "split_ms": 0.0}
     real = {name: getattr(tk, name) for name in TIERED_KERNELS}
 
     def select(st, limit, vocab_size, used_ids0, k=tk.K_MAX):
@@ -2088,10 +2349,21 @@ def run_tiered_work(engine, vocab: int):
 
     def split(st, hcap):
         refresh, n_acc, overflow = (int(v) for v in st.ctl[[tk.REFRESH, tk.NACC, tk.OVERFLOW]].tolist())
+        if not (refresh and n_acc and not overflow):
+            return real["resplit"](st, hcap)
+        # the kernel's device ms by CUDA events, a sleep kernel ahead so that
+        # the host's enqueue is not timed
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+        a.record()
         real["resplit"](st, hcap)
-        if refresh and n_acc and not overflow:
-            w["resplit"] += st.cap * 4 + int(st.ctl[tk.HOCC]) * 24 + st.hslots * 12
-            ops["resplit"] += st.cap * 10
+        b.record()
+        b.synchronize()
+        n["split_ms"] += a.elapsed_time(b)
+        n["due"] += 1
+        n["split_library_ms"] += library_kth_ms(st.cnts, hcap // 2)
+        w["resplit"] += st.cap * 4 + int(st.ctl[tk.HOCC]) * 24 + st.hslots * 12
+        ops["resplit"] += st.cap * 10
 
     def fold(st):
         m, NB, due = st.NB * st.B, st.NB, tk._fold_due(st)
@@ -2108,8 +2380,28 @@ def run_tiered_work(engine, vocab: int):
         f.launches = 0  # the real wrappers count their launches under these names
     with swapped(tk, tier_select=select, apply_blocks=apply, resplit=split, fold_rows=fold):
         eng = engine()
+        eng.graph = False
         run_tiered(eng, vocab, eng.used_ids0)
     return eng, w, ops, n
+
+
+def library_kth_ms(cnts, boundary: int) -> float:
+    """The library yardstick of the resplit's select step: ms of one
+    ``torch.kthvalue`` (CUDA events) of the table's live counts (taken out
+    of the table before the timed window) for the boundary-th largest; 0
+    with fewer live counts (T is then 0).  It finds T only, without the hot
+    table; the port never calls it."""
+    import torch
+
+    live = cnts[cnts > 0]
+    if live.numel() < boundary:
+        return 0.0
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.kthvalue(live, live.numel() - boundary + 1)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
 
 
 def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
@@ -2176,16 +2468,31 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
           "the timed tiered run's rules differ")
     rounds, st = int(eng.st.ctl[tk.ROUND]), eng.st
     merges = used - used0
-    log(f"[6] merge loop (tiered kernels): {loop_s:.3f} s, {rounds} rounds, {eng.folds} folds "
-        f"({nb0} -> {st.NB} rows of {B}), {eng.rebuilds} table rebuilds, {merges} merges, "
-        f"{merges / loop_s:.0f} merges/s")
+    log(f"[6] merge loop (tiered kernels, the round graph): {loop_s:.3f} s, {rounds} rounds, "
+        f"{eng.folds} folds ({nb0} -> {st.NB} rows of {B}), {eng.rebuilds} table rebuilds, "
+        f"{merges} merges, {merges / loop_s:.0f} merges/s")
+    # the same loop through the per-call wrappers (resplit's on every round)
+    c_eng = engine()
+    c_eng.graph = False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_tiered(c_eng, TRAIN_VOCAB, used0)
+    torch.cuda.synchronize()
+    calls_s = time.perf_counter() - t0
+    check(torch.equal(c_eng.rules, st.rules), "the per-call route's rules differ")
+    log(f"[6] merge loop through the per-call wrappers: {calls_s:.3f} s (the round graph: "
+        f"{loop_s:.3f} s)")
     t0 = time.perf_counter()
     w_eng, wbytes, wops, counts = run_tiered_work(engine, TRAIN_VOCAB)
     check(torch.equal(w_eng.rules, st.rules) and counts["rounds"] == rounds
           and w_eng.folds == eng.folds, "the round-by-round tiered run differs from the main path's")
     refresh = counts["refresh"]
+    check(launches["resplit"] == counts["due"] == int(st.sel[tk.SEL_RUNS]),
+          f"resplit ran {launches['resplit']} times on the main path ({int(st.sel[tk.SEL_RUNS])} "
+          f"in the timed run), but {counts['due']} rounds were due")
     log(f"[6] the run's work, one round at a time ({time.perf_counter() - t0:.1f} s): "
-        f"{refresh} refresh rounds; bytes {wbytes}, operations {wops}")
+        f"{refresh} refresh rounds, {counts['due']} due a resplit (the kernel's runs on the card: "
+        f"{launches['resplit']} on the main path); bytes {wbytes}, operations {wops}")
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2205,6 +2512,18 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
     log(f"[6] apply_blocks, first {SPLIT_ROUNDS} launches / the rest, ms: " + ", ".join(
         f"{f} {a:.3f} / {b:.3f}" for f, (a, b) in sorted(first_rest_ms(
             prof, TIERED_DEVICE_FNS["apply_blocks"]).items())))
+    # the resplit's device ms by CUDA events at its due launches
+    # (run_tiered_work): late in this script the profiler has missed some
+    # of the cooperative resplit kernel's records (16 and 20 of 49 runs in
+    # the round graph, 4 of 3,247 launches of the per-call route), though
+    # it held all of them in shorter processes and every other kernel's
+    n_split = fn_us.get("resplit_kernel", (0, 0))[1]
+    check(n_split <= counts["due"],
+          f"the profiler recorded {n_split} resplit runs, {counts['due']} rounds were due")
+    dev_us["resplit"] = counts["split_ms"] * 1e3
+    log(f"[6] resplit: {counts['split_ms']:.3f} ms over its {counts['due']} runs (CUDA events); "
+        f"the profiler recorded {n_split} of them ({fn_us.get('resplit_kernel', (0, 0))[0] / 1e3:.3f} "
+        f"ms)")
     kernel_ms = {name: dev_us[name] / 1e3 for name in TIERED_KERNELS}
     for name, v in kernel_ms.items():
         check(v > 0, f"the profiler recorded no device time for {name}")
@@ -2219,6 +2538,7 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
             torch.cuda.synchronize()
             plain_ms[name] += (time.perf_counter() - t0) * 1e3
             return out
+        run.launches = 0  # the engine counts the card's resplit runs under this name
         return run
 
     def apply_plain(st, kb1=0, kb2=0, count_mode=False):
@@ -2236,6 +2556,7 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
         fold_rows=timed_plain("fold_rows", tk.fold_rows_plain),
     ):
         p_eng = engine()
+        p_eng.graph = False
         run_tiered(p_eng, TRAIN_VOCAB, used0)
     check(torch.equal(p_eng.rules, st.rules), "the tiered plain versions' rules differ")
     log("[6] plain versions over the same run (synchronised calls): "
@@ -2248,13 +2569,114 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
         rows.append({"name": name, "launches": launches[name], "ms": kernel_ms[name],
                      "plain_ms": plain_ms[name], "bound_ms": max(b_ms, o_ms),
                      "bound_by": "bytes" if b_ms >= o_ms else "operations",
-                     "library_ms": counts["library_ms"] if name == "tier_select" else None})
+                     "library_ms": {"tier_select": counts["library_ms"],
+                                    "resplit": counts["split_library_ms"]}.get(name)})
         log(f"[6] {name}: {launches[name]} launches, {kernel_ms[name]:.3f} ms on the card, "
             f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain "
             f"{plain_ms[name]:.1f} ms")
-    log(f"[6] times: BPE.train {train_s:.2f} s, merge loop {loop_s:.3f} s, {rounds} rounds, "
-        f"{refresh} refresh rounds, {eng.folds} folds, {merges / loop_s:.0f} merges/s")
+    log(f"[6] times: BPE.train {train_s:.2f} s, merge loop {loop_s:.3f} s (per-call route "
+        f"{calls_s:.3f} s), {rounds} rounds, {refresh} refresh rounds, {counts['due']} resplits, "
+        f"{eng.folds} folds, {merges / loop_s:.0f} merges/s")
     return {"rows": rows}
+
+
+def round_split_us(prof, names) -> list:
+    """Per round of a profiled v5 run, the device us of the functions whose
+    names contain one of ``names`` (each assigned to the round of the last
+    tier_hot_kernel launched before it; 0 where a round launched none)."""
+    import torch
+
+    starts, evs = [], []
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        if "tier_hot_kernel" in ev.name:
+            starts.append(ev.time_range.start)
+        elif any(n in ev.name for n in names):
+            evs.append((ev.time_range.start, ev.time_range.elapsed_us()))
+    starts.sort()
+    per = [0.0] * len(starts)
+    for t, us in evs:
+        i = int(np.searchsorted(starts, t, side="right")) - 1
+        if i >= 0:
+            per[i] += us
+    return per
+
+
+def compare_tree(work: Path) -> dict:
+    """The numbers this PR's redesigns are held to, for the package of the
+    current directory's tree (run it in the parent's unpacked tree and in
+    the change's, in turns, from one process each, loading this file by its
+    path): the greedy kernel's device ms per bucket width on the 100 MB
+    encode's inputs (both wires); ``BPE.train`` twice, split
+    (``train_split``); v5's merge loop three times by the host clock; and
+    one profiled loop: device ms and launches of every function, and the
+    resplit's device us per round that needed none and per round that ran
+    one.  The corpus and the model are written to ``work`` by the first
+    caller and read by the others.  Prints and returns the numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from youtokentome_tpu_torch.encoder import DEVICE_BATCH, Encoder
+    from youtokentome_tpu_torch.host import fasttok
+    from youtokentome_tpu_torch.models.state import BPEState
+    from youtokentome_tpu_torch.ops import encode_kernel as ek
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+    dev = torch.device("cuda", 0)
+    work.mkdir(parents=True, exist_ok=True)
+    corpus_path, model_path = work / "corpus_100mb.txt", work / "vocab30k.yttm"
+    if not model_path.exists():
+        words, lines = build_corpus()
+        corpus_path.write_text("\n".join(lines) + "\n")
+        build_model(words)[0].dump(str(model_path))
+    out = {"tree": os.getcwd(), "card": card_line()}
+    state = BPEState.load(str(model_path))
+    tables = ek.EncoderTables.from_state(state, dev)
+    blob = corpus_path.read_bytes()
+    alpha_cps = np.sort(np.array(list(state.char2id), np.uint32))
+    alpha_ids = np.array([state.char2id[int(c)] for c in alpha_cps], np.int32)
+    wf, wo, _, _ = fasttok.tokenize(blob, alpha_cps, alpha_ids, 4)
+    chunks = [np.ascontiguousarray(mat[c0 : c0 + DEVICE_BATCH])
+              for _, mat in Encoder._bucket_rows(wf, wo)
+              for c0 in range(0, mat.shape[0], DEVICE_BATCH)]
+    split = bucket_split(tables, state.special_tokens.unk_id, chunks, dev)
+    out["encode"] = {cap: {"launches": n, "rows": r, "int32_ms": a, "u16_ms": b}
+                     for cap, (n, r, a, b) in split.items()}
+    out["train_split"] = [train_split(corpus_path, work / f"cmp{i}.yttm")[1] for i in range(2)]
+    buckets, _, used0 = training_buckets(corpus_path)
+    t, wid, freq, B = tiered_inputs(buckets)
+    rules = np.full((TRAIN_VOCAB, 4), -1, np.int32)
+
+    def engine():
+        return tk.TieredKernelEngine(t, wid, freq, rules, used0, TRAIN_VOCAB, 16, B, dev)
+
+    loops = []
+    for _ in range(3):
+        eng = engine()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_tiered(eng, TRAIN_VOCAB, used0)
+        torch.cuda.synchronize()
+        loops.append(time.perf_counter() - t0)
+    out["loop_s"] = loops
+    out["rounds"] = int(eng.st.ctl[tk.ROUND])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_tiered(engine(), TRAIN_VOCAB, used0)
+        torch.cuda.synchronize()
+    fns = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if us:
+            fns[ev.key[:60]] = (round(us / 1e3, 3), ev.count)
+    out["device_fns"] = fns
+    per = round_split_us(prof, ("resplit", "hot_clear", "hot_fill"))
+    noop = float(np.median(per)) if per else 0.0
+    due = [u for u in per if u > 4 * noop + 1.0]
+    out["resplit_us"] = {"rounds": len(per), "no_op_median": noop, "due_rounds": len(due),
+                         "due_mean": float(np.mean(due)) if due else 0.0, "total_ms": sum(per) / 1e3}
+    print("COMPARE " + json.dumps(out), flush=True)
+    return out
 
 
 # -- phase 7: BPE-dropout ----------------------------------------------------
@@ -3327,7 +3749,7 @@ def phase_shard_encode(main: dict, lines, times: list, card: str, dev="cuda:0") 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        return profiled_ms(prof, ("encode_greedy_kernel",))
+        return profiled_ms(prof, ENCODE_DEVICE_FNS)
 
     k_ms = merge_ms(lambda: [es.encode_greedy_sharded_u16(tables, x, unk, mesh) for x in x16])
     one_ms = merge_ms(lambda: [ek.encode_greedy_u16(tables, x, unk) for x in x16])
@@ -4319,6 +4741,7 @@ def main() -> int:
 
     info = phase_device_and_build()
     kchk = phase_kernel_checks()
+    phase_encode_edges()
     t0 = time.perf_counter()
     corpus = build_corpus()
     corpus_path = work / "corpus_100mb.txt"
@@ -4346,6 +4769,7 @@ def main() -> int:
     buckets, _, used0 = training_buckets(corpus_path)
     phase_tiered_kernels(buckets, used0, dev)
     del buckets
+    phase_resplit_checks(dev)
     tiered = phase_tiered_main(corpus_path, work, sample, train["plain_rules"])
     buckets, _, used0 = training_buckets(corpus_path)
     phase_diff_kernels(buckets, used0, dev)

@@ -21,6 +21,16 @@ from youtokentome_tpu.oracle import train_from_codepoints
 from youtokentome_tpu_torch.encoder import Encoder
 from youtokentome_tpu_torch.models.state import BPEState
 
+from jax_native import ensure_jax_native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native():
+    """The JAX package's native helpers, built and loaded once in this
+    worker before any test calls them (tests/jax_native.py)."""
+    ensure_jax_native()
+
+
 REPO = Path(__file__).resolve().parent.parent
 
 

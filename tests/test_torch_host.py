@@ -22,6 +22,16 @@ from youtokentome_tpu_torch.host import fastio, fasttok, preprocess, utf8
 from youtokentome_tpu_torch.models.state import BPEState, SpecialTokens
 from youtokentome_tpu_torch.ops import hashmap
 
+from jax_native import ensure_jax_native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native():
+    """The JAX package's native helpers, built and loaded once in this
+    worker before any test calls them (tests/jax_native.py)."""
+    ensure_jax_native()
+
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "youtokentome_tpu_torch"
 

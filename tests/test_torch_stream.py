@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_native import ensure_jax_native
 from test_torch_encoder import _sentences, _train
 from youtokentome_tpu.encoder import Encoder as JEncoder
 from youtokentome_tpu.ops import encode_kernel as jek
@@ -21,6 +22,14 @@ from youtokentome_tpu_torch import convert
 from youtokentome_tpu_torch.encoder import Encoder
 from youtokentome_tpu_torch.models.state import BPEState
 from youtokentome_tpu_torch.ops import stream_kernel as sk
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native():
+    """The JAX package's native helpers, built and loaded once in this
+    worker before any test calls them (tests/jax_native.py)."""
+    ensure_jax_native()
+
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -315,3 +315,66 @@ def test_kernel_state_copies_its_inputs():
     eng = tk.TieredKernelEngine(t, wid, freq, np.full((u0 + 30, 4), -1, np.int32), u0, u0 + 30, 16, 64, "cpu")
     eng.segment(u0, u0 + 30)
     assert np.array_equal(t, t0) and not torch.equal(eng.st.tok, torch.from_numpy(t0))
+
+
+def _complete(eng, used, limit):
+    while True:
+        used, done, overflow = eng.segment(used, limit)
+        if not overflow:
+            return used, done
+        eng.regrow()
+
+
+def test_resplit_only_on_due_rounds(monkeypatch):
+    """The kernel engine's batch route on the CPU (``tier_rounds``: the
+    plain versions, resplit's only on the rounds where one is due, as the
+    card's round graph runs it) against the per-call route (resplit's every
+    round, a no-op where not due) and the JAX trainer's rules (v2's, which
+    the JAX v5 trainer's equal), at a hot tier of 16 so that refresh rounds
+    set T > 0: stream, signatures, ctl (T and the stats among it), both
+    tables and rules equal at every segment end, the rules a prefix of the
+    JAX trainer's."""
+    monkeypatch.setenv("YTTM_TRAIN_HCAP", "16")
+    buckets, u0 = _buckets(5)
+    vocab = u0 + 160
+    want = _jax_delta("resplit", buckets, u0, vocab)
+    t, wid, freq = tt.flatten_word_buckets_blocked_snug(buckets, B_LOOP)
+    rules = np.full((vocab, 4), -1, np.int32)
+    engines = {r: tk.TieredKernelEngine(t, wid, freq, rules, u0, vocab, 16, B_LOOP, "cpu")
+               for r in ("graph", "calls")}
+    engines["calls"].graph = False
+    seen = {r: [0, 0] for r in engines}  # resplit_plain calls, and those that were due
+    route = ["graph"]
+    orig = tk.resplit_plain
+
+    def counted(st, boundary):
+        seen[route[0]][0] += 1
+        seen[route[0]][1] += tk.resplit_due(st)
+        return orig(st, boundary)
+
+    monkeypatch.setattr(tk, "resplit_plain", counted)
+    used, t_above = u0, 0
+    while used < vocab:
+        limit = min(vocab, used + 20)
+        ends = {}
+        for r, eng in engines.items():
+            route[0] = r
+            ends[r] = _complete(eng, used, limit)
+        a, b = engines["graph"].st, engines["calls"].st
+        assert ends["graph"] == ends["calls"]
+        assert engines["graph"].stats == engines["calls"].stats
+        for name in ("tok", "wid", "sig", "ctl", "rules"):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+        for tab in ("table", "hot_table"):
+            (ka, ca), (kb, cb) = getattr(a, tab)(), getattr(b, tab)()
+            assert np.array_equal(ka, kb) and np.array_equal(ca, cb), tab
+        used, done = ends["graph"]
+        got = [tuple(r) for r in a.rules[: used - u0, :3].tolist()]
+        assert got == [tuple(r) for r in want[: used - u0]]
+        t_above += int(a.ctl[tk.THRESH]) > 0
+        if done:
+            break
+    assert used == vocab and t_above > 0
+    (g_calls, g_due), (c_calls, c_due) = seen["graph"], seen["calls"]
+    assert g_calls == g_due == c_due >= 2
+    assert c_calls > c_due

@@ -37,15 +37,18 @@ __device__ __forceinline__ uint32_t mix(uint32_t x, uint32_t y) {
 // Linear probe from the home slot.  The table is built wave by wave with
 // no deletions, so every slot between a key's home slot and its own slot
 // is occupied: the first empty slot proves the key absent.  Negative
-// tokens (PAD, NEWLINE) and placeholders never match a stored key.
+// tokens (PAD, NEWLINE) and placeholders never match a stored key.  A
+// probe loads the slot's key halves and rank together: one L2 round trip
+// a probe, not three in a row on a hit.
 __device__ __forceinline__ int32_t lookup(const Table &t, int32_t x, int32_t y) {
   const uint32_t ux = (uint32_t)x, uy = (uint32_t)y;
   const uint32_t h = mix(ux, uy);
   for (int p = 0; p < t.max_probes; ++p) {
     const uint32_t s = (h + (uint32_t)p) & t.mask;
-    const uint32_t k = __ldg(t.kx + s);
-    if (k == kEmptyKey) return kMiss;
-    if (k == ux && __ldg(t.ky + s) == uy) return __ldg(t.val + s);
+    const uint32_t kx = __ldg(t.kx + s), ky = __ldg(t.ky + s);
+    const int32_t v = __ldg(t.val + s);
+    if (kx == kEmptyKey) return kMiss;
+    if (kx == ux && ky == uy) return v;
   }
   return kMiss;
 }

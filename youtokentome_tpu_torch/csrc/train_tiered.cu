@@ -1,4 +1,4 @@
-// The v5 tiered trainer's merge round, on Hopper: four kernels.
+// The v5 tiered trainer's merge round, on Hopper: four kernels and a graph.
 //
 // Replaces the JAX device programs
 //   youtokentome_tpu/ops/train_tiered.py:193 train_rounds_tiered
@@ -49,11 +49,12 @@
 //                 rebuilt, the round's stats counted by the last block.  In
 //                 count mode (start, rebuild: tier_count_kernel) every
 //                 row's pairs go into an empty full table.
-//   resplit       after a refresh round: T = the count at rank hcap/2 of the
-//                 full table (radix select, 3 passes of 11/11/10 bits over
-//                 the whole grid, the last block of each picks the bin; 0
-//                 with fewer live keys), then the hot table is rebuilt from
-//                 every key with count > T.
+//   resplit       after a refresh round that merged: T = the count at rank
+//                 hcap/2 of the full table (0 with fewer live keys), found by
+//                 one or two histogram passes from the round's top count down,
+//                 and the hot table rebuilt from every key with count > T; one
+//                 cooperative kernel with a grid barrier between its steps
+//                 (its section).
 //   fold_rows     row fills, a stable counting sort of the rows by fill, the
 //                 pair check (emptiest with fullest fits a row), and the fold:
 //                 row i = concat(row order[NB-1-i], row order[i]), compacted,
@@ -61,7 +62,11 @@
 //
 // Every kernel does nothing once `done` or `overflow` is set or `used`
 // reached min(vocab, limit), so the host enqueues rounds in batches and
-// reads ctl once per batch.
+// reads ctl once per batch.  The kernel engine enqueues a round as one CUDA
+// graph (yttm_tiered_graph: tier_select's and apply_blocks' launches, then
+// resplit under an IF node set on the card), replayed n times by one call a
+// batch; the per-call entries stay for the checks and the round-by-round
+// replay.
 //
 // Bound.  A hot round reads the hot table's counts (4 B a slot, 2^17 slots at
 // the 100 MB point) and the live keys, every row's signature (64 B), and the
@@ -105,36 +110,46 @@ __device__ __forceinline__ int sig_pos(int32_t tok) {
   return (int)(((uint32_t)tok * 2654435761u) >> 23) & 511;
 }
 
+// After a refresh round that merged (and did not overflow): T and the hot
+// table are rebuilt.  Read through L2: the apply's blocks set OVERFLOW.
 __device__ __forceinline__ bool resplit_due(const int32_t *ctl) {
-  return ctl[REFRESH] && ctl[NACC] > 0 && !ctl[OVERFLOW];
+  return __ldcg(ctl + REFRESH) && __ldcg(ctl + NACC) > 0 && !__ldcg(ctl + OVERFLOW);
 }
 
 // Hot-table update: a present key adds `delta`; a missing key is claimed
-// only when `insert` (it holds this round's z).  Overflow past half the
-// slots sets HOT_OVF, which makes the next round a refresh round.
-__device__ void hot_add(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
-                        unsigned long long key, int32_t delta, bool insert) {
+// only when `insert` (it holds this round's z).  Returns 1 when it claimed a
+// free slot; a probe past every slot sets HOT_OVF.
+__device__ int hot_put(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
+                       unsigned long long key, int32_t delta, bool insert) {
   const unsigned mask = (unsigned)cap - 1u;
   const unsigned h = (unsigned)hash64(key) & mask;
   for (int p = 0; p < cap; ++p) {
     const unsigned s = (h + (unsigned)p) & mask;
     unsigned long long k = __ldcg(keys + s);
     if (k == kEmpty) {
-      if (!insert) return;
+      if (!insert) return 0;
       k = atomicCAS(keys + s, kEmpty, key);
       if (k == kEmpty) {
-        const int occ = atomicAdd(ctl + HOCC, 1) + 1;
-        if (2ll * occ > (long long)cap) atomicExch(ctl + HOT_OVF, 1);
         atomicAdd(cnts + s, delta);
-        return;
+        return 1;
       }
     }
     if (k == key) {
       atomicAdd(cnts + s, delta);
-      return;
+      return 0;
     }
   }
   atomicExch(ctl + HOT_OVF, 1);
+  return 0;
+}
+
+// hot_put with the claimed slots counted in HOCC at once: overflow past
+// half the slots sets HOT_OVF, which makes the next round a refresh round.
+__device__ void hot_add(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
+                        unsigned long long key, int32_t delta, bool insert) {
+  if (hot_put(keys, cnts, cap, ctl, key, delta, insert) &&
+      2ll * (atomicAdd(ctl + HOCC, 1) + 1) > (long long)cap)
+    atomicExch(ctl + HOT_OVF, 1);
 }
 
 // -- tier_select -------------------------------------------------------------
@@ -574,7 +589,8 @@ __global__ void __launch_bounds__(kRowThreads, 4)
     tier_apply_kernel(int32_t *tok, int32_t *wid, const int32_t *freq, uint32_t *sig, int B,
                       int32_t *ctl, const int32_t *cand, unsigned long long *keys, int32_t *cnts,
                       int cap, unsigned long long *hkeys, int32_t *hcnts, int hslots,
-                      const int32_t *rows, int32_t *hits, unsigned *ticket, int kb1, int kb2) {
+                      const int32_t *rows, int32_t *hits, unsigned *ticket, int kb1, int kb2,
+                      cudaGraphConditionalHandle gate, int gated) {
   extern __shared__ __align__(16) unsigned char scratch[];
   __shared__ CandSet c;
   __shared__ int32_t acc[kK];
@@ -608,6 +624,9 @@ __global__ void __launch_bounds__(kRowThreads, 4)
     round_end(ctl, kb1, kb2);
     *hits = 0;
     *ticket = 0u;
+    // the round graph's IF node over the resplit (default 0: a round with
+    // no merge leaves it so)
+    if (gated) cudaGraphSetConditional(gate, resplit_due(ctl) ? 1u : 0u);
   }
 }
 
@@ -658,14 +677,38 @@ __global__ void __launch_bounds__(kRowThreads)
 }
 
 // Blocks of `kernel` the card holds at once with `smem` bytes of dynamic
-// shared memory a block.
+// shared memory a block of `threads`.
 template <class K>
-int one_wave(K kernel, int smem) {
+int one_wave(K kernel, int smem, int threads = kRowThreads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRowThreads, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+// The apply's two launches for rows of B slots: one wave each, the blocks
+// the card holds at once (the rows' scratch of the largest B may pass 48 KB).
+struct ApplyPlan {
+  int find_grid, apply_grid, apply_smem;
+};
+
+template <int P>
+cudaError_t apply_plan(int B, int NB, ApplyPlan *p) {
+  static int find_blocks = 0, apply_blocks = 0;
+  if (!apply_blocks) {
+    const int smem = kRowWarps * row_scratch_bytes(kMaxB);
+    cudaError_t e = cudaFuncSetAttribute(tier_apply_kernel<P>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    find_blocks = one_wave(tier_find_kernel<P>, 0);
+    apply_blocks = one_wave(tier_apply_kernel<P>, smem);
+  }
+  const long long need = ((NB + 31) / 32 + kRowWarps - 1) / kRowWarps;
+  p->find_grid = (int)(need < find_blocks ? need : find_blocks);
+  p->apply_grid = apply_blocks;
+  p->apply_smem = kRowWarps * row_scratch_bytes(B);
+  return cudaSuccess;
 }
 
 template <int P>
@@ -679,108 +722,374 @@ cudaError_t launch_apply(int32_t *tok, int32_t *wid, const int32_t *freq, uint32
         tok, wid, freq, sig, B, NB, ctl, keys, cnts, cap);
     return cudaGetLastError();
   }
-  // one wave each: the blocks the card holds at once (the rows' scratch of
-  // the largest B may pass 48 KB)
-  static int find_blocks = 0, apply_blocks = 0;
-  const int smem = kRowWarps * row_scratch_bytes(kMaxB);
-  if (!apply_blocks) {
-    cudaError_t e = cudaFuncSetAttribute(tier_apply_kernel<P>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    find_blocks = one_wave(tier_find_kernel<P>, 0);
-    apply_blocks = one_wave(tier_apply_kernel<P>, smem);
-  }
-  const long long need = ((NB + 31) / 32 + kRowWarps - 1) / kRowWarps;
-  tier_find_kernel<P><<<(int)(need < find_blocks ? need : find_blocks), kRowThreads, 0, s>>>(
-      tok, sig, B, NB, ctl, cand, rows, hits);
-  tier_apply_kernel<P><<<apply_blocks, kRowThreads, kRowWarps * row_scratch_bytes(B), s>>>(
+  ApplyPlan pl;
+  cudaError_t e = apply_plan<P>(B, NB, &pl);
+  if (e != cudaSuccess) return e;
+  tier_find_kernel<P><<<pl.find_grid, kRowThreads, 0, s>>>(tok, sig, B, NB, ctl, cand, rows, hits);
+  tier_apply_kernel<P><<<pl.apply_grid, kRowThreads, pl.apply_smem, s>>>(
       tok, wid, freq, sig, B, ctl, cand, keys, cnts, cap, hkeys, hcnts, hslots, rows, hits, ticket,
-      kb1, kb2);
+      kb1, kb2, 0, 0);
   return cudaGetLastError();
 }
 
 // -- resplit -----------------------------------------------------------------
+//
+// One kernel, run only after a refresh round that merged (resplit_due): T =
+// the boundary-th largest count among counts > 0 (0 with fewer), the hot
+// table cleared, and every key of the full table with count > T put in it.
+// The old design made five launches every round (three radix passes of
+// 11/11/10 bits, a clear, a fill), each of which read ctl and returned on
+// all but 49 of the 3,247 rounds at the 100 MB point: ~6 us of device time
+// a round for nothing (and five launches for the host to make), and ~1.2 ms
+// a due round, 76.7 ms over the run against a bound of 0.525 ms
+// (torch.profiler, H100 80GB HBM3, 700 W).  A due round read the full
+// table's counts four times (2^23 slots, 33.5 MB); the counts there are far
+// below 2^21, so its first pass put nearly every one into bin 0 (one shared
+// memory address), and its fill counted every insert on one global
+// address (HOCC).
+//
+// Now the round graph (yttm_tiered_graph below) runs this kernel under an
+// IF node that tier_apply_kernel's last block sets from resplit_due: a round
+// that needs no resplit launches nothing.  The kernel is one wave of blocks
+// (a cooperative launch: every block resident), with a grid barrier between
+// its steps:
+//   * the hot table cleared, while the first pass runs;
+//   * each pass histograms the counts in [lo, hi] into 2048 bins of 2^sh
+//     counts, and counts those above hi; the pass starts at [1, top], top
+//     being the count of the refresh round's first accepted pair: no count
+//     exceeds it after the round (an existing pair's count never grows, and
+//     a new pair's count is at most the merges of its pair), so while top
+//     < 2049 one pass finds T, and below 2^22 two do;
+//   * every block then picks the bin that holds the rank, from the global
+//     histogram, so the grid agrees on the next [lo, hi] with no further
+//     step; the pass whose bins are single counts (sh == 0) gives T;
+//   * during that last pass the slots in [lo, hi] are listed and, unless
+//     it is the first, the keys above hi go into the hot table (they are
+//     above T); after it, the listed slots above T go in too.
+// So a due round reads the full table's counts once or twice (one pass per
+// 11 bits of top - 1) and the keys of the hot slots once.  The last pass
+// lists its range only when the slots there (the chosen bin's count, or the
+// claimed slots for a first pass) fit the list, cap / 16 slots: gathering
+// more at random would cost more than a sequential read of the counts.
+// Otherwise, as where fewer live counts than the boundary were found before
+// the last pass (T = 0) or a first pass that was also the last met a count
+// above top, the kernel reads the counts once more and puts in the keys
+// with T < c <= hi (a round whose top count is low, so that its one pass
+// spans every live key, takes this read).  A count above top (which the
+// invariant rules out) costs a pass, not a wrong T.
+//
+// The histogram's shared atomics are summed a bin a warp first
+// (__match_any_sync), the list takes one atomic a warp for its 128 slots,
+// and the taken hot slots are counted in HOCC once a block (hot_put), not
+// once a key (hot_add).
+//
+// Bound: the full table's counts (4 B a slot), and the hot keys read and
+// written with their counts (24 B each), ~10 us a due round at the 100 MB
+// point; the kernel counts its own runs (sel[SEL_RUNS]) so that the host
+// can report them without a launch count.
 
 constexpr int kBins = 2048;
-constexpr int kScanBlocks = 264;  // two blocks an SM for the table scans
-// resplit scratch after the kBins histogram: the prefix and mask of the
-// bits picked so far, the rank still to find, "fewer live counts than the
-// rank", and the count of blocks done with a pass
-enum { SEL_PREFIX = kBins, SEL_MASK, SEL_REST, SEL_NONE, SEL_DONE, SEL_N = kBins + 8 };
+constexpr int kBinBits = 11;
+constexpr int kPasses = 4;  // a first pass over [1, top], then 31 bits at 11 a pass
+constexpr int kSplitThreads = 512;
+// resplit scratch (int32): a kBins histogram a pass, the counts above each
+// pass's range, the listed slots, the grid barrier's arrivals and
+// generation, the exit ticket and the count of runs
+enum {
+  SEL_ABOVE = kPasses * kBins, SEL_LISTED = SEL_ABOVE + kPasses, SEL_ARRIVED, SEL_GEN,
+  SEL_TICKET, SEL_RUNS, SEL_N = SEL_ABOVE + 16
+};
 
-// One pass of the radix select of T, the boundary-th largest count among
-// counts > 0 (0 with fewer of them): pass p histograms bits 31-21, 20-10 or
-// 9-0 of the counts that match the bits picked so far; the last block to
-// finish picks the bin that holds the rank, zeroes the histogram for the
-// next pass, and after the last pass sets T.
-__global__ void __launch_bounds__(256)
-    resplit_pass_kernel(const int32_t *cnts, int cap, int32_t *ctl, int32_t *sel, int pass,
-                        int boundary) {
-  __shared__ int hist[kBins];
-  __shared__ bool last;
-  if (!resplit_due(ctl)) return;
-  if (pass > 0 && __ldcg(sel + SEL_NONE)) return;
-  const int sh = pass == 0 ? 21 : (pass == 1 ? 10 : 0);
-  const uint32_t prefix = pass == 0 ? 0u : (uint32_t)__ldcg(sel + SEL_PREFIX);
-  const uint32_t mask = pass == 0 ? 0u : (uint32_t)__ldcg(sel + SEL_MASK);
-  for (int d = threadIdx.x; d < kBins; d += blockDim.x) hist[d] = 0;
+// Every block of the (co-resident) grid waits here for the others.  gen is
+// thread 0's copy of the barrier's generation.
+__device__ __forceinline__ void grid_sync(int32_t *sel, unsigned &gen) {
   __syncthreads();
-  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < cap; s += gridDim.x * blockDim.x) {
-    const int c = cnts[s];
-    if (c > 0 && ((uint32_t)c & mask) == prefix)
-      atomicAdd(hist + (((uint32_t)c >> sh) & (kBins - 1)), 1);
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < kBins; d += blockDim.x)
-    if (hist[d]) atomicAdd(sel + d, hist[d]);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(sel + SEL_DONE, 1) == (int)gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
   if (threadIdx.x == 0) {
-    const int rest = pass == 0 ? boundary : __ldcg(sel + SEL_REST);
-    int cum = 0, d = kBins - 1;
-    for (; d >= 0; --d) {
-      const int h = __ldcg(sel + d);
-      if (cum + h >= rest) break;
-      cum += h;
+    unsigned *arrived = (unsigned *)(sel + SEL_ARRIVED);
+    volatile unsigned *g = (volatile unsigned *)(sel + SEL_GEN);
+    __threadfence();
+    if (atomicAdd(arrived, 1u) == gridDim.x - 1) {
+      atomicExch(arrived, 0u);
+      __threadfence();
+      atomicAdd((unsigned *)(sel + SEL_GEN), 1u);
+    } else {
+      while (*g == gen) __nanosleep(32);
     }
-    const bool none = d < 0;  // fewer live counts than the boundary
-    const uint32_t pre = none ? 0u : prefix | ((uint32_t)d << sh);
-    sel[SEL_PREFIX] = (int)pre;
-    sel[SEL_MASK] = (int)(mask | ((uint32_t)(kBins - 1) << sh));
-    sel[SEL_REST] = rest - cum;
-    sel[SEL_NONE] = none;
-    sel[SEL_DONE] = 0;
-    if (none || pass == 2) {
-      ctl[THRESH] = (int)pre;
-      ctl[HOCC] = 0;
-      ctl[HOT_OVF] = 0;
-    }
+    __threadfence();
+    ++gen;
   }
   __syncthreads();
-  for (int d = threadIdx.x; d < kBins; d += blockDim.x) sel[d] = 0;
 }
 
-__global__ void __launch_bounds__(256)
-    hot_clear_kernel(unsigned long long *hkeys, int32_t *hcnts, int hslots, const int32_t *ctl) {
+// The bin of the global histogram h (kBins bins, from the top) that holds
+// rank `need`: every thread of the block takes 4 bins (one 16-byte load),
+// the block scans the sums from the top, and the thread whose bins hold the
+// rank writes its bin to *d; -1 when all of h holds fewer than need.  Every
+// thread calls it.
+static_assert(kSplitThreads * 4 == kBins, "a thread a 4-bin group");
+
+__device__ void pick_bin(const int32_t *h, int need, int *wsum, int *d) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int4 q = __ldcg(reinterpret_cast<const int4 *>(h) + threadIdx.x);
+  const int sum = q.x + q.y + q.z + q.w;
+  int incl = sum;  // this lane's and the higher lanes' sums
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_down_sync(kFullMask, incl, o);
+    if (lane + o < 32) incl += v;
+  }
+  if (threadIdx.x == 0) *d = -1;
+  if (lane == 0) wsum[warp] = incl;
+  __syncthreads();
+  int above = incl - sum;
+  for (int w = warp + 1; w < kSplitThreads / 32; ++w) above += wsum[w];
+  if (above < need && above + sum >= need) {
+    const int v[4] = {q.x, q.y, q.z, q.w};
+    int j = 3, c = above;
+    for (; j > 0 && c + v[j] < need; --j) c += v[j];
+    *d = 4 * threadIdx.x + j;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kSplitThreads)
+    resplit_kernel(const unsigned long long *keys, const int32_t *cnts, int cap,
+                   unsigned long long *hkeys, int32_t *hcnts, int hslots, int32_t *ctl, int32_t *sel,
+                   int32_t *slots, int slot_cap, const int32_t *cand, int boundary) {
+  __shared__ int hist[kBins];
+  __shared__ int blk_above, blk_put, pick_d, wsum[kSplitThreads / 32];
+  __shared__ bool last;
   if (!resplit_due(ctl)) return;
-  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < hslots; s += gridDim.x * blockDim.x) {
+  unsigned gen = 0;
+  if (threadIdx.x == 0) gen = *(volatile unsigned *)(sel + SEL_GEN);
+  const int lane = threadIdx.x & 31;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x, nthreads = gridDim.x * blockDim.x;
+  for (int s = tid; s < hslots; s += nthreads) {
     hkeys[s] = kEmpty;
     hcnts[s] = 0;
   }
+  if (tid == 0) {
+    ctl[HOCC] = 0;
+    ctl[HOT_OVF] = 0;
+  }
+  if (threadIdx.x == 0) blk_put = 0;
+  const int top = __ldcg(cand + 3);
+  long long lo = 1, hi = top > 1 ? top : 1;
+  int T = 0, pass = 0, put = 0;
+  bool fin = false, list_all = false;
+  // the slots in [lo, hi]: at first at most the claimed ones
+  long long in_range = __ldcg(ctl + OCC);
+  const int n4 = cap >> 2;
+  const int4 *c4 = reinterpret_cast<const int4 *>(cnts);
+  for (;; ++pass) {
+    int sh = 0;
+    while (((hi - lo) >> sh) >= kBins) ++sh;
+    fin = sh == 0;
+    // the first pass inserts nothing (a count above top would make its
+    // range wrong); a later last pass inserts the keys above its range
+    const bool ins = fin && pass > 0;
+    for (int i = threadIdx.x; i < kBins; i += blockDim.x) hist[i] = 0;
+    if (threadIdx.x == 0) blk_above = 0;
+    __syncthreads();
+    int above = 0;
+    // the last pass lists its range's slots when they fit the list (a
+    // larger range is read again instead); warp-uniform, off once full
+    list_all = fin && in_range <= slot_cap;
+    bool listing = list_all;
+    // warp-uniform trips: the ballots and matches need the whole warp
+    for (int v0 = tid - lane; v0 < n4; v0 += nthreads) {
+      const int v = v0 + lane;
+      int4 q = make_int4(0, 0, 0, 0);
+      if (v < n4) q = __ldg(c4 + v);
+      const int cs[4] = {q.x, q.y, q.z, q.w};
+      bool listed[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long c = cs[j];
+        int bin = -1;
+        listed[j] = false;
+        if (c > hi) {
+          ++above;
+          if (ins) put += hot_put(hkeys, hcnts, hslots, ctl, keys[4 * v + j], (int32_t)c, true);
+        } else if (c >= lo) {
+          bin = (int)((c - lo) >> sh);
+          listed[j] = listing;
+        }
+        // the counts crowd the low bins: one shared atomic a bin a warp
+        if (__any_sync(kFullMask, bin >= 0)) {
+          const unsigned peers = __match_any_sync(kFullMask, bin);
+          if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(hist + bin, __popc(peers));
+        }
+      }
+      if (listing) {  // one atomic a warp for its 128 slots
+        unsigned m[4];
+        int n = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          m[j] = __ballot_sync(kFullMask, listed[j]);
+          n += __popc(m[j]);
+        }
+        if (n) {
+          int base = 0;
+          if (lane == 0) base = atomicAdd(sel + SEL_LISTED, n);
+          base = __shfl_sync(kFullMask, base, 0);
+          listing = base + n <= slot_cap;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int at = base + __popc(m[j] & ((1u << lane) - 1u));
+            if (listed[j] && at < slot_cap) slots[at] = 4 * v + j;
+            base += __popc(m[j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) above += __shfl_xor_sync(kFullMask, above, o);
+    if (lane == 0 && above) atomicAdd(&blk_above, above);
+    __syncthreads();
+    int32_t *gh = sel + pass * kBins;
+    for (int i = threadIdx.x; i < kBins; i += blockDim.x)
+      if (hist[i]) atomicAdd(gh + i, hist[i]);
+    if (threadIdx.x == 0 && blk_above) atomicAdd(sel + SEL_ABOVE + pass, blk_above);
+    grid_sync(sel, gen);
+    const int A = __ldcg(sel + SEL_ABOVE + pass);
+    if (A >= boundary) {  // counts above top: start again above it
+      if (tid == 0) sel[SEL_LISTED] = 0;  // read by no block before the fill
+      lo = hi + 1;
+      hi = 0x7FFFFFFF;
+      in_range = A;
+      continue;
+    }
+    pick_bin(gh, boundary - A, wsum, &pick_d);
+    const int d = pick_d;
+    if (d < 0) break;  // fewer live counts than the boundary: T = 0
+    if (fin) {
+      T = (int)(lo + d);
+      break;
+    }
+    in_range = __ldcg(gh + d);
+    lo += (long long)d << sh;
+    hi = min(hi, lo + (1ll << sh) - 1);
+  }
+  // the listed slots hold every count in [lo, hi] when the last pass was a
+  // later one (it put those above hi in) or found none above hi
+  const int n_list = __ldcg(sel + SEL_LISTED);
+  const bool from_list =
+      list_all && (pass > 0 || __ldcg(sel + SEL_ABOVE + pass) == 0) && n_list <= slot_cap;
+  if (from_list) {
+    for (int i = tid; i < n_list; i += nthreads) {
+      const int s = slots[i];
+      const int c = cnts[s];
+      if (c > T) put += hot_put(hkeys, hcnts, hslots, ctl, keys[s], c, true);
+    }
+  } else {
+    const long long ins_hi = fin && pass > 0 ? hi : 0x7FFFFFFFll;
+    for (int s = tid; s < cap; s += nthreads) {
+      const int c = cnts[s];
+      if (c > T && c <= ins_hi) put += hot_put(hkeys, hcnts, hslots, ctl, keys[s], c, true);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) put += __shfl_xor_sync(kFullMask, put, o);
+  if (lane == 0 && put) atomicAdd(&blk_put, put);
+  if (tid == 0) ctl[THRESH] = T;
+  // the last block out leaves the scratch zeroed for the next run
+  __syncthreads();
+  if (threadIdx.x == 0 && blk_put) atomicAdd(ctl + HOCC, blk_put);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd((unsigned *)(sel + SEL_TICKET), 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  for (int i = threadIdx.x; i < (pass + 1) * kBins; i += blockDim.x) sel[i] = 0;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (2ll * __ldcg(ctl + HOCC) > (long long)hslots) ctl[HOT_OVF] = 1;
+    for (int p = 0; p < kPasses; ++p) sel[SEL_ABOVE + p] = 0;
+    sel[SEL_LISTED] = 0;
+    sel[SEL_TICKET] = 0;
+    sel[SEL_RUNS] += 1;
+  }
 }
 
-__global__ void __launch_bounds__(256)
-    hot_fill_kernel(const unsigned long long *keys, const int32_t *cnts, int cap,
-                    unsigned long long *hkeys, int32_t *hcnts, int hslots, int32_t *ctl) {
-  if (!resplit_due(ctl)) return;
-  const int T = ctl[THRESH];
-  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < cap; s += gridDim.x * blockDim.x) {
-    const int c = cnts[s];
-    if (c > T) hot_add(hkeys, hcnts, hslots, ctl, keys[s], c, true);
-  }
+// One wave of resplit_kernel, no more blocks than the table's int4 loads
+// need: every block resident, as the grid barrier needs (the launches are
+// cooperative, which checks it).
+int resplit_grid(int cap) {
+  static int wave = 0;
+  if (!wave) wave = one_wave(resplit_kernel, 0, kSplitThreads);
+  const int need = (cap / 4 + kSplitThreads - 1) / kSplitThreads;
+  return need < 1 ? 1 : (need < wave ? need : wave);
+}
+
+// -- the round graph ------------------------------------------------------------
+//
+// v5's round as one CUDA graph that the host replays n times a batch:
+// tier_hot -> tier_full -> tier_find -> tier_apply -> IF(resplit_due) {
+// resplit }.  tier_apply's last block sets the IF node's value on the card
+// (cudaGraphSetConditional; the value resets to 0 at each replay), so a
+// round that needs no resplit launches nothing for it, and the host neither
+// reads the card nor calls Python per round.  The graph holds the state's
+// pointers and sizes: the host builds another when they change (a resize, a
+// rebuild, a fold) and updates tier_hot's `limit` in place between segments.
+
+struct RoundGraph {
+  cudaGraph_t graph = nullptr;  // kept: its tier_hot node is updated in exec
+  cudaGraphExec_t exec = nullptr;
+  cudaGraphNode_t hot = nullptr;
+  cudaKernelNodeParams hot_params{};
+  // tier_hot_kernel's arguments, which hot_params points at
+  const unsigned long long *hkeys;
+  const int32_t *hcnts;
+  int hslots;
+  unsigned long long *blk_hi;
+  uint32_t *blk_lo;
+  unsigned *ticket;
+  int32_t *ctl, *cand, *rules;
+  int limit, vocab, used_ids0, k;
+  bool wide;
+  void *hot_args[14];
+};
+
+cudaError_t add_kernel(cudaGraphNode_t *node, cudaGraph_t g, const cudaGraphNode_t *dep,
+                       const void *fn, int grid, int threads, int smem, void **args) {
+  cudaKernelNodeParams kp{};
+  kp.func = const_cast<void *>(fn);
+  kp.gridDim = dim3(grid);
+  kp.blockDim = dim3(threads);
+  kp.sharedMemBytes = smem;
+  kp.kernelParams = args;
+  return cudaGraphAddKernelNode(node, g, dep, dep ? 1 : 0, &kp);
+}
+
+template <int P>
+cudaError_t add_apply_nodes(cudaGraph_t g, cudaGraphNode_t *dep, int32_t *tok, int32_t *wid,
+                            const int32_t *freq, uint32_t *sig, int B, int NB, int32_t *rows,
+                            int32_t *hits, unsigned *ticket, int32_t *ctl, const int32_t *cand,
+                            unsigned long long *keys, int32_t *cnts, int cap,
+                            unsigned long long *hkeys, int32_t *hcnts, int hslots, int kb1,
+                            int kb2, cudaGraphConditionalHandle gate) {
+  ApplyPlan pl;
+  cudaError_t e = apply_plan<P>(B, NB, &pl);
+  if (e != cudaSuccess) return e;
+  void *fa[] = {&tok, &sig, &B, &NB, &ctl, &cand, &rows, &hits};
+  cudaGraphNode_t find;
+  e = add_kernel(&find, g, dep, (const void *)tier_find_kernel<P>, pl.find_grid, kRowThreads, 0, fa);
+  if (e != cudaSuccess) return e;
+  int gated = 1;
+  void *aa[] = {&tok, &wid, &freq, &sig, &B, &ctl, &cand, &keys, &cnts, &cap, &hkeys, &hcnts,
+                &hslots, &rows, &hits, &ticket, &kb1, &kb2, &gate, &gated};
+  return add_kernel(dep, g, &find, (const void *)tier_apply_kernel<P>, pl.apply_grid, kRowThreads,
+                    pl.apply_smem, aa);
+}
+
+cudaError_t add_node(cudaGraphNode_t *node, cudaGraph_t g, const cudaGraphNode_t *dep,
+                     cudaGraphNodeParams *p) {
+#if CUDART_VERSION >= 13000
+  return cudaGraphAddNode(node, g, dep, nullptr, 1, p);
+#else
+  return cudaGraphAddNode(node, g, dep, 1, p);
+#endif
 }
 
 // -- fold_rows ---------------------------------------------------------------
@@ -967,24 +1276,144 @@ int yttm_tiered_apply(void *tok, void *wid, const void *freq, void *sig, int B, 
                      (cudaStream_t)stream);
 }
 
-// After a refresh round that merged: T and the hot table.  sel holds SEL_N
-// entries of scratch, zero before the first call (each call leaves them so).
+// After a refresh round that merged: T and the hot table (a no-op on any
+// other round).  sel holds SEL_N entries of scratch, zero before the first
+// call (each call leaves them so, but for its count of runs); slots
+// slot_cap entries; cand the round's accepted rows.  cnts is 16-byte
+// aligned and cap a multiple of 4.
 int yttm_tiered_resplit(const void *keys, const void *cnts, int cap, void *hkeys, void *hcnts,
-                        int hslots, void *ctl, void *sel, int boundary, void *stream) {
-  if (cap <= 0 || hslots <= 0 || boundary < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int32_t *c = (int32_t *)ctl;
-  const int scan = grid_for(cap, 256, 16) < kScanBlocks ? grid_for(cap, 256, 16) : kScanBlocks;
-  for (int pass = 0; pass < 3; ++pass)
-    resplit_pass_kernel<<<scan, 256, 0, s>>>((const int32_t *)cnts, cap, c, (int32_t *)sel, pass,
-                                             boundary);
-  hot_clear_kernel<<<grid_for(hslots, 256, 16), 256, 0, s>>>((unsigned long long *)hkeys,
-                                                         (int32_t *)hcnts, hslots, c);
-  hot_fill_kernel<<<scan, 256, 0, s>>>(
-      (const unsigned long long *)keys, (const int32_t *)cnts, cap, (unsigned long long *)hkeys,
-      (int32_t *)hcnts, hslots, c);
-  return (int)cudaGetLastError();
+                        int hslots, void *ctl, void *sel, void *slots, int slot_cap,
+                        const void *cand, int boundary, void *stream) {
+  if (cap <= 0 || (cap & 3) || hslots <= 0 || boundary < 1 || slot_cap < 0 ||
+      ((uintptr_t)cnts & 15u))
+    return (int)cudaErrorInvalidValue;
+  void *args[] = {&keys, &cnts, &cap, &hkeys, &hcnts, &hslots, &ctl, &sel, &slots, &slot_cap,
+                  &cand, &boundary};
+  return (int)cudaLaunchCooperativeKernel((const void *)resplit_kernel, dim3(resplit_grid(cap)),
+                                          dim3(kSplitThreads), args, 0, (cudaStream_t)stream);
 }
+
+// Frees a graph of yttm_tiered_graph (null: nothing).
+int yttm_tiered_graph_free(void *graph) {
+  RoundGraph *rg = (RoundGraph *)graph;
+  if (!rg) return 0;
+  cudaError_t e = rg->exec ? cudaGraphExecDestroy(rg->exec) : cudaSuccess;
+  if (rg->graph) {
+    const cudaError_t f = cudaGraphDestroy(rg->graph);
+    if (e == cudaSuccess) e = f;
+  }
+  delete rg;
+  return (int)e;
+}
+
+// The round graph (see its section) over the state's buffers, with the
+// arguments of yttm_tiered_select, yttm_tiered_apply (count_mode 0) and
+// yttm_tiered_resplit; *out gets a handle for yttm_tiered_graph_launch and
+// yttm_tiered_graph_free.
+int yttm_tiered_graph(void **out, const void *keys, const void *cnts, int cap, const void *hkeys,
+                      const void *hcnts, int hslots, void *blk_hi, void *blk_lo, int hn_blk,
+                      int fn_blk, void *ticket, void *ctl, void *cand, void *rules, int limit,
+                      int vocab, int used_ids0, int k, void *tok, void *wid, const void *freq,
+                      void *sig, int B, int NB, void *rows, void *hits, int kb1, int kb2, void *sel,
+                      void *slots, int slot_cap, int boundary) {
+  *out = nullptr;
+  if (cap <= 0 || (cap & 3) || hslots <= 0 || hn_blk <= 0 || fn_blk <= 0 ||
+      hn_blk > kSelMaxBlocks || fn_blk > kSelMaxBlocks || k <= 0 || k > kK || B < 1 ||
+      B > kMaxB || NB <= 0 || boundary < 1 || slot_cap < 0 || ((uintptr_t)cnts & 15u) ||
+      ((uintptr_t)hcnts & 15u))
+    return (int)cudaErrorInvalidValue;
+  RoundGraph *rg = new RoundGraph();
+  rg->hkeys = (const unsigned long long *)hkeys;
+  rg->hcnts = (const int32_t *)hcnts;
+  rg->hslots = hslots;
+  rg->blk_hi = (unsigned long long *)blk_hi;
+  rg->blk_lo = (uint32_t *)blk_lo;
+  rg->ticket = (unsigned *)ticket;
+  rg->ctl = (int32_t *)ctl;
+  rg->cand = (int32_t *)cand;
+  rg->rules = (int32_t *)rules;
+  rg->limit = limit;
+  rg->vocab = vocab;
+  rg->used_ids0 = used_ids0;
+  rg->k = k;
+  rg->wide = vocab > 65536;
+  void *ha[] = {&rg->hkeys, &rg->hcnts, &rg->hslots, &rg->blk_hi, &rg->blk_lo, &rg->ticket,
+                &rg->ctl, &rg->cand, &rg->rules, &rg->limit, &rg->vocab, &rg->used_ids0, &rg->k,
+                &rg->wide};
+  for (int i = 0; i < 14; ++i) rg->hot_args[i] = ha[i];
+  cudaGraph_t g = nullptr;
+  cudaGraphConditionalHandle gate;
+  cudaGraphNode_t dep, cond;
+  cudaGraphNodeParams cp{};
+  cudaError_t e = cudaGraphCreate(&g, 0);
+  if (e == cudaSuccess) e = cudaGraphConditionalHandleCreate(&gate, g, 0, cudaGraphCondAssignDefault);
+  if (e == cudaSuccess) {
+    rg->hot_params.func = (void *)tier_hot_kernel;
+    rg->hot_params.gridDim = dim3(hn_blk);
+    rg->hot_params.blockDim = dim3(kSelThreads);
+    rg->hot_params.kernelParams = rg->hot_args;
+    e = cudaGraphAddKernelNode(&rg->hot, g, nullptr, 0, &rg->hot_params);
+  }
+  if (e == cudaSuccess) {
+    bool wide = rg->wide;
+    void *fa[] = {&keys, &cnts, &cap, &blk_hi, &blk_lo, &ticket, &ctl, &cand, &rules, &vocab,
+                  &used_ids0, &k, &wide};
+    e = add_kernel(&dep, g, &rg->hot, (const void *)tier_full_kernel, fn_blk, kSelThreads, 0, fa);
+  }
+  if (e == cudaSuccess) {
+    auto add = B <= 32 ? &add_apply_nodes<1> : B <= 64 ? &add_apply_nodes<2>
+             : B <= 128 ? &add_apply_nodes<4> : B <= 256 ? &add_apply_nodes<8>
+             : &add_apply_nodes<16>;
+    e = add(g, &dep, (int32_t *)tok, (int32_t *)wid, (const int32_t *)freq, (uint32_t *)sig, B, NB,
+            (int32_t *)rows, (int32_t *)hits, (unsigned *)ticket, (int32_t *)ctl,
+            (const int32_t *)cand, (unsigned long long *)keys, (int32_t *)cnts, cap,
+            (unsigned long long *)hkeys, (int32_t *)hcnts, hslots, kb1, kb2, gate);
+  }
+  if (e == cudaSuccess) {
+    cp.type = cudaGraphNodeTypeConditional;
+    cp.conditional.handle = gate;
+    cp.conditional.type = cudaGraphCondTypeIf;
+    cp.conditional.size = 1;
+    e = add_node(&cond, g, &dep, &cp);
+  }
+  if (e == cudaSuccess) {
+    cudaGraphNode_t split;
+    void *sa[] = {&keys, &cnts, &cap, &hkeys, &hcnts, &hslots, &ctl, &sel, &slots, &slot_cap,
+                  &cand, &boundary};
+    e = add_kernel(&split, cp.conditional.phGraph_out[0], nullptr, (const void *)resplit_kernel,
+                   resplit_grid(cap), kSplitThreads, 0, sa);
+    if (e == cudaSuccess) {
+      cudaKernelNodeAttrValue v{};
+      v.cooperative = 1;
+      e = cudaGraphKernelNodeSetAttribute(split, cudaLaunchAttributeCooperative, &v);
+    }
+  }
+  if (e == cudaSuccess) e = cudaGraphInstantiate(&rg->exec, g, 0);
+  rg->graph = g;
+  if (e != cudaSuccess) {
+    yttm_tiered_graph_free(rg);
+    return (int)e;
+  }
+  *out = rg;
+  return 0;
+}
+
+// n replays of the round graph on `stream`, tier_hot's limit set first.
+int yttm_tiered_graph_launch(void *graph, int n, int limit, void *stream) {
+  RoundGraph *rg = (RoundGraph *)graph;
+  if (!rg || n < 0) return (int)cudaErrorInvalidValue;
+  if (limit != rg->limit) {
+    rg->limit = limit;
+    cudaError_t e = cudaGraphExecKernelNodeSetParams(rg->exec, rg->hot, &rg->hot_params);
+    if (e != cudaSuccess) return (int)e;
+  }
+  for (int i = 0; i < n; ++i) {
+    cudaError_t e = cudaGraphLaunch(rg->exec, (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
 
 // The fold's plan: fills, LIVE, the stable order by fill, FOLD_MAX.  ghist
 // holds ceil(NB / 256) * (B + 1) entries of scratch.

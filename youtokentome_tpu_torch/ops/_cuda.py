@@ -145,8 +145,18 @@ def load_tiered() -> ctypes.CDLL:
         # cap, hkeys, hcnts, hslots, count_mode, kb1, kb2, stream
         "yttm_tiered_apply": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p,
                                    _i, _i, _i, _i, _p]),
-        # keys, cnts, cap, hkeys, hcnts, hslots, ctl, sel, boundary, stream
-        "yttm_tiered_resplit": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _i, _p]),
+        # keys, cnts, cap, hkeys, hcnts, hslots, ctl, sel, slots, slot_cap,
+        # cand, boundary, stream
+        "yttm_tiered_resplit": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _p, _i, _p, _i, _p]),
+        # out, then select's arguments but the stream (keys .. k), tok, wid,
+        # freq, sig, B, NB, rows, hits, kb1, kb2, then sel, slots, slot_cap,
+        # boundary
+        "yttm_tiered_graph": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p, _i, _i, _p, _p, _p, _p, _i,
+                                   _i, _i, _i, _p, _p, _p, _p, _i, _i, _p, _p, _i, _i, _p, _p, _i,
+                                   _i]),
+        # graph, n, limit, stream
+        "yttm_tiered_graph_launch": (_i, [_p, _i, _i, _p]),
+        "yttm_tiered_graph_free": (_i, [_p]),
         # tok, B, NB, fills, ghist, order, ctl, stream
         "yttm_tiered_fold_plan": (_i, [_p, _i, _i, _p, _p, _p, _p, _p]),
         # tok, wid, fills, order, B, NB, tok2, wid2, sig2, stream

@@ -52,7 +52,7 @@ U16_PAD = 0xFFFF
 U16_PH_TOP = 0xFFFE
 U16_PH_FLOOR = 0xF000
 
-MAX_KERNEL_LEN = 512  # the kernel keeps a row in shared memory
+MAX_KERNEL_LEN = 512  # the kernel's longest row: a warp, 16 slots a lane
 
 
 class EncoderTables:

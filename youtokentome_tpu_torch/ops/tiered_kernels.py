@@ -36,10 +36,21 @@ launches its kernels on a CUDA state (and counts the launch) and runs its
 plain torch version on a CPU state; the two leave the same stream,
 signatures, ``ctl`` and tables as multisets of (key, count) slots (but for
 a table that overflows: its entries are then rebuilt before use).
+
+The engine runs a batch of rounds through ``tier_rounds``: on a CUDA state
+one call replays a CUDA graph of the round n times (tier_select's and
+apply_blocks' kernels, then resplit's under an IF node that the apply's last
+block sets on the card, so only the rounds where a resplit is due launch it);
+on a CPU state the plain versions, resplit's only on those rounds.  The
+resplit kernel counts its runs on the card (``sel[SEL_RUNS]``);
+``count_resplits`` adds them to ``resplit.launches`` where the engine reads
+the card anyway, at a segment's end.  ``rounds_per_call`` is the same batch
+through the three per-call wrappers, resplit's on every round.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 import sys
@@ -74,7 +85,9 @@ CTL_N = 24
 EMPTY = -1  # int64 all ones: the key of an empty slot
 K_MAX = 16  # the kernels' candidates per round
 FOLD_CHUNK = 256  # rows a block of the fold's counting sort takes
-SEL_N = 2048 + 8  # the resplit's scratch: a radix histogram and its state
+# the resplit's scratch (csrc/train_tiered.cu SEL_*): four histograms of 2048
+# bins, then its state: the grid barrier's generation and the kernel's runs
+SEL_GEN, SEL_RUNS, SEL_N = 4 * 2048 + 6, 4 * 2048 + 8, 4 * 2048 + 16
 
 
 class TieredState:
@@ -96,6 +109,8 @@ class TieredState:
         self.rows = torch.zeros(self.NB, dtype=torch.int32, device=dev)
         self.hits = torch.zeros(1, dtype=torch.int32, device=dev)
         self.sel = torch.zeros(SEL_N, dtype=torch.int32, device=dev)
+        self.runs_seen = 0  # sel[SEL_RUNS] when count_resplits last read it
+        self.round_graph = None  # the round graph (_RoundGraph) of a CUDA state
         self.resize(cap, hslots)
 
     @property
@@ -110,6 +125,9 @@ class TieredState:
         self.cnts = torch.zeros(cap, dtype=torch.int32, device=self.device)
         self.hkeys = torch.full((hslots,), EMPTY, dtype=torch.int64, device=self.device)
         self.hcnts = torch.zeros(hslots, dtype=torch.int32, device=self.device)
+        # the resplit's list of the slots in its last pass's range (past
+        # cap / 16 it reads the table again instead)
+        self.slots = torch.empty(cap // 16, dtype=torch.int32, device=self.device)
         n_blk = max(select_blocks(cap, self.device), select_blocks(hslots, self.device))
         self.blk_hi, self.blk_lo, self.ticket = select_scratch(n_blk, self.device)
 
@@ -259,9 +277,16 @@ def resplit_threshold(cnts: torch.Tensor, boundary: int) -> int:
     return int(torch.sort(live, descending=True).values[boundary - 1])
 
 
+def resplit_due(st: TieredState) -> bool:
+    """A refresh round merged and did not overflow: T and the hot table are
+    rebuilt (the kernels' ``resplit_due``)."""
+    refresh, n_acc, overflow = (int(v) for v in st.ctl[[REFRESH, NACC, OVERFLOW]].tolist())
+    return bool(refresh and n_acc > 0 and not overflow)
+
+
 def resplit_plain(st: TieredState, boundary: int):
     ctl = st.ctl
-    if not (int(ctl[REFRESH]) and int(ctl[NACC]) > 0 and not int(ctl[OVERFLOW])):
+    if not resplit_due(st):
         return
     T = resplit_threshold(st.cnts, boundary)
     ctl[THRESH] = T
@@ -355,18 +380,96 @@ def apply_blocks(st: TieredState, kb1: int = 0, kb2: int = 0, count_mode: bool =
 def resplit(st: TieredState, hcap: int):
     """After a refresh round that merged: T at rank hcap/2 of the full
     table and the hot table rebuilt from the keys above it (a no-op after
-    any other round)."""
+    any other round).  The kernel counts its runs on the card
+    (``count_resplits``), not this call."""
     if not _on(st, "resplit"):
         return resplit_plain(st, hcap // 2)
     lib = _cuda.load_tiered()
     with torch.cuda.device(st.device):
         err = lib.yttm_tiered_resplit(
             st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.hkeys.data_ptr(),
-            st.hcnts.data_ptr(), st.hslots, st.ctl.data_ptr(), st.sel.data_ptr(), hcap // 2,
+            st.hcnts.data_ptr(), st.hslots, st.ctl.data_ptr(), st.sel.data_ptr(),
+            st.slots.data_ptr(), st.slots.numel(), st.cand.data_ptr(), hcap // 2,
             _stream_ptr(st.device),
         )
     _check(err, "resplit")
-    resplit.launches += 1
+
+
+def count_resplits(st: TieredState) -> int:
+    """Add the resplit kernel's runs on the card since the last call to
+    ``resplit.launches`` (a read of the card: call it where the host waits
+    anyway).  Returns the state's runs so far; 0 on a CPU state."""
+    if st.device.type != "cuda":
+        return 0
+    runs = int(st.sel[SEL_RUNS])
+    resplit.launches += runs - st.runs_seen
+    st.runs_seen = runs
+    return runs
+
+
+class _RoundGraph:
+    """An instantiated round graph (``yttm_tiered_graph``) and the state's
+    buffers and sizes it was built over."""
+
+    def __init__(self, lib, handle: int, key: tuple):
+        self.lib, self.handle, self.key = lib, handle, key
+
+    def __del__(self):
+        self.lib.yttm_tiered_graph_free(self.handle)
+
+
+def _round_graph(st: TieredState, limit, vocab_size, used_ids0, k, hcap, kb1, kb2):
+    """The state's round graph, built anew when a buffer or size changed."""
+    hn_blk, fn_blk = select_blocks(st.hslots, st.device), select_blocks(st.cap, st.device)
+    args = (
+        st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.hkeys.data_ptr(), st.hcnts.data_ptr(),
+        st.hslots, st.blk_hi.data_ptr(), st.blk_lo.data_ptr(), hn_blk, fn_blk,
+        st.ticket.data_ptr(), st.ctl.data_ptr(), st.cand.data_ptr(), st.rules.data_ptr(),
+        int(limit), int(vocab_size), int(used_ids0), int(k), st.tok.data_ptr(),
+        st.wid.data_ptr(), st.freq.data_ptr(), st.sig.data_ptr(), st.B, st.NB,
+        st.rows.data_ptr(), st.hits.data_ptr(), int(kb1), int(kb2), st.sel.data_ptr(),
+        st.slots.data_ptr(), st.slots.numel(), hcap // 2,
+    )
+    key = args[:14] + args[15:]  # all but limit, which a replay sets
+    if st.round_graph is None or st.round_graph.key != key:
+        lib = _cuda.load_tiered()
+        handle = ctypes.c_void_p()
+        _check(lib.yttm_tiered_graph(ctypes.byref(handle), *args), "tier_rounds graph")
+        st.round_graph = _RoundGraph(lib, handle.value, key)
+    return st.round_graph
+
+
+def tier_rounds(st: TieredState, n: int, limit: int, vocab_size: int, used_ids0: int, k: int,
+                hcap: int, kb1: int, kb2: int):
+    """n rounds: on a CUDA state the round graph replayed n times (one call;
+    a round after the loop stopped is a no-op), counted as n launches of
+    tier_select's and apply_blocks' kernels; on a CPU state the plain
+    versions, resplit's only on the rounds where it is due."""
+    if not 0 < k <= K_MAX:
+        raise ValueError(f"batch_k must be in 1..{K_MAX}, got {k}")
+    if not _on(st, "tier_rounds"):
+        for _ in range(n):
+            tier_select_plain(st, limit, vocab_size, used_ids0, k)
+            apply_blocks_plain(st, False, kb1, kb2)
+            if resplit_due(st):
+                resplit_plain(st, hcap // 2)
+        return
+    with torch.cuda.device(st.device):
+        g = _round_graph(st, limit, vocab_size, used_ids0, k, hcap, kb1, kb2)
+        err = g.lib.yttm_tiered_graph_launch(g.handle, int(n), int(limit), _stream_ptr(st.device))
+    _check(err, "tier_rounds")
+    tier_select.launches += n
+    apply_blocks.launches += n
+
+
+def rounds_per_call(st: TieredState, n: int, limit: int, vocab_size: int, used_ids0: int, k: int,
+                    hcap: int, kb1: int, kb2: int):
+    """``tier_rounds`` through the per-call wrappers: tier_select,
+    apply_blocks and resplit each round (resplit a no-op where not due)."""
+    for _ in range(n):
+        tier_select(st, limit, vocab_size, used_ids0, k)
+        apply_blocks(st, kb1, kb2)
+        resplit(st, hcap)
 
 
 def _fold_due(st: TieredState) -> bool:
@@ -428,7 +531,7 @@ def fold_rows(st: TieredState) -> bool:
 # launches of the CUDA kernels through each wrapper (plain calls not counted)
 tier_select.launches = 0
 apply_blocks.launches = 0
-resplit.launches = 0
+resplit.launches = 0  # runs on the card (count_resplits), not calls
 fold_rows.launches = 0
 
 
@@ -441,7 +544,9 @@ class TieredKernelEngine:
     (the JAX host loop's pcap, ``YTTM_TRAIN_PCAP`` included) and is rebuilt
     from the stream when more than half of them are taken (``regrow``);
     the hot table has 2 * hcap slots.  KB1/KB2 only class the rounds in
-    the stats, as the JAX program's tiers do."""
+    the stats, as the JAX program's tiers do.  ``graph`` picks the route of
+    a batch of rounds: ``tier_rounds`` (the round graph; on the CPU, resplit
+    only where due) or ``rounds_per_call``."""
 
     def __init__(self, t, wid, freq, rules, used_ids0, vocab_size, batch_k, B, device):
         self.vocab_size, self.used_ids0, self.batch_k = vocab_size, used_ids0, batch_k
@@ -454,6 +559,7 @@ class TieredKernelEngine:
         self.st = TieredState(t, wid, freq, rules, used, B, *self._slots(), device)
         self.rebuilds = 0
         self.folds = 0
+        self.graph = True
         self._count()
         sizes = tier_sizes(m // B, B, int(self.st.ctl[OCC]), m, merges)
         if sizes != self.sizes:
@@ -495,14 +601,12 @@ class TieredKernelEngine:
         on_card = st.device.type == "cuda"
         st.ctl[ST_ROUNDS : ST_FULL + 1] = 0
         kb1, kb2 = self._kb()
+        rounds = tier_rounds if self.graph else rounds_per_call
         while True:
             # each round that merges accepts at most batch_k ids, so this
             # many rounds never run past the segment's end
             n = max(1, math.ceil((limit - used) / self.batch_k)) if on_card else 1
-            for _ in range(n):
-                tier_select(st, limit, self.vocab_size, self.used_ids0, self.batch_k)
-                apply_blocks(st, kb1, kb2)
-                resplit(st, self.hcap)
+            rounds(st, n, limit, self.vocab_size, self.used_ids0, self.batch_k, self.hcap, kb1, kb2)
             used, done, overflow, error = (
                 int(v) for v in st.ctl[[USED, DONE, OVERFLOW, ERROR]].tolist()
             )
@@ -510,6 +614,7 @@ class TieredKernelEngine:
                 raise RuntimeError("training table lost a pair: subtracted a missing key")
             if done or overflow or used >= min(limit, self.vocab_size):
                 break
+        count_resplits(st)
         if not overflow and fold_rows(st):
             self.folds += 1
         return used, bool(done), bool(overflow)
