@@ -33,7 +33,11 @@ order (any failure exits nonzero):
      every trainer but v5 shares): pair_count, topk_accept (also on
      tie-heavy tables, narrow and wide ids, at k = 1, 2, 15 and 16),
      apply_delta and relay each equal to its plain version on the 100 MB
-     corpus's state; the selection's edge tables (``phase_select_checks``: 2^14,
+     corpus's state; pair_count's edge streams (``phase_count_checks``: a
+     run of 1,000 equal tokens, words of 33-600 tokens, ids from 5 and
+     70000, more distinct keys a block than its shared table holds, and a
+     table that overflows at its first count, then regrown to the main
+     path's table); the selection's edge tables (``phase_select_checks``: 2^14,
      2^17 and 2^22 slots, ids from 0, up to 65535 and from 70000, no live
      slot, one, 15, a tie at the 16th place across blocks; tier_select's
      hot, refresh and hot-overflow rounds on tie-heavy hot and full
@@ -49,9 +53,13 @@ order (any failure exits nonzero):
      stream's relay among them), rules
      equal to the plain round loop's on the card, the model's encode and
      decode round trip; times: preprocessing, merge loop, rounds,
-     merges/s, each kernel's device ms (torch.profiler; the apply's
-     device functions also over the first 100 rounds and the rest) and
-     its plain version's; the run once more, one round at a time, to sum the work
+     merges/s, each kernel's device ms (torch.profiler; the count's by
+     CUDA events at its launches; the apply's device functions also over
+     the first 100 rounds and the rest) and
+     its plain version's (a round's kernels over the first 1000 ids, beside
+     their device ms there; the relay over the run, the count over the run
+     on copies of its states); the run
+     once more, one round at a time, to sum the work
      that its data gives each kernel, for the bounds, and to time the
      selection's library yardstick (one ``torch.topk`` of the table's
      packed words a round; v5: of the hot table's).  ``BPE.train`` runs
@@ -61,8 +69,10 @@ order (any failure exits nonzero):
      on the 100 MB corpus's block stream (a refresh round, two hot rounds,
      a forced refresh; T against both of the JAX package's definitions; a
      resplit at a small hcap, so T > 0, and a hot round at that T whose
-     cold keys stay out of the hot table), fold_rows on its stream and on
-     a foldable cut of it; the resplit on crafted tables
+     cold keys stay out of the hot table), the kept live count, the fold's
+     plan on its stream (fills, the stable order, FOLD_MAX), and the plan and
+     the fold on a foldable cut of it and on rows whose fills tie across the
+     plan's blocks; the resplit on crafted tables
      (``phase_resplit_checks``: one, two and three passes, ties, a top count
      below the table's, fewer live keys than the boundary, a full list, the
      full table's size; no run after a round with no refresh, no merge or
@@ -71,7 +81,9 @@ order (any failure exits nonzero):
      the plain tiered round loop in lockstep (a hot tier of 1024, a small
      pcap, folds from 64 rows: refreshes, rebuilds and a fold), the two
      kernel routes equal in every field and the plain loop's stream, table
-     and rules at every segment end, the hot tier exact; the main path
+     and rules at every segment end, the hot tier exact, the kept live
+     count exact and the fold planned only where ``fold_wanted`` holds
+     (also at every segment end of the 100 MB run, both routes); the main path
      ``BPE.train(data, model, vocab_size=30000)`` with no knob takes v5
      (launches counted, none of v2's; the resplit's runs read from the
      card equal the rounds where one was due; its device ms by CUDA events
@@ -80,9 +92,11 @@ order (any failure exits nonzero):
      ``BPE.train`` timed twice and split (``train_split``: reading,
      preprocessing, the trainer's layout and engine, merge loop, the rest);
      the merge loop through the round graph and through the per-call
-     wrappers; times and bounds as in phase 5, with the refresh rounds and
-     folds, and the resplit's library yardstick (one ``torch.kthvalue`` of
-     the live counts a due round)
+     wrappers; times, plain versions (the fold's over the run) and bounds
+     as in phase 5, with the refresh rounds and
+     folds, the resplit's library yardstick (one ``torch.kthvalue`` of
+     the live counts a due round) and the fold plan's (one stable
+     ``torch.sort`` of the fills a plan, the order only)
   7. BPE-dropout (csrc/encode_dropout.cu), run after phase 4: the kernel
      equals its plain version (same seed) for every cap 8..512 at R = 8192,
      p 0.1 and 0.5; p = 0 equals the greedy kernel, p = 1 returns its input;
@@ -246,7 +260,8 @@ def phase_device_and_build() -> dict:
     for line in resource_usage(libs, ("topk_select_kernel", "tier_hot_kernel", "tier_full_kernel",
                                       "delta_apply_kernel", "tier_apply_kernel",
                                       "mark_words_kernel", "emit_words_kernel", "resplit_kernel",
-                                      "encode_short_kernel", "encode_long_kernel")):
+                                      "encode_short_kernel", "encode_long_kernel",
+                                      "pair_count_kernel", "fold_plan_kernel")):
         log(f"[1] {line}")
     log(f"[1] name maps: the {check_name_maps(libs)} device functions the phases time by name "
         f"are kernels of the built libraries")
@@ -855,6 +870,12 @@ MID_VOCAB = 8000
 MID_PCAP = 256
 TRAIN_SEG = 1000  # ids per segment, as run_training_delta sets it with the merge log on
 TRAIN_KERNELS = ("pair_count", "topk_accept", "apply_delta", "relay")
+# the kernels of a round, whose plain versions are timed over the main
+# path's first TRAIN_PLAIN_IDS ids (the rounds' host-bound plain versions
+# took ~90 s of the script over the whole run); the others run at segment
+# ends and are timed over the whole run
+TRAIN_ROUND_KERNELS = ("topk_accept", "apply_delta")
+TRAIN_PLAIN_IDS = 1000
 # the device functions of each wrapper, as the profiler names them
 TRAIN_DEVICE_FNS = {
     "pair_count": ("pair_count_kernel",),
@@ -1280,8 +1301,9 @@ def phase_apply_checks(dev) -> dict:
                     label = (f"apply_blocks, {what}, {'refresh' if refresh else 'hot'} round, "
                              f"B {B}, ids from {base}")
                     same_tiered(k_st, p_st, label)
-                    check(int(k_st.ticket[0]) == 0 and int(k_st.hits[0]) == 0,
-                          f"{label}: the ticket and row count were left at {k_st.ticket}, {k_st.hits}")
+                    check(int(k_st.ticket[0]) == 0 and not bool(k_st.hits.any()),
+                          f"{label}: the tickets and row count were left at {k_st.ticket}, "
+                          f"{k_st.hits}")
                     if not refresh and not int(k_st.ctl[tdk.HOT_OVF]):
                         check_hot_tier(k_st, label)
                     n += 1
@@ -1290,6 +1312,97 @@ def phase_apply_checks(dev) -> dict:
         f"ids from {APPLY_BASES}, a round hitting nearly every word, one hitting none; "
         f"{ovf} of the v2 rounds set the overflow flag ({time.perf_counter() - t0:.1f} s)")
     return {"rounds": n, "overflows": ovf}
+
+
+# pair_count's edge streams: ids from 5 and from 70000 (above the narrow
+# words' 65535); a stream of random pairs long enough that every block of
+# the count meets more distinct keys than its shared table holds (2048
+# slots): the H100 holds at most 1,056 blocks of 256 threads (8 an SM), so a
+# block takes at least COUNT_WIDE_SLOTS / 1056 slots
+COUNT_BASES = (5, 70000)
+COUNT_WIDE_SLOTS, COUNT_WIDE_IDS, COUNT_MAX_BLOCKS = 4_000_000, 3000, 1056
+COUNT_SMALL_CAP = 512  # the main path's 702 pairs overflow it at the first count
+
+
+def count_edge_streams(base: int, rng):
+    """(what, t, wid, freq) of pair_count's edge streams, ids from ``base``:
+    the applies' edge words (runs of 1-9 equal ids, chains, words of 33-60
+    tokens and one of 600) with a word that is a run of 1,000 equal tokens
+    and 40 words of 33-600 tokens; and words of 2-14 random ids out of
+    COUNT_WIDE_IDS over ~COUNT_WIDE_SLOTS slots."""
+    words = edge_words(base, rng, True) + [[base] * 1000]
+    words += [[base + int(v) for v in rng.integers(0, 8, n)] for n in rng.integers(33, 601, 40)]
+    t, wid, freq = flat_words(words, rng)
+    out = [("edge words, a run of 1000, words of 33-600 tokens", t, wid, freq)]
+    lens = rng.integers(2, 15, COUNT_WIDE_SLOTS // 9)
+    t = (rng.integers(0, COUNT_WIDE_IDS, int(lens.sum())) + base).astype(np.int32)
+    wid = np.repeat(np.arange(lens.size, dtype=np.int32), lens)
+    out.append((f"{lens.size} words of random pairs of {COUNT_WIDE_IDS} ids", t, wid,
+                rng.integers(1, 6, lens.size).astype(np.int32)))
+    return out
+
+
+def phase_count_checks(main_st, dev) -> dict:
+    """pair_count against its plain version and the host count table on
+    ``count_edge_streams`` (ids from 5 and 70000; the random-pair stream
+    gives each block more distinct keys than its shared table holds, so
+    some go straight to the global table), and on the main path's stream
+    into a table that overflows at its first count: OVERFLOW set by the
+    kernel and the plain version, then counted again at twice the size
+    until it fits (the engine's loop), the table equal to the host count."""
+    from youtokentome_tpu_torch.ops import train_delta as td
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    t0 = time.perf_counter()
+    n = 0
+    for base in COUNT_BASES:
+        rng = np.random.default_rng(base + 1)
+        rules = np.full((base + COUNT_WIDE_IDS + 16, 4), -1, np.int32)
+        for what, t, wid, freq in count_edge_streams(base, rng):
+            uk, uc = td.host_count_table(t, wid, freq)
+            st = tk.TrainState(t, wid, freq, rules, base + COUNT_WIDE_IDS,
+                               td._next_pow2(4 * uk.size), dev)
+            p_st = clone_state(st)
+            tk.pair_count(st)
+            plain_pair_count(p_st)
+            label = f"pair_count, {what}, ids from {base}"
+            same_state(st, p_st, label)
+            keys, cnts = st.table()
+            check(np.array_equal(keys, uk.astype(np.int64)) and np.array_equal(cnts, uc),
+                  f"{label}: != the host count table")
+            check(not int(st.ctl[tk.OVERFLOW]), f"{label}: overflowed")
+            per_block = st.tok.shape[0] // COUNT_MAX_BLOCKS
+            head = st.tok[: per_block + 1].cpu().numpy()
+            on = (head[:-1] >= 0) & (head[1:] >= 0)
+            pairs = np.unique(head[:-1][on].astype(np.int64) << 32 | head[1:][on])
+            log(f"[5] {label}: == plain == host count table ({st.tok.shape[0]} slots, {uk.size} "
+                f"keys; the first {per_block} slots, the fewest a block takes, hold "
+                f"{pairs.size} pairs)")
+            n += 1
+    check(pairs.size > 2048, f"the random-pair stream gives a block {pairs.size} pairs")
+    # a table that overflows at its first count
+    k_st, p_st = clone_state(main_st), clone_state(main_st)
+    k_st.resize(COUNT_SMALL_CAP)
+    p_st.resize(COUNT_SMALL_CAP)
+    plain_pair_count(p_st)
+    check(int(p_st.ctl[tk.OVERFLOW]) == 1, "the plain count did not overflow its small table")
+    sizes = []
+    while True:
+        tk.pair_count(k_st)
+        sizes.append((k_st.cap, int(k_st.ctl[tk.OVERFLOW])))
+        if not sizes[-1][1]:
+            break
+        k_st.resize(k_st.cap * 2)
+    check(sizes[0] == (COUNT_SMALL_CAP, 1), f"pair_count into {COUNT_SMALL_CAP} slots: {sizes}")
+    main_keys, main_cnts = main_st.table()
+    keys, cnts = k_st.table()
+    check(np.array_equal(keys, main_keys) and np.array_equal(cnts, main_cnts)
+          and int(k_st.ctl[tk.OCC]) == keys.size, "the regrown count != the main path's count")
+    log(f"[5] pair_count == plain == host count table on {n} edge streams; into "
+        f"{COUNT_SMALL_CAP} slots the main path's count sets OVERFLOW (kernel and plain), "
+        f"counted again at {[c for c, _ in sizes[1:]]} slots it equals the main path's table "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"streams": n, "regrown": sizes}
 
 
 def phase_train_kernels(buckets, used0: int, dev) -> dict:
@@ -1315,6 +1428,7 @@ def phase_train_kernels(buckets, used0: int, dev) -> dict:
     check(np.array_equal(keys, uk.astype(np.int64)) and np.array_equal(cnts, uc),
           "pair_count != the host count table")
     log(f"[5] pair_count == plain == host count table ({uk.size} pairs)")
+    phase_count_checks(st, dev)
 
     # rounds on the real table: topk_accept, then apply_delta, each
     # against its plain version from the identical state
@@ -1501,7 +1615,11 @@ def run_work(engine, vocab: int):
     summing the work that this run's data gives each kernel, for the bounds:
 
       pair_count   per launch: the live tokens, the words' offsets and
-                   weights, and the slots the count fills (key and count)
+                   weights, and the slots the count fills (key and count);
+                   and its kernel's device ms alone by CUDA events
+                   (``count_ms``; the wrapper's table reset outside them)
+                   and its plain version's ms on a copy of the state
+                   (``count_plain_ms``, synchronised)
       topk_accept  per round: every slot's count, the keys of the slots
                    whose count reaches the round's 16th (selection_keys),
                    the accepted rows; and library_topk_ms before each call
@@ -1513,16 +1631,41 @@ def run_work(engine, vocab: int):
     """
     import torch
 
+    from youtokentome_tpu_torch.ops import _cuda
     from youtokentome_tpu_torch.ops import train_kernels as tk
 
     w = {"count_launches": 0, "count_bytes": 0, "count_tokens": 0, "topk_bytes": 0,
          "topk_slots": 0, "topk_keys": 0, "apply_bytes": 0, "apply_tokens": 0, "rounds": 0,
-         "apply_keys": 0, "apply_union_keys": 0, "library_ms": 0.0}
+         "apply_keys": 0, "apply_union_keys": 0, "library_ms": 0.0, "count_ms": 0.0,
+         "count_plain_ms": 0.0}
 
     count = tk.pair_count
 
     def counted(st):
-        count(st)  # the wrapper adds its launch to the name it runs under: counted's
+        if st.device.type != "cuda":
+            count(st)
+        else:
+            # the plain version on a copy (its table's layout is its own);
+            # then the wrapper's table reset, and its kernel alone between
+            # CUDA events, a sleep kernel ahead so that the host's enqueue
+            # is not timed
+            _, ms = synced(lambda: plain_pair_count(clone_state(st)))
+            w["count_plain_ms"] += ms
+            st.keys.fill_(tk.EMPTY)
+            st.cnts.zero_()
+            st.ctl[[tk.OCC, tk.OVERFLOW]] = 0
+            lib = _cuda.load_train()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+            a.record()
+            err = lib.yttm_train_pair_count(
+                st.tok.data_ptr(), st.pwid.data_ptr(), st.fw.data_ptr(), st.tok.shape[0],
+                st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            b.record()
+            b.synchronize()
+            check(err == 0, f"pair_count kernel launch failed: CUDA error {err}")
+            w["count_ms"] += a.elapsed_time(b)
         w["count_launches"] += 1
         n_tok = int((st.tok >= 0).sum())
         w["count_tokens"] += n_tok
@@ -1713,6 +1856,15 @@ def phase_train_main(corpus_path: Path, work: Path, sample, plain) -> dict:
         check(v > 0, f"the profiler recorded no device time for {name}")
     log("[5] device ms summed over the run (torch.profiler): "
         + ", ".join(f"{k} {v:.3f}" for k, v in kernel_ms.items()))
+    # the count's ms by CUDA events at its launches (run_work): late in this
+    # script the profiler has missed the record of one of its four launches
+    n_count = fn_us.get("pair_count_kernel", (0, 0))[1]
+    check(n_count <= work["count_launches"],
+          f"the profiler recorded {n_count} counts, the run made {work['count_launches']}")
+    kernel_ms["pair_count"] = work["count_ms"]
+    log(f"[5] pair_count: {work['count_ms']:.3f} ms over its {work['count_launches']} launches "
+        f"(CUDA events); the profiler recorded {n_count} of them "
+        f"({fn_us.get('pair_count_kernel', (0, 0))[0] / 1e3:.3f} ms)")
 
     # the plain versions over the same run, each call synchronised
     plain_ms = {name: 0.0 for name in TRAIN_KERNELS}
@@ -1726,18 +1878,33 @@ def phase_train_main(corpus_path: Path, work: Path, sample, plain) -> dict:
             plain_ms[name] += (time.perf_counter() - t0) * 1e3
         return run
 
+    # the round's kernels over the run's first TRAIN_PLAIN_IDS ids (beside
+    # their device ms over the same ids); the segment ends' (the count and
+    # the relay) over the whole run, the rounds on the card
+    plain_vocab = used0 + TRAIN_PLAIN_IDS
     with swapped(
         tk,
-        pair_count=timed_plain("pair_count", plain_pair_count),
         topk_accept=timed_plain(
             "topk_accept", lambda st, limit, v, u0, k=16: tk.topk_accept_plain(st, limit, v, u0, k)),
         apply_delta=timed_plain("apply_delta", tk.apply_delta_plain),
-        relay=timed_plain("relay", tk.relay_plain),
     ):
         eng = engine()
+        run_engine(eng, plain_vocab, used0)
+    check(torch.equal(eng.rules[:TRAIN_PLAIN_IDS], st.rules[:TRAIN_PLAIN_IDS]),
+          "the plain versions' rules differ")
+    with swapped(tk, relay=timed_plain("relay", tk.relay_plain)):
+        eng = engine()
         run_engine(eng, TRAIN_VOCAB, used0)
-    check(torch.equal(eng.rules, st.rules), "the plain versions' rules differ")
-    log(f"[5] plain versions over the same run (synchronised calls): "
+    check(torch.equal(eng.rules, st.rules), "the plain relay's rules differ")
+    plain_ms["pair_count"] = work["count_plain_ms"]  # on copies, in run_work
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_engine(engine(), plain_vocab, used0)
+        torch.cuda.synchronize()
+    prefix_ms = {name: profiled_ms(prof, TRAIN_DEVICE_FNS[name]) for name in TRAIN_ROUND_KERNELS}
+    log(f"[5] plain versions (synchronised calls), {', '.join(TRAIN_ROUND_KERNELS)} over the "
+        f"first {TRAIN_PLAIN_IDS} ids (the kernels' ms there: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in prefix_ms.items()) + "), the others over the "
+        "run (the count on copies of its states): "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items()))
 
     # bounds, from this run's inputs and the work its data gave each
@@ -1761,9 +1928,11 @@ def phase_train_main(corpus_path: Path, work: Path, sample, plain) -> dict:
         rows.append({"name": name, "launches": launches[name], "ms": kernel_ms[name],
                      "plain_ms": plain_ms[name], "bound_ms": max(b_ms, o_ms),
                      "bound_by": "bytes" if b_ms >= o_ms else "operations",
-                     "library_ms": work["library_ms"] if name == "topk_accept" else None})
+                     "library_ms": work["library_ms"] if name == "topk_accept" else None,
+                     **prefix_of(name, prefix_ms, TRAIN_PLAIN_IDS)})
         log(f"[5] {name}: {launches[name]} launches, {kernel_ms[name]:.3f} ms on the card, "
-            f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain {plain_ms[name]:.1f} ms"
+            f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}; bytes {bytes_[name]}), "
+            f"plain {plain_ms[name]:.1f} ms" + plain_span(rows[-1])
             + (f", library (torch.topk of the packed words, selection only) "
                f"{work['library_ms']:.3f} ms" if name == "topk_accept" else ""))
     log(f"[5] times: preprocessing {prep_s:.2f} s, BPE.train {train_s:.2f} s, merge loop "
@@ -1774,6 +1943,24 @@ def phase_train_main(corpus_path: Path, work: Path, sample, plain) -> dict:
     # by round; select_keys_of checks the round count)
     return {"rows": rows, "plain_rules": plain_rules, "loop_s": loop_s,
             "select_keys": {"rounds": work["rounds"], "keys": work["topk_keys"]}}
+
+
+def prefix_of(name: str, prefix_ms: dict, ids: int) -> dict:
+    """The keys a row of the kernels record adds when its plain version
+    was timed over the first ``ids`` ids: those and the kernel's ms there."""
+    return {"plain_ids": ids, "prefix_ms": prefix_ms[name]} if name in prefix_ms else {}
+
+
+def prefix_keys(row: dict) -> dict:
+    """A row's plain_ids and prefix_ms, where it has them."""
+    return {k: row[k] for k in ("plain_ids", "prefix_ms") if k in row}
+
+
+def plain_span(row: dict) -> str:
+    """Where a row's plain ms was timed, for the log."""
+    if "plain_ids" not in row:
+        return " over the run"
+    return f" over the first {row['plain_ids']} ids (kernel {row['prefix_ms']:.3f} ms)"
 
 
 def select_keys_of(w, select_keys: dict, replicas: int, what: str) -> int:
@@ -1863,13 +2050,13 @@ def train_split(corpus_path: Path, model_path: Path):
 
 
 TIERED_KERNELS = ("tier_select", "apply_blocks", "resplit", "fold_rows")
+TIERED_ROUND_KERNELS = ("tier_select", "apply_blocks", "resplit")  # see TRAIN_ROUND_KERNELS
 # the device functions of each wrapper, as the profiler names them
 TIERED_DEVICE_FNS = {
     "tier_select": ("tier_hot_kernel", "tier_full_kernel"),
     "apply_blocks": ("tier_find_kernel", "tier_apply_kernel", "tier_count_kernel"),
     "resplit": ("resplit_kernel",),
-    "fold_rows": ("fold_fills_kernel", "fold_hist_kernel", "fold_scan_kernel",
-                  "fold_place_kernel", "fold_check_kernel", "fold_write_kernel"),
+    "fold_rows": ("fold_plan_kernel", "fold_write_kernel"),
 }
 TIERED_REPLACES = {
     "tier_select": "youtokentome_tpu/ops/train_tiered.py:193",
@@ -2059,28 +2246,86 @@ def phase_tiered_kernels(buckets, used0: int, dev) -> dict:
         f"listed, {changed.numel()} counts changed, {cold} of them cold keys left out of the hot "
         f"table); hot counts == full counts, every key above T hot, {n_cold} cold keys")
 
-    # the fold through the host loop's trigger (a low YTTM_TRAIN_FOLD_MIN):
-    # the plan on the main-path stream, then the fold of the rows cut to
-    # their first word (under 45 % full), kernel vs plain
+    # the kept live count after the count and five rounds
+    live = int(k_st.ctl[tk.LIVE])
+    check(live == int((k_st.tok >= 0).sum()) == int(p_st.ctl[tk.LIVE]),
+          f"ctl[LIVE] {live} != the stream's live tokens")
+    # the fold's plan on the main-path stream; through the host loop's
+    # trigger (a low YTTM_TRAIN_FOLD_MIN) the fold of the rows cut to their
+    # first word (under 45 % full), and of a crafted stream whose fills tie
+    # across every block of the plan; kernel vs plain
+    most = fold_plan_check(clone_state(k_st), clone_state(k_st), "the main-path stream")
     with env_set(YTTM_TRAIN_FOLD_MIN="1"):
-        k_f, p_f = clone_state(k_st), clone_state(k_st)
-        folded = tk.fold_rows(k_f)
-        check(tk.fold_rows_plain(p_f) == folded, "fold_rows: plans disagree")
-        same_tiered(k_f, p_f, "fold_rows plan on the main-path stream")
-        most = int(k_f.ctl[tk.FOLD_MAX])
+        check(not tk.fold_due(k_st, live), "the main-path stream calls for a fold")
         w2d = k_st.wid.reshape(-1, B)
         first = (w2d == w2d[:, :1]) & (k_st.tok.reshape(-1, B) >= 0)
         k_f = clone_state(k_st)
         k_f.tok = torch.where(first, k_st.tok.reshape(-1, B), -1).reshape(-1)
         k_f.wid = torch.where(first, w2d, -1).reshape(-1)
-        p_f = clone_state(k_f)
-        check(tk.fold_rows(k_f), "fold_rows did not fold the first-word rows")
-        check(tk.fold_rows_plain(p_f), "fold_rows_plain did not fold the first-word rows")
-        same_tiered(k_f, p_f, "fold_rows on the first-word rows")
-    log(f"[6] fold_rows == plain: the plan on the main-path stream (largest pair fill {most} "
-        f"of {B}; folded: {folded}), and the fold of the first-word rows ({k_st.NB} -> "
-        f"{k_f.NB} rows)")
+        k_f.ctl[tk.LIVE] = int((k_f.tok >= 0).sum())  # as a count would set it
+        fold_plan_check(clone_state(k_f), clone_state(k_f), "the first-word rows")
+        fold_check(k_f, "the first-word rows")
+        ties = tie_fill_rows(B, dev)
+        fold_plan_check(clone_state(ties), clone_state(ties), "the tied rows")
+        fold_check(ties, "the tied rows")
+    log(f"[6] fold_rows == plain: the plan (fills, the stable order == torch.sort(fills, "
+        f"stable=True), FOLD_MAX) on the main-path stream (largest pair fill {most} of {B}; no "
+        f"fold wanted at {live} live tokens), on the first-word rows and on {TIE_ROWS} rows whose "
+        f"fills tie across the plan's blocks; the fold of both ({k_st.NB} -> {k_f.NB} rows)")
     return {"B": B}
+
+
+# the fold's tied rows: fills from this set (ties across every block of the
+# plan, and every pair of an emptiest and a fullest row fits), and the rows
+TIE_FILLS, TIE_ROWS = (4, 16, 16, 30), 200_000
+
+
+def tie_fill_rows(B: int, dev):
+    """A tiered state of TIE_ROWS rows of B slots, each row one word of a
+    fill from TIE_FILLS (random ids from 5), ctl[LIVE] set as a count
+    would set it."""
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+    rng = np.random.default_rng(11)
+    fills = rng.choice(np.array(TIE_FILLS), TIE_ROWS)
+    live = np.arange(B)[None, :] < fills[:, None]
+    t = np.where(live, rng.integers(5, 55, (TIE_ROWS, B)), -1).astype(np.int32)
+    wid = np.where(live, np.arange(TIE_ROWS)[:, None], -1).astype(np.int32)
+    st = tk.TieredState(t.reshape(-1), wid.reshape(-1), np.ones(TIE_ROWS, np.int32),
+                        np.full((64, 4), -1, np.int32), 60, B, 1 << 14, 1 << 12, dev)
+    st.ctl[tk.LIVE] = int(live.sum())
+    return st
+
+
+def fold_plan_check(k_st, p_st, what: str) -> int:
+    """The fold's plan, kernel (on k_st) vs plain (on p_st): fills, order
+    and ctl; the order is torch.sort(fills, stable=True)'s.  Returns
+    FOLD_MAX."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+    fills, order = tk.fold_plan(k_st)
+    p_fills, p_order = tk.fold_plan_plain(p_st)
+    check(torch.equal(fills, p_fills), f"fold plan on {what}: fills differ")
+    check(torch.equal(order, p_order), f"fold plan on {what}: orders differ")
+    check(torch.equal(order.long(), torch.sort(fills, stable=True).indices),
+          f"fold plan on {what}: the order is not torch.sort(fills, stable=True)'s")
+    same_tiered(k_st, p_st, f"fold plan on {what}")
+    return int(k_st.ctl[tk.FOLD_MAX])
+
+
+def fold_check(st, what: str) -> None:
+    """fold_rows (plan and fold) against fold_rows_plain on ``st``, which
+    must fold."""
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+    live = int(st.ctl[tk.LIVE])
+    p_st = clone_state(st)
+    check(tk.fold_rows(st, live), f"fold_rows did not fold {what}")
+    check(tk.fold_rows_plain(p_st, live), f"fold_rows_plain did not fold {what}")
+    same_tiered(st, p_st, f"fold_rows on {what}")
+    check(int(st.ctl[tk.LIVE]) == int((st.tok >= 0).sum()), f"the fold of {what} changed LIVE")
 
 
 # the resplit's crafted tables: (name, slots, live keys, count range, boundary,
@@ -2211,8 +2456,11 @@ def phase_tiered_mid(mid_path: Path, dev) -> dict:
     rows: the two kernel routes' states equal after every segment
     (``same_routes``: stream, signatures, ctl with T, both tables, rules,
     resplit runs); stream, signatures, the live full table and rules equal
-    to the plain loop's; and the kernel engine's hot tier exact
-    (``check_hot_tier``) wherever it has not overflowed."""
+    to the plain loop's; the kernel engine's hot tier exact
+    (``check_hot_tier``) wherever it has not overflowed; and in both
+    routes the kept live count equal to the stream's live tokens at every
+    segment end, the fold's plan run exactly where ``fold_wanted`` holds
+    (``FoldEnds``)."""
     import torch
 
     from youtokentome_tpu_torch.ops import tiered_kernels as tk
@@ -2229,11 +2477,14 @@ def phase_tiered_mid(mid_path: Path, dev) -> dict:
         calls.graph = False
         plain = tt.PlainTieredEngine(t, wid, freq, rules, used0, MID_VOCAB, 16, B, dev)
         used, segs, refresh, nb0, hot_ends = used0, 0, 0, kern.st.NB, 0
+        k_ends, c_ends = FoldEnds(), FoldEnds()
         while used < MID_VOCAB:
             limit = min(MID_VOCAB, used + TRAIN_SEG)
-            ku, kd = complete_segment(kern, used, limit)
+            with swapped(tk, fold_rows=k_ends):
+                ku, kd = complete_segment(kern, used, limit)
             refresh += kern.stats[1]
-            cu, cd = complete_segment(calls, used, limit)
+            with swapped(tk, fold_rows=c_ends):
+                cu, cd = complete_segment(calls, used, limit)
             pu, pd = complete_segment(plain, used, limit)
             what = f"segment to {limit}"
             check((ku, kd) == (cu, cd) == (pu, pd),
@@ -2241,6 +2492,8 @@ def phase_tiered_mid(mid_path: Path, dev) -> dict:
             check(kern.stats == calls.stats, f"{what}: stats {kern.stats} != {calls.stats}")
             same_routes(kern.st, calls.st, what)
             st = kern.st
+            check(int(st.ctl[tk.LIVE]) == int((st.tok >= 0).sum()),
+                  f"{what}: ctl[LIVE] != the stream's live tokens")
             check(torch.equal(st.tok, plain.t) and torch.equal(st.wid, plain.wid),
                   f"{what}: streams differ")
             check(torch.equal(st.sig, plain.sig), f"{what}: signatures differ")
@@ -2258,6 +2511,7 @@ def phase_tiered_mid(mid_path: Path, dev) -> dict:
                 break
     check(kern.rebuilds >= 1, "the tiered mid-size run never rebuilt its table")
     check(kern.folds >= 1, "the tiered mid-size run never folded its rows")
+    check(k_ends.log == c_ends.log, "the two kernel routes' fold plans differ")
     check(refresh >= 2, "the tiered mid-size run refreshed no more than once")
     check(hot_ends >= 1, "no segment of the tiered mid-size run ended with a hot tier above T > 0")
     runs = int(kern.st.sel[tk.SEL_RUNS]) if kern.st.device.type == "cuda" else None
@@ -2267,7 +2521,8 @@ def phase_tiered_mid(mid_path: Path, dev) -> dict:
         f"plain tiered round loop at all {segs} segment ends (stream, signatures, live full "
         f"table, rules); hot counts == full counts and every key above T hot ({hot_ends} ends "
         f"with T > 0); {refresh} refresh rounds, {kern.rebuilds} table rebuilds, {kern.folds} "
-        f"folds ({nb0} -> {kern.st.NB} rows) ({time.perf_counter() - t0:.1f} s)")
+        f"folds ({nb0} -> {kern.st.NB} rows); {k_ends.summary()} "
+        f"({time.perf_counter() - t0:.1f} s)")
     return {"segments": segs, "refresh": refresh, "rebuilds": kern.rebuilds, "folds": kern.folds}
 
 
@@ -2279,6 +2534,47 @@ def run_tiered(eng, vocab: int, used: int) -> int:
         if done:
             break
     return used
+
+
+class FoldEnds:
+    """``tiered_kernels.fold_rows`` for a run, swapped in under its name:
+    at each segment end it checks that the live count the engine kept on
+    the card (``ctl[LIVE]``, passed as ``live``) equals the stream's live
+    tokens, and that the fold's plan runs exactly where ``fold_due`` holds
+    (on the card, by its launch count, which the real wrapper adds under
+    this name); ``log`` keeps (slots, rows, plan due, folded) of each end,
+    and ``on_plan(st)`` is called before each plan."""
+
+    def __init__(self, on_plan=None):
+        from youtokentome_tpu_torch.ops import tiered_kernels as tk
+
+        self.tk, self.real, self.on_plan = tk, tk.fold_rows, on_plan
+        self.launches = 0
+        self.log = []
+
+    def __call__(self, st, live: int) -> bool:
+        tk = self.tk
+        n_live = int((st.tok >= 0).sum())
+        end = len(self.log)
+        check(live == int(st.ctl[tk.LIVE]) == n_live,
+              f"segment end {end}: ctl[LIVE] {live} != the stream's {n_live} live tokens")
+        due = tk.fold_due(st, live)
+        if due and self.on_plan:
+            self.on_plan(st)
+        m, NB, before = st.NB * st.B, st.NB, self.launches
+        folded = self.real(st, live)
+        if st.device.type == "cuda":
+            check(self.launches - before == int(due),
+                  f"segment end {end}: the plan launched {self.launches - before} times, "
+                  f"fold_due {due}")
+        self.log.append((m, NB, due, folded))
+        return folded
+
+    def summary(self) -> str:
+        plans = sum(d for _, _, d, _ in self.log)
+        folds = sum(f for _, _, _, f in self.log)
+        return (f"ctl[LIVE] == the stream's live tokens at all {len(self.log)} segment ends; the "
+                f"fold's plan ran at the {plans} where fold_wanted held, {folds} folds")
 
 
 def run_tiered_work(engine, vocab: int):
@@ -2295,28 +2591,45 @@ def run_tiered_work(engine, vocab: int):
                     row (NBAFF) its tokens and word ids read and written and
                     its signature written; per slot whose count the round
                     changed, in either table, its key read and its count
-                    read and written; a count: the live tokens, the filled
-                    slots and every signature
+                    read and written; the live count, 4 B for each block of
+                    the launch (the tokens its merges removed, sent in the
+                    high word of its ticket); a count: the live tokens, the
+                    filled slots and every signature
       resplit       the full table's counts, the keys above T read and
                     written into the hot table, the hot table cleared
-      fold_rows     the plan: the stream's tokens, fills and order; a fold:
-                    the stream read, half of it and its signatures written
+      fold_rows     a plan, at the segment ends where it runs (fold_due): the
+                    stream's tokens, fills and order; a fold: the stream
+                    read, half of it and its signatures written
 
     The engine takes the per-call route (the round graph would bypass the
     wrapped wrappers; both routes run the same kernels on the same rounds).
     Returns the engine, each kernel's bytes and operations, and the counts
     of rounds, refresh rounds and rounds where a resplit was due, with the
     resplit's device ms over those (CUDA events), with
-    library_topk_ms summed over the hot tables before each tier_select and
-    library_kth_ms over the live counts of each due round."""
+    library_topk_ms summed over the hot tables before each tier_select,
+    library_kth_ms over the live counts of each due round and
+    library_sort_ms over the fills of each plan that runs; the live
+    counter's bytes (``live_bytes``, in apply_blocks') and the FoldEnds of
+    the run."""
     import torch
 
+    from youtokentome_tpu_torch.ops import _cuda
     from youtokentome_tpu_torch.ops import tiered_kernels as tk
 
     w = {name: 0 for name in TIERED_KERNELS}
     ops = {name: 0 for name in TIERED_KERNELS}
     n = {"rounds": 0, "refresh": 0, "due": 0, "library_ms": 0.0, "split_library_ms": 0.0,
-         "split_ms": 0.0}
+         "split_ms": 0.0, "sort_library_ms": 0.0, "live_bytes": 0, "split_runs": []}
+    grids = {}
+
+    def apply_grid(st) -> int:
+        if st.device.type != "cuda":
+            return 1
+        if st.B not in grids:
+            with torch.cuda.device(st.device):
+                grids[st.B] = _cuda.load_tiered().yttm_tiered_apply_grid(st.B)
+            check(grids[st.B] > 0, f"apply grid for B {st.B}: error {-grids[st.B]}")
+        return grids[st.B]
     real = {name: getattr(tk, name) for name in TIERED_KERNELS}
 
     def select(st, limit, vocab_size, used_ids0, k=tk.K_MAX):
@@ -2344,7 +2657,10 @@ def run_tiered_work(engine, vocab: int):
         if int(st.ctl[tk.NACC]):
             n_rows = int(st.ctl[tk.NBAFF])
             changed = int((st.cnts != cnts).sum()) + int((st.hcnts != hcnts).sum())
-            w["apply_blocks"] += st.NB * 64 + n_rows * (st.B * 16 + 64) + changed * 16
+            live_bytes = 4 * apply_grid(st)
+            n["live_bytes"] += live_bytes
+            w["apply_blocks"] += (st.NB * 64 + n_rows * (st.B * 16 + 64) + changed * 16
+                                  + live_bytes)
             ops["apply_blocks"] += st.NB * OPS_PER_ROW + n_rows * st.B * OPS_PER_ROWPOS
 
     def split(st, hcap):
@@ -2360,29 +2676,47 @@ def run_tiered_work(engine, vocab: int):
         b.record()
         b.synchronize()
         n["split_ms"] += a.elapsed_time(b)
+        n["split_runs"].append((int(st.ctl[tk.USED]), a.elapsed_time(b)))
         n["due"] += 1
         n["split_library_ms"] += library_kth_ms(st.cnts, hcap // 2)
         w["resplit"] += st.cap * 4 + int(st.ctl[tk.HOCC]) * 24 + st.hslots * 12
         ops["resplit"] += st.cap * 10
 
-    def fold(st):
-        m, NB, due = st.NB * st.B, st.NB, tk._fold_due(st)
-        folded = real["fold_rows"](st)
+    def on_plan(st):
+        fills = (st.tok.reshape(-1, st.B) >= 0).sum(1).to(torch.int32)
+        n["sort_library_ms"] += library_sort_ms(fills)
+
+    fold = FoldEnds(on_plan)
+    for f in (select, apply, split):
+        f.launches = 0  # the real wrappers count their launches under these names
+    with swapped(tk, tier_select=select, apply_blocks=apply, resplit=split, fold_rows=fold):
+        eng = engine()
+        eng.graph = False
+        run_tiered(eng, vocab, eng.used_ids0)
+    for m, NB, due, folded in fold.log:
         if due:
             w["fold_rows"] += m * 4 + NB * 8
             ops["fold_rows"] += m * 2
         if folded:
             w["fold_rows"] += m * 8 + m // 2 * 8 + NB // 2 * 64
             ops["fold_rows"] += m * 2
-        return folded
-
-    for f in (select, apply, split, fold):
-        f.launches = 0  # the real wrappers count their launches under these names
-    with swapped(tk, tier_select=select, apply_blocks=apply, resplit=split, fold_rows=fold):
-        eng = engine()
-        eng.graph = False
-        run_tiered(eng, vocab, eng.used_ids0)
+    n["fold_ends"] = fold
     return eng, w, ops, n
+
+
+def library_sort_ms(fills) -> float:
+    """The library yardstick of the fold's plan, for the order only: ms of
+    one ``torch.sort(fills, stable=True)`` (CUDA events) of the rows'
+    fills (computed before the timed window).  It gives neither the pair
+    check nor the fold; the port never calls it."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.sort(fills, stable=True)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
 
 
 def library_kth_ms(cnts, boundary: int) -> float:
@@ -2490,14 +2824,24 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
     check(launches["resplit"] == counts["due"] == int(st.sel[tk.SEL_RUNS]),
           f"resplit ran {launches['resplit']} times on the main path ({int(st.sel[tk.SEL_RUNS])} "
           f"in the timed run), but {counts['due']} rounds were due")
+    ends = counts["fold_ends"]
+    check(sum(d for _, _, d, _ in ends.log) == launches["fold_rows"],
+          f"the main path planned {launches['fold_rows']} folds, the round-by-round run "
+          f"{sum(d for _, _, d, _ in ends.log)}")
     log(f"[6] the run's work, one round at a time ({time.perf_counter() - t0:.1f} s): "
         f"{refresh} refresh rounds, {counts['due']} due a resplit (the kernel's runs on the card: "
-        f"{launches['resplit']} on the main path); bytes {wbytes}, operations {wops}")
+        f"{launches['resplit']} on the main path); bytes {wbytes} (the live counter's "
+        f"{counts['live_bytes']} of apply_blocks'), operations {wops}")
+    log(f"[6] fold_rows, the per-call route: {ends.summary()}")
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    graph_ends = FoldEnds()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, swapped(tk, fold_rows=graph_ends):
         run_tiered(engine(), TRAIN_VOCAB, used0)
         torch.cuda.synchronize()
+    check([e[2:] for e in graph_ends.log] == [e[2:] for e in ends.log],
+          "the round graph's fold plans differ from the per-call route's")
+    log(f"[6] fold_rows, the round graph (profiled run): {graph_ends.summary()}")
     dev_us = {name: 0.0 for name in TIERED_KERNELS}
     fn_us = {}
     for ev in prof.key_averages():
@@ -2547,19 +2891,36 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
         else:
             tk.apply_blocks_plain(st, False, kb1, kb2)
 
+    # the round's kernels over the run's first TRAIN_PLAIN_IDS ids (beside
+    # their device ms over the same ids: the resplit's by CUDA events at its
+    # due runs there); the fold, at segment ends, over the whole run, the
+    # rounds on the card
+    plain_vocab = used0 + TRAIN_PLAIN_IDS
     with swapped(
         tk,
         tier_select=timed_plain(
             "tier_select", lambda st, limit, v, u0, k=16: tk.tier_select_plain(st, limit, v, u0, k)),
         apply_blocks=timed_plain("apply_blocks", apply_plain),
         resplit=timed_plain("resplit", lambda st, hcap: tk.resplit_plain(st, hcap // 2)),
-        fold_rows=timed_plain("fold_rows", tk.fold_rows_plain),
     ):
         p_eng = engine()
         p_eng.graph = False
+        run_tiered(p_eng, plain_vocab, used0)
+    check(torch.equal(p_eng.rules[:TRAIN_PLAIN_IDS], st.rules[:TRAIN_PLAIN_IDS]),
+          "the tiered plain versions' rules differ")
+    with swapped(tk, fold_rows=timed_plain("fold_rows", tk.fold_rows_plain)):
+        p_eng = engine()
         run_tiered(p_eng, TRAIN_VOCAB, used0)
-    check(torch.equal(p_eng.rules, st.rules), "the tiered plain versions' rules differ")
-    log("[6] plain versions over the same run (synchronised calls): "
+    check(torch.equal(p_eng.rules, st.rules), "the plain fold's rules differ")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_tiered(engine(), plain_vocab, used0)
+        torch.cuda.synchronize()
+    prefix_ms = {name: profiled_ms(prof, TIERED_DEVICE_FNS[name])
+                 for name in TIERED_ROUND_KERNELS if name != "resplit"}
+    prefix_ms["resplit"] = sum(ms for used, ms in counts["split_runs"] if used <= plain_vocab)
+    log(f"[6] plain versions (synchronised calls), {', '.join(TIERED_ROUND_KERNELS)} over the "
+        f"first {TRAIN_PLAIN_IDS} ids (the kernels' ms there: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in prefix_ms.items()) + "), fold_rows over the run: "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items()))
 
     rows = []
@@ -2570,79 +2931,43 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
                      "plain_ms": plain_ms[name], "bound_ms": max(b_ms, o_ms),
                      "bound_by": "bytes" if b_ms >= o_ms else "operations",
                      "library_ms": {"tier_select": counts["library_ms"],
-                                    "resplit": counts["split_library_ms"]}.get(name)})
+                                    "resplit": counts["split_library_ms"],
+                                    "fold_rows": counts["sort_library_ms"]}.get(name),
+                     **prefix_of(name, prefix_ms, TRAIN_PLAIN_IDS)})
+        lib_ms = rows[-1]["library_ms"]
         log(f"[6] {name}: {launches[name]} launches, {kernel_ms[name]:.3f} ms on the card, "
-            f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}), plain "
-            f"{plain_ms[name]:.1f} ms")
+            f"bound {max(b_ms, o_ms):.4f} ms ({rows[-1]['bound_by']}; bytes {wbytes[name]}), "
+            f"plain {plain_ms[name]:.1f} ms" + plain_span(rows[-1])
+            + (f", library {lib_ms:.3f} ms" if lib_ms is not None else ""))
     log(f"[6] times: BPE.train {train_s:.2f} s, merge loop {loop_s:.3f} s (per-call route "
         f"{calls_s:.3f} s), {rounds} rounds, {refresh} refresh rounds, {counts['due']} resplits, "
         f"{eng.folds} folds, {merges / loop_s:.0f} merges/s")
     return {"rows": rows}
 
 
-def round_split_us(prof, names) -> list:
-    """Per round of a profiled v5 run, the device us of the functions whose
-    names contain one of ``names`` (each assigned to the round of the last
-    tier_hot_kernel launched before it; 0 where a round launched none)."""
-    import torch
-
-    starts, evs = [], []
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CPU:
-            continue
-        if "tier_hot_kernel" in ev.name:
-            starts.append(ev.time_range.start)
-        elif any(n in ev.name for n in names):
-            evs.append((ev.time_range.start, ev.time_range.elapsed_us()))
-    starts.sort()
-    per = [0.0] * len(starts)
-    for t, us in evs:
-        i = int(np.searchsorted(starts, t, side="right")) - 1
-        if i >= 0:
-            per[i] += us
-    return per
-
-
 def compare_tree(work: Path) -> dict:
     """The numbers this PR's redesigns are held to, for the package of the
     current directory's tree (run it in the parent's unpacked tree and in
     the change's, in turns, from one process each, loading this file by its
-    path): the greedy kernel's device ms per bucket width on the 100 MB
-    encode's inputs (both wires); ``BPE.train`` twice, split
-    (``train_split``); v5's merge loop three times by the host clock; and
-    one profiled loop: device ms and launches of every function, and the
-    resplit's device us per round that needed none and per round that ran
-    one.  The corpus and the model are written to ``work`` by the first
-    caller and read by the others.  Prints and returns the numbers."""
+    path): ``BPE.train`` twice, split (``train_split``); v5's merge loop
+    three times by the host clock; one profiled v5 loop (device ms and
+    launches of every function: the fold's and the applies' among them) and
+    one profiled v2 loop (the count's).  The corpus is written to ``work``
+    by the first caller and read by the others.  Prints and returns the
+    numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from youtokentome_tpu_torch.encoder import DEVICE_BATCH, Encoder
-    from youtokentome_tpu_torch.host import fasttok
-    from youtokentome_tpu_torch.models.state import BPEState
-    from youtokentome_tpu_torch.ops import encode_kernel as ek
     from youtokentome_tpu_torch.ops import tiered_kernels as tk
+    from youtokentome_tpu_torch.ops import train_kernels as v2
+    from youtokentome_tpu_torch.ops import train_stream as ts
 
     dev = torch.device("cuda", 0)
     work.mkdir(parents=True, exist_ok=True)
-    corpus_path, model_path = work / "corpus_100mb.txt", work / "vocab30k.yttm"
-    if not model_path.exists():
-        words, lines = build_corpus()
-        corpus_path.write_text("\n".join(lines) + "\n")
-        build_model(words)[0].dump(str(model_path))
+    corpus_path = work / "corpus_100mb.txt"
+    if not corpus_path.exists():
+        corpus_path.write_text("\n".join(build_corpus()[1]) + "\n")
     out = {"tree": os.getcwd(), "card": card_line()}
-    state = BPEState.load(str(model_path))
-    tables = ek.EncoderTables.from_state(state, dev)
-    blob = corpus_path.read_bytes()
-    alpha_cps = np.sort(np.array(list(state.char2id), np.uint32))
-    alpha_ids = np.array([state.char2id[int(c)] for c in alpha_cps], np.int32)
-    wf, wo, _, _ = fasttok.tokenize(blob, alpha_cps, alpha_ids, 4)
-    chunks = [np.ascontiguousarray(mat[c0 : c0 + DEVICE_BATCH])
-              for _, mat in Encoder._bucket_rows(wf, wo)
-              for c0 in range(0, mat.shape[0], DEVICE_BATCH)]
-    split = bucket_split(tables, state.special_tokens.unk_id, chunks, dev)
-    out["encode"] = {cap: {"launches": n, "rows": r, "int32_ms": a, "u16_ms": b}
-                     for cap, (n, r, a, b) in split.items()}
     out["train_split"] = [train_split(corpus_path, work / f"cmp{i}.yttm")[1] for i in range(2)]
     buckets, _, used0 = training_buckets(corpus_path)
     t, wid, freq, B = tiered_inputs(buckets)
@@ -2660,21 +2985,32 @@ def compare_tree(work: Path) -> dict:
         torch.cuda.synchronize()
         loops.append(time.perf_counter() - t0)
     out["loop_s"] = loops
-    out["rounds"] = int(eng.st.ctl[tk.ROUND])
+    out["rounds"], out["folds"] = int(eng.st.ctl[tk.ROUND]), eng.folds
+
+    def device_fns(prof) -> dict:
+        fns = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            if us:
+                fns[ev.key[:60]] = (round(us / 1e3, 4), ev.count)
+        return fns
+
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_tiered(engine(), TRAIN_VOCAB, used0)
         torch.cuda.synchronize()
-    fns = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if us:
-            fns[ev.key[:60]] = (round(us / 1e3, 3), ev.count)
-    out["device_fns"] = fns
-    per = round_split_us(prof, ("resplit", "hot_clear", "hot_fill"))
-    noop = float(np.median(per)) if per else 0.0
-    due = [u for u in per if u > 4 * noop + 1.0]
-    out["resplit_us"] = {"rounds": len(per), "no_op_median": noop, "due_rounds": len(due),
-                         "due_mean": float(np.mean(due)) if due else 0.0, "total_ms": sum(per) / 1e3}
+    out["v5_device_fns"] = device_fns(prof)
+    t2, w2, f2 = ts.flatten_word_buckets(buckets)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng = v2.KernelEngine(t2, w2, f2, rules, used0, TRAIN_VOCAB, 16, dev)
+        run_engine(eng, TRAIN_VOCAB, used0)
+        torch.cuda.synchronize()
+    out["v2_device_fns"] = device_fns(prof)
+    sums = {"fold_rows": ("fold_",), "apply_blocks": ("tier_find", "tier_apply", "tier_count"),
+            "pair_count": ("pair_count",)}
+    out["rows_ms"] = {
+        name: round(sum(ms for k, (ms, _) in {**out["v5_device_fns"], **out["v2_device_fns"]}.items()
+                        if any(p in k for p in parts)), 4)
+        for name, parts in sums.items()}
     print("COMPARE " + json.dumps(out), flush=True)
     return out
 
@@ -4807,7 +5143,7 @@ def main() -> int:
             "source": TOPK_SOURCE if r["name"] == "topk_accept" else (
                 "youtokentome_tpu_torch/csrc/train_delta.cu"),
             "replaces": TRAIN_REPLACES[r["name"]], "launches": r["launches"], "max_abs_err": 0,
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], **prefix_keys(r), "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "equal": True,
         }
         for r in train["rows"]
@@ -4815,7 +5151,7 @@ def main() -> int:
         {
             "name": r["name"], "route": "cuda", "source": "youtokentome_tpu_torch/csrc/train_tiered.cu",
             "replaces": TIERED_REPLACES[r["name"]], "launches": r["launches"], "max_abs_err": 0,
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], **prefix_keys(r), "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "equal": True,
         }
         for r in tiered["rows"]

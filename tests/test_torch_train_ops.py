@@ -280,6 +280,34 @@ def test_pair_count_plain_equals_host_table(seed):
     assert int(small.ctl[tk.OVERFLOW]) == int(2 * uk.size > 16)
 
 
+@pytest.mark.parametrize("base", [0, WIDE_BASE])
+def test_pair_count_overflow_regrows(base, monkeypatch):
+    """The count's overflow contract: a table too small for the first count
+    sets OVERFLOW, and the engine counts again at twice the size until the
+    count fits in half the table; the regrown count equals the JAX
+    package's host count table (ids from 0 and above 65535)."""
+    t, wid, freq = _stream(31, n_words=150, base=base)
+    uk, uc = jtd.host_count_table(t, wid, freq)
+    seen = []  # (slots, OVERFLOW) after each count
+    plain = tk.pair_count_plain
+
+    def counted(st):
+        plain(st)
+        seen.append((st.cap, int(st.ctl[tk.OVERFLOW])))
+
+    monkeypatch.setattr(tk, "pair_count_plain", counted)
+    monkeypatch.setenv("YTTM_TRAIN_PCAP", "8")  # a first table of 16 slots
+    rules = np.full((base + 400, 4), -1, np.int32)
+    eng = tk.KernelEngine(t, wid, freq, rules, base + 40, base + 400, 16, torch.device("cpu"))
+    assert seen[0] == (16, 1) and 2 * uk.size > 16
+    assert [o for _, o in seen] == [1] * (len(seen) - 1) + [0]
+    assert [c for c, _ in seen] == [16 << i for i in range(len(seen))]
+    keys, cnts = eng.st.table()
+    np.testing.assert_array_equal(keys, uk.astype(np.int64))
+    np.testing.assert_array_equal(cnts, uc)
+    assert int(eng.st.ctl[tk.OCC]) == uk.size and 2 * uk.size <= eng.st.cap
+
+
 @pytest.mark.parametrize("vocab", [200, 70000])
 def test_kernel_rounds_equal_plain_rounds(vocab):
     """Segments of topk_accept + apply_delta (plain versions, word-laid

@@ -151,25 +151,60 @@ def _fold_buckets():
     return j_pre.training_word_buckets(cps, al), len(al.char2id) + 4
 
 
+_JAX_FOLD_ERR = []  # the JAX v5 trainer's stderr on the fold case, once
+
+
 def test_row_fold(plain, monkeypatch, capsys):
     """The row fold (YTTM_TRAIN_FOLD_MIN=16, YTTM_TRAIN_B=16) halves m in
     the progress lines and changes no rule; the plain round loop's lines
-    equal the JAX trainer's, stats included, but for the time and rate."""
+    equal the JAX trainer's, stats included, but for the time and rate.
+    The kernel engine (plain versions) keeps ctl[LIVE] equal to the stream's
+    live tokens at every segment end, runs the fold's plan exactly at the
+    segment ends where ``fold_wanted`` holds, and folds at the same
+    segments as the JAX trainer (its m= values)."""
     buckets, u0 = _fold_buckets()
     want = _jax_delta("fold", buckets, u0, 600)
     monkeypatch.setenv("YTTM_TRAIN_FOLD_MIN", "16")
     monkeypatch.setenv("YTTM_TRAIN_B", "16")
+    ends = []  # (planned, fold_wanted on the stream) at each kernel segment end
+    if not plain:
+        seg, fold, plan = tk.TieredKernelEngine.segment, tk.fold_rows, tk.fold_plan_plain
+        plans = []
+
+        def segment(self, used, limit):
+            out = seg(self, used, limit)
+            live = int((self.st.tok >= 0).sum())
+            assert int(self.st.ctl[tk.LIVE]) == live, "ctl[LIVE] != the stream's live tokens"
+            return out
+
+        def fold_rows(st, live):
+            assert live == int((st.tok >= 0).sum())
+            plans.clear()
+            wanted = tt.fold_wanted(st.NB * st.B, st.B, live)
+            out = fold(st, live)
+            ends.append((bool(plans), wanted))
+            return out
+
+        monkeypatch.setattr(tk.TieredKernelEngine, "segment", segment)
+        monkeypatch.setattr(tk, "fold_rows", fold_rows)
+        monkeypatch.setattr(tk, "fold_plan_plain", lambda st: plans.append(1) or plan(st))
     capsys.readouterr()
     got = tt.run_training_tiered(buckets, u0, 600, progress_every=200, plain=plain)
     assert got == want
     err = capsys.readouterr().err
     ms = [int(x) for x in re.findall(r"m=(\d+)", err)]
     assert ms and min(ms) < max(ms), f"row fold never fired: {ms}"
-    if plain:  # the plain round loop is the JAX program: the same lines
+    if not _JAX_FOLD_ERR:
         jtt.run_training_tiered(buckets, u0, 600, progress_every=200)
-        jerr = capsys.readouterr().err
+        _JAX_FOLD_ERR.append(capsys.readouterr().err)
+    jerr = _JAX_FOLD_ERR[0]
+    assert ms == [int(x) for x in re.findall(r"m=(\d+)", jerr)]
+    if plain:  # the plain round loop is the JAX program: the same lines
         strip = lambda s: re.sub(r"\(.*?merges/s\)", "", s)  # noqa: E731
         assert strip(err) == strip(jerr)
+    else:
+        assert ends and all(p == w for p, w in ends), ends
+        assert any(w for _, w in ends) and not all(w for _, w in ends), ends
 
 
 def test_wide_vocab(plain):

@@ -187,8 +187,9 @@ def test_fold_check_and_rows(seed, monkeypatch):
     assert np.array_equal(_u32(gs), _u32(ws))
     st = tk.TieredState(t, wid, np.ones(200, np.int32), np.full((8, 4), -1, np.int32), 0, 16, 64, 32, "cpu")
     monkeypatch.setenv("YTTM_TRAIN_FOLD_MIN", "16")
-    wanted = tt.fold_wanted(t.size, 16, int((t >= 0).sum()))
-    assert tk.fold_rows_plain(st) == (ok and wanted)
+    live = int((t >= 0).sum())
+    wanted = tt.fold_wanted(t.size, 16, live)
+    assert tk.fold_rows_plain(st, live) == (ok and wanted)
     if ok and wanted:
         assert np.array_equal(st.tok.numpy(), np.asarray(wt))
 

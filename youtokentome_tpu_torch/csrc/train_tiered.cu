@@ -55,10 +55,12 @@
 //                 and the hot table rebuilt from every key with count > T; one
 //                 cooperative kernel with a grid barrier between its steps
 //                 (its section).
-//   fold_rows     row fills, a stable counting sort of the rows by fill, the
-//                 pair check (emptiest with fullest fits a row), and the fold:
-//                 row i = concat(row order[NB-1-i], row order[i]), compacted,
-//                 with its signature; the row order equals the JAX fold's.
+//   fold_rows     at a segment end where the kept live count (ctl[LIVE])
+//                 calls for it: row fills, a stable counting sort of the rows
+//                 by fill and the pair check (emptiest with fullest fits a
+//                 row) in one cooperative launch, then the fold: row i =
+//                 concat(row order[NB-1-i], row order[i]), compacted, with its
+//                 signature; the row order equals the JAX fold's.
 //
 // Every kernel does nothing once `done` or `overflow` is set or `used`
 // reached min(vocab, limit), so the host enqueues rounds in batches and
@@ -98,13 +100,16 @@ enum {
   ZLO,       // the first z id of this round
   ACTIVE,    // this round ran (cleared by the round's stats)
   ST_ROUNDS, ST_REFRESH, ST_MID, ST_FULL,
-  LIVE,      // fold plan: live tokens
+  LIVE,      // live tokens: set by a count, less each round's merges
   FOLD_MAX,  // fold plan: the largest fill of a row pair
   CTL_N = 24
 };
 
 constexpr int kSigW = 16;
 constexpr int kMaxB = 512;
+// apply_blocks' scratch `hits` (int32): [0] the listed rows, [2, 4) the
+// apply's 64-bit ticket (blocks done, tokens removed)
+constexpr int kHitsN = 4;
 
 __device__ __forceinline__ int sig_pos(int32_t tok) {
   return (int)(((uint32_t)tok * 2654435761u) >> 23) & 511;
@@ -354,8 +359,9 @@ __device__ __forceinline__ bool row_has_cand(const int32_t (&t)[P], const CandSe
 // The round's apply of row r, which holds a candidate pair (all 32 lanes of
 // a warp).  A lane's updates of the tables (one for its old pair, one at its new
 // position) wait to the end, so that their first probes load together.
+// Returns the row's merges: the tokens it lost.
 template <int P>
-__device__ void merge_row(int r, int B, int32_t *tok, int32_t *wid,
+__device__ int merge_row(int r, int B, int32_t *tok, int32_t *wid,
                                        const int32_t *freq, uint32_t *sig, const CandSet &c,
                                        int n, int32_t *acc, RowScratch rs,
                                        unsigned long long *keys, int32_t *cnts, int cap,
@@ -389,8 +395,9 @@ __device__ void merge_row(int r, int B, int32_t *tok, int32_t *wid,
     rix[k] = cand_of(c, n, t[k], nb[k]);
     if (rix[k] >= 0) rs.wa[s] = 1;
   }
-  // the merge: even offsets inside runs of hits
+  // the merge: even offsets inside runs of hits; each drops the token after it
   bool sel[P];
+  int merged = 0;
   carry = -1;
 #pragma unroll
   for (int k = 0; k < P; ++k) {
@@ -398,6 +405,7 @@ __device__ void merge_row(int r, int B, int32_t *tok, int32_t *wid,
     int lnh = warp_max_scan(rix[k] >= 0 ? -1 : i);
     lnh = lnh > carry ? lnh : carry;
     sel[k] = rix[k] >= 0 && ((i - lnh - 1) & 1) == 0;
+    merged += __popc(__ballot_sync(kFullMask, sel[k]));
     carry = __shfl_sync(kFullMask, lnh, 31);
   }
   __syncwarp();
@@ -485,6 +493,7 @@ __device__ void merge_row(int r, int B, int32_t *tok, int32_t *wid,
   __syncwarp();
   if (lane < kSigW) sig[(size_t)r * kSigW + lane] = rs.sig[lane];
   __syncwarp();
+  return merged;
 }
 
 __device__ __forceinline__ void round_end(int32_t *ctl, int kb1, int kb2) {
@@ -582,18 +591,24 @@ __global__ void __launch_bounds__(kRowThreads, 4)
 
 // Pass 2: the rows with a candidate pair, spread evenly over the warps
 // (merge_row); the candidates' keys summed in shared memory, sent once a
-// block; the last block to take a ticket counts the round's stats and
-// clears *hits for the next round.
+// block.  Each block takes a ticket, a 64-bit atomic at hits + 2 (kHitsN
+// int32 of scratch): blocks done in its low word, the tokens the block's
+// merges removed in its high word.  The last block subtracts their sum
+// from ctl[LIVE] (the live count the fold's trigger reads), counts the
+// round's stats and clears *hits and the ticket for the next round.  (An
+// atomic a block on ctl[LIVE] itself, beside the ticket's, cost ~1.5 ms
+// over the 100 MB run's 3,247 rounds: same-address contention.)
 template <int P>
 __global__ void __launch_bounds__(kRowThreads, 4)
     tier_apply_kernel(int32_t *tok, int32_t *wid, const int32_t *freq, uint32_t *sig, int B,
                       int32_t *ctl, const int32_t *cand, unsigned long long *keys, int32_t *cnts,
                       int cap, unsigned long long *hkeys, int32_t *hcnts, int hslots,
-                      const int32_t *rows, int32_t *hits, unsigned *ticket, int kb1, int kb2,
+                      const int32_t *rows, int32_t *hits, int kb1, int kb2,
                       cudaGraphConditionalHandle gate, int gated) {
   extern __shared__ __align__(16) unsigned char scratch[];
   __shared__ CandSet c;
   __shared__ int32_t acc[kK];
+  __shared__ int removed, all_removed;
   __shared__ bool last;
   const int n = load_cand_set(c, ctl, cand);
   if (n == 0) {  // no merge: the round's stats alone
@@ -601,15 +616,18 @@ __global__ void __launch_bounds__(kRowThreads, 4)
     return;
   }
   if (threadIdx.x < kK) acc[threadIdx.x] = 0;
+  if (threadIdx.x == 0) removed = 0;
   __syncthreads();
   const bool hot = !ctl[REFRESH];
   const int zlo = ctl[ZLO], n_hit = *hits;
   const RowScratch rs(scratch + (threadIdx.x >> 5) * row_scratch_bytes(B), B);
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int n_warps = (gridDim.x * blockDim.x) >> 5;
+  int merged = 0;
   for (int i = warp; i < n_hit; i += n_warps)
-    merge_row<P>(rows[i], B, tok, wid, freq, sig, c, n, acc, rs, keys, cnts, cap, hkeys, hcnts,
-                 hslots, ctl, hot, zlo);
+    merged += merge_row<P>(rows[i], B, tok, wid, freq, sig, c, n, acc, rs, keys, cnts, cap, hkeys,
+                           hcnts, hslots, ctl, hot, zlo);
+  if ((threadIdx.x & 31) == 0 && merged) atomicAdd(&removed, merged);
   __syncthreads();
   if (threadIdx.x < n && acc[threadIdx.x] != 0) {
     Move m{pair_key(c.x[threadIdx.x], c.y[threadIdx.x]), -acc[threadIdx.x], false, {}, {}};
@@ -618,12 +636,18 @@ __global__ void __launch_bounds__(kRowThreads, 4)
   }
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  unsigned long long *ticket = reinterpret_cast<unsigned long long *>(hits + 2);
+  if (threadIdx.x == 0) {
+    const unsigned long long was = atomicAdd(ticket, (unsigned long long)removed << 32 | 1ull);
+    last = (unsigned)was == gridDim.x - 1;
+    all_removed = (int)(was >> 32) + removed;
+  }
   __syncthreads();
   if (last && threadIdx.x == 0) {
+    ctl[LIVE] -= all_removed;
     round_end(ctl, kb1, kb2);
     *hits = 0;
-    *ticket = 0u;
+    *ticket = 0ull;
     // the round graph's IF node over the resplit (default 0: a round with
     // no merge leaves it so)
     if (gated) cudaGraphSetConditional(gate, resplit_due(ctl) ? 1u : 0u);
@@ -631,17 +655,22 @@ __global__ void __launch_bounds__(kRowThreads, 4)
 }
 
 // Count mode: every row's counted pairs into the (emptied) full table, every
-// signature rebuilt; a warp a row.
+// signature rebuilt, and the live tokens added to ctl[LIVE] (zeroed by the
+// caller) once a block; a warp a row.
 template <int P>
 __global__ void __launch_bounds__(kRowThreads)
     tier_count_kernel(const int32_t *tok, const int32_t *wid, const int32_t *freq, uint32_t *sig,
                       int B, int NB, int32_t *ctl, unsigned long long *keys, int32_t *cnts,
                       int cap) {
   __shared__ uint32_t ssig[kRowWarps][kSigW];
+  __shared__ int blk_live;
   uint32_t *sg = ssig[threadIdx.x >> 5];
   const int lane = threadIdx.x & 31;
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int n_warps = (gridDim.x * blockDim.x) >> 5;
+  if (threadIdx.x == 0) blk_live = 0;
+  __syncthreads();
+  int live = 0;
   for (int r = warp; r < NB; r += n_warps) {
     const int32_t *trow = tok + (size_t)r * B, *wrow = wid + (size_t)r * B;
     int32_t t[P], w[P];
@@ -669,11 +698,15 @@ __global__ void __launch_bounds__(kRowThreads)
         const int p = sig_pos(t[k]);
         atomicOr(sg + (p >> 5), 1u << (p & 31));
       }
+      live += __popc(__ballot_sync(kFullMask, t[k] >= 0));
     }
     __syncwarp();
     if (lane < kSigW) sig[(size_t)r * kSigW + lane] = sg[lane];
     __syncwarp();
   }
+  if (lane == 0 && live) atomicAdd(&blk_live, live);
+  __syncthreads();
+  if (threadIdx.x == 0 && blk_live) atomicAdd(ctl + LIVE, blk_live);
 }
 
 // Blocks of `kernel` the card holds at once with `smem` bytes of dynamic
@@ -713,7 +746,7 @@ cudaError_t apply_plan(int B, int NB, ApplyPlan *p) {
 
 template <int P>
 cudaError_t launch_apply(int32_t *tok, int32_t *wid, const int32_t *freq, uint32_t *sig, int B,
-                         int NB, int32_t *rows, int32_t *hits, unsigned *ticket, int32_t *ctl,
+                         int NB, int32_t *rows, int32_t *hits, int32_t *ctl,
                          const int32_t *cand, unsigned long long *keys, int32_t *cnts, int cap,
                          unsigned long long *hkeys, int32_t *hcnts, int hslots, int count_mode,
                          int kb1, int kb2, cudaStream_t s) {
@@ -727,8 +760,8 @@ cudaError_t launch_apply(int32_t *tok, int32_t *wid, const int32_t *freq, uint32
   if (e != cudaSuccess) return e;
   tier_find_kernel<P><<<pl.find_grid, kRowThreads, 0, s>>>(tok, sig, B, NB, ctl, cand, rows, hits);
   tier_apply_kernel<P><<<pl.apply_grid, kRowThreads, pl.apply_smem, s>>>(
-      tok, wid, freq, sig, B, ctl, cand, keys, cnts, cap, hkeys, hcnts, hslots, rows, hits, ticket,
-      kb1, kb2, 0, 0);
+      tok, wid, freq, sig, B, ctl, cand, keys, cnts, cap, hkeys, hcnts, hslots, rows, hits, kb1,
+      kb2, 0, 0);
   return cudaGetLastError();
 }
 
@@ -1065,7 +1098,7 @@ cudaError_t add_kernel(cudaGraphNode_t *node, cudaGraph_t g, const cudaGraphNode
 template <int P>
 cudaError_t add_apply_nodes(cudaGraph_t g, cudaGraphNode_t *dep, int32_t *tok, int32_t *wid,
                             const int32_t *freq, uint32_t *sig, int B, int NB, int32_t *rows,
-                            int32_t *hits, unsigned *ticket, int32_t *ctl, const int32_t *cand,
+                            int32_t *hits, int32_t *ctl, const int32_t *cand,
                             unsigned long long *keys, int32_t *cnts, int cap,
                             unsigned long long *hkeys, int32_t *hcnts, int hslots, int kb1,
                             int kb2, cudaGraphConditionalHandle gate) {
@@ -1078,7 +1111,7 @@ cudaError_t add_apply_nodes(cudaGraph_t g, cudaGraphNode_t *dep, int32_t *tok, i
   if (e != cudaSuccess) return e;
   int gated = 1;
   void *aa[] = {&tok, &wid, &freq, &sig, &B, &ctl, &cand, &keys, &cnts, &cap, &hkeys, &hcnts,
-                &hslots, &rows, &hits, &ticket, &kb1, &kb2, &gate, &gated};
+                &hslots, &rows, &hits, &kb1, &kb2, &gate, &gated};
   return add_kernel(dep, g, &find, (const void *)tier_apply_kernel<P>, pl.apply_grid, kRowThreads,
                     pl.apply_smem, aa);
 }
@@ -1093,99 +1126,203 @@ cudaError_t add_node(cudaGraphNode_t *node, cudaGraph_t g, const cudaGraphNode_t
 }
 
 // -- fold_rows ---------------------------------------------------------------
+//
+// The plan runs only where the JAX host loop would check the fold: at a
+// segment end with more rows than YTTM_TRAIN_FOLD_MIN and the live tokens
+// below 45 % of the slots (fold_wanted).  The live count is kept on the
+// card: tier_count_kernel sets ctl[LIVE] from the stream, every block of
+// tier_apply_kernel subtracts the tokens its merges removed (one atomic a
+// block), and a fold moves tokens without changing their number; the host
+// reads it with the rest of ctl at the segment end.  The old design planned
+// at every segment end (30 plans for 1 fold at the 100 MB point): a memset
+// and five launches, 3.3 ms in all (torch.profiler, H100 80GB HBM3, 700 W):
+// the fills a warp a 64-slot row by 4-byte loads with one global atomic a
+// row on LIVE (2.2 ms), and a scan by one block whose threads each walked
+// the ~540 block histograms serially (0.85 ms).
+//
+// When it runs, the plan is one cooperative launch (a wave of blocks, every
+// one resident), with a grid barrier between its steps:
+//   1. each block takes a contiguous run of rows: their fills by 16-byte
+//      loads (a group of B/4 lanes a row, summed by shuffles), kept in
+//      shared memory and written out, and the block's histogram of the
+//      fills in shared memory, written bin-major (ghist[v * G + g]);
+//   2. each bin's column over the blocks scanned by one block in shared
+//      memory (a block per bin), its total kept after the columns;
+//   3. every block scans the totals over the bins (<= 513 values) to each
+//      fill's first rank, places its rows stably (warp 0: 32 rows a step,
+//      ranked by __match_any_sync, into order), and its other warps take
+//      the pair check: the fill at rank i from the scanned totals (binary
+//      search), max over i < NB/2 of fill(i) + fill(NB-1-i) into FOLD_MAX
+//      (one atomic a block).  The order is torch.sort(fills, stable=True)'s,
+//      the JAX fold's.
+// The fold's write (fold_write_kernel) stays a second launch, after the host
+// reads FOLD_MAX: the write is needed only when the pairs fit a row.
+//
+// Bound: a plan reads the stream's tokens (4 B a slot) and writes the fills
+// and the order (8 B a row): ~11 us at the 100 MB point's first plan
+// (138,240 rows of 64).
 
-constexpr int kFoldChunk = 256;  // rows a block of the counting sort takes
+constexpr int kFoldThreads = 512;
+constexpr int kFoldRowsPerBlock = 256;  // the grid: a block per 256 rows, one wave at most
+constexpr int kFoldMaxBlocks = 1024;    // a bin's column, scanned in shared memory
+constexpr int kFoldRows = 4096;         // a block's fills kept in shared memory
 
-__global__ void __launch_bounds__(256)
-    fold_fills_kernel(const int32_t *tok, int B, int NB, int32_t *fills, int32_t *ctl) {
-  const int lane = threadIdx.x & 31;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int n_warps = (gridDim.x * blockDim.x) >> 5;
-  for (int r = warp; r < NB; r += n_warps) {
-    int f = 0;
-    for (int b = 0; b < B; b += 32) {
-      const int i = b + lane;
-      f += __popc(__ballot_sync(0xFFFFFFFFu, i < B && tok[(size_t)r * B + i] >= 0));
-    }
-    if (lane == 0) {
-      fills[r] = f;
-      atomicAdd(ctl + LIVE, f);
-    }
+// Exclusive scan of a[0, n) in place (shared memory), by the whole block,
+// each thread a contiguous run; returns the total.  Every thread calls it.
+__device__ int block_scan(int *a, int n, int *wsum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  int s = 0;
+  for (int i = lo; i < hi; ++i) s += a[i];
+  int incl = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFullMask, incl, o);
+    if (lane >= o) incl += v;
   }
-}
-
-__global__ void __launch_bounds__(32)
-    fold_hist_kernel(const int32_t *fills, int NB, int B, int32_t *ghist) {
-  __shared__ int hist[kMaxB + 1];
-  for (int v = threadIdx.x; v <= B; v += 32) hist[v] = 0;
-  __syncwarp();
-  const int r0 = blockIdx.x * kFoldChunk;
-  for (int r = r0 + threadIdx.x; r < NB && r < r0 + kFoldChunk; r += 32)
-    atomicAdd(hist + fills[r], 1);
-  __syncwarp();
-  for (int v = threadIdx.x; v <= B; v += 32) ghist[(size_t)blockIdx.x * (B + 1) + v] = hist[v];
-}
-
-// ghist[g][v] -> the first output position of block g's rows of fill v
-__global__ void __launch_bounds__(1024)
-    fold_scan_kernel(int32_t *ghist, int G, int B) {
-  __shared__ int total[kMaxB + 1];
-  const int v = threadIdx.x;
-  if (v <= B) {
-    int s = 0;
-    for (int g = 0; g < G; ++g) s += ghist[(size_t)g * (B + 1) + v];
-    total[v] = s;
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nw ? wsum[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFullMask, w, o);
+      if (lane >= o) w += v;
+    }
+    __syncwarp();
+    if (lane < nw) wsum[lane] = w;
   }
   __syncthreads();
-  if (v == 0) {
-    int run = 0;
-    for (int u = 0; u <= B; ++u) {
-      const int c = total[u];
-      total[u] = run;
-      run += c;
+  int run = incl - s + (warp ? wsum[warp - 1] : 0);
+  const int total = wsum[nw - 1];
+  for (int i = lo; i < hi; ++i) {
+    const int c = a[i];
+    a[i] = run;
+    run += c;
+  }
+  __syncthreads();
+  return total;
+}
+
+// The fill at rank i of the sorted fills, from first[v] (the first rank of
+// fill v, v = 0..B, nondecreasing): the last v with first[v] <= i.
+__device__ __forceinline__ int fill_at(const int *first, int B, int i) {
+  int lo = 0, hi = B;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (first[mid] <= i) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kFoldThreads)
+    fold_plan_kernel(const int32_t *tok, int B, int NB, bool vec, int32_t *fills, int32_t *ghist,
+                     int32_t *order, int32_t *ctl, int32_t *sel) {
+  __shared__ int hist[kMaxB + 1];  // the block's histogram, then its rows' next places
+  __shared__ int buf[kFoldMaxBlocks > kMaxB + 1 ? kFoldMaxBlocks : kMaxB + 1];
+  __shared__ int sfill[kFoldRows];
+  __shared__ int wsum[kFoldThreads / 32];
+  __shared__ int blk_best;
+  unsigned gen = 0;
+  if (threadIdx.x == 0) gen = *(volatile unsigned *)(sel + SEL_GEN);
+  const int G = gridDim.x, g = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (NB + G - 1) / G;
+  const int r0 = min(NB, g * per), r1 = min(NB, r0 + per);
+  for (int v = threadIdx.x; v <= B; v += blockDim.x) hist[v] = 0;
+  if (threadIdx.x == 0) blk_best = 0;
+  if (g == 0 && threadIdx.x == 0) ctl[FOLD_MAX] = 0;
+  __syncthreads();
+  auto record = [&](int r, int f) {
+    fills[r] = f;
+    if (r - r0 < kFoldRows) sfill[r - r0] = f;
+    atomicAdd(hist + f, 1);
+  };
+  // 1. fills and the block's histogram
+  const int q = B >> 2;  // int4 a row
+  const int4 *t4 = reinterpret_cast<const int4 *>(tok);
+  if (vec && q <= 32 && (q & (q - 1)) == 0) {  // a group of q lanes a row
+    const int rpp = blockDim.x / q;
+    for (int rb = r0; rb < r1; rb += rpp) {
+      const int r = rb + (int)threadIdx.x / q, part = threadIdx.x & (q - 1);
+      int f = 0;
+      if (r < r1) {
+        const int4 x = __ldg(t4 + (size_t)r * q + part);
+        f = (x.x >= 0) + (x.y >= 0) + (x.z >= 0) + (x.w >= 0);
+      }
+      for (int o = q >> 1; o > 0; o >>= 1) f += __shfl_xor_sync(kFullMask, f, o);
+      if (r < r1 && part == 0) record(r, f);
+    }
+  } else {  // a warp a row
+    for (int r = r0 + warp; r < r1; r += blockDim.x >> 5) {
+      int f = 0;
+      if (vec) {
+        for (int j = lane; j < q; j += 32) {
+          const int4 x = __ldg(t4 + (size_t)r * q + j);
+          f += (x.x >= 0) + (x.y >= 0) + (x.z >= 0) + (x.w >= 0);
+        }
+      } else {
+        for (int j = lane; j < B; j += 32) f += __ldg(tok + (size_t)r * B + j) >= 0;
+      }
+      f = __reduce_add_sync(kFullMask, f);
+      if (lane == 0) record(r, f);
     }
   }
   __syncthreads();
-  if (v <= B) {
-    int run = total[v];
-    for (int g = 0; g < G; ++g) {
-      int32_t *h = ghist + (size_t)g * (B + 1) + v;
-      const int c = *h;
-      *h = run;
-      run += c;
-    }
+  for (int v = threadIdx.x; v <= B; v += blockDim.x) ghist[(size_t)v * G + g] = hist[v];
+  grid_sync(sel, gen);
+  // 2. each bin's column over the blocks: a block a bin
+  int32_t *tot = ghist + (size_t)(B + 1) * G;
+  for (int v = g; v <= B; v += G) {
+    for (int j = threadIdx.x; j < G; j += blockDim.x) buf[j] = __ldcg(ghist + (size_t)v * G + j);
+    __syncthreads();
+    const int total = block_scan(buf, G, wsum);
+    for (int j = threadIdx.x; j < G; j += blockDim.x) ghist[(size_t)v * G + j] = buf[j];
+    if (threadIdx.x == 0) tot[v] = total;
+    __syncthreads();
   }
-}
-
-// stable placement: rows in index order within each fill
-__global__ void __launch_bounds__(32)
-    fold_place_kernel(const int32_t *fills, int NB, int B, const int32_t *ghist, int32_t *order) {
-  __shared__ int cursor[kMaxB + 1];
-  const int lane = threadIdx.x;
-  for (int v = lane; v <= B; v += 32) cursor[v] = ghist[(size_t)blockIdx.x * (B + 1) + v];
-  __syncwarp();
-  const int r0 = blockIdx.x * kFoldChunk;
-  for (int b = r0; b < NB && b < r0 + kFoldChunk; b += 32) {
-    const int r = b + lane;
-    const bool ok = r < NB && r < r0 + kFoldChunk;
-    const int v = ok ? fills[r] : B + 1 + lane;  // a value of its own
-    const unsigned same = __match_any_sync(0xFFFFFFFFu, v);
-    if (ok) order[cursor[v] + __popc(same & ((1u << lane) - 1u))] = r;
-    __syncwarp();
-    if (ok && 31 - __clz(same) == lane) cursor[v] += __popc(same);
-    __syncwarp();
-  }
-}
-
-__global__ void __launch_bounds__(256)
-    fold_check_kernel(const int32_t *fills, const int32_t *order, int NB, int32_t *ctl) {
+  grid_sync(sel, gen);
+  // 3. each fill's first rank, then the block's rows placed and the pairs checked
+  for (int v = threadIdx.x; v <= B; v += blockDim.x) buf[v] = __ldcg(tot + v);
+  __syncthreads();
+  block_scan(buf, B + 1, wsum);
+  for (int v = threadIdx.x; v <= B; v += blockDim.x)
+    hist[v] = buf[v] + __ldcg(ghist + (size_t)v * G + g);
+  __syncthreads();
   int best = 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < NB / 2; i += gridDim.x * blockDim.x) {
-    const int s = fills[order[i]] + fills[order[NB - 1 - i]];
-    best = s > best ? s : best;
+  if (warp == 0) {  // stable: rows in index order within each fill
+    for (int b = r0; b < r1; b += 32) {
+      const int r = b + lane;
+      const bool ok = r < r1;
+      const int v = ok ? (r - r0 < kFoldRows ? sfill[r - r0] : __ldcg(fills + r)) : B + 1 + lane;
+      const unsigned same = __match_any_sync(kFullMask, v);
+      if (ok) order[hist[v] + __popc(same & ((1u << lane) - 1u))] = r;
+      __syncwarp();
+      if (ok && 31 - __clz(same) == lane) hist[v] += __popc(same);
+      __syncwarp();
+    }
+  } else {
+    const int nc = blockDim.x - 32;
+    for (int i = g * nc + (int)threadIdx.x - 32; i < NB / 2; i += G * nc) {
+      const int s = fill_at(buf, B, i) + fill_at(buf, B, NB - 1 - i);
+      best = s > best ? s : best;
+    }
   }
-  best = __reduce_max_sync(0xFFFFFFFFu, best);
-  if ((threadIdx.x & 31) == 0) atomicMax(ctl + FOLD_MAX, best);
+  best = __reduce_max_sync(kFullMask, best);
+  if (lane == 0 && best) atomicMax(&blk_best, best);
+  __syncthreads();
+  if (threadIdx.x == 0 && blk_best) atomicMax(ctl + FOLD_MAX, blk_best);
+}
+
+// One wave of fold_plan_kernel, a block per kFoldRowsPerBlock rows.
+int fold_grid(int NB) {
+  static int wave = 0;
+  if (!wave) wave = one_wave(fold_plan_kernel, 0, kFoldThreads);
+  int most = wave < kFoldMaxBlocks ? wave : kFoldMaxBlocks;
+  const int need = (NB + kFoldRowsPerBlock - 1) / kFoldRowsPerBlock;
+  return need < 1 ? 1 : (need < most ? need : most);
 }
 
 __global__ void __launch_bounds__(256)
@@ -1254,26 +1391,39 @@ int yttm_tiered_select(const void *keys, const void *cnts, int cap, const void *
   return (int)cudaGetLastError();
 }
 
-// One round's apply (count_mode: count every row into the full table and
-// rebuild every signature; the caller emptied the table and zeroed OCC and
-// OVERFLOW).  rows holds NB entries of scratch; *hits and *ticket are 0
-// (each round leaves them so).
+// One round's apply (count_mode: count every row into the full table,
+// rebuild every signature and add the live tokens to ctl[LIVE]; the caller
+// emptied the table and zeroed OCC, OVERFLOW and LIVE).  rows holds NB
+// entries of scratch; hits kHitsN, zero (each round leaves them so) and
+// 8-byte aligned.
 int yttm_tiered_apply(void *tok, void *wid, const void *freq, void *sig, int B, int NB,
-                      void *rows, void *hits, void *ticket, void *ctl, const void *cand,
+                      void *rows, void *hits, void *ctl, const void *cand,
                       void *keys, void *cnts, int cap, void *hkeys, void *hcnts, int hslots,
                       int count_mode, int kb1, int kb2, void *stream) {
-  if (B < 1 || B > kMaxB || NB <= 0 || cap <= 0 || hslots <= 0) return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > kMaxB || NB <= 0 || cap <= 0 || hslots <= 0 || ((uintptr_t)hits & 7u))
+    return (int)cudaErrorInvalidValue;
   cudaError_t (*launch)(int32_t *, int32_t *, const int32_t *, uint32_t *, int, int, int32_t *,
-                        int32_t *, unsigned *, int32_t *, const int32_t *, unsigned long long *,
+                        int32_t *, int32_t *, const int32_t *, unsigned long long *,
                         int32_t *, int, unsigned long long *, int32_t *, int, int, int, int,
                         cudaStream_t) =
       B <= 32 ? &launch_apply<1> : B <= 64 ? &launch_apply<2> : B <= 128 ? &launch_apply<4>
       : B <= 256 ? &launch_apply<8> : &launch_apply<16>;
   return (int)launch((int32_t *)tok, (int32_t *)wid, (const int32_t *)freq, (uint32_t *)sig, B, NB,
-                     (int32_t *)rows, (int32_t *)hits, (unsigned *)ticket, (int32_t *)ctl,
+                     (int32_t *)rows, (int32_t *)hits, (int32_t *)ctl,
                      (const int32_t *)cand, (unsigned long long *)keys, (int32_t *)cnts, cap,
                      (unsigned long long *)hkeys, (int32_t *)hcnts, hslots, count_mode, kb1, kb2,
                      (cudaStream_t)stream);
+}
+
+// The blocks of tier_apply_kernel's launch (one wave) for rows of B slots:
+// each sends the tokens its merges removed in its ticket (for the bound).
+int yttm_tiered_apply_grid(int B) {
+  if (B < 1 || B > kMaxB) return -(int)cudaErrorInvalidValue;
+  ApplyPlan pl;
+  cudaError_t (*plan)(int, int, ApplyPlan *) = B <= 32 ? &apply_plan<1> : B <= 64 ? &apply_plan<2>
+      : B <= 128 ? &apply_plan<4> : B <= 256 ? &apply_plan<8> : &apply_plan<16>;
+  const cudaError_t e = plan(B, 1, &pl);
+  return e == cudaSuccess ? pl.apply_grid : -(int)e;
 }
 
 // After a refresh round that merged: T and the hot table (a no-op on any
@@ -1320,7 +1470,7 @@ int yttm_tiered_graph(void **out, const void *keys, const void *cnts, int cap, c
   if (cap <= 0 || (cap & 3) || hslots <= 0 || hn_blk <= 0 || fn_blk <= 0 ||
       hn_blk > kSelMaxBlocks || fn_blk > kSelMaxBlocks || k <= 0 || k > kK || B < 1 ||
       B > kMaxB || NB <= 0 || boundary < 1 || slot_cap < 0 || ((uintptr_t)cnts & 15u) ||
-      ((uintptr_t)hcnts & 15u))
+      ((uintptr_t)hcnts & 15u) || ((uintptr_t)hits & 7u))
     return (int)cudaErrorInvalidValue;
   RoundGraph *rg = new RoundGraph();
   rg->hkeys = (const unsigned long long *)hkeys;
@@ -1365,7 +1515,7 @@ int yttm_tiered_graph(void **out, const void *keys, const void *cnts, int cap, c
              : B <= 128 ? &add_apply_nodes<4> : B <= 256 ? &add_apply_nodes<8>
              : &add_apply_nodes<16>;
     e = add(g, &dep, (int32_t *)tok, (int32_t *)wid, (const int32_t *)freq, (uint32_t *)sig, B, NB,
-            (int32_t *)rows, (int32_t *)hits, (unsigned *)ticket, (int32_t *)ctl,
+            (int32_t *)rows, (int32_t *)hits, (int32_t *)ctl,
             (const int32_t *)cand, (unsigned long long *)keys, (int32_t *)cnts, cap,
             (unsigned long long *)hkeys, (int32_t *)hcnts, hslots, kb1, kb2, gate);
   }
@@ -1415,25 +1565,18 @@ int yttm_tiered_graph_launch(void *graph, int n, int limit, void *stream) {
 }
 
 
-// The fold's plan: fills, LIVE, the stable order by fill, FOLD_MAX.  ghist
-// holds ceil(NB / 256) * (B + 1) entries of scratch.
+// The fold's plan (fold_plan_kernel, one cooperative launch): the rows'
+// fills, their stable order by fill and ctl[FOLD_MAX]; ctl[LIVE] is left as
+// it is.  ghist holds (B + 1) * (min(ceil(NB / 256), 1024) + 1) entries of
+// scratch; sel is the resplit's scratch (the plan shares its grid barrier,
+// which each launch leaves ready for the next).
 int yttm_tiered_fold_plan(const void *tok, int B, int NB, void *fills, void *ghist, void *order,
-                          void *ctl, void *stream) {
+                          void *ctl, void *sel, void *stream) {
   if (B < 1 || B > kMaxB || NB < 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int32_t *c = (int32_t *)ctl;
-  cudaError_t e = cudaMemsetAsync(c + LIVE, 0, 2 * sizeof(int32_t), s);
-  if (e != cudaSuccess) return (int)e;
-  const int G = (NB + kFoldChunk - 1) / kFoldChunk;
-  fold_fills_kernel<<<grid_for((long long)NB * 32, 256, 16), 256, 0, s>>>(
-      (const int32_t *)tok, B, NB, (int32_t *)fills, c);
-  fold_hist_kernel<<<G, 32, 0, s>>>((const int32_t *)fills, NB, B, (int32_t *)ghist);
-  fold_scan_kernel<<<1, 1024, 0, s>>>((int32_t *)ghist, G, B);
-  fold_place_kernel<<<G, 32, 0, s>>>((const int32_t *)fills, NB, B, (const int32_t *)ghist,
-                                     (int32_t *)order);
-  fold_check_kernel<<<grid_for(NB / 2, 256, 16), 256, 0, s>>>((const int32_t *)fills,
-                                                          (const int32_t *)order, NB, c);
-  return (int)cudaGetLastError();
+  bool vec = (B & 3) == 0 && ((uintptr_t)tok & 15u) == 0;
+  void *args[] = {&tok, &B, &NB, &vec, &fills, &ghist, &order, &ctl, &sel};
+  return (int)cudaLaunchCooperativeKernel((const void *)fold_plan_kernel, dim3(fold_grid(NB)),
+                                          dim3(kFoldThreads), args, 0, (cudaStream_t)stream);
 }
 
 // The fold itself, into tok2/wid2 [NB/2 * B] and sig2 [NB/2, 16].

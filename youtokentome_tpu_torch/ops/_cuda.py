@@ -121,7 +121,7 @@ def load_topk() -> ctypes.CDLL:
 def load_train() -> ctypes.CDLL:
     """Build (if needed) and load the v2 delta trainer's kernels."""
     return _load("train_delta.cu", "libtrain_delta.so", {
-        # tok, off, fw, W, keys, cnts, cap, ctl, stream
+        # tok, pwid, fw, Mw, keys, cnts, cap, ctl, stream
         "yttm_train_pair_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p]),
         # tok, pwid, Mw, off, fw, keys, cnts, cap, ctl, cand, wmark, stream
         "yttm_train_apply_delta": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _p, _p, _p, _p]),
@@ -141,9 +141,9 @@ def load_tiered() -> ctypes.CDLL:
         # fn_blk, ticket, ctl, cand, rules, limit, vocab, used_ids0, k, stream
         "yttm_tiered_select": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _i, _i, _p, _p, _p, _p, _i, _i,
                                     _i, _i, _p]),
-        # tok, wid, freq, sig, B, NB, rows, hits, ticket, ctl, cand, keys, cnts,
+        # tok, wid, freq, sig, B, NB, rows, hits, ctl, cand, keys, cnts,
         # cap, hkeys, hcnts, hslots, count_mode, kb1, kb2, stream
-        "yttm_tiered_apply": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p,
+        "yttm_tiered_apply": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p, _i, _p, _p,
                                    _i, _i, _i, _i, _p]),
         # keys, cnts, cap, hkeys, hcnts, hslots, ctl, sel, slots, slot_cap,
         # cand, boundary, stream
@@ -157,8 +157,9 @@ def load_tiered() -> ctypes.CDLL:
         # graph, n, limit, stream
         "yttm_tiered_graph_launch": (_i, [_p, _i, _i, _p]),
         "yttm_tiered_graph_free": (_i, [_p]),
-        # tok, B, NB, fills, ghist, order, ctl, stream
-        "yttm_tiered_fold_plan": (_i, [_p, _i, _i, _p, _p, _p, _p, _p]),
+        "yttm_tiered_apply_grid": (_i, [_i]),  # B
+        # tok, B, NB, fills, ghist, order, ctl, sel, stream
+        "yttm_tiered_fold_plan": (_i, [_p, _i, _i, _p, _p, _p, _p, _p, _p]),
         # tok, wid, fills, order, B, NB, tok2, wid2, sig2, stream
         "yttm_tiered_fold_write": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _p, _p]),
     })

@@ -27,11 +27,16 @@ over a state that needs neither:
                 full table
   resplit       after a refresh round that merged: T = the count at rank
                 hcap/2 of the full table, the hot table rebuilt from it
-  fold_rows     the row fold of the JAX host loop (fills, stable order by
-                fill, pair check, concat and compact)
+  fold_rows     the row fold of the JAX host loop, at a segment end where
+                ``fold_wanted`` holds: the plan (fills, stable order by fill,
+                pair check) in one launch, then concat and compact
 
 ``ctl`` (int32 [24]) holds the round control on the device, so the host
-enqueues rounds in batches and reads ``ctl`` once per batch.  Each wrapper
+enqueues rounds in batches and reads ``ctl`` once per batch.  It keeps the
+live tokens too (``ctl[LIVE]``, as the JAX program returns ``n_stream``):
+a count sets it from the stream and every round's apply subtracts the
+tokens its merges removed, so the fold's trigger needs no pass over the
+stream.  Each wrapper
 launches its kernels on a CUDA state (and counts the launch) and runs its
 plain torch version on a CPU state; the two leave the same stream,
 signatures, ``ctl`` and tables as multisets of (key, count) slots (but for
@@ -52,7 +57,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import os
 import sys
 
 import numpy as np
@@ -84,7 +88,9 @@ from .train_tiered import (
 CTL_N = 24
 EMPTY = -1  # int64 all ones: the key of an empty slot
 K_MAX = 16  # the kernels' candidates per round
-FOLD_CHUNK = 256  # rows a block of the fold's counting sort takes
+# the fold plan's grid: a block per FOLD_BLOCK_ROWS rows, at most
+# FOLD_MAX_BLOCKS (csrc/train_tiered.cu kFoldRowsPerBlock, kFoldMaxBlocks)
+FOLD_BLOCK_ROWS, FOLD_MAX_BLOCKS = 256, 1024
 # the resplit's scratch (csrc/train_tiered.cu SEL_*): four histograms of 2048
 # bins, then its state: the grid barrier's generation and the kernel's runs
 SEL_GEN, SEL_RUNS, SEL_N = 4 * 2048 + 6, 4 * 2048 + 8, 4 * 2048 + 16
@@ -105,9 +111,10 @@ class TieredState:
         self.ctl = torch.zeros(CTL_N, dtype=torch.int32, device=dev)
         self.ctl[USED] = used
         self.cand = torch.zeros((K_MAX, 4), dtype=torch.int32, device=dev)
-        # apply_blocks' list of the rows with a candidate pair, and their number
+        # apply_blocks' list of the rows with a candidate pair; hits[0] their
+        # number, hits[2:4] the apply's 64-bit ticket (csrc kHitsN)
         self.rows = torch.zeros(self.NB, dtype=torch.int32, device=dev)
-        self.hits = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.hits = torch.zeros(4, dtype=torch.int32, device=dev)
         self.sel = torch.zeros(SEL_N, dtype=torch.int32, device=dev)
         self.runs_seen = 0  # sel[SEL_RUNS] when count_resplits last read it
         self.round_graph = None  # the round graph (_RoundGraph) of a CUDA state
@@ -236,6 +243,7 @@ def apply_blocks_plain(st: TieredState, count_mode: bool, kb1: int, kb2: int):
         keys, w = _word_pairs(st.tok, st.wid, st.freq, st.tok >= 0)
         _hash_update(st.keys, st.cnts, ctl, OCC, OVERFLOW, keys, w)
         st.sig.copy_(sig_build(st.tok.reshape(-1, B)))
+        ctl[LIVE] = int((st.tok >= 0).sum())
         return
     n = int(ctl[NACC])
     if n:
@@ -260,6 +268,7 @@ def apply_blocks_plain(st: TieredState, count_mode: bool, kb1: int, kb2: int):
         t2d[rows] = mt2.reshape(-1, B)
         w2d[rows] = mw2.reshape(-1, B)
         st.sig[rows] = sig_build(mt2.reshape(-1, B))
+        ctl[LIVE] -= int((mt >= 0).sum() - (mt2 >= 0).sum())
     if int(ctl[ACTIVE]):
         nb = int(ctl[NBAFF])
         ctl[ST_ROUNDS] += 1
@@ -299,12 +308,14 @@ def resplit_plain(st: TieredState, boundary: int):
 
 
 def fold_plan_plain(st: TieredState):
-    """The fold's plan: ctl[LIVE] (live tokens) and ctl[FOLD_MAX] (the
-    largest fill of a pair of the emptiest and fullest rows)."""
-    fs = torch.sort(_fills(st.tok, st.B)).values
-    NB = fs.shape[0]
-    st.ctl[LIVE] = int(fs.sum())
-    st.ctl[FOLD_MAX] = int((fs[: NB // 2] + fs[NB // 2 :].flip(0)).max())
+    """The fold's plan: the rows' fills, their stable order by fill (the
+    JAX fold's), and ctl[FOLD_MAX], the largest fill of a pair of the i-th
+    emptiest and i-th fullest rows.  Returns (fills, order) as int32."""
+    fills = _fills(st.tok, st.B).to(torch.int32)
+    fs, order = torch.sort(fills, stable=True)
+    half = fs.shape[0] // 2
+    st.ctl[FOLD_MAX] = int((fs[:half] + fs.flip(0)[:half]).max())
+    return fills, order.to(torch.int32)
 
 
 # -- wrappers -----------------------------------------------------------------
@@ -354,21 +365,21 @@ def tier_select(st: TieredState, limit: int, vocab_size: int, used_ids0: int, k:
 def apply_blocks(st: TieredState, kb1: int = 0, kb2: int = 0, count_mode: bool = False):
     """Merge the round's accepted candidates into the rows that may hold
     them, with both tables' deltas and the rows' signatures; count the
-    round's stats against the tier sizes ``kb1``/``kb2``.  ``count_mode``:
-    count every row's pairs into the (emptied) full table instead and
-    rebuild every signature."""
+    round's stats against the tier sizes ``kb1``/``kb2``; ``ctl[LIVE]`` less
+    the tokens the merges removed.  ``count_mode``: count every row's pairs
+    into the (emptied) full table instead, rebuild every signature and set
+    ``ctl[LIVE]`` to the stream's live tokens."""
     if count_mode:
         st.keys.fill_(EMPTY)
         st.cnts.zero_()
-        st.ctl[[OCC, OVERFLOW]] = 0
+        st.ctl[[OCC, OVERFLOW, LIVE]] = 0
     if not _on(st, "apply_blocks"):
         return apply_blocks_plain(st, count_mode, kb1, kb2)
     lib = _cuda.load_tiered()
     with torch.cuda.device(st.device):
         err = lib.yttm_tiered_apply(
             st.tok.data_ptr(), st.wid.data_ptr(), st.freq.data_ptr(), st.sig.data_ptr(), st.B,
-            st.NB, st.rows.data_ptr(), st.hits.data_ptr(), st.ticket.data_ptr(), st.ctl.data_ptr(),
-            st.cand.data_ptr(),
+            st.NB, st.rows.data_ptr(), st.hits.data_ptr(), st.ctl.data_ptr(), st.cand.data_ptr(),
             st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.hkeys.data_ptr(),
             st.hcnts.data_ptr(), st.hslots, int(count_mode), int(kb1), int(kb2),
             _stream_ptr(st.device),
@@ -472,54 +483,64 @@ def rounds_per_call(st: TieredState, n: int, limit: int, vocab_size: int, used_i
         resplit(st, hcap)
 
 
-def _fold_due(st: TieredState) -> bool:
-    """More rows than ``YTTM_TRAIN_FOLD_MIN``: the fold's plan runs."""
-    return st.NB >= 2 and st.NB > int(os.environ.get("YTTM_TRAIN_FOLD_MIN", "4096"))
+def fold_due(st: TieredState, live: int) -> bool:
+    """The JAX host loop's fold trigger (``fold_wanted``) at a segment end
+    with ``live`` tokens (``ctl[LIVE]``): more rows than
+    ``YTTM_TRAIN_FOLD_MIN`` and the live tokens under 45 % of the slots.
+    Only then does the fold's plan run."""
+    return st.NB >= 2 and fold_wanted(st.NB * st.B, st.B, live)
 
 
-def _fold_ok(st: TieredState) -> bool:
-    live, most = (int(v) for v in st.ctl[[LIVE, FOLD_MAX]].tolist())
-    return most <= st.B and fold_wanted(st.NB * st.B, st.B, live)
+def fold_plan(st: TieredState):
+    """The fold's plan (``fold_plan_plain``'s function) in one cooperative
+    launch on a CUDA state, its plain version on a CPU one.  Returns
+    (fills, order)."""
+    if not _on(st, "fold_rows"):
+        return fold_plan_plain(st)
+    lib = _cuda.load_tiered()
+    B, NB, dev = st.B, st.NB, st.device
+    fills = torch.empty(NB, dtype=torch.int32, device=dev)
+    order = torch.empty(NB, dtype=torch.int32, device=dev)
+    blocks = min(-(-NB // FOLD_BLOCK_ROWS), FOLD_MAX_BLOCKS)
+    ghist = torch.empty((B + 1) * (blocks + 1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.yttm_tiered_fold_plan(
+            st.tok.data_ptr(), B, NB, fills.data_ptr(), ghist.data_ptr(), order.data_ptr(),
+            st.ctl.data_ptr(), st.sel.data_ptr(), _stream_ptr(dev),
+        )
+    _check(err, "fold_rows")
+    fold_rows.launches += 1
+    return fills, order
 
 
-def fold_rows_plain(st: TieredState) -> bool:
-    if not _fold_due(st):
+def fold_rows_plain(st: TieredState, live: int) -> bool:
+    if not fold_due(st, live):
         return False
     fold_plan_plain(st)
-    if not _fold_ok(st):
+    if int(st.ctl[FOLD_MAX]) > st.B:
         return False
     st.set_stream(*_fold_rows(st.tok, st.wid, st.B))
     return True
 
 
-def fold_rows(st: TieredState) -> bool:
-    """The JAX host loop's row fold: when the stream has more rows than
-    ``YTTM_TRAIN_FOLD_MIN``, fills under 45 % of its slots and the
-    emptiest/fullest row pairs fit a row, fold the rows into half as many.
-    Returns whether it folded."""
+def fold_rows(st: TieredState, live: int) -> bool:
+    """The JAX host loop's row fold at a segment end with ``live`` tokens:
+    when ``fold_due`` holds, the plan; when the emptiest/fullest row pairs
+    fit a row, the rows folded into half as many.  Returns whether it
+    folded.  ``fold_rows.launches`` counts the plan's launches."""
     if not _on(st, "fold_rows"):
-        return fold_rows_plain(st)
-    if not _fold_due(st):
+        return fold_rows_plain(st, live)
+    if not fold_due(st, live):
         return False
-    lib = _cuda.load_tiered()
+    fills, order = fold_plan(st)
+    if int(st.ctl[FOLD_MAX]) > st.B:
+        return False
     B, NB, dev = st.B, st.NB, st.device
-    fills = torch.empty(NB, dtype=torch.int32, device=dev)
-    order = torch.empty(NB, dtype=torch.int32, device=dev)
-    ghist = torch.empty(-(-NB // FOLD_CHUNK) * (B + 1), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.yttm_tiered_fold_plan(
-            st.tok.data_ptr(), B, NB, fills.data_ptr(), ghist.data_ptr(), order.data_ptr(),
-            st.ctl.data_ptr(), _stream_ptr(dev),
-        )
-    _check(err, "fold_rows")
-    fold_rows.launches += 1
-    if not _fold_ok(st):
-        return False
     tok2 = torch.empty(NB // 2 * B, dtype=torch.int32, device=dev)
     wid2 = torch.empty(NB // 2 * B, dtype=torch.int32, device=dev)
     sig2 = torch.empty((NB // 2, SIG_W), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.yttm_tiered_fold_write(
+        err = _cuda.load_tiered().yttm_tiered_fold_write(
             st.tok.data_ptr(), st.wid.data_ptr(), fills.data_ptr(), order.data_ptr(), B, NB,
             tok2.data_ptr(), wid2.data_ptr(), sig2.data_ptr(), _stream_ptr(dev),
         )
@@ -607,15 +628,15 @@ class TieredKernelEngine:
             # many rounds never run past the segment's end
             n = max(1, math.ceil((limit - used) / self.batch_k)) if on_card else 1
             rounds(st, n, limit, self.vocab_size, self.used_ids0, self.batch_k, self.hcap, kb1, kb2)
-            used, done, overflow, error = (
-                int(v) for v in st.ctl[[USED, DONE, OVERFLOW, ERROR]].tolist()
+            used, done, overflow, error, live = (
+                int(v) for v in st.ctl[[USED, DONE, OVERFLOW, ERROR, LIVE]].tolist()
             )
             if error:
                 raise RuntimeError("training table lost a pair: subtracted a missing key")
             if done or overflow or used >= min(limit, self.vocab_size):
                 break
         count_resplits(st)
-        if not overflow and fold_rows(st):
+        if not overflow and fold_rows(st, live):
             self.folds += 1
         return used, bool(done), bool(overflow)
 

@@ -16,7 +16,8 @@ needs no sort:
     more than half the slots are taken.
 
   pair_count   count every pair into an empty table (start, and rebuild
-               after an overflow)
+               after an overflow): a flat walk of the stream, each block
+               counting into a table of its own in shared memory first
   topk_accept  top-16 live entries in the reference order, accept_prefix,
                store_rules; writes ``cand``, ``rules``, ``ctl`` and ``work``
                (v1, v3, v4 and v0, with k = 1, call it too)
@@ -429,7 +430,7 @@ def pair_count(st: TrainState):
     lib = _cuda.load_train()
     with torch.cuda.device(st.device):
         err = lib.yttm_train_pair_count(
-            st.tok.data_ptr(), st.off.data_ptr(), st.fw.data_ptr(), st.n_words,
+            st.tok.data_ptr(), st.pwid.data_ptr(), st.fw.data_ptr(), st.tok.shape[0],
             st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(),
             _stream_ptr(st.device),
         )
