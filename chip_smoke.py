@@ -10,7 +10,8 @@ merger), drives the encode path at the full width of a vocab-30000 model
 over a 100 MB corpus, trains a vocab-30000 model on the same corpus with
 the v2 and the v5 trainers, the four differential trainers, and v2, v3, v1
 and v0 sharded over a 4-shard data mesh on the one card, and prints
-timings.  Phases, in
+timings, then trains it again with two processes of two shards each on
+the card.  Phases, in
 order (any failure exits nonzero):
 
   1. device and build: the card's name and power limit; nvcc/g++ builds;
@@ -168,6 +169,19 @@ order (any failure exits nonzero):
      ``run_training_stream_sharded`` and ``run_training_sharded``, rules
      equal to phase 5's v2 rules; times, bounds and plain versions as in
      phase 10, and v3's merge loop twice more without the profiler
+ 12. multi-process training (parallel/distributed.py), run after phase 11:
+     two processes (``chip_smoke.py --dist-worker``, gloo on localhost),
+     each with 2 shards on card 0 (4 in all, as phase 10), train the 100 MB
+     corpus split at a word boundary at vocab 30000 through
+     ``train_from_codepoints_distributed``: rules and char2id equal to
+     phase 5's v2 rules on both ranks, rows 12a-12b launched on every rank
+     (counts set to 0 just before, read just after), the cross-rank
+     replica check at every segment end, only rank 0 printing; the 10 MB
+     prefix at vocab 8000 with ``YTTM_TRAIN_PCAP`` pinned to the initial
+     pair kinds: the JAX host loop's overflow line on rank 0, rules equal to
+     the one-process v2 kernels'; the merge loop's time, rounds, recount
+     rounds and the collectives' calls, bytes and seconds (the exchange
+     goes through the host: the ranks share the one card)
 
 The second-to-last line is a JSON ``kernels`` record, the line before
 it the card; the last line is ``{"ok": true, "device": {...}}``.
@@ -5013,6 +5027,235 @@ def log_other(other: dict, card: str) -> None:
 
 # -- the check-only phases, run side by side -----------------------------------
 
+# -- phase 12: multi-process training (parallel/distributed.py) --------------
+
+DIST_RANKS = 2
+DIST_SHARDS = 2  # shards a rank, all on card 0: 4 in all, as phase 10's mesh
+DIST_TIMEOUT = 300  # s that the pair of workers may take for both runs
+DIST_KERNELS = ("topk_accept",) + SHARD_KERNELS
+DIST_PROBES = 500  # all_gathers of one round's ctl rows, timed alone
+
+
+def rank_part(blob: bytes, rank: int) -> bytes:
+    """Rank 0's or rank 1's part of a corpus: cut after the first
+    whitespace byte past the middle, a word boundary (no byte of a UTF-8
+    sequence is ASCII whitespace)."""
+    cut = re.compile(rb"[ \t\n\v\f\r]").search(blob, len(blob) // 2).end()
+    return blob[:cut] if rank == 0 else blob[cut:]
+
+
+def dist_worker(rank: str, port: str, jobs_path: str, out_path: str) -> int:
+    """One rank of phase 12 (``chip_smoke.py --dist-worker``): every job of
+    ``jobs_path`` trained by ``train_from_codepoints_distributed`` on this
+    rank's part of the corpus, on DIST_SHARDS shards of the job's device,
+    each wrapper's launch count set to 0 just before and read just after;
+    writes the rules, char2id, stderr, launches and the engine's figures."""
+    import contextlib
+    import io
+
+    import torch
+
+    from youtokentome_tpu_torch.host import utf8
+    from youtokentome_tpu_torch.models.state import BpeConfig, SpecialTokens
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+    from youtokentome_tpu_torch.parallel import distributed as dist
+    from youtokentome_tpu_torch.parallel.mesh import DataMesh
+
+    rank = int(rank)
+    spec = json.loads(Path(jobs_path).read_text())
+    dist.initialize(f"localhost:{port}", DIST_RANKS, rank)
+    # the floors of a round's exchange: the gather of one round's ctl rows
+    # with no work between two calls, then with one launch and a read of
+    # its result from the card before each (both ranks' contexts on it)
+    comm = dist.HostGather()
+    rows = torch.zeros(DIST_SHARDS, dsk.CTL_N, dtype=torch.int32)
+    one = torch.ones(1, device=spec["dev"])
+    out = {}
+    for key, read in (("gather_us", False), ("gather_read_us", True)):
+        for i in range(50 + DIST_PROBES):
+            if i == 50:
+                t0 = time.perf_counter()
+            if read:
+                rows[0, 0] = int((one + i).sum())
+            comm.fixed(rows)
+        out[key] = (time.perf_counter() - t0) / DIST_PROBES * 1e6
+    wrappers = {"topk_accept": tk.topk_accept, **{k: getattr(dsk, k) for k in SHARD_KERNELS}}
+    engines = []
+
+    class Recorded(dsk.ProcessShardedEngine):
+        """The engine, kept, with its merge loop's seconds (and its
+        exchanges' part of them) and recount rounds summed over its
+        segments and the collectives of its loop."""
+
+        loop_s = 0.0
+        exchange_s = 0.0
+        recounts = 0
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.comm_start = (self.comm.calls, self.comm.bytes, self.comm.seconds)
+            engines.append(self)
+
+        def segment(self, used, limit):
+            t0 = time.perf_counter()
+            out = super().segment(used, limit)
+            self.loop_s += time.perf_counter() - t0
+            self.recounts += self.nrec
+            return out
+
+        def regrow(self):
+            t0 = time.perf_counter()
+            super().regrow()
+            self.loop_s += time.perf_counter() - t0
+
+        def _exchange(self, limit):
+            t0 = time.perf_counter()
+            out = super()._exchange(limit)
+            self.exchange_s += time.perf_counter() - t0
+            return out
+
+    for job in spec["jobs"]:
+        cps = utf8.decode_utf8_bytes(rank_part(Path(job["path"]).read_bytes(), rank),
+                                     keep_invalid=True)
+        err = io.StringIO()
+        with env_set(YTTM_TRAIN_PCAP=str(job["pcap"])), swapped(
+                dsk, ProcessShardedEngine=Recorded), contextlib.redirect_stderr(err):
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            state = dist.train_from_codepoints_distributed(
+                cps, job["vocab"], BpeConfig(1.0, -1, SpecialTokens(0, 1, 2, 3)),
+                device=spec["dev"], mesh=DataMesh([spec["dev"]] * DIST_SHARDS))
+            train_s = time.perf_counter() - t0
+            launches = {k: w.launches for k, w in wrappers.items()}
+        sys.stderr.write(err.getvalue())
+        eng = engines.pop()
+        calls, nbytes, secs = eng.comm_start
+        out[job["name"]] = {
+            "rules": state.rules, "char2id": sorted(state.char2id.items()),
+            "stderr": err.getvalue(), "launches": launches, "train_s": train_s,
+            "loop_s": eng.loop_s, "exchange_s": eng.exchange_s,
+            "rounds": int(eng.head.ctl[tk.ROUND]),
+            "recounts": eng.recounts, "rebuilds": eng.rebuilds, "relays": eng.relays,
+            "cross_checks": eng.cross_checks, "dcap": eng.dcap, "cap": eng.head.cap,
+            "words": [st.n_words for st in eng.local], "comm_calls": eng.comm.calls - calls,
+            "comm_bytes": eng.comm.bytes - nbytes, "comm_s": eng.comm.seconds - secs,
+            "comm_total_bytes": eng.comm.bytes, "comm_total_s": eng.comm.seconds,
+        }
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def phase_dist_main(corpus_path: Path, mid_path: Path, v2_rules, card: str,
+                    dev="cuda:0") -> dict:
+    """Multi-process training: DIST_RANKS processes (``dist_worker``), each
+    with DIST_SHARDS shards on ``dev``, train the 100 MB corpus split at a
+    word boundary at vocab 30000 through
+    ``parallel.distributed.train_from_codepoints_distributed`` over gloo:
+    rules and char2id equal to phase 5's v2 rules on every rank; every
+    rank launched every kernel of rows 12a-12b; the engine's cross-rank
+    replica check held at every segment end.  Then the 10 MB prefix at
+    vocab MID_VOCAB with YTTM_TRAIN_PCAP pinned to the initial pair kinds:
+    rank 0 prints the JAX host loop's overflow line, and the rules equal the
+    one-process v2 kernel engine's.  The workers are killed on a failure
+    or after DIST_TIMEOUT s."""
+    import socket
+
+    import torch
+
+    from youtokentome_tpu_torch.models.state import SpecialTokens
+    from youtokentome_tpu_torch.ops import train_delta as td
+    from youtokentome_tpu_torch.ops.train_stream import flatten_word_buckets
+    from youtokentome_tpu_torch.train import rename_tokens
+
+    t_phase = time.perf_counter()
+    work = corpus_path.parent
+    mid_buckets, mid_al, mid_used0 = training_buckets(mid_path)
+    kinds = td.host_count_table(*flatten_word_buckets(mid_buckets))[0].size
+    pcap = td._next_pow2(kinds)
+    mid_rules = td.run_training_delta(mid_buckets, mid_used0, MID_VOCAB, device=torch.device(dev))
+    _, al, _ = training_buckets(corpus_path)
+    special = SpecialTokens(0, 1, 2, 3)
+    want = {"main": rename_tokens(al.char2id, v2_rules, special, TRAIN_VOCAB),
+            "overflow": rename_tokens(mid_al.char2id, mid_rules, special, MID_VOCAB)}
+    jobs = {"dev": str(dev), "jobs": [
+        {"name": "main", "path": str(corpus_path), "vocab": TRAIN_VOCAB, "pcap": 0},
+        {"name": "overflow", "path": str(mid_path), "vocab": MID_VOCAB, "pcap": pcap}]}
+    jobs_path = work / "dist_jobs.json"
+    jobs_path.write_text(json.dumps(jobs))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    outs = [work / f"dist_rank{r}.json" for r in range(DIST_RANKS)]
+    logs = [work / f"dist_rank{r}.log" for r in range(DIST_RANKS)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(DIST_RANKS):
+            with open(logs[r], "wb") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--dist-worker", str(r),
+                     str(port), str(jobs_path), str(outs[r])],
+                    cwd=str(ROOT), stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DIST_TIMEOUT
+        for r, proc in enumerate(procs):
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"check failed: rank {r} ran past {DIST_TIMEOUT} s") from None
+        for r, proc in enumerate(procs):
+            check(proc.returncode == 0, f"rank {r} exited {proc.returncode}:\n"
+                  + logs[r].read_text(errors="replace")[-3000:])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall_s = time.perf_counter() - t0
+    res = [json.loads(o.read_text()) for o in outs]
+    for name, (char2id, rules) in want.items():
+        for r, got in enumerate(res):
+            g = got[name]
+            check([tuple(x) for x in g["rules"]] == rules and
+                  {int(k): int(v) for k, v in g["char2id"]} == char2id,
+                  f"{name}: rank {r}'s rules or char2id != the one-process v2 trainer's")
+            check(g["cross_checks"] > 0, f"{name}: rank {r} never checked the replicas across ranks")
+        check(all(res[r][name]["stderr"] == "" for r in range(1, DIST_RANKS)),
+              f"{name}: a rank other than 0 printed")
+    line = "pair-count table overflow: retrying"
+    check(line in res[0]["overflow"]["stderr"] and res[0]["overflow"]["rebuilds"] > 0,
+          "the pinned-pcap run printed no overflow line on rank 0")
+    if torch.device(dev).type == "cuda":
+        for r, got in enumerate(res):
+            for k in DIST_KERNELS:
+                check(got["main"]["launches"][k] > 0, f"rank {r} did not launch {k}")
+    for name, vocab in (("main", TRAIN_VOCAB), ("overflow", MID_VOCAB)):
+        for r, got in enumerate(res):
+            g = got[name]
+            log(f"[12] {name}, vocab {vocab}, rank {r} of {DIST_RANKS} ({DIST_SHARDS} shards of "
+                f"{g['words']} words on {dev}): train_from_codepoints_distributed {g['train_s']:.2f} s, "
+                f"merge loop {g['loop_s']:.3f} s (its exchanges {g['exchange_s']:.3f} s), "
+                f"{g['rounds']} rounds "
+                f"({g['loop_s'] / max(g['rounds'], 1) * 1e3:.3f} ms a round), {g['recounts']} "
+                f"recount rounds, {g['rebuilds']} rebuilds, {g['relays']} relays, dcap {g['dcap']}, "
+                f"tables {g['cap']} slots; collectives in the loop: {g['comm_calls']} calls, "
+                f"{g['comm_bytes']} B, {g['comm_s']:.3f} s (whole call: {g['comm_total_bytes']} B, "
+                f"{g['comm_total_s']:.3f} s); {g['cross_checks']} cross-rank replica checks; "
+                f"launches {g['launches']} ({card})")
+    floors = ", ".join(f"rank {r} {got['gather_us']:.1f} ({got['gather_read_us']:.1f})"
+                       for r, got in enumerate(res))
+    log(f"[12] an all_gather of one round's ctl rows, {DIST_PROBES} times alone (after a launch "
+        f"and a read of its result from the card): {floors} us a call ({card})")
+    log(f"[12] {DIST_RANKS} gloo ranks x {DIST_SHARDS} shards on {dev}: rules == phase 5's v2 "
+        f"rules (100 MB, vocab {TRAIN_VOCAB}) and == the one-process v2 kernels' (10 MB, vocab "
+        f"{MID_VOCAB}, pcap pinned to {pcap} of {kinds} initial kinds: the overflow line on rank "
+        f"0) on every rank; workers {wall_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s")
+    return {"main": res[0]["main"], "overflow": res[0]["overflow"], "wall_s": wall_s}
+
+
 # worker processes for the mid-size lockstep runs and phase 5's plain round
 # loop: they time nothing that the record keeps, so they run side by side
 # (each on the card), before any timed phase and with none beside them
@@ -5122,6 +5365,8 @@ def main() -> int:
     other = phase_other_shard_main(corpus_path, work, sample, train["plain_rules"], info["card"],
                                    {16: train["select_keys"], 1: diff["select_keys1"]},
                                    prepared=prepared)
+    del prepared
+    dist = phase_dist_main(corpus_path, mid_path, train["plain_rules"], info["card"])
 
     source = "youtokentome_tpu_torch/csrc/encode_greedy.cu"
     replaces = {
@@ -5205,6 +5450,10 @@ def main() -> int:
         f"({shard['merges_per_s']:.0f} "
         f"merges/s, {shard['rounds']} rounds, {shard['recounts']} recount rounds) ({info['card']})")
     log_other(other, info["card"])
+    log(f"[12] {DIST_RANKS} ranks x {DIST_SHARDS} shards on cuda:0 over gloo: merge loop "
+        f"{dist['main']['loop_s']:.3f} s ({dist['main']['rounds']} rounds, "
+        f"{dist['main']['recounts']} recount rounds), collectives {dist['main']['comm_s']:.3f} s "
+        f"of it on rank 0 ({info['card']})")
     log(f"[4] build {info['build_s']:.2f} s, whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(info["card"])
@@ -5215,4 +5464,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(*sys.argv[2:]))
     sys.exit(main())

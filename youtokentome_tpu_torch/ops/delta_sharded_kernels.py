@@ -29,15 +29,20 @@ A round, all in hand-written CUDA (``csrc/train_delta_sharded.cu``, and
 
 The host reads shard 0's ``ctl`` once per batch of rounds, and checks
 that every replica's round control and rules agree at each segment end
-(after every round on the CPU).  Each wrapper launches its kernel on a
-CUDA state (and counts the launch) and runs its plain torch version on a
-CPU state; the plain versions compute the same function.
+(after every round on the CPU).  Across processes
+(``ProcessShardedEngine``, for ``parallel.distributed``) every other
+process's shard is a ``MirrorShard`` that the exchange fills through the
+host each round, so the same kernels read every shard.  Each wrapper
+launches its kernel on a CUDA state (and counts the launch) and runs its
+plain torch version on a CPU state; the plain versions compute the same
+function.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import sys
 
 import numpy as np
 import torch
@@ -165,8 +170,8 @@ def shard_recount_plain(st: ShardState, shards):
     st.ctl[ROVF] = 0
     st.work[W_COUNT] += 4 * st.tok.shape[0] + 8 * st.n_words
     keys, counted = _counted_pairs(st.tok)
-    w = st.fw[st.pwid.clamp(min=0).long()]
-    _table_add(st.rkeys, st.rcnts, st.ctl, keys[counted], w[counted], ROCC, ROVF)
+    w = st.fw[st.pwid[counted].long()]
+    _table_add(st.rkeys, st.rcnts, st.ctl, keys[counted], w, ROCC, ROVF)
 
 
 def shard_fold_plain(st: ShardState, shards):
@@ -488,8 +493,18 @@ class ShardEngine:
         _enable_peers(self._devices)
 
     @property
+    def local(self):
+        """The shards whose states this process holds: every shard of the
+        mesh, unless it spans processes (``ProcessShardedEngine``)."""
+        return self.shards
+
+    @property
+    def head(self):
+        return self.local[0]
+
+    @property
     def rules(self):
-        return self.shards[0].rules
+        return self.head.rules
 
     def _barrier(self):
         """Order the next step after the last on every card (shards on
@@ -506,24 +521,23 @@ class ShardEngine:
                 torch.cuda.current_stream(dev).wait_event(ev)
 
     def _exchange(self, limit: int):
-        shards = self.shards
-        for st in shards:
+        for st in self.local:
             self.recount(st, limit)
         self._barrier()
-        for st in shards:
-            shard_fold(st, shards)
+        for st in self.local:
+            shard_fold(st, self.shards)
         self._barrier()
 
     def _count(self):
         """Rebuild every replica from the streams (the recount branch,
         forced), doubling the tables until the count fits in half."""
         while True:
-            for st in self.shards:
+            for st in self.local:
                 st.ctl[DOVF] = 1
                 st.ctl[OVERFLOW] = 0
             self._exchange(self.vocab_size)
-            overflow = int(self.shards[0].ctl[OVERFLOW])
-            for st in self.shards:
+            overflow = int(self.head.ctl[OVERFLOW])
+            for st in self.local:
                 st.ctl[DOVF] = 0
                 st.ctl[NREC] = 0
             if not overflow:
@@ -533,8 +547,8 @@ class ShardEngine:
 
     def check_replicas(self):
         """Every replica holds the same round control and rules."""
-        head = self.shards[0]
-        for st in self.shards[1:]:
+        head = self.head
+        for st in self.local[1:]:
             same = torch.equal(st.ctl[:CTL_OWN].to(head.device), head.ctl[:CTL_OWN]) and int(
                 st.ctl[NREC]
             ) == int(head.ctl[NREC]) and torch.equal(st.rules.to(head.device), head.rules)
@@ -542,19 +556,21 @@ class ShardEngine:
                 raise RuntimeError("the sharded trainer's replicas disagree")
 
     def segment(self, used: int, limit: int):
-        shards = self.shards
-        head = shards[0]
-        for st in shards:
+        head = self.head
+        for st in self.local:
             st.ctl[NREC] = 0
         on_card = head.device.type == "cuda"
         while True:
             # each active round accepts at most batch_k ids, so this many
-            # rounds never run past the segment's end
+            # rounds never run past the segment's end; a round that knows
+            # it accepted nothing (returns False) ends the batch
             n = min(BATCH, max(1, math.ceil((limit - used) / self.batch_k))) if on_card else 1
             for _ in range(n):
-                self.round(limit)
+                ended = self.round(limit) is False
                 if not on_card:
                     self.check_replicas()
+                if ended:
+                    break
             used, done, overflow, error = (
                 int(v) for v in head.ctl[[USED, DONE, OVERFLOW, ERROR]].tolist()
             )
@@ -574,8 +590,8 @@ class ShardEngine:
         """After an overflow: rebuild every replica from the streams, at
         twice the size when the live pairs fill more than a quarter of it."""
         self.rebuilds += 1
-        cap = self.shards[0].cap
-        n_live = int((self.shards[0].cnts > 0).sum())
+        cap = self.head.cap
+        n_live = int((self.head.cnts > 0).sum())
         for st in self.shards:
             st.resize(cap * 2 if 4 * n_live > cap else cap)
         self._count()
@@ -585,7 +601,7 @@ class ShardEngine:
         n = len(self.shards)
         return (
             f"; {self.nrec} recount rounds this segment, exchange "
-            f"{n}x{2 * self.dcap} delta / {n}x{self.shards[0].cap // 2} recount keys"
+            f"{n}x{2 * self.dcap} delta / {n}x{self.head.cap // 2} recount keys"
         )
 
 
@@ -607,23 +623,31 @@ class ShardedKernelEngine(ShardEngine):
         self.repack_min = int(os.environ.get("YTTM_TRAIN_REPACK_MIN", str(1 << 14)))
         used = rules_used(rules, used_ids0)
         cap = initial_cap(m)
-        self.shards = [
+        self.shards = self._place([
             ShardState(seg_t[d], seg_w[d], freq, rules, used, cap, dcap, dev)
             for d, dev in enumerate(mesh.devices)
-        ]
-        self.dropped = [0] * len(self.shards)  # live tokens the relays dropped
+        ])
+        self.dropped = [0] * len(self.local)  # live tokens the relays dropped
         self._count()
+
+    def _place(self, states):
+        """The shard list that the kernels read, from this process's states."""
+        return states
+
+    def _most(self, n: int) -> int:
+        """The largest ``n`` over the processes that share the mesh."""
+        return n
 
     def recount(self, st, limit: int):
         shard_recount(st, self.shards)
 
     def round(self, limit: int):
-        for st in self.shards:
+        for st in self.local:
             topk_accept(st, limit, self.vocab_size, self.used_ids0, self.batch_k)
-        for st in self.shards:
+        for st in self.local:
             delta_emit(st)
         self._barrier()
-        self._exchange(limit)
+        return self._exchange(limit)
 
     def _segment_end(self):
         """At the JAX host loop's re-pack trigger (the largest shard's live
@@ -631,18 +655,275 @@ class ShardedKernelEngine(ShardEngine):
         shard."""
         if not self.repack:
             return
-        live = [int(st.ctl[LIVE]) for st in self.shards]
-        md = _next_pow2(max(max(n + d for n, d in zip(live, self.dropped)), self.repack_min))
+        live = [int(st.ctl[LIVE]) for st in self.local]
+        most = self._most(max(n + d for n, d in zip(live, self.dropped)))
+        md = _next_pow2(max(most, self.repack_min))
         if md >= self.per:
             return
-        for i, st in enumerate(self.shards):
+        for i, st in enumerate(self.local):
             shard_relay(st)
             self.dropped[i] += live[i] - int(st.ctl[LIVE])
         self.per = md
         self.relays += 1
 
     def stream(self):
-        parts = [st.stream() for st in self.shards]
+        """The live stream of this process's shards, in shard order."""
+        parts = [st.stream() for st in self.local]
         t = torch.cat([p[0].cpu() for p in parts])
         wid = torch.cat([p[1].cpu() for p in parts])
-        return t, wid, self.shards[0].freq
+        return t, wid, self.head.freq
+
+
+# -- across processes -----------------------------------------------------------
+
+# ids a step of the process engine's segment: run_training_delta_sharded's
+# segment while it re-packs, so that the relay trigger and the replica check
+# come where the one-process host loop has them
+RELAY_IDS = 1024
+# the least entries a side that a shard sends with its ctl in gather 1
+WINDOW_MIN = 256
+
+
+class MirrorShard:
+    """Another process's shard as this process's kernels read it: its
+    ``ctl``, its delta buffer and its scratch table, laid out as a
+    ``ShardState``'s (``Exchange``) and written by the exchange: the
+    buffer's written entries at 0 and ``dcap``, the scratch table's occupied
+    entries at its front with EMPTY after them (the fold adds every other
+    shard's scratch entries wherever they lie).  It holds no replica
+    (``keys``/``cnts`` are empty): only the partitioned fold of v1 and v0
+    reads another shard's replica."""
+
+    buffer = Exchange.buffer
+
+    def __init__(self, cap: int, dcap: int, device):
+        self.device = torch.device(device)
+        self.ctl = torch.zeros(CTL_N, dtype=torch.int32, device=self.device)
+        self.keys = torch.empty(0, dtype=torch.int64, device=self.device)
+        self.cnts = torch.empty(0, dtype=torch.int32, device=self.device)
+        Exchange.buffers(self, dcap)
+        self.resize(cap)
+
+    def resize(self, cap: int):
+        self.cap = cap
+        self.rkeys = torch.full((cap,), EMPTY, dtype=torch.int64, device=self.device)
+        self.rcnts = torch.zeros(cap, dtype=torch.int32, device=self.device)
+
+
+class ProcessShardedEngine(ShardedKernelEngine):
+    """The sharded kernel engine over a mesh that spans processes
+    (``parallel.distributed``).  Process ``comm.rank`` drives ``mesh``, its
+    ``counts[rank]`` shards, which are shards ``offset .. offset +
+    counts[rank] - 1`` of the global order (the ranks' shards in rank
+    order); every other index holds a ``MirrorShard``, so the kernels read
+    the shards in the same order in every process.  ``comm.fixed(t)``
+    gathers a host tensor from every process in rank order (a new leading
+    axis) and ``comm.max(n)`` takes the largest ``n``.  A round:
+
+      topk_accept    on every local replica
+      delta_emit     on every local shard
+      gather 1       every shard's ctl with the first ``window`` entries of
+                     each side of its buffer (the replicas' round control
+                     checked equal); unless some DOVF is set, the written
+                     entries that passed the window gathered again
+      shard_recount  on every local shard (a no-op unless some DOVF is set)
+      gather 2       only when some DOVF is set: every shard's ctl again
+                     (ROCC, ROVF) and its scratch table's occupied entries
+      shard_fold     on every local replica
+
+    The payloads go through the host (a device-to-host copy, the gather, a
+    host-to-device copy into the mirrors), so the host reads ctl every
+    round: the one-process engine's BATCH rounds between two reads do not
+    hold here (a batch ends at its first round that accepted nothing).
+    Every process takes every collective in the same order: a shard with no
+    word still sends its (empty) entries.  The relay trigger is the largest
+    live count over the processes; the replica check at each segment end
+    also compares the head replicas' control and rules across them.  An
+    overflow prints the JAX host loop's line on rank 0."""
+
+    cross_checks = 0
+
+    def __init__(self, seg_t, seg_w, per: int, freq, rules, used_ids0: int, vocab_size: int,
+                 batch_k: int, mesh, dcap: int, m: int, comm, counts):
+        self.comm = comm
+        self.counts = list(counts)
+        self.offset = sum(self.counts[: comm.rank])
+        self.window = min(WINDOW_MIN, dcap)
+        super().__init__(seg_t, seg_w, per, freq, rules, used_ids0, vocab_size, batch_k, mesh,
+                         dcap, m)
+
+    @property
+    def local(self):
+        return self._own
+
+    def _place(self, states):
+        self._own = states
+        head = states[0]
+        shards = [MirrorShard(head.cap, self.dcap, head.device) for _ in range(sum(self.counts))]
+        shards[self.offset : self.offset + len(states)] = states
+        self.mirrors = [(g, s) for g, s in enumerate(shards) if isinstance(s, MirrorShard)]
+        return shards
+
+    def _most(self, n: int) -> int:
+        return self.comm.max(n)
+
+    def _gather_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """Every shard's row, in global order, from ``rows`` (one a local
+        shard, on the host): one gather, each rank's rows padded to the
+        most shards a rank holds."""
+        pad = torch.zeros((max(self.counts), *rows.shape[1:]), dtype=rows.dtype)
+        pad[: rows.shape[0]] = rows
+        got = self.comm.fixed(pad)
+        return torch.cat([got[r, :c] for r, c in enumerate(self.counts)])
+
+    def _write(self, pairs):
+        """Copy each host tensor of ``pairs`` (device view, host tensor)
+        into its view, through one host-to-device copy."""
+        pairs = [(dst, h) for dst, h in pairs if h.numel()]
+        if not pairs:
+            return
+        flat = torch.cat([h.reshape(-1).long() for _, h in pairs]).to(self.head.device)
+        o = 0
+        for dst, h in pairs:
+            dst.copy_(flat[o : o + h.numel()])
+            o += h.numel()
+
+    def _entries(self, mine: torch.Tensor, n: torch.Tensor) -> dict:
+        """Gather every shard's entries: ``mine`` holds this process's, each
+        local shard's ``n[g]`` keys then its ``n[g]`` values (int64, on
+        the host), ``n`` every shard's count in global order.  Returns each
+        mirror's (keys, values) on the host, by global index."""
+        starts = np.cumsum([0] + self.counts)
+        per_rank = [2 * int(n[starts[r] : starts[r + 1]].sum()) for r in range(len(self.counts))]
+        width = max(per_rank)
+        if width == 0 or not self.mirrors:
+            return {}
+        pay = torch.zeros(width, dtype=torch.int64)
+        pay[: mine.numel()] = mine
+        got = self.comm.fixed(pay)
+        flat = torch.cat([got[r, :w] for r, w in enumerate(per_rank) if r != self.comm.rank])
+        out, o = {}, 0
+        for g, _ in self.mirrors:
+            k = int(n[g])
+            out[g] = flat[o : o + k], flat[o + k : o + 2 * k]
+            o += 2 * k
+        return out
+
+    def _exchange(self, limit: int):
+        """Gather 1: every shard's ctl and the first ``window`` entries of
+        each side of its buffer, in one row (one device-to-host copy, one
+        gather); the replicas' round control checked equal.  Then the
+        recount branch (some DOVF set: shard_recount, gather 2), or the
+        delta entries (gathered again, written prefixes only, when a side
+        passed the window); the mirrors written through one host-to-device
+        copy; shard_fold on every local replica.  The window follows the
+        round's most entries a side (a power of two, WINDOW_MIN .. dcap),
+        the same in every process.  False, with no fold, when no replica
+        accepted a candidate and none recounts: no shard emitted, so the
+        round (past the segment's end, or done) ends its batch."""
+        w, dcap, dev = self.window, self.dcap, self.head.device
+        rows = self._gather_rows(torch.stack([
+            torch.cat([st.ctl.long(), st.dk[:w], st.dk[dcap : dcap + w], st.dv[:w].long(),
+                       st.dv[dcap : dcap + w].long()]).to(dev)
+            for st in self.local
+        ]).cpu())
+        ctl = rows[:, :CTL_N]
+        if not bool((ctl[:, :CTL_OWN] == ctl[0, :CTL_OWN]).all()):
+            raise RuntimeError("the processes' replicas disagree on the round control")
+        recount = bool(ctl[:, DOVF].any())
+        if not ctl[0, NACC] and not recount:
+            return False
+        if recount:
+            self._write([(m.ctl, ctl[g]) for g, m in self.mirrors])
+            for st in self.local:
+                self.recount(st, limit)
+            self._barrier()
+            self._share_scratch()
+        else:
+            self._share_deltas(rows, ctl[:, [DN_OLD, DN_NEW]].clamp(max=dcap))
+        for st in self.local:
+            shard_fold(st, self.shards)
+        self._barrier()
+
+    def _share_deltas(self, rows: torch.Tensor, sides: torch.Tensor):
+        """The delta branch's mirrors: ctl and each side's written entries
+        (``sides``: every shard's count of each), from gather 1's windows,
+        or gathered again when a side passed the window."""
+        w, dcap = self.window, self.dcap
+        most = int(sides.max())
+        if most > w:
+            mine = []
+            for g, st in enumerate(self.local, self.offset):
+                a, b = (int(x) for x in sides[g])
+                dk = torch.cat([st.dk[:a], st.dk[dcap : dcap + b]])
+                dv = torch.cat([st.dv[:a], st.dv[dcap : dcap + b]]).long()
+                mine.append(torch.cat([dk, dv]).to(self.head.device))
+            got = self._entries(torch.cat(mine).cpu(), sides.sum(1))
+        pairs = []
+        for g, m in self.mirrors:
+            a, b = (int(x) for x in sides[g])
+            if most > w:
+                keys, vals = got[g]
+            else:
+                win = rows[g, CTL_N:]
+                keys = torch.cat([win[:a], win[w : w + b]])
+                vals = torch.cat([win[2 * w : 2 * w + a], win[3 * w : 3 * w + b]])
+            pairs += [(m.ctl, rows[g, :CTL_N]), (m.dk[:a], keys[:a]), (m.dv[:a], vals[:a]),
+                      (m.dk[dcap : dcap + b], keys[a:]), (m.dv[dcap : dcap + b], vals[a:])]
+        self._write(pairs)
+        self.window = min(dcap, max(WINDOW_MIN, _next_pow2(most)))
+
+    def _share_scratch(self):
+        """Gather 2: every shard's ctl (ROCC, ROVF) with its scratch table's
+        occupied entries, into the mirrors' ctl and the front of their
+        scratch tables (EMPTY after them)."""
+        dev = self.head.device
+        mine, sizes = [], []
+        for st in self.local:
+            live = st.rkeys != EMPTY
+            keys = st.rkeys[live]
+            sizes.append(keys.numel())
+            mine.append(torch.cat([keys, st.rcnts[live].long()]).to(dev))
+        ctl = torch.stack([st.ctl.long().to(dev) for st in self.local]).cpu()
+        rows = self._gather_rows(torch.cat([ctl, torch.tensor(sizes)[:, None]], 1))
+        got = self._entries(torch.cat(mine).cpu(), rows[:, CTL_N])
+        pairs = []
+        for g, m in self.mirrors:
+            m.rkeys.fill_(EMPTY)
+            m.rcnts.zero_()
+            keys, vals = got.get(g, (rows[g, :0], rows[g, :0]))
+            pairs += [(m.ctl, rows[g, :CTL_N]), (m.rkeys[: keys.numel()], keys),
+                      (m.rcnts[: keys.numel()], vals)]
+        self._write(pairs)
+
+    def check_replicas(self):
+        """The local replicas agree, and every process's head replica holds
+        the same round control, recount rounds and rules."""
+        super().check_replicas()
+        head = self.head
+        rec = torch.cat([head.ctl[:CTL_OWN].cpu(), head.ctl[NREC : NREC + 1].cpu(),
+                         head.rules.flatten().cpu()])
+        got = self.comm.fixed(rec)
+        if not bool((got == got[0]).all()):
+            raise RuntimeError("the processes' replicas disagree")
+        self.cross_checks += 1
+
+    def segment(self, used: int, limit: int):
+        """Rounds to ``limit`` in steps of at most RELAY_IDS ids while
+        re-packing (each step ends as a one-process segment does: the
+        replica check, then the relay trigger); ``nrec`` sums the steps'."""
+        nrec = 0
+        while True:
+            step = min(limit, used + RELAY_IDS) if self.repack else limit
+            used, done, overflow = super().segment(used, step)
+            nrec += self.nrec
+            if done or overflow or used >= limit:
+                self.nrec = nrec
+                return used, done, overflow
+
+    def regrow(self):
+        super().regrow()
+        if self.comm.rank == 0:
+            # the JAX host loop's line; pcap is half the slots
+            print(f"pair-count table overflow: retrying with pcap={self.head.cap // 2}",
+                  file=sys.stderr)

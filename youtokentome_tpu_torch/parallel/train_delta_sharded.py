@@ -81,21 +81,26 @@ def _shard_stream(t, wid, n_dev: int):
     return seg_t, seg_w, per
 
 
-def shard_plan(t, wid, n_dev: int):
-    """The JAX host loop's split and exchange size: (seg_t, seg_w, per,
-    dcap).  dcap sizes the per-round delta exchange only (the recount
-    branch has its own buffers), so it tracks the typical per-round site
-    count; ``YTTM_TRAIN_DCAP`` sets it."""
-    seg_t, seg_w, per = _shard_stream(np.asarray(t), np.asarray(wid), n_dev)
-    dcap = int(os.environ.get("YTTM_TRAIN_DCAP", "0")) or _next_pow2(
+def delta_cap(per: int) -> int:
+    """The JAX host loop's delta buffer size for shards of ``per`` slots.
+    dcap sizes the per-round delta exchange only (the recount branch has
+    its own buffers), so it tracks the typical per-round site count;
+    ``YTTM_TRAIN_DCAP`` sets it."""
+    return int(os.environ.get("YTTM_TRAIN_DCAP", "0")) or _next_pow2(
         min(max(1 << 12, per >> 6), 1 << 17)
     )
-    return seg_t, seg_w, per, dcap
+
+
+def shard_plan(t, wid, n_dev: int):
+    """The JAX host loop's split and exchange size: (seg_t, seg_w, per,
+    dcap)."""
+    seg_t, seg_w, per = _shard_stream(np.asarray(t), np.asarray(wid), n_dev)
+    return seg_t, seg_w, per, delta_cap(per)
 
 
 def train_rounds_delta_sharded(
     ts, wids, freqs, tk, tc, rules, used, used_ids0, limit, vocab_size,
-    batch_k=16, pcap=1 << 16, dcap=1 << 12,
+    batch_k=16, pcap=1 << 16, dcap=1 << 12, gather=torch.cat, pmax=max,
 ):
     """Merge rounds until ``used`` reaches ``min(vocab_size, limit)``, no
     candidate is accepted (done), or the live table exceeds ``pcap``.
@@ -104,8 +109,11 @@ def train_rounds_delta_sharded(
     hold each shard's front-compacted stream ([per] int32, on the shard's
     device), ``freqs`` the replicated word frequencies (one a shard); the
     replicated table ``tk``/``tc`` and ``rules`` (updated in place) live on
-    one device.  Returns (ts, wids, tk, tc, used, done, overflow, recount
-    rounds, each shard's live tokens)."""
+    one device.  ``gather`` is the ``all_gather`` (every shard's tensors,
+    in shard order, as one) and ``pmax`` the ``lax.pmax`` of the shards'
+    flags: the shards' ``torch.cat`` and ``max`` when they are all here,
+    collectives when the mesh spans processes.  Returns (ts, wids, tk, tc,
+    used, done, overflow, recount rounds, each shard's live tokens)."""
     kb = batch_k
     used = int(used)
     ts = [t.to(torch.int32) for t in ts]
@@ -137,17 +145,17 @@ def train_rounds_delta_sharded(
             flags.append(int(of_old or of_new))
 
         # the delta-vs-recount decision is global (the JAX pmax)
-        if max(flags) > 0:
+        if pmax(flags) > 0:
             parts = [_full_recount(t, w, fw, pcap) for t, w, fw in zip(ts, wids, fws)]
             tk, tc, n_live = _reduce_by_key(
-                torch.cat([p[0].to(home) for p in parts]),
-                torch.cat([p[1].to(home) for p in parts]),
+                gather([p[0].to(home) for p in parts]),
+                gather([p[1].to(home) for p in parts]),
                 pcap,
             )
             n_rec += 1
         else:
-            gk = torch.cat([torch.cat([d[0], d[2]]).to(home) for d in deltas])
-            gv = torch.cat([torch.cat([d[1], d[3]]).to(home) for d in deltas])
+            gk = gather([torch.cat([d[0], d[2]]).to(home) for d in deltas])
+            gv = gather([torch.cat([d[1], d[3]]).to(home) for d in deltas])
             tk, tc, n_live = _reduce_by_key(torch.cat([tk, gk]), torch.cat([tc, gv]), pcap)
         overflow = n_live > pcap
         store_rules(rules, acc, cx, cy, cc, zs, used_ids0, vocab_size)
@@ -162,6 +170,9 @@ class PlainShardedEngine:
     the largest live count's power of two, once it halves)."""
 
     nrec = 0
+    # the all_gather and pmax of the rounds (train_rounds_delta_sharded)
+    gather = staticmethod(torch.cat)
+    pmax = staticmethod(max)
 
     def __init__(self, seg_t, seg_w, per: int, freq, rules, used_ids0: int, vocab_size: int,
                  batch_k: int, mesh: DataMesh, pcap: int, dcap: int, table):
@@ -185,6 +196,7 @@ class PlainShardedEngine:
             train_rounds_delta_sharded(
                 self.ts, self.ws, self.freqs, self.tk, self.tc, self.rules, used,
                 self.used_ids0, limit, self.vocab_size, self.batch_k, self.pcap, self.dcap,
+                self.gather, self.pmax,
             )
         )
         if self.repack and not overflow:
