@@ -227,6 +227,16 @@ CLI_CHUNK = 10 * 1024 * 1024
 # the greedy merge's device functions (csrc/encode_greedy.cu), as the
 # profiler names them: rows of up to 32 slots, and longer rows
 ENCODE_DEVICE_FNS = ("encode_short_kernel", "encode_long_kernel")
+# the same for BPE-dropout (csrc/encode_dropout.cu)
+DROPOUT_DEVICE_FNS = ("encode_dropout_short_kernel", "encode_dropout_long_kernel")
+# the stream merge's words kernels (csrc/stream_encode.cu): words of up to
+# 512 tokens on warp lanes, longer words a block each
+MERGE_WORDS_FNS = ("merge_words_kernel", "merge_long_words_kernel")
+# row lengths and widths where the dropout and stream merge kernels change
+# layout: 8, 16 or 32 lanes, a warp, the warp's routine (P = 2..16), a
+# block past 512 tokens
+EDGE_LENGTHS = (1, 2, 8, 9, 16, 17, 32, 33, 512)
+EDGE_WIDTHS = (1, 2, 8, 9, 16, 17, 32, 33, 64, 65, 128, 129, 256, 257, 512)
 
 
 def log(msg: str) -> None:
@@ -275,7 +285,9 @@ def phase_device_and_build() -> dict:
                                       "delta_apply_kernel", "tier_apply_kernel",
                                       "mark_words_kernel", "emit_words_kernel", "resplit_kernel",
                                       "encode_short_kernel", "encode_long_kernel",
-                                      "pair_count_kernel", "fold_plan_kernel")):
+                                      "pair_count_kernel", "fold_plan_kernel",
+                                      "encode_dropout_short_kernel", "encode_dropout_long_kernel",
+                                      "merge_words_kernel", "merge_long_words_kernel")):
         log(f"[1] {line}")
     log(f"[1] name maps: the {check_name_maps(libs)} device functions the phases time by name "
         f"are kernels of the built libraries")
@@ -335,7 +347,7 @@ def check_name_maps(libs) -> int:
     maps = [TRAIN_DEVICE_FNS, TIERED_DEVICE_FNS, DIFF_DEVICE_FNS, STREAM_DEVICE_FNS,
             SHARD_DEVICE_FNS, OTHER_DEVICE_FNS,
             {"shared": tuple(f for f in STREAM_SHARED_FNS if f.endswith("_kernel")),
-             "encode": ENCODE_DEVICE_FNS + ("encode_dropout_kernel",)}]
+             "encode": ENCODE_DEVICE_FNS + DROPOUT_DEVICE_FNS}]
     listed = {f for m in maps for names in m.values() for f in names}
     # a mangled name holds the function's name after its length
     missing = sorted(f for f in listed
@@ -3086,6 +3098,60 @@ def phase_dropout_kernels(kchk: dict, dev="cuda:0") -> None:
             f"({merges[0.1]} and {merges[0.5]} merges); p 0 == greedy kernel, p 1 == input")
 
 
+def dropout_edge_rows(width: int, rng) -> np.ndarray:
+    """Front-packed rows of ``width`` slots for the hand model: all-PAD
+    filler rows; every edge length that fits, and the full width, as a run
+    of one letter, random letters after a space, random letters, and random
+    letters with placeholders first, inside and last; then 512 rows of
+    random lengths, so that the groups of one warp freeze in different
+    rounds."""
+    letters = list(range(5, 13))
+    rows = [[] for _ in range(4)]
+    for n in sorted({k for k in EDGE_LENGTHS if k <= width} | {width}):
+        rand = [int(v) for v in rng.choice(letters, n)]
+        marked = list(rand)
+        for k in {0, n // 2, n - 1}:
+            marked[k] = 10**9 + k
+        rows += [[rand[0]] * n, [4] + rand[1:], rand, marked]
+    rows += [[int(v) for v in rng.choice(letters, int(n))] for n in rng.integers(0, width + 1, 512)]
+    mat = np.full((len(rows), width), -1, np.int32)
+    for i, r in enumerate(rows):
+        mat[i, : len(r)] = r
+    return mat
+
+
+def phase_dropout_edges(tables, dev="cuda:0") -> int:
+    """The dropout kernel on edge rows at every width where its layout
+    changes (EDGE_WIDTHS): equal to its plain version at p 0.1, 0.5 and
+    0.9, with the merges it counts equal to the plain version's; p 0 equal
+    to the greedy kernel, p 1 to the rows.  Returns the rows checked."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import encode_kernel as ek
+
+    rng = np.random.default_rng(SEED + 4)
+    n_rows = 0
+    for width in EDGE_WIDTHS:
+        x = torch.from_numpy(dropout_edge_rows(width, rng)).to(dev)
+        for p in (0.1, 0.5, 0.9):
+            work = torch.zeros(3, dtype=torch.int64, device=dev) if x.is_cuda else None
+            got = ek.encode_dropout(tables, x, p, DROPOUT_SEED, width, work=work)
+            want = ek.encode_dropout_plain(tables, x, p, DROPOUT_SEED, width)
+            check(torch.equal(got, want), f"dropout kernel != plain on edge rows, width {width}, p {p}")
+            merges = int((x >= 0).sum() - (want >= 0).sum())
+            counted = merges if work is None else int(work[1])  # the kernel counts on the card
+            check(counted == merges, f"edge rows, width {width}, p {p}: the kernel counted "
+                  f"{counted} merges, not {merges}")
+        check(torch.equal(ek.encode_dropout(tables, x, 0.0, DROPOUT_SEED), ek.encode_greedy(tables, x)),
+              f"dropout at p 0 != the greedy kernel on edge rows, width {width}")
+        check(torch.equal(ek.encode_dropout(tables, x, 1.0, DROPOUT_SEED), x),
+              f"dropout at p 1 changed the edge rows, width {width}")
+        n_rows += x.shape[0]
+    log(f"[7] edge rows ({n_rows}, widths {EDGE_WIDTHS}): dropout kernel == plain at p 0.1, 0.5 "
+        f"and 0.9, merges counted == plain's; p 0 == greedy kernel, p 1 == input")
+    return n_rows
+
+
 def phase_dropout_main(main: dict, lines, card: str) -> dict:
     """The main path: ``BPE.encode(lines, dropout_prob=0.1)`` over the 100 MB
     corpus on the native route and, with YTTM_DROPOUT_NATIVE=0, through the
@@ -3147,7 +3213,7 @@ def phase_dropout_main(main: dict, lines, card: str) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         outs = [real(tables, x, DROPOUT_P, seed, row0) for x, seed, row0 in calls]
         torch.cuda.synchronize()
-    k_ms = profiled_ms(prof, ("encode_dropout_kernel",))
+    k_ms = profiled_ms(prof, DROPOUT_DEVICE_FNS)
     check(k_ms > 0, "the profiler recorded no device time for encode_dropout")
     p_ms, merges = 0.0, 0
     for (x, seed, row0), out in zip(calls, outs):
@@ -3192,7 +3258,7 @@ STREAM_DEVICE_FNS = {
                      "segment_base_kernel", "emit_kernel"),
     "stream_dedup": ("word_starts_kernel", "word_hash_kernel", "word_insert_kernel",
                      "word_rep_kernel", "words_out_kernel", "tokens_out_kernel"),
-    "stream_merge": ("merge_words_kernel", "occ_len_kernel", "fill_tail_kernel", "expand_kernel"),
+    "stream_merge": MERGE_WORDS_FNS + ("occ_len_kernel", "fill_tail_kernel", "expand_kernel"),
 }
 STREAM_SHARED_FNS = ("tile_sums_kernel", "tile_offsets_kernel", "scan_apply_kernel", "Memset",
                      "Memcpy DtoD")
@@ -3228,36 +3294,98 @@ def same_words(a, b) -> bool:
             and torch.equal(a.ustart[:nu], b.ustart[:nu]) and torch.equal(a.ulen[:nu], b.ulen[:nu]))
 
 
+def check_stream_chunk(enc, name: str, data: bytes, unk: int, dev) -> dict:
+    """Each stream kernel against its plain version on one chunk (each fed
+    the plain version's inputs), the merge on both wires.  Returns the
+    chunk's counts and its unique words' lengths."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import stream_kernel as sk
+
+    st = enc._stream
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    kt, kw, kn = sk.stream_build(x, st.alpha_cps, st.alpha_ids, st.space_id)
+    pt, pw, pn = sk.build_stream(x, st.alpha_cps, st.alpha_ids, st.space_id)
+    check(int(kn) == int(pn) and torch.equal(kt, pt) and torch.equal(kw, pw),
+          f"stream_build != plain on the {name}")
+    kd, pd = sk.stream_dedup(pt, pw, pn), sk.dedup_words(pt, pw, pn)
+    check(same_words(kd, pd), f"stream_dedup != plain on the {name}")
+    for u in (None, unk):
+        ko, kk = sk.stream_merge(enc.tables, pd, u)
+        po, pk = sk.stream_merge_plain(enc.tables, pd, u)
+        check(int(kk) == int(pk) and torch.equal(ko, po),
+              f"stream_merge != plain on the {name} (unk {u})")
+    nu = int(pd.n_unique)
+    return {"tokens": int(pn), "words": int(pd.n_words), "unique": nu, "ids": int(pk),
+            "ulen": pd.ulen[:nu].cpu().numpy()}
+
+
+def stream_edge_chunks(rng) -> dict:
+    """Chunks for the hand model (letters a-h) whose unique words sit at the
+    merge kernel's layout edges (a word of n tokens: a space and n - 1
+    chars; a lone unknown char is one placeholder): ``edges`` words of 2,
+    8, 9, 16, 17, 32, 33 and 512 tokens and NEWLINE pseudo-words of 1, some
+    with placeholders first, inside and last, each word up to three times,
+    in random order; ``long`` one line (no NEWLINE word) of words of 33-512
+    tokens only; ``monster`` words of 513 and 2000 tokens among short ones."""
+
+    def words(lengths, per: int):
+        out = []
+        for n in lengths:
+            for i in range(per):
+                chars = [str(c) for c in rng.choice(list("abcdefgh"), n - 1)]
+                if i % 4 == 3 and n >= 4:
+                    for k in {0, (n - 1) // 2, n - 2}:
+                        chars[k] = "z"
+                out += ["".join(chars)] * int(rng.integers(1, 4))
+        rng.shuffle(out)
+        return out
+
+    def text(ws, per_line: int):
+        return "\n".join(" ".join(ws[i : i + per_line]) for i in range(0, len(ws), per_line))
+
+    edges = words(EDGE_LENGTHS[1:], 24)
+    return {
+        "edge-length chunk": (text(edges, 9) + "\n\n\n").encode(),
+        "all-long chunk": " ".join(words((33, 34, 64, 65, 128, 129, 256, 257, 511, 512), 6)).encode(),
+        "monster-word chunk": (text(words((3, 5, 16, 513, 2000), 3), 4) + "\n").encode(),
+    }
+
+
+def phase_stream_edges(dev="cuda:0") -> None:
+    """The stream kernels against their plain versions on the hand model's
+    edge chunks: unique words at every length class of the merge kernel,
+    a chunk whose unique words all exceed 32 tokens, and words past 512."""
+    from youtokentome_tpu_torch.encoder import Encoder
+
+    state = hand_model()
+    enc = Encoder(state, device=dev)
+    for name, data in stream_edge_chunks(np.random.default_rng(SEED + 5)).items():
+        got = check_stream_chunk(enc, name, data, state.special_tokens.unk_id, dev)
+        ulen = got.pop("ulen")
+        check(name != "all-long chunk" or int(ulen.min()) > 32, "a unique word of <= 32 tokens")
+        check(name != "monster-word chunk" or int(ulen.max()) > 512, "no word past 512 tokens")
+        lens = sorted(set(ulen.tolist()))
+        log(f"[8] {name} ({len(data)} bytes): stream_build, stream_dedup and stream_merge (int32 "
+            f"and u16) == plain ({got}; unique word lengths {lens[:12]}{'...' if len(lens) > 12 else ''}"
+            f"{lens[-3:] if len(lens) > 12 else ''})")
+
+
 def phase_stream_kernels(main: dict, lines, dev="cuda:0") -> None:
     """Each stream kernel against its plain version on the corpus's first
     1 MiB chunk and on a crafted chunk (fed the plain version's inputs)."""
-    import torch
-
     from youtokentome_tpu_torch.encoder import Encoder
     from youtokentome_tpu_torch.ops import stream_kernel as sk
 
     enc = Encoder(main["state"], device=main["device"] or dev)
-    st = enc._stream
     first = next(sk.StreamEncoder.chunks(main["blob"], sk.DEFAULT_CHUNK))
     for name, data in (("first 1 MiB chunk", first), ("crafted chunk", crafted_chunk(lines))):
-        x = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
-        kt, kw, kn = sk.stream_build(x, st.alpha_cps, st.alpha_ids, st.space_id)
-        pt, pw, pn = sk.build_stream(x, st.alpha_cps, st.alpha_ids, st.space_id)
-        check(int(kn) == int(pn) and torch.equal(kt, pt) and torch.equal(kw, pw),
-              f"stream_build != plain on the {name}")
-        kd, pd = sk.stream_dedup(pt, pw, pn), sk.dedup_words(pt, pw, pn)
-        check(same_words(kd, pd), f"stream_dedup != plain on the {name}")
-        for unk in (None, main["unk"]):
-            ko, kk = sk.stream_merge(enc.tables, pd, unk)
-            po, pk = sk.stream_merge_plain(enc.tables, pd, unk)
-            check(int(kk) == int(pk) and torch.equal(ko, po),
-                  f"stream_merge != plain on the {name} (unk {unk})")
-        nu = int(pd.n_unique)
-        longest = int(pd.ulen[:nu].max())
-        check(name == "first 1 MiB chunk" or longest > 512, "no word past the shared-memory path")
+        got = check_stream_chunk(enc, name, data, main["unk"], dev)
+        longest = int(got.pop("ulen").max())
+        check(name == "first 1 MiB chunk" or longest > 512, "no word past the warp path")
         log(f"[8] {name} ({len(data)} bytes): stream_build, stream_dedup and stream_merge (int32 "
-            f"and u16) == plain ({int(pn)} tokens, {int(pd.n_words)} words, {nu} unique, longest "
-            f"{longest} tokens, {int(pk)} ids)")
+            f"and u16) == plain ({got['tokens']} tokens, {got['words']} words, {got['unique']} "
+            f"unique, longest {longest} tokens, {got['ids']} ids)")
 
 
 def unique_rows(w):
@@ -3327,6 +3455,7 @@ def phase_stream_main(main: dict, lines, card: str) -> dict:
         merged = [sk.stream_merge(tables, w, unk) for w in words]
         torch.cuda.synchronize()
     k_ms["stream_merge"] = profiled_ms(prof, STREAM_DEVICE_FNS["stream_merge"] + STREAM_SHARED_FNS)
+    words_ms = profiled_ms(prof, MERGE_WORDS_FNS)  # the merge itself; the rest expands
     for name, v in k_ms.items():
         check(v > 0, f"the profiler recorded no device time for {name}")
 
@@ -3365,11 +3494,138 @@ def phase_stream_main(main: dict, lines, card: str) -> dict:
         rows.append({"name": name, "launches": launches[name], "ms": k_ms[name],
                      "plain_ms": p_ms[name], "bound_ms": max(b_ms, o_ms),
                      "bound_by": "bytes" if b_ms >= o_ms else "operations"})
-        log(f"[8] {name}: {launches[name]} launches, {k_ms[name]:.3f} ms on the card "
+        split = ""
+        if name == "stream_merge":
+            rows[-1]["merge_words_ms"] = words_ms
+            split = f" ({', '.join(MERGE_WORDS_FNS)} {words_ms:.3f}, the rest {k_ms[name] - words_ms:.3f})"
+        log(f"[8] {name}: {launches[name]} launches, {k_ms[name]:.3f} ms on the card{split} "
             f"(torch.profiler, {len(chunks)} chunks), bound {max(b_ms, o_ms):.4f} ms "
             f"({rows[-1]['bound_by']}), plain {p_ms[name]:.1f} ms ({card})")
     return {"rows": rows, "api_mbps": n_bytes / 1e6 / api_s, "cli_mbps": n_bytes / 1e6 / cli_s}
 
+
+
+def compare_encode(work: Path, dev="cuda:0") -> dict:
+    """The numbers the encode kernels' redesigns are held to, for the
+    package of the current directory's tree (run it in a parent's unpacked
+    tree and in the change's, in turns, each from a process of its own that
+    loads this file by its path, as compare_tree): rows 1-2, the greedy
+    kernels on the main path's bucket chunks (CUDA events); row 3, the
+    dropout kernel on every input of the kernel route's 100 MB encode
+    (torch.profiler and CUDA events) and that encode's MB/s; row 4c,
+    stream_merge on the corpus's chunks (torch.profiler, split into the
+    words kernels and the rest; CUDA events) and the stream CLI route's
+    MB/s twice.  The corpus and the model are written to ``work`` by the
+    first caller and read by the others.  A digest of every kernel output
+    and of the CLI bytes must agree across trees.  Prints and returns the
+    numbers."""
+    import hashlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import youtokentome_tpu_torch as yttm
+    from youtokentome_tpu_torch import encoder as encoder_mod
+    from youtokentome_tpu_torch.encoder import DEVICE_BATCH, Encoder
+    from youtokentome_tpu_torch.host import fasttok
+    from youtokentome_tpu_torch.host.fastio import format_ids
+    from youtokentome_tpu_torch.models.state import BPEState
+    from youtokentome_tpu_torch.ops import encode_kernel as ek
+    from youtokentome_tpu_torch.ops import stream_kernel as sk
+
+    dev = torch.device(dev)
+    work.mkdir(parents=True, exist_ok=True)
+    corpus_path, model_path = work / "corpus_100mb.txt", work / "vocab30k.yttm"
+    if not model_path.exists():
+        words, lines = build_corpus()
+        corpus_path.write_text("\n".join(lines) + "\n")
+        build_model(words)[0].dump(str(model_path))
+    blob = corpus_path.read_bytes()
+    lines = blob.decode().split("\n")[:-1]
+    state = BPEState.load(str(model_path))
+    unk = state.special_tokens.unk_id
+    out = {"tree": os.getcwd(), "card": card_line()}
+    digest = hashlib.sha256()
+
+    def fold(ts):
+        for x in ts:
+            digest.update(x.cpu().numpy().tobytes())
+
+    # rows 1-2
+    alpha_cps = np.sort(np.array(list(state.char2id), np.uint32))
+    alpha_ids = np.array([state.char2id[int(c)] for c in alpha_cps], np.int32)
+    wf, wo, _, _ = fasttok.tokenize(blob, alpha_cps, alpha_ids, 4)
+    chunks = [np.ascontiguousarray(mat[c0 : c0 + DEVICE_BATCH])
+              for _, mat in Encoder._bucket_rows(wf, wo) for c0 in range(0, mat.shape[0], DEVICE_BATCH)]
+    tables = ek.EncoderTables.from_state(state, dev)
+    x32 = [torch.from_numpy(c).to(dev) for c in chunks]
+    x16 = [torch.from_numpy(ek.pack_tokens_u16(c)).to(dev) for c in chunks]
+    out["encode_greedy_ms"] = event_ms(lambda: [ek.encode_greedy(tables, x) for x in x32], 5)
+    out["encode_greedy_u16_ms"] = event_ms(lambda: [ek.encode_greedy_u16(tables, x, unk) for x in x16], 5)
+    fold(ek.encode_greedy(tables, x) for x in x32)
+    fold(ek.encode_greedy_u16(tables, x, unk) for x in x16)
+    out["greedy_launches"] = len(chunks)
+    del x32, x16
+
+    # row 3
+    bpe = yttm.BPE(str(model_path), device=dev)
+    real, calls = ek.encode_dropout, []
+
+    def recorded(tables, toks, p, seed, row0=0):
+        calls.append((toks, seed, row0))
+        return real(tables, toks, p, seed, row0)
+
+    with env_set(YTTM_DROPOUT_NATIVE="0"), swapped(encoder_mod, encode_dropout=recorded):
+        _, kern_s = timed(lambda: bpe.encode(
+            lines, dropout_prob=DROPOUT_P, generator=torch.Generator().manual_seed(2)))
+    out["dropout_kernel_route_mbps"] = len(blob) / 1e6 / kern_s
+    dtables = bpe._encoder.tables
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        outs = [real(dtables, x, DROPOUT_P, seed, row0) for x, seed, row0 in calls]
+        torch.cuda.synchronize()
+    out["encode_dropout_ms"] = profiled_ms(prof, ("encode_dropout",))
+    # the same inputs at p 1 (one round, no merge) and p 0 (a merge a
+    # round until none is left): a launch's fixed cost against its rounds'
+    for p in (1.0, 0.0):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fold(real(dtables, x, p, seed, row0) for x, seed, row0 in calls)
+            torch.cuda.synchronize()
+        out[f"encode_dropout_p{p:g}_ms"] = profiled_ms(prof, ("encode_dropout",))
+    out["encode_dropout_event_ms"] = event_ms(
+        lambda: [real(dtables, x, DROPOUT_P, seed, row0) for x, seed, row0 in calls], 1)
+    out["dropout_launches"] = len(calls)
+    fold(outs)
+    del calls, outs
+
+    # row 4c and the stream CLI route
+    enc = Encoder(state, device=dev)
+    st = enc._stream
+    xs = [torch.frombuffer(bytearray(c), dtype=torch.uint8).to(dev)
+          for c in sk.StreamEncoder.chunks(blob, sk.DEFAULT_CHUNK)]
+    words = [sk.stream_dedup(*sk.stream_build(x, st.alpha_cps, st.alpha_ids, st.space_id))
+             for x in xs]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        merged = [sk.stream_merge(enc.tables, w, unk) for w in words]
+        torch.cuda.synchronize()
+    out["stream_merge_ms"] = profiled_ms(prof, STREAM_DEVICE_FNS["stream_merge"] + STREAM_SHARED_FNS)
+    out["merge_words_ms"] = profiled_ms(prof, MERGE_WORDS_FNS)
+    out["stream_merge_rest_ms"] = out["stream_merge_ms"] - out["merge_words_ms"]
+    out["stream_merge_event_ms"] = event_ms(
+        lambda: [sk.stream_merge(enc.tables, w, unk) for w in words], 3)
+    out["stream_launches"] = len(words)
+    fold(o[: int(n)] for o, n in merged)
+    del xs, words, merged
+    cli_s = []
+    for _ in range(2):
+        cli, s = timed(lambda: b"".join(format_ids(*enc.encode_bytes_flat(c)) for c in cli_chunks(blob)))
+        cli_s.append(s)
+    digest.update(cli)
+    out["stream_cli_mbps"] = [len(blob) / 1e6 / s for s in cli_s]
+    out["digest"] = digest.hexdigest()
+    print("COMPARE_ENCODE " + json.dumps(out), flush=True)
+    return out
 
 
 # -- phase 9: the differential trainers ---------------------------------------
@@ -5332,8 +5588,10 @@ def main() -> int:
     main_res = phase_main_path(work, corpus)
     times = phase_times(info["card"], kchk, main_res)
     phase_dropout_kernels(kchk)
+    phase_dropout_edges(kchk["tables"])
     dropout = phase_dropout_main(main_res, corpus[1], info["card"])
     phase_stream_kernels(main_res, corpus[1])
+    phase_stream_edges()
     stream = phase_stream_main(main_res, corpus[1], info["card"])
     shard_enc = phase_shard_encode(main_res, corpus[1], times, info["card"])
     sample = corpus[1][:2000]
@@ -5405,6 +5663,7 @@ def main() -> int:
             "name": r["name"], "route": "cuda", "source": source_of, "replaces": replaces_of,
             "launches": r["launches"], "max_abs_err": 0, "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "equal": True,
+            **{k: r[k] for k in ("merge_words_ms",) if k in r},
         }
         for r, source_of, replaces_of in
         [(dropout["row"], "youtokentome_tpu_torch/csrc/encode_dropout.cu", DROPOUT_REPLACES)]

@@ -260,3 +260,45 @@ def test_bpe_api_and_cli_dropout(models, tmp_path):
     for r in outs:
         assert r.returncode == 0, r.stderr.decode()
     assert outs[0].stdout == outs[1].stdout and outs[0].stdout
+
+
+# the kernel's layout classes change at these row lengths and widths
+# (csrc/encode_dropout.cu: 8, 16 or 32 lanes a row, a warp a longer row)
+EDGE_LENGTHS = (1, 2, 8, 9, 16, 17, 32, 33, 512)
+
+
+def _edge_rows(seed, width):
+    """Front-packed rows of ``width`` slots: every edge length that fits
+    (and the full width), each as runs of letters and with unknown-run
+    placeholders inside and at the ends, and all-PAD filler rows."""
+    rng = np.random.default_rng(seed)
+    lengths = [n for n in EDGE_LENGTHS if n <= width] + [width]
+    rows = [[], []]
+    for n in lengths:
+        runs = np.repeat(rng.choice([5, 6, 7, 8], n), rng.geometric(0.4, n))[:n].tolist()
+        rows.append(runs)
+        ph = list(runs)
+        for k in {0, n - 1, n // 2}:
+            ph[k] = jek.PLACEHOLDER_START + k
+        rows.append(ph)
+        rows.append([4] + runs[1:])
+    mat = np.full((len(rows), width), -1, np.int32)
+    for i, r in enumerate(rows):
+        mat[i, : len(r)] = r
+    return mat
+
+
+@pytest.mark.parametrize("width", [8, 9, 16, 17, 32, 33, 512])
+def test_dropout_plain_matches_jax_at_layout_edges(hand, width):
+    """The plain loop (the kernel's yardstick on the card) equals
+    ``_encode_dropout`` fed the same coins at every width and row length
+    where the kernel's layout changes, with all-PAD filler rows and
+    placeholders."""
+    jt, tt = hand
+    mat = _edge_rows(width, width)
+    key = jax.random.PRNGKey(width)
+    want = np.asarray(jek._encode_dropout(jt, jnp.asarray(mat), key, jnp.float32(0.3)))
+    coins = _jax_coins(key, 0.3, mat.shape)
+    got = ek.encode_dropout_plain(tt, torch.from_numpy(mat), 0.3, 0, draws=lambda r: coins[r])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[:2] == -1).all() and (want >= 0).sum() < (mat >= 0).sum()

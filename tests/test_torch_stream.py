@@ -225,3 +225,66 @@ def test_cli_without_native_tokenizer_matches_jax(models, name, tmp_path):
     for r in outs:
         assert r.returncode == 0, r.stderr.decode()
     assert outs[0].stdout == outs[1].stdout and outs[0].stdout
+
+
+def _edge_words(kind: str, rng):
+    """Token words (space 4, letters 5-8 of the hand rules, unknown-run
+    placeholders) at the lengths where the merge kernel's layout changes
+    (csrc/stream_encode.cu: 16 lanes a word, a warp, the warp's routine,
+    a block past 512 tokens): ``edges`` every class edge with NEWLINE
+    pseudo-words; ``long`` only words of more than 32 tokens; ``monster``
+    a word of more than 512 tokens among short ones."""
+    lengths = {"edges": (1, 2, 8, 9, 16, 17, 32, 33, 512), "long": (33, 40, 64, 65, 129, 257, 512),
+               "monster": (3, 700, 5, 16)}[kind]
+    words = []
+    for n in lengths:
+        if n == 1:
+            words.append([sk.NEWLINE])
+            continue
+        runs = np.repeat(rng.choice([5, 6, 7, 8], n), rng.geometric(0.4, n))[: n - 1].tolist()
+        words.append([4] + runs)
+        ph = [4] + runs
+        for k in {1, n - 1, n // 2}:
+            ph[k] = jek.PLACEHOLDER_START + k
+        words.append(ph)
+    order = list(range(len(words))) * 2  # every word twice: one unique row each
+    rng.shuffle(order)
+    return [words[i] for i in order]
+
+
+@pytest.mark.parametrize("kind", ["edges", "long", "monster"])
+def test_merge_plain_matches_jax_at_layout_edges(kind):
+    """The plain merge (the kernel's yardstick on the card) equals the JAX
+    ``_merge_fixed_point`` and ``_expand_occurrences`` on unique words at
+    every length class of the merge kernel."""
+    from test_torch_encode_kernel import _hand_rules, _port_tables, _states
+
+    js, _ = _states(_hand_rules())
+    jt = jek.EncoderTables(js)
+    tt = _port_tables(jt)
+    words = _edge_words(kind, np.random.default_rng(len(kind)))
+    n = sum(len(w) for w in words)
+    m = 8192  # one size for every case: the JAX functions compile once
+    t = np.full(m, sk.PAD, np.int32)
+    wid = np.full(m, sk.PAD, np.int32)
+    t[:n] = np.concatenate(words)
+    wid[:n] = np.repeat(np.arange(len(words)), [len(w) for w in words])
+    w = sk.dedup_words(torch.from_numpy(t), torch.from_numpy(wid), torch.tensor(n, dtype=torch.int32))
+    un, nu = int(w.n_tokens), int(w.n_unique)
+    assert nu == len(words) // 2 and un == n // 2
+    ut, uwid = jnp.asarray(w.ut.numpy()), jnp.asarray(w.uwid.numpy())
+    occ = jnp.asarray(np.append(w.occ_uid.numpy(), 0))  # JAX's m + 1 word slots
+
+    jm = jsk._merge_fixed_point(jt, ut, uwid, jnp.int32(un))
+    mt, mw, mn = sk.merge_fixed_point(tt, w.ut, w.uwid, w.n_tokens)
+    k = int(jm[2])
+    assert int(mn) == k < un
+    np.testing.assert_array_equal(mt[:k].numpy(), np.asarray(jm[0])[:k])
+    np.testing.assert_array_equal(mw[:k].numpy(), np.asarray(jm[1])[:k])
+    je, jtot = jsk._expand_occurrences(jm[0], jm[1], occ, jnp.int32(len(words)), m)
+    k = int(jtot)
+    for unk in (None, 1):
+        got, tot = sk.stream_merge(tt, w, unk)
+        want = np.asarray(je) if unk is None else np.asarray(jsk._pack_u16(je, jnp.int32(unk)))
+        assert int(tot) == k
+        np.testing.assert_array_equal(got[:k].numpy(), want[:k])

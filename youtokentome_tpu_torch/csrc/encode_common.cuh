@@ -119,10 +119,13 @@ __device__ __forceinline__ uint32_t coin_step(uint32_t h, uint32_t k) {
   return h * 5u + 0xE6546B64u;
 }
 
-__device__ __forceinline__ uint32_t coin_hash(uint32_t seed_lo, uint32_t seed_hi, uint32_t row,
-                                              uint32_t round, uint32_t col) {
-  uint32_t h = coin_step(seed_lo, row);
-  h = coin_step(h, seed_hi);
+// The part of coin_hash that depends on the seed and the row only.
+__device__ __forceinline__ uint32_t coin_row(uint32_t seed_lo, uint32_t seed_hi, uint32_t row) {
+  return coin_step(coin_step(seed_lo, row), seed_hi);
+}
+
+// coin_hash from coin_row's h.
+__device__ __forceinline__ uint32_t coin_finish(uint32_t h, uint32_t round, uint32_t col) {
   h = coin_step(h, (round << 16) | col);
   h ^= h >> 16;
   h *= 0x85EBCA6Bu;
@@ -130,6 +133,11 @@ __device__ __forceinline__ uint32_t coin_hash(uint32_t seed_lo, uint32_t seed_hi
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
   return h;
+}
+
+__device__ __forceinline__ uint32_t coin_hash(uint32_t seed_lo, uint32_t seed_hi, uint32_t row,
+                                              uint32_t round, uint32_t col) {
+  return coin_finish(coin_row(seed_lo, seed_hi, row), round, col);
 }
 
 }  // namespace yttm_enc

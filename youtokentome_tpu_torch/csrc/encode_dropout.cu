@@ -22,134 +22,278 @@
 // port draws a counter-based hash of (seed, row0 + row, round, column)
 // (encode_common.cuh:coin_hash) that its plain version computes bit for
 // bit, so the kernel and the plain version agree exactly.  The global row
-// index keeps the coins of every row of one encode call apart.
+// index keeps the coins of every row of one encode call apart.  The column
+// is the pair's position in the row as compacted in that round.
 //
-// Layout.  One thread block per row, 32..128 threads, each owning up to 4
-// consecutive positions, as in encode_greedy.cu.  The row and the ranks of
-// its pairs live in shared memory, double buffered (2 x 2 x 512 x 4 B).
-// Ranks are looked up once at the start; a merge at q changes only the
-// pairs at q - 1 and q, so a round looks up at most two pairs, hashes one
-// coin per candidate, takes one 64-bit block min-reduce of
-// (rank << 32 | position), and shifts the row.
+// Layout.  The rows of the 100 MB main path hold 3-15 tokens, so nearly
+// every row lies in the 8- or 16-slot bucket: a block a row would leave
+// most of its lanes idle and pay block-wide scans and __syncthreads every
+// round.  As in the greedy kernel (greedy_group.cuh):
+//   * rows of up to 32 slots get G = 8, 16 or 32 lanes of a warp, one
+//     position a lane (encode_dropout_short_kernel).  The row stays in
+//     registers and is never compacted until the store: a merge at lane q
+//     writes z there and marks q's next live lane dead.  A lane's column is
+//     the popcount of the group's live lanes below it.  A candidate lane
+//     draws its coin; the least surviving rank is a butterfly of shuffles
+//     within the group, and its leftmost lane the first set bit of a
+//     ballot (lanes keep the row's order).  Ranks are kept across rounds,
+//     each with its rule's z, loaded beside it (off the round's chain of
+//     dependent loads); the two pairs that hold z (at q and at the live
+//     lane before q) are looked up again, each on its own lane.  A group
+//     freezes in the first round in which none of its candidates survives
+//     and takes no later round: the warp's round count is each live
+//     group's own round.
+//   * rows of 33-512 slots get a warp each, P = 2..16 positions a lane
+//     (encode_dropout_long_kernel; chunk k: slots 32k..32k+31), with the
+//     live slots as one ballot a chunk; the merge's neighbours are found
+//     from those masks, and the two new pairs are looked up on their own
+//     lanes.
+// No shared memory and no __syncthreads in either.
 //
 // Bound.  Per launch the kernel moves R*L*(4+4) bytes through DRAM; its
-// table gathers hit L2; its time is set by up to L dependent rounds of one
-// block reduction each.  With `work` given, it adds what it did to
+// table gathers hit L2; its time is set by the rounds of the row that
+// needs the most (a coin a candidate, a few shuffles and up to two
+// dependent lookups a round).  With `work` given, it adds what it did to
 // work[0..2] (coins drawn, merges, pairs looked up at the start), so a
 // bound can count the operations its data needs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "encode_common.cuh"
+#include "greedy_group.cuh"
 
 namespace {
 
 using namespace yttm_enc;
 
 constexpr int kMaxLen = 512;
-constexpr int kMaxThreads = 128;
-constexpr int kMaxPerThread = kMaxLen / kMaxThreads;  // 4
-constexpr long long kNone = 0x7FFFFFFFFFFFFFFFll;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
-__global__ void __launch_bounds__(kMaxThreads)
-    encode_dropout_kernel(const int32_t *in, int32_t *out, int L, Table t, const int32_t *rules_z,
-                          int n_rules, uint32_t seed_lo, uint32_t seed_hi, uint32_t row0,
-                          uint32_t thr, unsigned long long *work) {
-  __shared__ int32_t tok[2][kMaxLen];
-  __shared__ int32_t rk[2][kMaxLen];
-  __shared__ long long wbuf[kMaxThreads / 32];
+struct Coins {
+  uint32_t seed_lo, seed_hi, row0, thr;
+};
 
-  const size_t base = (size_t)blockIdx.x * (size_t)L;
-  const uint32_t row = row0 + blockIdx.x;
-  const int n_threads = blockDim.x;
-  const int per = (L + n_threads - 1) / n_threads;  // positions per thread, <= 4
-  const int p0 = threadIdx.x * per;
-
-  long long live = 0;
-  for (int i = threadIdx.x; i < L; i += n_threads) {
-    const int32_t v = in[base + i];
-    tok[0][i] = v;
-    live += v != kPad;
+// What the warp's lanes did, added to work[0..2] once a warp.
+__device__ __forceinline__ void add_work(unsigned long long *work, unsigned coins,
+                                         unsigned merges, unsigned pairs) {
+  if (!work) return;
+  coins = __reduce_add_sync(kFull, coins);
+  merges = __reduce_add_sync(kFull, merges);
+  pairs = __reduce_add_sync(kFull, pairs);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(work, (unsigned long long)coins);
+    atomicAdd(work + 1, (unsigned long long)merges);
+    atomicAdd(work + 2, (unsigned long long)pairs);
   }
-  long long n_live;
-  block_exclusive_scan(live, 0ll, wbuf, &n_live, SumOp());  // syncs: tok[0] is complete
-  int n = (int)n_live;  // rows are front-packed
-  const int n0 = n;
-  int cur = 0;
-  unsigned long long coins = 0;
+}
 
+// Rows of up to G <= 32 slots, G lanes a row (see the layout note).
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+    encode_dropout_short_kernel(const int32_t *in, int32_t *out, int R, int L, Table t,
+                                const int32_t *rules_z, int n_rules, Coins c,
+                                unsigned long long *work) {
+  const int lane = threadIdx.x & 31, pos = lane & (G - 1);
+  const unsigned group = group_mask<G>();
+  const unsigned below = (1u << lane) - 1u;
+  const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const bool mine = row < R && pos < L;
+  const size_t at = (size_t)row * (size_t)L + (size_t)pos;
+  int32_t tok = mine ? in[at] : kPad;
+  bool live = tok != kPad;
+  unsigned lm = __ballot_sync(kFull, live) & group;
+  unsigned coins = 0, merges = 0, pairs = 0;
   if (n_rules > 0) {
-    for (int i = threadIdx.x; i < n - 1; i += n_threads)
-      rk[0][i] = lookup(t, tok[0][i], tok[0][i + 1]);
-    __syncthreads();
-
-    for (int round = 0; round < L && n > 1; ++round) {
-      // 1. the surviving candidate of least (rank, position)
-      long long best = kNone;
-#pragma unroll
-      for (int c = 0; c < kMaxPerThread; ++c) {
-        const int i = p0 + c;
-        if (c < per && i < n - 1) {
-          const int32_t r = rk[cur][i];
-          if (r != kMiss) {
-            ++coins;
-            if ((coin_hash(seed_lo, seed_hi, row, (uint32_t)round, (uint32_t)i) >> 8) >= thr) {
-              const long long key = ((long long)r << 32) | (long long)i;
-              best = key < best ? key : best;
-            }
-          }
-        }
+    int nl = next_lane(lm);
+    int32_t nt = __shfl_sync(kFull, tok, nl < 0 ? lane : nl);
+    pairs = live && nl >= 0;
+    int32_t rk = pairs ? rank_of(t, tok, nt) : kMiss;
+    // the token a merge at this lane writes, loaded with the rank, so that
+    // no round waits on it
+    int32_t zk = rk != kMiss ? __ldg(rules_z + rk) : kPad;
+    const uint32_t h = coin_row(c.seed_lo, c.seed_hi, c.row0 + (uint32_t)row);
+    bool frozen = false;  // the same on every lane of a group
+    for (uint32_t round = 0;; ++round) {
+      // every candidate draws its coin; the survivor of least rank, and
+      // of those the leftmost
+      bool surv = false;
+      if (!frozen && rk != kMiss) {
+        ++coins;
+        surv = (coin_finish(h, round, __popc(lm & below)) >> 8) >= c.thr;
       }
-      long long m;
-      block_exclusive_scan(best, kNone, wbuf, &m, MinOp());
-      if (m == kNone) break;  // no survivor: the row freezes
-
-      // 2. merge at q: write z, drop the right token, shift the tail;
-      //    the ranks of untouched pairs move with their tokens
-      const int q = (int)(m & 0xFFFFFFFFll);
-      const int32_t z = __ldg(rules_z + (int)(m >> 32));
-      const int nxt = cur ^ 1;
+      int32_t m = surv ? rk : kMiss;
 #pragma unroll
-      for (int c = 0; c < kMaxPerThread; ++c) {
-        const int i = p0 + c;
-        if (c < per && i < n) {
-          if (i < q)
-            tok[nxt][i] = tok[cur][i];
-          else if (i == q)
-            tok[nxt][i] = z;
-          else if (i > q + 1)
-            tok[nxt][i - 1] = tok[cur][i];
-          if (i < n - 1) {
-            if (i < q - 1)
-              rk[nxt][i] = rk[cur][i];
-            else if (i > q + 1)
-              rk[nxt][i - 1] = rk[cur][i];
-          }
-        }
+      for (int o = 1; o < G; o <<= 1) m = min(m, __shfl_xor_sync(kFull, m, o));
+      frozen = frozen || m == kMiss;
+      if (__all_sync(kFull, frozen)) break;
+      const unsigned hits = __ballot_sync(kFull, surv && rk == m) & group;
+      const int q = hits ? __ffs(hits) - 1 : -1;
+      const unsigned prev = lm & below;
+      const bool dropped = q >= 0 && prev && 31 - __clz(prev) == q;
+      const bool stale = lane == q || (q >= 0 && nl == q);
+      if (lane == q) {
+        tok = zk;
+        ++merges;
       }
-      __syncthreads();
-      // 3. the two pairs that hold z
-      if (threadIdx.x == 0 && q >= 1) rk[nxt][q - 1] = lookup(t, tok[nxt][q - 1], z);
-      if (threadIdx.x == (n_threads > 32 ? 32 : 0) && q < n - 2)
-        rk[nxt][q] = lookup(t, z, tok[nxt][q + 1]);
-      __syncthreads();
-      cur = nxt;
-      n -= 1;
-    }
-    if (work) {
-      atomicAdd(work, coins);
-      if (threadIdx.x == 0) {
-        atomicAdd(work + 1, (unsigned long long)(n0 - n));
-        atomicAdd(work + 2, (unsigned long long)(n0 > 1 ? n0 - 1 : 0));
+      if (dropped) {
+        live = false;
+        tok = kPad;
+      }
+      lm = __ballot_sync(kFull, live) & group;
+      nl = next_lane(lm);
+      nt = __shfl_sync(kFull, tok, nl < 0 ? lane : nl);
+      if (!live) {
+        rk = kMiss;
+      } else if (stale) {
+        rk = nl >= 0 ? rank_of(t, tok, nt) : kMiss;
+        zk = rk != kMiss ? __ldg(rules_z + rk) : kPad;
       }
     }
-  } else {
-    n = L;  // no rules: the rows leave as they came
   }
+  add_work(work, coins, merges, pairs);
+  if (!mine) return;
+  if (live) out[(size_t)row * (size_t)L + __popc(lm & below)] = tok;
+  if (pos >= __popc(lm)) out[at] = kPad;
+}
 
-  for (int i = threadIdx.x; i < L; i += n_threads)
-    out[base + i] = i < n ? tok[cur][i] : kPad;
+// v[k] for a k that is the same on every lane, without indexing v by a
+// runtime value (which would move v to local memory).
+template <int P, class T>
+__device__ __forceinline__ T pick(const T (&v)[P], int k) {
+  T r = v[0];
+#pragma unroll
+  for (int j = 1; j < P; ++j)
+    if (j == k) r = v[j];
+  return r;
+}
+
+// The first live slot after slot s, -1 without one (lm[k]: the live lanes
+// of chunk k).
+template <int P>
+__device__ __forceinline__ int live_after(const unsigned (&lm)[P], int s) {
+  const int k = s >> 5;
+  const unsigned up = ~((2u << (s & 31)) - 1u);
+  int r = -1;
+#pragma unroll
+  for (int j = P - 1; j >= 0; --j) {
+    const unsigned mm = j < k ? 0u : (j == k ? lm[j] & up : lm[j]);
+    if (mm) r = 32 * j + __ffs(mm) - 1;
+  }
+  return r;
+}
+
+// The last live slot before slot s, -1 without one.
+template <int P>
+__device__ __forceinline__ int live_before(const unsigned (&lm)[P], int s) {
+  const int k = s >> 5;
+  const unsigned down = (1u << (s & 31)) - 1u;
+  int r = -1;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const unsigned mm = j > k ? 0u : (j == k ? lm[j] & down : lm[j]);
+    if (mm) r = 32 * j + 31 - __clz(mm);
+  }
+  return r;
+}
+
+// Rows of 33-512 slots, a warp a row, 32 * P slots (see the layout note).
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+    encode_dropout_long_kernel(const int32_t *in, int32_t *out, int R, int L, Table t,
+                               const int32_t *rules_z, int n_rules, Coins c,
+                               unsigned long long *work) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= R) return;
+  const size_t r0 = (size_t)row * (size_t)L;
+  int32_t tk[P], rk[P];
+  unsigned lm[P];  // the live lanes of each chunk, the same on every lane
+  int n = 0;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int i = 32 * k + lane;
+    tk[k] = i < L ? in[r0 + i] : kPad;
+    lm[k] = __ballot_sync(kFull, tk[k] != kPad);
+    n += __popc(lm[k]);
+  }
+  unsigned coins = 0, merges = 0, pairs = 0;
+  if (n_rules > 0) {
+    // the row is front-packed: slot i's right neighbour is slot i + 1
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      rk[k] = rank_of(t, tk[k], next_slot<P>(tk, k, kPad));
+      pairs += 32 * k + lane < n - 1;
+    }
+    const uint32_t h = coin_row(c.seed_lo, c.seed_hi, c.row0 + (uint32_t)row);
+    for (uint32_t round = 0;; ++round) {
+      bool surv[P];
+      int32_t m = kMiss;
+      int col = 0;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        surv[k] = false;
+        if (rk[k] != kMiss) {  // a live slot with a ranked pair
+          ++coins;
+          surv[k] = (coin_finish(h, round, col + __popc(lm[k] & below)) >> 8) >= c.thr;
+        }
+        if (surv[k]) m = min(m, rk[k]);
+        col += __popc(lm[k]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = min(m, __shfl_xor_sync(kFull, m, o));
+      if (m == kMiss) break;  // no survivor: the row freezes
+      int q = -1;
+#pragma unroll
+      for (int k = P - 1; k >= 0; --k) {
+        const unsigned b = __ballot_sync(kFull, surv[k] && rk[k] == m);
+        if (b) q = 32 * k + __ffs(b) - 1;
+      }
+      // merge at q: z there, its next live slot r leaves; the pairs at q
+      // (z, the slot after r) and at p, the live slot before q, (p, z)
+      const int r = live_after<P>(lm, q), p = live_before<P>(lm, q);
+      const int after = live_after<P>(lm, r);
+      const int32_t z = __ldg(rules_z + m);
+      const int kq = q >> 5, lq = q & 31, kp = p >> 5, lp = p & 31;
+      const int32_t ta = after >= 0 ? __shfl_sync(kFull, pick(tk, after >> 5), after & 31) : kPad;
+      const int32_t tp = p >= 0 ? __shfl_sync(kFull, pick(tk, kp), lp) : kPad;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        if (k == (r >> 5)) {
+          lm[k] &= ~(1u << (r & 31));
+          if (lane == (r & 31)) {
+            tk[k] = kPad;
+            rk[k] = kMiss;
+          }
+        }
+        if (k == kq && lane == lq) tk[k] = z;
+      }
+      // the two lookups on their own lanes, side by side (one after the
+      // other when p and q share a lane)
+      const bool same = p >= 0 && lp == lq;
+      const bool on_q = lane == lq, on_p = p >= 0 && lane == lp && !same;
+      int32_t rr = kMiss, rr2 = kMiss;
+      if (on_q || on_p) rr = on_q ? rank_of(t, z, ta) : rank_of(t, tp, z);
+      if (same && on_q) rr2 = rank_of(t, tp, z);
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        if (on_q && k == kq) rk[k] = rr;
+        if (p >= 0 && lane == lp && k == kp) rk[k] = same ? rr2 : rr;
+      }
+      --n;
+      merges += lane == 0;
+    }
+  }
+  add_work(work, coins, merges, pairs);
+  int col = 0;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int i = 32 * k + lane;
+    if ((lm[k] >> lane) & 1u) out[r0 + col + __popc(lm[k] & below)] = tk[k];
+    col += __popc(lm[k]);
+    if (i >= n && i < L) out[r0 + i] = kPad;
+  }
 }
 
 }  // namespace
@@ -167,13 +311,29 @@ int yttm_encode_dropout(const void *in, void *out, int R, int L, const void *kx,
                         void *work, void *stream) {
   if (R <= 0 || L <= 0 || L > kMaxLen || cap <= 0 || (cap & (cap - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  int threads = ((L + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
   Table t{(const uint32_t *)kx, (const uint32_t *)ky, (const int32_t *)val,
           (uint32_t)(cap - 1), max_probes};
-  encode_dropout_kernel<<<R, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t *)in, (int32_t *)out, L, t, (const int32_t *)rules_z, n_rules, seed_lo,
-      seed_hi, row0, thr, (unsigned long long *)work);
+  const Coins c{seed_lo, seed_hi, row0, thr};
+  cudaStream_t s = (cudaStream_t)stream;
+  const int32_t *x = (const int32_t *)in, *z = (const int32_t *)rules_z;
+  int32_t *y = (int32_t *)out;
+  unsigned long long *w = (unsigned long long *)work;
+  // G lanes a short row, a warp a long one
+  auto grid = [R](int lanes) { return (int)(((long long)R * lanes + kThreads - 1) / kThreads); };
+  if (L <= 8)
+    encode_dropout_short_kernel<8><<<grid(8), kThreads, 0, s>>>(x, y, R, L, t, z, n_rules, c, w);
+  else if (L <= 16)
+    encode_dropout_short_kernel<16><<<grid(16), kThreads, 0, s>>>(x, y, R, L, t, z, n_rules, c, w);
+  else if (L <= 32)
+    encode_dropout_short_kernel<32><<<grid(32), kThreads, 0, s>>>(x, y, R, L, t, z, n_rules, c, w);
+  else if (L <= 64)
+    encode_dropout_long_kernel<2><<<grid(32), kThreads, 0, s>>>(x, y, R, L, t, z, n_rules, c, w);
+  else if (L <= 128)
+    encode_dropout_long_kernel<4><<<grid(32), kThreads, 0, s>>>(x, y, R, L, t, z, n_rules, c, w);
+  else if (L <= 256)
+    encode_dropout_long_kernel<8><<<grid(32), kThreads, 0, s>>>(x, y, R, L, t, z, n_rules, c, w);
+  else
+    encode_dropout_long_kernel<16><<<grid(32), kThreads, 0, s>>>(x, y, R, L, t, z, n_rules, c, w);
   return (int)cudaGetLastError();
 }
 

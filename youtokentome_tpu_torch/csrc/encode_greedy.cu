@@ -26,20 +26,17 @@
 // __syncthreads and a lookup of every pair each round: ~36 us a launch of
 // 8192 rows against a bound of a few us (H100 80GB HBM3, 700 W).  Now:
 //   * rows of up to 32 slots get G = 8, 16 or 32 lanes of a warp, one
-//     position a lane, so 4, 2 or 1 rows a warp.  The row stays in
-//     registers and is never compacted until the store: a merge only marks
-//     its right token dead.  A lane finds its right neighbour as the next
-//     live lane of the group's ballot, takes its token by a shuffle, and
-//     keeps its pair's rank across rounds: it looks the pair up again only
-//     when it merged or its neighbour did (every other pair is unchanged).
-//     The row minimum is a butterfly of shuffles within the group; the run
-//     parity of the hits is a popcount of the live lanes since the last live
-//     non-hit lane; no shared memory, no __syncthreads.  The store writes
-//     each live token to its compacted place and PAD after them;
+//     position a lane, so 4, 2 or 1 rows a warp (greedy_group.cuh
+//     greedy_group: the row stays in registers, a merge only marks its
+//     right token dead, ranks are kept across rounds and looked up again
+//     only where a pair changed, the minimum and the run parity are
+//     shuffles and ballots; no shared memory, no __syncthreads).  The store
+//     writes each live token to its compacted place and PAD after them;
 //   * rows of 33-512 slots get a warp each, up to 16 positions a lane
-//     (chunk k: slots 32k..32k+31), with the scans as warp shuffles carried
-//     across chunks and the compaction through the warp's own shared memory;
-//     ranks move with their tokens and only changed pairs are looked up.
+//     (greedy_group.cuh greedy_warp: the scans as warp shuffles carried
+//     across chunks, the compaction through the warp's own shared memory).
+// stream_encode.cu runs the same two routines on the unique words of a
+// chunk.
 // A probe loads its slot's key halves and rank together (encode_common.cuh
 // lookup), one L2 round trip a probe.  A group with no rule (or no live token, as a
 // PAD filler row) is done after its first pass; the warp runs until all its
@@ -57,7 +54,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "encode_common.cuh"
+#include "greedy_group.cuh"
 
 namespace {
 
@@ -66,8 +63,6 @@ using namespace yttm_enc;
 constexpr int kMaxLen = 512;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int32_t kStale = -2;  // a rank to look up again (ranks are >= 0)
 
 constexpr uint32_t kU16Pad = 0xFFFFu;
 constexpr uint32_t kU16PhTop = 0xFFFEu;
@@ -94,163 +89,41 @@ __device__ __forceinline__ void store_token(void *out, size_t k, int32_t v, int3
   }
 }
 
-// The rank of pair (x, y), kMiss without a rule; PAD and placeholders have
-// none, and are not looked up.
-__device__ __forceinline__ int32_t rank_of(const Table &t, int32_t x, int32_t y) {
-  if (x < 0 || y < 0 || x >= kPlaceholderStart || y >= kPlaceholderStart) return kMiss;
-  return lookup(t, x, y);
-}
-
-// The lane of the first set bit of m above this lane, -1 without one.
-__device__ __forceinline__ int next_lane(unsigned m) {
-  const unsigned up = m & ~((2u << (threadIdx.x & 31)) - 1u);
-  return up ? __ffs(up) - 1 : -1;
-}
-
-// Rows of up to G <= 32 slots, G lanes a row (see the layout note).
+// Rows of up to G <= 32 slots, G lanes a row (greedy_group.cuh).
 template <bool kU16, int G>
 __global__ void __launch_bounds__(kThreads)
     encode_short_kernel(const void *in, void *out, int R, int L, Table t, const int32_t *rules_z,
                         int n_rules, int32_t unk_id) {
   const int lane = threadIdx.x & 31, pos = lane & (G - 1);
-  const unsigned group = G == 32 ? kFull : ((1u << G) - 1u) << (lane - pos);
-  const unsigned below = (1u << lane) - 1u;
   const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
   const bool mine = row < R && pos < L;
   const size_t at = (size_t)row * (size_t)L + (size_t)pos;
   int32_t tok = mine ? load_token<kU16>(in, at) : kPad;
   bool live = tok != kPad;
-  unsigned lm = __ballot_sync(kFull, live) & group;
-  int nl = next_lane(lm);
-  int32_t rk = kMiss;
-  if (n_rules > 0) {
-    int32_t nt = __shfl_sync(kFull, tok, nl < 0 ? lane : nl);
-    if (live && nl >= 0) rk = rank_of(t, tok, nt);
-    for (;;) {
-      int32_t m = rk;
-#pragma unroll
-      for (int o = 1; o < G; o <<= 1) m = min(m, __shfl_xor_sync(kFull, m, o));
-      const bool active = m < kMiss;
-      if (!__any_sync(kFull, active)) break;
-      // hits of rank m at even offsets inside each run of hits: the run
-      // starts after the last live lane below that holds no hit
-      const bool hit = active && rk == m;
-      const unsigned nonhit = lm & ~__ballot_sync(kFull, hit) & below;
-      const int lnh = nonhit ? 31 - __clz(nonhit) : -1;
-      const unsigned since = lnh < 0 ? kFull : ~((2u << lnh) - 1u);
-      const bool sel = hit && (__popc(lm & below & since) & 1) == 0;
-      const unsigned sm = __ballot_sync(kFull, sel) & group;
-      // the right token of a merged pair (the next live lane of a selected
-      // one) leaves; a pair changes when either of its tokens merged
-      const unsigned prev = lm & below;
-      const bool dropped = prev && ((sm >> (31 - __clz(prev))) & 1u);
-      const bool stale = sel || (nl >= 0 && ((sm >> nl) & 1u));
-      if (sel) tok = __ldg(rules_z + m);
-      if (dropped) {
-        live = false;
-        tok = kPad;
-      }
-      lm = __ballot_sync(kFull, live) & group;
-      nl = next_lane(lm);
-      nt = __shfl_sync(kFull, tok, nl < 0 ? lane : nl);
-      if (!live) rk = kMiss;
-      else if (stale) rk = nl >= 0 ? rank_of(t, tok, nt) : kMiss;
-    }
-  }
+  const unsigned lm = greedy_group<G>(tok, live, t, rules_z, n_rules);
   if (!mine) return;
+  const unsigned below = (1u << lane) - 1u;
   if (live) store_token<kU16>(out, (size_t)row * (size_t)L + __popc(lm & below), tok, unk_id);
   if (pos >= __popc(lm)) store_token<kU16>(out, at, kPad, unk_id);
 }
 
-// Token (or rank) of the slot after each lane's in chunk c of a row held as
-// v[P] (chunk c: slots 32c..32c+31): lane 31 takes the next chunk's first,
-// `end` past the row.
-template <int P>
-__device__ __forceinline__ int32_t next_slot(const int32_t (&v)[P], int c, int32_t end) {
-  int32_t head = end;
-  if (c + 1 < P) head = __shfl_sync(kFull, v[c + 1 < P ? c + 1 : c], 0);
-  const int32_t d = __shfl_down_sync(kFull, v[c], 1);
-  return (threadIdx.x & 31) == 31 ? head : d;
-}
-
-// Rows of 33-512 slots, a warp a row, 32 * P slots (see the layout note).
+// Rows of 33-512 slots, a warp a row, 32 * P slots (greedy_group.cuh).
 template <bool kU16, int P>
 __global__ void __launch_bounds__(kThreads)
     encode_long_kernel(const void *in, void *out, int R, int L, Table t, const int32_t *rules_z,
                        int n_rules, int32_t unk_id) {
   __shared__ int32_t buf[kWarps][2][32 * P];  // a warp's compacted tokens and ranks
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
   const long long row = (long long)blockIdx.x * kWarps + w;
   if (row >= R) return;
   const size_t r0 = (size_t)row * (size_t)L;
-  int32_t tk[P], rk[P];
+  int32_t tk[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) {
     const int i = 32 * k + lane;
     tk[k] = i < L ? load_token<kU16>(in, r0 + i) : kPad;
   }
-  if (n_rules > 0) {
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      const int32_t nt = next_slot<P>(tk, k, kPad);
-      rk[k] = rank_of(t, tk[k], nt);
-    }
-    int32_t *stok = buf[w][0], *srk = buf[w][1];
-    for (;;) {
-      int32_t m = rk[0];
-#pragma unroll
-      for (int k = 1; k < P; ++k) m = min(m, rk[k]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = min(m, __shfl_xor_sync(kFull, m, o));
-      if (m == kMiss) break;
-      const int32_t z = __ldg(rules_z + m);
-      // even offsets inside runs of hits: the last non-hit slot at or
-      // before each, carried across chunks
-      unsigned sm[P];
-      int carry = -1;
-#pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const int i = 32 * k + lane;
-        const bool hit = rk[k] == m;
-        int lnh = warp_inclusive_scan(hit ? -1 : i, MaxOp());
-        lnh = lnh > carry ? lnh : carry;
-        carry = __shfl_sync(kFull, lnh, 31);
-        sm[k] = __ballot_sync(kFull, hit && ((i - lnh - 1) & 1) == 0);
-      }
-      // drop the right token of each merged pair, keep the ranks of the
-      // pairs neither of whose tokens merged, compact into the scratch
-      int n = 0;
-#pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const bool sel = (sm[k] >> lane) & 1u;
-        const bool sel_prev = lane ? (sm[k] >> (lane - 1)) & 1u : k > 0 && (sm[k > 0 ? k - 1 : 0] >> 31);
-        const bool sel_next =
-            lane < 31 ? (sm[k] >> (lane + 1)) & 1u : k + 1 < P && (sm[k + 1 < P ? k + 1 : k] & 1u);
-        const bool keep = tk[k] != kPad && !sel_prev;
-        const unsigned km = __ballot_sync(kFull, keep);
-        if (keep) {
-          const int o = n + __popc(km & below);
-          stok[o] = sel ? z : tk[k];
-          srk[o] = sel || sel_next ? kStale : rk[k];
-        }
-        n += __popc(km);
-      }
-      __syncwarp();
-#pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const int i = 32 * k + lane;
-        tk[k] = i < n ? stok[i] : kPad;
-        rk[k] = i < n ? srk[i] : kMiss;
-      }
-      __syncwarp();
-#pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const int32_t nt = next_slot<P>(tk, k, kPad);
-        if (rk[k] == kStale) rk[k] = rank_of(t, tk[k], nt);
-      }
-    }
-  }
+  greedy_warp<P>(tk, buf[w][0], buf[w][1], t, rules_z, n_rules);
 #pragma unroll
   for (int k = 0; k < P; ++k) {
     const int i = 32 * k + lane;

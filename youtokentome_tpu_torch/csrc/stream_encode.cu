@@ -20,21 +20,36 @@
 // the whole stream in rounds, compacting it after each.  Here every
 // compaction is a scan of keep flags (scan.cuh) and a scatter; words are
 // deduplicated in an open-addressing table keyed by (length, h1, h2); each
-// unique word merges to its fixed point in its own slot range, one thread
-// block a word (in shared memory up to 512 tokens, in global memory past
-// that), so no round touches the whole stream.
+// unique word merges to its fixed point in its own slot range, so no round
+// touches the whole stream.
+//
+// The merge runs the greedy encode kernel's routines (greedy_group.cuh) on
+// the words' spans.  The 100 MB main path's words hold 3-15 tokens, so a
+// block a word would leave most of its lanes idle and pay block scans
+// every round.  The words are binned by length on the card, in two
+// kernels.  merge_words_kernel gives a warp two consecutive unique words:
+// both of up to 16 tokens, a 16-lane group each (one position a lane,
+// dead tokens marked and never compacted until the store, ranks kept
+// across rounds); else one after the other on the whole warp.  It skips
+// longer words, so that it needs no shared memory and few registers and
+// runs at a full SM of warps.  merge_long_words_kernel takes the words of
+// 33-512 tokens on the warp routine (up to 16 positions a lane, the
+// compaction through the warp's shared memory) and the rare words past
+// 512 tokens (none on the main path) a block each in global memory
+// (merge_span).  The merge reads the unique stream and writes the merged
+// words into its scratch, so the stream is not copied first.
 //
 // Bound.  Each stage reads its inputs and writes its outputs once: bytes
 // (N + 8 n_tokens for the build; 8 n_tokens + 8 n_unique_tokens + ... for
 // dedup; 4 n_unique_tokens + 4 n_words + 4 n_ids for the merge), against
 // the extra passes its scans make (each scanned array is read twice and
-// written once).  The merge is set by its dependent rounds of block
-// scans, as in encode_greedy.cu.
+// written once).  The merge is set by its dependent rounds (a few
+// shuffles and a lookup where a pair changed), as in encode_greedy.cu.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "encode_common.cuh"
+#include "greedy_group.cuh"
 #include "scan.cuh"
 
 namespace {
@@ -47,9 +62,11 @@ constexpr uint32_t kInvalid = 0x0FFFFFFFu;  // INVALID_UNICODE
 constexpr int32_t kNewline = -2;
 constexpr uint32_t kSpaceToken = 9601;      // U+2581
 constexpr int kEw = 256;                    // threads of an elementwise kernel
-constexpr int kMergeThreads = 128;
-constexpr int kMergeShared = 512;           // longest word merged in shared memory
-constexpr int kMergeBlocks = 2048;          // blocks of the merge's grid-stride loop
+constexpr int kMergeShared = 512;           // longest word merged on a warp
+constexpr int kWordThreads = 256;           // a block of either words kernel
+constexpr int kWordWarps = kWordThreads / 32;
+constexpr int kWordBlocks = 2048;           // blocks of the short words' grid-stride loop
+constexpr int kLongBlocks = 264;            // blocks of the long words' grid-stride loop
 constexpr uint32_t kU16Newline = 0xFFFFu;
 constexpr uint32_t kU16Pad = 0xFFFEu;
 
@@ -343,7 +360,7 @@ __global__ void tokens_out_kernel(const int32_t *t, const int32_t *wid, const in
 // block (_merge_fixed_point's semantics on one word: the least rank, its
 // leftmost non-overlapping occurrences with parity restarting at each run
 // of hits, then compaction).  buf0 holds the word; buf1 and sel are
-// scratch of n slots; all three may be shared or global memory.  Each
+// scratch of n slots, all three in global memory.  Each
 // thread owns a contiguous range of positions.  Returns the merged length;
 // *which says whether the result is in buf0 (0) or buf1 (1).
 __device__ int merge_span(int32_t *buf0, int32_t *buf1, int32_t *sel, int n, const Table &t,
@@ -405,36 +422,125 @@ __device__ int merge_span(int32_t *buf0, int32_t *buf1, int32_t *sel, int n, con
   return n;
 }
 
-// One block a unique word (grid-stride): words up to 512 tokens merge in
-// shared memory, longer ones in global memory (work2, rk: their own slot
-// ranges).  The merged word is left front-packed in its slot range of
-// work, its length in mlen.
-__global__ void __launch_bounds__(kMergeThreads)
-    merge_words_kernel(int32_t *work, int32_t *work2, int32_t *rk, const int32_t *ustart,
+// One lane a position of a word of up to G tokens (u < 0: none on this
+// lane's group); the merged word goes front-packed to its span of work,
+// its length to mlen.
+template <int G>
+__device__ __forceinline__ void merge_short_word(const int32_t *ut, int32_t *work, int32_t *mlen,
+                                                 int u, int s, int len, const Table &t,
+                                                 const int32_t *rules_z, int n_rules) {
+  const int lane = threadIdx.x & 31, pos = lane & (G - 1);
+  const bool mine = u >= 0 && pos < len;
+  int32_t tok = mine ? ut[s + pos] : kPad;
+  bool live = mine;
+  const unsigned lm = greedy_group<G>(tok, live, t, rules_z, n_rules);
+  if (live) work[s + __popc(lm & ((1u << lane) - 1u))] = tok;
+  if (mine && pos == 0) mlen[u] = __popc(lm);
+}
+
+// A word of 33 to 32 * P tokens on the warp (greedy_warp), scratch the
+// warp's stok and srk.
+template <int P>
+__device__ __forceinline__ void merge_warp_word(const int32_t *ut, int32_t *work, int32_t *mlen,
+                                                int u, int s, int len, int32_t *stok,
+                                                int32_t *srk, const Table &t,
+                                                const int32_t *rules_z, int n_rules) {
+  const int lane = threadIdx.x & 31;
+  int32_t tk[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int i = 32 * k + lane;
+    tk[k] = i < len ? ut[s + i] : kPad;
+  }
+  const int n = greedy_warp<P>(tk, stok, srk, t, rules_z, n_rules);
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int i = 32 * k + lane;
+    if (i < n) work[s + i] = tk[k];
+  }
+  if (lane == 0) mlen[u] = n;
+}
+
+// The unique words of up to 32 tokens, read from ut and left merged in
+// their slot ranges of work (greedy_group.cuh).  Each warp takes two
+// consecutive words (grid-stride): both of up to 16 tokens, a 16-lane
+// group each; else one after the other on the whole warp.  Longer words
+// are merge_long_words_kernel's, so this kernel needs no shared memory and
+// few registers, and a full SM of warps hides the lookups' latency.
+__global__ void __launch_bounds__(kWordThreads)
+    merge_words_kernel(const int32_t *ut, int32_t *work, const int32_t *ustart,
                        const int32_t *ulen, const int32_t *n_unique, Table t,
                        const int32_t *rules_z, int n_rules, int32_t *mlen) {
-  __shared__ int32_t sb[2][kMergeShared];
-  __shared__ int32_t ssel[kMergeShared];
-  __shared__ int32_t wbuf[kMergeThreads / 32];
+  const int lane = threadIdx.x & 31;
   const int nu = *n_unique;
-  for (int u = blockIdx.x; u < nu; u += gridDim.x) {
-    const int s = ustart[u];
-    const int len = ulen[u];
-    int n = len, which = 0;
-    if (n_rules > 0 && len > 1) {
-      if (len <= kMergeShared) {
-        for (int i = threadIdx.x; i < len; i += blockDim.x) sb[0][i] = work[s + i];
-        __syncthreads();
-        n = merge_span(sb[0], sb[1], ssel, len, t, rules_z, wbuf, &which);
-        for (int i = threadIdx.x; i < n; i += blockDim.x) work[s + i] = sb[which][i];
-      } else {
-        n = merge_span(work + s, work2 + s, rk + s, len, t, rules_z, wbuf, &which);
-        if (which)
-          for (int i = threadIdx.x; i < n; i += blockDim.x) work[s + i] = work2[s + i];
-      }
+  const int stride = 2 * gridDim.x * kWordWarps;
+  for (int u0 = 2 * (blockIdx.x * kWordWarps + (threadIdx.x >> 5)); u0 < nu; u0 += stride) {
+    const int n_pair = u0 + 1 < nu ? 2 : 1;
+    const int len0 = ulen[u0], len1 = n_pair == 2 ? ulen[u0 + 1] : 0;
+    if (len0 <= 16 && len1 <= 16) {
+      const bool hi = lane >= 16;
+      const int u = hi ? (n_pair == 2 ? u0 + 1 : -1) : u0;
+      merge_short_word<16>(ut, work, mlen, u, u >= 0 ? ustart[u] : 0, hi ? len1 : len0, t,
+                           rules_z, n_rules);
+      continue;
     }
-    if (threadIdx.x == 0) mlen[u] = n;
-    __syncthreads();  // the shared buffers serve the next word
+    for (int j = 0; j < n_pair; ++j) {
+      const int u = u0 + j, len = j ? len1 : len0;
+      if (len <= 32) merge_short_word<32>(ut, work, mlen, u, ustart[u], len, t, rules_z, n_rules);
+    }
+  }
+}
+
+// The unique words of more than 32 tokens.  Each block reads the lengths
+// of its stride of words (grid-stride) and lists its longer ones in shared
+// memory; its warps take the words of 33-512 tokens in turn, each on the
+// warp's routine (greedy_warp, P = 2..16 positions a lane; no
+// __syncthreads in its rounds), then the whole block takes the words past
+// 512 tokens one after the other, in global memory (merge_span over work,
+// work2 and rk: their own slot ranges).  On the main path it finds no
+// such word and only reads the lengths.
+__global__ void __launch_bounds__(kWordThreads)
+    merge_long_words_kernel(const int32_t *ut, int32_t *work, int32_t *work2, int32_t *rk,
+                            const int32_t *ustart, const int32_t *ulen, const int32_t *n_unique,
+                            Table t, const int32_t *rules_z, int n_rules, int32_t *mlen) {
+  __shared__ int32_t buf[kWordWarps][2][kMergeShared];  // a warp's compaction scratch
+  __shared__ int32_t wbuf[kWordWarps];
+  __shared__ int32_t list[kWordThreads];
+  __shared__ int n_list;
+  const int w = threadIdx.x >> 5;
+  int32_t *stok = buf[w][0], *srk = buf[w][1];
+  const int nu = *n_unique;
+  for (int base = blockIdx.x * blockDim.x; base < nu; base += gridDim.x * blockDim.x) {
+    if (threadIdx.x == 0) n_list = 0;
+    __syncthreads();
+    const int u = base + threadIdx.x;
+    if (u < nu && ulen[u] > 32) list[atomicAdd(&n_list, 1)] = u;
+    __syncthreads();
+    const int n_long = n_list;
+    for (int k = w; k < n_long; k += kWordWarps) {
+      const int v = list[k], s = ustart[v], len = ulen[v];
+      if (len <= 64)
+        merge_warp_word<2>(ut, work, mlen, v, s, len, stok, srk, t, rules_z, n_rules);
+      else if (len <= 128)
+        merge_warp_word<4>(ut, work, mlen, v, s, len, stok, srk, t, rules_z, n_rules);
+      else if (len <= 256)
+        merge_warp_word<8>(ut, work, mlen, v, s, len, stok, srk, t, rules_z, n_rules);
+      else if (len <= kMergeShared)
+        merge_warp_word<16>(ut, work, mlen, v, s, len, stok, srk, t, rules_z, n_rules);
+    }
+    for (int k = 0; k < n_long; ++k) {
+      const int v = list[k], s = ustart[v], len = ulen[v];
+      if (len <= kMergeShared) continue;
+      for (int i = threadIdx.x; i < len; i += blockDim.x) work[s + i] = ut[s + i];
+      __syncthreads();
+      int n = len, which = 0;
+      if (n_rules > 0) n = merge_span(work + s, work2 + s, rk + s, len, t, rules_z, wbuf, &which);
+      if (which)
+        for (int i = threadIdx.x; i < n; i += blockDim.x) work[s + i] = work2[s + i];
+      if (threadIdx.x == 0) mlen[v] = n;
+      __syncthreads();
+    }
+    __syncthreads();  // every thread has read n_list before the next stride resets it
   }
 }
 
@@ -586,10 +692,13 @@ int yttm_stream_merge(const void *ut, int m, const void *ustart_, const void *ul
   Table t{(const uint32_t *)kx, (const uint32_t *)ky, (const int32_t *)val, (uint32_t)(cap - 1),
           max_probes};
   const int g = blocks_for(m);
-  CHECK(cudaMemcpyAsync(work, ut, (size_t)m * 4, cudaMemcpyDeviceToDevice, st));
-  merge_words_kernel<<<kMergeBlocks, kMergeThreads, 0, st>>>(
-      work, work2, rk, ustart, ulen, (const int32_t *)n_unique, t, (const int32_t *)rules_z,
-      n_rules, mlen);
+  merge_words_kernel<<<kWordBlocks, kWordThreads, 0, st>>>(
+      (const int32_t *)ut, work, ustart, ulen, (const int32_t *)n_unique, t,
+      (const int32_t *)rules_z, n_rules, mlen);
+  CHECK_LAUNCH();
+  merge_long_words_kernel<<<kLongBlocks, kWordThreads, 0, st>>>(
+      (const int32_t *)ut, work, work2, rk, ustart, ulen, (const int32_t *)n_unique, t,
+      (const int32_t *)rules_z, n_rules, mlen);
   CHECK_LAUNCH();
   occ_len_kernel<<<g, kEw, 0, st>>>(occ_uid, mlen, (const int32_t *)n_words, m, occ_off);
   CHECK_LAUNCH();
