@@ -2972,14 +2972,18 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
 
 
 def compare_tree(work: Path) -> dict:
-    """The numbers this PR's redesigns are held to, for the package of the
-    current directory's tree (run it in the parent's unpacked tree and in
-    the change's, in turns, from one process each, loading this file by its
-    path): ``BPE.train`` twice, split (``train_split``); v5's merge loop
-    three times by the host clock; one profiled v5 loop (device ms and
-    launches of every function: the fold's and the applies' among them) and
-    one profiled v2 loop (the count's).  The corpus is written to ``work``
-    by the first caller and read by the others.  Prints and returns the
+    """The numbers the training kernels' redesigns are held to, for the
+    package of the current directory's tree (run it in the parent's
+    unpacked tree and in the change's, in turns, from one process each,
+    loading this file by its path): ``BPE.train`` twice, split
+    (``train_split``); v5's merge loop three times by the host clock; one
+    profiled v5 loop (device ms and launches of every function: the fold's
+    and the applies' among them) and one profiled v2 loop (the count's);
+    phase 10's sharded v2 loop (4 shards on the card) twice by the host
+    clock, then once traced (each wrapper's device ms and launches: the
+    fold's and the recount's among them), and the sharded v3 loop traced
+    once (its fold's device ms).  The corpus is written to ``work`` by the
+    first caller and read by the others.  Prints and returns the
     numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3037,6 +3041,36 @@ def compare_tree(work: Path) -> dict:
         name: round(sum(ms for k, (ms, _) in {**out["v5_device_fns"], **out["v2_device_fns"]}.items()
                         if any(p in k for p in parts)), 4)
         for name, parts in sums.items()}
+
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+
+    loops = []
+    for _ in range(2):
+        eng = shard_engine(buckets, used0, TRAIN_VOCAB)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, nrec = run_shards(eng, TRAIN_VOCAB, used0)
+        torch.cuda.synchronize()
+        loops.append(time.perf_counter() - t0)
+    out["shard_loop_s"], out["shard_recounts"] = loops, nrec
+    out["shard_rounds"] = int(eng.shards[0].ctl[v2.ROUND])
+    wrappers = {"topk_accept": v2.topk_accept, **{k: getattr(dsk, k) for k in SHARD_KERNELS}}
+    for w in wrappers.values():
+        w.launches = 0
+    with Tracer() as tr:
+        t0 = time.perf_counter()
+        run_shards(shard_engine(buckets, used0, TRAIN_VOCAB), TRAIN_VOCAB, used0)
+        torch.cuda.synchronize()
+        out["shard_traced_s"] = time.perf_counter() - t0
+    out["shard_ms"] = {k: round(v, 4) for k, v in tr.ms(COMPARE_SHARD_FNS).items()}
+    # the fold's and the recount's device functions one by one
+    out["shard_fns"] = tr.ms({f: (f,) for k in ("shard_fold", "shard_recount")
+                              for f in COMPARE_SHARD_FNS[k]})
+    out["shard_launches"] = {k: w.launches for k, w in wrappers.items()}
+    ms, _, _ = traced(lambda: ts.run_to_end(other_engine("sparse", buckets, used0, TRAIN_VOCAB),
+                                            used0, TRAIN_VOCAB),
+                      {"shard_fold": COMPARE_SHARD_FNS["shard_fold"]})
+    out["v3_fold_ms"] = round(ms["shard_fold"], 4)
     print("COMPARE " + json.dumps(out), flush=True)
     return out
 
@@ -4018,6 +4052,7 @@ class Tracer:
         import collections
 
         self.by_name = collections.Counter()
+        self.events = collections.Counter()  # records by name
 
     def _start(self):
         from torch.autograd.profiler import profile
@@ -4032,6 +4067,7 @@ class Tracer:
         for ev in _disable_profiler().events():
             if str(ev.device_type()).endswith("CUDA"):
                 self.by_name[ev.name()] += ev.duration_ns()
+                self.events[ev.name()] += 1
 
     def __enter__(self):
         import torch
@@ -4050,16 +4086,17 @@ class Tracer:
         torch.cuda.synchronize()
         self._stop()
 
-    def ms(self, fns: dict) -> dict:
+    def ms(self, fns: dict, counts: bool = False) -> dict:
         """Device ms of each key of ``fns``, summed over the kernels whose
-        names hold one of its function names."""
+        names hold one of its function names (``counts``: their records
+        instead)."""
         import re
 
         ms = {k: 0.0 for k in fns}
-        for fn_name, ns in self.by_name.items():
+        for fn_name, ns in (self.events if counts else self.by_name).items():
             for k, names in fns.items():
                 if any(re.search(r"(^|[^A-Za-z0-9_])" + f + r"[(<]", fn_name) for f in names):
-                    ms[k] += ns / 1e6
+                    ms[k] += ns if counts else ns / 1e6
         return ms
 
 
@@ -4258,15 +4295,29 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
 SHARDS = 4  # shards of the data mesh, all on card 0
 SHARD_SOURCE = "youtokentome_tpu_torch/csrc/train_delta_sharded.cu"
 SHARD_KERNELS = ("delta_emit", "shard_recount", "shard_fold", "shard_relay")
+# shard_fold's device functions: its two entries, and the round graph's gate
+# that picks between them
+SHARD_FOLD_FNS = ("fold_delta_kernel", "rebuild_copy_kernel", "rebuild_add_kernel",
+                  "rebuild_done_kernel", "round_gate_kernel")
 # the device functions of each wrapper, as the profiler names them
 SHARD_DEVICE_FNS = {
     "topk_accept": ("topk_select_kernel",),
     "delta_emit": ("mark_words_kernel", "emit_words_kernel"),
-    "shard_recount": ("recount_clear_kernel", "recount_kernel"),
-    "shard_fold": ("fold_prep_kernel", "fold_kernel", "fold_done_kernel"),
+    "shard_recount": ("recount_clear_kernel", "pair_count_kernel"),
+    "shard_fold": SHARD_FOLD_FNS,
     "shard_relay": ("relay_len_kernel", "relay_write_kernel", "tile_sums_kernel",
                     "tile_offsets_kernel", "scan_apply_kernel"),
 }
+# the sharded v2 wrappers' device functions in either tree that compare_tree
+# may run: the fold's and the recount's before their redesign too
+COMPARE_SHARD_FNS = {
+    "topk_accept": ("topk_select_kernel",),
+    "delta_emit": ("mark_words_kernel", "emit_words_kernel"),
+    "shard_recount": ("recount_clear_kernel", "recount_kernel", "pair_count_kernel"),
+    "shard_fold": ("fold_prep_kernel", "fold_kernel", "fold_done_kernel") + SHARD_FOLD_FNS,
+}
+
+
 SHARD_REPLACES = {
     "topk_accept": "youtokentome_tpu/parallel/train_delta_sharded.py:81",
     "delta_emit": "youtokentome_tpu/parallel/train_delta_sharded.py:81",
@@ -4444,9 +4495,26 @@ def same_shard(a, b, what: str, buffers: bool = True, stream=("tok",)) -> None:
                   f"{what}: buffer side {side} differs")
 
 
-def shard_round(ks, ps, used0: int, limit: int, what: str) -> bool:
+def shard_plain(k: str):
+    """The plain version of the sharded v2 wrapper ``k``, with the
+    wrapper's arguments (shard_fold's: the replicas of a card, the shards,
+    the branch, each replica through ``shard_fold_plain``)."""
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+
+    if k != "shard_fold":
+        return getattr(dsk, k + "_plain")
+
+    def fold(reps, shards, rebuild=None):
+        for st in reps:
+            dsk.shard_fold_plain(st, shards)
+
+    return fold
+
+
+def shard_round(ks, ps, used0: int, limit: int, what: str, rebuild=None) -> bool:
     """One round through the kernels on ``ks`` and the plain versions on
-    ``ps``, compared after each step; returns whether it recounted."""
+    ``ps``, compared after each step (``rebuild``: shard_fold's argument,
+    None for both entries); returns whether it recounted."""
     from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
     from youtokentome_tpu_torch.ops import train_kernels as tk
 
@@ -4462,9 +4530,16 @@ def shard_round(ks, ps, used0: int, limit: int, what: str) -> bool:
         dsk.shard_recount(a, ks)
         dsk.shard_recount_plain(b, ps)
         same_shard(a, b, f"{what}, shard_recount shard {i}")
-    for i, (a, b) in enumerate(zip(ks, ps)):
-        dsk.shard_fold(a, ks)
+    # every replica of the card in one launch of an entry: the branch picked
+    # on the card (both entries) or by the host (the round's entry)
+    launches = dsk.shard_fold.launches
+    dsk.shard_fold(ks, ks, rebuild)
+    check(ks[0].device.type != "cuda"
+          or dsk.shard_fold.launches - launches == (2 if rebuild is None else 1),
+          f"{what}: shard_fold launched {dsk.shard_fold.launches - launches} entries")
+    for b in ps:
         dsk.shard_fold_plain(b, ps)
+    for i, (a, b) in enumerate(zip(ks, ps)):
         same_shard(a, b, f"{what}, shard_fold replica {i}")
     return recount
 
@@ -4525,11 +4600,15 @@ def phase_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
     for dcap in (MID_DCAP, 1 << 22):
         ks, ps = clone_shards(eng.shards, dcap), clone_shards(eng.shards, dcap)
         for r in range(2):
-            rec = shard_round(ks, ps, used0, used0 + TRAIN_SEG, f"dcap {dcap}, round {r}")
+            # round 0 launches both fold entries, round 1 the branch's alone
+            rebuild = None if r == 0 else dcap == MID_DCAP
+            rec = shard_round(ks, ps, used0, used0 + TRAIN_SEG, f"dcap {dcap}, round {r}",
+                              rebuild)
             branches.setdefault(dcap, []).append("recount" if rec else "delta")
-        log(f"[10] dcap {dcap}: two rounds, delta_emit, shard_recount and shard_fold == plain "
-            f"on every shard ({branches[dcap]}; {[int(a.ctl[dsk.DN_OLD]) for a in ks]} old "
-            f"entries)")
+        log(f"[10] dcap {dcap}: two rounds, delta_emit, shard_recount and shard_fold (all "
+            f"{SHARDS} replicas in one launch an entry; both entries, then the branch's) == "
+            f"plain on every shard ({branches[dcap]}; {[int(a.ctl[dsk.DN_OLD]) for a in ks]} "
+            f"old entries)")
     check(branches[MID_DCAP] == ["recount"] * 2 and branches[1 << 22] == ["delta", "delta"],
           f"the kernel checks did not take both branches: {branches}")
     used = used0
@@ -4542,13 +4621,37 @@ def phase_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
         f"{[int(st.off[-1]) for st in eng.shards]} slots)")
 
 
+def gate_checked(eng, what: str) -> dict:
+    """Wrap ``eng.segment`` (a sharded v2 kernel engine's): on the round
+    graph's route, every segment's recount branch runs, counted on the card,
+    must equal its NREC, and the gate's runs the replays issued.  Returns the
+    sums it keeps: segments, recount rounds (NREC), forced counts."""
+    real = eng.segment
+    sums = {"segments": 0, "nrec": 0}
+
+    def segment(used, limit):
+        out = real(used, limit)
+        if eng.graph:
+            check(eng.seg_rec_runs == eng.nrec and eng.gate_runs == eng.replays,
+                  f"{what}: the recount branch ran {eng.seg_rec_runs} times for NREC {eng.nrec}, "
+                  f"the gate {eng.gate_runs} times in {eng.replays} replays")
+        sums["segments"] += 1
+        sums["nrec"] += eng.nrec
+        return out
+
+    eng.segment = segment
+    return sums
+
+
 def phase_shard_mid(mid_path: Path, dev="cuda:0", ns=(2, 4)) -> dict:
     """The 10 MB prefix at vocab MID_VOCAB with ``ns`` shards on the card: the
-    kernel engine and the plain sharded loop in lockstep, with tiny delta
-    buffers (recount rounds) and small kernel tables (rebuilds):
-    rules, used and done equal at every segment end, and every replica's
-    table equal to the plain loop's live table (the engine checks that its
-    replicas agree); every relay held against its plain version."""
+    kernel engine on its route (the round graph on one card) and the plain
+    sharded loop in lockstep, with tiny delta buffers (recount rounds) and
+    small kernel tables (rebuilds): rules, used and done equal at every
+    segment end, and every replica's table equal to the plain loop's live
+    table (the engine checks that its replicas agree); every segment's
+    recount branch runs (counted on the card) equal to its NREC; every relay
+    held against its plain version."""
     import torch
 
     buckets, _, used0 = training_buckets(mid_path)
@@ -4561,6 +4664,7 @@ def phase_shard_mid(mid_path: Path, dev="cuda:0", ns=(2, 4)) -> dict:
             plain = shard_engine(buckets, used0, MID_VOCAB, n, plain=True, dev=dev)
             with env_set(YTTM_TRAIN_PCAP=str(MID_PCAP)):
                 kern = shard_engine(buckets, used0, MID_VOCAB, n, dev=dev)
+        gate = gate_checked(kern, f"{n} shards")
         used, segs, nrec = used0, 0, 0
         with checked_relay() as rel:
             while used < MID_VOCAB:
@@ -4581,11 +4685,18 @@ def phase_shard_mid(mid_path: Path, dev="cuda:0", ns=(2, 4)) -> dict:
                     break
         check(kern.rebuilds >= 1 and nrec > 0,
               f"{n} shards: {kern.rebuilds} rebuilds, {nrec} recount rounds")
-        out[n] = {"segments": segs, "rebuilds": kern.rebuilds, "recounts": nrec, "relays": rel.n}
-        log(f"[10] 10 MB, vocab {MID_VOCAB}, {n} shards, dcap {MID_DCAP}: kernels == plain sharded "
-            f"loop at all {segs} segment ends (rules, every replica's live table); "
-            f"{kern.rebuilds} rebuilds, {nrec} recount rounds, {rel.n} relays checked, plain "
-            f"pcap {plain.pcap}")
+        check(kern.graph == (torch.device(dev).type == "cuda"), f"{n} shards: graph {kern.graph}")
+        check(not kern.graph or kern.rec_runs == gate["nrec"],
+              f"{n} shards: {kern.rec_runs} recount branch runs on the card for {gate['nrec']} "
+              f"recount rounds")
+        out[n] = {"segments": segs, "rebuilds": kern.rebuilds, "recounts": nrec, "relays": rel.n,
+                  "replays": kern.replays, "graph_builds": kern.graph_builds}
+        log(f"[10] 10 MB, vocab {MID_VOCAB}, {n} shards, dcap {MID_DCAP}: kernels (graph route "
+            f"{kern.graph}: {kern.replays} replays, {kern.graph_builds} graphs built) == plain "
+            f"sharded loop at all {segs} segment ends (rules, every replica's live table); "
+            f"{kern.rebuilds} rebuilds, {nrec} recount rounds, the recount branch {kern.rec_runs} "
+            f"runs on the card == NREC over all {gate['segments']} segments, {rel.n} relays "
+            f"checked, plain pcap {plain.pcap}")
     log(f"[10] 10 MB lockstep, {ns} shards: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -4637,6 +4748,13 @@ def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
         w.launches = 0
     calls = {"sharded": 0, "tiered": 0}
     real_sharded, real_tiered = tr.run_training_delta_sharded, tr.run_training_tiered
+    engines = []
+
+    class Recorded(dsk.ShardedKernelEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.gate = gate_checked(self, "train.train")
+            engines.append(self)
 
     def sharded(*a, **k):
         calls["sharded"] += 1
@@ -4649,7 +4767,8 @@ def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
     model_path = work / "trained30k_sharded.yttm"
     check("YTTM_TRAIN_IMPL" not in os.environ, "YTTM_TRAIN_IMPL is set")
     t0 = time.perf_counter()
-    with swapped(tr, run_training_delta_sharded=sharded, run_training_tiered=tiered):
+    with swapped(tr, run_training_delta_sharded=sharded, run_training_tiered=tiered), swapped(
+            dsk, ShardedKernelEngine=Recorded):
         tr.train(str(corpus_path), str(model_path), TRAIN_VOCAB,
                  BpeConfig(1.0, -1, SpecialTokens(0, 1, 2, 3)), device=dev, mesh=card_mesh(dev=dev))
     train_s = time.perf_counter() - t0
@@ -4658,6 +4777,24 @@ def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
     check(calls == {"sharded": 1, "tiered": 0}, f"auto on a mesh took {calls}")
     for k, n in launches.items():
         check(n > 0, f"the sharded main path did not launch {k}")
+    # the round graph's route: one call a batch of rounds; the recount only
+    # on the exchanges that recount (NREC's rounds, and the forced counts),
+    # the fold one launch a round (an entry for every replica of the card)
+    (te,) = engines
+    on_card = torch.device(dev).type == "cuda"
+    check(te.graph == on_card, f"the main path's route: graph {te.graph}")
+    if on_card:
+        rec = te.gate["nrec"] + te.count_exchanges
+        check(launches["shard_recount"] == rec * SHARDS and te.rec_runs == te.gate["nrec"],
+              f"shard_recount launched {launches['shard_recount']} times for {te.gate['nrec']} "
+              f"recount rounds (the card counted {te.rec_runs}) and {te.count_exchanges} counts")
+        check(launches["shard_fold"] == te.replays + te.count_exchanges
+              and launches["topk_accept"] == te.replays * SHARDS,
+              f"{launches} in {te.replays} replays and {te.count_exchanges} counts")
+    log(f"[10] the main path's route: {te.replays} round graph replays ({te.gate_runs} gate runs "
+        f"on the card) in {te.graph_builds} graphs built ({te.graph_build_s:.3f} s on the host), "
+        f"{te.gate['nrec']} recount rounds, {te.count_exchanges} counts: shard_recount "
+        f"{launches['shard_recount']} launches, shard_fold {launches['shard_fold']}")
     buckets, al, used0 = training_buckets(corpus_path)
     char2id, want = rename_tokens(al.char2id, v2_rules, SpecialTokens(0, 1, 2, 3), TRAIN_VOCAB)
     state = BPEState.load(str(model_path))
@@ -4698,9 +4835,21 @@ def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
         e = shard_engine(buckets, used0, vocab, dev=dev)
         return e, run_shards(e, vocab, used0)[0]
 
-    kernel_ms, prof_s, (p_eng, p_used) = traced(lambda: replica(TRAIN_VOCAB), SHARD_DEVICE_FNS)
+    tracer = Tracer()
+    kernel_ms, prof_s, (p_eng, p_used) = traced(lambda: replica(TRAIN_VOCAB), SHARD_DEVICE_FNS,
+                                                tracer)
     check(torch.equal(p_eng.rules[: p_used - used0, :3].cpu(), want_rules),
           "the profiled run's rules differ")
+    # the records the tracer kept of the round graph's kernels, against their
+    # runs (the gate's and the recount branch's counted on the card)
+    rebuilds = p_eng.rec_runs + p_eng.count_exchanges
+    want_events = {"round_gate_kernel": p_eng.gate_runs,
+                   "fold_delta_kernel": p_eng.gate_runs - p_eng.rec_runs,
+                   "rebuild_add_kernel": rebuilds, "pair_count_kernel": rebuilds * SHARDS,
+                   "topk_select_kernel": p_eng.replays * SHARDS}
+    got_events = tracer.ms({f: (f,) for f in want_events}, counts=True)
+    log(f"[10] the tracer's records of the graph's kernels (records / runs): " + ", ".join(
+        f"{f} {int(got_events[f])} / {n}" for f, n in want_events.items()))
     for k, v in kernel_ms.items():
         check(v > 0, f"the profiler recorded no device time for {k}")
     busy_s = sum(kernel_ms.values()) / 1e3
@@ -4722,8 +4871,9 @@ def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
 
     with swapped(dsk, topk_accept=timed_plain(
             "topk_accept", lambda st, limit, v, u0, kk=16: tk.topk_accept_plain(st, limit, v, u0, kk)),
-            **{k: timed_plain(k, getattr(dsk, k + "_plain")) for k in SHARD_KERNELS}):
+            **{k: timed_plain(k, shard_plain(k)) for k in SHARD_KERNELS}):
         pe = shard_engine(buckets, used0, plain_vocab, dev=dev)
+        pe.graph = False  # the per-call route, which the swapped wrappers serve
         pu, _ = run_shards(pe, plain_vocab, used0)
     check(torch.equal(pe.rules[: pu - used0, :3].cpu(), want_rules[: pu - used0]),
           "the plain versions' rules differ")
@@ -4781,7 +4931,7 @@ OTHER_ROW_NAMES = {
 # the device functions of each wrapper, as the profiler names them
 OTHER_DEVICE_FNS = {
     "topk_accept": ("topk_select_kernel",),
-    "shard_fold": ("fold_prep_kernel", "fold_kernel", "fold_done_kernel"),
+    "shard_fold": SHARD_FOLD_FNS,
     "shard_part_fold": ("part_prep_kernel", "part_fold_kernel"),
     "shard_gather": ("gather_kernel",),
     "sparse_emit": ("mark_live_words_kernel", "emit_live_words_kernel"),
@@ -4866,11 +5016,18 @@ def other_round(name: str, ks, ps, used0: int, limit: int, what: str) -> bool:
         home, fn = other_wrapper(name, k)
         plain = getattr(home, k + "_plain")
         rec = any(int(a.ctl[dsk.DOVF]) for a in ks)
+        if k == "shard_fold":
+            # every replica of the card in one launch of each entry
+            fn(ks, ks)
+            for b in ps:
+                plain(b, ps)
         for i, (a, b) in enumerate(zip(ks, ps)):
-            if k == "topk_accept":
+            if k == "shard_fold":
+                pass
+            elif k == "topk_accept":
                 fn(a, limit, V, used0, kb)
                 plain(b, limit, V, used0, kb)
-            elif k in ("sparse_shard_recount", "shard_fold", "shard_part_fold", "shard_gather"):
+            elif k in ("sparse_shard_recount", "shard_part_fold", "shard_gather"):
                 fn(a, ks)
                 plain(b, ps)
             elif k in ("stream_shard_count", "bucket_shard_count"):
@@ -5073,7 +5230,8 @@ def plain_other(name: str, engine, vocab: int, used0: int):
             return out
         return run
 
-    plain = {k: timed(k, getattr(other_wrapper(name, k)[0], k + "_plain"))
+    plain = {k: timed(k, shard_plain(k) if k == "shard_fold" else
+                      getattr(other_wrapper(name, k)[0], k + "_plain"))
              for k in OTHER_KERNELS[name]}
     mod = ssk if name == "sparse" else rsk  # where the engine finds its wrappers
     own = {k: f for k, f in plain.items() if k != "shard_fold"}
@@ -5365,9 +5523,9 @@ def dist_worker(rank: str, port: str, jobs_path: str, out_path: str) -> int:
             super().regrow()
             self.loop_s += time.perf_counter() - t0
 
-        def _exchange(self, limit):
+        def _exchange(self, limit, recount=None):
             t0 = time.perf_counter()
-            out = super()._exchange(limit)
+            out = super()._exchange(limit, recount)
             self.exchange_s += time.perf_counter() - t0
             return out
 

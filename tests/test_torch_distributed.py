@@ -55,6 +55,24 @@ from youtokentome_tpu_torch.parallel.mesh import DataMesh
 dist.initialize(f"localhost:{port}", num_processes=2, process_id=rank)
 window_min = dsk.WINDOW_MIN
 out = {}
+
+# each exchange of the kernel engine: [recount rounds it folded (NREC's
+# step), calls of the recount's plain version in it]
+exchanges, recount_calls = [], []
+real_recount, real_exchange = dsk.shard_recount_plain, dsk.ProcessShardedEngine._exchange
+
+def counted_recount(st, shards):
+    recount_calls.append(1)
+    return real_recount(st, shards)
+
+def logged_exchange(self, limit, recount=None):
+    n0, c0 = int(self.head.ctl[dsk.NREC]), len(recount_calls)
+    ret = real_exchange(self, limit, recount)
+    exchanges.append([int(self.head.ctl[dsk.NREC]) - n0, len(recount_calls) - c0])
+    return ret
+
+dsk.shard_recount_plain = counted_recount
+dsk.ProcessShardedEngine._exchange = logged_exchange
 for case in json.load(open(cases_path)):
     dsk.WINDOW_MIN = case.get("window_min", window_min)
     local = case["text"][: case["split"]] if rank == 0 else case["text"][case["split"] :]
@@ -64,6 +82,7 @@ for case in json.load(open(cases_path)):
     else:
         os.environ.pop("YTTM_TRAIN_PCAP", None)
     for engine in %(engines)r:
+        exchanges.clear()
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
             state = dist.train_from_codepoints_distributed(
@@ -72,7 +91,7 @@ for case in json.load(open(cases_path)):
                 plain=engine == "plain")
         out[case["name"] + "/" + engine] = {
             "rules": state.rules, "char2id": sorted(state.char2id.items()),
-            "stderr": err.getvalue()}
+            "stderr": err.getvalue(), "exchanges": list(exchanges)}
 out["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "youtokentome_tpu"))
 with open(out_path, "w") as f:
     json.dump(out, f)
@@ -206,6 +225,21 @@ def test_rank_with_a_single_word(runs, engine):
         used = int(m[1])
     assert used == 30
     assert got[1]["stderr"] == ""
+
+
+def test_recount_only_on_recount_exchanges(runs):
+    """The kernel engine's exchanges call the recount (its plain version
+    here) on each of a rank's two shards in the exchanges that fold a
+    recount, and in no other; the overflow case recounts at its start and
+    at each retry."""
+    results, _, cases = runs
+    for name in cases:
+        for rank, r in enumerate(results):
+            ex = r[f"{name}/kernels"]["exchanges"]
+            assert ex and all(calls == 2 * rebuilt and rebuilt in (0, 1) for rebuilt, calls in ex), (
+                name, rank, ex)
+            assert sum(rebuilt for rebuilt, _ in ex) >= (2 if name == "overflow" else 1), (name, ex)
+            assert r[f"{name}/plain"]["exchanges"] == []
 
 
 def test_imports_neither_jax_nor_the_jax_package(runs):

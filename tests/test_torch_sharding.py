@@ -233,6 +233,83 @@ def test_kernel_engine_replicas_agree(corpus, monkeypatch):
     assert kern.relays > 0 and kern.rebuilds > 0
 
 
+FOLD_CASES = ("delta", "rebuild", "rovf", "missing")
+
+
+def _fold_shards(n: int, case: str):
+    """n hand-made CPU shards (dcap 8, tables of 128 slots) whose replicas
+    hold the same count of every shard's stream, with the exchange of one
+    round laid out for ``case``: "delta" buffers with entries of both signs
+    (the last shard's empty), "missing" the same with a subtraction from a
+    key no replica holds, "rebuild" DOVF set on one shard and every
+    shard's stream recounted into its scratch table, "rovf" that with one
+    scratch table's overflow flag set."""
+    rng = np.random.default_rng(10 + n)
+    shards = []
+    for s in range(n):
+        lens = rng.integers(2, 5, size=6)
+        t = rng.integers(4, 10, size=int(lens.sum())).astype(np.int32)
+        wid = np.repeat(np.arange(6, dtype=np.int32), lens)
+        freq = rng.integers(1, 4, size=6).astype(np.int32)
+        rules = np.full((VOCAB, 4), -1, np.int32)
+        shards.append(dsk.ShardState(t, wid, freq, rules, 10, 128, 8, "cpu"))
+    # every replica from every shard's count: the recount branch, forced
+    for st in shards:
+        st.ctl[dsk.DOVF] = 1
+    for st in shards:
+        dsk.shard_recount_plain(st, shards)
+    for st in shards:
+        dsk.shard_fold_plain(st, shards)
+    for st in shards:
+        st.ctl[dsk.DOVF] = st.ctl[dsk.NREC] = 0
+    if case in ("rebuild", "rovf"):
+        shards[n // 2].ctl[dsk.DOVF] = 1
+        for st in shards:
+            dsk.shard_recount_plain(st, shards)
+        if case == "rovf":
+            shards[-1].ctl[dsk.ROVF] = 1
+        return shards
+    keys, cnts = shards[0].table()
+    live = keys[cnts > 1]
+    for s, st in enumerate(shards[:-1]):
+        old = live[rng.choice(live.size, size=min(3, live.size), replace=False)]
+        new = np.array([(20 + s) << 32 | y for y in range(4, 4 + 2 * s + 1)], np.int64)
+        if case == "missing" and s == 0:
+            old = np.append(old, np.int64(60 << 32 | 61))
+        for side, ks, v in ((0, old, -1), (1, new, 2)):
+            st.ctl[dsk.DN_OLD + side] = ks.size
+            st.dk[side * 8 : side * 8 + ks.size] = torch.from_numpy(ks)
+            st.dv[side * 8 : side * 8 + ks.size] = v
+    return shards
+
+
+@pytest.mark.parametrize("case", FOLD_CASES)
+@pytest.mark.parametrize("n", [2, 4])
+def test_fold_entries_match_shard_fold_plain(n, case):
+    """The fold's entries (their plain versions, all of a device's replicas
+    in one call, the branch picked by the shards' flags or given) against
+    ``shard_fold_plain`` replica by replica: the same table multiset, ctl
+    (OCC, NREC, OVERFLOW, ERROR among it) and work."""
+    import copy
+
+    base = _fold_shards(n, case)
+    want = copy.deepcopy(base)
+    for st in want:
+        dsk.shard_fold_plain(st, want)
+    rebuild = case in ("rebuild", "rovf")
+    assert int(want[0].ctl[dsk.NREC]) == int(rebuild)
+    assert int(want[0].ctl[dsk.OVERFLOW]) == (case == "rovf")
+    assert int(want[0].ctl[dsk.ERROR]) == (case == "missing")
+    for route in (None, rebuild):
+        got = copy.deepcopy(base)
+        dsk.shard_fold(got, got, route)
+        for i, (a, b) in enumerate(zip(got, want)):
+            for x, y in zip(a.table(), b.table()):
+                np.testing.assert_array_equal(x, y, err_msg=f"replica {i}, route {route}")
+            assert torch.equal(a.ctl, b.ctl), (i, route, a.ctl.tolist(), b.ctl.tolist())
+            assert torch.equal(a.work, b.work), (i, route)
+
+
 def _state_pair(corpus):
     from youtokentome_tpu.models.state import BPEState as JState
     from youtokentome_tpu.oracle import rename_tokens

@@ -1,0 +1,260 @@
+// The count of every pair of a word-laid stream into an empty table, on
+// Hopper: v2's pair_count (train_delta.cu, into the table: OCC, OVERFLOW)
+// and the sharded v2 trainer's shard_recount (train_delta_sharded.cu, into
+// a shard's scratch table: ROCC, ROVF) run this kernel, templated on the
+// ctl slots it writes.
+//
+// The old design gave each word a warp (add_word: words hold ~8 slots, so
+// ~3/4 of the lanes idled in every step), sent one global atomicAdd a
+// counted pair (the first count puts 8.4 M live tokens on 702 keys:
+// same-address contention) and one on ctl[OCC] a claimed key: 2.38 ms over
+// the v2 run's 4 counts (torch.profiler, H100 80GB HBM3, 700 W), 56x its
+// bound.
+//
+// The count has its own path (the applies and the other trainers' counts
+// keep add_word and table_add):
+//  * the stream is walked flat, not a word a warp: a warp takes a
+//    contiguous run of 128-slot chunks, a lane 4 slots by one 16-byte load
+//    of the tokens and one of pwid; a pair's weight is fw[pwid].  Run parity
+//    (floor(r/2) pairs in a run of r equal tokens) comes from a warp max
+//    scan of the slots that start no equal pair, carried from chunk to
+//    chunk; a warp's first chunk finds its carry by walking back over a run
+//    that crosses into it.  Separators and PAD break pairs (a pair needs two
+//    live tokens, and every word ends with a separator), so no word offset
+//    is read.  (Packing short words over the lanes, as word_apply.cuh does
+//    for the apply, would read each word's offsets and keep lanes idle at
+//    a pack's end; the flat walk keeps every lane on a slot.)
+//  * each block counts into a table of its own in shared memory (2048
+//    slots of key and count): a counted pair takes its key's home slot
+//    when that is free or holds its key (one shared atomic), else it goes
+//    to the global table, the lane's pending pairs of a chunk with their
+//    first probes loaded together.  At the block's end each live shared
+//    slot is added to the global table once: at the first count ~8.4 M
+//    global atomics become about (blocks x 702).  Variants timed on the
+//    100 MB run's four counts while this was designed (H100 80GB HBM3,
+//    700 W): one probe in the shared table beat two and eight (in a nearly
+//    full table the lanes' probe loops diverge), and summing equal keys in
+//    the warp first (__match_any_sync, __reduce_add_sync) cost more than
+//    the shared atomics it saved.  The rebuilds (2.6 x 10^5 - 10^6 keys)
+//    spend most of their time in the global table's atomics, which the
+//    block tables cut only where keys repeat within a block.
+//  * the global slots a block claims are counted once a block on ctl[OCC]
+//    (as the resplit does), not once a claim.  The table's contract holds:
+//    at the end it is exact, or OVF is set (a claim past half the slots,
+//    counted at the block's end, or a full probe sequence) and the host
+//    counts again at twice the size.  An overflow is seen later than a
+//    claim at a time would see it, never missed; a probe still stops every
+//    32 slots once it is seen.
+//  * a grid of one wave, sized by occupancy.
+//  * an optional gate: the shard's count runs only when some shard's
+//    delta buffer overflowed (a slot of a list of ctl arrays), a test
+//    every block makes before its first barrier.
+//
+// Bound: the live tokens (4 B each), the words' weights and offsets, and the
+// filled slots (key and count, 12 B each).
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "train_common.cuh"
+
+namespace yttm {
+
+constexpr int kCountThreads = 256;
+constexpr int kCountSlots = 2048;  // a block's shared table
+
+// table_add in count mode from the first slot h & (cap - 1), but a claim is
+// returned (1), not counted in ctl[OCC]; a full probe sequence sets OVF.
+template <int OVF>
+__device__ int count_put(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
+                         unsigned long long key, int32_t delta, unsigned h) {
+  const unsigned mask = (unsigned)cap - 1u;
+  for (int p = 0; p < cap; ++p) {
+    if ((p & 31) == 31 && __ldcg(ctl + OVF)) return 0;
+    const unsigned s = (h + (unsigned)p) & mask;
+    unsigned long long k = __ldcg(keys + s);
+    if (k == kEmpty) {
+      k = atomicCAS(keys + s, kEmpty, key);
+      if (k == kEmpty) {
+        atomicAdd(cnts + s, delta);
+        return 1;
+      }
+    }
+    if (k == key) {
+      atomicAdd(cnts + s, delta);
+      return 0;
+    }
+  }
+  atomicExch(ctl + OVF, 1);
+  return 0;
+}
+
+// The last slot before p0 that starts no equal pair (-1: none), by the
+// whole warp, 32 slots a step back.
+__device__ inline int last_unequal_before(const int32_t *tok, int p0) {
+  const int lane = threadIdx.x & 31;
+  for (int b = p0 - 32;; b -= 32) {
+    const int i = b + lane;
+    bool ne = false;
+    if (i >= 0) {
+      const int32_t a = tok[i], nb = tok[i + 1];
+      ne = !(a >= 0 && a == nb);
+    }
+    const unsigned m = __ballot_sync(kFullMask, ne);
+    if (m) return b + 31 - __clz(m);
+    if (b <= 0) return -1;
+  }
+}
+
+// Four slots from p (16-byte aligned), pad past n.
+__device__ __forceinline__ void load4(const int32_t *v, int p, int n, int32_t pad,
+                                      int32_t (&out)[4]) {
+  if (p + 3 < n) {
+    const int4 q = __ldg(reinterpret_cast<const int4 *>(v + p));
+    out[0] = q.x;
+    out[1] = q.y;
+    out[2] = q.z;
+    out[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = p + j < n ? __ldg(v + p + j) : pad;
+  }
+}
+
+// Counts every pair of tok / pwid (Mw slots) into keys / cnts, claims in
+// ctl[OCC], a table more than half full in ctl[OVF].  gate: null, or a
+// device array of n_gate ctl pointers, and the count runs only when one of
+// them has slot gate_slot set.
+template <int OCC, int OVF>
+__global__ void __launch_bounds__(kCountThreads)
+    pair_count_kernel(const int32_t *tok, const int32_t *pwid, const int32_t *fw, int Mw,
+                      unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
+                      const int32_t *const *gate, int n_gate, int gate_slot) {
+  if (gate) {  // a lane a ctl, so that the loads are in flight together
+    const int lane = threadIdx.x & 31;
+    bool open = false;
+    for (int b = 0; b < n_gate; b += 32)
+      open |= __any_sync(kFullMask, b + lane < n_gate && __ldcg(gate[b + lane] + gate_slot) != 0);
+    if (!open) return;
+  }
+  __shared__ unsigned long long skey[kCountSlots];
+  __shared__ int32_t scnt[kCountSlots];
+  __shared__ int claimed;
+  for (int s = threadIdx.x; s < kCountSlots; s += blockDim.x) {
+    skey[s] = kEmpty;
+    scnt[s] = 0;
+  }
+  if (threadIdx.x == 0) claimed = 0;
+  __syncthreads();
+  volatile unsigned long long *vkey = skey;
+  const unsigned mask = (unsigned)cap - 1u;
+  const int lane = threadIdx.x & 31;
+  const long long warp = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  const long long n_warps = (gridDim.x * (long long)blockDim.x) >> 5;
+  const long long chunks = (Mw + 127) / 128;
+  const int c0 = (int)(chunks * warp / n_warps), c1 = (int)(chunks * (warp + 1) / n_warps);
+  int claims = 0;  // global slots this lane claimed
+  if (c0 < c1) {
+    int carry = c0 ? last_unequal_before(tok, c0 * 128) : -1;
+    for (int c = c0; c < c1; ++c) {
+      const int p = c * 128 + 4 * lane;
+      int32_t a[4], w[4];
+      load4(tok, p, Mw, kPad, a);
+      load4(pwid, p, Mw, -1, w);
+      int32_t after = __shfl_down_sync(kFullMask, a[0], 1);
+      if (lane == 31) after = c * 128 + 128 < Mw ? __ldg(tok + c * 128 + 128) : kPad;
+      const int32_t nb[4] = {a[1], a[2], a[3], after};
+      bool pv[4], eq[4];
+      int last_ne = -1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pv[j] = a[j] >= 0 && nb[j] >= 0;
+        eq[j] = pv[j] && a[j] == nb[j];
+        if (!eq[j]) last_ne = p + j;
+      }
+      const int incl = warp_max_scan(last_ne);
+      int lne = __shfl_up_sync(kFullMask, incl, 1);
+      if (lane == 0) lne = -1;
+      lne = lne > carry ? lne : carry;
+      const int top = __shfl_sync(kFullMask, incl, 31);
+      carry = top > carry ? top : carry;
+      // the counted pairs into the block's table; the others pending
+      unsigned long long key[4];
+      int32_t f[4];
+      unsigned h[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!eq[j]) lne = p + j;
+        key[j] = kEmpty;
+        if (!(pv[j] && (!eq[j] || ((p + j - lne - 1) & 1) == 0))) continue;
+        key[j] = pair_key(a[j], nb[j]);
+        f[j] = __ldg(fw + w[j]);
+        h[j] = (unsigned)hash64(key[j]);
+        const unsigned s = h[j] & (kCountSlots - 1u);
+        unsigned long long k = vkey[s];
+        if (k == kEmpty) k = atomicCAS(skey + s, kEmpty, key[j]);
+        if (k == kEmpty || k == key[j]) {
+          atomicAdd(scnt + s, f[j]);
+          key[j] = kEmpty;
+        }
+      }
+      // the pending pairs into the global table, first probes loaded together
+      unsigned long long first[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) first[j] = key[j] != kEmpty ? __ldcg(keys + (h[j] & mask)) : kEmpty;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (key[j] == kEmpty) continue;
+        if (first[j] == key[j]) atomicAdd(cnts + (h[j] & mask), f[j]);
+        else claims += count_put<OVF>(keys, cnts, cap, ctl, key[j], f[j], h[j]);
+      }
+    }
+  }
+  __syncthreads();
+  // the block's table into the global one, each key once
+  for (int s = threadIdx.x; s < kCountSlots; s += blockDim.x) {
+    const unsigned long long k = skey[s];
+    if (k != kEmpty) claims += count_put<OVF>(keys, cnts, cap, ctl, k, scnt[s], (unsigned)hash64(k));
+  }
+  claims = __reduce_add_sync(kFullMask, claims);
+  if (lane == 0 && claims) atomicAdd(&claimed, claims);
+  __syncthreads();
+  if (threadIdx.x == 0 && claimed) {
+    const int occ = atomicAdd(ctl + OCC, claimed) + claimed;
+    if (2ll * occ > (long long)cap) atomicExch(ctl + OVF, 1);
+  }
+}
+
+// Blocks of pair_count_kernel for a stream of Mw slots: one wave at most,
+// a warp at least a 128-slot chunk.
+template <int OCC, int OVF>
+int count_grid(int Mw) {
+  static int wave = 0;
+  if (!wave) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pair_count_kernel<OCC, OVF>,
+                                                  kCountThreads, 0);
+    wave = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long need = ((Mw + 127) / 128 + kCountThreads / 32 - 1) / (kCountThreads / 32);
+  return (int)(need < 1 ? 1 : (need < wave ? need : wave));
+}
+
+// The count's launch; tok and pwid 16-byte aligned, the table empty and
+// ctl[OCC] = ctl[OVF] = 0 (set by the caller, or, behind a gate, by a
+// launch before it).
+template <int OCC, int OVF>
+cudaError_t launch_pair_count(const int32_t *tok, const int32_t *pwid, const int32_t *fw, int Mw,
+                              unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
+                              const int32_t *const *gate, int n_gate, int gate_slot,
+                              cudaStream_t s) {
+  pair_count_kernel<OCC, OVF><<<count_grid<OCC, OVF>(Mw), kCountThreads, 0, s>>>(
+      tok, pwid, fw, Mw, keys, cnts, cap, ctl, gate, n_gate, gate_slot);
+  return cudaGetLastError();
+}
+
+}  // namespace yttm

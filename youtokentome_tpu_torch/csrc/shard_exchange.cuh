@@ -46,6 +46,17 @@ __device__ __forceinline__ bool any_flag(const int32_t *const *ctls, int n, int 
   return any;
 }
 
+// any_flag by a warp, lane s reading shard s's slot (32 shards a step), so
+// that the n pointer loads and n flag loads are in flight together, not one
+// after another.  Called by all 32 lanes; every lane gets the answer.
+__device__ __forceinline__ bool warp_any_flag(const int32_t *const *ctls, int n, int slot) {
+  const int lane = threadIdx.x & 31;
+  bool any = false;
+  for (int b = 0; b < n; b += 32)
+    any |= __any_sync(0xFFFFFFFFu, b + lane < n && __ldcg(ctls[b + lane] + slot) != 0);
+  return any;
+}
+
 // Warp-aggregated append of (key, val) for the lanes with pred to one side
 // of the buffer (side DN_OLD at [0, dcap), DN_NEW at [dcap, 2*dcap)); the
 // side's count may pass dcap, which sets DOVF.  Called by all 32 lanes.

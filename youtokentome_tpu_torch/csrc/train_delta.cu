@@ -83,6 +83,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "pair_count.cuh"
 #include "scan.cuh"
 #include "train_common.cuh"
 #include "word_apply.cuh"
@@ -111,217 +112,9 @@ __device__ __forceinline__ void add_word(const int32_t *tok, int n, int32_t delt
 //
 // The count of every pair of the stream into an empty table: at the start
 // and at each rebuild after an overflow (4 launches at the 100 MB point).
-// The old design gave each word a warp (add_word: words hold ~8 slots, so
-// ~3/4 of the lanes idled in every step), sent one global atomicAdd a
-// counted pair (the first count puts 8.4 M live tokens on 702 keys:
-// same-address contention) and one on ctl[OCC] a claimed key: 2.38 ms over
-// the run (torch.profiler, H100 80GB HBM3, 700 W), 56x its bound.
-//
-// The count has its own path now (the applies and the other trainers' counts
-// keep add_word and table_add):
-//  * the stream is walked flat, not a word a warp: a warp takes a
-//    contiguous run of 128-slot chunks, a lane 4 slots by one 16-byte load
-//    of the tokens and one of pwid; a pair's weight is fw[pwid].  Run parity
-//    (floor(r/2) pairs in a run of r equal tokens) comes from a warp max
-//    scan of the slots that start no equal pair, carried from chunk to
-//    chunk; a warp's first chunk finds its carry by walking back over a run
-//    that crosses into it.  Separators and PAD break pairs (a pair needs two
-//    live tokens, and every word ends with a separator), so no word offset
-//    is read.  (Packing short words over the lanes, as word_apply.cuh does
-//    for the apply, would read each word's offsets and keep lanes idle at
-//    a pack's end; the flat walk keeps every lane on a slot.)
-//  * each block counts into a table of its own in shared memory (2048
-//    slots of key and count): a counted pair takes its key's home slot
-//    when that is free or holds its key (one shared atomic), else it goes
-//    to the global table, the lane's pending pairs of a chunk with their
-//    first probes loaded together.  At the block's end each live shared
-//    slot is added to the global table once: at the first count ~8.4 M
-//    global atomics become about (blocks x 702).  Variants timed on the
-//    100 MB run's four counts while this was designed (H100 80GB HBM3,
-//    700 W): one probe in the shared table beat two and eight (in a nearly
-//    full table the lanes' probe loops diverge), and summing equal keys in
-//    the warp first (__match_any_sync, __reduce_add_sync) cost more than
-//    the shared atomics it saved.  The rebuilds (2.6 x 10^5 - 10^6 keys)
-//    spend most of their time in the global table's atomics, which the
-//    block tables cut only where keys repeat within a block.
-//  * the global slots a block claims are counted once a block on ctl[OCC]
-//    (as the resplit does), not once a claim.  The table's contract holds:
-//    at the end it is exact, or OVERFLOW is set (a claim past half the
-//    slots, counted at the block's end, or a full probe sequence) and the
-//    host counts again at twice the size.  An overflow is seen later than a
-//    claim at a time would see it, never missed; a probe still stops every
-//    32 slots once it is seen.
-//  * a grid of one wave, sized by occupancy.
-//
-// Bound: the live tokens (4 B each), the words' weights and offsets, and the
-// filled slots (key and count, 12 B each).
-
-constexpr int kCountThreads = 256;
-constexpr int kCountSlots = 2048;  // a block's shared table
-
-// table_add in count mode from the first slot h & (cap - 1), but a claim is
-// returned (1), not counted in ctl[OCC]; a full probe sequence sets
-// OVERFLOW.
-__device__ int count_put(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
-                         unsigned long long key, int32_t delta, unsigned h) {
-  const unsigned mask = (unsigned)cap - 1u;
-  for (int p = 0; p < cap; ++p) {
-    if ((p & 31) == 31 && __ldcg(ctl + OVERFLOW)) return 0;
-    const unsigned s = (h + (unsigned)p) & mask;
-    unsigned long long k = __ldcg(keys + s);
-    if (k == kEmpty) {
-      k = atomicCAS(keys + s, kEmpty, key);
-      if (k == kEmpty) {
-        atomicAdd(cnts + s, delta);
-        return 1;
-      }
-    }
-    if (k == key) {
-      atomicAdd(cnts + s, delta);
-      return 0;
-    }
-  }
-  atomicExch(ctl + OVERFLOW, 1);
-  return 0;
-}
-
-// The last slot before p0 that starts no equal pair (-1: none), by the
-// whole warp, 32 slots a step back.
-__device__ int last_unequal_before(const int32_t *tok, int p0) {
-  const int lane = threadIdx.x & 31;
-  for (int b = p0 - 32;; b -= 32) {
-    const int i = b + lane;
-    bool ne = false;
-    if (i >= 0) {
-      const int32_t a = tok[i], nb = tok[i + 1];
-      ne = !(a >= 0 && a == nb);
-    }
-    const unsigned m = __ballot_sync(kFullMask, ne);
-    if (m) return b + 31 - __clz(m);
-    if (b <= 0) return -1;
-  }
-}
-
-// Four slots from p (16-byte aligned), pad past n.
-__device__ __forceinline__ void load4(const int32_t *v, int p, int n, int32_t pad,
-                                      int32_t (&out)[4]) {
-  if (p + 3 < n) {
-    const int4 q = __ldg(reinterpret_cast<const int4 *>(v + p));
-    out[0] = q.x;
-    out[1] = q.y;
-    out[2] = q.z;
-    out[3] = q.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[j] = p + j < n ? __ldg(v + p + j) : pad;
-  }
-}
-
-__global__ void __launch_bounds__(kCountThreads)
-    pair_count_kernel(const int32_t *tok, const int32_t *pwid, const int32_t *fw, int Mw,
-                      unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl) {
-  __shared__ unsigned long long skey[kCountSlots];
-  __shared__ int32_t scnt[kCountSlots];
-  __shared__ int claimed;
-  for (int s = threadIdx.x; s < kCountSlots; s += blockDim.x) {
-    skey[s] = kEmpty;
-    scnt[s] = 0;
-  }
-  if (threadIdx.x == 0) claimed = 0;
-  __syncthreads();
-  volatile unsigned long long *vkey = skey;
-  const unsigned mask = (unsigned)cap - 1u;
-  const int lane = threadIdx.x & 31;
-  const long long warp = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-  const long long n_warps = (gridDim.x * (long long)blockDim.x) >> 5;
-  const long long chunks = (Mw + 127) / 128;
-  const int c0 = (int)(chunks * warp / n_warps), c1 = (int)(chunks * (warp + 1) / n_warps);
-  int claims = 0;  // global slots this lane claimed
-  if (c0 < c1) {
-    int carry = c0 ? last_unequal_before(tok, c0 * 128) : -1;
-    for (int c = c0; c < c1; ++c) {
-      const int p = c * 128 + 4 * lane;
-      int32_t a[4], w[4];
-      load4(tok, p, Mw, kPad, a);
-      load4(pwid, p, Mw, -1, w);
-      int32_t after = __shfl_down_sync(kFullMask, a[0], 1);
-      if (lane == 31) after = c * 128 + 128 < Mw ? __ldg(tok + c * 128 + 128) : kPad;
-      const int32_t nb[4] = {a[1], a[2], a[3], after};
-      bool pv[4], eq[4];
-      int last_ne = -1;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        pv[j] = a[j] >= 0 && nb[j] >= 0;
-        eq[j] = pv[j] && a[j] == nb[j];
-        if (!eq[j]) last_ne = p + j;
-      }
-      const int incl = warp_max_scan(last_ne);
-      int lne = __shfl_up_sync(kFullMask, incl, 1);
-      if (lane == 0) lne = -1;
-      lne = lne > carry ? lne : carry;
-      const int top = __shfl_sync(kFullMask, incl, 31);
-      carry = top > carry ? top : carry;
-      // the counted pairs into the block's table; the others pending
-      unsigned long long key[4];
-      int32_t f[4];
-      unsigned h[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (!eq[j]) lne = p + j;
-        key[j] = kEmpty;
-        if (!(pv[j] && (!eq[j] || ((p + j - lne - 1) & 1) == 0))) continue;
-        key[j] = pair_key(a[j], nb[j]);
-        f[j] = __ldg(fw + w[j]);
-        h[j] = (unsigned)hash64(key[j]);
-        const unsigned s = h[j] & (kCountSlots - 1u);
-        unsigned long long k = vkey[s];
-        if (k == kEmpty) k = atomicCAS(skey + s, kEmpty, key[j]);
-        if (k == kEmpty || k == key[j]) {
-          atomicAdd(scnt + s, f[j]);
-          key[j] = kEmpty;
-        }
-      }
-      // the pending pairs into the global table, first probes loaded together
-      unsigned long long first[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) first[j] = key[j] != kEmpty ? __ldcg(keys + (h[j] & mask)) : kEmpty;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (key[j] == kEmpty) continue;
-        if (first[j] == key[j]) atomicAdd(cnts + (h[j] & mask), f[j]);
-        else claims += count_put(keys, cnts, cap, ctl, key[j], f[j], h[j]);
-      }
-    }
-  }
-  __syncthreads();
-  // the block's table into the global one, each key once
-  for (int s = threadIdx.x; s < kCountSlots; s += blockDim.x) {
-    const unsigned long long k = skey[s];
-    if (k != kEmpty) claims += count_put(keys, cnts, cap, ctl, k, scnt[s], (unsigned)hash64(k));
-  }
-  claims = __reduce_add_sync(kFullMask, claims);
-  if (lane == 0 && claims) atomicAdd(&claimed, claims);
-  __syncthreads();
-  if (threadIdx.x == 0 && claimed) {
-    const int occ = atomicAdd(ctl + OCC, claimed) + claimed;
-    if (2ll * occ > (long long)cap) atomicExch(ctl + OVERFLOW, 1);
-  }
-}
-
-// Blocks of pair_count_kernel for a stream of Mw slots: one wave at most,
-// a warp at least a 128-slot chunk.
-int count_grid(int Mw) {
-  static int wave = 0;
-  if (!wave) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pair_count_kernel, kCountThreads, 0);
-    wave = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  const long long need = ((Mw + 127) / 128 + kCountThreads / 32 - 1) / (kCountThreads / 32);
-  return (int)(need < 1 ? 1 : (need < wave ? need : wave));
-}
+// The kernel (a flat walk of the stream, a table of each block's own in
+// shared memory, claims counted once a block) is pair_count.cuh's, which
+// the sharded trainer's shard_recount runs too.
 
 // -- apply -------------------------------------------------------------------
 
@@ -524,10 +317,10 @@ int yttm_train_pair_count(const void *tok, const void *pwid, const void *fw, int
   if (Mw <= 0 || cap <= 0 || (cap & (cap - 1)) != 0 || ((uintptr_t)tok & 15u) ||
       ((uintptr_t)pwid & 15u))
     return (int)cudaErrorInvalidValue;
-  pair_count_kernel<<<count_grid(Mw), kCountThreads, 0, (cudaStream_t)stream>>>(
+  return (int)launch_pair_count<OCC, OVERFLOW>(
       (const int32_t *)tok, (const int32_t *)pwid, (const int32_t *)fw, Mw,
-      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl);
-  return (int)cudaGetLastError();
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, nullptr, 0, 0,
+      (cudaStream_t)stream);
 }
 
 // One round's merge of the accepted candidates with the table's deltas; tok

@@ -24,8 +24,9 @@
 // the same entries, so they hold the same keys and counts, take the same
 // candidates and keep the same ctl slots USED .. ERROR.
 //
-// Kernels (one C entry each; a round is topk_accept, delta_emit and
-// shard_recount on every shard, then shard_fold on every replica):
+// Kernels (one C entry each; a round is topk_accept and delta_emit on every
+// shard, then the exchange: shard_recount on every shard and fold_rebuild
+// when some shard's buffer overflowed, else fold_delta):
 //   delta_emit     apply_delta (word_apply.cuh) with one change: a listed
 //                  word's old (-f) and new (+f) counted-pair contributions
 //                  go to the shard's buffer through a warp-aggregated atomic
@@ -36,17 +37,19 @@
 //                  the counts equal JAX's _delta_contributions.
 //   shard_recount  no-op unless some shard's DOVF is set (the JAX pmax):
 //                  clears the shard's scratch table and counts the shard's
-//                  stream into it (pair_count's add_word).
-//   shard_fold     reads every shard's DOVF.  None set (the delta branch):
-//                  adds every shard's buffer entries into the replica (a
-//                  subtraction from a missing key sets ERROR; inserts that
-//                  fill more than half the table set OVERFLOW, as in the
-//                  one-device engine).  Some set (the recount branch): copies
-//                  its own shard's scratch table into the replica (same
-//                  capacity and hash: a copy, not a rebuild) and adds the
-//                  other N-1 scratch tables into it, so it holds exactly the
-//                  live keys; a scratch table that overflowed sets OVERFLOW
-//                  (the host counts again into tables twice the size).
+//                  stream into it (pair_count.cuh, v2's count).
+//   shard_fold     two entries, each one launch for every replica of a card
+//                  (its section below).  fold_delta, unless some DOVF is
+//                  set: adds every shard's buffer entries into each replica
+//                  (a subtraction from a missing key sets ERROR; inserts
+//                  that fill more than half the table set OVERFLOW, as in
+//                  the one-device engine).  fold_rebuild, only when some
+//                  DOVF is set: copies each replica's own shard's scratch
+//                  table in (same capacity and hash: a copy, not a rebuild)
+//                  and adds the other N-1 scratch tables into it, so it
+//                  holds exactly the live keys; a scratch table that
+//                  overflowed sets OVERFLOW (the host counts again into
+//                  tables twice the size).
 //   shard_part_fold, shard_gather
 //                  the fold of the engines that recount every round (v1 and
 //                  v0, recount_sharded_kernels.py), a reduce-scatter and an
@@ -69,11 +72,16 @@
 //                  front-compacted stream there, which has no counterpart in
 //                  a word-laid stream.
 //
-// The exchange: shard_recount and shard_fold take device arrays of the
+// The exchange: shard_recount and the fold take device arrays of the
 // shards' pointers (ctl, buffers, scratch tables).  On one card every shard
 // is on the same device and stream, so the launches' order orders the
-// exchange.  Shards on distinct cards need peer access (the engine enables
-// it or raises) and CUDA events between the steps (the engine records them).
+// exchange, and the round is a CUDA graph (its section below) whose gate
+// picks the branch on the card.  The per-call entries serve the engines
+// that launch a round from the host: across processes (the host knows the
+// branch and launches only its entry), the sharded v3 engine (both entries
+// each round, each deciding on the card) and shards on distinct cards,
+// which need peer access (the engine enables it or raises) and CUDA events
+// between the steps (the engine records them).
 //
 // Bound.  A round's emit reads the shard's stream once (4 B a slot) and
 // reads and writes the listed words (8 B a slot) and writes its buffer
@@ -83,13 +91,18 @@
 // (12 B a pair), and writes every replica's live entries (12 B each): the
 // slots that hold no pair are not work the function needs.  The kernels add
 // these bytes to work[W_EMIT], work[W_COUNT] and work[W_FOLD].  What the design
-// does about it: the host reads shard 0's ctl once per batch of rounds (the
-// branch is picked on the card), and the exchange moves the bounded buffers,
-// not tables, in every round without a buffer overflow.
+// does about it: the host replays the round graph a batch of rounds at a
+// time and reads shard 0's ctl once a batch (the branch is picked on the
+// card); the exchange moves the bounded buffers, not tables, in every round
+// without a buffer overflow; and the launches of a round are sized to its
+// work (the delta fold's grid to the card, the recount only on rounds that
+// recount).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <vector>
 
+#include "pair_count.cuh"
 #include "scan.cuh"
 #include "shard_exchange.cuh"
 #include "train_common.cuh"
@@ -136,10 +149,13 @@ __global__ void __launch_bounds__(256)
 
 // -- recount -----------------------------------------------------------------
 
+// Opens a recount: the shard's scratch table emptied, ROCC and ROVF zeroed
+// and the count's reads added to work; a no-op unless some shard's DOVF is
+// set.  One wave of blocks striding over the table.
 __global__ void __launch_bounds__(256)
     recount_clear_kernel(unsigned long long *rkeys, int32_t *rcnts, int cap, int32_t *ctl,
                          const int32_t *const *ctls, int n_sh, int Mw, int W, long long *work) {
-  if (!any_flag(ctls, n_sh, DOVF)) return;
+  if (!warp_any_flag(ctls, n_sh, DOVF)) return;
   for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < cap; s += gridDim.x * blockDim.x) {
     rkeys[s] = kEmpty;
     rcnts[s] = 0;
@@ -148,91 +164,195 @@ __global__ void __launch_bounds__(256)
     ctl[ROCC] = 0;
     ctl[ROVF] = 0;
     // the stream with its offsets and weights read once (the live pairs
-    // written are added by shard_fold, which reads ROCC)
+    // written are added by the rebuild fold, which reads ROCC)
     work[W_COUNT] += 4ll * Mw + 8ll * W;
   }
 }
 
-__global__ void __launch_bounds__(256)
-    recount_kernel(const int32_t *tok, const int32_t *off, const int32_t *fw, int W,
-                   unsigned long long *rkeys, int32_t *rcnts, int cap, int32_t *ctl,
-                   const int32_t *const *ctls, int n_sh) {
-  if (!any_flag(ctls, n_sh, DOVF)) return;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int n_warps = (gridDim.x * blockDim.x) >> 5;
-  for (int w = warp; w < W; w += n_warps) {
-    const int base = off[w];
-    add_word<ROCC, ROVF, ERROR>(tok + base, off[w + 1] - 1 - base, fw[w], kCount, rkeys, rcnts,
-                                cap, ctl);
-  }
-}
-
 // -- fold --------------------------------------------------------------------
+//
+// The fold's two entries take every replica of one card in one launch (a
+// device array of Replica, below).  The old fold launched three kernels a
+// replica a round, each sized to the table's capacity (a 2^22-slot table at
+// the 100 MB point): on a delta round ~1,000 blocks read every
+// shard's ctl and returned, one thread summed the counts, and 2 * n * dcap
+// thread slots tested their index against the round's ~2,700 entries a
+// shard: 13.8 us a call against a bound of 54 ns (H100 80GB HBM3, 700 W).
+//  * fold_delta: a grid of one wave, sized by occupancy.  Each block reads
+//    the 2n counts (DN_OLD, DN_NEW, clamped to dcap) once, a lane a shard,
+//    and forms their prefix in shared memory; a thread takes (entry,
+//    replica) pairs, entry-major so that the lanes on one entry share its
+//    load, and adds it with table_add.  The branch flag (DOVF anywhere:
+//    return at once) and the work counter are read and kept in the same
+//    launch.  What is left is the launch's chain of dependent loads (the
+//    shards' ctl pointers, their counts, an entry, its table slot, the
+//    atomic), ~9 us a round on average over the 100 MB run (H100 80GB HBM3,
+//    700 W): two blocks an SM and one wave timed the same, and summing a
+//    block's share of the entries by key in shared memory first (they
+//    repeat their keys) was slower (48.8 ms against 31.0), its flush
+//    serialising a thread's global updates.
+//  * fold_rebuild: the recount branch, three launches, each a no-op unless
+//    some DOVF is set: every replica's own scratch table copied in (same
+//    capacity and hash: a copy, not a rebuild), then every scratch table's
+//    live entries added into every other replica (a slot read once a card),
+//    then the replicas' written entries added to work.
 
-__global__ void __launch_bounds__(256)
-    fold_prep_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
-                     const int32_t *const *ctls, int n_sh, int dcap,
-                     const unsigned long long *own_keys, const int32_t *own_cnts,
-                     long long *work) {
-  if (!any_flag(ctls, n_sh, DOVF)) {
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
-      long long n = 0;
-      for (int s = 0; s < n_sh; ++s)
-        n += min(__ldcg(ctls[s] + DN_OLD), dcap) + min(__ldcg(ctls[s] + DN_NEW), dcap);
-      work[W_FOLD] += 24 * n;  // each entry read, and a table slot updated
-    }
-    return;
-  }
-  // the shard's own scratch table, counted into a table of the replica's
-  // capacity and hash, is the replica's first part as it lies
-  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < cap; s += gridDim.x * blockDim.x) {
-    keys[s] = own_keys[s];
-    cnts[s] = own_cnts[s];
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    ctl[OCC] = ctl[ROCC];
-    ctl[NREC] += 1;
-    if (any_flag(ctls, n_sh, ROVF)) ctl[OVERFLOW] = 1;
-    // the shard's count wrote its live pairs; the fold reads them once
-    // (fold_done adds the replica's entries written)
-    work[W_COUNT] += 12ll * ctl[ROCC];
-    work[W_FOLD] += 12ll * ctl[ROCC];
-  }
+// A replica on the fold's card, as the host lays it out: 7 int64.
+struct Replica {
+  unsigned long long *keys;
+  int32_t *cnts;
+  int32_t *ctl;
+  long long *work;
+  const unsigned long long *own_keys;  // its shard's scratch table
+  const int32_t *own_cnts;
+  long long self;  // its shard's index
+};
+static_assert(sizeof(Replica) == 7 * 8, "the host lays a replica out as 7 int64");
+
+constexpr int kMaxShards = 64;  // shards of a mesh (the fold's shared prefix)
+
+__device__ __forceinline__ void load_replicas(Replica *sr, const Replica *reps, int n_rep) {
+  for (int r = threadIdx.x; r < n_rep; r += blockDim.x) sr[r] = reps[r];
 }
 
-// The recount branch's last step: the replica's live entries written.
-__global__ void fold_done_kernel(const int32_t *ctl, const int32_t *const *ctls, int n_sh,
-                                 long long *work) {
-  if (any_flag(ctls, n_sh, DOVF)) work[W_FOLD] += 12ll * ctl[OCC];
-}
-
 __global__ void __launch_bounds__(256)
-    fold_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
-                const int32_t *const *ctls, const unsigned long long *const *dks,
-                const int32_t *const *dvs, int dcap, const unsigned long long *const *rkeys,
-                const int32_t *const *rcnts, int n_sh, int self) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (any_flag(ctls, n_sh, DOVF)) {
-    for (int s = 0; s < n_sh; ++s) {
-      if (s == self) continue;  // copied by fold_prep
-      for (long long j = i0; j < cap; j += stride) {
-        const unsigned long long k = rkeys[s][j];
-        const int32_t c = rcnts[s][j];
-        if (k != kEmpty && c > 0)
-          table_add<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, k, c, kAdd);
+    fold_delta_kernel(const Replica *reps, int n_rep, int cap, const int32_t *const *ctls,
+                      const unsigned long long *const *dks, const int32_t *const *dvs, int dcap,
+                      int n_sh) {
+  __shared__ int pre[2 * kMaxShards + 1];  // each (shard, side)'s first entry
+  __shared__ bool recount;
+  __shared__ Replica sr[kMaxShards];
+  __shared__ const unsigned long long *sdk[kMaxShards];
+  __shared__ const int32_t *sdv[kMaxShards];
+  if (threadIdx.x < 32) {  // a lane a shard: its loads in flight together
+    const int lane = threadIdx.x;
+    int carry = 0;
+    bool any = false;
+    for (int b = 0; b < n_sh; b += 32) {
+      const int s = b + lane;
+      int o = 0, w = 0;
+      bool f = false;
+      if (s < n_sh) {
+        const int32_t *c = ctls[s];
+        o = min(__ldcg(c + DN_OLD), dcap);
+        w = min(__ldcg(c + DN_NEW), dcap);
+        f = __ldcg(c + DOVF) != 0;
+        sdk[s] = dks[s];
+        sdv[s] = dvs[s];
       }
+      int incl = o + w;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(kFullMask, incl, d);
+        if (lane >= d) incl += u;
+      }
+      if (s < n_sh) {
+        pre[2 * s] = carry + incl - o - w;
+        pre[2 * s + 1] = carry + incl - w;
+      }
+      carry += __shfl_sync(kFullMask, incl, 31);
+      any |= __any_sync(kFullMask, f);
     }
-    return;
+    if (lane == 0) {
+      pre[2 * n_sh] = carry;
+      recount = any;
+    }
   }
-  for (long long i = i0; i < 2ll * n_sh * dcap; i += stride) {
-    const int s = (int)(i / (2 * dcap)), j = (int)(i % (2 * dcap));
-    const int side = j >= dcap;
-    const int n = min(__ldcg(ctls[s] + (side ? DN_NEW : DN_OLD)), dcap);
-    if (j - side * dcap >= n) continue;
-    const int32_t v = dvs[s][j];
-    table_add<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, dks[s][j], v, v < 0 ? kSub : kAdd);
+  load_replicas(sr, reps, n_rep);
+  __syncthreads();
+  if (recount) return;
+  const int total = pre[2 * n_sh];
+  if (blockIdx.x == 0)
+    for (int r = threadIdx.x; r < n_rep; r += blockDim.x)
+      sr[r].work[W_FOLD] += 24ll * total;  // each entry read, and a table slot updated
+  const long long items = (long long)total * n_rep;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < items;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int e = (int)(i / n_rep), r = (int)(i % n_rep);
+    int lo = 0, hi = 2 * n_sh - 1;  // the last (shard, side) starting at or before e
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (pre[mid] <= e) lo = mid;
+      else hi = mid - 1;
+    }
+    const int s = lo >> 1, at = (lo & 1) * dcap + e - pre[lo];
+    const int32_t v = sdv[s][at];
+    table_add<OCC, OVERFLOW, ERROR>(sr[r].keys, sr[r].cnts, cap, sr[r].ctl, sdk[s][at], v,
+                                    v < 0 ? kSub : kAdd);
   }
+}
+
+__global__ void __launch_bounds__(256)
+    rebuild_copy_kernel(const Replica *reps, int n_rep, int cap, const int32_t *const *ctls,
+                        int n_sh) {
+  if (!warp_any_flag(ctls, n_sh, DOVF)) return;
+  for (int r = 0; r < n_rep; ++r) {
+    const Replica p = reps[r];
+    for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < cap; s += gridDim.x * blockDim.x) {
+      p.keys[s] = p.own_keys[s];
+      p.cnts[s] = p.own_cnts[s];
+    }
+  }
+  if (blockIdx.x == 0) {
+    const bool rovf = warp_any_flag(ctls, n_sh, ROVF);
+    for (int r = threadIdx.x; r < n_rep; r += blockDim.x) {
+      int32_t *ctl = reps[r].ctl;
+      ctl[OCC] = ctl[ROCC];
+      ctl[NREC] += 1;
+      if (rovf) ctl[OVERFLOW] = 1;
+      // the shard's count wrote its live pairs; the fold reads them once
+      // (rebuild_done adds the replica's entries written)
+      reps[r].work[W_COUNT] += 12ll * ctl[ROCC];
+      reps[r].work[W_FOLD] += 12ll * ctl[ROCC];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256)
+    rebuild_add_kernel(const Replica *reps, int n_rep, int cap, const int32_t *const *ctls,
+                       const unsigned long long *const *rkeys, const int32_t *const *rcnts,
+                       int n_sh) {
+  __shared__ Replica sr[kMaxShards];
+  if (!warp_any_flag(ctls, n_sh, DOVF)) return;
+  load_replicas(sr, reps, n_rep);
+  __syncthreads();
+  for (int s = 0; s < n_sh; ++s) {
+    const unsigned long long *rk = rkeys[s];
+    const int32_t *rc = rcnts[s];
+    for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < cap; j += gridDim.x * blockDim.x) {
+      const unsigned long long k = rk[j];
+      if (k == kEmpty) continue;
+      const int32_t c = rc[j];
+      if (c <= 0) continue;
+      for (int r = 0; r < n_rep; ++r)
+        if (sr[r].self != s)
+          table_add<OCC, OVERFLOW, ERROR>(sr[r].keys, sr[r].cnts, cap, sr[r].ctl, k, c, kAdd);
+    }
+  }
+}
+
+// The rebuild's last step: every replica's live entries written; runs[1]
+// counts the rebuilds (the round graph's recount branch counts its runs
+// here).
+__global__ void rebuild_done_kernel(const Replica *reps, int n_rep, const int32_t *const *ctls,
+                                    int n_sh, long long *runs) {
+  if (!warp_any_flag(ctls, n_sh, DOVF)) return;
+  for (int r = threadIdx.x; r < n_rep; r += blockDim.x)
+    reps[r].work[W_FOLD] += 12ll * reps[r].ctl[OCC];
+  if (threadIdx.x == 0 && runs) runs[1] += 1;
+}
+
+// Blocks of fold_delta_kernel that the card holds at once.
+int fold_grid() {
+  static int blocks = 0;
+  if (!blocks) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fold_delta_kernel, 256, 0);
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return blocks;
 }
 
 // -- partitioned fold (v1, v0) ---------------------------------------------------
@@ -340,6 +460,82 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// -- the round graph -----------------------------------------------------------
+//
+// On a mesh whose shards share one card, a round is one CUDA graph that the
+// host replays n times a batch: every shard's top-k and delta_emit, then a
+// gate kernel (one warp, a lane a shard) that reads every shard's DOVF and
+// sets two conditional handles (cudaGraphSetConditional): an IF node over
+// the recount branch (every shard's shard_recount, then fold_rebuild) and an
+// IF node over the delta fold; this is the JAX program's lax.cond on the
+// card.  (An IF/ELSE node needs CUDA 12.8; two IF nodes run on every toolkit
+// with conditional nodes.)  The graph is built by stream capture of the C
+// entries, the top-k through its entry's address in libtrain_topk.so
+// (train_topk.cu), which launches on the stream it is given; the IF bodies
+// are captured into the conditional nodes' graphs
+// (cudaStreamBeginCaptureToGraph).  It holds every shard's pointers and
+// sizes and the segment's limit (the top-k's argument): the host builds
+// another when any of them changes (a relay, a regrow, a new segment).
+// runs[0] counts the gate's runs (the replays), runs[1] the recount
+// branch's.
+
+// One shard's buffers and sizes for the round graph, as the host lays them
+// out: an int64 a field (pointers as addresses), in this order.
+struct GraphShard {
+  long long keys, cnts, cap, blk_hi, blk_lo, n_blk, ticket, ctl, cand, rules, work, tok, pwid, Mw,
+      off, fw, W, aff, wmark, dk, dv, rkeys, rcnts;
+};
+static_assert(sizeof(GraphShard) == 23 * 8, "the host lays a graph shard out as 23 int64");
+
+// yttm_topk_accept's type
+typedef int (*TopkFn)(const void *, const void *, int, void *, void *, int, void *, void *, void *,
+                      void *, int, int, int, int, int, void *, void *);
+
+__global__ void round_gate_kernel(const int32_t *const *ctls, int n_sh,
+                                  cudaGraphConditionalHandle recount,
+                                  cudaGraphConditionalHandle delta, long long *runs) {
+  const bool any = warp_any_flag(ctls, n_sh, DOVF);  // one warp
+  if (threadIdx.x != 0) return;
+  cudaGraphSetConditional(recount, any ? 1u : 0u);
+  cudaGraphSetConditional(delta, any ? 0u : 1u);
+  runs[0] += 1;
+}
+
+struct ShardGraph {
+  cudaGraph_t graph = nullptr;
+  cudaGraphExec_t exec = nullptr;
+};
+
+cudaError_t capture_info(cudaStream_t s, cudaGraph_t *g, const cudaGraphNode_t **deps,
+                         size_t *n) {
+  cudaStreamCaptureStatus status;
+#if CUDART_VERSION >= 13000
+  cudaError_t e = cudaStreamGetCaptureInfo(s, &status, nullptr, g, deps, nullptr, n);
+#else
+  cudaError_t e = cudaStreamGetCaptureInfo(s, &status, nullptr, g, deps, n);
+#endif
+  if (e == cudaSuccess && status != cudaStreamCaptureStatusActive) e = cudaErrorStreamCaptureInvalidated;
+  return e;
+}
+
+// An IF node on `handle` after the capture's current nodes; *body gets the
+// graph that runs when the handle is set.
+cudaError_t add_if(cudaGraph_t g, const cudaGraphNode_t *deps, size_t n,
+                   cudaGraphConditionalHandle handle, cudaGraphNode_t *node, cudaGraph_t *body) {
+  cudaGraphNodeParams cp{};
+  cp.type = cudaGraphNodeTypeConditional;
+  cp.conditional.handle = handle;
+  cp.conditional.type = cudaGraphCondTypeIf;
+  cp.conditional.size = 1;
+#if CUDART_VERSION >= 13000
+  cudaError_t e = cudaGraphAddNode(node, g, deps, nullptr, n, &cp);
+#else
+  cudaError_t e = cudaGraphAddNode(node, g, deps, n, &cp);
+#endif
+  if (e == cudaSuccess) *body = cp.conditional.phGraph_out[0];
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -364,56 +560,201 @@ int yttm_shard_delta_emit(void *tok, const void *pwid, int Mw, const void *off, 
 }
 
 // The recount branch's count of one shard into its scratch table, a no-op
-// unless some shard's DOVF is set.  ctls: a device array of the n_sh
-// shards' ctl pointers.
-int yttm_shard_recount(const void *tok, int Mw, const void *off, const void *fw, int W,
+// unless some shard's DOVF is set: the table emptied, then pair_count.cuh's
+// count into it (ROCC, ROVF).  ctls: a device array of the n_sh shards' ctl
+// pointers; tok and pwid (Mw slots) 16-byte aligned.
+int yttm_shard_recount(const void *tok, const void *pwid, const void *fw, int Mw, int W,
                        void *rkeys, void *rcnts, int cap, void *ctl, const void *ctls, int n_sh,
                        void *work, void *stream) {
   // a shard without words still clears its scratch table, which every
   // replica reads in a recount round
-  if (W < 0 || cap <= 0 || (cap & (cap - 1)) != 0 || n_sh <= 0) return (int)cudaErrorInvalidValue;
+  if (W < 0 || (W > 0 && Mw <= 0) || cap <= 0 || (cap & (cap - 1)) != 0 || n_sh <= 0 ||
+      ((uintptr_t)tok & 15u) || ((uintptr_t)pwid & 15u))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   recount_clear_kernel<<<grid_for(cap, 256), 256, 0, s>>>(
       (unsigned long long *)rkeys, (int32_t *)rcnts, cap, (int32_t *)ctl,
       (const int32_t *const *)ctls, n_sh, Mw, W, (long long *)work);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  recount_kernel<<<grid_for_warps(W), 256, 0, s>>>(
-      (const int32_t *)tok, (const int32_t *)off, (const int32_t *)fw, W,
+  if (e != cudaSuccess || W == 0) return (int)e;
+  return (int)launch_pair_count<ROCC, ROVF>(
+      (const int32_t *)tok, (const int32_t *)pwid, (const int32_t *)fw, Mw,
       (unsigned long long *)rkeys, (int32_t *)rcnts, cap, (int32_t *)ctl,
-      (const int32_t *const *)ctls, n_sh);
+      (const int32_t *const *)ctls, n_sh, DOVF, s);
+}
+
+// The delta fold of every replica on one card (reps: a device array of
+// n_rep Replica), one launch: every shard's buffer entries added into each;
+// a no-op when some shard's DOVF is set.  ctls, dks, dvs: device arrays of
+// the n_sh shards' pointers.
+int yttm_shard_fold_delta(const void *reps, int n_rep, int cap, const void *ctls, const void *dks,
+                          const void *dvs, int dcap, int n_sh, void *stream) {
+  if (n_rep <= 0 || n_rep > n_sh || n_sh > kMaxShards || cap <= 0 || (cap & (cap - 1)) != 0 ||
+      dcap <= 0)
+    return (int)cudaErrorInvalidValue;
+  fold_delta_kernel<<<fold_grid(), 256, 0, (cudaStream_t)stream>>>(
+      (const Replica *)reps, n_rep, cap, (const int32_t *const *)ctls,
+      (const unsigned long long *const *)dks, (const int32_t *const *)dvs, dcap, n_sh);
   return (int)cudaGetLastError();
 }
 
-// The exchange and fold into the replica of shard `self`.  ctls, dks, dvs,
-// rkeys, rcnts: device arrays of the n_sh shards' pointers; own_keys,
-// own_cnts: shard self's scratch table (the self-th of rkeys, rcnts).
-int yttm_shard_fold(void *keys, void *cnts, int cap, void *ctl, const void *ctls, const void *dks,
-                    const void *dvs, int dcap, const void *rkeys, const void *rcnts, int n_sh,
-                    int self, const void *own_keys, const void *own_cnts, void *work,
-                    void *stream) {
-  if (cap <= 0 || (cap & (cap - 1)) != 0 || dcap <= 0 || n_sh <= 0 || self < 0 || self >= n_sh)
+// The recount branch's fold of every replica on one card, a no-op unless
+// some shard's DOVF is set: its own scratch table copied in, the other
+// shards' scratch tables (rkeys, rcnts: device arrays of the n_sh shards')
+// added, OCC, NREC and OVERFLOW (some ROVF) set.  runs (or null): runs[1]
+// counts the rebuilds.
+int yttm_shard_fold_rebuild(const void *reps, int n_rep, int cap, const void *ctls,
+                            const void *rkeys, const void *rcnts, int n_sh, void *runs,
+                            void *stream) {
+  if (n_rep <= 0 || n_rep > n_sh || n_sh > kMaxShards || cap <= 0 || (cap & (cap - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  fold_prep_kernel<<<grid_for(cap, 256), 256, 0, s>>>(
-      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl,
-      (const int32_t *const *)ctls, n_sh, dcap, (const unsigned long long *)own_keys,
-      (const int32_t *)own_cnts, (long long *)work);
+  const Replica *r = (const Replica *)reps;
+  const int32_t *const *c = (const int32_t *const *)ctls;
+  rebuild_copy_kernel<<<grid_for(cap, 256), 256, 0, s>>>(r, n_rep, cap, c, n_sh);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long items = cap > 2ll * n_sh * dcap ? cap : 2ll * n_sh * dcap;
-  fold_kernel<<<grid_for(items, 256), 256, 0, s>>>(
-      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl,
-      (const int32_t *const *)ctls, (const unsigned long long *const *)dks,
-      (const int32_t *const *)dvs, dcap, (const unsigned long long *const *)rkeys,
-      (const int32_t *const *)rcnts, n_sh, self);
+  rebuild_add_kernel<<<grid_for(cap, 256), 256, 0, s>>>(
+      r, n_rep, cap, c, (const unsigned long long *const *)rkeys, (const int32_t *const *)rcnts,
+      n_sh);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fold_done_kernel<<<1, 1, 0, s>>>((const int32_t *)ctl, (const int32_t *const *)ctls, n_sh,
-                                   (long long *)work);
+  rebuild_done_kernel<<<1, 64, 0, s>>>(r, n_rep, c, n_sh, (long long *)runs);
   return (int)cudaGetLastError();
 }
 
+// Frees a graph of yttm_shard_graph (null: nothing).
+int yttm_shard_graph_free(void *graph) {
+  ShardGraph *sg = (ShardGraph *)graph;
+  if (!sg) return 0;
+  cudaError_t e = sg->exec ? cudaGraphExecDestroy(sg->exec) : cudaSuccess;
+  if (sg->graph) {
+    const cudaError_t f = cudaGraphDestroy(sg->graph);
+    if (e == cudaSuccess) e = f;
+  }
+  delete sg;
+  return (int)e;
+}
+
+// The round graph (see its section) of the n_sh shards of one card:
+// shards, a host array of n_sh GraphShard; reps, a device array of their
+// n_sh Replica; ctls .. rcs, the device arrays of the shards' pointers that
+// the per-call entries take; topk, yttm_topk_accept's address; limit ..
+// n_own, its arguments; runs, 2 int64 on the card.  *out gets a handle for
+// yttm_shard_graph_launch and yttm_shard_graph_free.
+int yttm_shard_graph(void **out, const void *shards, int n_sh, const void *reps, const void *ctls,
+                     const void *dks, const void *dvs, const void *rks, const void *rcs, int dcap,
+                     void *topk, int limit, int vocab, int used_ids0, int k, int n_own,
+                     void *runs) {
+  *out = nullptr;
+  const GraphShard *sh = (const GraphShard *)shards;
+  if (n_sh <= 0 || n_sh > kMaxShards || !topk || !runs) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_sh; ++i)
+    if (sh[i].cap != sh[0].cap) return (int)cudaErrorInvalidValue;
+  const int cap = (int)sh[0].cap;
+  const TopkFn topk_accept = (TopkFn)topk;
+  ShardGraph *sg = new ShardGraph();
+  cudaStream_t s = nullptr, b = nullptr;
+  cudaError_t e = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  if (e == cudaSuccess) e = cudaStreamCreateWithFlags(&b, cudaStreamNonBlocking);
+  bool capturing = false;
+  if (e == cudaSuccess) {
+    e = cudaStreamBeginCapture(s, cudaStreamCaptureModeRelaxed);
+    capturing = e == cudaSuccess;
+  }
+  cudaGraph_t g = nullptr;
+  const cudaGraphNode_t *deps = nullptr;
+  size_t n_deps = 0;
+  cudaGraphConditionalHandle h_rec = 0, h_delta = 0;
+  if (e == cudaSuccess) e = capture_info(s, &g, &deps, &n_deps);
+  if (e == cudaSuccess) e = cudaGraphConditionalHandleCreate(&h_rec, g, 0, cudaGraphCondAssignDefault);
+  if (e == cudaSuccess)
+    e = cudaGraphConditionalHandleCreate(&h_delta, g, 0, cudaGraphCondAssignDefault);
+  // every shard's top-k, then every shard's merge and buffer
+  for (int i = 0; i < n_sh && e == cudaSuccess; ++i) {
+    const GraphShard &q = sh[i];
+    e = (cudaError_t)topk_accept((const void *)q.keys, (const void *)q.cnts, (int)q.cap,
+                                 (void *)q.blk_hi, (void *)q.blk_lo, (int)q.n_blk, (void *)q.ticket,
+                                 (void *)q.ctl, (void *)q.cand, (void *)q.rules, limit, vocab,
+                                 used_ids0, k, n_own, (void *)q.work, s);
+  }
+  for (int i = 0; i < n_sh && e == cudaSuccess; ++i) {
+    const GraphShard &q = sh[i];
+    if (q.W == 0) continue;  // as the per-call wrapper: a shard with no word emits nothing
+    e = (cudaError_t)yttm_shard_delta_emit(
+        (void *)q.tok, (const void *)q.pwid, (int)q.Mw, (const void *)q.off, (const void *)q.fw,
+        (int)q.W, (void *)q.ctl, (const void *)q.cand, (void *)q.aff, (void *)q.wmark,
+        (void *)q.dk, (void *)q.dv, dcap, (void *)q.work, s);
+  }
+  if (e == cudaSuccess) {
+    round_gate_kernel<<<1, 32, 0, s>>>((const int32_t *const *)ctls, n_sh, h_rec, h_delta,
+                                      (long long *)runs);
+    e = cudaGetLastError();
+  }
+  cudaGraphNode_t conds[2];
+  cudaGraph_t body[2];
+  std::vector<cudaGraphNode_t> gate;  // the capture's last node, which both IF nodes follow
+  if (e == cudaSuccess) e = capture_info(s, &g, &deps, &n_deps);
+  if (e == cudaSuccess) gate.assign(deps, deps + n_deps);
+  if (e == cudaSuccess) e = add_if(g, gate.data(), gate.size(), h_rec, &conds[0], &body[0]);
+  if (e == cudaSuccess) e = add_if(g, gate.data(), gate.size(), h_delta, &conds[1], &body[1]);
+  // the recount branch: every shard's count, then the rebuild of every replica
+  if (e == cudaSuccess)
+    e = cudaStreamBeginCaptureToGraph(b, body[0], nullptr, nullptr, 0, cudaStreamCaptureModeRelaxed);
+  if (e == cudaSuccess) {
+    for (int i = 0; i < n_sh && e == cudaSuccess; ++i) {
+      const GraphShard &q = sh[i];
+      e = (cudaError_t)yttm_shard_recount(
+          (const void *)q.tok, (const void *)q.pwid, (const void *)q.fw, (int)q.Mw, (int)q.W,
+          (void *)q.rkeys, (void *)q.rcnts, cap, (void *)q.ctl, ctls, n_sh, (void *)q.work, b);
+    }
+    if (e == cudaSuccess)
+      e = (cudaError_t)yttm_shard_fold_rebuild(reps, n_sh, cap, ctls, rks, rcs, n_sh, runs, b);
+    cudaGraph_t got = nullptr;
+    const cudaError_t f = cudaStreamEndCapture(b, &got);
+    if (e == cudaSuccess) e = f;
+  }
+  // the delta branch
+  if (e == cudaSuccess)
+    e = cudaStreamBeginCaptureToGraph(b, body[1], nullptr, nullptr, 0, cudaStreamCaptureModeRelaxed);
+  if (e == cudaSuccess) {
+    e = (cudaError_t)yttm_shard_fold_delta(reps, n_sh, cap, ctls, dks, dvs, dcap, n_sh, b);
+    cudaGraph_t got = nullptr;
+    const cudaError_t f = cudaStreamEndCapture(b, &got);
+    if (e == cudaSuccess) e = f;
+  }
+  if (e == cudaSuccess) {
+#if CUDART_VERSION >= 13000
+    e = cudaStreamUpdateCaptureDependencies(s, conds, nullptr, 2, cudaStreamSetCaptureDependencies);
+#else
+    e = cudaStreamUpdateCaptureDependencies(s, conds, 2, cudaStreamSetCaptureDependencies);
+#endif
+  }
+  if (capturing) {
+    const cudaError_t f = cudaStreamEndCapture(s, &sg->graph);
+    if (e == cudaSuccess) e = f;
+  }
+  if (e == cudaSuccess) e = cudaGraphInstantiate(&sg->exec, sg->graph, 0);
+  if (b) cudaStreamDestroy(b);
+  if (s) cudaStreamDestroy(s);
+  if (e != cudaSuccess) {
+    yttm_shard_graph_free(sg);
+    return (int)e;
+  }
+  *out = sg;
+  return 0;
+}
+
+// n replays of the round graph on `stream`.
+int yttm_shard_graph_launch(void *graph, int n, void *stream) {
+  ShardGraph *sg = (ShardGraph *)graph;
+  if (!sg || n < 0) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n; ++i) {
+    const cudaError_t e = cudaGraphLaunch(sg->exec, (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
 // The partitioned fold's first half on the replica of shard `self` (the
 // engines that recount every round): its part emptied, then every shard's
 // scratch entries of that part added.  rkeys, rcnts: device arrays of the

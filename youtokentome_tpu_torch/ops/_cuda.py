@@ -218,11 +218,19 @@ def load_sharded() -> ctypes.CDLL:
         # stream
         "yttm_shard_delta_emit": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _p, _p, _p, _p, _i, _p,
                                        _p]),
-        # tok, Mw, off, fw, W, rkeys, rcnts, cap, ctl, ctls, n_sh, work, stream
-        "yttm_shard_recount": (_i, [_p, _i, _p, _p, _i, _p, _p, _i, _p, _p, _i, _p, _p]),
-        # keys, cnts, cap, ctl, ctls, dks, dvs, dcap, rkeys, rcnts, n_sh, self,
-        # own_keys, own_cnts, work, stream
-        "yttm_shard_fold": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _p, _p, _i, _i, _p, _p, _p, _p]),
+        # tok, pwid, fw, Mw, W, rkeys, rcnts, cap, ctl, ctls, n_sh, work, stream
+        "yttm_shard_recount": (_i, [_p, _p, _p, _i, _i, _p, _p, _i, _p, _p, _i, _p, _p]),
+        # reps, n_rep, cap, ctls, dks, dvs, dcap, n_sh, stream
+        "yttm_shard_fold_delta": (_i, [_p, _i, _i, _p, _p, _p, _i, _i, _p]),
+        # reps, n_rep, cap, ctls, rkeys, rcnts, n_sh, runs, stream
+        "yttm_shard_fold_rebuild": (_i, [_p, _i, _i, _p, _p, _p, _i, _p, _p]),
+        # out, shards, n_sh, reps, ctls, dks, dvs, rkeys, rcnts, dcap, topk,
+        # limit, vocab, used_ids0, k, n_own, runs
+        "yttm_shard_graph": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _i, _p, _i, _i, _i, _i, _i,
+                                  _p]),
+        # graph, n, stream
+        "yttm_shard_graph_launch": (_i, [_p, _i, _p]),
+        "yttm_shard_graph_free": (_i, [_p]),
         # keys, cnts, cap, ctl, ctls, rkeys, rcnts, n_sh, self, work, stream
         "yttm_shard_part_fold": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _i, _p, _p]),
         # keys, cnts, cap, ctl, ctls, pkeys, pcnts, n_sh, self, stream

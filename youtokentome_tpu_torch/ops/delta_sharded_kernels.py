@@ -17,32 +17,42 @@ A round, all in hand-written CUDA (``csrc/train_delta_sharded.cu``, and
   delta_emit     on every shard: apply_delta's merge, with the listed words'
                  old and new contributions appended to the shard's buffer
                  (DOVF in ``ctl`` when a side passes dcap)
-  shard_recount  on every shard: a no-op unless some shard's DOVF is set;
-                 else the shard's stream counted into its scratch table
-  shard_fold     on every replica: every shard's buffer added into the
-                 table, or (some DOVF set) the table rebuilt from the N
-                 scratch tables; the kernel picks the branch, so round
-                 control stays on the card
+  shard_recount  on every shard, only when some shard's DOVF is set: the
+                 shard's stream counted into its scratch table
+  shard_fold     one launch for every replica of a card: every shard's
+                 buffer added into each replica (the delta entry), or, when
+                 some DOVF is set, each replica rebuilt from the N scratch
+                 tables (the rebuild entry)
   shard_relay    at the JAX host loop's re-pack trigger: the shard's stream
                  laid out again over its live tokens (words that can hold
                  no pair dropped)
 
-The host reads shard 0's ``ctl`` once per batch of rounds, and checks
-that every replica's round control and rules agree at each segment end
-(after every round on the CPU).  Across processes
-(``ProcessShardedEngine``, for ``parallel.distributed``) every other
-process's shard is a ``MirrorShard`` that the exchange fills through the
-host each round, so the same kernels read every shard.  Each wrapper
-launches its kernel on a CUDA state (and counts the launch) and runs its
-plain torch version on a CPU state; the plain versions compute the same
-function.
+Two routes drive a round, chosen by the engine and the mesh, never one for
+the other's failure.  On a mesh whose shards share one card,
+``ShardedKernelEngine`` replays the round graph (``shard_rounds``): every
+shard's top-k and delta_emit, then a gate kernel that picks the branch on
+the card, the recount and the rebuild under one IF node, the delta fold
+under another; the host issues one call a batch of rounds.  Everywhere else the per-call wrappers run
+each round from the host: across processes (``ProcessShardedEngine``, for
+``parallel.distributed``: every other process's shard is a ``MirrorShard``
+that the exchange fills through the host each round, and the host, which
+reads every ctl, launches only the branch's kernels), for the sharded v3
+engine (both fold entries each round, each deciding on the card), for
+shards on distinct cards, for the checks (``graph = False``) and on the
+CPU.  The host reads shard 0's ``ctl`` once per batch of rounds, and
+checks that every replica's round control and rules agree at each segment
+end (after every round on the CPU).  Each wrapper launches its kernel on
+a CUDA state (and counts the launch) and runs its plain torch version on a
+CPU state; the plain versions compute the same function.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -55,6 +65,7 @@ from .train_kernels import (
     DONE,
     EMPTY,
     ERROR,
+    K_MAX,
     NACC,
     OCC,
     OVERFLOW,
@@ -93,6 +104,7 @@ class Exchange:
 
     n_own = 4  # NAFF .. DOVF, zeroed by every round's top-k
     _links = None
+    _reps = None
 
     def control(self, rules, used: int, ctl_n: int = CTL_N):
         super().control(rules, used, max(ctl_n, CTL_N))
@@ -197,6 +209,48 @@ def shard_fold_plain(st: ShardState, shards):
     vs = torch.cat([v.to(dev) for _, v in parts])
     st.work[W_FOLD] += 24 * ks.numel()
     _table_update(st, ks, vs)
+
+
+def fold_delta_plain(reps, shards):
+    """The fold's delta entry (``shard_fold`` on ``reps``, replicas of one
+    device), plain: unless some shard's DOVF is set, every shard's written
+    entries, each side's first min(DN, dcap) in shard order, added into
+    each replica."""
+    if _any(shards, DOVF):
+        return
+    parts = [s.buffer(side) for s in shards for side in (0, 1)]
+    for st in reps:
+        ks = torch.cat([k.to(st.device) for k, _ in parts])
+        vs = torch.cat([v.to(st.device) for _, v in parts])
+        st.work[W_FOLD] += 24 * ks.numel()
+        _table_update(st, ks, vs)
+
+
+def fold_rebuild_plain(reps, shards):
+    """The fold's rebuild entry, plain: only when some shard's DOVF is set,
+    each replica takes its own shard's scratch table as it lies (OCC its
+    ROCC), then every other shard's live scratch entries; NREC counts the
+    rebuild, and some shard's ROVF sets OVERFLOW."""
+    if not _any(shards, DOVF):
+        return
+    rovf = _any(shards, ROVF)
+    for st in reps:
+        st.keys.copy_(st.rkeys)
+        st.cnts.copy_(st.rcnts)
+        rocc = int(st.ctl[ROCC])
+        st.ctl[OCC] = rocc
+        st.ctl[NREC] += 1
+        if rovf:
+            st.ctl[OVERFLOW] = 1
+        st.work[W_COUNT] += 12 * rocc
+        st.work[W_FOLD] += 12 * rocc
+        others = [s for s in shards if s is not st]
+        if others:
+            ks = torch.cat([s.rkeys.to(st.device) for s in others])
+            cs = torch.cat([s.rcnts.to(st.device) for s in others])
+            sel = (ks != EMPTY) & (cs > 0)
+            _table_update(st, ks[sel], cs[sel])
+        st.work[W_FOLD] += 12 * int(st.ctl[OCC])
 
 
 def part_lo(p: int, cap: int, n: int) -> int:
@@ -331,6 +385,19 @@ def delta_emit(st: ShardState):
     delta_emit.launches += 1
 
 
+def _replicas(reps, shards):
+    """A device array (on ``reps[0]``'s device) of the fold's replicas, a
+    row each as ``csrc/train_delta_sharded.cu`` Replica lays it out: keys,
+    counts, ctl, work, its shard's scratch keys and counts, its shard's
+    index.  Rebuilt when a buffer moved."""
+    head = reps[0]
+    rows = [[st.keys.data_ptr(), st.cnts.data_ptr(), st.ctl.data_ptr(), st.work.data_ptr(),
+             st.rkeys.data_ptr(), st.rcnts.data_ptr(), _index(st, shards)] for st in reps]
+    if head._reps is None or head._reps[0] != rows:
+        head._reps = (rows, torch.tensor(rows, dtype=torch.int64, device=head.device))
+    return head._reps[1]
+
+
 def shard_recount(st: ShardState, shards):
     """Unless no shard's buffer overflowed: count the shard's stream into
     its scratch table (sets ``ctl[ROVF]`` when it fills more than half)."""
@@ -340,32 +407,46 @@ def shard_recount(st: ShardState, shards):
     lib = _cuda.load_sharded()
     with torch.cuda.device(st.device):
         err = lib.yttm_shard_recount(
-            st.tok.data_ptr(), st.tok.shape[0], st.off.data_ptr(), st.fw.data_ptr(), st.n_words,
-            st.rkeys.data_ptr(), st.rcnts.data_ptr(), st.cap, st.ctl.data_ptr(),
+            st.tok.data_ptr(), st.pwid.data_ptr(), st.fw.data_ptr(), st.tok.shape[0],
+            st.n_words, st.rkeys.data_ptr(), st.rcnts.data_ptr(), st.cap, st.ctl.data_ptr(),
             ctls.data_ptr(), len(shards), st.work.data_ptr(), _stream_ptr(st.device),
         )
     _check(err, "shard_recount")
     shard_recount.launches += 1
 
 
-def shard_fold(st: ShardState, shards):
-    """Fold the round's exchange into the shard's replica: every shard's
-    buffer entries, or, when some buffer overflowed, the table rebuilt from
-    every shard's scratch table (its own copied, the others added)."""
-    if not _on(st, "shard_fold"):
-        return shard_fold_plain(st, shards)
-    ctls, dks, dvs, rks, rcs = _links(st, shards)[:5]
-    own = _index(st, shards)
+def shard_fold(reps, shards, rebuild=None):
+    """Fold the round's exchange into the replicas ``reps`` (states of one
+    device), one launch an entry for all of them: the delta entry adds
+    every shard's buffer entries; the rebuild entry, when some buffer
+    overflowed, rebuilds each replica from every shard's scratch table (its
+    own copied, the others added).  ``rebuild`` True or False launches that
+    entry alone (the host knows the branch); None launches both, each a
+    no-op unless its branch is the round's (decided on the card)."""
+    if not _on(reps[0], "shard_fold"):
+        if rebuild is not True:
+            fold_delta_plain(reps, shards)
+        if rebuild is not False:
+            fold_rebuild_plain(reps, shards)
+        return
+    head = reps[0]
+    ctls, dks, dvs, rks, rcs = _links(head, shards)[:5]
+    rows = _replicas(reps, shards)
     lib = _cuda.load_sharded()
-    with torch.cuda.device(st.device):
-        err = lib.yttm_shard_fold(
-            st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(), ctls.data_ptr(),
-            dks.data_ptr(), dvs.data_ptr(), st.dcap, rks.data_ptr(), rcs.data_ptr(), len(shards),
-            own, st.rkeys.data_ptr(), st.rcnts.data_ptr(), st.work.data_ptr(),
-            _stream_ptr(st.device),
-        )
-    _check(err, "shard_fold")
-    shard_fold.launches += 1
+    with torch.cuda.device(head.device):
+        stream = _stream_ptr(head.device)
+        if rebuild is not True:
+            _check(lib.yttm_shard_fold_delta(
+                rows.data_ptr(), len(reps), head.cap, ctls.data_ptr(), dks.data_ptr(),
+                dvs.data_ptr(), head.dcap, len(shards), stream,
+            ), "shard_fold")
+            shard_fold.launches += 1
+        if rebuild is not False:
+            _check(lib.yttm_shard_fold_rebuild(
+                rows.data_ptr(), len(reps), head.cap, ctls.data_ptr(), rks.data_ptr(),
+                rcs.data_ptr(), len(shards), None, stream,
+            ), "shard_fold")
+            shard_fold.launches += 1
 
 
 def shard_part_fold(st: ShardState, shards):
@@ -450,6 +531,85 @@ shard_gather.launches = 0
 shard_relay.launches = 0
 
 
+# -- the round graph ------------------------------------------------------------
+
+
+def _graph_row(st: ShardState) -> list:
+    """A shard's buffers and sizes for the round graph, in the order of
+    ``csrc/train_delta_sharded.cu`` GraphShard."""
+    return [st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.blk_hi.data_ptr(),
+            st.blk_lo.data_ptr(), st.n_blk, st.ticket.data_ptr(), st.ctl.data_ptr(),
+            st.cand.data_ptr(), st.rules.data_ptr(), st.work.data_ptr(), st.tok.data_ptr(),
+            st.pwid.data_ptr(), st.tok.shape[0], st.off.data_ptr(), st.fw.data_ptr(),
+            st.n_words, st.aff.data_ptr(), st.wmark.data_ptr(), st.dk.data_ptr(),
+            st.dv.data_ptr(), st.rkeys.data_ptr(), st.rcnts.data_ptr()]
+
+
+class _ShardGraph:
+    """An instantiated round graph (``yttm_shard_graph``), the key it was
+    built over and the device arrays it reads."""
+
+    def __init__(self, lib, handle: int, key: tuple, arrays):
+        self.lib, self.handle, self.key, self.arrays = lib, handle, key, arrays
+
+    def __del__(self):
+        self.lib.yttm_shard_graph_free(self.handle)
+
+
+def shard_rounds(eng, n: int, limit: int):
+    """n rounds of ``eng`` (a ``ShardedKernelEngine`` whose shards share
+    one card) as n replays of its round graph, in one call: every shard's
+    top-k and delta_emit, then the gate and the branch it picks on the
+    card.  The graph is built anew when a shard's buffer or size, or the
+    limit, changed.  Counts n launches of the top-k a shard, of delta_emit
+    a shard with words and of the fold; the recount branch counts its runs
+    on the card (``count_graph_runs``)."""
+    if not 0 < eng.batch_k <= K_MAX:
+        raise ValueError(f"batch_k must be in 1..{K_MAX}, got {eng.batch_k}")
+    shards = eng.shards
+    head = shards[0]
+    links = _links(head, shards)[:5]
+    reps = _replicas(shards, shards)
+    rows = np.array([_graph_row(st) for st in shards], dtype=np.int64)
+    key = (rows.tobytes(), int(limit), tuple(a.data_ptr() for a in links), reps.data_ptr())
+    g = eng.round_graph
+    if g is None or g.key != key:
+        t0 = time.perf_counter()
+        eng.round_graph = None  # one instantiation of a graph at a time
+        lib = _cuda.load_sharded()
+        topk = ctypes.cast(_cuda.load_topk().yttm_topk_accept, ctypes.c_void_p).value
+        handle = ctypes.c_void_p()
+        with torch.cuda.device(head.device):
+            err = lib.yttm_shard_graph(
+                ctypes.byref(handle), rows.ctypes.data, len(shards), reps.data_ptr(),
+                *(a.data_ptr() for a in links), head.dcap, topk, int(limit), eng.vocab_size,
+                eng.used_ids0, eng.batch_k, head.n_own, eng.runs.data_ptr(),
+            )
+        _check(err, "shard_rounds graph")
+        eng.round_graph = g = _ShardGraph(lib, handle.value, key, (links, reps))
+        eng.graph_builds += 1
+        eng.graph_build_s += time.perf_counter() - t0
+    with torch.cuda.device(head.device):
+        err = g.lib.yttm_shard_graph_launch(g.handle, int(n), _stream_ptr(head.device))
+    _check(err, "shard_rounds")
+    topk_accept.launches += n * len(shards)
+    delta_emit.launches += n * sum(1 for st in shards if st.n_words)
+    shard_fold.launches += n
+    eng.replays += n
+
+
+def count_graph_runs(eng) -> int:
+    """Read the round graph's counters (a read of the card: call it where
+    the host waits anyway): the recount branch's runs since the last call
+    are added to ``shard_recount.launches`` (a launch a shard) and
+    returned; ``eng.gate_runs`` takes the gate's runs (the replays)."""
+    gate, rec = eng.runs.tolist()
+    new = rec - eng.rec_runs
+    shard_recount.launches += new * len(eng.shards)
+    eng.gate_runs, eng.rec_runs = gate, rec
+    return new
+
+
 # -- host loop ----------------------------------------------------------------
 
 
@@ -477,13 +637,15 @@ class ShardEngine:
     shard of the mesh, each with its replica of the table: rounds enqueued
     in batches with shard 0's ``ctl`` read once a batch, the replicas
     checked at each segment end (after every round on the CPU), and the
-    exchange (``recount`` on every shard, then ``shard_fold`` on every
-    replica; the engines that recount every round replace it).  A subclass
-    calls ``_setup``, sets ``shards`` and defines ``recount(st, limit)``
-    and ``round(limit)`` (and ``stream()`` for checkpoints)."""
+    exchange (``recount`` on every shard, then ``shard_fold`` on the
+    replicas of each card; the engines that recount every round replace
+    it).  A subclass calls ``_setup``, sets ``shards`` and defines
+    ``recount(st, limit)`` and ``round(limit)`` (and ``stream()`` for
+    checkpoints)."""
 
     rebuilds = 0
     nrec = 0
+    count_exchanges = 0  # forced recounts (the first count, and after each overflow)
 
     def _setup(self, mesh, vocab_size: int, used_ids0: int, batch_k: int):
         self.vocab_size = vocab_size
@@ -520,13 +682,24 @@ class ShardEngine:
             for ev in events:
                 torch.cuda.current_stream(dev).wait_event(ev)
 
-    def _exchange(self, limit: int):
-        for st in self.local:
-            self.recount(st, limit)
+    def _exchange(self, limit: int, recount=None):
+        """The round's exchange: ``recount`` None lets the card pick the
+        branch (every shard's recount, then both fold entries, each a no-op
+        unless its branch is the round's); True or False, where the host
+        knows the branch, launches only its kernels."""
+        if recount is not False:
+            for st in self.local:
+                self.recount(st, limit)
+            self._barrier()
+        self._fold(recount)
         self._barrier()
-        for st in self.local:
-            shard_fold(st, self.shards)
-        self._barrier()
+
+    def _fold(self, rebuild):
+        """``shard_fold`` on the local replicas, one call a card."""
+        for dev in self._devices:
+            reps = [st for st in self.local if st.device == dev]
+            if reps:
+                shard_fold(reps, self.shards, rebuild)
 
     def _count(self):
         """Rebuild every replica from the streams (the recount branch,
@@ -535,7 +708,8 @@ class ShardEngine:
             for st in self.local:
                 st.ctl[DOVF] = 1
                 st.ctl[OVERFLOW] = 0
-            self._exchange(self.vocab_size)
+            self._exchange(self.vocab_size, recount=True)
+            self.count_exchanges += 1
             overflow = int(self.head.ctl[OVERFLOW])
             for st in self.local:
                 st.ctl[DOVF] = 0
@@ -555,6 +729,18 @@ class ShardEngine:
             if not same:
                 raise RuntimeError("the sharded trainer's replicas disagree")
 
+    def run_rounds(self, n: int, limit: int):
+        """Up to n rounds through the per-call wrappers: fewer when a round
+        knows it accepted nothing (returns False); on the CPU the replicas
+        are checked after every round."""
+        on_card = self.head.device.type == "cuda"
+        for _ in range(n):
+            ended = self.round(limit) is False
+            if not on_card:
+                self.check_replicas()
+            if ended:
+                return
+
     def segment(self, used: int, limit: int):
         head = self.head
         for st in self.local:
@@ -562,15 +748,9 @@ class ShardEngine:
         on_card = head.device.type == "cuda"
         while True:
             # each active round accepts at most batch_k ids, so this many
-            # rounds never run past the segment's end; a round that knows
-            # it accepted nothing (returns False) ends the batch
+            # rounds never run past the segment's end
             n = min(BATCH, max(1, math.ceil((limit - used) / self.batch_k))) if on_card else 1
-            for _ in range(n):
-                ended = self.round(limit) is False
-                if not on_card:
-                    self.check_replicas()
-                if ended:
-                    break
+            self.run_rounds(n, limit)
             used, done, overflow, error = (
                 int(v) for v in head.ctl[[USED, DONE, OVERFLOW, ERROR]].tolist()
             )
@@ -610,9 +790,19 @@ class ShardedKernelEngine(ShardEngine):
     ``parallel.train_delta_sharded.run_training_delta_sharded``.  Every
     replica starts at ``initial_cap`` slots of the whole stream's ``m``
     and is rebuilt when an insert finds it more than half full; ``per`` is
-    the JAX host loop's padded shard length, which sets the re-pack trigger."""
+    the JAX host loop's padded shard length, which sets the re-pack trigger.
+    ``graph`` picks the route of a batch of rounds: True (the default when
+    every shard is on one card) replays the round graph (``shard_rounds``),
+    False runs ``round`` through the per-call wrappers (shards on distinct
+    cards, the CPU, and checks that set it)."""
 
     relays = 0
+    replays = 0  # round graph replays issued
+    graph_builds = 0
+    graph_build_s = 0.0  # the builds' host seconds (capture and instantiation)
+    gate_runs = 0  # the graph's gate runs, counted on the card
+    rec_runs = 0  # its recount branch's runs, counted on the card
+    seg_rec_runs = 0  # those of the last segment, which NREC counts too
 
     def __init__(self, seg_t, seg_w, per: int, freq, rules, used_ids0: int, vocab_size: int,
                  batch_k: int, mesh, dcap: int, m: int):
@@ -628,6 +818,9 @@ class ShardedKernelEngine(ShardEngine):
             for d, dev in enumerate(mesh.devices)
         ])
         self.dropped = [0] * len(self.local)  # live tokens the relays dropped
+        self.graph = len(self._devices) == 1 and self._devices[0].type == "cuda"
+        self.round_graph = None
+        self.runs = torch.zeros(2, dtype=torch.int64, device=self.head.device)
         self._count()
 
     def _place(self, states):
@@ -648,6 +841,17 @@ class ShardedKernelEngine(ShardEngine):
             delta_emit(st)
         self._barrier()
         return self._exchange(limit)
+
+    def run_rounds(self, n: int, limit: int):
+        if self.graph:
+            return shard_rounds(self, n, limit)
+        return super().run_rounds(n, limit)
+
+    def segment(self, used: int, limit: int):
+        out = super().segment(used, limit)
+        if self.graph:
+            self.seg_rec_runs = count_graph_runs(self)
+        return out
 
     def _segment_end(self):
         """At the JAX host loop's re-pack trigger (the largest shard's live
@@ -726,10 +930,10 @@ class ProcessShardedEngine(ShardedKernelEngine):
                      each side of its buffer (the replicas' round control
                      checked equal); unless some DOVF is set, the written
                      entries that passed the window gathered again
-      shard_recount  on every local shard (a no-op unless some DOVF is set)
-      gather 2       only when some DOVF is set: every shard's ctl again
-                     (ROCC, ROVF) and its scratch table's occupied entries
-      shard_fold     on every local replica
+      shard_recount  on every local shard, only when some DOVF is set
+      gather 2       only then: every shard's ctl again (ROCC, ROVF) and its
+                     scratch table's occupied entries
+      shard_fold     the branch's entry, one launch for the local replicas
 
     The payloads go through the host (a device-to-host copy, the gather, a
     host-to-device copy into the mirrors), so the host reads ctl every
@@ -751,6 +955,7 @@ class ProcessShardedEngine(ShardedKernelEngine):
         self.window = min(WINDOW_MIN, dcap)
         super().__init__(seg_t, seg_w, per, freq, rules, used_ids0, vocab_size, batch_k, mesh,
                          dcap, m)
+        self.graph = False  # the exchange goes through the host every round
 
     @property
     def local(self):
@@ -809,18 +1014,19 @@ class ProcessShardedEngine(ShardedKernelEngine):
             o += 2 * k
         return out
 
-    def _exchange(self, limit: int):
+    def _exchange(self, limit: int, recount=None):
         """Gather 1: every shard's ctl and the first ``window`` entries of
         each side of its buffer, in one row (one device-to-host copy, one
-        gather); the replicas' round control checked equal.  Then the
+        gather); the replicas' round control checked equal (the host reads
+        the branch there: ``recount`` is not needed).  Then the
         recount branch (some DOVF set: shard_recount, gather 2), or the
         delta entries (gathered again, written prefixes only, when a side
         passed the window); the mirrors written through one host-to-device
-        copy; shard_fold on every local replica.  The window follows the
-        round's most entries a side (a power of two, WINDOW_MIN .. dcap),
-        the same in every process.  False, with no fold, when no replica
-        accepted a candidate and none recounts: no shard emitted, so the
-        round (past the segment's end, or done) ends its batch."""
+        copy; the branch's fold entry on the local replicas.  The window
+        follows the round's most entries a side (a power of two, WINDOW_MIN
+        .. dcap), the same in every process.  False, with no fold, when no
+        replica accepted a candidate and none recounts: no shard emitted, so
+        the round (past the segment's end, or done) ends its batch."""
         w, dcap, dev = self.window, self.dcap, self.head.device
         rows = self._gather_rows(torch.stack([
             torch.cat([st.ctl.long(), st.dk[:w], st.dk[dcap : dcap + w], st.dv[:w].long(),
@@ -841,8 +1047,7 @@ class ProcessShardedEngine(ShardedKernelEngine):
             self._share_scratch()
         else:
             self._share_deltas(rows, ctl[:, [DN_OLD, DN_NEW]].clamp(max=dcap))
-        for st in self.local:
-            shard_fold(st, self.shards)
+        self._fold(recount)
         self._barrier()
 
     def _share_deltas(self, rows: torch.Tensor, sides: torch.Tensor):

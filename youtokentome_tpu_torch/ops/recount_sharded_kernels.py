@@ -174,7 +174,8 @@ class RecountShardEngine(ShardEngine):
     at ``initial_cap`` slots and double when a count overflows (at the
     start, and whenever a round's count does)."""
 
-    def _exchange(self, limit: int):
+    def _exchange(self, limit: int, recount=None):
+        """Every exchange recounts: ``recount`` changes nothing."""
         shards = self.shards
         for st in shards:
             self.recount(st, limit)

@@ -24,7 +24,11 @@ shared top-k of ``csrc/train_topk.cu`` and ``shard_fold`` of
   sparse_shard_recount  on every shard: a no-op unless some shard's DOVF is
                         set; else the shard's tombstoned stream counted into
                         its scratch table
-  shard_fold            on every replica (``delta_sharded_kernels``)
+  shard_fold            one launch of each of its entries for the replicas
+                        of a card (``delta_sharded_kernels``): the delta
+                        fold and the rebuild, each a no-op unless its branch
+                        is the round's, decided on the card (this engine
+                        runs every round through the per-call wrappers)
 
 The host reads shard 0's ``ctl`` once per batch of rounds and checks that
 every replica's round control and rules agree at each segment end.  Each
