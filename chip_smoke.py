@@ -121,7 +121,15 @@ order (any failure exits nonzero):
      (csrc/train_block.cu) and v0 bucketed (csrc/train_bucketed.cu), each
      with the shared top-k.  Each kernel equals its plain version on the
      100 MB corpus's state for two rounds, and v4's block_apply again past
-     its full-path rounds, through a round of its block path; the 10 MB prefix at vocab 8000 through each kernel engine and
+     its full-path rounds, through a round of its block path; v3's
+     sparse_count (csrc/tomb_count.cuh) on the tombstoned edge streams
+     (``phase_tomb_checks``: tombstone runs across 128-slot chunks, equal
+     runs split by tombstones, equal ids across word boundaries, words all
+     tombstones but a few tokens, ids from 5 and 70000; on one wave of
+     blocks and on one block), into a table that overflows at its first
+     count and is regrown, and on the main run's trained, tombstoned state,
+     each equal to its plain version and the host count; the 10 MB prefix
+     at vocab 8000 through each kernel engine and
      its plain round loop in lockstep, equal at every segment end (stream or
      rows, the live table, rules, used and done): v3 and v4 with a small
      table (rebuilt), v3's plain loop with tiny site buffers (its recount
@@ -130,7 +138,8 @@ order (any failure exits nonzero):
      ``BPE.train`` with ``YTTM_TRAIN_IMPL=stream|sparse|block`` and
      ``ops.train_kernel.run_training`` at vocab 30000, launches counted,
      rules equal to phase 5's v2 rules; times (merge loop, merges/s, each
-     kernel's device ms) and bounds from the work each run's data gave the
+     kernel's device ms, sparse_count's by CUDA events at its launches)
+     and bounds from the work each run's data gave the
      kernels (the top-k's keys: at k = 16 phase 5's, whose rounds see the
      same live counts; at k = 1 counted in v0's run, on the card); the
      plain versions timed over each run's first ids
@@ -159,16 +168,24 @@ order (any failure exits nonzero):
      shard_part_fold and shard_gather, the top-k and the applies on every
      shard).  On the 100 MB
      state each kernel equals its plain version for two rounds (v3 in both
-     of shard_fold's branches, the recount branch forced by a tiny dcap);
-     the 10 MB prefix at vocab 8000 (v0: its first ids) with 2 and 4 shards,
-     each kernel engine and its plain sharded loop in lockstep, equal at
-     every segment end (streams or rows, every replica's live table, rules;
-     v3 with tiny dcap and small tables); the main paths at vocab 30000,
+     of shard_fold's branches, the recount branch forced by a tiny dcap),
+     and sparse_shard_recount on phase 9's tombstoned edge streams (its gate
+     shut, then opened by another shard's DOVF) and regrown table; the 10
+     MB prefix at vocab 8000 (v0: its first ids) with 2 and 4 shards, each
+     kernel engine and its plain sharded loop in lockstep, equal at every
+     segment end (streams or rows, every replica's live table, rules; v3
+     with tiny dcap and small tables, through its round graph at 4 shards,
+     the recount branch's runs counted on the card equal to NREC and the
+     gate's to the replays, and per call at 2); the main paths at vocab 30000,
      each run once under torch.profiler with launches counted:
      ``train.train`` with ``YTTM_TRAIN_IMPL=sparse`` on the mesh,
      ``run_training_stream_sharded`` and ``run_training_sharded``, rules
-     equal to phase 5's v2 rules; times, bounds and plain versions as in
-     phase 10, and v3's merge loop twice more without the profiler
+     equal to phase 5's v2 rules (v3 through its round graph: launches
+     checked against replays, recount rounds and counts); times, bounds and
+     plain versions as in phase 10, and v3's merge loop twice more without
+     the profiler, sparse_shard_recount by CUDA events at its runs, the v3
+     kernels over the first ids by CUDA events, and sparse_shard_recount on
+     the main run's trained shards against its plain version
  12. multi-process training (parallel/distributed.py), run after phase 11:
      two processes (``chip_smoke.py --dist-worker``, gloo on localhost),
      each with 2 shards on card 0 (4 in all, as phase 10), train the 100 MB
@@ -285,7 +302,7 @@ def phase_device_and_build() -> dict:
                                       "delta_apply_kernel", "tier_apply_kernel",
                                       "mark_words_kernel", "emit_words_kernel", "resplit_kernel",
                                       "encode_short_kernel", "encode_long_kernel",
-                                      "pair_count_kernel", "fold_plan_kernel",
+                                      "pair_count_kernel", "tomb_count_kernel", "fold_plan_kernel",
                                       "encode_dropout_short_kernel", "encode_dropout_long_kernel",
                                       "merge_words_kernel", "merge_long_words_kernel")):
         log(f"[1] {line}")
@@ -1350,15 +1367,21 @@ COUNT_WIDE_SLOTS, COUNT_WIDE_IDS, COUNT_MAX_BLOCKS = 4_000_000, 3000, 1056
 COUNT_SMALL_CAP = 512  # the main path's 702 pairs overflow it at the first count
 
 
+def count_edge_words(base: int, rng):
+    """The words of pair_count's first edge stream, ids from ``base``: the
+    applies' edge words (runs of 1-9 equal ids, chains, words of 33-60
+    tokens and one of 600) with a word that is a run of 1,000 equal tokens
+    and 40 words of 33-600 tokens."""
+    words = edge_words(base, rng, True) + [[base] * 1000]
+    lens = rng.integers(33, 601, 40)
+    return words + [[base + int(v) for v in rng.integers(0, 8, n)] for n in lens]
+
+
 def count_edge_streams(base: int, rng):
     """(what, t, wid, freq) of pair_count's edge streams, ids from ``base``:
-    the applies' edge words (runs of 1-9 equal ids, chains, words of 33-60
-    tokens and one of 600) with a word that is a run of 1,000 equal tokens
-    and 40 words of 33-600 tokens; and words of 2-14 random ids out of
+    ``count_edge_words``; and words of 2-14 random ids out of
     COUNT_WIDE_IDS over ~COUNT_WIDE_SLOTS slots."""
-    words = edge_words(base, rng, True) + [[base] * 1000]
-    words += [[base + int(v) for v in rng.integers(0, 8, n)] for n in rng.integers(33, 601, 40)]
-    t, wid, freq = flat_words(words, rng)
+    t, wid, freq = flat_words(count_edge_words(base, rng), rng)
     out = [("edge words, a run of 1000, words of 33-600 tokens", t, wid, freq)]
     lens = rng.integers(2, 15, COUNT_WIDE_SLOTS // 9)
     t = (rng.integers(0, COUNT_WIDE_IDS, int(lens.sum())) + base).astype(np.int32)
@@ -1366,6 +1389,250 @@ def count_edge_streams(base: int, rng):
     out.append((f"{lens.size} words of random pairs of {COUNT_WIDE_IDS} ids", t, wid,
                 rng.integers(1, 6, lens.size).astype(np.int32)))
     return out
+
+
+TOMB_WORD_SLOTS = 5000  # the long words that are all tombstones but for a few tokens
+
+
+def tomb_lay(groups, base: int, rng):
+    """(t, wid, freq) of a v3 stream holding each group of words (lists of
+    ids, -1 a tombstone) after a filler word of live random ids from
+    ``base``: 2-130 of them, or, for a group given as (words, k), as many as
+    start the group k slots past a 128-slot chunk's first slot.  Seven
+    positions that belong to no word end the stream; weights 1-5."""
+    words, pos = [], 0
+    for g in groups:
+        gw, k = g if isinstance(g, tuple) else (g, None)
+        n = int(rng.integers(2, 131)) if k is None else 2 + (k - pos - 2) % 128
+        words.append([base + int(v) for v in rng.integers(0, 6, n)])
+        words += gw
+        pos += n + sum(len(w) for w in gw)
+    t, wid, freq = flat_words(words, rng)
+    tail = np.full(7, -1, np.int32)
+    return np.concatenate([t, tail]), np.concatenate([wid, tail]), freq
+
+
+def tomb_edge_streams(base: int, rng):
+    """(what, t, wid, freq) of the tombstoned count's edge streams
+    (csrc/tomb_count.cuh, which sparse_count and sparse_shard_recount run),
+    ids from ``base``; the CPU tests (tests/test_torch_train_sparse.py) hold
+    the plain versions against the JAX package's host count on the same
+    streams.  A filler word of random length comes before each pattern, so
+    that the patterns fall across 128-slot chunk boundaries at many offsets:
+    count_edge_words with a third of their positions tombstoned; runs of one
+    id split by runs of 1-300 tombstones (2-5 live tokens, and runs of 600
+    with a quarter tombstoned), started anywhere and two slots before a
+    chunk's end; adjacent words whose boundary ids are equal, boundaries on
+    a chunk's first slot, with and without tombstones beside them; words of
+    TOMB_WORD_SLOTS slots that are all tombstones but for a few tokens (an
+    equal run among them, tokens on a chunk's first and last slots), an
+    all-tombstone word and a one-token word."""
+    a, b, c = base, base + 1, base + 2
+    t, wid, freq = flat_words(count_edge_words(base, rng), rng)
+    t = np.where(rng.random(t.size) < 1 / 3, -1, t).astype(np.int32)
+    out = [("edge words, a third of their positions tombstones", t, wid, freq)]
+
+    def split_run(n_live, gaps):
+        w = [c]
+        for i in range(n_live):
+            w += [a] + [-1] * (gaps[i] if i < len(gaps) else 0)
+        return w + [b]
+
+    groups = []
+    for gaps in ([1], [3, 3], [40], [130], [300, 1], [1, 130, 2], [127, 129, 128]):
+        for n_live in (2, 3, 4, 5):
+            groups += [[split_run(n_live, gaps)], ([split_run(n_live, gaps)], 126)]
+    for _ in range(3):
+        groups.append([[c] + [-1 if v else a for v in rng.random(600) < 0.25] + [b]])
+    out.append(("runs of one id split by tombstone runs across chunks",
+                *tomb_lay(groups, base, rng)))
+
+    groups = [([[c, a, a], [a, a, c]], 125), [[c, a, a], [a, a, c]],
+              ([[c, a, a, -1, -1], [-1, a, a, c]], 123), [[a] * 5 + [-1] * 130, [-1] * 3 + [a] * 4],
+              ([[b, a], [a]], 126), ([[a], [a], [a, a]], 127), ([[a, -1], [-1, a, a]], 126)]
+    for _ in range(30):
+        groups.append([[-1 if v < 0.3 else a for v in rng.random(int(n))]
+                       for n in rng.integers(1, 10, int(rng.integers(2, 4)))])
+    out.append(("equal ids on both sides of word boundaries", *tomb_lay(groups, base, rng)))
+
+    def sparse_word(live):
+        w = [-1] * TOMB_WORD_SLOTS
+        for at, v in live:
+            w[at] = v
+        return w
+
+    groups = [([sparse_word([(0, c), (1000, a), (1023, a), (1024, a), (2175, a), (3000, b),
+                             (4999, a)])], 0),
+              [[-1] * 300], ([sparse_word([(5, a), (4990, a)])], 0), [[a]],
+              ([sparse_word([(127, a), (128, a), (129, a), (4000, b)])], 0)]
+    out.append(("words all tombstones but a few tokens", *tomb_lay(groups, base, rng)))
+    return out
+
+
+def tomb_state(kernel: str, t, wid, freq, dev, cap: int):
+    """A state of ``kernel``'s trainer on the stream: (the state, the shards
+    its count reads): a SparseState, or a SparseShardState beside a second
+    shard of the same stream."""
+    from youtokentome_tpu_torch.ops import sparse_kernels as spk
+    from youtokentome_tpu_torch.ops import sparse_sharded_kernels as ssk
+
+    rules = np.full((int(max(t.max(), 0)) + 16, 4), -1, np.int32)
+    if kernel == "sparse_count":
+        st = spk.SparseState(t, wid, freq, rules, rules.shape[0], cap, dev)
+        return st, [st]
+    shards = [ssk.SparseShardState(t, wid, freq, rules, rules.shape[0], cap, MID_DCAP, dev)
+              for _ in range(2)]
+    return shards[0], shards
+
+
+def tomb_count(kernel: str, st, shards, plain: bool, blocks: int = 0) -> None:
+    """``kernel`` on ``st`` (its plain version with ``plain``; the kernel on
+    at most ``blocks`` blocks when > 0), the recount's gate opened by the
+    other shard's DOVF."""
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import sparse_kernels as spk
+    from youtokentome_tpu_torch.ops import sparse_sharded_kernels as ssk
+
+    if kernel == "sparse_count":
+        if plain:
+            count_plain(spk, "sparse", st)
+        else:
+            spk.sparse_count(st, blocks)
+        return
+    shards[-1].ctl[dsk.DOVF] = 1
+    if plain:
+        ssk.sparse_shard_recount_plain(st, shards)
+    else:
+        ssk.sparse_shard_recount(st, shards, blocks)
+
+
+def tomb_slots(kernel: str) -> tuple:
+    """The ctl slots of the table's occupancy and overflow that ``kernel``
+    writes."""
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    return (tk.OCC, tk.OVERFLOW) if kernel == "sparse_count" else (dsk.ROCC, dsk.ROVF)
+
+
+def tomb_table(kernel: str, st):
+    """The table the count filled, as a sorted (keys, counts) multiset."""
+    return st.table() if kernel == "sparse_count" else scratch_table(st)
+
+
+def tomb_same(kernel: str, a, b, what: str) -> None:
+    if kernel == "sparse_count":
+        same_diff_state(a, b, what)
+    else:
+        same_shard(a, b, what, buffers=False, stream=("t",))
+
+
+def tomb_check(kernel: str, st, shards, uk, uc, what: str) -> int:
+    """``kernel`` on clones of ``st`` (among ``shards``) on one wave of
+    blocks and on one block (each warp many chunks) against its plain
+    version and the host count (uk, uc); returns the checks made."""
+    occ, ovf = tomb_slots(kernel)
+    i = next(j for j, s in enumerate(shards) if s is st)
+    p = [clone_state(s) for s in shards]
+    tomb_count(kernel, p[i], p, True)
+    for blocks in (0, 1):
+        k = [clone_state(s) for s in shards]
+        for s in k:
+            s._links = None
+        tomb_count(kernel, k[i], k, False, blocks)
+        label = f"{kernel} on {blocks or 'one wave of'} block(s), {what}"
+        tomb_same(kernel, k[i], p[i], label)
+        keys, cnts = tomb_table(kernel, k[i])
+        check(np.array_equal(keys, np.asarray(uk, np.int64)) and np.array_equal(cnts, uc),
+              f"{label}: != the host count table")
+        check(int(k[i].ctl[occ]) == keys.size and not int(k[i].ctl[ovf]),
+              f"{label}: occupancy {int(k[i].ctl[occ])} of {keys.size}, overflow "
+              f"{int(k[i].ctl[ovf])}")
+    return 2
+
+
+def phase_tomb_checks(kernel: str, main_st, main_shards, dev) -> dict:
+    """The tombstoned count (``kernel``: "sparse_count", phase 9, or
+    "sparse_shard_recount", phase 11) against its plain version and the
+    host count table (``_host_table_tomb``) on tomb_edge_streams, ids from
+    5 and 70000, on one wave of blocks and on one (the recount's gate shut:
+    its scratch table untouched; opened by the other shard's DOVF); then
+    the main path's state (``main_st`` among ``main_shards``) counted into
+    COUNT_SMALL_CAP slots, which overflow at the first count (the kernel and
+    the plain version), again at twice the size until it fits, equal to the
+    host count of its stream."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_delta as td
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+    from youtokentome_tpu_torch.ops import train_sparse as sp
+
+    t0 = time.perf_counter()
+    n = 0
+    for base in COUNT_BASES:
+        rng = np.random.default_rng(base + 7)
+        for what, t, wid, freq in tomb_edge_streams(base, rng):
+            uk, uc = sp._host_table_tomb(t, wid, freq)
+            st, shards = tomb_state(kernel, t, wid, freq, dev, td._next_pow2(4 * max(uk.size, 1)))
+            label = f"{what}, ids from {base}"
+            if kernel == "sparse_shard_recount" and st.device.type == "cuda":
+                from youtokentome_tpu_torch.ops import sparse_sharded_kernels as ssk
+
+                st.rkeys.fill_(7)
+                ssk.sparse_shard_recount(st, shards)
+                torch.cuda.synchronize()
+                check(bool((st.rkeys == 7).all()), f"{label}: the shut recount wrote its table")
+                st.rkeys.fill_(tk.EMPTY)
+            n += tomb_check(kernel, st, shards, uk, uc, label)
+            log(f"[{9 if kernel == 'sparse_count' else 11}] {kernel}, {label}: == plain == host "
+                f"count table on one wave and on one block ({t.size} slots, "
+                f"{int((t >= 0).sum())} live, {uk.size} keys)")
+    occ, ovf = tomb_slots(kernel)
+    i = next(j for j, s in enumerate(main_shards) if s is main_st)
+    uk, uc = sp._host_table_tomb(main_st.t.cpu().numpy(), main_st.wid.cpu().numpy(),
+                                 main_st.freq.cpu().numpy())
+    p = [clone_state(s) for s in main_shards]
+    k = [clone_state(s) for s in main_shards]
+    for s in p + k:
+        s._links = None
+        s.resize(COUNT_SMALL_CAP)
+    tomb_count(kernel, p[i], p, True)
+    check(int(p[i].ctl[ovf]) == 1, "the plain count did not overflow its small table")
+    sizes = []
+    while True:
+        tomb_count(kernel, k[i], k, False)
+        sizes.append((k[i].cap, int(k[i].ctl[ovf])))
+        if not sizes[-1][1]:
+            break
+        for s in k:
+            s._links = None
+            s.resize(s.cap * 2)
+    check(sizes[0] == (COUNT_SMALL_CAP, 1), f"{kernel} into {COUNT_SMALL_CAP} slots: {sizes}")
+    keys, cnts = tomb_table(kernel, k[i])
+    check(np.array_equal(keys, np.asarray(uk, np.int64)) and np.array_equal(cnts, uc)
+          and int(k[i].ctl[occ]) == keys.size, f"{kernel}: the regrown count != the host count")
+    log(f"[{9 if kernel == 'sparse_count' else 11}] {kernel} == plain == host count table on {n} "
+        f"edge counts; into {COUNT_SMALL_CAP} slots the main path's count sets its overflow "
+        f"(kernel and plain), counted again at {[c for c, _ in sizes[1:]]} slots it equals the "
+        f"host count ({time.perf_counter() - t0:.1f} s)")
+    return {"checks": n, "regrown": sizes}
+
+
+def tomb_state_check(kernel: str, states, what: str) -> None:
+    """The tombstoned count on clones of a trained run's states (every
+    shard's, for the recount, its gate opened) against its plain version and
+    the host count of each state's stream, on one wave and on one block."""
+    from youtokentome_tpu_torch.ops import train_sparse as sp
+
+    t0 = time.perf_counter()
+    for i, st in enumerate(states):
+        uk, uc = sp._host_table_tomb(st.t.cpu().numpy(), st.wid.cpu().numpy(),
+                                     st.freq.cpu().numpy())
+        live = int((st.t >= 0).sum())
+        tomb_check(kernel, st, states, uk, uc, f"{what}, state {i}")
+        log(f"[{9 if kernel == 'sparse_count' else 11}] {kernel} on {what}'s state {i} ({live} "
+            f"live of {st.end} slots, {uk.size} keys): == plain == host count table on one wave "
+            f"and on one block ({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_count_checks(main_st, dev) -> dict:
@@ -3067,11 +3334,69 @@ def compare_tree(work: Path) -> dict:
     out["shard_fns"] = tr.ms({f: (f,) for k in ("shard_fold", "shard_recount")
                               for f in COMPARE_SHARD_FNS[k]})
     out["shard_launches"] = {k: w.launches for k, w in wrappers.items()}
-    ms, _, _ = traced(lambda: ts.run_to_end(other_engine("sparse", buckets, used0, TRAIN_VOCAB),
-                                            used0, TRAIN_VOCAB),
-                      {"shard_fold": COMPARE_SHARD_FNS["shard_fold"]})
-    out["v3_fold_ms"] = round(ms["shard_fold"], 4)
+    out.update(compare_v3(buckets, used0))
     print("COMPARE " + json.dumps(out), flush=True)
+    return out
+
+
+def compare_v3(buckets, used0: int) -> dict:
+    """compare_tree's v3 numbers: the sharded v3 loop (4 shards on the card,
+    the engine's own route) twice by the host clock, then once traced (each
+    wrapper's device ms and launches, every device function of the recount
+    and the fold by name, in either tree); its recount by CUDA events where
+    it counts (``sparse_recount_events``, the per-call route); the
+    one-device v3 run's count by CUDA events around each call of its
+    wrapper (the wrapper's table reset inside them, done once before them
+    too, so that it runs on a table it already emptied)."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import sparse_kernels as spk
+    from youtokentome_tpu_torch.ops import train_stream as ts
+
+    out = {}
+    loops = []
+    for _ in range(2):
+        e = other_engine("sparse", buckets, used0, TRAIN_VOCAB)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts.run_to_end(e, used0, TRAIN_VOCAB)
+        torch.cuda.synchronize()
+        loops.append(time.perf_counter() - t0)
+    out["v3_loop_s"], out["v3_graph"] = loops, bool(getattr(e, "graph", False))
+    wrappers = {k: other_wrapper("sparse", k)[1] for k in OTHER_KERNELS["sparse"]}
+    for w in wrappers.values():
+        w.launches = 0
+    with Tracer() as tr:
+        t0 = time.perf_counter()
+        ts.run_to_end(other_engine("sparse", buckets, used0, TRAIN_VOCAB), used0, TRAIN_VOCAB)
+        torch.cuda.synchronize()
+        out["v3_traced_s"] = time.perf_counter() - t0
+    out["v3_ms"] = {k: round(v, 4) for k, v in tr.ms(COMPARE_V3_FNS).items()}
+    out["v3_fold_ms"] = out["v3_ms"]["shard_fold"]
+    out["v3_fns"] = tr.ms({f: (f,) for k in ("shard_fold", "sparse_shard_recount")
+                           for f in COMPARE_V3_FNS[k]})
+    out["v3_launches"] = {k: w.launches for k, w in wrappers.items()}
+    ms, runs, _, _ = sparse_recount_events(
+        lambda v: other_engine("sparse", buckets, used0, v), TRAIN_VOCAB, used0)
+    out["v3_recount_event_ms"], out["v3_recount_runs"] = round(ms, 4), runs
+    real, count_ms = spk.sparse_count, []
+
+    def timed(st, *rest):
+        st.keys.fill_(spk.EMPTY)
+        st.cnts.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+        a.record()
+        real(st, *rest)
+        b.record()
+        b.synchronize()
+        count_ms.append(round(a.elapsed_time(b), 4))
+
+    timed.launches = 0
+    with swapped(spk, sparse_count=timed):
+        run_diff(diff_engine("sparse", buckets, used0, TRAIN_VOCAB, torch.device("cuda", 0)),
+                 TRAIN_VOCAB, used0)
+    out["sparse_count_event_ms"] = count_ms
     return out
 
 
@@ -3687,7 +4012,7 @@ DIFF_DEVICE_FNS = {
     ("stream", "recount"): ("clear_kernel", "eq_tiles_kernel", "count_tiles_kernel"),
     ("stream", "topk_accept"): ("topk_select_kernel",),
     ("stream", "apply_compact"): ("hit_tiles_kernel", "select_tiles_kernel", "scatter_kernel"),
-    ("sparse", "sparse_count"): ("count_words_kernel",),
+    ("sparse", "sparse_count"): ("tomb_count_kernel",),
     ("sparse", "topk_accept"): ("topk_select_kernel",),
     ("sparse", "sparse_apply"): ("mark_live_words_kernel", "apply_words_kernel"),
     ("block", "block_count"): ("count_all_rows_kernel",),
@@ -3882,6 +4207,8 @@ def phase_diff_kernels(buckets, used0: int, dev) -> None:
             getattr(mod, name + "_count")(k_st)
             count_plain(mod, name, p_st)
             same_diff_state(k_st, p_st, f"{name}: count")
+        if name == "sparse":
+            phase_tomb_checks("sparse_count", st, [st], dev)
         k_st, p_st = clone_state(st), clone_state(st)
         for r in range(2):
             diff_round(name, mod, k_st, used0, False, getattr(eng, "KB", 0))
@@ -4154,6 +4481,32 @@ def plain_diff(name: str, engine, vocab: int, used0: int) -> dict:
     return ms, eng, used
 
 
+def sparse_count_event_ms(st) -> float:
+    """sparse_count on the v3 state ``st``: the wrapper's table reset, then
+    its kernel alone between CUDA events, a sleep kernel ahead so that the
+    host's enqueue is not timed; returns the kernel's ms."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import _cuda
+    from youtokentome_tpu_torch.ops import sparse_kernels as spk
+
+    st.keys.fill_(spk.EMPTY)
+    st.cnts.zero_()
+    st.ctl[[spk.OCC, spk.OVERFLOW]] = 0
+    lib = _cuda.load_sparse()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+    a.record()
+    err = lib.yttm_sparse_count(
+        st.t.data_ptr(), st.pw.data_ptr(), st.off.data_ptr(), st.fw.data_ptr(), st.end,
+        st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(), 0,
+        torch.cuda.current_stream().cuda_stream)
+    b.record()
+    b.synchronize()
+    check(err == 0, f"sparse_count kernel launch failed: CUDA error {err}")
+    return a.elapsed_time(b)
+
+
 def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
                     select_keys: dict) -> dict:
     """The main path of each differential trainer at vocab 30000: launches
@@ -4190,7 +4543,7 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
             eng = engine()
             return eng, run_diff(eng, vocab, used0)
 
-        count_calls = []
+        count_calls, count_ms = [], []
         if name == "bucketed":
             # v0's main path is its merge loop alone (~55 s on the card): it
             # runs once, under the profiler, which gives each kernel's device
@@ -4227,8 +4580,11 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
             if name in ("sparse", "block"):
                 real_count = getattr(mod, name + "_count")
 
-                def counted(st, real_count=real_count, mod=mod):
-                    real_count(st)
+                def counted(st, real_count=real_count, name=name):
+                    if name == "sparse" and st.device.type == "cuda":
+                        count_ms.append(sparse_count_event_ms(st))
+                    else:
+                        real_count(st)
                     count_calls.append(int(st.ctl[tk.OCC]))
                 counted.launches = 0
                 ctx = swapped(mod, **{name + "_count": counted})
@@ -4248,6 +4604,17 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
                   f"the profiled {name} run's rules differ")
             log(f"[9] {name}: a replica of the merge loop under torch.profiler took {prof_s:.3f} s "
                 f"against {loop_s:.3f} s without")
+            if name == "sparse":
+                # the count by CUDA events at its launches in the timed run
+                # (late in the script the tracer drops records)
+                log(f"[9] sparse_count by CUDA events at its {len(count_ms)} launches: "
+                    f"{sum(count_ms):.3f} ms ({', '.join(f'{v:.3f}' for v in count_ms)}); the "
+                    f"profiler's replica {kernel_ms['sparse_count']:.3f} ms")
+                check(len(count_ms) == launches["sparse_count"] and sum(count_ms) > 0,
+                      f"sparse_count timed at {len(count_ms)} launches of "
+                      f"{launches['sparse_count']}")
+                kernel_ms["sparse_count"] = sum(count_ms)
+                tomb_state_check("sparse_count", [eng.st], "the 100 MB v3 run")
         for k, n in launches.items():
             check(n > 0, f"the {name} main path did not launch {k}")
         log(f"[9] {what}: {train_s:.2f} s, rules == phase 5's v2 rules; launches {launches}")
@@ -4315,6 +4682,17 @@ COMPARE_SHARD_FNS = {
     "delta_emit": ("mark_words_kernel", "emit_words_kernel"),
     "shard_recount": ("recount_clear_kernel", "recount_kernel", "pair_count_kernel"),
     "shard_fold": ("fold_prep_kernel", "fold_kernel", "fold_done_kernel") + SHARD_FOLD_FNS,
+}
+
+
+# the sharded v3 wrappers' device functions in either tree that compare_tree
+# may run: the recount's before its redesign too
+COMPARE_V3_FNS = {
+    "topk_accept": ("topk_select_kernel",),
+    "sparse_emit": ("mark_live_words_kernel", "emit_live_words_kernel"),
+    "sparse_shard_recount": ("sparse_recount_clear_kernel", "sparse_recount_kernel",
+                             "recount_clear_kernel", "tomb_count_kernel"),
+    "shard_fold": SHARD_FOLD_FNS,
 }
 
 
@@ -4935,7 +5313,7 @@ OTHER_DEVICE_FNS = {
     "shard_part_fold": ("part_prep_kernel", "part_fold_kernel"),
     "shard_gather": ("gather_kernel",),
     "sparse_emit": ("mark_live_words_kernel", "emit_live_words_kernel"),
-    "sparse_shard_recount": ("sparse_recount_clear_kernel", "sparse_recount_kernel"),
+    "sparse_shard_recount": ("recount_clear_kernel", "tomb_count_kernel"),
     "stream_shard_count": ("clear_kernel", "eq_tiles_kernel", "count_tiles_kernel"),
     "apply_compact": ("hit_tiles_kernel", "select_tiles_kernel", "scatter_kernel"),
     "bucket_shard_count": ("clear_kernel", "count_rows_kernel"),
@@ -5062,6 +5440,7 @@ def phase_other_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
                 keys, cnts = st.table()
                 check(np.array_equal(keys, uk.astype(np.int64)) and np.array_equal(cnts, uc),
                       f"v3 replica {i}'s first count != the host count table")
+            phase_tomb_checks("sparse_shard_recount", eng.shards[0], eng.shards, dev)
         branches = []
         for dcap in ((MID_DCAP, 1 << 22) if name == "sparse" else (0,)):
             ks, ps = clone_shards(eng.shards, dcap), clone_shards(eng.shards, dcap)
@@ -5126,6 +5505,15 @@ def phase_other_shard_mid(mid_path: Path, dev="cuda:0", names=OTHER_TRAINERS,
                 plain = other_engine(name, buckets, used0, vocab, n, plain=True, dev=dev)
                 with env_set(YTTM_TRAIN_PCAP=str(MID_PCAP)):
                     kern = other_engine(name, buckets, used0, vocab, n, dev=dev)
+            gate = None
+            if name == "sparse":
+                # the main path's route, the round graph, at SHARDS shards;
+                # the per-call route at fewer
+                if n != SHARDS:
+                    kern.graph = False
+                check(kern.graph == (torch.device(dev).type == "cuda" and n == SHARDS),
+                      f"v3, {n} shards: graph {kern.graph}")
+                gate = gate_checked(kern, f"v3, {n} shards")
             used, segs, nrec = used0, 0, 0
             while used < vocab:
                 limit = min(vocab, used + TRAIN_SEG)
@@ -5146,13 +5534,22 @@ def phase_other_shard_mid(mid_path: Path, dev="cuda:0", names=OTHER_TRAINERS,
                 used, segs, nrec = ku, segs + 1, nrec + kern.nrec
                 if kd:
                     break
+            route = ""
             if name == "sparse":
                 check(kern.rebuilds >= 1 and nrec > 0,
                       f"v3, {n} shards: {kern.rebuilds} rebuilds, {nrec} recount rounds")
+                check(not kern.graph or (kern.rec_runs == gate["nrec"] and kern.replays > 0),
+                      f"v3, {n} shards: {kern.rec_runs} recount branch runs on the card for "
+                      f"{gate['nrec']} recount rounds in {kern.replays} replays")
+                route = (f"; the round graph ({kern.replays} replays, {kern.graph_builds} graphs "
+                         f"built), the recount branch {kern.rec_runs} runs on the card == NREC "
+                         f"over all {gate['segments']} segments, the gate {kern.gate_runs} runs"
+                         if kern.graph else "; the per-call route")
             out[(name, n)] = {"segments": segs, "rebuilds": kern.rebuilds, "recounts": nrec}
             log(f"[11] 10 MB, {name} sharded to {vocab}, {n} shards: kernels == plain sharded loop "
                 f"at all {segs} segment ends (streams, every replica's live table, rules); "
-                f"{kern.rebuilds} rebuilds, {nrec} recount rounds, tables {kern.shards[0].cap} slots")
+                f"{kern.rebuilds} rebuilds, {nrec} recount rounds, tables "
+                f"{kern.shards[0].cap} slots{route}")
         log(f"[11] 10 MB lockstep, {name}, {ns} shards: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -5237,8 +5634,113 @@ def plain_other(name: str, engine, vocab: int, used0: int):
     own = {k: f for k, f in plain.items() if k != "shard_fold"}
     with swapped(mod, **own), swapped(dsk, **{k: plain[k] for k in ("shard_fold",) if k in plain}):
         eng = engine(vocab)
+        eng.graph = False  # the per-call route, which the swapped wrappers serve
         used = ts.run_to_end(eng, used0, vocab)
     return ms, eng, used
+
+
+def check_sparse_route(eng, launches: dict, tracer, on_card: bool) -> None:
+    """The sharded v3 main path's route: on the card the round graph, the
+    recount only on the exchanges that recount (NREC's rounds, counted on the
+    card, and the forced counts), the fold one launch a round, the gate's
+    runs the replays; the tracer's records of the graph's kernels logged
+    against their runs."""
+    check(eng.graph == on_card, f"the sharded v3 main path's route: graph {eng.graph}")
+    if not on_card:
+        return
+    rec = eng.gate["nrec"] + eng.count_exchanges
+    check(launches["sparse_shard_recount"] == rec * SHARDS and eng.rec_runs == eng.gate["nrec"],
+          f"sparse_shard_recount launched {launches['sparse_shard_recount']} times for "
+          f"{eng.gate['nrec']} recount rounds (the card counted {eng.rec_runs}) and "
+          f"{eng.count_exchanges} counts")
+    check(launches["shard_fold"] == eng.replays + eng.count_exchanges
+          and launches["topk_accept"] == eng.replays * SHARDS
+          and launches["sparse_emit"] == eng.replays * SHARDS and eng.gate_runs == eng.replays,
+          f"{launches} in {eng.replays} replays ({eng.gate_runs} gate runs) and "
+          f"{eng.count_exchanges} counts")
+    rebuilds = eng.rec_runs + eng.count_exchanges
+    want = {"round_gate_kernel": eng.gate_runs, "fold_delta_kernel": eng.gate_runs - eng.rec_runs,
+            "rebuild_add_kernel": rebuilds, "tomb_count_kernel": rebuilds * SHARDS,
+            "topk_select_kernel": eng.replays * SHARDS}
+    got = tracer.ms({f: (f,) for f in want}, counts=True)
+    log(f"[11] the sharded v3 main path's route: {eng.replays} round graph replays "
+        f"({eng.gate_runs} gate runs on the card) in {eng.graph_builds} graphs built "
+        f"({eng.graph_build_s:.3f} s on the host), {eng.gate['nrec']} recount rounds, "
+        f"{eng.count_exchanges} counts: "
+        f"sparse_shard_recount {launches['sparse_shard_recount']} launches, shard_fold "
+        f"{launches['shard_fold']}; the tracer's records / runs: "
+        + ", ".join(f"{f} {int(got[f])} / {n}" for f, n in want.items()))
+
+
+def sparse_recount_events(engine, vocab: int, used0: int):
+    """The sharded v3 loop to ``vocab`` once more on the per-call route,
+    sparse_shard_recount timed by CUDA events at each launch that counts
+    (some shard's DOVF set, read by the host), a sleep kernel ahead so that
+    the host's enqueue is not timed: the runs that the round graph's recount
+    branch makes.  Returns (ms, runs, the engine, used)."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import sparse_sharded_kernels as ssk
+    from youtokentome_tpu_torch.ops import train_stream as ts
+
+    real = ssk.sparse_shard_recount
+    got = {"ms": 0.0, "runs": 0}
+
+    def timed(st, shards, *rest):
+        if not bool(torch.stack([s.ctl[dsk.DOVF] for s in shards]).any()):
+            return real(st, shards, *rest)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+        a.record()
+        real(st, shards, *rest)
+        b.record()
+        b.synchronize()
+        got["ms"] += a.elapsed_time(b)
+        got["runs"] += 1
+
+    timed.launches = 0
+    with swapped(ssk, sparse_shard_recount=timed):
+        eng = engine(vocab)
+        eng.graph = False
+        used = ts.run_to_end(eng, used0, vocab)
+    return got["ms"], got["runs"], eng, used
+
+
+def other_event_prefix(name: str, engine, vocab: int, used0: int) -> dict:
+    """Device ms of each wrapper of the sharded trainer ``name`` over a run
+    to ``vocab`` on the per-call route, by CUDA events around every call (a
+    sleep kernel ahead of each, so that the host's enqueue is not timed)."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
+    from youtokentome_tpu_torch.ops import sparse_sharded_kernels as ssk
+    from youtokentome_tpu_torch.ops import train_stream as ts
+
+    ms = {k: 0.0 for k in OTHER_KERNELS[name]}
+
+    def timed(k, fn):
+        def run(*a, **kw):
+            ea, eb = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+            ea.record()
+            out = fn(*a, **kw)
+            eb.record()
+            eb.synchronize()
+            ms[k] += ea.elapsed_time(eb)
+            return out
+        run.launches = 0
+        return run
+
+    fns = {k: timed(k, other_wrapper(name, k)[1]) for k in OTHER_KERNELS[name]}
+    mod = ssk if name == "sparse" else rsk  # where the engine finds its wrappers
+    own = {k: f for k, f in fns.items() if k != "shard_fold"}
+    with swapped(mod, **own), swapped(dsk, **{k: f for k, f in fns.items() if k == "shard_fold"}):
+        eng = engine(vocab)
+        eng.graph = False
+        ts.run_to_end(eng, used0, vocab)
+    return ms
 
 
 def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
@@ -5295,6 +5797,8 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
                 torch.cuda.synchronize()
                 marks.append(time.perf_counter())
                 engines.append(self)
+                self.gate = gate_checked(self, f"the {name} sharded main path") if (
+                    name == "sparse") else None
 
             def round(self, limit):
                 super().round(limit)
@@ -5355,6 +5859,7 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
         w = np.sum([st.work.cpu().numpy() for st in eng.shards], axis=0)
         extra, res_extra = "", {}
         if name == "sparse":
+            check_sparse_route(eng, launches, tracer, torch.device(dev).type == "cuda")
             entries = int(w[dsk.W_ENTRIES])
             res_extra = {"recounts": eng.total_nrec, "exchange_b": entries * 12 / max(rounds, 1)}
             extra = (f", {eng.total_nrec} recount rounds, {entries} buffer entries "
@@ -5389,13 +5894,34 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
                       "the unprofiled sharded v3 run's rules differ")
             busy_s = sum(kernel_ms.values()) / 1e3
             res_extra.update(loops_s=loops, busy_s=busy_s)
-            log(f"[11] sparse sharded merge loop without the profiler: {loops[0]:.3f} s, "
+            route = "the round graph" if e.graph else "per call"
+            log(f"[11] sparse sharded merge loop without the profiler ({route}): {loops[0]:.3f} s, "
                 f"{loops[1]:.3f} s; its kernels {busy_s:.3f} s on the card under the profiler, "
                 f"{busy_s / min(loops):.1%} of the faster loop ({card})")
+            # the recount by CUDA events at the launches the graph's recount
+            # branch makes (late in the script the tracer drops records)
+            rec_ms, rec_runs, r_eng, r_used = sparse_recount_events(engine, TRAIN_VOCAB, used0)
+            check(torch.equal(r_eng.rules[: r_used - used0, :3].cpu(), want_rules),
+                  "the event-timed sharded v3 run's rules differ")
+            check(rec_runs == launches["sparse_shard_recount"] and rec_ms > 0,
+                  f"sparse_shard_recount timed at {rec_runs} runs, launched "
+                  f"{launches['sparse_shard_recount']} times on the main path")
+            log(f"[11] sparse_shard_recount by CUDA events at its {rec_runs} runs (the per-call "
+                f"route, timed where some shard's DOVF is set): {rec_ms:.3f} ms; the profiler "
+                f"{kernel_ms['sparse_shard_recount']:.3f} ms ({card})")
+            kernel_ms["sparse_shard_recount"] = rec_ms
+            tomb_state_check("sparse_shard_recount", eng.shards, "the 100 MB sharded v3 run")
 
         plain_ids = OTHER_PLAIN_IDS[name]
         plain_vocab = used0 + plain_ids
-        prefix_ms = other_profiled(name, lambda: replica(plain_vocab))[0]
+        if name == "sparse":
+            # the kernels over the prefix by CUDA events at every launch (the
+            # per-call route), which cannot read 0 as the tracer's records did
+            prefix_ms = other_event_prefix(name, engine, plain_vocab, used0)
+            for k, v in prefix_ms.items():
+                check(v > 0, f"sharded v3 {k} over the first {plain_ids} ids: {v} ms")
+        else:
+            prefix_ms = other_profiled(name, lambda: replica(plain_vocab))[0]
         plain_ms, p_eng, p_used = plain_other(name, engine, plain_vocab, used0)
         check(torch.equal(p_eng.rules[: p_used - used0, :3].cpu(), want_rules[: p_used - used0]),
               f"the {name} sharded plain versions' rules differ")

@@ -359,3 +359,28 @@ def test_sparse_on_a_mesh_trains_sharded_v3(monkeypatch):
     assert seen == [8]
     want = j_train(cps, VOCAB, JConfig(1.0, -1, JSpecial(0, 1, 2, 3)))
     assert got.rules == want.rules and got.char2id == want.char2id
+
+
+def test_cpu_mesh_takes_the_per_call_route(monkeypatch):
+    """On a CPU mesh the v3 kernel engine runs its rounds through the
+    per-call wrappers (``graph`` False): the round graph is never built, and
+    the rules equal the JAX package's."""
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.parallel import train_sparse_sharded as tss
+
+    def no_graph(*a, **k):
+        raise AssertionError("the round graph ran on a CPU mesh")
+
+    monkeypatch.setattr(dsk, "shard_rounds", no_graph)
+    engines = []
+    real = tss.make_engine
+
+    def make_engine(*a, **k):
+        engines.append(real(*a, **k))
+        return engines[-1]
+
+    monkeypatch.setattr(tss, "make_engine", make_engine)
+    assert _port(2, False) == _single()
+    (eng,) = engines
+    assert isinstance(eng, ssk.SparseShardedKernelEngine)
+    assert eng.graph is False and eng.round_graph is None and eng.replays == 0

@@ -404,3 +404,53 @@ def test_checkpoints_resume_across_packages_and_trainers(writer, reader, tmp_pat
     else:
         for plain in (False, True):
             assert runs[reader](BUCKETS, USED0, VOCAB, resume_path=ck, plain=plain) == want
+
+
+# -- the tombstoned count (csrc/tomb_count.cuh) against the JAX host count -----
+
+TOMB_BASES = (5, 70000)
+TOMB_STREAMS = 4  # chip_smoke.tomb_edge_streams: edge words, split runs, boundaries, sparse words
+
+
+@functools.lru_cache(maxsize=None)
+def _tomb_streams(base):
+    """The tombstoned edge streams that chip_smoke.py feeds the kernels,
+    made by the same function from the same seed."""
+    import chip_smoke
+
+    return chip_smoke.tomb_edge_streams(base, np.random.default_rng(base + 7))
+
+
+@pytest.mark.parametrize("kernel", ["sparse_count", "sparse_shard_recount"])
+@pytest.mark.parametrize("base", TOMB_BASES)
+@pytest.mark.parametrize("stream", range(TOMB_STREAMS))
+def test_tombstoned_counts_match_jax_host_table(kernel, base, stream):
+    """The plain versions of v3's count (``sparse_count_plain``) and of the
+    sharded v3 recount (``sparse_shard_recount_plain``, its gate opened by
+    the other shard's DOVF) fill their tables with the JAX package's
+    ``_host_table_tomb`` on the tombstoned edge streams: tombstone runs
+    across 128-slot chunks, equal runs split by tombstones (parity in
+    live-rank space), equal ids on both sides of word boundaries (no pair
+    across), long words all tombstones but a few tokens, ids from 70000."""
+    from youtokentome_tpu_torch.ops import sparse_sharded_kernels as ssk
+
+    what, t, wid, freq = _tomb_streams(base)[stream]
+    uk, uc = jsp._host_table_tomb(t, wid, freq)
+    assert uk.size > 0
+    rules = np.full((base + 16, 4), -1, np.int32)
+    cap = td._next_pow2(4 * uk.size)
+    if kernel == "sparse_count":
+        st = spk.SparseState(t, wid, freq, rules, base + 16, cap, "cpu")
+        spk.sparse_count(st)
+        keys, cnts, occ, ovf = st.keys, st.cnts, st.ctl[spk.OCC], st.ctl[spk.OVERFLOW]
+    else:
+        st, other = (ssk.SparseShardState(t, wid, freq, rules, base + 16, cap, 8, "cpu")
+                     for _ in range(2))
+        other.ctl[ssk.DOVF] = 1
+        ssk.sparse_shard_recount(st, [st, other])
+        keys, cnts, occ, ovf = st.rkeys, st.rcnts, st.ctl[ssk.ROCC], st.ctl[ssk.ROVF]
+    used = keys != spk.EMPTY
+    order = torch.argsort(keys[used])
+    np.testing.assert_array_equal(keys[used][order].numpy(), np.asarray(uk, np.int64), what)
+    np.testing.assert_array_equal(cnts[used][order].numpy(), uc, what)
+    assert int(occ) == uk.size and int(ovf) == 0

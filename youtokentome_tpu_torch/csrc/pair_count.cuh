@@ -11,8 +11,9 @@
 // the v2 run's 4 counts (torch.profiler, H100 80GB HBM3, 700 W), 56x its
 // bound.
 //
-// The count has its own path (the applies and the other trainers' counts
-// keep add_word and table_add):
+// The count has its own path (the applies and v5's and v4's counts keep
+// add_word and table_add; v3's counts walk the tombstoned stream with this
+// header's block table, tomb_count.cuh):
 //  * the stream is walked flat, not a word a warp: a warp takes a
 //    contiguous run of 128-slot chunks, a lane 4 slots by one 16-byte load
 //    of the tokens and one of pwid; a pair's weight is fw[pwid].  Run parity
@@ -123,6 +124,104 @@ __device__ __forceinline__ void load4(const int32_t *v, int p, int n, int32_t pa
   }
 }
 
+// The count's gate: open when gate is null, or when one of the n_gate ctl
+// arrays has slot gate_slot set (a lane a ctl, so that the loads are in
+// flight together).  Called by all 32 lanes of every warp, before the
+// block's first barrier.
+__device__ __forceinline__ bool count_gate_open(const int32_t *const *gate, int n_gate,
+                                                int gate_slot) {
+  if (!gate) return true;
+  const int lane = threadIdx.x & 31;
+  bool open = false;
+  for (int b = 0; b < n_gate; b += 32)
+    open |= __any_sync(kFullMask, b + lane < n_gate && __ldcg(gate[b + lane] + gate_slot) != 0);
+  return open;
+}
+
+// A block's table in shared memory, and the global slots its lanes claimed.
+struct BlockTable {
+  unsigned long long key[kCountSlots];
+  int32_t cnt[kCountSlots];
+  int claimed;
+};
+
+// Empties the block's table (all threads, ending at a barrier).
+__device__ __forceinline__ void block_table_open(BlockTable &bt) {
+  for (int s = threadIdx.x; s < kCountSlots; s += blockDim.x) {
+    bt.key[s] = kEmpty;
+    bt.cnt[s] = 0;
+  }
+  if (threadIdx.x == 0) bt.claimed = 0;
+  __syncthreads();
+}
+
+// A lane's counted pairs of a chunk (key kEmpty: none; f their weights), each
+// into its key's home slot of the block's table when that is free or holds
+// its key (one shared atomic), the others into the global table with their
+// first probes loaded together.  Returns the global slots claimed.
+template <int OVF>
+__device__ __forceinline__ int block_table_put(BlockTable &bt, unsigned long long (&key)[4],
+                                               const int32_t (&f)[4], unsigned long long *keys,
+                                               int32_t *cnts, int cap, int32_t *ctl) {
+  volatile unsigned long long *vkey = bt.key;
+  const unsigned mask = (unsigned)cap - 1u;
+  unsigned h[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (key[j] == kEmpty) continue;
+    h[j] = (unsigned)hash64(key[j]);
+    const unsigned s = h[j] & (kCountSlots - 1u);
+    unsigned long long k = vkey[s];
+    if (k == kEmpty) k = atomicCAS(bt.key + s, kEmpty, key[j]);
+    if (k == kEmpty || k == key[j]) {
+      atomicAdd(bt.cnt + s, f[j]);
+      key[j] = kEmpty;
+    }
+  }
+  unsigned long long first[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) first[j] = key[j] != kEmpty ? __ldcg(keys + (h[j] & mask)) : kEmpty;
+  int claims = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (key[j] == kEmpty) continue;
+    if (first[j] == key[j]) atomicAdd(cnts + (h[j] & mask), f[j]);
+    else claims += count_put<OVF>(keys, cnts, cap, ctl, key[j], f[j], h[j]);
+  }
+  return claims;
+}
+
+// The block's end (all threads): each live slot of its table added to the
+// global table once, and the block's claims (the lanes' `claims` with the
+// flush's) added to ctl[OCC] once, OVF set past half the slots.
+template <int OCC, int OVF>
+__device__ __forceinline__ void block_table_close(BlockTable &bt, int claims,
+                                                  unsigned long long *keys, int32_t *cnts,
+                                                  int cap, int32_t *ctl) {
+  __syncthreads();
+  for (int s = threadIdx.x; s < kCountSlots; s += blockDim.x) {
+    const unsigned long long k = bt.key[s];
+    if (k != kEmpty) claims += count_put<OVF>(keys, cnts, cap, ctl, k, bt.cnt[s], (unsigned)hash64(k));
+  }
+  claims = __reduce_add_sync(kFullMask, claims);
+  if ((threadIdx.x & 31) == 0 && claims) atomicAdd(&bt.claimed, claims);
+  __syncthreads();
+  if (threadIdx.x == 0 && bt.claimed) {
+    const int occ = atomicAdd(ctl + OCC, bt.claimed) + bt.claimed;
+    if (2ll * occ > (long long)cap) atomicExch(ctl + OVF, 1);
+  }
+}
+
+// The contiguous run of 128-slot chunks [c0, c1) of a stream of n slots
+// that the calling warp walks (a grid of whole warps).
+__device__ __forceinline__ void warp_chunks(int n, int &c0, int &c1) {
+  const long long warp = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  const long long n_warps = (gridDim.x * (long long)blockDim.x) >> 5;
+  const long long chunks = (n + 127) / 128;
+  c0 = (int)(chunks * warp / n_warps);
+  c1 = (int)(chunks * (warp + 1) / n_warps);
+}
+
 // Counts every pair of tok / pwid (Mw slots) into keys / cnts, claims in
 // ctl[OCC], a table more than half full in ctl[OVF].  gate: null, or a
 // device array of n_gate ctl pointers, and the count runs only when one of
@@ -132,29 +231,12 @@ __global__ void __launch_bounds__(kCountThreads)
     pair_count_kernel(const int32_t *tok, const int32_t *pwid, const int32_t *fw, int Mw,
                       unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
                       const int32_t *const *gate, int n_gate, int gate_slot) {
-  if (gate) {  // a lane a ctl, so that the loads are in flight together
-    const int lane = threadIdx.x & 31;
-    bool open = false;
-    for (int b = 0; b < n_gate; b += 32)
-      open |= __any_sync(kFullMask, b + lane < n_gate && __ldcg(gate[b + lane] + gate_slot) != 0);
-    if (!open) return;
-  }
-  __shared__ unsigned long long skey[kCountSlots];
-  __shared__ int32_t scnt[kCountSlots];
-  __shared__ int claimed;
-  for (int s = threadIdx.x; s < kCountSlots; s += blockDim.x) {
-    skey[s] = kEmpty;
-    scnt[s] = 0;
-  }
-  if (threadIdx.x == 0) claimed = 0;
-  __syncthreads();
-  volatile unsigned long long *vkey = skey;
-  const unsigned mask = (unsigned)cap - 1u;
+  if (!count_gate_open(gate, n_gate, gate_slot)) return;
+  __shared__ BlockTable bt;
+  block_table_open(bt);
   const int lane = threadIdx.x & 31;
-  const long long warp = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-  const long long n_warps = (gridDim.x * (long long)blockDim.x) >> 5;
-  const long long chunks = (Mw + 127) / 128;
-  const int c0 = (int)(chunks * warp / n_warps), c1 = (int)(chunks * (warp + 1) / n_warps);
+  int c0, c1;
+  warp_chunks(Mw, c0, c1);
   int claims = 0;  // global slots this lane claimed
   if (c0 < c1) {
     int carry = c0 ? last_unequal_before(tok, c0 * 128) : -1;
@@ -180,10 +262,8 @@ __global__ void __launch_bounds__(kCountThreads)
       lne = lne > carry ? lne : carry;
       const int top = __shfl_sync(kFullMask, incl, 31);
       carry = top > carry ? top : carry;
-      // the counted pairs into the block's table; the others pending
       unsigned long long key[4];
       int32_t f[4];
-      unsigned h[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (!eq[j]) lne = p + j;
@@ -191,57 +271,30 @@ __global__ void __launch_bounds__(kCountThreads)
         if (!(pv[j] && (!eq[j] || ((p + j - lne - 1) & 1) == 0))) continue;
         key[j] = pair_key(a[j], nb[j]);
         f[j] = __ldg(fw + w[j]);
-        h[j] = (unsigned)hash64(key[j]);
-        const unsigned s = h[j] & (kCountSlots - 1u);
-        unsigned long long k = vkey[s];
-        if (k == kEmpty) k = atomicCAS(skey + s, kEmpty, key[j]);
-        if (k == kEmpty || k == key[j]) {
-          atomicAdd(scnt + s, f[j]);
-          key[j] = kEmpty;
-        }
       }
-      // the pending pairs into the global table, first probes loaded together
-      unsigned long long first[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) first[j] = key[j] != kEmpty ? __ldcg(keys + (h[j] & mask)) : kEmpty;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (key[j] == kEmpty) continue;
-        if (first[j] == key[j]) atomicAdd(cnts + (h[j] & mask), f[j]);
-        else claims += count_put<OVF>(keys, cnts, cap, ctl, key[j], f[j], h[j]);
-      }
+      claims += block_table_put<OVF>(bt, key, f, keys, cnts, cap, ctl);
     }
   }
-  __syncthreads();
-  // the block's table into the global one, each key once
-  for (int s = threadIdx.x; s < kCountSlots; s += blockDim.x) {
-    const unsigned long long k = skey[s];
-    if (k != kEmpty) claims += count_put<OVF>(keys, cnts, cap, ctl, k, scnt[s], (unsigned)hash64(k));
-  }
-  claims = __reduce_add_sync(kFullMask, claims);
-  if (lane == 0 && claims) atomicAdd(&claimed, claims);
-  __syncthreads();
-  if (threadIdx.x == 0 && claimed) {
-    const int occ = atomicAdd(ctl + OCC, claimed) + claimed;
-    if (2ll * occ > (long long)cap) atomicExch(ctl + OVF, 1);
-  }
+  block_table_close<OCC, OVF>(bt, claims, keys, cnts, cap, ctl);
 }
 
-// Blocks of pair_count_kernel for a stream of Mw slots: one wave at most,
-// a warp at least a 128-slot chunk.
-template <int OCC, int OVF>
-int count_grid(int Mw) {
+// Blocks of `Kernel` (a count kernel of kCountThreads threads) for a stream
+// of n slots: one wave at most, a warp at least a 128-slot chunk, and at
+// most max_blocks when that is > 0.
+template <auto Kernel>
+int count_grid(long long n, int max_blocks) {
   static int wave = 0;
   if (!wave) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pair_count_kernel<OCC, OVF>,
-                                                  kCountThreads, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, kCountThreads, 0);
     wave = sms * (per_sm > 0 ? per_sm : 1);
   }
-  const long long need = ((Mw + 127) / 128 + kCountThreads / 32 - 1) / (kCountThreads / 32);
-  return (int)(need < 1 ? 1 : (need < wave ? need : wave));
+  long long need = ((n + 127) / 128 + kCountThreads / 32 - 1) / (kCountThreads / 32);
+  if (need > wave) need = wave;
+  if (max_blocks > 0 && need > max_blocks) need = max_blocks;
+  return (int)(need < 1 ? 1 : need);
 }
 
 // The count's launch; tok and pwid 16-byte aligned, the table empty and
@@ -252,8 +305,9 @@ cudaError_t launch_pair_count(const int32_t *tok, const int32_t *pwid, const int
                               unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
                               const int32_t *const *gate, int n_gate, int gate_slot,
                               cudaStream_t s) {
-  pair_count_kernel<OCC, OVF><<<count_grid<OCC, OVF>(Mw), kCountThreads, 0, s>>>(
-      tok, pwid, fw, Mw, keys, cnts, cap, ctl, gate, n_gate, gate_slot);
+  pair_count_kernel<OCC, OVF><<<count_grid<pair_count_kernel<OCC, OVF>>(Mw, 0), kCountThreads, 0,
+                                s>>>(tok, pwid, fw, Mw, keys, cnts, cap, ctl, gate, n_gate,
+                                     gate_slot);
   return cudaGetLastError();
 }
 

@@ -57,6 +57,27 @@ __device__ __forceinline__ bool warp_any_flag(const int32_t *const *ctls, int n,
   return any;
 }
 
+// Opens a recount of a shard (v2's shard_recount, v3's
+// sparse_shard_recount): its scratch table emptied, ROCC and ROVF zeroed and
+// the count's reads (the stream's n slots, its W words' offsets and weights)
+// added to work; a no-op unless some shard's DOVF is set.  A grid of at most
+// one wave (grid_for) striding over the table.
+__global__ void __launch_bounds__(256)
+    recount_clear_kernel(unsigned long long *rkeys, int32_t *rcnts, int cap, int32_t *ctl,
+                         const int32_t *const *ctls, int n_sh, int n, int W, long long *work) {
+  if (!warp_any_flag(ctls, n_sh, DOVF)) return;
+  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < cap; s += gridDim.x * blockDim.x) {
+    rkeys[s] = kEmpty;
+    rcnts[s] = 0;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    ctl[ROCC] = 0;
+    ctl[ROVF] = 0;
+    // the live pairs written are added by the rebuild fold, which reads ROCC
+    work[W_COUNT] += 4ll * n + 8ll * W;
+  }
+}
+
 // Warp-aggregated append of (key, val) for the lanes with pred to one side
 // of the buffer (side DN_OLD at [0, dcap), DN_NEW at [dcap, 2*dcap)); the
 // side's count may pass dcap, which sets DOVF.  Called by all 32 lanes.

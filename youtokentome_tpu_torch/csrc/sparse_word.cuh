@@ -1,16 +1,18 @@
 // The tombstoned word walk shared by the v3 trainer (train_sparse.cu
-// sparse_count, sparse_apply) and its sharded engine (train_sparse_sharded.cu
-// sparse_emit, sparse_shard_recount), over the v3 stream: t [M] whose
-// positions never move, a merge writing z at the selected pair starts and
-// PAD at their live partners; word k is t[off[k], off[k+1]), pw [M] the word
-// of each position (-1 after the last word).
+// sparse_apply) and its sharded engine (train_sparse_sharded.cu sparse_emit),
+// over the v3 stream: t [M] whose positions never move, a merge writing z at
+// the selected pair starts and PAD at their live partners; word k is
+// t[off[k], off[k+1]), pw [M] the word of each position (-1 after the last
+// word).
 //
 //   mark_live_words_kernel  pass 1: a thread a position; a live token equal
 //                           to an accepted x walks to its next live
 //                           neighbour inside the word and lists the word
 //                           (ctl[CTL_OWN] counts them) on a hit
 //   for_live_pairs          a warp walks a word's live pairs (run parity in
-//                           live-rank space), 32 positions a chunk
+//                           live-rank space), 32 positions a chunk (the
+//                           counts of the whole stream walk it flat:
+//                           tomb_count.cuh)
 //   merge_live_word         pass 2, one warp a listed word: the old pairs
 //                           handed to a callback, hits selected by parity
 //                           along runs of hits, z and PAD written in place

@@ -75,7 +75,7 @@
 // The exchange: shard_recount and the fold take device arrays of the
 // shards' pointers (ctl, buffers, scratch tables).  On one card every shard
 // is on the same device and stream, so the launches' order orders the
-// exchange, and the round is a CUDA graph (its section below) whose gate
+// exchange, and the round is a CUDA graph (round_graph.cuh) whose gate
 // picks the branch on the card.  The per-call entries serve the engines
 // that launch a round from the host: across processes (the host knows the
 // branch and launches only its entry), the sharded v3 engine (both entries
@@ -100,9 +100,9 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <vector>
 
 #include "pair_count.cuh"
+#include "round_graph.cuh"
 #include "scan.cuh"
 #include "shard_exchange.cuh"
 #include "train_common.cuh"
@@ -144,28 +144,6 @@ __global__ void __launch_bounds__(256)
       atomicAdd(ctl + LIVE, out - live);
       atomicAdd((unsigned long long *)(work + W_EMIT), 8ull * len);
     }
-  }
-}
-
-// -- recount -----------------------------------------------------------------
-
-// Opens a recount: the shard's scratch table emptied, ROCC and ROVF zeroed
-// and the count's reads added to work; a no-op unless some shard's DOVF is
-// set.  One wave of blocks striding over the table.
-__global__ void __launch_bounds__(256)
-    recount_clear_kernel(unsigned long long *rkeys, int32_t *rcnts, int cap, int32_t *ctl,
-                         const int32_t *const *ctls, int n_sh, int Mw, int W, long long *work) {
-  if (!warp_any_flag(ctls, n_sh, DOVF)) return;
-  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < cap; s += gridDim.x * blockDim.x) {
-    rkeys[s] = kEmpty;
-    rcnts[s] = 0;
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    ctl[ROCC] = 0;
-    ctl[ROVF] = 0;
-    // the stream with its offsets and weights read once (the live pairs
-    // written are added by the rebuild fold, which reads ROCC)
-    work[W_COUNT] += 4ll * Mw + 8ll * W;
   }
 }
 
@@ -460,82 +438,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// -- the round graph -----------------------------------------------------------
-//
-// On a mesh whose shards share one card, a round is one CUDA graph that the
-// host replays n times a batch: every shard's top-k and delta_emit, then a
-// gate kernel (one warp, a lane a shard) that reads every shard's DOVF and
-// sets two conditional handles (cudaGraphSetConditional): an IF node over
-// the recount branch (every shard's shard_recount, then fold_rebuild) and an
-// IF node over the delta fold; this is the JAX program's lax.cond on the
-// card.  (An IF/ELSE node needs CUDA 12.8; two IF nodes run on every toolkit
-// with conditional nodes.)  The graph is built by stream capture of the C
-// entries, the top-k through its entry's address in libtrain_topk.so
-// (train_topk.cu), which launches on the stream it is given; the IF bodies
-// are captured into the conditional nodes' graphs
-// (cudaStreamBeginCaptureToGraph).  It holds every shard's pointers and
-// sizes and the segment's limit (the top-k's argument): the host builds
-// another when any of them changes (a relay, a regrow, a new segment).
-// runs[0] counts the gate's runs (the replays), runs[1] the recount
-// branch's.
-
-// One shard's buffers and sizes for the round graph, as the host lays them
-// out: an int64 a field (pointers as addresses), in this order.
-struct GraphShard {
-  long long keys, cnts, cap, blk_hi, blk_lo, n_blk, ticket, ctl, cand, rules, work, tok, pwid, Mw,
-      off, fw, W, aff, wmark, dk, dv, rkeys, rcnts;
-};
-static_assert(sizeof(GraphShard) == 23 * 8, "the host lays a graph shard out as 23 int64");
-
-// yttm_topk_accept's type
-typedef int (*TopkFn)(const void *, const void *, int, void *, void *, int, void *, void *, void *,
-                      void *, int, int, int, int, int, void *, void *);
-
-__global__ void round_gate_kernel(const int32_t *const *ctls, int n_sh,
-                                  cudaGraphConditionalHandle recount,
-                                  cudaGraphConditionalHandle delta, long long *runs) {
-  const bool any = warp_any_flag(ctls, n_sh, DOVF);  // one warp
-  if (threadIdx.x != 0) return;
-  cudaGraphSetConditional(recount, any ? 1u : 0u);
-  cudaGraphSetConditional(delta, any ? 0u : 1u);
-  runs[0] += 1;
-}
-
-struct ShardGraph {
-  cudaGraph_t graph = nullptr;
-  cudaGraphExec_t exec = nullptr;
-};
-
-cudaError_t capture_info(cudaStream_t s, cudaGraph_t *g, const cudaGraphNode_t **deps,
-                         size_t *n) {
-  cudaStreamCaptureStatus status;
-#if CUDART_VERSION >= 13000
-  cudaError_t e = cudaStreamGetCaptureInfo(s, &status, nullptr, g, deps, nullptr, n);
-#else
-  cudaError_t e = cudaStreamGetCaptureInfo(s, &status, nullptr, g, deps, n);
-#endif
-  if (e == cudaSuccess && status != cudaStreamCaptureStatusActive) e = cudaErrorStreamCaptureInvalidated;
-  return e;
-}
-
-// An IF node on `handle` after the capture's current nodes; *body gets the
-// graph that runs when the handle is set.
-cudaError_t add_if(cudaGraph_t g, const cudaGraphNode_t *deps, size_t n,
-                   cudaGraphConditionalHandle handle, cudaGraphNode_t *node, cudaGraph_t *body) {
-  cudaGraphNodeParams cp{};
-  cp.type = cudaGraphNodeTypeConditional;
-  cp.conditional.handle = handle;
-  cp.conditional.type = cudaGraphCondTypeIf;
-  cp.conditional.size = 1;
-#if CUDART_VERSION >= 13000
-  cudaError_t e = cudaGraphAddNode(node, g, deps, nullptr, n, &cp);
-#else
-  cudaError_t e = cudaGraphAddNode(node, g, deps, n, &cp);
-#endif
-  if (e == cudaSuccess) *body = cp.conditional.phGraph_out[0];
-  return e;
-}
-
 }  // namespace
 
 extern "C" {
@@ -624,23 +526,15 @@ int yttm_shard_fold_rebuild(const void *reps, int n_rep, int cap, const void *ct
 }
 
 // Frees a graph of yttm_shard_graph (null: nothing).
-int yttm_shard_graph_free(void *graph) {
-  ShardGraph *sg = (ShardGraph *)graph;
-  if (!sg) return 0;
-  cudaError_t e = sg->exec ? cudaGraphExecDestroy(sg->exec) : cudaSuccess;
-  if (sg->graph) {
-    const cudaError_t f = cudaGraphDestroy(sg->graph);
-    if (e == cudaSuccess) e = f;
-  }
-  delete sg;
-  return (int)e;
-}
+int yttm_shard_graph_free(void *graph) { return shard_graph_free((ShardGraph *)graph); }
 
-// The round graph (see its section) of the n_sh shards of one card:
-// shards, a host array of n_sh GraphShard; reps, a device array of their
-// n_sh Replica; ctls .. rcs, the device arrays of the shards' pointers that
-// the per-call entries take; topk, yttm_topk_accept's address; limit ..
-// n_own, its arguments; runs, 2 int64 on the card.  *out gets a handle for
+// The round graph (round_graph.cuh) of the n_sh shards of one card: every
+// shard's top-k and delta_emit, the gate, the recount branch (every shard's
+// shard_recount, then the rebuild fold) and the delta fold.  shards, a host
+// array of n_sh GraphShard; reps, a device array of their n_sh Replica; ctls
+// .. rcs, the device arrays of the shards' pointers that the per-call
+// entries take; topk, yttm_topk_accept's address; limit .. n_own, its
+// arguments; runs, 2 int64 on the card.  *out gets a handle for
 // yttm_shard_graph_launch and yttm_shard_graph_free.
 int yttm_shard_graph(void **out, const void *shards, int n_sh, const void *reps, const void *ctls,
                      const void *dks, const void *dvs, const void *rks, const void *rcs, int dcap,
@@ -653,55 +547,30 @@ int yttm_shard_graph(void **out, const void *shards, int n_sh, const void *reps,
     if (sh[i].cap != sh[0].cap) return (int)cudaErrorInvalidValue;
   const int cap = (int)sh[0].cap;
   const TopkFn topk_accept = (TopkFn)topk;
-  ShardGraph *sg = new ShardGraph();
-  cudaStream_t s = nullptr, b = nullptr;
-  cudaError_t e = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
-  if (e == cudaSuccess) e = cudaStreamCreateWithFlags(&b, cudaStreamNonBlocking);
-  bool capturing = false;
-  if (e == cudaSuccess) {
-    e = cudaStreamBeginCapture(s, cudaStreamCaptureModeRelaxed);
-    capturing = e == cudaSuccess;
-  }
-  cudaGraph_t g = nullptr;
-  const cudaGraphNode_t *deps = nullptr;
-  size_t n_deps = 0;
-  cudaGraphConditionalHandle h_rec = 0, h_delta = 0;
-  if (e == cudaSuccess) e = capture_info(s, &g, &deps, &n_deps);
-  if (e == cudaSuccess) e = cudaGraphConditionalHandleCreate(&h_rec, g, 0, cudaGraphCondAssignDefault);
-  if (e == cudaSuccess)
-    e = cudaGraphConditionalHandleCreate(&h_delta, g, 0, cudaGraphCondAssignDefault);
   // every shard's top-k, then every shard's merge and buffer
-  for (int i = 0; i < n_sh && e == cudaSuccess; ++i) {
-    const GraphShard &q = sh[i];
-    e = (cudaError_t)topk_accept((const void *)q.keys, (const void *)q.cnts, (int)q.cap,
-                                 (void *)q.blk_hi, (void *)q.blk_lo, (int)q.n_blk, (void *)q.ticket,
-                                 (void *)q.ctl, (void *)q.cand, (void *)q.rules, limit, vocab,
-                                 used_ids0, k, n_own, (void *)q.work, s);
-  }
-  for (int i = 0; i < n_sh && e == cudaSuccess; ++i) {
-    const GraphShard &q = sh[i];
-    if (q.W == 0) continue;  // as the per-call wrapper: a shard with no word emits nothing
-    e = (cudaError_t)yttm_shard_delta_emit(
-        (void *)q.tok, (const void *)q.pwid, (int)q.Mw, (const void *)q.off, (const void *)q.fw,
-        (int)q.W, (void *)q.ctl, (const void *)q.cand, (void *)q.aff, (void *)q.wmark,
-        (void *)q.dk, (void *)q.dv, dcap, (void *)q.work, s);
-  }
-  if (e == cudaSuccess) {
-    round_gate_kernel<<<1, 32, 0, s>>>((const int32_t *const *)ctls, n_sh, h_rec, h_delta,
-                                      (long long *)runs);
-    e = cudaGetLastError();
-  }
-  cudaGraphNode_t conds[2];
-  cudaGraph_t body[2];
-  std::vector<cudaGraphNode_t> gate;  // the capture's last node, which both IF nodes follow
-  if (e == cudaSuccess) e = capture_info(s, &g, &deps, &n_deps);
-  if (e == cudaSuccess) gate.assign(deps, deps + n_deps);
-  if (e == cudaSuccess) e = add_if(g, gate.data(), gate.size(), h_rec, &conds[0], &body[0]);
-  if (e == cudaSuccess) e = add_if(g, gate.data(), gate.size(), h_delta, &conds[1], &body[1]);
+  auto local = [&](cudaStream_t s) {
+    cudaError_t e = cudaSuccess;
+    for (int i = 0; i < n_sh && e == cudaSuccess; ++i) {
+      const GraphShard &q = sh[i];
+      e = (cudaError_t)topk_accept((const void *)q.keys, (const void *)q.cnts, (int)q.cap,
+                                   (void *)q.blk_hi, (void *)q.blk_lo, (int)q.n_blk,
+                                   (void *)q.ticket, (void *)q.ctl, (void *)q.cand,
+                                   (void *)q.rules, limit, vocab, used_ids0, k, n_own,
+                                   (void *)q.work, s);
+    }
+    for (int i = 0; i < n_sh && e == cudaSuccess; ++i) {
+      const GraphShard &q = sh[i];
+      if (q.W == 0) continue;  // as the per-call wrapper: a shard with no word emits nothing
+      e = (cudaError_t)yttm_shard_delta_emit(
+          (void *)q.tok, (const void *)q.pwid, (int)q.Mw, (const void *)q.off, (const void *)q.fw,
+          (int)q.W, (void *)q.ctl, (const void *)q.cand, (void *)q.aff, (void *)q.wmark,
+          (void *)q.dk, (void *)q.dv, dcap, (void *)q.work, s);
+    }
+    return e;
+  };
   // the recount branch: every shard's count, then the rebuild of every replica
-  if (e == cudaSuccess)
-    e = cudaStreamBeginCaptureToGraph(b, body[0], nullptr, nullptr, 0, cudaStreamCaptureModeRelaxed);
-  if (e == cudaSuccess) {
+  auto recount = [&](cudaStream_t b) {
+    cudaError_t e = cudaSuccess;
     for (int i = 0; i < n_sh && e == cudaSuccess; ++i) {
       const GraphShard &q = sh[i];
       e = (cudaError_t)yttm_shard_recount(
@@ -710,51 +579,19 @@ int yttm_shard_graph(void **out, const void *shards, int n_sh, const void *reps,
     }
     if (e == cudaSuccess)
       e = (cudaError_t)yttm_shard_fold_rebuild(reps, n_sh, cap, ctls, rks, rcs, n_sh, runs, b);
-    cudaGraph_t got = nullptr;
-    const cudaError_t f = cudaStreamEndCapture(b, &got);
-    if (e == cudaSuccess) e = f;
-  }
-  // the delta branch
-  if (e == cudaSuccess)
-    e = cudaStreamBeginCaptureToGraph(b, body[1], nullptr, nullptr, 0, cudaStreamCaptureModeRelaxed);
-  if (e == cudaSuccess) {
-    e = (cudaError_t)yttm_shard_fold_delta(reps, n_sh, cap, ctls, dks, dvs, dcap, n_sh, b);
-    cudaGraph_t got = nullptr;
-    const cudaError_t f = cudaStreamEndCapture(b, &got);
-    if (e == cudaSuccess) e = f;
-  }
-  if (e == cudaSuccess) {
-#if CUDART_VERSION >= 13000
-    e = cudaStreamUpdateCaptureDependencies(s, conds, nullptr, 2, cudaStreamSetCaptureDependencies);
-#else
-    e = cudaStreamUpdateCaptureDependencies(s, conds, 2, cudaStreamSetCaptureDependencies);
-#endif
-  }
-  if (capturing) {
-    const cudaError_t f = cudaStreamEndCapture(s, &sg->graph);
-    if (e == cudaSuccess) e = f;
-  }
-  if (e == cudaSuccess) e = cudaGraphInstantiate(&sg->exec, sg->graph, 0);
-  if (b) cudaStreamDestroy(b);
-  if (s) cudaStreamDestroy(s);
-  if (e != cudaSuccess) {
-    yttm_shard_graph_free(sg);
-    return (int)e;
-  }
-  *out = sg;
-  return 0;
+    return e;
+  };
+  auto delta = [&](cudaStream_t b) {
+    return (cudaError_t)yttm_shard_fold_delta(reps, n_sh, cap, ctls, dks, dvs, dcap, n_sh, b);
+  };
+  return build_round_graph(out, ctls, n_sh, runs, local, recount, delta);
 }
 
 // n replays of the round graph on `stream`.
 int yttm_shard_graph_launch(void *graph, int n, void *stream) {
-  ShardGraph *sg = (ShardGraph *)graph;
-  if (!sg || n < 0) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < n; ++i) {
-    const cudaError_t e = cudaGraphLaunch(sg->exec, (cudaStream_t)stream);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+  return shard_graph_launch((ShardGraph *)graph, n, (cudaStream_t)stream);
 }
+
 // The partitioned fold's first half on the replica of shard `self` (the
 // engines that recount every round): its part emptied, then every shard's
 // scratch entries of that part added.  rkeys, rcnts: device arrays of the

@@ -31,9 +31,9 @@
 //
 // Kernels (their word walks in sparse_word.cuh, shared with the sharded
 // engine's train_sparse_sharded.cu):
-//   sparse_count   one warp a word walks its live pairs (below) and counts
-//                  them into an empty table (start, and rebuild after an
-//                  overflow)
+//   sparse_count   tomb_count.cuh's flat count of the stream's live pairs
+//                  into an empty table (start, and rebuild after an
+//                  overflow), shared with the sharded engine's recount
 //   topk_accept    (train_topk.cu) the top 16 in the reference order and
 //                  accept_prefix; writes cand, rules, ctl, work
 //   sparse_apply   pass 1: a thread a position; a live token equal to an
@@ -67,6 +67,7 @@
 #include <cuda_runtime.h>
 
 #include "sparse_word.cuh"
+#include "tomb_count.cuh"
 #include "train_common.cuh"
 
 namespace {
@@ -94,15 +95,6 @@ __device__ int walk_add(const int32_t *t, int n, int32_t delta, Mode mode,
     }
   });
   return ops;
-}
-
-__global__ void __launch_bounds__(256)
-    count_words_kernel(const int32_t *t, const int32_t *off, const int32_t *fw, int W,
-                       unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int n_warps = (gridDim.x * blockDim.x) >> 5;
-  for (int w = warp; w < W; w += n_warps)
-    walk_add(t + off[w], off[w + 1] - off[w], fw[w], kCount, keys, cnts, cap, ctl);
 }
 
 // -- apply ---------------------------------------------------------------------
@@ -143,15 +135,19 @@ __global__ void __launch_bounds__(256)
 
 extern "C" {
 
-// Count every word's live pairs into an empty table (keys all EMPTY, counts
-// 0, ctl[OCC] = ctl[OVERFLOW] = 0, set by the caller).
-int yttm_sparse_count(const void *t, const void *off, const void *fw, int W, void *keys,
-                      void *cnts, int cap, void *ctl, void *stream) {
-  if (W <= 0 || cap <= 0 || (cap & (cap - 1)) != 0) return (int)cudaErrorInvalidValue;
-  count_words_kernel<<<grid_for_warps(W), 256, 0, (cudaStream_t)stream>>>(
-      (const int32_t *)t, (const int32_t *)off, (const int32_t *)fw, W,
-      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl);
-  return (int)cudaGetLastError();
+// Count the live pairs of the stream t / pw (M = off[W] slots, both
+// 16-byte aligned) into an empty table (keys all EMPTY, counts 0, ctl[OCC] =
+// ctl[OVERFLOW] = 0, set by the caller), on at most max_blocks blocks when
+// that is > 0 (else one wave).
+int yttm_sparse_count(const void *t, const void *pw, const void *off, const void *fw, int M,
+                      void *keys, void *cnts, int cap, void *ctl, int max_blocks, void *stream) {
+  if (M <= 0 || cap <= 0 || (cap & (cap - 1)) != 0 || max_blocks < 0 || ((uintptr_t)t & 15u) ||
+      ((uintptr_t)pw & 15u))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_tomb_count<OCC, OVERFLOW>(
+      (const int32_t *)t, (const int32_t *)pw, (const int32_t *)off, (const int32_t *)fw, M,
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, nullptr, 0, 0, max_blocks,
+      (cudaStream_t)stream);
 }
 
 // One round's merge of the accepted candidates (in place, tombstones) with

@@ -180,8 +180,8 @@ def load_stream_train() -> ctypes.CDLL:
 def load_sparse() -> ctypes.CDLL:
     """Build (if needed) and load the v3 sparse trainer's kernels."""
     return _load("train_sparse.cu", "libtrain_sparse.so", {
-        # t, off, fw, W, keys, cnts, cap, ctl, stream
-        "yttm_sparse_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p]),
+        # t, pw, off, fw, M, keys, cnts, cap, ctl, max_blocks, stream
+        "yttm_sparse_count": (_i, [_p, _p, _p, _p, _i, _p, _p, _i, _p, _i, _p]),
         # t, pw, off, fw, W, keys, cnts, cap, ctl, cand, aff, wmark, work,
         # stream
         "yttm_sparse_apply": (_i, [_p, _p, _p, _p, _i, _p, _p, _i, _p, _p, _p, _p, _p, _p]),
@@ -254,6 +254,15 @@ def load_sparse_sharded() -> ctypes.CDLL:
         # stream
         "yttm_sparse_shard_emit": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p, _i, _p,
                                         _p]),
-        # t, off, fw, W, end, rkeys, rcnts, cap, ctl, ctls, n_sh, work, stream
-        "yttm_sparse_shard_recount": (_i, [_p, _p, _p, _i, _i, _p, _p, _i, _p, _p, _i, _p, _p]),
+        # t, pw, off, fw, W, end, rkeys, rcnts, cap, ctl, ctls, n_sh, work,
+        # max_blocks, stream
+        "yttm_sparse_shard_recount": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _i, _p, _p, _i, _p, _i,
+                                           _p]),
+        # out, shards, n_sh, reps, ctls, dks, dvs, rkeys, rcnts, dcap, topk,
+        # fold_delta, fold_rebuild, limit, vocab, used_ids0, k, n_own, runs
+        "yttm_sparse_shard_graph": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _i, _p, _p, _p, _i, _i,
+                                         _i, _i, _i, _p]),
+        # graph, n, stream
+        "yttm_sparse_shard_graph_launch": (_i, [_p, _i, _p]),
+        "yttm_sparse_shard_graph_free": (_i, [_p]),
     })

@@ -29,20 +29,22 @@ A round, all in hand-written CUDA (``csrc/train_delta_sharded.cu``, and
 
 Two routes drive a round, chosen by the engine and the mesh, never one for
 the other's failure.  On a mesh whose shards share one card,
-``ShardedKernelEngine`` replays the round graph (``shard_rounds``): every
-shard's top-k and delta_emit, then a gate kernel that picks the branch on
-the card, the recount and the rebuild under one IF node, the delta fold
-under another; the host issues one call a batch of rounds.  Everywhere else the per-call wrappers run
-each round from the host: across processes (``ProcessShardedEngine``, for
+``ShardedKernelEngine`` (and the sharded v3 engine,
+``sparse_sharded_kernels``) replays the round graph (``shard_rounds``,
+``csrc/round_graph.cuh``): every shard's top-k and shard-local half, then a
+gate kernel that picks the branch on the card, the recount and the rebuild
+under one IF node, the delta fold under another; the host issues one call
+a batch of rounds.  Everywhere else the per-call wrappers run each round
+from the host: across processes (``ProcessShardedEngine``, for
 ``parallel.distributed``: every other process's shard is a ``MirrorShard``
 that the exchange fills through the host each round, and the host, which
-reads every ctl, launches only the branch's kernels), for the sharded v3
-engine (both fold entries each round, each deciding on the card), for
-shards on distinct cards, for the checks (``graph = False``) and on the
-CPU.  The host reads shard 0's ``ctl`` once per batch of rounds, and
-checks that every replica's round control and rules agree at each segment
-end (after every round on the CPU).  Each wrapper launches its kernel on
-a CUDA state (and counts the launch) and runs its plain torch version on a
+reads every ctl, launches only the branch's kernels), for shards on
+distinct cards (the recount and both fold entries each round, each deciding
+on the card), for the checks (``graph = False``) and on the CPU.  The host
+reads shard 0's ``ctl`` once per batch of rounds, and checks that every
+replica's round control and rules agree at each segment end (after every
+round on the CPU).  Each wrapper launches its kernel on a CUDA state (and
+counts the launch) and runs its plain torch version on a
 CPU state; the plain versions compute the same function.
 """
 
@@ -536,7 +538,7 @@ shard_relay.launches = 0
 
 def _graph_row(st: ShardState) -> list:
     """A shard's buffers and sizes for the round graph, in the order of
-    ``csrc/train_delta_sharded.cu`` GraphShard."""
+    ``csrc/round_graph.cuh`` GraphShard."""
     return [st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.blk_hi.data_ptr(),
             st.blk_lo.data_ptr(), st.n_blk, st.ticket.data_ptr(), st.ctl.data_ptr(),
             st.cand.data_ptr(), st.rules.data_ptr(), st.work.data_ptr(), st.tok.data_ptr(),
@@ -545,55 +547,67 @@ def _graph_row(st: ShardState) -> list:
             st.dv.data_ptr(), st.rkeys.data_ptr(), st.rcnts.data_ptr()]
 
 
-class _ShardGraph:
-    """An instantiated round graph (``yttm_shard_graph``), the key it was
-    built over and the device arrays it reads."""
+def _address(fn) -> int:
+    """The address of a ctypes function of a loaded library."""
+    return ctypes.cast(fn, ctypes.c_void_p).value
 
-    def __init__(self, lib, handle: int, key: tuple, arrays):
-        self.lib, self.handle, self.key, self.arrays = lib, handle, key, arrays
+
+class _ShardGraph:
+    """An instantiated round graph, its launch entry, the key it was built
+    over and the device arrays it reads; freed by its free entry."""
+
+    def __init__(self, launch, free, handle: int, key: tuple, arrays):
+        self.launch, self.free, self.handle = launch, free, handle
+        self.key, self.arrays = key, arrays
 
     def __del__(self):
-        self.lib.yttm_shard_graph_free(self.handle)
+        self.free(self.handle)
 
 
 def shard_rounds(eng, n: int, limit: int):
-    """n rounds of ``eng`` (a ``ShardedKernelEngine`` whose shards share
-    one card) as n replays of its round graph, in one call: every shard's
-    top-k and delta_emit, then the gate and the branch it picks on the
-    card.  The graph is built anew when a shard's buffer or size, or the
-    limit, changed.  Counts n launches of the top-k a shard, of delta_emit
-    a shard with words and of the fold; the recount branch counts its runs
-    on the card (``count_graph_runs``)."""
+    """n rounds of ``eng`` (a sharded kernel engine whose shards share one
+    card) as n replays of its round graph, in one call: every shard's top-k
+    and shard-local half, then the gate and the branch it picks on the card.
+    The graph (``eng.graph_entry``: its library's loader and build entry,
+    whose ``_launch`` and ``_free`` entries go with it) is built anew when a
+    shard's buffer or size, or the limit, changed.  Counts n launches of the
+    top-k a shard and of the fold, and the engine counts its shard-local
+    wrapper's (``graph_launched``); the recount branch counts its runs on the
+    card (``count_graph_runs``)."""
     if not 0 < eng.batch_k <= K_MAX:
         raise ValueError(f"batch_k must be in 1..{K_MAX}, got {eng.batch_k}")
     shards = eng.shards
     head = shards[0]
     links = _links(head, shards)[:5]
     reps = _replicas(shards, shards)
-    rows = np.array([_graph_row(st) for st in shards], dtype=np.int64)
+    rows = np.array([eng.graph_row(st) for st in shards], dtype=np.int64)
     key = (rows.tobytes(), int(limit), tuple(a.data_ptr() for a in links), reps.data_ptr())
     g = eng.round_graph
     if g is None or g.key != key:
         t0 = time.perf_counter()
         eng.round_graph = None  # one instantiation of a graph at a time
-        lib = _cuda.load_sharded()
-        topk = ctypes.cast(_cuda.load_topk().yttm_topk_accept, ctypes.c_void_p).value
+        load, name = eng.graph_entry
+        lib = load()
+        topk = _address(_cuda.load_topk().yttm_topk_accept)
         handle = ctypes.c_void_p()
         with torch.cuda.device(head.device):
-            err = lib.yttm_shard_graph(
+            err = getattr(lib, name)(
                 ctypes.byref(handle), rows.ctypes.data, len(shards), reps.data_ptr(),
-                *(a.data_ptr() for a in links), head.dcap, topk, int(limit), eng.vocab_size,
-                eng.used_ids0, eng.batch_k, head.n_own, eng.runs.data_ptr(),
+                *(a.data_ptr() for a in links), head.dcap, topk, *eng.graph_addresses(),
+                int(limit), eng.vocab_size, eng.used_ids0, eng.batch_k, head.n_own,
+                eng.runs.data_ptr(),
             )
         _check(err, "shard_rounds graph")
-        eng.round_graph = g = _ShardGraph(lib, handle.value, key, (links, reps))
+        eng.round_graph = g = _ShardGraph(getattr(lib, name + "_launch"),
+                                          getattr(lib, name + "_free"), handle.value, key,
+                                          (links, reps))
         eng.graph_builds += 1
         eng.graph_build_s += time.perf_counter() - t0
     with torch.cuda.device(head.device):
-        err = g.lib.yttm_shard_graph_launch(g.handle, int(n), _stream_ptr(head.device))
+        err = g.launch(g.handle, int(n), _stream_ptr(head.device))
     _check(err, "shard_rounds")
     topk_accept.launches += n * len(shards)
-    delta_emit.launches += n * sum(1 for st in shards if st.n_words)
+    eng.graph_launched(n)
     shard_fold.launches += n
     eng.replays += n
 
@@ -601,11 +615,11 @@ def shard_rounds(eng, n: int, limit: int):
 def count_graph_runs(eng) -> int:
     """Read the round graph's counters (a read of the card: call it where
     the host waits anyway): the recount branch's runs since the last call
-    are added to ``shard_recount.launches`` (a launch a shard) and
-    returned; ``eng.gate_runs`` takes the gate's runs (the replays)."""
+    are handed to ``eng.graph_recounted`` (a launch of the recount a shard)
+    and returned; ``eng.gate_runs`` takes the gate's runs (the replays)."""
     gate, rec = eng.runs.tolist()
     new = rec - eng.rec_runs
-    shard_recount.launches += new * len(eng.shards)
+    eng.graph_recounted(new)
     eng.gate_runs, eng.rec_runs = gate, rec
     return new
 
@@ -641,11 +655,26 @@ class ShardEngine:
     replicas of each card; the engines that recount every round replace
     it).  A subclass calls ``_setup``, sets ``shards`` and defines
     ``recount(st, limit)`` and ``round(limit)`` (and ``stream()`` for
-    checkpoints)."""
+    checkpoints).  An engine that takes the round graph's route calls
+    ``_graph_setup`` and defines ``graph_entry``, ``graph_row(st)`` (a
+    shard's GraphShard row), ``graph_launched(n)`` and
+    ``graph_recounted(runs)`` (its wrappers' launches in n replays and in
+    the recount branch's runs)."""
 
     rebuilds = 0
     nrec = 0
     count_exchanges = 0  # forced recounts (the first count, and after each overflow)
+    # the round graph's route (``_graph_setup``): its C build entry (the
+    # loader of its library, its name), and what its runs count
+    graph = False
+    graph_entry = None
+    round_graph = None
+    replays = 0  # round graph replays issued
+    graph_builds = 0
+    graph_build_s = 0.0  # the builds' host seconds (capture and instantiation)
+    gate_runs = 0  # the graph's gate runs, counted on the card
+    rec_runs = 0  # its recount branch's runs, counted on the card
+    seg_rec_runs = 0  # those of the last segment, which NREC counts too
 
     def _setup(self, mesh, vocab_size: int, used_ids0: int, batch_k: int):
         self.vocab_size = vocab_size
@@ -653,6 +682,18 @@ class ShardEngine:
         self.batch_k = batch_k
         self._devices = mesh.distinct()
         _enable_peers(self._devices)
+
+    def _graph_setup(self):
+        """Take the round graph's route when every shard is on one card
+        (``graph``; set it False for the per-call route)."""
+        self.graph = len(self._devices) == 1 and self._devices[0].type == "cuda"
+        self.round_graph = None
+        self.runs = torch.zeros(2, dtype=torch.int64, device=self.head.device)
+
+    def graph_addresses(self) -> list:
+        """The entry addresses that the graph's build entry takes after the
+        top-k's."""
+        return []
 
     @property
     def local(self):
@@ -730,9 +771,12 @@ class ShardEngine:
                 raise RuntimeError("the sharded trainer's replicas disagree")
 
     def run_rounds(self, n: int, limit: int):
-        """Up to n rounds through the per-call wrappers: fewer when a round
-        knows it accepted nothing (returns False); on the CPU the replicas
-        are checked after every round."""
+        """n rounds through the round graph (``graph``), or up to n through
+        the per-call wrappers: fewer when a round knows it accepted nothing
+        (returns False); on the CPU the replicas are checked after every
+        round."""
+        if self.graph:
+            return shard_rounds(self, n, limit)
         on_card = self.head.device.type == "cuda"
         for _ in range(n):
             ended = self.round(limit) is False
@@ -759,6 +803,8 @@ class ShardEngine:
             if done or overflow or used >= min(limit, self.vocab_size):
                 self.check_replicas()
                 self.nrec = int(head.ctl[NREC])
+                if self.graph:
+                    self.seg_rec_runs = count_graph_runs(self)
                 if not overflow:
                     self._segment_end()
                 return used, bool(done), bool(overflow)
@@ -797,12 +843,7 @@ class ShardedKernelEngine(ShardEngine):
     cards, the CPU, and checks that set it)."""
 
     relays = 0
-    replays = 0  # round graph replays issued
-    graph_builds = 0
-    graph_build_s = 0.0  # the builds' host seconds (capture and instantiation)
-    gate_runs = 0  # the graph's gate runs, counted on the card
-    rec_runs = 0  # its recount branch's runs, counted on the card
-    seg_rec_runs = 0  # those of the last segment, which NREC counts too
+    graph_entry = (_cuda.load_sharded, "yttm_shard_graph")
 
     def __init__(self, seg_t, seg_w, per: int, freq, rules, used_ids0: int, vocab_size: int,
                  batch_k: int, mesh, dcap: int, m: int):
@@ -818,9 +859,7 @@ class ShardedKernelEngine(ShardEngine):
             for d, dev in enumerate(mesh.devices)
         ])
         self.dropped = [0] * len(self.local)  # live tokens the relays dropped
-        self.graph = len(self._devices) == 1 and self._devices[0].type == "cuda"
-        self.round_graph = None
-        self.runs = torch.zeros(2, dtype=torch.int64, device=self.head.device)
+        self._graph_setup()
         self._count()
 
     def _place(self, states):
@@ -842,16 +881,14 @@ class ShardedKernelEngine(ShardEngine):
         self._barrier()
         return self._exchange(limit)
 
-    def run_rounds(self, n: int, limit: int):
-        if self.graph:
-            return shard_rounds(self, n, limit)
-        return super().run_rounds(n, limit)
+    def graph_row(self, st) -> list:
+        return _graph_row(st)
 
-    def segment(self, used: int, limit: int):
-        out = super().segment(used, limit)
-        if self.graph:
-            self.seg_rec_runs = count_graph_runs(self)
-        return out
+    def graph_launched(self, n: int):
+        delta_emit.launches += n * sum(1 for st in self.shards if st.n_words)
+
+    def graph_recounted(self, runs: int):
+        shard_recount.launches += runs * len(self.shards)
 
     def _segment_end(self):
         """At the JAX host loop's re-pack trigger (the largest shard's live

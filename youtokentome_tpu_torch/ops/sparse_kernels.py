@@ -11,8 +11,11 @@ word frequencies, and an exact open-addressing pair-count table kept
 across rounds (int64 keys ``x << 32 | y``, int32 counts; a key keeps its
 slot at count 0 until the next rebuild):
 
-  sparse_count   count every word's live pairs into an empty table (start,
-                 and rebuild after an overflow)
+  sparse_count   count the stream's live pairs into an empty table (start,
+                 and rebuild after an overflow): a flat walk, a warp a run
+                 of 128-slot chunks, with a table in shared memory a block
+                 (``csrc/tomb_count.cuh``, which the sharded engine's
+                 recount runs too)
   topk_accept    top-16 live entries in the reference order, accept_prefix,
                  store_rules (the trainers' shared wrapper, ``train_kernels``)
   sparse_apply   pass 1 lists the words holding an accepted pair among their
@@ -80,6 +83,7 @@ class SparseState(TableState):
         ends = np.append(starts[1:], in_word[-1] + 1 if in_word.size else 0)
         self.n_words = int(starts.size)
         off = np.append(starts, ends[-1] if self.n_words else 0)
+        self.end = int(off[-1])  # the end of the last word
         pw = np.full(wid.size, -1, np.int32)
         pw[in_word] = np.repeat(np.arange(self.n_words, dtype=np.int32), ends - starts)
         self.t = torch.from_numpy(np.array(t, np.int32)).to(dev)  # a copy: updated in place
@@ -136,9 +140,11 @@ def sparse_apply_plain(st: SparseState):
 # -- wrappers -----------------------------------------------------------------
 
 
-def sparse_count(st: SparseState):
+def sparse_count(st: SparseState, blocks: int = 0):
     """Empty the table and count every word's live pairs into it; sets
-    ``ctl[OVERFLOW]`` when the table holds more than half its slots."""
+    ``ctl[OVERFLOW]`` when the table holds more than half its slots.  The
+    kernel runs on one wave of blocks, or on at most ``blocks`` when that is
+    > 0 (the checks' way to give each warp many chunks)."""
     st.keys.fill_(EMPTY)
     st.cnts.zero_()
     st.ctl[OCC] = 0
@@ -150,8 +156,8 @@ def sparse_count(st: SparseState):
     lib = _cuda.load_sparse()
     with torch.cuda.device(st.device):
         err = lib.yttm_sparse_count(
-            st.t.data_ptr(), st.off.data_ptr(), st.fw.data_ptr(), st.n_words,
-            st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(),
+            st.t.data_ptr(), st.pw.data_ptr(), st.off.data_ptr(), st.fw.data_ptr(), st.end,
+            st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(), blocks,
             _stream_ptr(st.device),
         )
     _check(err, "sparse_count")

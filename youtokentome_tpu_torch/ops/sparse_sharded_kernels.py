@@ -21,15 +21,21 @@ shared top-k of ``csrc/train_topk.cu`` and ``shard_fold`` of
                         shard's buffer; DOVF in ``ctl`` when the listed words'
                         positions, tombstones included, pass dcap (JAX's
                         ``n_aff > dcap``)
-  sparse_shard_recount  on every shard: a no-op unless some shard's DOVF is
-                        set; else the shard's tombstoned stream counted into
-                        its scratch table
-  shard_fold            one launch of each of its entries for the replicas
-                        of a card (``delta_sharded_kernels``): the delta
-                        fold and the rebuild, each a no-op unless its branch
-                        is the round's, decided on the card (this engine
-                        runs every round through the per-call wrappers)
+  sparse_shard_recount  on every shard, only when some shard's DOVF is set:
+                        the shard's tombstoned stream counted into its scratch
+                        table (``csrc/tomb_count.cuh``, the one-device
+                        ``sparse_count``'s flat count)
+  shard_fold            one launch for the replicas of a card
+                        (``delta_sharded_kernels``): the delta fold, or the
+                        rebuild when some DOVF is set
 
+Two routes, as the sharded v2 engine's (``delta_sharded_kernels``): on a
+mesh whose shards share one card the engine replays the round graph
+(``shard_rounds``; its build entry ``yttm_sparse_shard_graph`` captures the
+top-k and the folds through their entries' addresses), whose gate picks the
+branch on the card and runs only its kernels; elsewhere (distinct cards,
+the CPU, ``graph = False``) the host launches every kernel of a round, the
+recount and both fold entries each a no-op unless its branch is the round's.
 The host reads shard 0's ``ctl`` once per batch of rounds and checks that
 every replica's round control and rules agree at each segment end.  Each
 wrapper launches its kernels on a CUDA state (and counts the launch) and
@@ -54,6 +60,7 @@ from .delta_sharded_kernels import (
     W_ENTRIES,
     Exchange,
     ShardEngine,
+    _address,
     _any,
     _links,
 )
@@ -76,12 +83,11 @@ NPOS = LIVE  # v3: the positions of the round's listed words, tombstones include
 
 class SparseShardState(Exchange, SparseState):
     """One shard of the sharded v3 trainer on its device (see the module
-    note); ``end`` is the end of its last word."""
+    note)."""
 
     def __init__(self, t, wid, freq, rules, used: int, cap: int, dcap: int, device):
         super().__init__(t, wid, freq, rules, used, cap, device)
         self.buffers(dcap)
-        self.end = int(self.off[-1])
 
 
 # -- plain torch versions -----------------------------------------------------
@@ -159,19 +165,19 @@ def sparse_emit(st: SparseShardState):
     sparse_emit.launches += 1
 
 
-def sparse_shard_recount(st: SparseShardState, shards):
+def sparse_shard_recount(st: SparseShardState, shards, blocks: int = 0):
     """Unless no shard's DOVF is set: count the shard's tombstoned stream
     into its scratch table (sets ``ctl[ROVF]`` when it fills more than
-    half)."""
+    half); the count on one wave of blocks, or on at most ``blocks``."""
     if not _on(st, "sparse_shard_recount"):
         return sparse_shard_recount_plain(st, shards)
     ctls = _links(st, shards)[0]
     lib = _cuda.load_sparse_sharded()
     with torch.cuda.device(st.device):
         err = lib.yttm_sparse_shard_recount(
-            st.t.data_ptr(), st.off.data_ptr(), st.fw.data_ptr(), st.n_words, st.end,
-            st.rkeys.data_ptr(), st.rcnts.data_ptr(), st.cap, st.ctl.data_ptr(),
-            ctls.data_ptr(), len(shards), st.work.data_ptr(), _stream_ptr(st.device),
+            st.t.data_ptr(), st.pw.data_ptr(), st.off.data_ptr(), st.fw.data_ptr(), st.n_words,
+            st.end, st.rkeys.data_ptr(), st.rcnts.data_ptr(), st.cap, st.ctl.data_ptr(),
+            ctls.data_ptr(), len(shards), st.work.data_ptr(), blocks, _stream_ptr(st.device),
         )
     _check(err, "sparse_shard_recount")
     sparse_shard_recount.launches += 1
@@ -190,7 +196,12 @@ class SparseShardedKernelEngine(ShardEngine):
     ``parallel.train_sparse_sharded.run_training_sparse_sharded``.  Every
     replica starts at ``initial_cap`` slots of the whole stream's ``m`` and
     is rebuilt from the streams when an insert finds it more than half
-    full.  The tombstoned streams never move, so nothing is relaid."""
+    full.  The tombstoned streams never move, so nothing is relaid.
+    ``graph`` picks the route of a batch of rounds: True (the default when
+    every shard is on one card) replays the round graph, False runs
+    ``round`` through the per-call wrappers."""
+
+    graph_entry = (_cuda.load_sparse_sharded, "yttm_sparse_shard_graph")
 
     def __init__(self, seg_t, seg_w, freq, rules, used_ids0: int, vocab_size: int, batch_k: int,
                  mesh, dcap: int, m: int):
@@ -202,7 +213,29 @@ class SparseShardedKernelEngine(ShardEngine):
             SparseShardState(seg_t[d], seg_w[d], freq, rules, used, cap, dcap, dev)
             for d, dev in enumerate(mesh.devices)
         ]
+        self._graph_setup()
         self._count()
+
+    def graph_row(self, st) -> list:
+        """A shard's row of the round graph (``csrc/round_graph.cuh``
+        GraphShard: t, pw and the end of its words in tok, pwid and Mw)."""
+        return [st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.blk_hi.data_ptr(),
+                st.blk_lo.data_ptr(), st.n_blk, st.ticket.data_ptr(), st.ctl.data_ptr(),
+                st.cand.data_ptr(), st.rules.data_ptr(), st.work.data_ptr(), st.t.data_ptr(),
+                st.pw.data_ptr(), st.end, st.off.data_ptr(), st.fw.data_ptr(), st.n_words,
+                st.aff.data_ptr(), st.wmark.data_ptr(), st.dk.data_ptr(), st.dv.data_ptr(),
+                st.rkeys.data_ptr(), st.rcnts.data_ptr()]
+
+    def graph_addresses(self) -> list:
+        """The fold's two entries, which the graph captures by address."""
+        lib = _cuda.load_sharded()
+        return [_address(lib.yttm_shard_fold_delta), _address(lib.yttm_shard_fold_rebuild)]
+
+    def graph_launched(self, n: int):
+        sparse_emit.launches += n * sum(1 for st in self.shards if st.n_words)
+
+    def graph_recounted(self, runs: int):
+        sparse_shard_recount.launches += runs * len(self.shards)
 
     def recount(self, st, limit: int):
         sparse_shard_recount(st, self.shards)
