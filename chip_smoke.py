@@ -11,8 +11,13 @@ over a 100 MB corpus, trains a vocab-30000 model on the same corpus with
 the v2 and the v5 trainers, the four differential trainers, and v2, v3, v1
 and v0 sharded over a 4-shard data mesh on the one card, and prints
 timings, then trains it again with two processes of two shards each on
-the card.  Phases, in
-order (any failure exits nonzero):
+the card.  Phase 1 runs first; then the check-only runs (every mid-size
+lockstep run and phase 5's plain round loop) in worker processes while
+this process runs every edge check and every kernel-against-plain check
+on the 100 MB corpus's state (phases 2, 5-7, 9-11's checks); then the
+main paths, in the order 3-4, 7, 8, 10 (encode), 5, 6, 9, 10, 11, 12.
+``[t]`` lines give each stage's seconds.  The phases (any failure exits
+nonzero):
 
   1. device and build: the card's name and power limit; nvcc/g++ builds;
      the selection and apply kernels' registers, shared and local memory
@@ -27,7 +32,8 @@ order (any failure exits nonzero):
   3. main path: ``BPE(model).encode(lines)`` with no knob set takes the
      device arm (novel tokens > 2**22); ids equal the host arm's; a
      subword encode (matrix path); ``Encoder.encode_stream_cli`` over
-     10 MiB chunks equal to the host arm's bytes; a decode round trip
+     10 MiB chunks equal to the host arm's bytes (both arms over the first
+     1/ARM_SHARE of the lines); a decode round trip
   4. times: MB/s of both arms, the kernel's per-launch time for each
      (R, cap) with CUDA events, and the plain version's time
   5. training (csrc/train_delta.cu, and csrc/train_topk.cu: the top-k that
@@ -101,8 +107,9 @@ order (any failure exits nonzero):
   7. BPE-dropout (csrc/encode_dropout.cu), run after phase 4: the kernel
      equals its plain version (same seed) for every cap 8..512 at R = 8192,
      p 0.1 and 0.5; p = 0 equals the greedy kernel, p = 1 returns its input;
-     the main path ``BPE.encode(lines, dropout_prob=0.1)`` over the 100 MB
-     corpus on the native route (no launch) and with YTTM_DROPOUT_NATIVE=0
+     the main path ``BPE.encode(lines, dropout_prob=0.1)`` over the first
+     1/DROPOUT_SHARE of the 100 MB corpus's lines on the native route (no
+     launch) and with YTTM_DROPOUT_NATIVE=0
      (the kernel, launches counted); a 2000-line sample decodes back; the
      two routes' mean ids a line agree within 5 standard errors; a subword
      dropout encode spells the sample; the kernel again on every input of
@@ -112,10 +119,11 @@ order (any failure exits nonzero):
      plain version on the corpus's first 1 MiB chunk and on a crafted chunk
      (invalid bytes, multi-byte chars, every whitespace kind, a
      10,000-char word); the main path ``YTTM_ENCODE_BACKEND=stream
-     BPE.encode(lines)`` over 100 MB gives phase 3's ids (launches
-     counted), and the CLI's ``encode_bytes_flat`` route phase 3's CLI
-     bytes; every stage again on every chunk of the corpus, equal to its
-     plain version; times and bounds
+     BPE.encode(lines)`` over the first 1/STREAM_SHARE of the 100 MB
+     corpus's lines gives phase 3's ids (launches counted), and the CLI's
+     ``encode_bytes_flat`` route phase 3's CLI bytes; every stage again on
+     every chunk of those lines, equal to its plain version; times and
+     bounds
   9. the differential trainers, run after phase 6: v1 stream
      (csrc/train_stream.cu), v3 sparse (csrc/train_sparse.cu), v4 block
      (csrc/train_block.cu) and v0 bucketed (csrc/train_bucketed.cu), each
@@ -136,8 +144,9 @@ order (any failure exits nonzero):
      branch), v4 with a tiny KB (its full path), v0 for its first ids; v1,
      v3 and v0 on a crafted stream whose runs span tiles; the main path
      ``BPE.train`` with ``YTTM_TRAIN_IMPL=stream|sparse|block`` and
-     ``ops.train_kernel.run_training`` at vocab 30000, launches counted,
-     rules equal to phase 5's v2 rules; times (merge loop, merges/s, each
+     ``ops.train_kernel.run_training`` at vocab 30000 (v0 to its first
+     V0_MAIN_IDS ids), launches counted, rules equal to phase 5's v2 rules
+     (v0's to their first V0_MAIN_IDS); times (merge loop, merges/s, each
      kernel's device ms, sparse_count's by CUDA events at its launches)
      and bounds from the work each run's data gave the
      kernels (the top-k's keys: at k = 16 phase 5's, whose rounds see the
@@ -148,10 +157,16 @@ order (any failure exits nonzero):
      every main-path chunk through the sharded route equals the one-device
      kernel; ``BPE.encode(lines)`` through an Encoder on the mesh gives
      phase 3's ids; times and bounds.  Training (rows 12a-b, run after
-     phase 9; csrc/train_delta_sharded.cu): on the 100 MB state,
-     delta_emit, shard_recount and shard_fold each equal their plain
-     versions for two rounds in both branches (the recount branch forced by
-     a tiny dcap), and shard_relay at the first re-pack; the 10 MB prefix at
+     phase 9; csrc/train_delta_sharded.cu): delta_emit (one launch for
+     1, 2 and 4 shards of the card, one of them without words) equal to
+     its plain version shard by shard on crafted streams (runs, chains,
+     words of 1-600 tokens, warps claiming 85 words a step, a buffer
+     that overflows partway), and both relays (v2's and shard_relay) on
+     crafted streams with every word kept and with words dropped; on the
+     100 MB state, delta_emit, shard_recount and shard_fold each equal
+     their plain versions for two rounds in both branches (the recount
+     branch forced by a tiny dcap), and shard_relay at the first re-pack;
+     the 10 MB prefix at
      vocab 8000 with 2 and 4 shards, the kernel engine and the plain sharded
      loop in lockstep (tiny dcap, small kernel tables: recount rounds and
      rebuilds), every replica's table equal to the plain loop's live table
@@ -179,8 +194,8 @@ order (any failure exits nonzero):
      gate's to the replays, and per call at 2); the main paths at vocab 30000,
      each run once under torch.profiler with launches counted:
      ``train.train`` with ``YTTM_TRAIN_IMPL=sparse`` on the mesh,
-     ``run_training_stream_sharded`` and ``run_training_sharded``, rules
-     equal to phase 5's v2 rules (v3 through its round graph: launches
+     ``run_training_stream_sharded`` and ``run_training_sharded`` (v0 to its
+     first V0_MAIN_IDS ids), rules equal to phase 5's v2 rules (v3 through its round graph: launches
      checked against replays, recount rounds and counts); times, bounds and
      plain versions as in phase 10, and v3's merge loop twice more without
      the profiler, sparse_shard_recount by CUDA events at its runs, the v3
@@ -241,6 +256,12 @@ CORPUS_MB = 100
 WORD_LIST = 2_000_000
 WORDS_PER_LINE = 12
 CLI_CHUNK = 10 * 1024 * 1024
+# phase 3 holds both merge arms to the main path's ids and CLI bytes over
+# the first 1/ARM_SHARE of the corpus's lines (the main path itself runs
+# over all of it); phase 8 drives the stream backend over the first
+# 1/STREAM_SHARE
+ARM_SHARE = 4
+STREAM_SHARE = 4
 # the greedy merge's device functions (csrc/encode_greedy.cu), as the
 # profiler names them: rows of up to 32 slots, and longer rows
 ENCODE_DEVICE_FNS = ("encode_short_kernel", "encode_long_kernel")
@@ -300,7 +321,8 @@ def phase_device_and_build() -> dict:
     libs = [lib._name for lib in _cuda._libs.values()]
     for line in resource_usage(libs, ("topk_select_kernel", "tier_hot_kernel", "tier_full_kernel",
                                       "delta_apply_kernel", "tier_apply_kernel",
-                                      "mark_words_kernel", "emit_words_kernel", "resplit_kernel",
+                                      "delta_emit_kernel", "relay_len_kernel",
+                                      "relay_write_kernel", "tier_count_kernel", "resplit_kernel",
                                       "encode_short_kernel", "encode_long_kernel",
                                       "pair_count_kernel", "tomb_count_kernel", "fold_plan_kernel",
                                       "encode_dropout_short_kernel", "encode_dropout_long_kernel",
@@ -655,6 +677,17 @@ class merge_arm:
             os.environ["YTTM_ENCODE_MERGE"] = self.old
 
 
+def lines_prefix(lines, blob: bytes, ids, cli: bytes, share: int) -> tuple:
+    """The first 1/``share`` of the corpus's ``lines``: (those lines, their
+    bytes in ``blob``, their ids in ``ids``, their lines of the CLI bytes
+    ``cli``, one output line an input line)."""
+    part = lines[: len(lines) // share]
+    cut = 0
+    for _ in part:
+        cut = cli.index(b"\n", cut) + 1
+    return part, blob[: sum(len(t.encode()) + 1 for t in part)], ids[: len(part)], cli[:cut]
+
+
 def timed(fn):
     """(fn(), host seconds): every call here ends in a host copy of its
     result, so the host clock covers the device work."""
@@ -723,28 +756,33 @@ def phase_main_path(work: Path, corpus, device=None) -> dict:
         f"{len(sample)} lines")
 
     # -- both arms, one turn each (device, host), fresh encoders each time,
-    #    outside the counted window: the API call (cold word cache, then
-    #    warm: no novel word left to merge), the CLI engine, and the merge
-    #    stage alone on all the corpus's novel words
+    #    outside the counted window, over the first 1/ARM_SHARE of the
+    #    lines: the API call (cold word cache, then warm: no novel word left
+    #    to merge), the CLI engine; and the merge stage alone on all the
+    #    corpus's novel words
+    check(cli_main.count(b"\n") == len(lines), "the CLI bytes are not one line an input line")
+    part, part_blob, part_ids, part_cli = lines_prefix(lines, blob, ids_main, cli_main, ARM_SHARE)
+    n_part = len(part_blob)
     turns = []
     for arm in ("device", "host"):
         with merge_arm(arm):
             api = yttm.BPE(str(model_path), device=device)
-            ids, api_s = timed(lambda: api.encode(lines))
-            check(ids == ids_main, f"{arm}-arm ids != the main path's")
+            ids, api_s = timed(lambda: api.encode(part))
+            check(ids == part_ids, f"{arm}-arm ids != the main path's")
             del ids
-            ids, warm_s = timed(lambda: api.encode(lines))
-            check(ids == ids_main, f"{arm}-arm warm-cache ids != the main path's")
+            ids, warm_s = timed(lambda: api.encode(part))
+            check(ids == part_ids, f"{arm}-arm warm-cache ids != the main path's")
             del ids, api
             enc = Encoder(state, device=device)
-            out, cli_s = timed(lambda: b"".join(enc.encode_stream_cli(cli_chunks(blob))))
-            check(out == cli_main, f"{arm}-arm encode_stream_cli bytes != the main path's")
+            out, cli_s = timed(lambda: b"".join(enc.encode_stream_cli(cli_chunks(part_blob))))
+            check(out == part_cli, f"{arm}-arm encode_stream_cli bytes != the main path's")
             stage = Encoder(state, device=device)
             _, merge_s = timed(lambda: stage._merge_collect(stage._merge_dispatch(wf, wo)))
-        turns.append({"arm": arm, "api_mbps": n_bytes / 1e6 / api_s,
-                      "api_warm_mbps": n_bytes / 1e6 / warm_s,
-                      "cli_mbps": n_bytes / 1e6 / cli_s, "merge_s": merge_s})
-    log(f"[3] ids and encode_stream_cli bytes ({len(cli_main)}): device arm == host arm")
+        turns.append({"arm": arm, "api_mbps": n_part / 1e6 / api_s,
+                      "api_warm_mbps": n_part / 1e6 / warm_s,
+                      "cli_mbps": n_part / 1e6 / cli_s, "merge_s": merge_s})
+    log(f"[3] over the first {len(part)} lines ({n_part} bytes): ids and encode_stream_cli bytes "
+        f"({len(part_cli)}): device arm == host arm == the main path's")
     _, bucket_s = timed(lambda: Encoder._bucket_rows(wf, wo))
     main_path = {"api_mbps": n_bytes / 1e6 / main_s, "cli_device_mbps": n_bytes / 1e6 / cli_main_s,
                  "tokenize_s": tokenize_s, "bucket_packing_s": bucket_s}
@@ -897,7 +935,8 @@ def phase_times(card: str, kchk: dict, main: dict) -> list:
         f"arm: {mp['cli_device_mbps']:.2f} MB/s; C++ tokenize {mp['tokenize_s']:.3f} s; "
         f"bucket packing {mp['bucket_packing_s']:.3f} s ({card})")
     for t in main["turns"]:
-        log(f"[4] {t['arm']:6s} arm: API {t['api_mbps']:.2f} MB/s (warm cache "
+        log(f"[4] {t['arm']:6s} arm, the first 1/{ARM_SHARE} of the lines: API "
+            f"{t['api_mbps']:.2f} MB/s (warm cache "
             f"{t['api_warm_mbps']:.2f}), CLI engine {t['cli_mbps']:.2f} MB/s, merge stage "
             f"{t['merge_s']:.3f} s ({card})")
     return rows
@@ -2345,9 +2384,11 @@ def train_split(corpus_path: Path, model_path: Path):
 TIERED_KERNELS = ("tier_select", "apply_blocks", "resplit", "fold_rows")
 TIERED_ROUND_KERNELS = ("tier_select", "apply_blocks", "resplit")  # see TRAIN_ROUND_KERNELS
 # the device functions of each wrapper, as the profiler names them
+# (apply_blocks's count mode, tier_count_kernel, is timed by CUDA events:
+# its own row, tier_count)
 TIERED_DEVICE_FNS = {
     "tier_select": ("tier_hot_kernel", "tier_full_kernel"),
-    "apply_blocks": ("tier_find_kernel", "tier_apply_kernel", "tier_count_kernel"),
+    "apply_blocks": ("tier_find_kernel", "tier_apply_kernel"),
     "resplit": ("resplit_kernel",),
     "fold_rows": ("fold_plan_kernel", "fold_write_kernel"),
 }
@@ -2356,6 +2397,8 @@ TIERED_REPLACES = {
     "apply_blocks": "youtokentome_tpu/ops/train_tiered.py:193",
     "resplit": "youtokentome_tpu/ops/train_tiered.py:193",
     "fold_rows": "youtokentome_tpu/ops/train_tiered.py:496",
+    # the JAX host loop's count (host_count_table) and signatures (sig_build)
+    "tier_count": "youtokentome_tpu/ops/train_tiered.py:608",
 }
 # the 10 MB lockstep run: a hot tier of 1024 entries (refresh rounds), a
 # pcap of 1024 (the 702 initial pairs fit; the pairs that merges make do not:
@@ -2886,8 +2929,12 @@ def run_tiered_work(engine, vocab: int):
                     changed, in either table, its key read and its count
                     read and written; the live count, 4 B for each block of
                     the launch (the tokens its merges removed, sent in the
-                    high word of its ticket); a count: the live tokens, the
-                    filled slots and every signature
+                    high word of its ticket)
+      tier_count    apply_blocks's count mode (the start and each rebuild:
+                    tier_count_kernel): every slot's token and word id read,
+                    every word's weight, every row's signature and the
+                    filled slots written; its device ms by CUDA events
+                    around each count (``count_ms``, ``counts``)
       resplit       the full table's counts, the keys above T read and
                     written into the hot table, the hot table cleared
       fold_rows     a plan, at the segment ends where it runs (fold_due): the
@@ -2909,10 +2956,11 @@ def run_tiered_work(engine, vocab: int):
     from youtokentome_tpu_torch.ops import _cuda
     from youtokentome_tpu_torch.ops import tiered_kernels as tk
 
-    w = {name: 0 for name in TIERED_KERNELS}
-    ops = {name: 0 for name in TIERED_KERNELS}
+    w = {name: 0 for name in TIERED_KERNELS + ("tier_count",)}
+    ops = {name: 0 for name in TIERED_KERNELS + ("tier_count",)}
     n = {"rounds": 0, "refresh": 0, "due": 0, "library_ms": 0.0, "split_library_ms": 0.0,
-         "split_ms": 0.0, "sort_library_ms": 0.0, "live_bytes": 0, "split_runs": []}
+         "split_ms": 0.0, "sort_library_ms": 0.0, "live_bytes": 0, "split_runs": [],
+         "counts": 0, "count_ms": 0.0}
     grids = {}
 
     def apply_grid(st) -> int:
@@ -2940,10 +2988,19 @@ def run_tiered_work(engine, vocab: int):
 
     def apply(st, kb1=0, kb2=0, count_mode=False):
         if count_mode:
+            # the count's device ms by CUDA events, a sleep kernel ahead so
+            # that the host's enqueue is not timed
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+            a.record()
             real["apply_blocks"](st, kb1, kb2, count_mode)
-            n_tok = int((st.tok >= 0).sum())
-            w["apply_blocks"] += n_tok * 8 + int(st.ctl[tk.OCC]) * 12 + st.NB * 64
-            ops["apply_blocks"] += n_tok * OPS_PER_ROWPOS
+            b.record()
+            b.synchronize()
+            n["count_ms"] += a.elapsed_time(b)
+            n["counts"] += 1
+            w["tier_count"] += (st.tok.numel() * 8 + st.freq.numel() * 4 + st.NB * 64
+                                + int(st.ctl[tk.OCC]) * 12)
+            ops["tier_count"] += int((st.tok >= 0).sum()) * OPS_PER_ROWPOS
             return
         cnts, hcnts = st.cnts.clone(), st.hcnts.clone()
         real["apply_blocks"](st, kb1, kb2)
@@ -3144,6 +3201,8 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
                 if f in ev.key:
                     dev_us[name] += us
                     fn_us[f] = (us, ev.count)
+        if "tier_count_kernel" in ev.key:  # tier_count's row is timed by CUDA events
+            fn_us["tier_count_kernel"] = (us, ev.count)
     log("[6] device functions: " + ", ".join(
         f"{f} {us / 1e3:.3f} ms / {n} calls" for f, (us, n) in sorted(fn_us.items())))
     log(f"[6] apply_blocks, first {SPLIT_ROUNDS} launches / the rest, ms: " + ", ".join(
@@ -3165,7 +3224,7 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
     for name, v in kernel_ms.items():
         check(v > 0, f"the profiler recorded no device time for {name}")
 
-    plain_ms = {name: 0.0 for name in TIERED_KERNELS}
+    plain_ms = {name: 0.0 for name in TIERED_KERNELS + ("tier_count",)}
 
     def timed_plain(name, fn):
         def run(*a, **k):
@@ -3179,10 +3238,12 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
         return run
 
     def apply_plain(st, kb1=0, kb2=0, count_mode=False):
-        if count_mode:
+        if count_mode:  # its own row's, timed apart below
             plain_tiered_count(st)
         else:
-            tk.apply_blocks_plain(st, False, kb1, kb2)
+            timed_plain("apply_blocks", tk.apply_blocks_plain)(st, False, kb1, kb2)
+
+    apply_plain.launches = 0
 
     # the round's kernels over the run's first TRAIN_PLAIN_IDS ids (beside
     # their device ms over the same ids: the resplit's by CUDA events at its
@@ -3193,7 +3254,7 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
         tk,
         tier_select=timed_plain(
             "tier_select", lambda st, limit, v, u0, k=16: tk.tier_select_plain(st, limit, v, u0, k)),
-        apply_blocks=timed_plain("apply_blocks", apply_plain),
+        apply_blocks=apply_plain,
         resplit=timed_plain("resplit", lambda st, hcap: tk.resplit_plain(st, hcap // 2)),
     ):
         p_eng = engine()
@@ -3205,6 +3266,11 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
         p_eng = engine()
         run_tiered(p_eng, TRAIN_VOCAB, used0)
     check(torch.equal(p_eng.rules, st.rules), "the plain fold's rules differ")
+    # the count's plain version on the main path's first stream, apart: its
+    # table's slots lie where a plain insert puts them, which the kernels'
+    # rounds do not read
+    timed_plain("tier_count", plain_tiered_count)(engine().st)
+    plain_ms["tier_count"] *= counts["counts"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_tiered(engine(), plain_vocab, used0)
         torch.cuda.synchronize()
@@ -3213,11 +3279,20 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
     prefix_ms["resplit"] = sum(ms for used, ms in counts["split_runs"] if used <= plain_vocab)
     log(f"[6] plain versions (synchronised calls), {', '.join(TIERED_ROUND_KERNELS)} over the "
         f"first {TRAIN_PLAIN_IDS} ids (the kernels' ms there: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in prefix_ms.items()) + "), fold_rows over the run: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in prefix_ms.items()) + "), fold_rows over the run, "
+        "tier_count a count of the main path's stream times the run's counts: "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items()))
 
+    # the count has its own row: its launches come out of apply_blocks's
+    launches["tier_count"] = counts["counts"]
+    launches["apply_blocks"] -= counts["counts"]
+    kernel_ms["tier_count"] = counts["count_ms"]
+    log(f"[6] tier_count: {counts['counts']} counts, {counts['count_ms']:.3f} ms (CUDA events; "
+        f"the profiler's tier_count_kernel: {fn_us.get('tier_count_kernel', (0, 0))[0] / 1e3:.3f} "
+        f"ms / {fn_us.get('tier_count_kernel', (0, 0))[1]} calls)")
+    check(counts["counts"] > 0 and counts["count_ms"] > 0, "tier_count was not timed")
     rows = []
-    for name in TIERED_KERNELS:
+    for name in TIERED_KERNELS + ("tier_count",):
         b_ms = wbytes[name] / HBM_BYTES_PER_S * 1e3
         o_ms = wops[name] / OPS_PER_S * 1e3
         rows.append({"name": name, "launches": launches[name], "ms": kernel_ms[name],
@@ -3339,6 +3414,69 @@ def compare_tree(work: Path) -> dict:
     return out
 
 
+def compare_emit(work: Path) -> dict:
+    """The numbers sharded v2's per-card emit and the flat relays are held
+    to, for the package of the current directory's tree (run it in the
+    parent's unpacked tree and in the change's, in turns, from one process
+    each, loading this file by its path): the 100 MB sharded v2 loop (4
+    shards on the card, the round graph) twice by the host clock, then once
+    traced: each wrapper's device ms and launches (the emit's device
+    functions in either tree), the relay's device functions by name, and
+    the emit's launches in order (the first SPLIT_ROUNDS rounds' ms, the
+    rest's, and the rest's 10th, 50th and 90th percentile us a round); the
+    one-device v2 loop traced (its relay's functions).  Prints one
+    ``COMPARE_EMIT {json}`` line and returns it."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+    from youtokentome_tpu_torch.ops import train_stream as ts
+
+    work.mkdir(parents=True, exist_ok=True)
+    corpus_path = work / "corpus_100mb.txt"
+    if not corpus_path.exists():
+        corpus_path.write_text("\n".join(build_corpus()[1]) + "\n")
+    out = {"tree": os.getcwd(), "card": card_line()}
+    buckets, _, used0 = training_buckets(corpus_path)
+    run_shards(shard_engine(buckets, used0, used0 + SHARD_PLAIN_IDS), used0 + SHARD_PLAIN_IDS,
+               used0)  # builds the kernels outside the timed loops
+    loops = []
+    for _ in range(2):
+        eng = shard_engine(buckets, used0, TRAIN_VOCAB)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, nrec = run_shards(eng, TRAIN_VOCAB, used0)
+        torch.cuda.synchronize()
+        loops.append(round(time.perf_counter() - t0, 4))
+    out.update(shard_loop_s=loops, recounts=nrec, rebuilds=eng.rebuilds, relays=eng.relays,
+               rounds=int(eng.shards[0].ctl[tk.ROUND]))
+    wrappers = {"topk_accept": tk.topk_accept, **{k: getattr(dsk, k) for k in SHARD_KERNELS}}
+    for w in wrappers.values():
+        w.launches = 0
+    relay_fns = {f: (f,) for f in TRAIN_DEVICE_FNS["relay"]}
+    with Tracer(keep=SHARD_DEVICE_FNS["delta_emit"]) as tr:
+        run_shards(shard_engine(buckets, used0, TRAIN_VOCAB), TRAIN_VOCAB, used0)
+    out["shard_ms"] = {k: round(v, 4) for k, v in tr.ms(
+        {**COMPARE_SHARD_FNS, "shard_relay": SHARD_DEVICE_FNS["shard_relay"], **relay_fns}).items()}
+    out["shard_launches"] = {k: w.launches for k, w in wrappers.items()}
+    recs = tr.records.get(SHARD_DEVICE_FNS["delta_emit"][0])
+    if recs:  # the per-card emit: one launch a round
+        per = np.array([ns for _, ns in sorted(recs)]) / 1e3
+        rest = per[SPLIT_ROUNDS:]
+        out["emit_rounds"] = {
+            "first_ms": round(float(per[:SPLIT_ROUNDS].sum()) / 1e3, 4),
+            "rest_ms": round(float(rest.sum()) / 1e3, 4),
+            "rest_us_p10_50_90": [round(float(np.percentile(rest, q)), 2) for q in (10, 50, 90)]}
+    t, wid, freq = ts.flatten_word_buckets(buckets)
+    rules = np.full((TRAIN_VOCAB, 4), -1, np.int32)
+    ms, _, _ = traced(lambda: run_engine(tk.KernelEngine(t, wid, freq, rules, used0, TRAIN_VOCAB,
+                                                         16, torch.device("cuda", 0)),
+                                         TRAIN_VOCAB, used0), dict(TRAIN_DEVICE_FNS, **relay_fns))
+    out["v2_ms"] = {k: round(v, 4) for k, v in ms.items()}
+    print("COMPARE_EMIT " + json.dumps(out), flush=True)
+    return out
+
+
 def compare_v3(buckets, used0: int) -> dict:
     """compare_tree's v3 numbers: the sharded v3 loop (4 shards on the card,
     the engine's own route) twice by the host clock, then once traced (each
@@ -3403,6 +3541,10 @@ def compare_v3(buckets, used0: int) -> dict:
 # -- phase 7: BPE-dropout ----------------------------------------------------
 
 DROPOUT_P = 0.1
+# the dropout path's depth: the first 1/DROPOUT_SHARE of the corpus's lines
+# (its kernel is held against its plain version on every input it gives,
+# ~100 s of plain calls over the whole corpus)
+DROPOUT_SHARE = 4
 DROPOUT_SEED = 0x5EED0D20
 DROPOUT_REPLACES = "youtokentome_tpu/ops/encode_kernel.py:160"
 # integer operations of the dropout kernel beyond its pair lookups
@@ -3512,10 +3654,11 @@ def phase_dropout_edges(tables, dev="cuda:0") -> int:
 
 
 def phase_dropout_main(main: dict, lines, card: str) -> dict:
-    """The main path: ``BPE.encode(lines, dropout_prob=0.1)`` over the 100 MB
-    corpus on the native route and, with YTTM_DROPOUT_NATIVE=0, through the
-    kernel (launches counted); checks; then the kernel, its plain version
-    and its work on every input the main path gave it."""
+    """The main path: ``BPE.encode(lines, dropout_prob=0.1)`` over the first
+    1/DROPOUT_SHARE of the 100 MB corpus's lines on the native route and,
+    with YTTM_DROPOUT_NATIVE=0, through the kernel (launches counted);
+    checks; then the kernel, its plain version and its work on every input
+    the main path gave it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3523,7 +3666,8 @@ def phase_dropout_main(main: dict, lines, card: str) -> dict:
     from youtokentome_tpu_torch import encoder as encoder_mod
     from youtokentome_tpu_torch.ops import encode_kernel as ek
 
-    n_bytes = len(main["blob"])
+    lines = lines[: len(lines) // DROPOUT_SHARE]
+    n_bytes = sum(len(t.encode()) + 1 for t in lines)
     sample = lines[:2000]
     bpe = yttm.BPE(str(main["model_path"]), device=main["device"])
     real = ek.encode_dropout
@@ -3543,7 +3687,8 @@ def phase_dropout_main(main: dict, lines, card: str) -> dict:
         kern, kern_s = timed(lambda: bpe.encode(
             lines, dropout_prob=DROPOUT_P, generator=torch.Generator().manual_seed(2)))
         launches = ek.encode_dropout.launches
-    log(f"[7] main path BPE.encode(lines, dropout_prob={DROPOUT_P}): native route {native_s:.2f} s "
+    log(f"[7] main path BPE.encode(lines, dropout_prob={DROPOUT_P}) over the first {len(lines)} "
+        f"lines ({n_bytes} bytes): native route {native_s:.2f} s "
         f"({n_bytes / 1e6 / native_s:.2f} MB/s, no launch); YTTM_DROPOUT_NATIVE=0 {kern_s:.2f} s "
         f"({n_bytes / 1e6 / kern_s:.2f} MB/s), encode_dropout launches {launches} ({card})")
     check(bpe.device.type != "cuda" or launches == len(calls) > 0,
@@ -3552,7 +3697,7 @@ def phase_dropout_main(main: dict, lines, card: str) -> dict:
         check(bpe.decode(ids[: len(sample)]) == sample, f"{name}-route dropout ids do not decode back")
     ln = np.array([len(r) for r in native], np.float64)
     lk = np.array([len(r) for r in kern], np.float64)
-    greedy = float(np.mean([len(r) for r in main["ids"]]))
+    greedy = float(np.mean([len(r) for r in main["ids"][: len(lines)]]))
     se = float(np.sqrt(ln.var(ddof=1) / ln.size + lk.var(ddof=1) / lk.size))
     z = (lk.mean() - ln.mean()) / se
     check(abs(z) < 5, f"mean ids a line: kernel {lk.mean():.4f}, native {ln.mean():.4f} ({z:.2f} SE)")
@@ -3761,11 +3906,11 @@ def unique_rows(w):
 
 def phase_stream_main(main: dict, lines, card: str) -> dict:
     """The main path: ``YTTM_ENCODE_BACKEND=stream BPE.encode(lines)`` over
-    100 MB (launches counted) gives phase 3's ids; the CLI route
-    ``encode_bytes_flat`` + ``format_ids`` gives phase 3's CLI bytes; then
-    each stage over every chunk of the corpus: the kernel under the
-    profiler, its plain version (equal, each call synchronised), and the
-    work its data needs."""
+    the first 1/STREAM_SHARE of the 100 MB corpus's lines (launches
+    counted) gives phase 3's ids; the CLI route ``encode_bytes_flat`` +
+    ``format_ids`` gives phase 3's CLI bytes; then each stage over every
+    chunk of those lines: the kernel under the profiler, its plain version
+    (equal, each call synchronised), and the work its data needs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3774,7 +3919,9 @@ def phase_stream_main(main: dict, lines, card: str) -> dict:
     from youtokentome_tpu_torch.host.fastio import format_ids
     from youtokentome_tpu_torch.ops import stream_kernel as sk
 
-    blob, unk = main["blob"], main["unk"]
+    lines, blob, want_ids, want_cli = lines_prefix(lines, main["blob"], main["ids"], main["cli"],
+                                                   STREAM_SHARE)
+    unk = main["unk"]
     n_bytes = len(blob)
     wrappers = {name: getattr(sk, name) for name in STREAM_KERNELS}
     with env_set(YTTM_ENCODE_BACKEND="stream"):
@@ -3783,16 +3930,17 @@ def phase_stream_main(main: dict, lines, card: str) -> dict:
             f.launches = 0
         ids, api_s = timed(lambda: bpe.encode(lines))
         launches = {name: f.launches for name, f in wrappers.items()}
-    log(f"[8] main path YTTM_ENCODE_BACKEND=stream BPE.encode(lines): {api_s:.2f} s "
+    log(f"[8] main path YTTM_ENCODE_BACKEND=stream BPE.encode(lines) over the first {len(lines)} "
+        f"lines ({n_bytes} bytes): {api_s:.2f} s "
         f"({n_bytes / 1e6 / api_s:.2f} MB/s); launches {launches} ({card})")
     for name, n in launches.items():
         check(bpe.device.type != "cuda" or n > 0, f"the stream backend did not launch {name}")
-    check(ids == main["ids"], "stream-backend ids != phase 3's")
+    check(ids == want_ids, "stream-backend ids != phase 3's")
     del ids
     enc = Encoder(main["state"], device=main["device"])
     out, cli_s = timed(lambda: b"".join(format_ids(*enc.encode_bytes_flat(c))
                                         for c in cli_chunks(blob)))
-    check(out == main["cli"], "the encode_bytes_flat CLI route's bytes != phase 3's")
+    check(out == want_cli, "the encode_bytes_flat CLI route's bytes != phase 3's")
     del out
     log(f"[8] ids == phase 3's native ids; CLI route encode_bytes_flat + format_ids: {cli_s:.2f} s "
         f"({n_bytes / 1e6 / cli_s:.2f} MB/s), bytes == phase 3's CLI bytes ({card})")
@@ -4044,6 +4192,11 @@ MID_V0_IDS = 500  # v0's lockstep depth on the 10 MB prefix (one merge a round)
 # ids over which the plain versions of phase 9 are timed (v0: one merge a
 # round, ~50 ms a plain round at 100 MB)
 PLAIN_IDS = {"stream": 1000, "sparse": 1000, "block": 1000, "bucketed": 200}
+# v0's depth on its main paths (phases 9 and 11): one merge a round, so its
+# first V0_MAIN_IDS ids take about a tenth of the 29,969 rounds of a run to
+# vocab 30000 (~95 s of the 4-shard run under the profiler); its rules are
+# held against the first V0_MAIN_IDS of phase 5's
+V0_MAIN_IDS = 3000
 
 
 def diff_module(name: str):
@@ -4375,11 +4528,13 @@ class Tracer:
     run of a million launches).  ``cycle()`` closes the tracer's window and
     opens the next, so that a long run's records are taken in parts."""
 
-    def __init__(self):
+    def __init__(self, keep=()):
         import collections
 
         self.by_name = collections.Counter()
         self.events = collections.Counter()  # records by name
+        self.keep = keep  # function names whose records are kept, (start, ns)
+        self.records = {}
 
     def _start(self):
         from torch.autograd.profiler import profile
@@ -4395,6 +4550,9 @@ class Tracer:
             if str(ev.device_type()).endswith("CUDA"):
                 self.by_name[ev.name()] += ev.duration_ns()
                 self.events[ev.name()] += 1
+                for f in self.keep:
+                    if f in ev.name():
+                        self.records.setdefault(f, []).append((ev.start_ns(), ev.duration_ns()))
 
     def __enter__(self):
         import torch
@@ -4509,7 +4667,8 @@ def sparse_count_event_ms(st) -> float:
 
 def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
                     select_keys: dict) -> dict:
-    """The main path of each differential trainer at vocab 30000: launches
+    """The main path of each differential trainer at vocab 30000 (v0 to its
+    first V0_MAIN_IDS ids): launches
     counted, rules against phase 5's v2 rules; the merge loop timed and the
     device ms of each kernel over a replica of the run under the profiler
     (v0's main path, ``run_training``, is its merge loop: it runs once,
@@ -4545,7 +4704,7 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
 
         count_calls, count_ms = [], []
         if name == "bucketed":
-            # v0's main path is its merge loop alone (~55 s on the card): it
+            # v0's main path is its merge loop alone (to V0_MAIN_IDS ids): it
             # runs once, under the profiler, which gives each kernel's device
             # time; its engine gives the run's work
             engines = []
@@ -4556,11 +4715,13 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
                     engines.append(self)
 
             tally = KeyTally(mod.topk_accept)
+            v0_vocab = min(TRAIN_VOCAB, used0 + V0_MAIN_IDS)
             with swapped(mod, BucketedKernelEngine=Recorded, topk_accept=tally):
                 kernel_ms, train_s, got = profiled(
-                    name, lambda: tk0.run_training(buckets, used0, TRAIN_VOCAB))
-            check(got == v2_rules, "v0 run_training's rules != phase 5's v2 rules")
-            what = "ops.train_kernel.run_training (under torch.profiler)"
+                    name, lambda: tk0.run_training(buckets, used0, v0_vocab))
+            check(got == v2_rules[: v0_vocab - used0],
+                  f"v0 run_training's rules != the first {v0_vocab - used0} of phase 5's v2 rules")
+            what = f"ops.train_kernel.run_training to vocab {v0_vocab} (under torch.profiler)"
             launches = {k: diff_wrapper(mod, k).launches for k in DIFF_KERNELS[name]}
             eng = engines[0]
             used, loop_s = int(eng.st.ctl[tk.USED]), train_s
@@ -4617,7 +4778,8 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
                 tomb_state_check("sparse_count", [eng.st], "the 100 MB v3 run")
         for k, n in launches.items():
             check(n > 0, f"the {name} main path did not launch {k}")
-        log(f"[9] {what}: {train_s:.2f} s, rules == phase 5's v2 rules; launches {launches}")
+        log(f"[9] {what}: {train_s:.2f} s, rules == phase 5's v2 rules (their first "
+            f"{used - used0}); launches {launches}")
         for k, v in kernel_ms.items():
             check(v > 0, f"the profiler recorded no device time for {name} {k}")
         merges, rounds = used - used0, int(eng.st.ctl[tk.ROUND])
@@ -4669,17 +4831,17 @@ SHARD_FOLD_FNS = ("fold_delta_kernel", "rebuild_copy_kernel", "rebuild_add_kerne
 # the device functions of each wrapper, as the profiler names them
 SHARD_DEVICE_FNS = {
     "topk_accept": ("topk_select_kernel",),
-    "delta_emit": ("mark_words_kernel", "emit_words_kernel"),
+    "delta_emit": ("delta_emit_kernel",),
     "shard_recount": ("recount_clear_kernel", "pair_count_kernel"),
     "shard_fold": SHARD_FOLD_FNS,
     "shard_relay": ("relay_len_kernel", "relay_write_kernel", "tile_sums_kernel",
                     "tile_offsets_kernel", "scan_apply_kernel"),
 }
 # the sharded v2 wrappers' device functions in either tree that compare_tree
-# may run: the fold's and the recount's before their redesign too
+# may run: the emit's, the fold's and the recount's before their redesign too
 COMPARE_SHARD_FNS = {
     "topk_accept": ("topk_select_kernel",),
-    "delta_emit": ("mark_words_kernel", "emit_words_kernel"),
+    "delta_emit": ("mark_words_kernel", "emit_words_kernel", "delta_emit_kernel"),
     "shard_recount": ("recount_clear_kernel", "recount_kernel", "pair_count_kernel"),
     "shard_fold": ("fold_prep_kernel", "fold_kernel", "fold_done_kernel") + SHARD_FOLD_FNS,
 }
@@ -4829,7 +4991,7 @@ def clone_shards(shards, dcap: int = 0):
     out = []
     for st in shards:
         c = clone_state(st)
-        c._links = None
+        c._links = c._emit = None
         if dcap:
             c.dcap = dcap
             c.dk = torch.full((2 * dcap,), tk.EMPTY, dtype=torch.int64, device=st.device)
@@ -4875,10 +5037,18 @@ def same_shard(a, b, what: str, buffers: bool = True, stream=("tok",)) -> None:
 
 def shard_plain(k: str):
     """The plain version of the sharded v2 wrapper ``k``, with the
-    wrapper's arguments (shard_fold's: the replicas of a card, the shards,
-    the branch, each replica through ``shard_fold_plain``)."""
+    wrapper's arguments (delta_emit's: the shards of a card, each with words
+    through ``delta_emit_plain``; shard_fold's: the replicas of a card, the
+    shards, the branch, each replica through ``shard_fold_plain``)."""
     from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
 
+    if k == "delta_emit":
+        def emit(states):
+            for st in states:
+                if st.n_words:
+                    dsk.delta_emit_plain(st)
+
+        return emit
     if k != "shard_fold":
         return getattr(dsk, k + "_plain")
 
@@ -4899,8 +5069,12 @@ def shard_round(ks, ps, used0: int, limit: int, what: str, rebuild=None) -> bool
     for a, b in zip(ks, ps):
         tk.topk_accept(a, limit, TRAIN_VOCAB, used0)
         tk.topk_accept_plain(b, limit, TRAIN_VOCAB, used0, 16)
+    # every shard of the card in one launch
+    launches = dsk.delta_emit.launches
+    dsk.delta_emit(ks)
+    check(ks[0].device.type != "cuda" or dsk.delta_emit.launches - launches == 1,
+          f"{what}: delta_emit launched {dsk.delta_emit.launches - launches} times")
     for i, (a, b) in enumerate(zip(ks, ps)):
-        dsk.delta_emit(a)
         dsk.delta_emit_plain(b)
         same_shard(a, b, f"{what}, delta_emit shard {i}")
     recount = any(int(a.ctl[dsk.DOVF]) for a in ks)
@@ -4951,6 +5125,158 @@ class checked_relay:
 
     def __exit__(self, *exc):
         self.dsk.shard_relay = self.real
+
+
+# delta_emit's edge checks: shards a launch (one shard without words among
+# two or four), and a buffer small enough that the round that hits nearly
+# every word passes it partway through some block's entries
+EMIT_SHARDS = (1, 2, 4)
+EMIT_SMALL_DCAP = 200
+
+
+def emit_edge_words(base: int, rng):
+    """Words for delta_emit's and the relays' edge checks, ids from
+    ``base``: the applies' edge words (runs of 1-9 equal ids, chains, words
+    of 33-600 tokens, 2,000 random words), a word of every length 1-512,
+    and 600 words (a, b) in a row: 3 slots each, so that a warp's step of
+    256 positions claims 85 words (more than its 32 lanes, two packs of
+    them, and a list of 32 at a time thrice) in a round that accepts (a,
+    b)."""
+    words = edge_words(base, rng, True)
+    words += [[base + int(v) for v in rng.integers(0, 4, n)] for n in range(1, 513)]
+    return words + [[base, base + 1]] * 600
+
+
+def emit_shards(words, n: int, rng, dev):
+    """n ShardStates (dcap 1) of ``words`` in order, cut in n - 1 runs of
+    words with an empty shard among them (the first of 4, the second of 2),
+    or one shard holding them all."""
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+
+    parts = [list(c) for c in np.array_split(np.arange(len(words)), max(n - 1, 1))]
+    if n > 1:
+        parts.insert(0 if n == 4 else 1, [])
+    rules = np.full((len(words) + 64, 4), -1, np.int32)
+    out = []
+    for idx in parts:
+        if idx:
+            t, wid, freq = flat_words([words[i] for i in idx], rng)
+        else:
+            t, wid, freq = (np.zeros(0, np.int32),) * 3
+        out.append(dsk.ShardState(t, wid, freq, rules, 0, 1 << 10, 1, dev))
+    return out
+
+
+def phase_emit_checks(dev) -> dict:
+    """delta_emit, one launch for 1, 2 and 4 shards of the card (one of
+    them without words), against delta_emit_plain shard by shard on
+    ``emit_edge_words`` (ids from 5 and 70000), in each of ``edge_rounds``,
+    with buffers that hold the round and with EMIT_SMALL_DCAP entries a side,
+    which the round that hits nearly every word passes partway: streams,
+    ctl (NAFF, LIVE, DN_OLD and DN_NEW as full counts, DOVF), work and each
+    side of the buffer as a multiset; past dcap, the kernel's entries a sub
+    multiset of the round's entries."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+
+    t0 = time.perf_counter()
+    n_checks, n_ovf, most = 0, 0, 0
+    for base in APPLY_BASES:
+        words = emit_edge_words(base, np.random.default_rng(base))
+        for n in EMIT_SHARDS:
+            shards = emit_shards(words, n, np.random.default_rng(base + n), dev)
+            for what, cands in edge_rounds(base):
+                full = None
+                for dcap in (1 << 20, EMIT_SMALL_DCAP):
+                    ks = clone_shards(shards, dcap)
+                    for st in ks:
+                        set_round(st, cands, base + 100)
+                    ps = clone_shards(ks)
+                    launches = dsk.delta_emit.launches
+                    dsk.delta_emit(ks)
+                    label = f"delta_emit, {what}, {n} shards, ids from {base}, dcap {dcap}"
+                    check(ks[0].device.type != "cuda" or dsk.delta_emit.launches == launches + 1,
+                          f"{label}: {dsk.delta_emit.launches - launches} launches")
+                    for i, (a, b) in enumerate(zip(ks, ps)):
+                        if b.n_words:
+                            dsk.delta_emit_plain(b)
+                        same_shard(a, b, f"{label}, shard {i}")
+                        if not int(a.ctl[dsk.DOVF]):
+                            continue
+                        n_ovf += 1
+                        for side in (0, 1):
+                            ka, va = (x.cpu().numpy() for x in a.buffer(side))
+                            kf, vf = full[i][side]
+                            check(sub_multiset(ka, va, kf, vf),
+                                  f"{label}, shard {i}: buffer side {side} is not a part of "
+                                  f"the round's entries")
+                    if dcap != EMIT_SMALL_DCAP:
+                        check(not any(int(a.ctl[dsk.DOVF]) for a in ks), f"{label}: overflow")
+                        full = [[tuple(x.cpu().numpy() for x in a.buffer(side)) for side in (0, 1)]
+                                for a in ks]
+                        most = max([most] + [int(a.ctl[dsk.NAFF]) for a in ks])
+                    n_checks += 1
+    check(n_ovf > 0, "no emit check passed its buffer")
+    log(f"[10] delta_emit (one launch for {EMIT_SHARDS} shards, an empty one among them) == plain "
+        f"on {n_checks} edge rounds: words of 1-600 tokens, runs, chains, 3-slot words claimed 85 "
+        f"to a warp's 256 positions (up to {most} words a shard a round), ids from {APPLY_BASES}; "
+        f"{n_ovf} shards' buffers of {EMIT_SMALL_DCAP} passed partway, the counts past dcap "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"checks": n_checks, "overflows": n_ovf}
+
+
+def sub_multiset(ka, va, kf, vf) -> bool:
+    """(ka, va) pairs are a sub multiset of (kf, vf) pairs."""
+    from collections import Counter
+
+    got, have = Counter(zip(ka.tolist(), va.tolist())), Counter(zip(kf.tolist(), vf.tolist()))
+    return all(have[k] >= c for k, c in got.items())
+
+
+def phase_relay_checks(dev) -> dict:
+    """Both relays against their plain versions on crafted streams
+    (``emit_edge_words``, ids from 5 and 70000): v2's (``relay``, every
+    word kept) and the sharded engine's (``shard_relay``, words with fewer
+    than two live tokens dropped), on the fresh stream (its 1-token word
+    dropped, every other word kept; its dead slots none) and after a round
+    that hits nearly every word (the (a, b) words merged to one token:
+    dropped); streams, offsets, weights, word ids, ctl and work equal."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    t0 = time.perf_counter()
+    out = []
+    for base in APPLY_BASES:
+        rng = np.random.default_rng(base)
+        t, wid, freq = flat_words(emit_edge_words(base, rng), rng)
+        rules = np.full((base + 200, 4), -1, np.int32)
+        many = dict(edge_rounds(base))["nearly every word hit"]
+        st = tk.TrainState(t, wid, freq, rules, 0, 1 << 14, dev)
+        sh = dsk.ShardState(t, wid, freq, rules, 0, 1 << 10, 1 << 20, dev)
+        for merged in (False, True):
+            if merged:
+                for x in (st, sh):
+                    set_round(x, many, base + 100)
+                    tk.merge_listed_plain(x)
+            k, p = clone_state(st), clone_state(st)
+            tk.relay(k)
+            tk.relay_plain(p)
+            what = f"relay, ids from {base}, {'after a round' if merged else 'fresh'}"
+            check(all(torch.equal(getattr(k, f), getattr(p, f)) for f in ("tok", "pwid", "off", "fw")),
+                  f"{what}: the relaid streams differ")
+            k, p = clone_shards([sh])[0], clone_shards([sh])[0]
+            dsk.shard_relay(k)
+            dsk.shard_relay_plain(p)
+            for f in ("tok", "pwid", "off", "fw", "wid_dev", "ctl", "work"):
+                check(torch.equal(getattr(k, f), getattr(p, f)), f"shard_{what}: {f} differs")
+            check(k.n_words == p.n_words, f"shard_{what}: word counts differ")
+            out.append((sh.n_words, k.n_words))
+    log(f"[10] relay (every word kept) and shard_relay (words kept of words: {out}) == plain on "
+        f"crafted streams, fresh and after a round ({time.perf_counter() - t0:.1f} s)")
+    return {"kept": out}
 
 
 def phase_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
@@ -5749,8 +6075,9 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
     run once under torch.profiler, its launches counted: ``train.train``
     with ``YTTM_TRAIN_IMPL=sparse`` and a mesh (the sharded v3 trainer; its
     model's rules equal phase 5's v2 rules, and it encodes and decodes),
-    ``run_training_stream_sharded`` and ``run_training_sharded`` (rules
-    equal phase 5's v2 rules); the merge loop timed inside each run (from
+    ``run_training_stream_sharded`` and ``run_training_sharded`` (v0 to its
+    first V0_MAIN_IDS ids; rules equal phase 5's v2 rules, v0's their first
+    V0_MAIN_IDS); the merge loop timed inside each run (from
     the engine's first count to the end); each kernel's device ms from the
     profiler; bounds from the run's work counters, the top-k's keys from
     the rounds of phase 5 (k = 16) and of v0 in phase 9 (k = 1):
@@ -5812,6 +6139,7 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
                 return out
 
         mesh = card_mesh(dev=dev)
+        vocab = min(TRAIN_VOCAB, used0 + V0_MAIN_IDS) if name == "bucketed" else TRAIN_VOCAB
         t0 = time.perf_counter()
         with swapped(mod, **{cls_name: Recorded}):
             if name == "sparse":
@@ -5839,9 +6167,10 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
             else:
                 run = tst.run_training_stream_sharded if name == "stream" else tsh.run_training_sharded
                 kernel_ms, wall, got = other_profiled(
-                    name, lambda: run(buckets, used0, TRAIN_VOCAB, mesh), tracer)
-                check(got == v2_rules, f"{name} sharded rules != phase 5's v2 rules")
-                what = f"parallel.{run.__module__.rsplit('.', 1)[1]}.{run.__name__}"
+                    name, lambda: run(buckets, used0, vocab, mesh), tracer)
+                check(got == v2_rules[: vocab - used0],
+                      f"{name} sharded rules != the first {vocab - used0} of phase 5's v2 rules")
+                what = f"parallel.{run.__module__.rsplit('.', 1)[1]}.{run.__name__} to vocab {vocab}"
         end = time.perf_counter()
         train_s = end - t0
         eng = engines[0]
@@ -5853,7 +6182,7 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
             check(v > 0, f"the profiler recorded no device time for {name} sharded {k}")
         head = eng.shards[0]
         used = int(head.ctl[tk.USED])
-        check(torch.equal(eng.rules[: used - used0, :3].cpu(), want_rules),
+        check(torch.equal(eng.rules[: used - used0, :3].cpu(), want_rules[: vocab - used0]),
               f"the {name} sharded engine's rules differ")
         merges, rounds = used - used0, int(head.ctl[tk.ROUND])
         w = np.sum([st.work.cpu().numpy() for st in eng.shards], axis=0)
@@ -6208,13 +6537,14 @@ def _check_worker_init() -> None:
     torch.set_num_threads(1)
 
 
-def run_checks(corpus_path: Path, mid_path: Path) -> dict:
+def run_checks(corpus_path: Path, mid_path: Path, beside) -> tuple:
     """Phase 5's v2 plain round loop over the 100 MB corpus and every
     mid-size lockstep run (phases 5, 6, 9, 10 and 11 on the 10 MB prefix),
-    in CHECK_WORKERS spawned processes; a failed check fails the run.
-    Returns {"plain_v2": (rules, seconds)}."""
+    in CHECK_WORKERS spawned processes, while this process runs ``beside``
+    (check-only phases: they time nothing either); a failed check fails the
+    run.  Returns ({"plain_v2": (rules, seconds), ...}, beside's result)."""
     import multiprocessing as mp
-    from concurrent.futures import ProcessPoolExecutor
+    from concurrent.futures import ProcessPoolExecutor, as_completed
 
     import torch
 
@@ -6232,11 +6562,16 @@ def run_checks(corpus_path: Path, mid_path: Path) -> dict:
     t0 = time.perf_counter()
     with ProcessPoolExecutor(CHECK_WORKERS, mp_context=mp.get_context("spawn"),
                              initializer=_check_worker_init) as ex:
-        futs = {k: ex.submit(*job) for k, job in jobs.items()}
-        out = {k: f.result() for k, f in futs.items()}
+        futs = {ex.submit(*job): k for k, job in jobs.items()}
+        got = beside()
+        log(f"[2] the checks beside the workers: {time.perf_counter() - t0:.1f} s")
+        out = {}
+        for f in as_completed(futs):
+            out[futs[f]] = f.result()
+            log(f"[2] check worker job {futs[f]} done at {time.perf_counter() - t0:.1f} s")
     log(f"[2] the check-only runs ({len(jobs)}) in {CHECK_WORKERS} worker processes: "
         f"{time.perf_counter() - t0:.1f} s")
-    return out
+    return out, got
 
 
 def main() -> int:
@@ -6255,60 +6590,77 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def mark(what: str) -> None:
+        """Logs the seconds since the last mark and since the start."""
+        marks.append(time.perf_counter())
+        log(f"[t] {what}: {marks[-1] - marks[-2]:.1f} s (at {marks[-1] - t_start:.1f} s)")
+
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
+    dev = torch.device("cuda", 0)
 
     info = phase_device_and_build()
-    kchk = phase_kernel_checks()
-    phase_encode_edges()
-    t0 = time.perf_counter()
+    mark("phase 1, the build")
     corpus = build_corpus()
     corpus_path = work / "corpus_100mb.txt"
     corpus_path.write_text("\n".join(corpus[1]) + "\n")
     log(f"[3] corpus: {len(corpus[1])} lines, {len(corpus[0])}-word list "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({time.perf_counter() - marks[-1]:.1f} s)")
     mid_path = write_prefix(corpus_path, work)
-    checks = run_checks(corpus_path, mid_path)
+    mark("the corpus")
+
+    def beside() -> dict:
+        kchk = phase_kernel_checks()
+        phase_encode_edges()
+        phase_dropout_kernels(kchk)
+        phase_dropout_edges(kchk["tables"])
+        phase_stream_edges()
+        phase_select_checks(dev)
+        phase_apply_checks(dev)
+        phase_resplit_checks(dev)
+        phase_emit_checks(dev)
+        phase_relay_checks(dev)
+        # the kernels on the 100 MB corpus's state, against their plain versions
+        buckets, _, used0 = training_buckets(corpus_path)
+        phase_train_kernels(buckets, used0, dev)
+        phase_tiered_kernels(buckets, used0, dev)
+        phase_diff_kernels(buckets, used0, dev)
+        phase_shard_kernels(buckets, used0)
+        phase_other_shard_kernels(buckets, used0)
+        return kchk
+
+    checks, kchk = run_checks(corpus_path, mid_path, beside)
+    mark("the check workers, and the edge checks beside them")
     main_res = phase_main_path(work, corpus)
     times = phase_times(info["card"], kchk, main_res)
-    phase_dropout_kernels(kchk)
-    phase_dropout_edges(kchk["tables"])
+    mark("phases 3-4, greedy encode")
     dropout = phase_dropout_main(main_res, corpus[1], info["card"])
+    mark("phase 7, dropout")
     phase_stream_kernels(main_res, corpus[1])
-    phase_stream_edges()
     stream = phase_stream_main(main_res, corpus[1], info["card"])
+    mark("phase 8, the stream backend")
     shard_enc = phase_shard_encode(main_res, corpus[1], times, info["card"])
+    mark("phase 10, sharded encode")
     sample = corpus[1][:2000]
     del corpus, main_res["buckets"], main_res["ids"], main_res["cli"], main_res["blob"]
-    dev = torch.device("cuda", 0)
-    buckets, _, used0 = training_buckets(corpus_path)
-    phase_train_kernels(buckets, used0, dev)
-    del buckets
-    phase_select_checks(dev)
-    phase_apply_checks(dev)
     train = phase_train_main(corpus_path, work, sample, checks["plain_v2"])
-    buckets, _, used0 = training_buckets(corpus_path)
-    phase_tiered_kernels(buckets, used0, dev)
-    del buckets
-    phase_resplit_checks(dev)
+    mark("phase 5, v2")
     tiered = phase_tiered_main(corpus_path, work, sample, train["plain_rules"])
-    buckets, _, used0 = training_buckets(corpus_path)
-    phase_diff_kernels(buckets, used0, dev)
-    del buckets
+    mark("phase 6, v5")
     diff = phase_diff_main(corpus_path, work, sample, train["plain_rules"], info["card"],
                            train["select_keys"])
-    buckets, _, used0 = training_buckets(corpus_path)
-    phase_shard_kernels(buckets, used0)
-    del buckets
+    mark("phase 9, v1 v3 v4 v0")
     shard = phase_shard_main(corpus_path, work, sample, train["plain_rules"], info["card"],
                              train["select_keys"])
-    prepared = training_buckets(corpus_path)
-    phase_other_shard_kernels(prepared[0], prepared[2])
+    mark("phase 10, sharded v2")
     other = phase_other_shard_main(corpus_path, work, sample, train["plain_rules"], info["card"],
                                    {16: train["select_keys"], 1: diff["select_keys1"]},
-                                   prepared=prepared)
-    del prepared
+                                   prepared=training_buckets(corpus_path))
+    mark("phase 11, sharded v3 v1 v0")
     dist = phase_dist_main(corpus_path, mid_path, train["plain_rules"], info["card"])
+    mark("phase 12, two processes")
 
     source = "youtokentome_tpu_torch/csrc/encode_greedy.cu"
     replaces = {

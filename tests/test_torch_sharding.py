@@ -431,3 +431,155 @@ def test_checkpoint_resumes_in_both_packages(corpus, writer, tmp_path, monkeypat
     assert run_training_delta(buckets, used0, VOCAB, resume_path=ck, device="cpu") == want
     for plain in (True, False):
         assert _port(buckets, used0, 8, plain, resume_path=ck) == want
+
+
+# delta_emit's layout edges: words of these slot counts (a warp's pack of
+# 32 lanes, its edges, and words that take the warp alone)
+EMIT_WORD_LENS = (1, 2, 31, 32, 33, 40)
+EMIT_CANDS = ([(4, 4), (5, 6)], [(6, 7), (5, 5), (7, 4)])
+EMIT_SLOTS = 1024  # the JAX stream's slots
+
+
+def _emit_stream(seed: int):
+    """(t, wid, freq) of words of EMIT_WORD_LENS slots over ids 4-7, each
+    length several times, with runs of one id of 2-9 tokens (run parity)
+    at random offsets; weights 1-5, and one word of weight 0."""
+    rng = np.random.default_rng(seed)
+    words = []
+    for n in EMIT_WORD_LENS * 3:
+        w = rng.integers(4, 8, n)
+        r = int(rng.integers(2, 10))
+        if n > r:
+            at = int(rng.integers(0, n - r + 1))
+            w[at : at + r] = int(rng.integers(4, 8))
+        words.append(w.astype(np.int32))
+    t = np.concatenate(words)
+    wid = np.repeat(np.arange(len(words), dtype=np.int32), [w.size for w in words])
+    freq = rng.integers(1, 6, len(words)).astype(np.int32)
+    freq[3] = 0
+    return t, wid, freq
+
+
+def _set_round(st, cands, used: int):
+    """Make ``cands`` the accepted rows of a new round of shard ``st``, as
+    its top-k leaves them (the candidates' ids from ``used`` on)."""
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    rows = [[x, y, used + j, 1] for j, (x, y) in enumerate(cands)]
+    st.cand.zero_()
+    st.cand[: len(cands)] = torch.tensor(rows, dtype=torch.int32)
+    st.ctl[tk.NACC] = len(cands)
+    st.ctl[tk.ROUND] += 1
+    st.ctl[[dsk.NAFF, dsk.DN_OLD, dsk.DN_NEW, dsk.DOVF]] = 0
+
+
+def _jax_counts(t, wid, freq, cands, used: int, dcap: int):
+    """The JAX round body's old and new contribution counts and overflow
+    flags (``pair_hits``, ``_affected_positions``, ``_delta_contributions``
+    and ``apply_accepted``) on the stream, with ``cands`` accepted; and the
+    stream after the merge."""
+    import jax.numpy as jnp
+
+    from youtokentome_tpu.ops.train_delta import _affected_positions, _delta_contributions
+    from youtokentome_tpu.ops.train_stream import apply_accepted, pair_hits
+
+    # one length for every stream, so that JAX compiles each function once
+    pad = np.full(EMIT_SLOTS - t.size, -1, np.int32)
+    tj, wj = jnp.asarray(np.concatenate([t, pad])), jnp.asarray(np.concatenate([wid, pad]))
+    fw = jnp.asarray(np.concatenate([freq[wid], np.zeros(pad.size, np.int32)]))
+    cx = np.zeros(16, np.int32)
+    cy = np.zeros(16, np.int32)
+    acc = np.zeros(16, bool)
+    for j, (x, y) in enumerate(cands):
+        cx[j], cy[j], acc[j] = x, y, True
+    cx, cy, acc = jnp.asarray(cx), jnp.asarray(cy), jnp.asarray(acc)
+    zs = jnp.asarray(used + np.arange(16, dtype=np.int32))
+    hit, rix = pair_hits(tj, wj, acc, cx, cy)
+    aff = _affected_positions(tj, wj, hit)
+    _, _, n_old, of_old = _delta_contributions(tj, wj, fw, aff, dcap, np.int32(-1), False)
+    t2, w2, fw2, aff2 = apply_accepted(tj, wj, acc, cx, cy, zs, extra=(fw, aff.astype(jnp.int32)),
+                                       hit=hit, rix=rix)
+    _, _, n_new, of_new = _delta_contributions(t2, w2, fw2, aff2 != 0, dcap, np.int32(1), False)
+    return int(n_old), int(n_new), bool(of_old | of_new), np.asarray(t2)
+
+
+@pytest.mark.parametrize("tight", [0, 1])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_delta_emit_counts_match_jax(seed, tight):
+    """delta_emit's DN_OLD, DN_NEW (the full counts, past dcap too) and DOVF
+    equal the JAX round body's contribution counts and overflow flags, over
+    two rounds on words of 1, 2, 31, 32, 33 and 40 slots with runs of equal
+    tokens, with dcap at the round's larger count and at one less; the
+    merged stream equals JAX's."""
+    t, wid, freq = _emit_stream(seed)
+    rules = np.full((VOCAB, 4), -1, np.int32)
+    used = 8
+    jt, jw = t, wid
+    st = dsk.ShardState(t, wid, freq, rules, used, 256, 1, "cpu")
+    for cands in EMIT_CANDS:
+        n_old, n_new, _, t2 = _jax_counts(jt, jw, freq, cands, used, 1 << 20)
+        dcap = max(n_old, n_new) - tight
+        want = _jax_counts(jt, jw, freq, cands, used, dcap)
+        assert want[2] == bool(tight)
+        st.buffers(dcap)
+        _set_round(st, cands, used)
+        dsk.delta_emit([st])
+        got = (int(st.ctl[dsk.DN_OLD]), int(st.ctl[dsk.DN_NEW]), bool(st.ctl[dsk.DOVF]))
+        assert got == want[:3], cands
+        live_t, live_w = st.stream()
+        keep = t2 >= 0
+        np.testing.assert_array_equal(live_t.numpy(), t2[keep])
+        jt, jw = t2[keep], live_w.numpy()
+        used += len(cands)
+
+
+def _emit_shards(n: int):
+    """n CPU shards of ``_emit_stream``'s words (shard 1 with none when n >
+    1), on a kernel engine over ``DataMesh(["cpu"] * n)``, after one top-k
+    each."""
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    t, wid, freq = _emit_stream(5)
+    cut = np.array_split(np.unique(wid), max(n - 1, 1))
+    parts = [wid[np.isin(wid, c)] for c in cut]
+    if n > 1:
+        parts.insert(1, wid[:0])
+    per = 1024
+    seg_t = np.full((n, per), -1, np.int32)
+    seg_w = np.full((n, per), -1, np.int32)
+    o = 0
+    for d, p in enumerate(parts):
+        seg_t[d, : p.size] = t[o : o + p.size]
+        seg_w[d, : p.size] = p
+        o += p.size
+    rules = np.full((VOCAB, 4), -1, np.int32)
+    eng = dsk.ShardedKernelEngine(seg_t, seg_w, per, freq, rules, 8, VOCAB, 16, _cpu(n), 64,
+                                  t.size)
+    for st in eng.shards:
+        tk.topk_accept(st, VOCAB, VOCAB, 8)
+    return eng
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_delta_emit_card_matches_plain(n):
+    """The per-card wrapper over a CPU mesh's n shards (one with no words
+    for n > 1) equals delta_emit_plain shard by shard: streams, ctl, work,
+    and each side of the buffer as a multiset; the empty shard untouched."""
+    import copy
+
+    eng = _emit_shards(n)
+    shards = eng.shards
+    assert [st.n_words == 0 for st in shards] == [n > 1 and i == 1 for i in range(n)]
+    want = copy.deepcopy(shards)
+    for st in want:
+        if st.n_words:
+            dsk.delta_emit_plain(st)
+    dsk.delta_emit(shards)
+    assert int(shards[0].ctl[dsk.NACC]) > 0
+    for a, b in zip(shards, want):
+        assert torch.equal(a.tok, b.tok) and torch.equal(a.ctl, b.ctl)
+        assert torch.equal(a.work, b.work)
+        for side in (0, 1):
+            (ka, va), (kb, vb) = a.buffer(side), b.buffer(side)
+            assert sorted(zip(ka.tolist(), va.tolist())) == sorted(zip(kb.tolist(), vb.tolist()))
+    assert all(int(st.ctl[dsk.DN_OLD]) > 0 for st in shards if st.n_words)

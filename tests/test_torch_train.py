@@ -126,24 +126,39 @@ def test_tiny_capacities(knob, engine, monkeypatch):
 
 
 def test_repack_invariance(engine, monkeypatch):
-    """Laying the stream out again changes nothing: the plain engine's
+    """Laying the stream out again changes nothing: the plain engines'
     re-packing (halving the padded stream), forced often, and the kernel
-    engine's relay (once the live tokens fill less than half the word-laid
-    stream), each equal the JAX run without re-packing."""
+    engines' relay (once the live tokens fill less than half the word-laid
+    stream), each equal the JAX run without re-packing, in both layouts:
+    v2's (every word kept) and the sharded v2 trainer's on two CPU shards
+    (the words left with fewer than two live tokens dropped).  Words of 1
+    and 2 letters hold one or two live tokens after a merge or two, words
+    of 33-40 letters more than a warp's lanes (no word ever holds none: a
+    merge leaves a token)."""
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
     from youtokentome_tpu_torch.ops import train_kernels as tk
+    from youtokentome_tpu_torch.parallel.mesh import DataMesh
+    from youtokentome_tpu_torch.parallel.train_delta_sharded import run_training_delta_sharded
 
     rng = random.Random(11)
-    text = " ".join("".join(rng.choice("abcd") for _ in range(rng.randint(2, 9))) for _ in range(600))
+    lens = [rng.randint(2, 9) for _ in range(300)] + [1, 2] * 40
+    lens += [rng.randint(33, 40) for _ in range(6)]
+    rng.shuffle(lens)
+    text = " ".join("".join(rng.choice("abcd") for _ in range(n)) for n in lens)
+    buckets, used0 = _buckets(text, 120)
     monkeypatch.setenv("YTTM_TRAIN_REPACK", "0")
-    a = jax_train(_cps(text), 120, JConfig(1.0, 1, JSpecial(0, 1, 2, 3)))
+    want = jtd.run_training_delta(buckets, used0, 120)
     monkeypatch.setenv("YTTM_TRAIN_REPACK", "1")
     monkeypatch.setenv("YTTM_TRAIN_REPACK_MIN", "16")
     monkeypatch.setenv("YTTM_TRAIN_PROGRESS", "8")
     relays = []
-    monkeypatch.setattr(tk, "relay", lambda st, f=tk.relay: (relays.append(st.tok.shape[0]), f(st)))
-    b = port.train_from_codepoints(_cps(text), 120, BpeConfig(1.0, 1, SpecialTokens(0, 1, 2, 3)), "cpu")
-    _assert_same(a, b)
-    assert bool(relays) == (engine == "kernels")
+    monkeypatch.setattr(tk, "relay", lambda st, f=tk.relay: (relays.append("v2"), f(st)))
+    monkeypatch.setattr(dsk, "shard_relay", lambda st, f=dsk.shard_relay: (relays.append("sharded"), f(st)))
+    assert td.run_training_delta(buckets, used0, 120, plain=engine == "plain") == want
+    got = run_training_delta_sharded(buckets, used0, 120, DataMesh(["cpu"] * 2),
+                                     plain=engine == "plain")
+    assert got == want
+    assert sorted(set(relays)) == (["sharded", "v2"] if engine == "kernels" else [])
 
 
 def _text(seed, n=600, alphabet="abc "):

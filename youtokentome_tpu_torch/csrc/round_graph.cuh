@@ -32,7 +32,8 @@ namespace yttm {
 
 // One shard's buffers and sizes for the round graph, as the host lays them
 // out: an int64 a field (pointers as addresses), in this order.  v3 puts its
-// tombstoned stream t, pw and its end off[W] in tok, pwid and Mw.
+// tombstoned stream t, pw and its end off[W] in tok, pwid and Mw; aff is
+// v3's list of the round's words (v2's emit keeps none: 0).
 struct GraphShard {
   long long keys, cnts, cap, blk_hi, blk_lo, n_blk, ticket, ctl, cand, rules, work, tok, pwid, Mw,
       off, fw, W, aff, wmark, dk, dv, rkeys, rcnts;

@@ -43,8 +43,8 @@
 //   apply_delta   one launch a round (delta_apply_kernel, below).
 //   relay         at a segment end where the live tokens fill less than
 //                 half the stream's slots: the stream laid out again, every
-//                 word its live tokens and a separator (word_apply.cuh's
-//                 relay kernels and scan.cuh).  The JAX host loop slices its
+//                 word its live tokens and a separator (relay.cuh: a flat
+//                 walk of the stream, and scan.cuh).  The JAX host loop slices its
 //                 front-compacted stream there (the re-pack).
 //
 // Every kernel does nothing once `done` or `overflow` is set or `used`
@@ -84,6 +84,7 @@
 #include <cuda_runtime.h>
 
 #include "pair_count.cuh"
+#include "relay.cuh"
 #include "scan.cuh"
 #include "train_common.cuh"
 #include "word_apply.cuh"
@@ -118,72 +119,32 @@ __device__ __forceinline__ void add_word(const int32_t *tok, int n, int32_t delt
 
 // -- apply -------------------------------------------------------------------
 
-// A pack of short listed words (their slots, 32 at most, side by side over
-// the warp's lanes; words lie in the pack from lane `start` on, one bit a
-// word in smask): merge, compact each word in place, and move the table by
-// the net deltas.  A lane whose old pair survives the merge unchanged (it is
-// kept, not merged, and so is the token after it) meets the same key in the
-// new word, so it sends one atomic only when run parity changed the pair's
-// count; every other old counted pair is subtracted (the candidates' own
-// keys into the block's acc), every other new counted pair added.
-// Called by all 32 lanes of a warp.
+// A pack of short listed words (pack_merge): merge, compact each word in
+// place, and move the table by the net deltas.  A lane whose old pair
+// survives the merge unchanged (it is kept, not merged, and so is the token
+// after it) meets the same key in the new word, so it sends one atomic only
+// when run parity changed the pair's count; every other old counted pair is
+// subtracted (the candidates' own keys into the block's acc), every other
+// new counted pair added.  Called by all 32 lanes of a warp.
 __device__ __forceinline__ void apply_pack(int32_t *tok, int base, int len, int32_t f, int start,
                                            int s, unsigned smask, int total, const CandSet &c,
                                            int n, int32_t *acc, unsigned long long *keys,
                                            int32_t *cnts, int cap, int32_t *ctl) {
-  const int q = threadIdx.x & 31;
-  const bool valid = q < total;
-  const unsigned upto = (2u << q) - 1u;  // lanes 0..q
-  const unsigned lt = (1u << q) - 1u;
-  const int k = valid ? s + __popc(smask & upto) - 1 : s;  // this lane's word
-  const int kb = __shfl_sync(kFullMask, base, k), ks = __shfl_sync(kFullMask, start, k);
-  const int kl = __shfl_sync(kFullMask, len, k);
-  const int32_t kf = __shfl_sync(kFullMask, f, k);
-  const int pos = q - ks;
-  int32_t *t = tok + kb;
-  const int32_t a = valid ? t[pos] : kPad;
-  const int32_t down = __shfl_down_sync(kFullMask, a, 1);
-  const bool word_end = !valid || q == 31 || q + 1 >= total || ((smask >> (q + 1)) & 1u);
-  const int32_t nb = word_end ? kPad : down;
-  // the old word: counted pairs (run parity), hits, the merge
-  const bool pairv = a >= 0 && nb >= 0;
-  const bool eq = pairv && a == nb;
-  const int lne = warp_max_scan(eq ? -1 : q);
-  const bool co = pairv && (!eq || ((q - lne - 1) & 1) == 0);
-  const int rix = cand_of(c, n, a, nb);
-  const int lnh = warp_max_scan(rix >= 0 ? -1 : q);
-  const bool sel = rix >= 0 && ((q - lnh - 1) & 1) == 0;
-  const bool prev_sel = __shfl_up_sync(kFullMask, sel, 1) && q > 0;
-  const bool sel_next = __shfl_down_sync(kFullMask, sel, 1);
-  const bool keep = a >= 0 && !prev_sel;
-  const int32_t v = sel ? c.z[rix] : a;
-  // the new word: each kept token's successor is the next kept one of its word
-  const unsigned kmask = __ballot_sync(kFullMask, keep);
-  const unsigned wm = (kl >= 32 ? 0xFFFFFFFFu : (1u << kl) - 1u) << ks;
-  const int rank = __popc(kmask & wm & lt), kept = __popc(kmask & wm);
-  const unsigned later = kmask & wm & ~upto;
-  const int32_t vn = __shfl_sync(kFullMask, v, later ? __ffs(later) - 1 : q);
-  const int32_t nbn = keep && later ? vn : kPad;
-  const bool eqn = nbn >= 0 && v == nbn;
-  const int r = __popc(kmask & lt);
-  const int lnen = warp_max_scan(keep && !eqn ? r : -1);
-  const bool cn = nbn >= 0 && (!eqn || ((r - lnen - 1) & 1) == 0);
+  const PackLane p = pack_merge(tok, base, len, f, start, s, smask, total, c, n);
   // a lane's updates: the same pair's change, or its old pair out and its
   // new pair in; both first probes in flight together
-  const bool same = keep && !sel && nb >= 0 && !sel_next;
-  const unsigned long long ko = pair_key(a, nb), kn = pair_key(v, nbn);
-  const int32_t d_old = same ? ((int)cn - (int)co) * kf : (co && rix < 0 ? -kf : 0);
-  const int32_t d_new = !same && cn ? kf : 0;
-  if (co && rix >= 0 && !same) atomicAdd(acc + rix, kf);
+  const bool same = p.keep && !p.sel && p.nb >= 0 && !p.sel_next;
+  const unsigned long long ko = pair_key(p.a, p.nb), kn = pair_key(p.v, p.nbn);
+  const int32_t d_old = same ? ((int)p.cn - (int)p.co) * p.f : (p.co && p.rix < 0 ? -p.f : 0);
+  const int32_t d_new = !same && p.cn ? p.f : 0;
+  if (p.co && p.rix >= 0 && !same) atomicAdd(acc + p.rix, p.f);
   Probe po{0u, 0ull}, pn{0u, 0ull};
   if (d_old) po = probe_first(keys, cap, ko);
   if (d_new) pn = probe_first(keys, cap, kn);
   if (d_old)
     table_add_from<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, ko, d_old, d_old > 0 ? kAdd : kSub, po);
   if (d_new) table_add_from<OCC, OVERFLOW, ERROR>(keys, cnts, cap, ctl, kn, d_new, kAdd, pn);
-  // every lane read its slot above; the word compacts in place
-  if (keep && (rank != pos || v != a)) t[rank] = v;
-  if (a >= 0 && pos >= kept) t[pos] = kPad;
+  pack_write(p);
 }
 
 // A listed word longer than 32 slots, on the whole warp: every old counted
@@ -200,42 +161,19 @@ __device__ __forceinline__ void apply_long(int32_t *t, int len, int32_t f, const
 }
 
 // Up to 32 claimed words, lane j holding word w (-1 past cnt), on the
-// warp: short words packed side by side into the 32 lanes (apply_pack), a
-// longer one alone (apply_long).
+// warp (for_word_packs): short words packed (apply_pack), a longer one
+// alone (apply_long).
 __device__ void apply_words(int w, int cnt, int32_t *tok, const int32_t *off, const int32_t *fw,
                             const CandSet &c, int n, int32_t *acc, unsigned long long *keys,
                             int32_t *cnts, int cap, int32_t *ctl) {
-  const int lane = threadIdx.x & 31;
-  int base = 0, len = 0;
-  int32_t f = 0;
-  if (lane < cnt) {
-    base = off[w];
-    len = off[w + 1] - 1 - base;
-    f = fw[w];
-  }
-  int end = len;  // inclusive prefix of the lengths
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(kFullMask, end, o);
-    if (lane >= o) end += u;
-  }
-  for (int s = 0; s < cnt;) {
-    const int ls = __shfl_sync(kFullMask, len, s);
-    if (ls > 32) {
-      apply_long(tok + __shfl_sync(kFullMask, base, s), ls, __shfl_sync(kFullMask, f, s), c, n,
-                 acc, keys, cnts, cap, ctl);
-      ++s;
-      continue;
-    }
-    const int before = s > 0 ? __shfl_sync(kFullMask, end, s > 0 ? s - 1 : 0) : 0;
-    const bool in = lane >= s && lane < cnt && end - before <= 32;
-    const int e = 31 - __clz(__ballot_sync(kFullMask, in));
-    const int start = end - len - before;
-    const unsigned smask = __reduce_or_sync(kFullMask, in ? 1u << start : 0u);
-    apply_pack(tok, base, len, f, start, s, smask, __shfl_sync(kFullMask, end, e) - before, c, n,
-               acc, keys, cnts, cap, ctl);
-    s = e + 1;
-  }
+  for_word_packs(
+      w, cnt, tok, off, fw,
+      [&](int base, int len, int32_t f, int start, int s, unsigned smask, int total) {
+        apply_pack(tok, base, len, f, start, s, smask, total, c, n, acc, keys, cnts, cap, ctl);
+      },
+      [&](int32_t *t, int len, int32_t f) {
+        apply_long(t, len, f, c, n, acc, keys, cnts, cap, ctl);
+      });
 }
 
 // The round's apply, one launch: a warp walks 128 positions of the stream
@@ -342,37 +280,31 @@ int yttm_train_apply_delta(void *tok, const void *pwid, int Mw, const void *off,
 // int32 slots of scratch a relay of W words needs.
 long yttm_train_relay_scratch(int W) { return yttm_scan::scratch_ints(W > 0 ? W : 1); }
 
-// The relay's plan: each word's new slot count (lens: live + 1, every word
-// kept), its exclusive scan (new_off) and totals[0] the new stream's slots;
-// keep and new_idx (all ones, the identity) and totals[1] (W) as the
-// sharded relay computes them.
-int yttm_train_relay_plan(const void *tok, const void *off, int W, void *lens, void *keep,
-                          void *new_off, void *new_idx, void *scratch, void *totals,
-                          void *stream) {
-  if (W <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  relay_len_kernel<<<grid_for(W, 256), 256, 0, s>>>((const int32_t *)tok, (const int32_t *)off, W,
-                                                  (int32_t *)lens, (int32_t *)keep, 1);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  e = yttm_scan::exclusive_scan((const int32_t *)lens, (int32_t *)new_off, W, (int32_t *)scratch,
-                                (int32_t *)totals, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)yttm_scan::exclusive_scan((const int32_t *)keep, (int32_t *)new_idx, W,
-                                        (int32_t *)scratch, (int32_t *)totals + 1, s);
+// The relay's plan (relay.cuh) over the stream tok / pwid (Mw slots, both
+// 16-byte aligned), every word kept: each word's new slot count (lens:
+// live + 1), its exclusive scan (new_off) and totals[0] the new stream's
+// slots.
+int yttm_train_relay_plan(const void *tok, const void *pwid, const void *off, int Mw, int W,
+                          void *lens, void *new_off, void *scratch, void *totals, void *stream) {
+  if (W <= 0 || Mw <= 0 || ((uintptr_t)tok & 15u) || ((uintptr_t)pwid & 15u))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_relay_plan((const int32_t *)tok, (const int32_t *)pwid, (const int32_t *)off,
+                                Mw, W, (int32_t *)lens, nullptr, (int32_t *)new_off, nullptr,
+                                (int32_t *)scratch, (int32_t *)totals, 1, (cudaStream_t)stream);
 }
 
-// The relay's scatter into the new stream (tok2, pwid2 of Mw2 slots,
-// PAD-filled by the caller; off2 of W + 1, fw2 of W).
-int yttm_train_relay_write(const void *tok, const void *off, const void *fw, int W,
-                           const void *lens, const void *new_off, const void *new_idx, void *tok2,
-                           void *pwid2, void *off2, void *fw2, int Mw2, void *stream) {
-  if (W <= 0) return (int)cudaErrorInvalidValue;
-  relay_write_kernel<<<grid_for_warps(W), 256, 0, (cudaStream_t)stream>>>(
-      (const int32_t *)tok, (const int32_t *)off, (const int32_t *)fw, nullptr, W,
-      (const int32_t *)lens, (const int32_t *)new_off, (const int32_t *)new_idx, (int32_t *)tok2,
-      (int32_t *)pwid2, (int32_t *)off2, (int32_t *)fw2, nullptr, W, Mw2);
-  return (int)cudaGetLastError();
+// The relay's scatter into the new stream (tok2, pwid2 of Mw2 slots, every
+// one written; off2 of W + 1, fw2 of W).
+int yttm_train_relay_write(const void *tok, const void *pwid, int Mw, const void *off,
+                           const void *fw, int W, const void *lens, const void *new_off,
+                           void *tok2, void *pwid2, void *off2, void *fw2, int Mw2, void *stream) {
+  if (W <= 0 || Mw <= 0 || ((uintptr_t)tok & 15u) || ((uintptr_t)pwid & 15u))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_relay_write(
+      (const int32_t *)tok, (const int32_t *)pwid, Mw, (const int32_t *)off, (const int32_t *)fw,
+      nullptr, (const int32_t *)lens, (const int32_t *)new_off, nullptr, (int32_t *)tok2,
+      (int32_t *)pwid2, (int32_t *)off2, (int32_t *)fw2, nullptr, W, Mw2, Mw2,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

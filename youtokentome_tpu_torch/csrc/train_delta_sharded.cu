@@ -24,17 +24,18 @@
 // the same entries, so they hold the same keys and counts, take the same
 // candidates and keep the same ctl slots USED .. ERROR.
 //
-// Kernels (one C entry each; a round is topk_accept and delta_emit on every
-// shard, then the exchange: shard_recount on every shard and fold_rebuild
-// when some shard's buffer overflowed, else fold_delta):
-//   delta_emit     apply_delta (word_apply.cuh) with one change: a listed
-//                  word's old (-f) and new (+f) counted-pair contributions
-//                  go to the shard's buffer through a warp-aggregated atomic
-//                  cursor, not into the table; DOVF is set when either side
-//                  passes dcap (the entries past it are dropped).  The merge
-//                  and compaction happen in any case.  A contribution is
-//                  one counted pair of an affected word with weight > 0, so
-//                  the counts equal JAX's _delta_contributions.
+// Kernels (one C entry each; a round is topk_accept on every shard and
+// delta_emit on every card, then the exchange: shard_recount on every shard
+// and fold_rebuild when some shard's buffer overflowed, else fold_delta):
+//   delta_emit     one launch for every shard of a card (its section below):
+//                  apply_delta's walk and merge (word_apply.cuh), with each
+//                  claimed word's old (-f) and new (+f) counted-pair
+//                  contributions appended to its shard's buffer, not added
+//                  to the table; DOVF is set when either side passes dcap
+//                  (the entries past it are dropped).  The merge and
+//                  compaction happen in any case.  A contribution is one
+//                  counted pair of an affected word with weight > 0, so the
+//                  counts equal JAX's _delta_contributions.
 //   shard_recount  no-op unless some shard's DOVF is set (the JAX pmax):
 //                  clears the shard's scratch table and counts the shard's
 //                  stream into it (pair_count.cuh, v2's count).
@@ -63,14 +64,14 @@
 //                  replica has, shard_gather copies every other part p from
 //                  replica p and sums the parts' counts into OCC (more than
 //                  half the table, or a full part, sets OVERFLOW).
-//   shard_relay    a scan and a scatter (word_apply.cuh's relay kernels, the
-//                  one-device v2 engine's too) that lay a shard's stream out
-//                  again over its live tokens: words with fewer than two live
-//                  tokens (which hold no pair and never will) are dropped,
-//                  every other word gets live + 1 slots.  Run at the JAX
-//                  host loop's repack trigger; the JAX program slices its
-//                  front-compacted stream there, which has no counterpart in
-//                  a word-laid stream.
+//   shard_relay    a plan and a scatter (relay.cuh's flat walks of the
+//                  stream and scan.cuh, the one-device v2 engine's too) that
+//                  lay a shard's stream out again over its live tokens: words
+//                  with fewer than two live tokens (which hold no pair and
+//                  never will) are dropped, every other word gets live + 1
+//                  slots.  Run at the JAX host loop's repack trigger; the JAX
+//                  program slices its front-compacted stream there, which has
+//                  no counterpart in a word-laid stream.
 //
 // The exchange: shard_recount and the fold take device arrays of the
 // shards' pointers (ctl, buffers, scratch tables).  On one card every shard
@@ -83,8 +84,8 @@
 // which need peer access (the engine enables it or raises) and CUDA events
 // between the steps (the engine records them).
 //
-// Bound.  A round's emit reads the shard's stream once (4 B a slot) and
-// reads and writes the listed words (8 B a slot) and writes its buffer
+// Bound.  A round's emit reads each shard's stream once (4 B a slot) and
+// reads and writes the claimed words (8 B a slot) and writes its buffer
 // entries (12 B each); a delta fold reads every shard's entries and updates
 // a table slot for each (24 B an entry); a recount round reads the streams,
 // writes each shard's live pairs to its scratch table and reads them once
@@ -102,6 +103,7 @@
 #include <cuda_runtime.h>
 
 #include "pair_count.cuh"
+#include "relay.cuh"
 #include "round_graph.cuh"
 #include "scan.cuh"
 #include "shard_exchange.cuh"
@@ -112,39 +114,296 @@ namespace {
 
 using namespace yttm;
 
-__global__ void __launch_bounds__(256)
-    emit_words_kernel(int32_t *tok, const int32_t *off, const int32_t *fw, int Mw, int32_t *ctl,
-                      const int32_t *cand, const int32_t *aff, unsigned long long *dk, int32_t *dv,
-                      int dcap, long long *work) {
-  __shared__ CandSet c;
-  const int n = load_cand_set(c, ctl, cand);
-  if (n == 0) return;
-  const int lane = threadIdx.x & 31;
-  if (blockIdx.x == 0 && threadIdx.x == 0)
-    atomicAdd((unsigned long long *)(work + W_EMIT), 4ull * Mw);  // pass 1's read
-  const int n_aff = ctl[NAFF];
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int n_warps = (gridDim.x * blockDim.x) >> 5;
-  for (int a_i = warp; a_i < n_aff; a_i += n_warps) {
-    const int w = aff[a_i];
-    const int base = off[w];
-    const int len = off[w + 1] - 1 - base;
-    const int32_t f = fw[w];
-    int32_t *t = tok + base;
-    int live = 0;
-    for (int b = 0; b < len; b += 32)
-      live += __popc(__ballot_sync(0xFFFFFFFFu, b + lane < len && t[b + lane] >= 0));
-    const int out = merge_word(t, len, c, n, [&](bool counted, unsigned long long key, int) {
-      emit(counted && f > 0, key, -f, DN_OLD, dk, dv, dcap, ctl, work);
-    });
-    for_word_pairs(t, out, [&](bool counted, unsigned long long key) {
-      emit(counted && f > 0, key, f, DN_NEW, dk, dv, dcap, ctl, work);
-    });
-    if (lane == 0) {
-      atomicAdd(ctl + LIVE, out - live);
-      atomicAdd((unsigned long long *)(work + W_EMIT), 8ull * len);
+// -- delta_emit -------------------------------------------------------------
+//
+// One launch a round for every shard of a card (a device array of
+// EmitShard).  The old emit made two launches a shard (list the words with a
+// hit, then a warp a listed word over a grid sized to all the shard's
+// words), eight kernel nodes a round on 4 shards: 51.5 us a round against a
+// bound of 6.7 (H100 80GB HBM3, 700 W), the rest launch and dependency
+// latency, idle warps and same-address atomics (three global atomics a warp
+// step of a word's walk).  The design:
+//  * a grid of one wave, sized by occupancy, over the concatenation of the
+//    card's shards' streams: a step is 8 warps x 256 positions of one shard
+//    (each shard's groups of 4 positions cut in steps of its own, so that no
+//    group or warp straddles two streams; a shard without words has none),
+//    and a block takes a contiguous range of steps (a prefix of the shards'
+//    step counts in shared memory maps a step to its shard);
+//  * a warp walks its 256 positions, two groups a lane with their loads in
+//    flight together (load_group, claim_words; one group a lane, 128
+//    positions, took 91.1-91.2 ms over the 100 MB run against 84.3-84.4:
+//    chip_smoke.compare_emit, H100 80GB HBM3, 700 W), and merges the words
+//    it claimed at once, as apply_delta does: no list, no second launch.  A claimed word is the claimer's alone: another warp reading it
+//    meanwhile may see it half merged, but only tests claims, and this word
+//    is taken;
+//  * short words packed side by side into the warp's 32 lanes (pack_merge);
+//    a word longer than 32 slots takes the warp alone (merge_word);
+//  * each word sends its whole old word's counted pairs (-f) and its whole
+//    new word's (+f), not net deltas: DN_OLD, DN_NEW and DOVF are the JAX
+//    _delta_contributions' counts and flags, which pick the round's branch;
+//  * a warp stages its entries in shared memory, kStage a side; the block
+//    reserves its staged entries with one atomicAdd a (shard, side) when its
+//    range moves to another shard and at its end, and a warp whose staging
+//    fills reserves and writes its own (so the counts pass dcap, setting
+//    DOVF, and the entries past dcap are dropped, wherever that falls).
+//    NAFF, LIVE, W_EMIT and W_ENTRIES are summed in shared memory and sent
+//    with the block's reservation.
+// Every replica takes the same candidates in the same round (all fold the
+// same entries: the header note), so the launch loads shard 0's ctl[NACC],
+// ctl[ROUND] and candidates once for the card.
+
+// A shard of the emit's card, as the host lays it out: 12 int64.
+struct EmitShard {
+  int32_t *tok;
+  const int32_t *pwid;
+  long long Mw;
+  const int32_t *off;
+  const int32_t *fw;
+  long long W;
+  int32_t *ctl;
+  const int32_t *cand;
+  int32_t *wmark;
+  unsigned long long *dk;
+  int32_t *dv;
+  long long *work;
+};
+static_assert(sizeof(EmitShard) == 12 * 8, "the host lays an emit shard out as 12 int64");
+
+constexpr int kMaxShards = 64;  // shards of a mesh (the emit's and the fold's shared prefix)
+constexpr int kEmitWarps = 8;   // 256 threads a block
+constexpr int kLaneGroups = 2;  // groups of 4 positions a lane takes a step
+constexpr int kWarpGroups = 32 * kLaneGroups;
+constexpr int kStepGroups = kWarpGroups * kEmitWarps;
+constexpr int kStage = 64;      // entries a warp stages a side
+
+// The shared state of an emit block.
+struct EmitBlock {
+  CandSet c;
+  EmitShard cur;                     // the shard of the block's current steps
+  int pre[kMaxShards + 1];           // each shard's first step
+  int32_t claimed[kEmitWarps][4 * kWarpGroups];  // a warp's words of its step
+  unsigned long long sk[kEmitWarps][2][kStage];  // a warp's staged entries, a side each
+  int32_t sv[kEmitWarps][2][kStage];
+  int sn[kEmitWarps][2];    // their numbers, at a reservation
+  int base[2];              // the block's reservation a side
+  int naff, live, slots, kept;  // the block's sums for the current shard
+};
+
+// The entries of a reservation [base, base + k) that fit below dcap.
+__device__ __forceinline__ int kept_of(int base, int k, int dcap) {
+  return base >= dcap ? 0 : (base + k > dcap ? dcap - base : k);
+}
+
+// A warp whose staging of `side` is full reserves its cnt entries and
+// writes them.  Called by all 32 lanes.
+__device__ void emit_flush_warp(EmitBlock &sb, int side, int cnt, int dcap) {
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  int base = 0;
+  if (lane == 0) {
+    base = atomicAdd(sb.cur.ctl + DN_OLD + side, cnt);
+    if (base + cnt > dcap) atomicExch(sb.cur.ctl + DOVF, 1);
+    atomicAdd(&sb.kept, kept_of(base, cnt, dcap));
+  }
+  base = __shfl_sync(kFullMask, base, 0);
+  __syncwarp();
+  for (int i = lane; i < cnt && base + i < dcap; i += 32) {
+    sb.cur.dk[side * dcap + base + i] = sb.sk[wi][side][i];
+    sb.cur.dv[side * dcap + base + i] = sb.sv[wi][side][i];
+  }
+  __syncwarp();
+}
+
+// Stages (key, val) of the lanes with pred on `side` (cnt: the warp's
+// staged entries there).  Called by all 32 lanes.
+__device__ __forceinline__ void emit_stage(EmitBlock &sb, bool pred, unsigned long long key,
+                                           int32_t val, int side, int &cnt, int dcap) {
+  const unsigned m = __ballot_sync(kFullMask, pred);
+  if (!m) return;
+  const int k = __popc(m);
+  if (cnt + k > kStage) {
+    emit_flush_warp(sb, side, cnt, dcap);
+    cnt = 0;
+  }
+  if (pred) {
+    const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+    const int at = cnt + __popc(m & ((1u << lane) - 1u));
+    sb.sk[wi][side][at] = key;
+    sb.sv[wi][side][at] = val;
+  }
+  cnt += k;
+}
+
+// The block's reservation for its current shard: every warp's staged
+// entries (n_old, n_new: this warp's) reserved with one atomicAdd a side and
+// written, then the block's sums sent.  Called by every thread.
+__device__ void emit_flush_block(EmitBlock &sb, int &n_old, int &n_new, int dcap) {
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  if (lane == 0) {
+    sb.sn[wi][0] = n_old;
+    sb.sn[wi][1] = n_new;
+  }
+  n_old = n_new = 0;
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    const int side = threadIdx.x;
+    int sum = 0;
+    for (int w = 0; w < kEmitWarps; ++w) sum += sb.sn[w][side];
+    int base = 0;
+    if (sum) {
+      base = atomicAdd(sb.cur.ctl + DN_OLD + side, sum);
+      if (base + sum > dcap) atomicExch(sb.cur.ctl + DOVF, 1);
+      atomicAdd(&sb.kept, kept_of(base, sum, dcap));
+    }
+    sb.base[side] = base;
+  }
+  __syncthreads();
+  for (int j = wi; j < 2 * kEmitWarps; j += kEmitWarps) {  // a warp a (side, warp)'s entries
+    const int side = j / kEmitWarps, w = j % kEmitWarps;
+    int at = sb.base[side];
+    for (int u = 0; u < w; ++u) at += sb.sn[u][side];
+    for (int i = lane; i < sb.sn[w][side] && at + i < dcap; i += 32) {
+      sb.cur.dk[side * dcap + at + i] = sb.sk[w][side][i];
+      sb.cur.dv[side * dcap + at + i] = sb.sv[w][side][i];
     }
   }
+  if (threadIdx.x == 0) {
+    int32_t *ctl = sb.cur.ctl;
+    long long *work = sb.cur.work;
+    if (sb.naff) atomicAdd(ctl + NAFF, sb.naff);
+    if (sb.live) atomicAdd(ctl + LIVE, sb.live);
+    // the listed words read and written (8 B a slot), the entries kept
+    const unsigned long long bytes = 8ull * sb.slots + 12ull * sb.kept;
+    if (bytes) atomicAdd((unsigned long long *)(work + W_EMIT), bytes);
+    if (sb.kept) atomicAdd((unsigned long long *)(work + W_ENTRIES), (unsigned long long)sb.kept);
+    sb.naff = sb.live = sb.slots = sb.kept = 0;
+  }
+  __syncthreads();
+}
+
+// A shard's steps: its groups of 4 positions (pairs start at 0 .. Mw - 2)
+// in steps of kStepGroups; none without words.
+__device__ __forceinline__ int emit_steps(const EmitShard *sh) {
+  if (sh->W <= 0) return 0;
+  const int n_grp = ((int)sh->Mw - 1 + 3) >> 2;
+  return (n_grp + kStepGroups - 1) / kStepGroups;
+}
+
+__global__ void __launch_bounds__(256, 4)
+    delta_emit_kernel(const EmitShard *shards, int n_sh, int dcap) {
+  __shared__ EmitBlock sb;
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  if (threadIdx.x < 32) {  // the shards' step prefix, a lane a shard
+    int carry = 0;
+    for (int b = 0; b < n_sh; b += 32) {
+      const int s = b + lane;
+      const int v = s < n_sh ? emit_steps(shards + s) : 0;
+      int incl = v;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(kFullMask, incl, d);
+        if (lane >= d) incl += u;
+      }
+      if (s < n_sh) sb.pre[s] = carry + incl - v;
+      carry += __shfl_sync(kFullMask, incl, 31);
+    }
+    if (lane == 0) {
+      sb.pre[n_sh] = carry;
+      sb.naff = sb.live = sb.slots = sb.kept = 0;
+    }
+  }
+  const int n = load_cand_set(sb.c, shards[0].ctl, shards[0].cand);  // its barriers order pre
+  if (n == 0) return;
+  if (blockIdx.x == 0 && threadIdx.x < n_sh && shards[threadIdx.x].W > 0)  // the walk's read
+    atomicAdd((unsigned long long *)(shards[threadIdx.x].work + W_EMIT),
+              4ull * shards[threadIdx.x].Mw);
+  const int tag = shards[0].ctl[ROUND];
+  const int T = sb.pre[n_sh];
+  const int lo = (int)((long long)blockIdx.x * T / gridDim.x);
+  const int hi = (int)((long long)(blockIdx.x + 1) * T / gridDim.x);
+  int cur = -1, n_old = 0, n_new = 0;  // n_old, n_new: this warp's staged entries
+  for (int step = lo; step < hi; ++step) {
+    int s = cur < 0 ? 0 : cur;
+    while (sb.pre[s + 1] <= step) ++s;  // the same in every thread
+    if (s != cur) {
+      if (cur >= 0) emit_flush_block(sb, n_old, n_new, dcap);
+      if (threadIdx.x == 0) sb.cur = shards[s];
+      __syncthreads();
+      cur = s;
+    }
+    const int Mw = (int)sb.cur.Mw;
+    const int g0 = (step - sb.pre[cur]) * kStepGroups + wi * kWarpGroups;
+    if (g0 >= ((Mw - 1 + 3) >> 2)) continue;  // past the shard's end: the warp waits
+    int32_t *tok = sb.cur.tok;
+    // a lane's groups, g0 + lane and 32 on: their loads in flight together
+    int32_t t[kLaneGroups][5], w[kLaneGroups][4];
+    unsigned mine[kLaneGroups];
+#pragma unroll
+    for (int j = 0; j < kLaneGroups; ++j) load_group(tok, Mw, g0 + 32 * j + lane, t[j]);
+    int claims = 0;
+#pragma unroll
+    for (int j = 0; j < kLaneGroups; ++j) {
+      mine[j] = claim_words(t[j], sb.cur.pwid, Mw, g0 + 32 * j + lane, sb.c, n, tag,
+                            sb.cur.wmark, w[j]);
+      claims += __popc(mine[j]);
+    }
+    int total;
+    int at = warp_exclusive(claims, total);
+    if (total == 0) continue;
+    int32_t *mine_w = sb.claimed[wi];
+#pragma unroll
+    for (int j = 0; j < kLaneGroups; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if ((mine[j] >> q) & 1u) mine_w[at++] = w[j][q];
+    __syncwarp();
+    int live = 0, slots = 0;  // the words' live tokens gained, their slots
+    for (int b = 0; b < total; b += 32) {
+      const int cnt = min(32, total - b);
+      for_word_packs(
+          lane < cnt ? mine_w[b + lane] : -1, cnt, tok, sb.cur.off, sb.cur.fw,
+          [&](int base, int len, int32_t f, int start, int ws, unsigned smask, int ptotal) {
+            const PackLane p = pack_merge(tok, base, len, f, start, ws, smask, ptotal, sb.c, n);
+            emit_stage(sb, p.co && p.f > 0, pair_key(p.a, p.nb), -p.f, 0, n_old, dcap);
+            emit_stage(sb, p.cn && p.f > 0, pair_key(p.v, p.nbn), p.f, 1, n_new, dcap);
+            live -= __popc(__ballot_sync(kFullMask, p.a >= 0 && !p.keep));
+            slots += ptotal;
+            pack_write(p);
+          },
+          [&](int32_t *tw, int len, int32_t f) {
+            int was = 0;
+            for (int i = 0; i < len; i += 32)
+              was += __popc(__ballot_sync(kFullMask, i + lane < len && tw[i + lane] >= 0));
+            const int out = merge_word(tw, len, sb.c, n, [&](bool counted, unsigned long long key, int) {
+              emit_stage(sb, counted && f > 0, key, -f, 0, n_old, dcap);
+            });
+            for_word_pairs(tw, out, [&](bool counted, unsigned long long key) {
+              emit_stage(sb, counted && f > 0, key, f, 1, n_new, dcap);
+            });
+            live += out - was;
+            slots += len;
+          });
+    }
+    if (lane == 0) {
+      atomicAdd(&sb.naff, total);
+      atomicAdd(&sb.live, live);
+      atomicAdd(&sb.slots, slots);
+    }
+    __syncwarp();
+  }
+  if (cur >= 0) emit_flush_block(sb, n_old, n_new, dcap);
+}
+
+// Blocks of delta_emit_kernel that the card holds at once.
+int emit_grid() {
+  static int blocks = 0;
+  if (!blocks) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, delta_emit_kernel, 256, 0);
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return blocks;
 }
 
 // -- fold --------------------------------------------------------------------
@@ -186,8 +445,6 @@ struct Replica {
   long long self;  // its shard's index
 };
 static_assert(sizeof(Replica) == 7 * 8, "the host lays a replica out as 7 int64");
-
-constexpr int kMaxShards = 64;  // shards of a mesh (the fold's shared prefix)
 
 __device__ __forceinline__ void load_replicas(Replica *sr, const Replica *reps, int n_rep) {
   for (int r = threadIdx.x; r < n_rep; r += blockDim.x) sr[r] = reps[r];
@@ -442,22 +699,15 @@ __global__ void __launch_bounds__(256)
 
 extern "C" {
 
-// One round's shard-local half: list the words with an accepted pair, merge
-// them, and append their old and new contributions to the buffer; tok is
-// 16-byte aligned (a fresh allocation).
-int yttm_shard_delta_emit(void *tok, const void *pwid, int Mw, const void *off, const void *fw,
-                          int W, void *ctl, const void *cand, void *aff, void *wmark, void *dk,
-                          void *dv, int dcap, void *work, void *stream) {
-  if (Mw < 2 || W <= 0 || dcap <= 0 || ((uintptr_t)tok & 15u)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  launch_mark_words<NAFF>((const int32_t *)tok, (const int32_t *)pwid, Mw, (int32_t *)ctl,
-                          (const int32_t *)cand, (int32_t *)aff, (int32_t *)wmark, s);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  emit_words_kernel<<<grid_for_warps(W), 256, 0, s>>>(
-      (int32_t *)tok, (const int32_t *)off, (const int32_t *)fw, Mw, (int32_t *)ctl,
-      (const int32_t *)cand, (const int32_t *)aff, (unsigned long long *)dk, (int32_t *)dv, dcap,
-      (long long *)work);
+// One round's shard-local half on every shard of one card, one launch
+// (delta_emit_kernel): each shard's words with an accepted pair merged, and
+// their old and new contributions appended to its buffer.  shards: a device
+// array of n_sh EmitShard (tok 16-byte aligned: the caller checks; a shard
+// with W == 0 is skipped), every buffer of dcap entries a side.
+int yttm_shard_delta_emit_card(const void *shards, int n_sh, int dcap, void *stream) {
+  if (n_sh <= 0 || n_sh > kMaxShards || dcap <= 0) return (int)cudaErrorInvalidValue;
+  delta_emit_kernel<<<emit_grid(), 256, 0, (cudaStream_t)stream>>>((const EmitShard *)shards,
+                                                                    n_sh, dcap);
   return (int)cudaGetLastError();
 }
 
@@ -529,25 +779,29 @@ int yttm_shard_fold_rebuild(const void *reps, int n_rep, int cap, const void *ct
 int yttm_shard_graph_free(void *graph) { return shard_graph_free((ShardGraph *)graph); }
 
 // The round graph (round_graph.cuh) of the n_sh shards of one card: every
-// shard's top-k and delta_emit, the gate, the recount branch (every shard's
-// shard_recount, then the rebuild fold) and the delta fold.  shards, a host
-// array of n_sh GraphShard; reps, a device array of their n_sh Replica; ctls
-// .. rcs, the device arrays of the shards' pointers that the per-call
-// entries take; topk, yttm_topk_accept's address; limit .. n_own, its
-// arguments; runs, 2 int64 on the card.  *out gets a handle for
-// yttm_shard_graph_launch and yttm_shard_graph_free.
+// shard's top-k, then one delta_emit for them all, the gate, the recount
+// branch (every shard's shard_recount, then the rebuild fold) and the delta
+// fold.  shards, a host array of n_sh GraphShard; reps, a device array of
+// their n_sh Replica; ctls .. rcs, the device arrays of the shards' pointers
+// that the per-call entries take; topk, yttm_topk_accept's address; emit, a
+// device array of their n_sh EmitShard (yttm_shard_delta_emit_card's);
+// limit .. n_own, the top-k's arguments; runs, 2 int64 on the card.  *out
+// gets a handle for yttm_shard_graph_launch and yttm_shard_graph_free.
 int yttm_shard_graph(void **out, const void *shards, int n_sh, const void *reps, const void *ctls,
                      const void *dks, const void *dvs, const void *rks, const void *rcs, int dcap,
-                     void *topk, int limit, int vocab, int used_ids0, int k, int n_own,
-                     void *runs) {
+                     void *topk, const void *emit, int limit, int vocab, int used_ids0, int k,
+                     int n_own, void *runs) {
   *out = nullptr;
   const GraphShard *sh = (const GraphShard *)shards;
-  if (n_sh <= 0 || n_sh > kMaxShards || !topk || !runs) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < n_sh; ++i)
-    if (sh[i].cap != sh[0].cap) return (int)cudaErrorInvalidValue;
+  if (n_sh <= 0 || n_sh > kMaxShards || !topk || !emit || !runs) return (int)cudaErrorInvalidValue;
+  bool words = false;  // some shard holds a word: the emit runs
+  for (int i = 0; i < n_sh; ++i) {
+    if (sh[i].cap != sh[0].cap || (sh[i].tok & 15)) return (int)cudaErrorInvalidValue;
+    words |= sh[i].W > 0;
+  }
   const int cap = (int)sh[0].cap;
   const TopkFn topk_accept = (TopkFn)topk;
-  // every shard's top-k, then every shard's merge and buffer
+  // every shard's top-k, then the card's merge and buffers
   auto local = [&](cudaStream_t s) {
     cudaError_t e = cudaSuccess;
     for (int i = 0; i < n_sh && e == cudaSuccess; ++i) {
@@ -558,14 +812,8 @@ int yttm_shard_graph(void **out, const void *shards, int n_sh, const void *reps,
                                    (void *)q.rules, limit, vocab, used_ids0, k, n_own,
                                    (void *)q.work, s);
     }
-    for (int i = 0; i < n_sh && e == cudaSuccess; ++i) {
-      const GraphShard &q = sh[i];
-      if (q.W == 0) continue;  // as the per-call wrapper: a shard with no word emits nothing
-      e = (cudaError_t)yttm_shard_delta_emit(
-          (void *)q.tok, (const void *)q.pwid, (int)q.Mw, (const void *)q.off, (const void *)q.fw,
-          (int)q.W, (void *)q.ctl, (const void *)q.cand, (void *)q.aff, (void *)q.wmark,
-          (void *)q.dk, (void *)q.dv, dcap, (void *)q.work, s);
-    }
+    if (e == cudaSuccess && words)  // as the per-call wrapper: no word, no launch
+      e = (cudaError_t)yttm_shard_delta_emit_card(emit, n_sh, dcap, s);
     return e;
   };
   // the recount branch: every shard's count, then the rebuild of every replica
@@ -630,38 +878,36 @@ int yttm_shard_gather(void *keys, void *cnts, int cap, void *ctl, const void *ct
 // int32 slots of scratch a relay of W words needs.
 long yttm_shard_relay_scratch(int W) { return yttm_scan::scratch_ints(W > 0 ? W : 1); }
 
-// The relay's plan: each word's new slot count (lens) and keep flag, their
+// The relay's plan (relay.cuh) over the stream tok / pwid (Mw slots, both
+// 16-byte aligned): each word's new slot count (lens) and keep flag, their
 // exclusive scans (new_off, new_idx) and totals (totals[0] the new stream's
 // slots, totals[1] its words).
-int yttm_shard_relay_plan(const void *tok, const void *off, int W, void *lens, void *keep,
-                          void *new_off, void *new_idx, void *scratch, void *totals,
-                          void *stream) {
-  if (W <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  relay_len_kernel<<<grid_for(W, 256), 256, 0, s>>>((const int32_t *)tok, (const int32_t *)off, W,
-                                                  (int32_t *)lens, (int32_t *)keep, 2);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  e = yttm_scan::exclusive_scan((const int32_t *)lens, (int32_t *)new_off, W, (int32_t *)scratch,
-                                (int32_t *)totals, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)yttm_scan::exclusive_scan((const int32_t *)keep, (int32_t *)new_idx, W,
-                                        (int32_t *)scratch, (int32_t *)totals + 1, s);
+int yttm_shard_relay_plan(const void *tok, const void *pwid, const void *off, int Mw, int W,
+                          void *lens, void *keep, void *new_off, void *new_idx, void *scratch,
+                          void *totals, void *stream) {
+  if (W <= 0 || Mw <= 0 || ((uintptr_t)tok & 15u) || ((uintptr_t)pwid & 15u))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_relay_plan((const int32_t *)tok, (const int32_t *)pwid, (const int32_t *)off,
+                                Mw, W, (int32_t *)lens, (int32_t *)keep, (int32_t *)new_off,
+                                (int32_t *)new_idx, (int32_t *)scratch, (int32_t *)totals, 2,
+                                (cudaStream_t)stream);
 }
 
-// The relay's scatter into the new stream (tok2, pwid2 of max(Mw2, 2)
-// slots, PAD-filled by the caller; off2 of W2 + 1, fw2 and wids2 of W2).
-int yttm_shard_relay_write(const void *tok, const void *off, const void *fw, const void *wids,
-                           int W, const void *lens, const void *new_off, const void *new_idx,
-                           void *tok2, void *pwid2, void *off2, void *fw2, void *wids2, int W2,
-                           int Mw2, void *stream) {
-  if (W <= 0) return (int)cudaErrorInvalidValue;
-  relay_write_kernel<<<grid_for_warps(W), 256, 0, (cudaStream_t)stream>>>(
-      (const int32_t *)tok, (const int32_t *)off, (const int32_t *)fw, (const int32_t *)wids, W,
-      (const int32_t *)lens, (const int32_t *)new_off, (const int32_t *)new_idx,
-      (int32_t *)tok2, (int32_t *)pwid2, (int32_t *)off2, (int32_t *)fw2, (int32_t *)wids2, W2,
-      Mw2);
-  return (int)cudaGetLastError();
+// The relay's scatter into the new stream (tok2, pwid2 of n2 >= Mw2 slots:
+// the Mw2 of the stream all written, the rest set to PAD; off2 of W2 + 1,
+// fw2 and wids2 of W2).
+int yttm_shard_relay_write(const void *tok, const void *pwid, int Mw, const void *off,
+                           const void *fw, const void *wids, int W, const void *lens,
+                           const void *new_off, const void *new_idx, void *tok2, void *pwid2,
+                           void *off2, void *fw2, void *wids2, int W2, int Mw2, int n2,
+                           void *stream) {
+  if (W <= 0 || Mw <= 0 || n2 < Mw2 || ((uintptr_t)tok & 15u) || ((uintptr_t)pwid & 15u))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_relay_write(
+      (const int32_t *)tok, (const int32_t *)pwid, Mw, (const int32_t *)off, (const int32_t *)fw,
+      (const int32_t *)wids, (const int32_t *)lens, (const int32_t *)new_off,
+      (const int32_t *)new_idx, (int32_t *)tok2, (int32_t *)pwid2, (int32_t *)off2,
+      (int32_t *)fw2, (int32_t *)wids2, W2, Mw2, n2, (cudaStream_t)stream);
 }
 
 // Lets the current device read `peer`'s memory (shards on distinct cards).

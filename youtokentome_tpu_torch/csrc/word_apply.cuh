@@ -13,8 +13,10 @@
 //   load_group /       a thread takes four positions of the stream (one
 //   claim_words        16-byte load) and claims the words that hold an
 //                      accepted pair there (the first claim of a round wins)
-//   mark_words_kernel  pass 1 of delta_emit: the claimed words listed, a
-//                      warp-aggregated atomic
+//   for_word_packs /   up to 32 claimed words on a warp: short words packed
+//   pack_merge         side by side into the 32 lanes (words hold ~8 slots),
+//                      each lane's slot merged in registers; a word longer
+//                      than 32 slots takes the warp alone (merge_word)
 //   merge_word         one warp a word of any length: merge (even offsets
 //                      inside runs of hits), compact the word in place
 
@@ -125,33 +127,114 @@ __device__ __forceinline__ int warp_exclusive(int v, int &total) {
   return at - v;
 }
 
-// Lists in aff (their number in ctl[NAFF]) the words of the stream that hold
-// an accepted pair this round; a warp lists its new words with one atomic.
-template <int NAFF>
-__global__ void __launch_bounds__(256)
-    mark_words_kernel(const int32_t *tok, const int32_t *pwid, int Mw, int32_t *ctl,
-                      const int32_t *cand, int32_t *aff, int32_t *wmark) {
-  __shared__ CandSet c;
-  const int n = load_cand_set(c, ctl, cand);
-  if (n == 0) return;
-  const int tag = ctl[ROUND];
+// One lane's slot of a pack of short claimed words (their slots side by
+// side over the warp's lanes: words lie in the pack from lane `start` on,
+// one bit a word in smask, `total` lanes in use), through the round's merge:
+// the old word's pair at the slot and the new word's, all in registers.
+struct PackLane {
+  int32_t *t;       // the lane's word
+  int pos;          // the lane's slot in it
+  int32_t f;        // the word's weight
+  int32_t a, nb;    // the slot's token and the word's next one (PAD at its end)
+  bool co;          // (a, nb) is a counted pair of the old word (run parity)
+  int rix;          // the candidate (a, nb) is, or -1
+  bool sel, sel_next, keep;  // merged here; merged at the next slot; a token kept
+  int32_t v;        // the kept token (z where merged)
+  int rank, kept;   // its slot in the new word; the new word's tokens
+  int32_t nbn;      // the new word's next token (PAD: none)
+  bool cn;          // (v, nbn) is a counted pair of the new word
+};
+
+// pack_merge's view of the slot: every lane reads its slot before any lane
+// writes (pack_write).  Run parity is taken inside a word: a word's last
+// slot pairs with PAD, which ends every run.  Called by all 32 lanes.
+__device__ __forceinline__ PackLane pack_merge(int32_t *tok, int base, int len, int32_t f,
+                                               int start, int s, unsigned smask, int total,
+                                               const CandSet &c, int n) {
+  PackLane p;
+  const int q = threadIdx.x & 31;
+  const bool valid = q < total;
+  const unsigned upto = (2u << q) - 1u;  // lanes 0..q
+  const unsigned lt = (1u << q) - 1u;
+  const int k = valid ? s + __popc(smask & upto) - 1 : s;  // this lane's word
+  const int kb = __shfl_sync(kFullMask, base, k), ks = __shfl_sync(kFullMask, start, k);
+  const int kl = __shfl_sync(kFullMask, len, k);
+  p.f = __shfl_sync(kFullMask, f, k);
+  p.pos = q - ks;
+  p.t = tok + kb;
+  p.a = valid ? p.t[p.pos] : kPad;
+  const int32_t down = __shfl_down_sync(kFullMask, p.a, 1);
+  const bool word_end = !valid || q == 31 || q + 1 >= total || ((smask >> (q + 1)) & 1u);
+  p.nb = word_end ? kPad : down;
+  // the old word: counted pairs (run parity), hits, the merge
+  const bool pairv = p.a >= 0 && p.nb >= 0;
+  const bool eq = pairv && p.a == p.nb;
+  const int lne = warp_max_scan(eq ? -1 : q);
+  p.co = pairv && (!eq || ((q - lne - 1) & 1) == 0);
+  p.rix = cand_of(c, n, p.a, p.nb);
+  const int lnh = warp_max_scan(p.rix >= 0 ? -1 : q);
+  p.sel = p.rix >= 0 && ((q - lnh - 1) & 1) == 0;
+  const bool prev_sel = __shfl_up_sync(kFullMask, p.sel, 1) && q > 0;
+  p.sel_next = __shfl_down_sync(kFullMask, p.sel, 1);
+  p.keep = p.a >= 0 && !prev_sel;
+  p.v = p.sel ? c.z[p.rix] : p.a;
+  // the new word: each kept token's successor is the next kept one of its word
+  const unsigned kmask = __ballot_sync(kFullMask, p.keep);
+  const unsigned wm = (kl >= 32 ? 0xFFFFFFFFu : (1u << kl) - 1u) << ks;
+  p.rank = __popc(kmask & wm & lt);
+  p.kept = __popc(kmask & wm);
+  const unsigned later = kmask & wm & ~upto;
+  const int32_t vn = __shfl_sync(kFullMask, p.v, later ? __ffs(later) - 1 : q);
+  p.nbn = p.keep && later ? vn : kPad;
+  const bool eqn = p.nbn >= 0 && p.v == p.nbn;
+  const int r = __popc(kmask & lt);
+  const int lnen = warp_max_scan(p.keep && !eqn ? r : -1);
+  p.cn = p.nbn >= 0 && (!eqn || ((r - lnen - 1) & 1) == 0);
+  return p;
+}
+
+// The merged word compacted in place, PAD after its tokens.
+__device__ __forceinline__ void pack_write(const PackLane &p) {
+  if (p.keep && (p.rank != p.pos || p.v != p.a)) p.t[p.rank] = p.v;
+  if (p.a >= 0 && p.pos >= p.kept) p.t[p.pos] = kPad;
+}
+
+// Up to 32 claimed words, lane j holding word w (-1 past cnt), on the
+// warp: short words packed side by side into the 32 lanes, pack(base, len,
+// f, start, s, smask, total) for each pack (pack_merge's arguments), and
+// long_word(t, len, f) for a word longer than 32 slots, on the whole warp.
+// Called by all 32 lanes.
+template <class Pack, class Long>
+__device__ __forceinline__ void for_word_packs(int w, int cnt, int32_t *tok, const int32_t *off,
+                                               const int32_t *fw, Pack pack, Long long_word) {
   const int lane = threadIdx.x & 31;
-  const int n_grp = (Mw - 1 + 3) >> 2;
-  // the warp's groups start together, so its votes stay converged
-  for (int g0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31); g0 < n_grp;
-       g0 += gridDim.x * blockDim.x) {
-    int32_t t[5], w[4];
-    load_group(tok, Mw, g0 + lane, t);
-    const unsigned mine = claim_words(t, pwid, Mw, g0 + lane, c, n, tag, wmark, w);
-    int total;
-    int at = warp_exclusive(__popc(mine), total);
-    if (total == 0) continue;
-    int base = 0;
-    if (lane == 0) base = atomicAdd(ctl + NAFF, total);
-    at += __shfl_sync(kFullMask, base, 0);
+  int base = 0, len = 0;
+  int32_t f = 0;
+  if (lane < cnt) {
+    base = off[w];
+    len = off[w + 1] - 1 - base;
+    f = fw[w];
+  }
+  int end = len;  // inclusive prefix of the lengths
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if ((mine >> k) & 1u) aff[at++] = w[k];
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFullMask, end, o);
+    if (lane >= o) end += u;
+  }
+  for (int s = 0; s < cnt;) {
+    const int ls = __shfl_sync(kFullMask, len, s);
+    if (ls > 32) {
+      long_word(tok + __shfl_sync(kFullMask, base, s), ls, __shfl_sync(kFullMask, f, s));
+      ++s;
+      continue;
+    }
+    const int before = s > 0 ? __shfl_sync(kFullMask, end, s > 0 ? s - 1 : 0) : 0;
+    const bool in = lane >= s && lane < cnt && end - before <= 32;
+    const int e = 31 - __clz(__ballot_sync(kFullMask, in));
+    const int start = end - len - before;
+    const unsigned smask = __reduce_or_sync(kFullMask, in ? 1u << start : 0u);
+    pack(base, len, f, start, s, smask, __shfl_sync(kFullMask, end, e) - before);
+    s = e + 1;
   }
 }
 
@@ -197,60 +280,6 @@ __device__ int merge_word(int32_t *t, int len, const CandSet &c, int n, Old old)
   for (int i = out + lane; i < len; i += 32) t[i] = kPad;
   __syncwarp();
   return out;
-}
-
-// -- relay: the stream laid out again over its live tokens ------------------
-
-// Per word: its new slot count (live + 1, or 0 when it holds fewer than
-// min_live live tokens) and whether it is kept.
-__global__ void __launch_bounds__(256)
-    relay_len_kernel(const int32_t *tok, const int32_t *off, int W, int32_t *lens, int32_t *keep,
-                     int min_live) {
-  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < W; w += gridDim.x * blockDim.x) {
-    const int end = off[w + 1] - 1;
-    int i = off[w];
-    while (i < end && tok[i] >= 0) ++i;
-    const int live = i - off[w];
-    lens[w] = live >= min_live ? live + 1 : 0;
-    keep[w] = live >= min_live;
-  }
-}
-
-// One warp a kept word copies its live tokens to their new slots (wids and
-// wids2 may be null: the word ids stay where every word is kept).
-__global__ void __launch_bounds__(256)
-    relay_write_kernel(const int32_t *tok, const int32_t *off, const int32_t *fw,
-                       const int32_t *wids, int W, const int32_t *lens, const int32_t *new_off,
-                       const int32_t *new_idx, int32_t *tok2, int32_t *pwid2, int32_t *off2,
-                       int32_t *fw2, int32_t *wids2, int W2, int Mw2) {
-  const int lane = threadIdx.x & 31;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int n_warps = (gridDim.x * blockDim.x) >> 5;
-  if (blockIdx.x == 0 && threadIdx.x == 0) off2[W2] = Mw2;
-  for (int w = warp; w < W; w += n_warps) {
-    const int n = lens[w];
-    if (n == 0) continue;
-    const int k = new_idx[w], src = off[w], dst = new_off[w];
-    for (int i = lane; i < n; i += 32) {
-      tok2[dst + i] = i < n - 1 ? tok[src + i] : kPad;
-      pwid2[dst + i] = i < n - 1 ? k : kPad;
-    }
-    if (lane == 0) {
-      off2[k] = dst;
-      fw2[k] = fw[w];
-      if (wids2) wids2[k] = wids[w];
-    }
-  }
-}
-
-// A mark_words_kernel launch over a stream of Mw slots; tok is 16-byte
-// aligned (the caller checks).
-template <int NAFF>
-inline void launch_mark_words(const int32_t *tok, const int32_t *pwid, int Mw, int32_t *ctl,
-                              const int32_t *cand, int32_t *aff, int32_t *wmark,
-                              cudaStream_t s) {
-  const int grid = grid_for_warps(((Mw - 1 + 3) / 4 + 31) / 32);
-  mark_words_kernel<NAFF><<<grid, 256, 0, s>>>(tok, pwid, Mw, ctl, cand, aff, wmark);
 }
 
 }  // namespace yttm

@@ -126,11 +126,11 @@ def load_train() -> ctypes.CDLL:
         # tok, pwid, Mw, off, fw, keys, cnts, cap, ctl, cand, wmark, stream
         "yttm_train_apply_delta": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _p, _p, _p, _p]),
         "yttm_train_relay_scratch": (_l, [_i]),
-        # tok, off, W, lens, keep, new_off, new_idx, scratch, totals, stream
-        "yttm_train_relay_plan": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p]),
-        # tok, off, fw, W, lens, new_off, new_idx, tok2, pwid2, off2, fw2, Mw2,
-        # stream
-        "yttm_train_relay_write": (_i, [_p, _p, _p, _i, _p, _p, _p, _p, _p, _p, _p, _i, _p]),
+        # tok, pwid, off, Mw, W, lens, new_off, scratch, totals, stream
+        "yttm_train_relay_plan": (_i, [_p, _p, _p, _i, _i, _p, _p, _p, _p, _p]),
+        # tok, pwid, Mw, off, fw, W, lens, new_off, tok2, pwid2, off2, fw2,
+        # Mw2, stream
+        "yttm_train_relay_write": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _p, _p, _p, _p, _i, _p]),
     })
 
 
@@ -214,10 +214,8 @@ def load_bucketed() -> ctypes.CDLL:
 def load_sharded() -> ctypes.CDLL:
     """Build (if needed) and load the sharded v2 trainer's kernels."""
     return _load("train_delta_sharded.cu", "libtrain_delta_sharded.so", {
-        # tok, pwid, Mw, off, fw, W, ctl, cand, aff, wmark, dk, dv, dcap, work,
-        # stream
-        "yttm_shard_delta_emit": (_i, [_p, _p, _i, _p, _p, _i, _p, _p, _p, _p, _p, _p, _i, _p,
-                                       _p]),
+        # shards, n_sh, dcap, stream
+        "yttm_shard_delta_emit_card": (_i, [_p, _i, _i, _p]),
         # tok, pwid, fw, Mw, W, rkeys, rcnts, cap, ctl, ctls, n_sh, work, stream
         "yttm_shard_recount": (_i, [_p, _p, _p, _i, _i, _p, _p, _i, _p, _p, _i, _p, _p]),
         # reps, n_rep, cap, ctls, dks, dvs, dcap, n_sh, stream
@@ -225,9 +223,9 @@ def load_sharded() -> ctypes.CDLL:
         # reps, n_rep, cap, ctls, rkeys, rcnts, n_sh, runs, stream
         "yttm_shard_fold_rebuild": (_i, [_p, _i, _i, _p, _p, _p, _i, _p, _p]),
         # out, shards, n_sh, reps, ctls, dks, dvs, rkeys, rcnts, dcap, topk,
-        # limit, vocab, used_ids0, k, n_own, runs
-        "yttm_shard_graph": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _i, _p, _i, _i, _i, _i, _i,
-                                  _p]),
+        # emit, limit, vocab, used_ids0, k, n_own, runs
+        "yttm_shard_graph": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _i, _p, _p, _i, _i, _i, _i,
+                                  _i, _p]),
         # graph, n, stream
         "yttm_shard_graph_launch": (_i, [_p, _i, _p]),
         "yttm_shard_graph_free": (_i, [_p]),
@@ -236,12 +234,13 @@ def load_sharded() -> ctypes.CDLL:
         # keys, cnts, cap, ctl, ctls, pkeys, pcnts, n_sh, self, stream
         "yttm_shard_gather": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _i, _p]),
         "yttm_shard_relay_scratch": (_l, [_i]),
-        # tok, off, W, lens, keep, new_off, new_idx, scratch, totals, stream
-        "yttm_shard_relay_plan": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p]),
-        # tok, off, fw, wids, W, lens, new_off, new_idx, tok2, pwid2, off2,
-        # fw2, wids2, W2, Mw2, stream
-        "yttm_shard_relay_write": (_i, [_p, _p, _p, _p, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i,
-                                        _i, _p]),
+        # tok, pwid, off, Mw, W, lens, keep, new_off, new_idx, scratch, totals,
+        # stream
+        "yttm_shard_relay_plan": (_i, [_p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p, _p]),
+        # tok, pwid, Mw, off, fw, wids, W, lens, new_off, new_idx, tok2, pwid2,
+        # off2, fw2, wids2, W2, Mw2, n2, stream
+        "yttm_shard_relay_write": (_i, [_p, _p, _i, _p, _p, _p, _i, _p, _p, _p, _p, _p, _p, _p,
+                                        _p, _i, _i, _i, _p]),
         # device, peer
         "yttm_shard_enable_peer": (_i, [_i, _i]),
     })

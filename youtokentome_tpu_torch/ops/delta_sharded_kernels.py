@@ -14,9 +14,10 @@ A round, all in hand-written CUDA (``csrc/train_delta_sharded.cu``, and
 ``csrc/train_topk.cu``):
 
   topk_accept    on every replica (the shared top-k)
-  delta_emit     on every shard: apply_delta's merge, with the listed words'
-                 old and new contributions appended to the shard's buffer
-                 (DOVF in ``ctl`` when a side passes dcap)
+  delta_emit     one launch for every shard of a card: apply_delta's merge,
+                 with the claimed words' old and new contributions appended
+                 to their shard's buffer (DOVF in ``ctl`` when a side passes
+                 dcap)
   shard_recount  on every shard, only when some shard's DOVF is set: the
                  shard's stream counted into its scratch table
   shard_fold     one launch for every replica of a card: every shard's
@@ -107,6 +108,7 @@ class Exchange:
     n_own = 4  # NAFF .. DOVF, zeroed by every round's top-k
     _links = None
     _reps = None
+    _emit = None
 
     def control(self, rules, used: int, ctl_n: int = CTL_N):
         super().control(rules, used, max(ctl_n, CTL_N))
@@ -135,8 +137,6 @@ class ShardState(Exchange, TrainState):
 
     def __init__(self, t, wid, freq, rules, used: int, cap: int, dcap: int, device):
         super().__init__(t, wid, freq, rules, used, cap, device)
-        # delta_emit's list of the round's words with a hit
-        self.aff = torch.zeros(max(self.n_words, 1), dtype=torch.int32, device=self.device)
         self.wid_dev = torch.from_numpy(self.wids).to(self.device)
         self.buffers(dcap)
         self.ctl[LIVE] = int((np.asarray(wid) >= 0).sum())
@@ -368,21 +368,43 @@ def _links(st: ShardState, shards):
     return st._links[1]
 
 
-def delta_emit(st: ShardState):
-    """Merge the round's accepted candidates into the shard's stream and
-    append its listed words' old and new contributions to its buffer."""
-    if st.n_words == 0:
+def _emit_rows(states):
+    """A device array (on ``states[0]``'s device) of the shards of one
+    card, a row each as ``csrc/train_delta_sharded.cu`` EmitShard lays it
+    out: tok, pwid, Mw, off, fw, W, ctl, cand, wmark, dk, dv, work.  Rebuilt
+    when a buffer moved or a size changed (a relay, a resize)."""
+    head = states[0]
+    for st in states:
+        if st.device != head.device or st.dcap != head.dcap:
+            raise ValueError("delta_emit takes the shards of one device, with one dcap")
+        if st.tok.data_ptr() % 16:
+            raise ValueError("delta_emit needs a 16-byte aligned stream")
+    rows = [[st.tok.data_ptr(), st.pwid.data_ptr(), st.tok.shape[0], st.off.data_ptr(),
+             st.fw.data_ptr(), st.n_words, st.ctl.data_ptr(), st.cand.data_ptr(),
+             st.wmark.data_ptr(), st.dk.data_ptr(), st.dv.data_ptr(), st.work.data_ptr()]
+            for st in states]
+    if head._emit is None or head._emit[0] != rows:
+        head._emit = (rows, torch.tensor(rows, dtype=torch.int64, device=head.device))
+    return head._emit[1]
+
+
+def delta_emit(states):
+    """Merge the round's accepted candidates into the streams of
+    ``states`` (the shards of one device, which took the same candidates)
+    and append each one's claimed words' old and new contributions to its
+    buffer: one launch for all of them; a shard without words is skipped."""
+    if not any(st.n_words for st in states):
         return
-    if not _on(st, "delta_emit"):
-        return delta_emit_plain(st)
+    if not _on(states[0], "delta_emit"):
+        for st in states:
+            if st.n_words:
+                delta_emit_plain(st)
+        return
+    rows = _emit_rows(states)
     lib = _cuda.load_sharded()
-    with torch.cuda.device(st.device):
-        err = lib.yttm_shard_delta_emit(
-            st.tok.data_ptr(), st.pwid.data_ptr(), st.tok.shape[0], st.off.data_ptr(),
-            st.fw.data_ptr(), st.n_words, st.ctl.data_ptr(), st.cand.data_ptr(),
-            st.aff.data_ptr(), st.wmark.data_ptr(), st.dk.data_ptr(), st.dv.data_ptr(), st.dcap,
-            st.work.data_ptr(), _stream_ptr(st.device),
-        )
+    with torch.cuda.device(states[0].device):
+        err = lib.yttm_shard_delta_emit_card(rows.data_ptr(), len(states), states[0].dcap,
+                                             _stream_ptr(states[0].device))
     _check(err, "delta_emit")
     delta_emit.launches += 1
 
@@ -502,22 +524,28 @@ def shard_relay(st: ShardState):
     scratch = torch.empty(lib.yttm_shard_relay_scratch(w), **i32)
     totals = torch.zeros(2, **i32)
     stream = _stream_ptr(dev)
+    mw = st.tok.shape[0]
     with torch.cuda.device(dev):
         err = lib.yttm_shard_relay_plan(
-            st.tok.data_ptr(), st.off.data_ptr(), w, lens.data_ptr(), keep.data_ptr(),
-            new_off.data_ptr(), new_idx.data_ptr(), scratch.data_ptr(), totals.data_ptr(), stream,
+            st.tok.data_ptr(), st.pwid.data_ptr(), st.off.data_ptr(), mw, w, lens.data_ptr(),
+            keep.data_ptr(), new_off.data_ptr(), new_idx.data_ptr(), scratch.data_ptr(),
+            totals.data_ptr(), stream,
         )
         _check(err, "shard_relay")
         mw2, w2 = totals.tolist()
-        tok2 = torch.full((max(mw2, 2),), PAD, **i32)
-        pwid2 = torch.full((max(mw2, 2),), PAD, **i32)
+        # the scatter writes every slot, and PAD in the slots past mw2 that
+        # the least stream of 2 slots adds
+        n2 = max(mw2, 2)
+        tok2 = torch.empty(n2, **i32)
+        pwid2 = torch.empty(n2, **i32)
         off2 = torch.empty(w2 + 1, **i32)
         fw2 = torch.empty(w2, **i32)
         wid2 = torch.empty(w2, **i32)
         err = lib.yttm_shard_relay_write(
-            st.tok.data_ptr(), st.off.data_ptr(), st.fw.data_ptr(), st.wid_dev.data_ptr(), w,
-            lens.data_ptr(), new_off.data_ptr(), new_idx.data_ptr(), tok2.data_ptr(),
-            pwid2.data_ptr(), off2.data_ptr(), fw2.data_ptr(), wid2.data_ptr(), w2, mw2, stream,
+            st.tok.data_ptr(), st.pwid.data_ptr(), mw, st.off.data_ptr(), st.fw.data_ptr(),
+            st.wid_dev.data_ptr(), w, lens.data_ptr(), new_off.data_ptr(), new_idx.data_ptr(),
+            tok2.data_ptr(), pwid2.data_ptr(), off2.data_ptr(), fw2.data_ptr(), wid2.data_ptr(),
+            w2, mw2, n2, stream,
         )
     _check(err, "shard_relay")
     shard_relay.launches += 1
@@ -543,8 +571,8 @@ def _graph_row(st: ShardState) -> list:
             st.blk_lo.data_ptr(), st.n_blk, st.ticket.data_ptr(), st.ctl.data_ptr(),
             st.cand.data_ptr(), st.rules.data_ptr(), st.work.data_ptr(), st.tok.data_ptr(),
             st.pwid.data_ptr(), st.tok.shape[0], st.off.data_ptr(), st.fw.data_ptr(),
-            st.n_words, st.aff.data_ptr(), st.wmark.data_ptr(), st.dk.data_ptr(),
-            st.dv.data_ptr(), st.rkeys.data_ptr(), st.rcnts.data_ptr()]
+            st.n_words, 0, st.wmark.data_ptr(), st.dk.data_ptr(), st.dv.data_ptr(),
+            st.rkeys.data_ptr(), st.rcnts.data_ptr()]
 
 
 def _address(fn) -> int:
@@ -581,7 +609,9 @@ def shard_rounds(eng, n: int, limit: int):
     links = _links(head, shards)[:5]
     reps = _replicas(shards, shards)
     rows = np.array([eng.graph_row(st) for st in shards], dtype=np.int64)
-    key = (rows.tobytes(), int(limit), tuple(a.data_ptr() for a in links), reps.data_ptr())
+    extra = eng.graph_addresses()
+    key = (rows.tobytes(), int(limit), tuple(a.data_ptr() for a in links), reps.data_ptr(),
+           tuple(extra))
     g = eng.round_graph
     if g is None or g.key != key:
         t0 = time.perf_counter()
@@ -593,7 +623,7 @@ def shard_rounds(eng, n: int, limit: int):
         with torch.cuda.device(head.device):
             err = getattr(lib, name)(
                 ctypes.byref(handle), rows.ctypes.data, len(shards), reps.data_ptr(),
-                *(a.data_ptr() for a in links), head.dcap, topk, *eng.graph_addresses(),
+                *(a.data_ptr() for a in links), head.dcap, topk, *extra,
                 int(limit), eng.vocab_size, eng.used_ids0, eng.batch_k, head.n_own,
                 eng.runs.data_ptr(),
             )
@@ -876,16 +906,22 @@ class ShardedKernelEngine(ShardEngine):
     def round(self, limit: int):
         for st in self.local:
             topk_accept(st, limit, self.vocab_size, self.used_ids0, self.batch_k)
-        for st in self.local:
-            delta_emit(st)
+        for dev in self._devices:
+            delta_emit([st for st in self.local if st.device == dev])
         self._barrier()
         return self._exchange(limit)
 
     def graph_row(self, st) -> list:
         return _graph_row(st)
 
+    def graph_addresses(self) -> list:
+        # the emit's shard array (its rows follow the graph rows' pointers
+        # and sizes, which key the graph)
+        return [_emit_rows(self.shards).data_ptr()]
+
     def graph_launched(self, n: int):
-        delta_emit.launches += n * sum(1 for st in self.shards if st.n_words)
+        if any(st.n_words for st in self.shards):
+            delta_emit.launches += n
 
     def graph_recounted(self, runs: int):
         shard_recount.launches += runs * len(self.shards)
@@ -962,7 +998,7 @@ class ProcessShardedEngine(ShardedKernelEngine):
     axis) and ``comm.max(n)`` takes the largest ``n``.  A round:
 
       topk_accept    on every local replica
-      delta_emit     on every local shard
+      delta_emit     on the local shards, one launch
       gather 1       every shard's ctl with the first ``window`` entries of
                      each side of its buffer (the replicas' round control
                      checked equal); unless some DOVF is set, the written

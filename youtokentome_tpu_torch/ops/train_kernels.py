@@ -483,25 +483,26 @@ def relay(st: TrainState):
     lib = _cuda.load_train()
     dev, w = st.device, st.n_words
     i32 = dict(dtype=torch.int32, device=dev)
-    lens, keep, new_off, new_idx = (torch.empty(w, **i32) for _ in range(4))
+    lens, new_off = torch.empty(w, **i32), torch.empty(w, **i32)
     scratch = torch.empty(lib.yttm_train_relay_scratch(w), **i32)
-    totals = torch.zeros(2, **i32)
+    totals = torch.zeros(1, **i32)
     stream = _stream_ptr(dev)
     with torch.cuda.device(dev):
         err = lib.yttm_train_relay_plan(
-            st.tok.data_ptr(), st.off.data_ptr(), w, lens.data_ptr(), keep.data_ptr(),
-            new_off.data_ptr(), new_idx.data_ptr(), scratch.data_ptr(), totals.data_ptr(), stream,
+            st.tok.data_ptr(), st.pwid.data_ptr(), st.off.data_ptr(), st.tok.shape[0], w,
+            lens.data_ptr(), new_off.data_ptr(), scratch.data_ptr(), totals.data_ptr(), stream,
         )
         _check(err, "relay")
         mw2 = int(totals[0])
-        tok2 = torch.full((mw2,), PAD, **i32)
-        pwid2 = torch.full((mw2,), PAD, **i32)
+        # the scatter writes every slot
+        tok2 = torch.empty(mw2, **i32)
+        pwid2 = torch.empty(mw2, **i32)
         off2 = torch.empty(w + 1, **i32)
         fw2 = torch.empty(w, **i32)
         err = lib.yttm_train_relay_write(
-            st.tok.data_ptr(), st.off.data_ptr(), st.fw.data_ptr(), w, lens.data_ptr(),
-            new_off.data_ptr(), new_idx.data_ptr(), tok2.data_ptr(), pwid2.data_ptr(),
-            off2.data_ptr(), fw2.data_ptr(), mw2, stream,
+            st.tok.data_ptr(), st.pwid.data_ptr(), st.tok.shape[0], st.off.data_ptr(),
+            st.fw.data_ptr(), w, lens.data_ptr(), new_off.data_ptr(), tok2.data_ptr(),
+            pwid2.data_ptr(), off2.data_ptr(), fw2.data_ptr(), mw2, stream,
         )
     _check(err, "relay")
     relay.launches += 1
