@@ -136,7 +136,13 @@ nonzero):
      tombstones but a few tokens, ids from 5 and 70000; on one wave of
      blocks and on one block), into a table that overflows at its first
      count and is regrown, and on the main run's trained, tombstoned state,
-     each equal to its plain version and the host count; the 10 MB prefix
+     each equal to its plain version and the host count; v1's count
+     (csrc/stream_count.cuh, through recount and through stream_shard_count
+     with its part lists) on pair_count's edge streams and on v1's own
+     (``phase_stream_count_checks``: runs across 48 chunk edges, one-token
+     and frequency-0 words, a PAD tail, ids from 5 and 70000; one wave and
+     one block, counted twice) and into a table that overflows at its
+     first count, equal to its plain version and the host count; the 10 MB prefix
      at vocab 8000 through each kernel engine and
      its plain round loop in lockstep, equal at every segment end (stream or
      rows, the live table, rules, used and done): v3 and v4 with a small
@@ -181,7 +187,13 @@ nonzero):
      with phase 10's shard_fold), v1 and v0 (their shard counts in
      csrc/train_stream.cu and csrc/train_bucketed.cu, the partitioned fold
      shard_part_fold and shard_gather, the top-k and the applies on every
-     shard).  On the 100 MB
+     shard).  The counts' part lists and the partitioned fold on crafted
+     shards of a 3-shard mesh (``phase_part_fold_checks``: a folded edge
+     stream equal to the host count, each replica's fold unchanged by
+     poisoned scratch slots that no part-r list names, and a scratch
+     overflow, a part the shards overfill together and a list that drops
+     claims, each setting OVERFLOW on every replica; v0's count on rows
+     whose blocks claim more slots than their stage holds).  On the 100 MB
      state each kernel equals its plain version for two rounds (v3 in both
      of shard_fold's branches, the recount branch forced by a tiny dcap),
      and sparse_shard_recount on phase 9's tombstoned edge streams (its gate
@@ -325,6 +337,7 @@ def phase_device_and_build() -> dict:
                                       "relay_write_kernel", "tier_count_kernel", "resplit_kernel",
                                       "encode_short_kernel", "encode_long_kernel",
                                       "pair_count_kernel", "tomb_count_kernel", "fold_plan_kernel",
+                                      "stream_count_kernel", "part_fold_kernel",
                                       "encode_dropout_short_kernel", "encode_dropout_long_kernel",
                                       "merge_words_kernel", "merge_long_words_kernel")):
         log(f"[1] {line}")
@@ -1430,6 +1443,104 @@ def count_edge_streams(base: int, rng):
     return out
 
 
+STREAM_EDGE_CHUNKS = 48  # 128-slot chunk edges a run of v1's edge stream crosses (6 blocks' edges)
+STREAM_PAD = 300  # the PAD tail after the live end of v1's edge stream
+
+
+def stream_edge_streams(base: int, rng):
+    """(what, t, wid, freq) of v1's count's edge stream, ids from ``base``:
+    the flat stream (no separator, PAD after the live end) that
+    csrc/stream_count.cuh walks 128-slot chunks at a time, eight warps a
+    block.  Runs of equal tokens (2-69) cross each of the first
+    STREAM_EDGE_CHUNKS chunk edges (every 8th a block's edge in a grid of
+    one wave), some from their word's first token, some behind another;
+    an id equal on both sides of a word boundary at some edges (no pair
+    across); filler words of 1-6 tokens (one-token words among them), a
+    quarter of them of frequency 0; then a run of 1,001, an alternation of
+    400 and a run of 300 split by one token, each across several chunks; the
+    last word ends at the live end, STREAM_PAD slots of PAD after it."""
+    words, fr, pos = [], [], 0
+
+    def add(w, f):
+        nonlocal pos
+        words.append([base + int(v) for v in w])
+        fr.append(f)
+        pos += len(w)
+
+    for k in range(1, STREAM_EDGE_CHUNKS + 1):
+        edge, r = 128 * k, int(rng.integers(2, 70))
+        start = edge - int(rng.integers(1, r))  # the run covers [start, start + r) and the edge
+        lead = k % 3 == 0  # the run behind another token of its word
+        if start - lead < pos:
+            continue
+        while pos < start - lead:
+            add(rng.integers(3, 40, min(int(rng.integers(1, 7)), start - lead - pos)),
+                int(rng.integers(0, 4)) * int(rng.integers(1, 6)))
+        if k % 4 == 1 and not lead and words:  # the same id ends the word before
+            words[-1][-1] = base
+        add(([2] if lead else []) + [0] * r + [1], int(rng.integers(1, 6)))
+    add([0] * 1001, 3)
+    add([0, 1] * 200, 2)
+    add([1] * 150 + [2] + [1] * 150, 1)
+    t = np.concatenate([np.asarray(w, np.int32) for w in words] + [np.full(STREAM_PAD, -1, np.int32)])
+    wid = np.concatenate([np.full(len(w), i, np.int32) for i, w in enumerate(words)]
+                         + [np.full(STREAM_PAD, -1, np.int32)])
+    return [(f"runs across {STREAM_EDGE_CHUNKS} chunk edges, one-token and frequency-0 words, "
+             f"long runs, a PAD tail", t, wid, np.asarray(fr, np.int32))]
+
+
+FOLD_PARTS, FOLD_CAP = 3, 64  # the fold checks' mesh: parts of 21, 21 and 22 slots
+FOLD_CASES = ("scratch overflow", "parts union", "list drops claims")
+
+
+def pairs_of_part(n: int, part: int, count: int, seed: int) -> np.ndarray:
+    """``count`` distinct pairs (x, y) of ids 4-2999 whose key lies in part
+    ``part`` of ``n`` (csrc/part_list.cuh key_part)."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+
+    rng = np.random.default_rng(seed)
+    xy = np.unique(rng.integers(4, 3000, (40 * count * n, 2)), axis=0)
+    mine = xy[(dsk.key_part(torch.from_numpy((xy[:, 0] << 32) | xy[:, 1]), n) == part).numpy()]
+    check(len(mine) >= count, f"{len(mine)} pairs of part {part} of {n}")
+    return mine[rng.permutation(len(mine))[:count]]
+
+
+def pair_words(pairs) -> tuple:
+    """(t, wid, freq) of a flat stream of two-token words, each one pair of
+    weight 1."""
+    t = np.asarray(pairs, np.int32).reshape(-1)
+    wid = np.repeat(np.arange(len(pairs), dtype=np.int32), 2)
+    return t, wid, np.ones(len(pairs), np.int32)
+
+
+def fold_case_pairs(case: str) -> list:
+    """Each shard's pairs (FOLD_PARTS shards, scratch tables of FOLD_CAP
+    slots) for one of FOLD_CASES: shard 0 with 36 keys, past half its table
+    (ROVF); three disjoint shards of 8 keys a part, 24 a part together
+    against parts of 21-22 slots; shard 0 with 30 keys, all of part 0, more
+    than its list of 21 holds (and less than half the table)."""
+    n = FOLD_PARTS
+    if case == "scratch overflow":
+        pairs = [pairs_of_part(n, p, 12, 10 + p) for p in range(n)]
+        return [np.concatenate(pairs)] + [pairs[0][:4]] * (n - 1)
+    if case == "parts union":
+        parts = [pairs_of_part(n, p, 24, 20 + p) for p in range(n)]
+        return [np.concatenate([q[8 * s : 8 * s + 8] for q in parts]) for s in range(n)]
+    return [pairs_of_part(n, 0, 30, 40)] + [pairs_of_part(n, 1, 4, 41)] * (n - 1)
+
+
+def stream_shard_of(t, wid, freq, dev, cap: int = FOLD_CAP, n: int = FOLD_PARTS):
+    """A sharded v1 shard state of a flat stream (its scratch table listed
+    among ``n`` parts), ids below its rules' end."""
+    from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
+
+    vocab = int(np.max(t)) + 16
+    return rsk.StreamShardState(t, wid, freq, np.full((vocab, 4), -1, np.int32), vocab - 8, cap,
+                                dev, n)
+
+
 TOMB_WORD_SLOTS = 5000  # the long words that are all tombstones but for a few tokens
 
 
@@ -1733,6 +1844,104 @@ def phase_count_checks(main_st, dev) -> dict:
     log(f"[5] pair_count == plain == host count table on {n} edge streams; into "
         f"{COUNT_SMALL_CAP} slots the main path's count sets OVERFLOW (kernel and plain), "
         f"counted again at {[c for c, _ in sizes[1:]]} slots it equals the main path's table "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"streams": n, "regrown": sizes}
+
+
+def stream_count(st, plain: bool, blocks: int = 0) -> None:
+    """v1's count of ``st`` up to its rules' end: ``recount`` on a
+    one-device state, ``stream_shard_count`` on a shard (the kernel on at
+    most ``blocks`` blocks when > 0, else one wave: ``COUNT_BLOCKS``), or
+    their plain versions."""
+    from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
+    from youtokentome_tpu_torch.ops import stream_train_kernels as stk
+
+    v = st.rules.shape[0]
+    shard = isinstance(st, rsk.StreamShardState)
+    if plain:
+        (rsk.stream_shard_count_plain if shard else stk.recount_plain)(st, v, v)
+        return
+    stk.COUNT_BLOCKS = blocks
+    try:
+        (rsk.stream_shard_count if shard else stk.recount)(st, v, v)
+    finally:
+        stk.COUNT_BLOCKS = 0
+
+
+def phase_stream_count_checks(main_st, dev) -> dict:
+    """v1's count (csrc/stream_count.cuh) through both entries, recount and
+    stream_shard_count (its scratch table listed among 3 parts), against
+    their plain versions and the host count table on ``count_edge_streams``
+    and ``stream_edge_streams`` (ids from 5 and 70000), on one wave of
+    blocks and on one block (each warp walks many chunks), each counted
+    twice (the second clear empties the table and the lists the first
+    count filled); then the main
+    path's state into a table that overflows at its first count (kernel and
+    plain), counted again at twice the size until it fits, equal to the
+    main path's table."""
+    from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
+    from youtokentome_tpu_torch.ops import stream_train_kernels as stk
+    from youtokentome_tpu_torch.ops import train_delta as td
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    t0 = time.perf_counter()
+    n = 0
+    for base in COUNT_BASES:
+        streams = count_edge_streams(base, np.random.default_rng(base + 1)) + stream_edge_streams(
+            base, np.random.default_rng(base + 3))
+        vocab = base + COUNT_WIDE_IDS + 16
+        rules = np.full((vocab, 4), -1, np.int32)
+        for what, t, wid, freq in streams:
+            uk, uc = td.host_count_table(t, wid, freq)
+            cap = td._next_pow2(4 * uk.size)
+            for parts in (0, FOLD_PARTS):
+                st = (rsk.StreamShardState(t, wid, freq, rules, vocab - 16, cap, dev, parts)
+                      if parts else stk.StreamState(t, wid, freq, rules, vocab - 16, cap, dev))
+                p_st = clone_state(st)
+                stream_count(p_st, True)
+                for blocks in (0, 1):
+                    k_st = clone_state(st)
+                    for again in range(2):
+                        stream_count(k_st, False, blocks)
+                        label = (f"{'stream_shard_count' if parts else 'recount'}, {what}, ids "
+                                 f"from {base}, {blocks or 'a wave of'} blocks, count {again + 1}")
+                        if parts:
+                            same_shard(k_st, p_st, label, buffers=False, stream=("t", "wid"))
+                            keys, cnts = scratch_table(k_st)
+                            ovf = k_st.ctl[rsk.ROVF]
+                        else:
+                            same_diff_state(k_st, p_st, label)
+                            keys, cnts = k_st.table()
+                            ovf = k_st.ctl[tk.OVERFLOW]
+                        check(np.array_equal(keys, uk.astype(np.int64)) and np.array_equal(cnts, uc),
+                              f"{label}: != the host count table")
+                        check(not int(ovf), f"{label}: overflowed")
+                n += 1
+            log(f"[9] v1's count, {what}, ids from {base}: recount and stream_shard_count (lists "
+                f"of {FOLD_PARTS} parts) == plain == host count table ({t.size} slots, {uk.size} "
+                f"keys; one wave and one block, two counts each)")
+    # a table that overflows at its first count
+    k_st, p_st = clone_state(main_st), clone_state(main_st)
+    k_st.resize(COUNT_SMALL_CAP)
+    p_st.resize(COUNT_SMALL_CAP)
+    stream_count(p_st, True)
+    check(int(p_st.ctl[tk.OVERFLOW]) == 1, "v1's plain count did not overflow its small table")
+    sizes = []
+    while True:
+        stream_count(k_st, False)
+        sizes.append((k_st.cap, int(k_st.ctl[tk.OVERFLOW])))
+        if not sizes[-1][1]:
+            break
+        k_st.resize(k_st.cap * 2)
+        k_st.ctl[tk.OVERFLOW] = 0
+    check(sizes[0] == (COUNT_SMALL_CAP, 1), f"recount into {COUNT_SMALL_CAP} slots: {sizes}")
+    main_keys, main_cnts = main_st.table()
+    keys, cnts = k_st.table()
+    check(np.array_equal(keys, main_keys) and np.array_equal(cnts, main_cnts)
+          and int(k_st.ctl[tk.OCC]) == keys.size, "v1's regrown count != the main path's count")
+    log(f"[9] v1's count == plain == host count table on {n} stream and entry pairs; into "
+        f"{COUNT_SMALL_CAP} slots the main path's count sets OVERFLOW (kernel and plain), counted "
+        f"again at {[c for c, _ in sizes[1:]]} slots it equals the main path's table "
         f"({time.perf_counter() - t0:.1f} s)")
     return {"streams": n, "regrown": sizes}
 
@@ -3318,18 +3527,22 @@ def compare_tree(work: Path) -> dict:
     package of the current directory's tree (run it in the parent's
     unpacked tree and in the change's, in turns, from one process each,
     loading this file by its path): ``BPE.train`` twice, split
-    (``train_split``); v5's merge loop three times by the host clock; one
+    (``train_split``), v5's merge loop three times by the host clock, one
     profiled v5 loop (device ms and launches of every function: the fold's
     and the applies' among them) and one profiled v2 loop (the count's);
     phase 10's sharded v2 loop (4 shards on the card) twice by the host
     clock, then once traced (each wrapper's device ms and launches: the
-    fold's and the recount's among them), and the sharded v3 loop traced
-    once (its fold's device ms).  The corpus is written to ``work`` by the
-    first caller and read by the others.  Prints and returns the
-    numbers."""
+    fold's and the recount's among them), and the sharded v3 loop
+    (``compare_v3``); the trainers that recount every round: v1's loop and
+    the sharded v1 loop (4 shards) to vocab 30000 and the sharded v0 loop to
+    its first V0_MAIN_IDS ids, each twice by the host clock, then once
+    traced (each wrapper's device ms and launches, the count's and the
+    fold's device functions by name, in either tree).  The corpus is written to ``work`` by the first
+    caller and read by the others.  Prints and returns the numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
     from youtokentome_tpu_torch.ops import tiered_kernels as tk
     from youtokentome_tpu_torch.ops import train_kernels as v2
     from youtokentome_tpu_torch.ops import train_stream as ts
@@ -3340,8 +3553,8 @@ def compare_tree(work: Path) -> dict:
     if not corpus_path.exists():
         corpus_path.write_text("\n".join(build_corpus()[1]) + "\n")
     out = {"tree": os.getcwd(), "card": card_line()}
-    out["train_split"] = [train_split(corpus_path, work / f"cmp{i}.yttm")[1] for i in range(2)]
     buckets, _, used0 = training_buckets(corpus_path)
+    out["train_split"] = [train_split(corpus_path, work / f"cmp{i}.yttm")[1] for i in range(2)]
     t, wid, freq, B = tiered_inputs(buckets)
     rules = np.full((TRAIN_VOCAB, 4), -1, np.int32)
 
@@ -3379,13 +3592,10 @@ def compare_tree(work: Path) -> dict:
     out["v2_device_fns"] = device_fns(prof)
     sums = {"fold_rows": ("fold_",), "apply_blocks": ("tier_find", "tier_apply", "tier_count"),
             "pair_count": ("pair_count",)}
+    fns = {**out["v5_device_fns"], **out["v2_device_fns"]}
     out["rows_ms"] = {
-        name: round(sum(ms for k, (ms, _) in {**out["v5_device_fns"], **out["v2_device_fns"]}.items()
-                        if any(p in k for p in parts)), 4)
-        for name, parts in sums.items()}
-
-    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
-
+        name: round(sum(ms for k, (ms, _) in fns.items() if any(p in k for p in keys)), 4)
+        for name, keys in sums.items()}
     loops = []
     for _ in range(2):
         eng = shard_engine(buckets, used0, TRAIN_VOCAB)
@@ -3410,6 +3620,43 @@ def compare_tree(work: Path) -> dict:
                               for f in COMPARE_SHARD_FNS[k]})
     out["shard_launches"] = {k: w.launches for k, w in wrappers.items()}
     out.update(compare_v3(buckets, used0))
+    v0_vocab = min(TRAIN_VOCAB, used0 + V0_MAIN_IDS)
+    runs = {
+        "v1": (lambda: diff_engine("stream", buckets, used0, TRAIN_VOCAB, dev),
+               lambda e: run_diff(e, TRAIN_VOCAB, used0),
+               {k: DIFF_DEVICE_FNS[("stream", k)] for k in DIFF_KERNELS["stream"]}),
+        "sharded_v1": (lambda: other_engine("stream", buckets, used0, TRAIN_VOCAB),
+                       lambda e: ts.run_to_end(e, used0, TRAIN_VOCAB),
+                       {k: OTHER_DEVICE_FNS[k] for k in OTHER_KERNELS["stream"]}),
+        "sharded_v0": (lambda: other_engine("bucketed", buckets, used0, v0_vocab),
+                       lambda e: ts.run_to_end(e, used0, v0_vocab),
+                       {k: OTHER_DEVICE_FNS[k] for k in OTHER_KERNELS["bucketed"]}),
+    }
+    for name, (engine, run, fns) in runs.items():
+        fns = {k: fns[k] + COMPARE_RECOUNT_FNS.get(k, ()) for k in fns}
+        wrappers = {k: (diff_wrapper(diff_module("stream"), k) if name == "v1"
+                        else other_wrapper("bucketed" if name == "sharded_v0" else "stream", k)[1])
+                    for k in fns}
+        loops = []
+        for _ in range(2):
+            e = engine()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(e)
+            torch.cuda.synchronize()
+            loops.append(round(time.perf_counter() - t0, 4))
+        head = e.st if name == "v1" else e.shards[0]
+        out[f"{name}_loop_s"] = loops
+        out[f"{name}_rounds"], out[f"{name}_cap"] = int(head.ctl[v2.ROUND]), head.cap
+        out[f"{name}_rules"] = int(torch.sum(e.rules[:, 0] >= 0))
+        for w in wrappers.values():
+            w.launches = 0
+        with Tracer() as tr:
+            run(engine())
+        out[f"{name}_ms"] = {k: round(v, 4) for k, v in tr.ms(fns).items()}
+        out[f"{name}_fns"] = {f: round(v, 4) for f, v in tr.ms(
+            {f: (f,) for k in fns if k != "topk_accept" for f in fns[k]}).items() if v}
+        out[f"{name}_launches"] = {k: w.launches for k, w in wrappers.items()}
     print("COMPARE " + json.dumps(out), flush=True)
     return out
 
@@ -4157,7 +4404,7 @@ DIFF_ROW_NAMES = {
 }
 # the device functions of each wrapper, as the profiler names them
 DIFF_DEVICE_FNS = {
-    ("stream", "recount"): ("clear_kernel", "eq_tiles_kernel", "count_tiles_kernel"),
+    ("stream", "recount"): ("clear_kernel", "stream_count_kernel"),
     ("stream", "topk_accept"): ("topk_select_kernel",),
     ("stream", "apply_compact"): ("hit_tiles_kernel", "select_tiles_kernel", "scatter_kernel"),
     ("sparse", "sparse_count"): ("tomb_count_kernel",),
@@ -4362,6 +4609,8 @@ def phase_diff_kernels(buckets, used0: int, dev) -> None:
             same_diff_state(k_st, p_st, f"{name}: count")
         if name == "sparse":
             phase_tomb_checks("sparse_count", st, [st], dev)
+        if name == "stream":
+            phase_stream_count_checks(st, dev)
         k_st, p_st = clone_state(st), clone_state(st)
         for r in range(2):
             diff_round(name, mod, k_st, used0, False, getattr(eng, "KB", 0))
@@ -4847,6 +5096,14 @@ COMPARE_SHARD_FNS = {
 }
 
 
+# the v1 and v0 counts' device functions in either tree that compare_tree may
+# run, besides their own: v1's count before its redesign
+COMPARE_RECOUNT_FNS = {
+    "recount": ("eq_tiles_kernel", "count_tiles_kernel"),
+    "stream_shard_count": ("eq_tiles_kernel", "count_tiles_kernel"),
+}
+
+
 # the sharded v3 wrappers' device functions in either tree that compare_tree
 # may run: the recount's before its redesign too
 COMPARE_V3_FNS = {
@@ -5008,11 +5265,49 @@ def scratch_table(st):
     return keys[used][order], cnts[used][order]
 
 
+def listed_entries(st, p: int) -> tuple:
+    """The scratch entries that part ``p``'s list names, as a sorted (key,
+    count) multiset (numpy)."""
+    slots = st.part_list(p)
+    keys, cnts = st.rkeys[slots].cpu().numpy(), st.rcnts[slots].cpu().numpy()
+    order = np.argsort(keys, kind="stable")
+    return keys[order], cnts[order]
+
+
+def same_lists(a, b, what: str) -> None:
+    """Kernel and plain shards' part lists agree: each part's count, and
+    the entries each list names as a multiset (unless it dropped claims,
+    which it may do in any order); and in the kernel's, every filled
+    scratch slot listed once, in its key's part."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+
+    check(torch.equal(a.pcnt, b.pcnt), f"{what}: part counts {a.pcnt.tolist()} != "
+          f"{b.pcnt.tolist()}")
+    n, lost = a.n_parts, False
+    for p in range(n):
+        if int(a.pcnt[p]) > dsk.part_lo(p + 1, a.cap, n) - dsk.part_lo(p, a.cap, n):
+            lost = True
+            continue
+        (ka, ca), (kb, cb) = listed_entries(a, p), listed_entries(b, p)
+        check(np.array_equal(ka, kb) and np.array_equal(ca, cb),
+              f"{what}: part {p}'s listed entries differ")
+        slots = a.part_list(p)
+        check(bool((dsk.key_part(a.rkeys[slots], n) == p).all()),
+              f"{what}: part {p}'s list names a key of another part")
+    if not lost:
+        listed = torch.sort(torch.cat([a.part_list(p) for p in range(n)])).values
+        check(torch.equal(listed, torch.nonzero(a.rkeys != -1).flatten()),
+              f"{what}: the lists do not name every filled scratch slot once")
+
+
 def same_shard(a, b, what: str, buffers: bool = True, stream=("tok",)) -> None:
     """Kernel and plain shard states agree: stream (the attributes named in
-    ``stream``), the replica and the scratch table as multisets, ctl, work,
-    rules and (when no side passed dcap) each side of the delta buffer as a
-    multiset."""
+    ``stream``), the replica and the scratch table as multisets, the
+    scratch table's part lists (``same_lists``, the shards that recount
+    every round), ctl, work, rules and (when no side passed dcap) each side
+    of the delta buffer as a multiset."""
     import torch
 
     from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
@@ -5022,6 +5317,8 @@ def same_shard(a, b, what: str, buffers: bool = True, stream=("tok",)) -> None:
     for t, (ka, ca), (kb, cb) in (("table", a.table(), b.table()),
                                   ("scratch table", scratch_table(a), scratch_table(b))):
         check(np.array_equal(ka, kb) and np.array_equal(ca, cb), f"{what}: {t}s differ")
+    if hasattr(a, "plist"):
+        same_lists(a, b, what)
     check(torch.equal(a.ctl, b.ctl), f"{what}: ctl {a.ctl.tolist()} != {b.ctl.tolist()}")
     check(torch.equal(a.work, b.work), f"{what}: work {a.work.tolist()} != {b.work.tolist()}")
     check(torch.equal(a.rules, b.rules), f"{what}: rules differ")
@@ -5640,7 +5937,7 @@ OTHER_DEVICE_FNS = {
     "shard_gather": ("gather_kernel",),
     "sparse_emit": ("mark_live_words_kernel", "emit_live_words_kernel"),
     "sparse_shard_recount": ("recount_clear_kernel", "tomb_count_kernel"),
-    "stream_shard_count": ("clear_kernel", "eq_tiles_kernel", "count_tiles_kernel"),
+    "stream_shard_count": ("clear_kernel", "stream_count_kernel"),
     "apply_compact": ("hit_tiles_kernel", "select_tiles_kernel", "scatter_kernel"),
     "bucket_shard_count": ("clear_kernel", "count_rows_kernel"),
     "bucket_apply": ("apply_rows_kernel",),
@@ -5744,6 +6041,143 @@ def other_round(name: str, ks, ps, used0: int, limit: int, what: str) -> bool:
     return ("recount" if rec else "delta") if name == "sparse" else "parts"
 
 
+def part_fold_round(ks, ps, what: str) -> None:
+    """The partitioned fold, kernels on the shards ``ks`` and plain versions
+    on ``ps``: every replica's shard_part_fold, then every shard_gather,
+    compared after each step."""
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+
+    for k in ("shard_part_fold", "shard_gather"):
+        for i, (a, b) in enumerate(zip(ks, ps)):
+            getattr(dsk, k)(a, ks)
+            getattr(dsk, k + "_plain")(b, ps)
+            same_shard(a, b, f"{what}, {k} on replica {i}", buffers=False, stream=("t", "wid"))
+
+
+ROW_STAGE = 2048  # claims a block of v0's sharded count stages (csrc/train_bucketed.cu kRowStage)
+ROW_STAGE_IDS = 3000  # the ids of the rows that overfill it
+
+
+def phase_part_fold_checks(dev) -> dict:
+    """The counts' part lists and the partitioned fold (shard_part_fold,
+    shard_gather) against their plain versions on crafted shards of a
+    FOLD_PARTS-shard mesh (odd, so that the parts differ in size): v1's edge
+    stream cut in three, counted and folded, every replica the whole
+    stream's count; each replica's part folded again from scratch tables
+    whose unlisted and other-part slots hold keys of that part, unchanged;
+    then each of FOLD_CASES (tables of FOLD_CAP slots): OVERFLOW on every
+    replica, kernel and plain, and after a list dropped claims the next
+    count still empties every scratch slot, those no list names too; last,
+    v0's count on rows whose blocks claim more slots than their stage holds
+    (those claims listed one by one), lists and all."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
+    from youtokentome_tpu_torch.ops import train_delta as td
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    t0 = time.perf_counter()
+    n = FOLD_PARTS
+    _, t, wid, freq = stream_edge_streams(5, np.random.default_rng(8))[0]
+    uk, uc = td.host_count_table(t, wid, freq)
+    live = int((t >= 0).sum())
+    cuts = np.searchsorted(wid[:live], np.linspace(0, wid[live - 1] + 1, n + 1)[1:-1])
+    ks = [stream_shard_of(np.r_[t[a:b], -1], np.r_[wid[a:b], -1], freq, dev, 1 << 12)
+          for a, b in zip(np.r_[0, cuts], np.r_[cuts, live])]
+    ps = [clone_state(st) for st in ks]
+    for i, (a, b) in enumerate(zip(ks, ps)):
+        stream_count(a, False)
+        stream_count(b, True)
+        same_shard(a, b, f"fold checks: shard {i}'s count", buffers=False, stream=("t", "wid"))
+    counted = [clone_state(st) for st in ks]
+    part_fold_round(ks, ps, "fold checks, v1's edge stream in 3")
+    for i, st in enumerate(ks):
+        keys, cnts = st.table()
+        check(np.array_equal(keys, uk.astype(np.int64)) and np.array_equal(cnts, uc)
+              and not int(st.ctl[tk.OVERFLOW]), f"fold checks: replica {i} != the host count table")
+    for r in range(n):
+        clean = [clone_state(st) for st in counted]
+        dirty = [clone_state(st) for st in counted]
+        poison = pairs_of_part(n, r, 64, r)
+        for st in dirty:
+            keep = torch.zeros(st.cap, dtype=torch.bool, device=st.device)
+            keep[st.part_list(r)] = True
+            bad = torch.nonzero(~keep).flatten()
+            xy = torch.from_numpy(poison[np.arange(bad.numel()) % len(poison)]).to(st.device)
+            st.rkeys[bad] = (xy[:, 0] << 32) | xy[:, 1]
+            st.rcnts[bad] = 1000
+        for shards in (clean, dirty):
+            for st in shards:
+                st._links = None
+            dsk.shard_part_fold(shards[r], shards)
+        check(np.array_equal(dirty[r].table()[0], clean[r].table()[0])
+              and np.array_equal(dirty[r].table()[1], clean[r].table()[1])
+              and torch.equal(dirty[r].ctl, clean[r].ctl),
+              f"fold checks: replica {r}'s fold read a scratch slot no part-{r} list names")
+    cases = {}
+    for case in FOLD_CASES:
+        pairs = fold_case_pairs(case)
+        ks = [stream_shard_of(*pair_words(q), dev) for q in pairs]
+        ps = [clone_state(st) for st in ks]
+        for i, (a, b) in enumerate(zip(ks, ps)):
+            stream_count(a, False)
+            stream_count(b, True)
+            same_shard(a, b, f"fold checks, {case}: shard {i}'s count", buffers=False,
+                       stream=("t", "wid"))
+        rovf = [int(st.ctl[rsk.ROVF]) for st in ks]
+        pcnt0 = int(ks[0].pcnt[0])
+        for k in ("shard_part_fold", "shard_gather"):
+            for a, b in zip(ks, ps):
+                getattr(dsk, k)(a, ks)
+                getattr(dsk, k + "_plain")(b, ps)
+        ovf = [int(st.ctl[tk.OVERFLOW]) for st in ks]
+        check(ovf == [1] * n and [int(st.ctl[tk.OVERFLOW]) for st in ps] == [1] * n,
+              f"fold checks, {case}: OVERFLOW kernel {ovf}, plain "
+              f"{[int(st.ctl[tk.OVERFLOW]) for st in ps]}")
+        check((case == "scratch overflow") == bool(rovf[0]) and not any(rovf[1:]),
+              f"fold checks, {case}: ROVF {rovf}")
+        if case == "list drops claims":
+            st = ks[0]
+            check(pcnt0 == 30, f"fold checks, {case}: part 0's count {pcnt0}")
+            st.ctl[tk.OVERFLOW] = 0
+            st.rkeys[st.rkeys == tk.EMPTY] = 7  # slots no list names
+            stream_count(st, False)
+            fresh = stream_shard_of(*pair_words(pairs[0]), dev)
+            stream_count(fresh, True)
+            what = f"fold checks, {case}: the next count"
+            (ka, ca), (kb, cb) = scratch_table(st), scratch_table(fresh)
+            check(np.array_equal(ka, kb) and np.array_equal(ca, cb)
+                  and int(st.ctl[rsk.ROCC]) == int(fresh.ctl[rsk.ROCC]),
+                  f"{what}: != a fresh count (a slot that no list named was kept)")
+            same_lists(st, fresh, what)
+        cases[case] = {"rovf": rovf, "pcnt0": pcnt0}
+        log(f"[11] fold checks, {case}: kernels == plain, OVERFLOW on all {n} replicas (ROVF "
+            f"{rovf}, part 0's list count {pcnt0} of {dsk.part_lo(1, FOLD_CAP, n)} slots)")
+    # v0's listed count with more claims a block than its stage holds (v1's
+    # past its stage: the edge streams of phase_stream_count_checks)
+    rng = np.random.default_rng(9)
+    rows = rng.integers(5, 5 + ROW_STAGE_IDS, (4 * 256, 600)).astype(np.int32)
+    freq = rng.integers(0, 4, rows.shape[0]).astype(np.int32)  # a quarter of frequency 0
+    vocab = 5 + ROW_STAGE_IDS + 16
+    k_st = rsk.BucketedShardState([(rows, freq)], np.full((vocab, 4), -1, np.int32), vocab - 16,
+                                  1 << 21, dev, n)
+    p_st = clone_state(k_st)
+    rsk.bucket_shard_count(k_st, vocab, vocab)
+    rsk.bucket_shard_count_plain(p_st, vocab, vocab)
+    what = f"fold checks: v0's count of {rows.shape[0]} rows of {rows.shape[1]} random tokens"
+    same_shard(k_st, p_st, what, buffers=False)
+    rocc = int(k_st.ctl[rsk.ROCC])
+    check(rocc > 4 * ROW_STAGE and not int(k_st.ctl[rsk.ROVF]),
+          f"{what}: {rocc} claims over 4 blocks do not pass the stage's {ROW_STAGE} a block")
+    log(f"[11] {what}: bucket_shard_count == plain, {rocc} claims over 4 blocks of 256 rows "
+        f"(a block's stage holds {ROW_STAGE})")
+    log(f"[11] fold checks: v1's edge stream in {n} shards folded == the host count table, every "
+        f"replica's fold unchanged by poisoned unlisted slots; {len(FOLD_CASES)} overflow cases "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return cases
+
+
 def phase_other_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
     """Row 13: each kernel of the sharded v3, v1 and v0 trainers against its
     plain version on the 100 MB corpus's state split into 4 shards on the
@@ -5757,6 +6191,7 @@ def phase_other_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
     from youtokentome_tpu_torch.ops import train_stream as ts
 
     t0 = time.perf_counter()
+    phase_part_fold_checks(dev)
     t, wid, freq = ts.flatten_word_buckets(buckets)
     uk, uc = sp._host_table_tomb(np.asarray(t), np.asarray(wid), np.asarray(freq))
     for name in OTHER_TRAINERS:

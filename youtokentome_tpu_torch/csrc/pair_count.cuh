@@ -13,7 +13,8 @@
 //
 // The count has its own path (the applies and v5's and v4's counts keep
 // add_word and table_add; v3's counts walk the tombstoned stream with this
-// header's block table, tomb_count.cuh):
+// header's block table, tomb_count.cuh, and v1's its flat stream,
+// stream_count.cuh, whose sharded count also lists its claims by part):
 //  * the stream is walked flat, not a word a warp: a warp takes a
 //    contiguous run of 128-slot chunks, a lane 4 slots by one 16-byte load
 //    of the tokens and one of pwid; a pair's weight is fw[pwid].  Run parity
@@ -66,11 +67,20 @@ namespace yttm {
 constexpr int kCountThreads = 256;
 constexpr int kCountSlots = 2048;  // a block's shared table
 
+// What a count does with a global slot it claims beyond counting it: nothing
+// (the counts into a replica's own table), or list it by its key's part
+// (the sharded v1 and v0 counts: part_list.cuh, stream_count.cuh).
+struct NoList {
+  __device__ __forceinline__ void claim(unsigned, unsigned long long) const {}
+};
+
 // table_add in count mode from the first slot h & (cap - 1), but a claim is
-// returned (1), not counted in ctl[OCC]; a full probe sequence sets OVF.
-template <int OVF>
+// returned (1), not counted in ctl[OCC], and handed to `list`; a full probe
+// sequence sets OVF.
+template <int OVF, class List = NoList>
 __device__ int count_put(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
-                         unsigned long long key, int32_t delta, unsigned h) {
+                         unsigned long long key, int32_t delta, unsigned h,
+                         const List &list = List()) {
   const unsigned mask = (unsigned)cap - 1u;
   for (int p = 0; p < cap; ++p) {
     if ((p & 31) == 31 && __ldcg(ctl + OVF)) return 0;
@@ -80,6 +90,7 @@ __device__ int count_put(unsigned long long *keys, int32_t *cnts, int cap, int32
       k = atomicCAS(keys + s, kEmpty, key);
       if (k == kEmpty) {
         atomicAdd(cnts + s, delta);
+        list.claim(s, key);
         return 1;
       }
     }
@@ -158,11 +169,13 @@ __device__ __forceinline__ void block_table_open(BlockTable &bt) {
 // A lane's counted pairs of a chunk (key kEmpty: none; f their weights), each
 // into its key's home slot of the block's table when that is free or holds
 // its key (one shared atomic), the others into the global table with their
-// first probes loaded together.  Returns the global slots claimed.
-template <int OVF>
+// first probes loaded together.  Returns the global slots claimed (each
+// handed to `list`).
+template <int OVF, class List = NoList>
 __device__ __forceinline__ int block_table_put(BlockTable &bt, unsigned long long (&key)[4],
                                                const int32_t (&f)[4], unsigned long long *keys,
-                                               int32_t *cnts, int cap, int32_t *ctl) {
+                                               int32_t *cnts, int cap, int32_t *ctl,
+                                               const List &list = List()) {
   volatile unsigned long long *vkey = bt.key;
   const unsigned mask = (unsigned)cap - 1u;
   unsigned h[4];
@@ -186,22 +199,25 @@ __device__ __forceinline__ int block_table_put(BlockTable &bt, unsigned long lon
   for (int j = 0; j < 4; ++j) {
     if (key[j] == kEmpty) continue;
     if (first[j] == key[j]) atomicAdd(cnts + (h[j] & mask), f[j]);
-    else claims += count_put<OVF>(keys, cnts, cap, ctl, key[j], f[j], h[j]);
+    else claims += count_put<OVF>(keys, cnts, cap, ctl, key[j], f[j], h[j], list);
   }
   return claims;
 }
 
 // The block's end (all threads): each live slot of its table added to the
 // global table once, and the block's claims (the lanes' `claims` with the
-// flush's) added to ctl[OCC] once, OVF set past half the slots.
-template <int OCC, int OVF>
+// flush's) added to ctl[OCC] once, OVF set past half the slots.  Every claim
+// of the block was handed to `list` before its last barrier.
+template <int OCC, int OVF, class List = NoList>
 __device__ __forceinline__ void block_table_close(BlockTable &bt, int claims,
                                                   unsigned long long *keys, int32_t *cnts,
-                                                  int cap, int32_t *ctl) {
+                                                  int cap, int32_t *ctl,
+                                                  const List &list = List()) {
   __syncthreads();
   for (int s = threadIdx.x; s < kCountSlots; s += blockDim.x) {
     const unsigned long long k = bt.key[s];
-    if (k != kEmpty) claims += count_put<OVF>(keys, cnts, cap, ctl, k, bt.cnt[s], (unsigned)hash64(k));
+    if (k != kEmpty)
+      claims += count_put<OVF>(keys, cnts, cap, ctl, k, bt.cnt[s], (unsigned)hash64(k), list);
   }
   claims = __reduce_add_sync(kFullMask, claims);
   if ((threadIdx.x & 31) == 0 && claims) atomicAdd(&bt.claimed, claims);

@@ -1,15 +1,15 @@
 // The exchange of the sharded trainers (train_delta_sharded.cu for v2,
 // train_sparse_sharded.cu for v3; the v1 and v0 engines fold through
-// shard_part_fold and shard_gather): the ctl slots that a shard's kernels
-// and the other shards' folds read, the work counters, the parts of the
-// partitioned fold, and the warp-aggregated append to a shard's delta
-// buffer.
+// shard_part_fold and shard_gather, on part_list.cuh's parts): the ctl
+// slots that a shard's kernels and the other shards' folds read, the work
+// counters, and the warp-aggregated append to a shard's delta buffer.
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "part_list.cuh"
 #include "train_common.cuh"
 
 namespace yttm {
@@ -24,21 +24,6 @@ static_assert(ROCC == kShardRocc && ROVF == kShardRovf, "the shard counts' scrat
 // work (int64): the bytes each kernel must move, summed over the rounds
 // (W_RELAY, which the host adds, then W_ENTRIES: the buffer entries written)
 enum ShardWork { W_EMIT = W_OWN, W_COUNT, W_FOLD, W_RELAY, W_ENTRIES };
-
-// The partitioned fold's parts: part p of a replica holds the slots
-// [part_lo(p), part_lo(p + 1)) and the keys with key_part(key) == p.
-__device__ __forceinline__ long long part_lo(int p, int cap, int n) {
-  return (long long)p * cap / n;
-}
-
-// The part of a key among n: a multiplicative mix of its two ids, every
-// product below 2^63 (the plain version computes it in int64).
-__device__ __forceinline__ int key_part(unsigned long long key, int n) {
-  const unsigned long long m32 = 0xFFFFFFFFull;
-  unsigned long long h = (((key >> 32) * 0x9E3779B1ull) & m32) ^ (((key & m32) * 0x85EBCA77ull) & m32);
-  h = ((h ^ (h >> 15)) * 0x2C1B3C6Dull) & m32;
-  return (int)((h * (unsigned long long)n) >> 32);
-}
 
 __device__ __forceinline__ bool any_flag(const int32_t *const *ctls, int n, int slot) {
   bool any = false;

@@ -41,9 +41,14 @@
 // The sharded v0 engine (ops/recount_sharded_kernels.py, replacing
 // youtokentome_tpu/parallel/train_sharded.py:38 _train_rounds_sharded) runs
 // the same count on each shard's rows into the shard's scratch table
-// (bucket_shard_count: its occupancy and overflow in ctl's scratch slots);
-// train_delta_sharded.cu's shard_fold rebuilds every replica of the table
-// from the N scratch tables, the top-k (k = 1) runs on every replica and
+// (bucket_shard_count: its occupancy and overflow in ctl's scratch slots).
+// Its insert also lists every slot it claims in its key's part
+// (part_list.cuh: a claim staged in the block's shared memory, the block's
+// entries reserved once a part at its end); that is all the partitioned
+// fold asks of it, and the thread-a-row walk and the global atomics on the
+// table stay.  train_delta_sharded.cu's shard_part_fold rebuilds each
+// replica's own part from the N shards' lists of that part and shard_gather
+// copies the other parts in; the top-k (k = 1) runs on every replica and
 // bucket_apply on every shard.
 //
 // Every kernel does nothing once `done` or `overflow` is set or `used`
@@ -64,6 +69,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "pair_count.cuh"
+#include "part_list.cuh"
 #include "train_common.cuh"
 
 namespace {
@@ -71,22 +78,37 @@ namespace {
 using namespace yttm;
 
 enum { W_WRITES = W_OWN };
+constexpr int kRowStage = 2048;  // claims a block of the sharded count stages
 
 // OCC_ and OVF_: the table's occupancy and overflow slots (the state's own
 // table; a shard's scratch table in the sharded engine, whose overflow flag
-// is cleared with it)
-template <int OCC_, int OVF_>
+// and part lists are cleared with it)
+template <int OCC_, int OVF_, bool kLists>
 __global__ void __launch_bounds__(256)
-    clear_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl, int limit,
-                 int vocab) {
+    clear_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl, PartLists pl,
+                 int limit, int vocab) {
   if (!round_active(ctl, limit, vocab)) return;
   for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < cap; s += gridDim.x * blockDim.x) {
     keys[s] = kEmpty;
     cnts[s] = 0;
   }
+  if constexpr (kLists) part_lists_reset(pl);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     ctl[OCC_] = 0;
     if (OVF_ != OVERFLOW) ctl[OVF_] = 0;
+  }
+}
+
+// table_add in count mode with every claimed slot handed to `list` (NoList
+// for the state's own table, the block's BlockList for the sharded count):
+// count_put's probe, the claim counted in ctl[OCC_] at once.
+template <int OCC_, int OVF_, class List>
+__device__ __forceinline__ void listed_add(unsigned long long *keys, int32_t *cnts, int cap,
+                                           int32_t *ctl, unsigned long long key, int32_t delta,
+                                           const List &list) {
+  if (count_put<OVF_>(keys, cnts, cap, ctl, key, delta, (unsigned)hash64(key), list)) {
+    const int occ = atomicAdd(ctl + OCC_, 1) + 1;
+    if (2ll * occ > (long long)cap) atomicExch(ctl + OVF_, 1);
   }
 }
 
@@ -94,13 +116,12 @@ __global__ void __launch_bounds__(256)
 // would leave most lanes idle and each row's chain of loads and probes
 // exposed; a thread walks its row keeping the run of equal pairs
 // (for_word_pairs' parity: in a run of equal pairs every other one counts,
-// from its first).
-template <int OCC_, int OVF_>
-__global__ void __launch_bounds__(256)
-    count_rows_kernel(const int32_t *tok, const int32_t *roff, const int32_t *rfreq, int R,
-                      unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl, int limit,
-                      int vocab) {
-  if (!block_active(ctl, limit, vocab)) return;
+// from its first).  The sharded count's claims go to `list`.
+template <int OCC_, int OVF_, class List>
+__device__ __forceinline__ void count_rows(const int32_t *tok, const int32_t *roff,
+                                           const int32_t *rfreq, int R, unsigned long long *keys,
+                                           int32_t *cnts, int cap, int32_t *ctl,
+                                           const List &list) {
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R; r += gridDim.x * blockDim.x) {
     const int32_t f = rfreq[r];
     if (f == 0) continue;  // a padding row: no pairs
@@ -113,10 +134,32 @@ __global__ void __launch_bounds__(256)
       const bool pairv = a >= 0 && b >= 0;
       const bool eq = pairv && a == b;
       if (pairv && (!eq || (run & 1) == 0))
-        table_add<OCC_, OVF_, ERROR>(keys, cnts, cap, ctl, pair_key(a, b), f, kCount);
+        listed_add<OCC_, OVF_>(keys, cnts, cap, ctl, pair_key(a, b), f, list);
       run = eq ? run + 1 : 0;
       a = b;
     }
+  }
+}
+
+// The count (all rows into the table); with kLists every claimed slot is
+// listed in pl through the block's stage, built here in the kernel
+// (stream_count.cuh says why).
+template <int OCC_, int OVF_, bool kLists>
+__global__ void __launch_bounds__(256)
+    count_rows_kernel(const int32_t *tok, const int32_t *roff, const int32_t *rfreq, int R,
+                      unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
+                      PartLists pl, int limit, int vocab) {
+  if (!block_active(ctl, limit, vocab)) return;
+  if constexpr (kLists) {
+    __shared__ ListStage<kRowStage> stage;
+    const BlockList<kRowStage, 256> list{pl, &stage};
+    list.open();
+    __syncthreads();
+    count_rows<OCC_, OVF_>(tok, roff, rfreq, R, keys, cnts, cap, ctl, list);
+    __syncthreads();
+    list.close(keys);
+  } else {
+    count_rows<OCC_, OVF_>(tok, roff, rfreq, R, keys, cnts, cap, ctl, NoList{});
   }
 }
 
@@ -181,18 +224,18 @@ __global__ void __launch_bounds__(256)
     atomicAdd((unsigned long long *)work + W_WRITES, (unsigned long long)writes);
 }
 
-template <int OCC_, int OVF_>
+template <int OCC_, int OVF_, bool kLists>
 int count(const void *tok, const void *roff, const void *rfreq, int R, void *keys, void *cnts,
-          int cap, void *ctl, int limit, int vocab, void *stream) {
+          int cap, void *ctl, const PartLists &pl, int limit, int vocab, void *stream) {
   if (R <= 0 || cap <= 0 || (cap & (cap - 1)) != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  clear_kernel<OCC_, OVF_><<<grid_for(cap, 256), 256, 0, s>>>(
-      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, limit, vocab);
+  clear_kernel<OCC_, OVF_, kLists><<<grid_for(cap, 256), 256, 0, s>>>(
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, pl, limit, vocab);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  count_rows_kernel<OCC_, OVF_><<<grid_for(R, 256), 256, 0, s>>>(
+  count_rows_kernel<OCC_, OVF_, kLists><<<grid_for(R, 256), 256, 0, s>>>(
       (const int32_t *)tok, (const int32_t *)roff, (const int32_t *)rfreq, R,
-      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, limit, vocab);
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, pl, limit, vocab);
   return (int)cudaGetLastError();
 }
 
@@ -203,17 +246,22 @@ extern "C" {
 // One round's count: the table emptied, every row's pairs counted into it.
 int yttm_bucket_count(const void *tok, const void *roff, const void *rfreq, int R, void *keys,
                       void *cnts, int cap, void *ctl, int limit, int vocab, void *stream) {
-  return count<OCC, OVERFLOW>(tok, roff, rfreq, R, keys, cnts, cap, ctl, limit, vocab, stream);
+  return count<OCC, OVERFLOW, false>(tok, roff, rfreq, R, keys, cnts, cap, ctl,
+                                     PartLists{nullptr, nullptr, 0, cap}, limit, vocab, stream);
 }
 
 // The sharded v0 engine's count of one shard's rows into its scratch table
-// (rkeys, rcnts), the occupancy and overflow in ctl's scratch slots;
-// shard_fold then rebuilds every replica.
+// (rkeys, rcnts), the occupancy and overflow in ctl's scratch slots, every
+// claimed slot listed in its key's part among n_parts (plist [cap], pcnt
+// [n_parts]); shard_part_fold then rebuilds every replica.
 int yttm_bucket_shard_count(const void *tok, const void *roff, const void *rfreq, int R,
-                            void *rkeys, void *rcnts, int cap, void *ctl, int limit, int vocab,
-                            void *stream) {
-  return count<kShardRocc, kShardRovf>(tok, roff, rfreq, R, rkeys, rcnts, cap, ctl, limit, vocab,
-                                       stream);
+                            void *rkeys, void *rcnts, int cap, void *ctl, void *plist, void *pcnt,
+                            int n_parts, int limit, int vocab, void *stream) {
+  if (n_parts <= 0 || n_parts > kMaxParts || cap < n_parts || !plist || !pcnt)
+    return (int)cudaErrorInvalidValue;
+  return count<kShardRocc, kShardRovf, true>(
+      tok, roff, rfreq, R, rkeys, rcnts, cap, ctl,
+      PartLists{(int32_t *)plist, (int32_t *)pcnt, n_parts, cap}, limit, vocab, stream);
 }
 
 // One round's apply: the pair merged in every row, the rows front-packed.

@@ -54,16 +54,24 @@
 //   shard_part_fold, shard_gather
 //                  the fold of the engines that recount every round (v1 and
 //                  v0, recount_sharded_kernels.py), a reduce-scatter and an
-//                  all-gather: a replica's table is cut into N parts (part p
-//                  the slots [p*cap/N, (p+1)*cap/N), the keys with
-//                  key_part == p, probed inside the part).  shard_part_fold
-//                  on replica r empties its part r and adds every shard's
-//                  scratch entries of part r into it, so each entry is
-//                  inserted once over all replicas (the recount branch
-//                  above inserts N-1 tables on every replica); once every
-//                  replica has, shard_gather copies every other part p from
-//                  replica p and sums the parts' counts into OCC (more than
-//                  half the table, or a full part, sets OVERFLOW).
+//                  all-gather: a replica's table is cut into N parts
+//                  (part_list.cuh: part p the slots [p*cap/N, (p+1)*cap/N),
+//                  the keys with key_part == p, probed inside the part).
+//                  Each shard's count lists the scratch slots it claimed by
+//                  their keys' parts.  shard_part_fold on replica r empties
+//                  its part r and adds the entries of every shard's part-r
+//                  list into it: each entry is read and inserted once over
+//                  all replicas, and no replica reads an empty or
+//                  other-part scratch slot (the old fold walked all N
+//                  scratch tables on every replica, N^2 x cap slots a
+//                  round: 145 us a replica-round against a bound of 1.2 on
+//                  the 100 MB sharded v1 run, H100 80GB HBM3, 700 W).  A
+//                  list that dropped claims (more keys of the part than the
+//                  part has slots) marks the part full, which skips its
+//                  fold.  Once every replica has folded, shard_gather
+//                  copies every other part p from replica p and sums the
+//                  parts' counts into OCC (more than half the table, or a
+//                  full part, sets OVERFLOW).
 //   shard_relay    a plan and a scatter (relay.cuh's flat walks of the
 //                  stream and scan.cuh, the one-device v2 engine's too) that
 //                  lay a shard's stream out again over its live tokens: words
@@ -621,10 +629,20 @@ __device__ int part_add(unsigned long long *keys, int32_t *cnts, long long lo, i
   return 0;
 }
 
-// Empties the replica's own part and opens the round's count of it.
+// Some shard's list of part `self` dropped claims: the part is full.
+__device__ __forceinline__ bool part_lost(const int32_t *const *pcnts, int n_sh, int self,
+                                          long long size) {
+  bool lost = false;
+  for (int s = 0; s < n_sh; ++s) lost |= __ldcg(pcnts[s] + self) > size;
+  return lost;
+}
+
+// Empties the replica's own part and opens the round's count of it (POCC
+// past the part's size when a list dropped claims).
 __global__ void __launch_bounds__(256)
     part_prep_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
-                     const int32_t *const *ctls, int n_sh, int self, long long *work) {
+                     const int32_t *const *ctls, const int32_t *const *pcnts, int n_sh, int self,
+                     long long *work) {
   const long long lo = part_lo(self, cap, n_sh), hi = part_lo(self + 1, cap, n_sh);
   for (long long s = lo + blockIdx.x * blockDim.x + threadIdx.x; s < hi;
        s += (long long)gridDim.x * blockDim.x) {
@@ -632,32 +650,36 @@ __global__ void __launch_bounds__(256)
     cnts[s] = 0;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    ctl[POCC] = 0;
+    ctl[POCC] = part_lost(pcnts, n_sh, self, hi - lo) ? (int32_t)(hi - lo + 1) : 0;
     ctl[NREC] += 1;
     if (any_flag(ctls, n_sh, ROVF)) ctl[OVERFLOW] = 1;
     work[W_FOLD] += 12ll * ctl[ROCC];  // the shard's live pairs, read once
   }
 }
 
-// Every shard's scratch entries of the replica's part, added into it; the
-// claims are summed a warp at a time into POCC (an atomic on one address
-// for every claim would serialise them).
+// The entries of every shard's list of the replica's part, added into it
+// (nothing when a list dropped claims: the part is full); the claims are
+// summed a warp at a time into POCC (an atomic on one address for every
+// claim would serialise them).
 __global__ void __launch_bounds__(256)
     part_fold_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
                      const unsigned long long *const *rkeys, const int32_t *const *rcnts,
-                     int n_sh, int self) {
+                     const int32_t *const *plists, const int32_t *const *pcnts, int n_sh,
+                     int self) {
   const long long lo = part_lo(self, cap, n_sh);
   const int size = (int)(part_lo(self + 1, cap, n_sh) - lo);
+  if (part_lost(pcnts, n_sh, self, size)) return;
   const long long stride = (long long)gridDim.x * blockDim.x;
   int claims = 0;
   for (int s = 0; s < n_sh; ++s) {
     const unsigned long long *rk = rkeys[s];
     const int32_t *rc = rcnts[s];
-    for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < cap; j += stride) {
-      const unsigned long long k = rk[j];
-      if (k == kEmpty || key_part(k, n_sh) != self) continue;
-      const int32_t c = rc[j];
-      if (c > 0) claims += part_add(keys, cnts, lo, size, ctl, k, c);
+    const int32_t *list = plists[s] + lo;
+    const int m = __ldcg(pcnts[s] + self);
+    for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < m; j += stride) {
+      const int32_t slot = list[j];
+      const int32_t c = rc[slot];
+      if (c > 0) claims += part_add(keys, cnts, lo, size, ctl, rk[slot], c);
     }
   }
   claims = __reduce_add_sync(0xFFFFFFFFu, claims);
@@ -841,23 +863,29 @@ int yttm_shard_graph_launch(void *graph, int n, void *stream) {
 }
 
 // The partitioned fold's first half on the replica of shard `self` (the
-// engines that recount every round): its part emptied, then every shard's
-// scratch entries of that part added.  rkeys, rcnts: device arrays of the
-// n_sh scratch tables.  shard_gather follows once every replica ran this.
+// engines that recount every round): its part emptied, then the entries of
+// every shard's list of that part added.  rkeys, rcnts, plists, pcnts:
+// device arrays of the n_sh scratch tables and their part lists
+// (part_list.cuh), as the shards' counts left them.  shard_gather follows
+// once every replica ran this.
 int yttm_shard_part_fold(void *keys, void *cnts, int cap, void *ctl, const void *ctls,
-                         const void *rkeys, const void *rcnts, int n_sh, int self, void *work,
-                         void *stream) {
-  if (cap < n_sh || (cap & (cap - 1)) != 0 || n_sh <= 0 || self < 0 || self >= n_sh)
+                         const void *rkeys, const void *rcnts, const void *plists,
+                         const void *pcnts, int n_sh, int self, void *work, void *stream) {
+  if (cap < n_sh || (cap & (cap - 1)) != 0 || n_sh <= 0 || n_sh > kMaxParts || self < 0 ||
+      self >= n_sh)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  part_prep_kernel<<<grid_for(cap / n_sh + 1, 256), 256, 0, s>>>(
-      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl,
-      (const int32_t *const *)ctls, n_sh, self, (long long *)work);
+  const int blocks = grid_for(cap / n_sh + 1, 256);
+  part_prep_kernel<<<blocks, 256, 0, s>>>((unsigned long long *)keys, (int32_t *)cnts, cap,
+                                          (int32_t *)ctl, (const int32_t *const *)ctls,
+                                          (const int32_t *const *)pcnts, n_sh, self,
+                                          (long long *)work);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  part_fold_kernel<<<grid_for(cap, 256), 256, 0, s>>>(
+  part_fold_kernel<<<blocks, 256, 0, s>>>(
       (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl,
-      (const unsigned long long *const *)rkeys, (const int32_t *const *)rcnts, n_sh, self);
+      (const unsigned long long *const *)rkeys, (const int32_t *const *)rcnts,
+      (const int32_t *const *)plists, (const int32_t *const *)pcnts, n_sh, self);
   return (int)cudaGetLastError();
 }
 

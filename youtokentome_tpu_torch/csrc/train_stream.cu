@@ -1,5 +1,6 @@
-// The v1 stream trainer's merge round, on Hopper: two kernels here and the
-// shared top-k of train_topk.cu.
+// The v1 stream trainer's merge round, on Hopper: its count (a clear here,
+// then stream_count.cuh's flat count), its apply here, and the shared top-k
+// of train_topk.cu.
 //
 // Replaces the JAX device program
 //   youtokentome_tpu/ops/train_stream.py:251 train_rounds_resumable
@@ -14,8 +15,9 @@
 //                      front-compacted (t[0, live)), PAD (-1) after them; a
 //                      word is a run of one word id
 //   tmp_t, tmp_w [M]   the merged stream before its compaction
-//   tiles [2 * T]      per tile of 8192 positions: a max (of the scans'
-//                      positions) and a count (of the kept positions)
+//   tiles [2 * T]      the apply's scratch, per tile of 8192 positions: a
+//                      max (of the scans' positions) and a count (of the
+//                      kept positions)
 //   keys [cap] u64, cnts [cap] int32
 //                      open-addressing pair-count table, key x << 32 | y,
 //                      emptied and counted again every round
@@ -26,13 +28,14 @@
 //                      rounds (summed over the rounds)
 //
 // Kernels:
-//   recount        clear: every slot emptied (and live <- next live); eq
-//                  tiles: each tile's last position that does not start an
-//                  equal pair; count: each block takes the carry from the
-//                  earlier tiles, a block max-scan gives every position the
-//                  last non-equal position before it, and the counted pairs
-//                  (run parity) go into the table.  A run of equal tokens
-//                  may span any number of tiles.
+//   recount        clear: every slot emptied (and live <- next live);
+//                  count: stream_count.cuh's flat walk of the live prefix,
+//                  a warp a run of 128-slot chunks (16-byte loads of t and
+//                  wid), run parity from a warp max scan carried from chunk
+//                  to chunk (a run of equal tokens may span any number of
+//                  chunks, warps and blocks), each block counting into a
+//                  table of its own in shared memory, flushed once a key a
+//                  block, its claims counted once a block
 //   topk_accept    (train_topk.cu) the top 16 in the reference order and
 //                  accept_prefix; writes cand, rules, ctl, work
 //   apply_compact  hit tiles: each tile's last position without a hit;
@@ -45,10 +48,13 @@
 // The sharded v1 engine (ops/recount_sharded_kernels.py, replacing
 // youtokentome_tpu/parallel/train_stream_sharded.py:42 _train_sharded) runs
 // the same count on each shard into the shard's scratch table
-// (stream_shard_count: its occupancy and overflow in ctl's scratch slots);
-// train_delta_sharded.cu's shard_fold rebuilds every replica of the table
-// from the N scratch tables, the top-k runs on every replica and
-// apply_compact on every shard.
+// (stream_shard_count: its occupancy and overflow in ctl's scratch slots),
+// with every claimed slot listed by its key's part (part_list.cuh, staged a
+// block).
+// train_delta_sharded.cu's shard_part_fold rebuilds each replica's own part
+// from the N shards' lists of that part and shard_gather copies the other
+// parts in; the top-k runs on every replica and apply_compact on every
+// shard.
 //
 // Every kernel does nothing once `done` or `overflow` is set or `used`
 // reached min(vocab, limit), so the host enqueues rounds in batches.  A count
@@ -61,13 +67,16 @@
 // three times in the apply (t, wid) and writes it twice (tmp, then the
 // compacted stream).  What the design does about it:
 // no sort (the JAX program sorts the stream twice a round), every pass
-// coalesced over the live prefix only; the recount of every pair every round
-// is v1's own rule.
+// coalesced over the live prefix only, the count one pass with its
+// same-key updates summed in shared memory; the recount of every pair every
+// round is v1's own rule.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "encode_common.cuh"
+#include "part_list.cuh"
+#include "stream_count.cuh"
 #include "train_common.cuh"
 
 namespace {
@@ -109,81 +118,23 @@ __device__ __forceinline__ bool pair_at(const int32_t *wid, int i, int n) {
 
 // -- recount -------------------------------------------------------------------
 
-// OCC_ and OVF_: the table's occupancy and overflow slots (the state's own
-// table; a shard's scratch table in the sharded engine, whose overflow flag
-// is cleared with it)
-template <int OCC_, int OVF_>
+// The clear before a count.  OCC_ and OVF_: the table's occupancy and
+// overflow slots (the state's own table; a shard's scratch table in the
+// sharded engine, whose overflow flag and part lists are cleared with it).
+template <int OCC_, int OVF_, bool kLists>
 __global__ void __launch_bounds__(256)
-    clear_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl, int limit,
-                 int vocab) {
+    clear_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl, PartLists pl,
+                 int limit, int vocab) {
   if (blockIdx.x == 0 && threadIdx.x == 0) ctl[LIVE] = ctl[NEXT_LIVE];
   if (!round_active(ctl, limit, vocab)) return;
   for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < cap; s += gridDim.x * blockDim.x) {
     keys[s] = kEmpty;
     cnts[s] = 0;
   }
+  if constexpr (kLists) part_lists_reset(pl);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     ctl[OCC_] = 0;
     if (OVF_ != OVERFLOW) ctl[OVF_] = 0;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    eq_tiles_kernel(const int32_t *t, const int32_t *wid, const int32_t *ctl, int32_t *tiles,
-                    int limit, int vocab) {
-  __shared__ int32_t wbuf[kThreads / 32];
-  if (!round_active(ctl, limit, vocab)) return;
-  const int n = ctl[LIVE];
-  const int base = blockIdx.x * kTile;
-  if (base >= n) return;
-  int32_t m = -1;
-  const int i0 = base + threadIdx.x * kItems;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = i0 + k;
-    if (i < n && !(pair_at(wid, i, n) && t[i] == t[i + 1])) m = i;
-  }
-  m = block_reduce(m, -1, wbuf, MaxOp());
-  if (threadIdx.x == 0) tiles[blockIdx.x] = m;
-}
-
-template <int OCC_, int OVF_>
-__global__ void __launch_bounds__(kThreads)
-    count_tiles_kernel(const int32_t *t, const int32_t *wid, const int32_t *freq,
-                       const int32_t *tiles, unsigned long long *keys, int32_t *cnts, int cap,
-                       int32_t *ctl, int limit, int vocab) {
-  __shared__ int32_t wbuf[kThreads / 32];
-  if (!block_active(ctl, limit, vocab)) return;
-  const int n = ctl[LIVE];
-  const int base = blockIdx.x * kTile;
-  if (base >= n) return;
-  const int32_t carry = tile_carry(tiles, blockIdx.x, -1, wbuf, MaxOp());
-  const int i0 = base + threadIdx.x * kItems;
-  int32_t a[kItems + 1];
-  bool pv[kItems];
-  int32_t m = -1;
-#pragma unroll
-  for (int k = 0; k <= kItems; ++k) a[k] = i0 + k < n ? t[i0 + k] : kPad;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    pv[k] = pair_at(wid, i0 + k, n);
-    if (i0 + k < n && !(pv[k] && a[k] == a[k + 1])) m = i0 + k;
-  }
-  int32_t total;
-  int32_t run = block_exclusive_scan(m, -1, wbuf, &total, MaxOp());
-  run = run > carry ? run : carry;  // the last non-equal position before i0
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = i0 + k;
-    if (i >= n) break;
-    const bool eq = pv[k] && a[k] == a[k + 1];
-    if (!eq) run = i;
-    if (pv[k] && (!eq || ((i - run - 1) & 1) == 0)) {
-      const int32_t f = freq[wid[i]];
-      if (f > 0)
-        table_add<OCC_, OVF_, ERROR>(keys, cnts, cap, ctl, pair_key(a[k], a[k + 1]), f,
-                                         kCount);
-    }
   }
 }
 
@@ -305,46 +256,53 @@ __global__ void __launch_bounds__(kThreads)
 
 inline int n_tiles(int M) { return (M + kTile - 1) / kTile; }
 
-template <int OCC_, int OVF_>
+template <int OCC_, int OVF_, bool kLists>
 int recount(const void *t, const void *wid, const void *freq, int M, void *keys, void *cnts,
-            int cap, void *ctl, void *tiles, int limit, int vocab, void *stream) {
-  if (M <= 0 || cap <= 0 || (cap & (cap - 1)) != 0) return (int)cudaErrorInvalidValue;
+            int cap, void *ctl, const PartLists &pl, int limit, int vocab, int max_blocks,
+            void *stream) {
+  if (M <= 0 || cap <= 0 || (cap & (cap - 1)) != 0 || ((uintptr_t)t & 15u) ||
+      ((uintptr_t)wid & 15u))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  clear_kernel<OCC_, OVF_><<<grid_for(cap, 256), 256, 0, s>>>(
-      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, limit, vocab);
+  clear_kernel<OCC_, OVF_, kLists><<<grid_for(cap, 256), 256, 0, s>>>(
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, pl, limit, vocab);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  eq_tiles_kernel<<<n_tiles(M), kThreads, 0, s>>>((const int32_t *)t, (const int32_t *)wid,
-                                                  (const int32_t *)ctl, (int32_t *)tiles, limit,
-                                                  vocab);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  count_tiles_kernel<OCC_, OVF_><<<n_tiles(M), kThreads, 0, s>>>(
-      (const int32_t *)t, (const int32_t *)wid, (const int32_t *)freq, (const int32_t *)tiles,
-      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, limit, vocab);
-  return (int)cudaGetLastError();
+  return (int)launch_stream_count<OCC_, OVF_, LIVE, kLists>(
+      (const int32_t *)t, (const int32_t *)wid, (const int32_t *)freq, M,
+      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, pl, limit, vocab,
+      max_blocks, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// One round's count: the table emptied, every live pair counted into it.
-// tiles holds 2 * ceil(M / 8192) int32 of scratch.
+// One round's count: the table emptied, every live pair counted into it
+// (t and wid 16-byte aligned; at most max_blocks blocks when > 0, else one
+// wave).
 int yttm_stream_recount(const void *t, const void *wid, const void *freq, int M, void *keys,
-                        void *cnts, int cap, void *ctl, void *tiles, int limit, int vocab,
+                        void *cnts, int cap, void *ctl, int limit, int vocab, int max_blocks,
                         void *stream) {
-  return recount<OCC, OVERFLOW>(t, wid, freq, M, keys, cnts, cap, ctl, tiles, limit, vocab,
-                                stream);
+  return recount<OCC, OVERFLOW, false>(t, wid, freq, M, keys, cnts, cap, ctl,
+                                       PartLists{nullptr, nullptr, 0, cap}, limit, vocab,
+                                       max_blocks, stream);
 }
 
 // The sharded v1 engine's count of one shard: its scratch table (rkeys,
 // rcnts) emptied and its live pairs counted into it, the occupancy and
-// overflow in ctl's scratch slots; shard_fold then rebuilds every replica.
+// overflow in ctl's scratch slots, every claimed slot listed in its key's
+// part among n_parts (plist [cap], pcnt [n_parts]); shard_part_fold then
+// rebuilds every replica.
 int yttm_stream_shard_count(const void *t, const void *wid, const void *freq, int M,
-                            void *rkeys, void *rcnts, int cap, void *ctl, void *tiles, int limit,
-                            int vocab, void *stream) {
-  return recount<kShardRocc, kShardRovf>(t, wid, freq, M, rkeys, rcnts, cap, ctl, tiles, limit,
-                                         vocab, stream);
+                            void *rkeys, void *rcnts, int cap, void *ctl, void *plist, void *pcnt,
+                            int n_parts, int limit, int vocab, int max_blocks, void *stream) {
+  if (n_parts <= 0 || n_parts > kMaxParts || cap < n_parts || !plist || !pcnt)
+    return (int)cudaErrorInvalidValue;
+  return recount<kShardRocc, kShardRovf, true>(
+      t, wid, freq, M, rkeys, rcnts, cap, ctl,
+      PartLists{(int32_t *)plist, (int32_t *)pcnt, n_parts, cap}, limit, vocab, max_blocks,
+      stream);
 }
 
 // One round's merge of the accepted candidates and the stream's compaction.

@@ -168,10 +168,12 @@ def load_tiered() -> ctypes.CDLL:
 def load_stream_train() -> ctypes.CDLL:
     """Build (if needed) and load the v1 stream trainer's kernels."""
     return _load("train_stream.cu", "libtrain_stream.so", {
-        # t, wid, freq, M, keys, cnts, cap, ctl, tiles, limit, vocab, stream
-        "yttm_stream_recount": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p, _i, _i, _p]),
-        # t, wid, freq, M, rkeys, rcnts, cap, ctl, tiles, limit, vocab, stream
-        "yttm_stream_shard_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p, _i, _i, _p]),
+        # t, wid, freq, M, keys, cnts, cap, ctl, limit, vocab, max_blocks, stream
+        "yttm_stream_recount": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _i, _i, _i, _p]),
+        # t, wid, freq, M, rkeys, rcnts, cap, ctl, plist, pcnt, n_parts, limit,
+        # vocab, max_blocks, stream
+        "yttm_stream_shard_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p, _p, _i, _i, _i, _i,
+                                         _p]),
         # t, wid, M, tmp_t, tmp_w, tiles, ctl, cand, work, stream
         "yttm_stream_apply": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p]),
     })
@@ -204,8 +206,9 @@ def load_bucketed() -> ctypes.CDLL:
     return _load("train_bucketed.cu", "libtrain_bucketed.so", {
         # tok, roff, rfreq, R, keys, cnts, cap, ctl, limit, vocab, stream
         "yttm_bucket_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _i, _i, _p]),
-        # tok, roff, rfreq, R, rkeys, rcnts, cap, ctl, limit, vocab, stream
-        "yttm_bucket_shard_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _i, _i, _p]),
+        # tok, roff, rfreq, R, rkeys, rcnts, cap, ctl, plist, pcnt, n_parts,
+        # limit, vocab, stream
+        "yttm_bucket_shard_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p, _p, _i, _i, _i, _p]),
         # tok, roff, R, ctl, cand, work, stream
         "yttm_bucket_apply": (_i, [_p, _p, _i, _p, _p, _p, _p]),
     })
@@ -229,8 +232,9 @@ def load_sharded() -> ctypes.CDLL:
         # graph, n, stream
         "yttm_shard_graph_launch": (_i, [_p, _i, _p]),
         "yttm_shard_graph_free": (_i, [_p]),
-        # keys, cnts, cap, ctl, ctls, rkeys, rcnts, n_sh, self, work, stream
-        "yttm_shard_part_fold": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _i, _p, _p]),
+        # keys, cnts, cap, ctl, ctls, rkeys, rcnts, plists, pcnts, n_sh, self,
+        # work, stream
+        "yttm_shard_part_fold": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _i, _i, _p, _p]),
         # keys, cnts, cap, ctl, ctls, pkeys, pcnts, n_sh, self, stream
         "yttm_shard_gather": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _i, _p]),
         "yttm_shard_relay_scratch": (_l, [_i]),

@@ -256,13 +256,14 @@ def fold_rebuild_plain(reps, shards):
 
 
 def part_lo(p: int, cap: int, n: int) -> int:
-    """The first slot of part ``p`` of a table of ``cap`` slots cut in ``n``."""
+    """The first slot of part ``p`` of a table of ``cap`` slots cut in ``n``
+    (csrc/part_list.cuh)."""
     return p * cap // n
 
 
 def key_part(keys: torch.Tensor, n: int) -> torch.Tensor:
-    """The part of each key among ``n`` (csrc/shard_exchange.cuh key_part;
-    every product stays below 2^63)."""
+    """The part of each key among ``n`` (csrc/part_list.cuh key_part; every
+    product stays below 2^63)."""
     m32 = 0xFFFFFFFF
     h = (((keys >> 32) * 0x9E3779B1) & m32) ^ (((keys & m32) * 0x85EBCA77) & m32)
     h = ((h ^ (h >> 15)) * 0x2C1B3C6D) & m32
@@ -273,7 +274,20 @@ def _index(st, shards) -> int:
     return next(i for i, s in enumerate(shards) if s is st)
 
 
+def _check_parts(shards):
+    """Every shard's scratch table lists its claims among len(shards) parts
+    (the fold reads pcnt[r] and part r's list of each)."""
+    if any(s.n_parts != len(shards) for s in shards):
+        raise ValueError(f"shard_part_fold: part lists of {[s.n_parts for s in shards]} parts "
+                         f"on a mesh of {len(shards)} shards")
+
+
 def shard_part_fold_plain(st: ShardState, shards):
+    """Replica ``st``'s part r emptied and rebuilt from the entries of every
+    shard's part-r list (``recount_sharded_kernels.RecountShard``): no other
+    scratch slot is read; a list that dropped claims marks the part full
+    (POCC past its size) and nothing is added."""
+    _check_parts(shards)
     dev, n, cap = st.device, len(shards), st.cap
     r = _index(st, shards)
     lo, hi = part_lo(r, cap, n), part_lo(r + 1, cap, n)
@@ -283,10 +297,13 @@ def shard_part_fold_plain(st: ShardState, shards):
     if _any(shards, ROVF):
         st.ctl[OVERFLOW] = 1
     st.work[W_FOLD] += 12 * int(st.ctl[ROCC])
-    ks = torch.cat([s.rkeys.to(dev) for s in shards])
-    cs = torch.cat([s.rcnts.to(dev) for s in shards])
-    sel = (ks != EMPTY) & (cs > 0)
-    sel &= key_part(ks, n) == r
+    if any(int(s.pcnt[r]) > hi - lo for s in shards):
+        st.ctl[POCC] = hi - lo + 1
+        return
+    slots = [s.part_list(r) for s in shards]
+    ks = torch.cat([s.rkeys[i].to(dev) for s, i in zip(shards, slots)])
+    cs = torch.cat([s.rcnts[i].to(dev) for s, i in zip(shards, slots)])
+    sel = cs > 0
     uk, inv = torch.unique(ks[sel], return_inverse=True)
     uc = torch.zeros(uk.shape[0], dtype=torch.int64, device=dev).index_add_(0, inv, cs[sel].long())
     fit = min(hi - lo, uk.shape[0])
@@ -358,11 +375,14 @@ def shard_relay_plain(st: ShardState):
 def _links(st: ShardState, shards):
     """Device arrays (on ``st``'s device) of every shard's pointers: ctl,
     delta buffer keys and values, scratch keys and counts, replica keys and
-    counts.  Rebuilt when a buffer moved (a resize)."""
+    counts, and (the shards that recount every round) the scratch table's
+    part lists and their counts.  Rebuilt when a buffer moved (a resize)."""
     ptrs = [[s.ctl.data_ptr() for s in shards], [s.dk.data_ptr() for s in shards],
             [s.dv.data_ptr() for s in shards], [s.rkeys.data_ptr() for s in shards],
             [s.rcnts.data_ptr() for s in shards], [s.keys.data_ptr() for s in shards],
             [s.cnts.data_ptr() for s in shards]]
+    if hasattr(st, "plist"):
+        ptrs += [[s.plist.data_ptr() for s in shards], [s.pcnt.data_ptr() for s in shards]]
     if st._links is None or st._links[0] != ptrs:
         st._links = (ptrs, [torch.tensor(p, dtype=torch.int64, device=st.device) for p in ptrs])
     return st._links[1]
@@ -475,16 +495,18 @@ def shard_fold(reps, shards, rebuild=None):
 
 def shard_part_fold(st: ShardState, shards):
     """The partitioned fold's first half (the engines that recount every
-    round): empty the replica's own part and add every shard's scratch
-    entries of that part into it."""
+    round): empty the replica's own part and add the entries of every
+    shard's list of that part into it."""
     if not _on(st, "shard_part_fold"):
         return shard_part_fold_plain(st, shards)
-    ctls, _, _, rks, rcs = _links(st, shards)[:5]
+    _check_parts(shards)
+    links = _links(st, shards)
     lib = _cuda.load_sharded()
     with torch.cuda.device(st.device):
         err = lib.yttm_shard_part_fold(
-            st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(), ctls.data_ptr(),
-            rks.data_ptr(), rcs.data_ptr(), len(shards), _index(st, shards), st.work.data_ptr(),
+            st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(),
+            links[0].data_ptr(), links[3].data_ptr(), links[4].data_ptr(), links[7].data_ptr(),
+            links[8].data_ptr(), len(shards), _index(st, shards), st.work.data_ptr(),
             _stream_ptr(st.device),
         )
     _check(err, "shard_part_fold")

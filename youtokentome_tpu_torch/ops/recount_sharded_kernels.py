@@ -8,25 +8,35 @@ gathers every shard's pair keys (``all_gather``), counts them into the same
 replicated table, takes the same top-k (v0: the argmax) and applies the
 accepted merges to its own shard.  Here each shard is a state on its device,
 one-device v1's ``StreamState`` (its front-compacted stream) or v0's
-``BucketedState`` (its rows), each with a replica of the table and the
-exchange's ``ctl`` and scratch table (``delta_sharded_kernels.Exchange``).
-A round, all in hand-written CUDA:
+``BucketedState`` (its rows), each with a replica of the table, the
+exchange's ``ctl`` and scratch table (``delta_sharded_kernels.Exchange``)
+and the scratch table's part lists (``RecountShard``).  A table of ``cap``
+slots is cut into N parts (``csrc/part_list.cuh``): part p is the slots
+``[p*cap/N, (p+1)*cap/N)`` of a replica and holds the keys whose
+``key_part`` is p; part p's list, ``plist[p*cap/N, (p+1)*cap/N)``, holds the
+scratch slots that keys of part p claimed in the shard's last count, and
+``pcnt[p]`` counts them (past the part's size they are counted and dropped,
+and the part is full).  A round, all in hand-written CUDA:
 
-  stream_shard_count  on every shard: v1's recount (``csrc/train_stream.cu``)
-  bucket_shard_count  (v0: ``csrc/train_bucketed.cu``'s count) into the
-                      shard's scratch table, its occupancy and overflow in
-                      ``ctl``'s scratch slots
+  stream_shard_count  on every shard: v1's count (``csrc/train_stream.cu``,
+                      ``csrc/stream_count.cuh``: a flat walk into each
+                      block's table in shared memory, the block's claims
+                      listed by part once a block)
+  bucket_shard_count  (v0: ``csrc/train_bucketed.cu``'s count, a thread a
+                      row, its claims staged and listed once a block too)
+                      into the shard's scratch table, emptied first, its
+                      occupancy and overflow in ``ctl``'s scratch slots
   shard_part_fold     on every replica (``csrc/train_delta_sharded.cu``):
-                      the replica's own part of the table (part r of N, the
-                      keys whose ``key_part`` is r) emptied and rebuilt from
-                      every shard's scratch entries of that part, so each
-                      entry is inserted once over all replicas
+                      the replica's own part r of the table emptied and
+                      rebuilt from the entries of every shard's part-r list,
+                      so each entry is read and inserted once over all
+                      replicas
   shard_gather        on every replica, once all parts are folded: every
                       other replica's part copied in, the parts' counts
-                      summed into the occupancy (an overflowed scratch table
-                      or a table more than half full sets OVERFLOW on every
-                      replica; the host doubles the tables and the segment
-                      runs again, nothing applied)
+                      summed into the occupancy (an overflowed scratch
+                      table, a full part or a table more than half full sets
+                      OVERFLOW on every replica; the host doubles the tables
+                      and the segment runs again, nothing applied)
   topk_accept         on every replica (k = 1 for v0)
   apply_compact       on every shard (v0: ``bucket_apply``)
 
@@ -42,12 +52,15 @@ import numpy as np
 import torch
 
 from . import _cuda
+from . import stream_train_kernels as stk
 from .bucketed_kernels import BucketedState, bucket_apply, row_pairs
 from .delta_sharded_kernels import (
     ROCC,
     ROVF,
     Exchange,
     ShardEngine,
+    key_part,
+    part_lo,
     shard_gather,
     shard_part_fold,
 )
@@ -56,6 +69,7 @@ from .stream_train_kernels import (
     NEXT_LIVE,
     StreamState,
     apply_compact,
+    check_aligned,
     live_pairs,
 )
 from .tiered_kernels import _hash_update
@@ -75,15 +89,30 @@ from .train_kernels import (
 class RecountShard(Exchange):
     """A shard that counts into its scratch table every round: the top-k
     zeroes none of its own slots (v1's LIVE and NEXT_LIVE carry over
-    rounds); its delta buffer (one entry) is never read."""
+    rounds); its delta buffer (one entry) is never read.  Its scratch
+    table's part lists among ``n_parts`` (the mesh's shards): ``plist``
+    [cap] and ``pcnt`` [n_parts] (the module note), empty with the
+    table."""
 
     n_own = 0
+
+    def resize(self, cap: int):
+        super().resize(cap)
+        self.plist = torch.zeros(cap, dtype=torch.int32, device=self.device)
+        self.pcnt = torch.zeros(self.n_parts, dtype=torch.int32, device=self.device)
+
+    def part_list(self, p: int) -> torch.Tensor:
+        """The scratch slots of part ``p``'s list (int64; the first ones,
+        when the list dropped claims)."""
+        lo, hi = part_lo(p, self.cap, self.n_parts), part_lo(p + 1, self.cap, self.n_parts)
+        return self.plist[lo : lo + min(int(self.pcnt[p]), hi - lo)].long()
 
 
 class StreamShardState(RecountShard, StreamState):
     """One shard of the sharded v1 trainer: its front-compacted stream."""
 
-    def __init__(self, t, wid, freq, rules, used: int, cap: int, device):
+    def __init__(self, t, wid, freq, rules, used: int, cap: int, device, n_parts: int):
+        self.n_parts = n_parts
         super().__init__(t, wid, freq, rules, used, cap, device)
         self.buffers(1)
 
@@ -91,7 +120,8 @@ class StreamShardState(RecountShard, StreamState):
 class BucketedShardState(RecountShard, BucketedState):
     """One shard of the sharded v0 trainer: its block of every bucket's rows."""
 
-    def __init__(self, buckets, rules, used: int, cap: int, device):
+    def __init__(self, buckets, rules, used: int, cap: int, device, n_parts: int):
+        self.n_parts = n_parts
         super().__init__(buckets, rules, used, cap, device)
         self.buffers(1)
 
@@ -99,8 +129,23 @@ class BucketedShardState(RecountShard, BucketedState):
 def _clear_scratch(st):
     st.rkeys.fill_(EMPTY)
     st.rcnts.zero_()
+    st.pcnt.zero_()
     st.ctl[ROCC] = 0
     st.ctl[ROVF] = 0
+
+
+def _list_parts(st):
+    """List every claimed slot of the scratch table in its key's part (in
+    slot order), as the counts list their claims."""
+    n, cap = st.n_parts, st.cap
+    slots = torch.nonzero(st.rkeys != EMPTY).flatten()
+    parts = key_part(st.rkeys[slots], n)
+    for p in range(n):
+        mine = slots[parts == p]
+        lo = part_lo(p, cap, n)
+        k = min(mine.numel(), part_lo(p + 1, cap, n) - lo)
+        st.plist[lo : lo + k] = mine[:k].to(torch.int32)
+        st.pcnt[p] = mine.numel()
 
 
 # -- plain torch versions -----------------------------------------------------
@@ -113,6 +158,7 @@ def stream_shard_count_plain(st: StreamShardState, limit: int, vocab_size: int):
     _clear_scratch(st)
     if int(st.ctl[LIVE]):
         _hash_update(st.rkeys, st.rcnts, st.ctl, ROCC, ROVF, *live_pairs(st))
+    _list_parts(st)
 
 
 def bucket_shard_count_plain(st: BucketedShardState, limit: int, vocab_size: int):
@@ -120,40 +166,46 @@ def bucket_shard_count_plain(st: BucketedShardState, limit: int, vocab_size: int
         return
     _clear_scratch(st)
     _hash_update(st.rkeys, st.rcnts, st.ctl, ROCC, ROVF, *row_pairs(st))
+    _list_parts(st)
 
 
 # -- wrappers -----------------------------------------------------------------
 
 
 def stream_shard_count(st: StreamShardState, limit: int, vocab_size: int):
-    """Empty the shard's scratch table and count its live stream into it (a
-    no-op once the round loop stopped); sets ``ctl[ROVF]`` when the table
-    holds more than half its slots."""
+    """Empty the shard's scratch table and count its live stream into it,
+    each claimed slot listed in its key's part (a no-op once the round loop
+    stopped); sets ``ctl[ROVF]`` when the table holds more than half its
+    slots.  The count's grid: ``stream_train_kernels.COUNT_BLOCKS``."""
     if not _on(st, "stream_shard_count"):
         return stream_shard_count_plain(st, limit, vocab_size)
+    check_aligned(st, "stream_shard_count")
     lib = _cuda.load_stream_train()
     with torch.cuda.device(st.device):
         err = lib.yttm_stream_shard_count(
             st.t.data_ptr(), st.wid.data_ptr(), st.freq.data_ptr(), st.t.shape[0],
             st.rkeys.data_ptr(), st.rcnts.data_ptr(), st.cap, st.ctl.data_ptr(),
-            st.tiles.data_ptr(), int(limit), int(vocab_size), _stream_ptr(st.device),
+            st.plist.data_ptr(), st.pcnt.data_ptr(), st.n_parts, int(limit), int(vocab_size),
+            int(stk.COUNT_BLOCKS), _stream_ptr(st.device),
         )
     _check(err, "stream_shard_count")
     stream_shard_count.launches += 1
 
 
 def bucket_shard_count(st: BucketedShardState, limit: int, vocab_size: int):
-    """Empty the shard's scratch table and count its rows' pairs into it (a
-    no-op once the round loop stopped); sets ``ctl[ROVF]`` when the table
-    holds more than half its slots."""
+    """Empty the shard's scratch table and count its rows' pairs into it,
+    each claimed slot listed in its key's part (a no-op once the round loop
+    stopped); sets ``ctl[ROVF]`` when the table holds more than half its
+    slots."""
     if not _on(st, "bucket_shard_count"):
         return bucket_shard_count_plain(st, limit, vocab_size)
     lib = _cuda.load_bucketed()
     with torch.cuda.device(st.device):
         err = lib.yttm_bucket_shard_count(
             st.tok.data_ptr(), st.roff.data_ptr(), st.rfreq.data_ptr(), st.n_rows,
-            st.rkeys.data_ptr(), st.rcnts.data_ptr(), st.cap, st.ctl.data_ptr(), int(limit),
-            int(vocab_size), _stream_ptr(st.device),
+            st.rkeys.data_ptr(), st.rcnts.data_ptr(), st.cap, st.ctl.data_ptr(),
+            st.plist.data_ptr(), st.pcnt.data_ptr(), st.n_parts, int(limit), int(vocab_size),
+            _stream_ptr(st.device),
         )
     _check(err, "bucket_shard_count")
     bucket_shard_count.launches += 1
@@ -216,7 +268,7 @@ class StreamShardedKernelEngine(RecountShardEngine):
         used = rules_used(rules, used_ids0)
         cap = initial_cap(m)
         self.shards = [
-            StreamShardState(seg_t[d], seg_w[d], freq, rules, used, cap, dev)
+            StreamShardState(seg_t[d], seg_w[d], freq, rules, used, cap, dev, len(mesh.devices))
             for d, dev in enumerate(mesh.devices)
         ]
         self._count()
@@ -239,7 +291,7 @@ class BucketedShardedKernelEngine(RecountShardEngine):
         slots = sum(int(np.asarray(t).size) for bks in shard_buckets for t, _ in bks)
         cap = initial_cap(slots)
         self.shards = [
-            BucketedShardState(shard_buckets[d], rules, used, cap, dev)
+            BucketedShardState(shard_buckets[d], rules, used, cap, dev, len(mesh.devices))
             for d, dev in enumerate(mesh.devices)
         ]
         self._count()

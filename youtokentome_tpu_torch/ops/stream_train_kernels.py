@@ -9,10 +9,13 @@ program's own state, the front-compacted flat stream ``t``/``wid`` [M]
 fresh open-addressing pair-count table each round (int64 keys
 ``x << 32 | y``, int32 counts):
 
-  recount        empty the table and count every pair of the live stream;
-                 the run parity takes the last non-equal position before
-                 each token from a max-scan with a carry across tiles, so a
-                 run may span any number of tiles
+  recount        empty the table and count every pair of the live stream
+                 (``csrc/stream_count.cuh``: a flat walk, a warp a run of
+                 128-slot chunks, each block counting into a table of its
+                 own in shared memory); the run parity takes the last
+                 non-equal position before each token from a warp max-scan
+                 carried from chunk to chunk, so a run may span any number
+                 of chunks, warps and blocks
   topk_accept    top-16 live entries in the reference order, accept_prefix,
                  store_rules (the trainers' shared wrapper, ``train_kernels``)
   apply_compact  hits of the accepted pairs, parity along runs of hits (a
@@ -126,18 +129,31 @@ def apply_compact_plain(st: StreamState):
 # -- wrappers -----------------------------------------------------------------
 
 
+def check_aligned(st: StreamState, what: str):
+    """The count's 16-byte loads need t and wid 16-byte aligned."""
+    if st.t.data_ptr() % 16 or st.wid.data_ptr() % 16:
+        raise ValueError(f"{what} needs a 16-byte aligned stream")
+
+
+# The v1 count's grid (recount, recount_sharded_kernels.stream_shard_count):
+# 0 is one wave of blocks, the trainers' grid; a check sets it > 0 to cap the
+# blocks, so that each warp walks many chunks of a short stream.
+COUNT_BLOCKS = 0
+
+
 def recount(st: StreamState, limit: int, vocab_size: int):
     """Empty the table and count every pair of the live stream into it (a
     no-op once the round loop stopped); sets ``ctl[OVERFLOW]`` when the
-    table holds more than half its slots."""
+    table holds more than half its slots.  The count's grid: COUNT_BLOCKS."""
     if not _on(st, "recount"):
         return recount_plain(st, limit, vocab_size)
+    check_aligned(st, "recount")
     lib = _cuda.load_stream_train()
     with torch.cuda.device(st.device):
         err = lib.yttm_stream_recount(
             st.t.data_ptr(), st.wid.data_ptr(), st.freq.data_ptr(), st.t.shape[0],
-            st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(),
-            st.tiles.data_ptr(), int(limit), int(vocab_size), _stream_ptr(st.device),
+            st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(), int(limit),
+            int(vocab_size), int(COUNT_BLOCKS), _stream_ptr(st.device),
         )
     _check(err, "recount")
     recount.launches += 1
