@@ -338,6 +338,7 @@ def phase_device_and_build() -> dict:
                                       "encode_short_kernel", "encode_long_kernel",
                                       "pair_count_kernel", "tomb_count_kernel", "fold_plan_kernel",
                                       "stream_count_kernel", "part_fold_kernel",
+                                      "apply_compact_kernel", "rows_count_kernel",
                                       "encode_dropout_short_kernel", "encode_dropout_long_kernel",
                                       "merge_words_kernel", "merge_long_words_kernel")):
         log(f"[1] {line}")
@@ -1489,6 +1490,130 @@ def stream_edge_streams(base: int, rng):
              f"long runs, a PAD tail", t, wid, np.asarray(fr, np.int32))]
 
 
+STREAM_BUFFERS = ("t0", "w0", "t1", "w1")  # v1's two stream buffers (StreamState)
+COMPACT_TILE = 4096  # slots of a tile of v1's apply (csrc/train_stream.cu): 8 warps of 4 chunks
+COMPACT_ROUNDS = 5  # the apply's edge rounds: odd, so that the stream ends in the second buffer
+COMPACT_USED = 100  # the edge rounds' first new id, past the stream's ids (from the base)
+
+
+def compact_edge_stream(base: int, rng):
+    """(t, wid, freq, cands) of v1's apply edge stream, ids from ``base``,
+    and its first round's 16 candidates ([x, y]): 4 pairs of equal ids and
+    12 of distinct ids, no id in two of them.  Across each of the first 48
+    128-slot chunk edges and every 512-slot warp edge up to 15,360: a run of
+    one equal candidate's id (2-71 tokens, odd and even) inside a word,
+    from the edge or across it; a candidate pair split by the edge; or a
+    word boundary at the edge with the same equal id on both sides (no hit
+    across it); at the 4096-slot tile edges among them, the last three in
+    turn.  Filler words of
+    1-6 other ids between; a run of 4,500 equal ids across the tile edge at
+    16,384; the last word ends with a candidate pair (a hit at the live
+    end), and 300 slots of PAD follow."""
+    E = [base + i for i in range(4)]
+    A = [base + 4 + i for i in range(12)]
+    B = [base + 16 + i for i in range(12)]
+    cands = [(e, e) for e in E] + list(zip(A, B))
+    words = []
+    pos = 0
+
+    def add(w):
+        nonlocal pos
+        words.append([int(v) for v in w])
+        pos += len(w)
+
+    def fill_to(at):
+        while pos < at:
+            add(base + 28 + rng.integers(0, 32, min(int(rng.integers(1, 7)), at - pos)))
+
+    edges = sorted(set([128 * k for k in range(1, 49)] + [512 * k for k in range(1, 31)]))
+    for k, e in enumerate(edges):
+        # a tile edge: a split pair, a word boundary, a run from it
+        kind, x = (k % 4 if e % COMPACT_TILE else (e // COMPACT_TILE) % 4), E[k % 4]
+        r = int(rng.integers(2, 71))
+        r += r % 2 != (k // 4) % 2  # odd and even lengths
+        if kind == 0:  # a run across the edge, behind a filler token of its word
+            start = e - int(rng.integers(1, r))
+            if start - 1 < pos:
+                continue
+            fill_to(start - 1)
+            add([base + 28] + [x] * r)
+        elif kind == 1:  # a candidate pair split by the edge
+            if e - 2 < pos:
+                continue
+            fill_to(e - 2)
+            i = k % 12
+            add([base + 29, A[i], B[i], base + 30])
+        elif kind == 2:  # a word boundary inside a run of x
+            if e - 2 < pos:
+                continue
+            fill_to(e - 2)
+            add([x, x])
+            add([x] * r)
+        else:  # a run from the edge
+            if e < pos:
+                continue
+            fill_to(e)
+            add([x] * r + [base + 31])
+    fill_to(4 * COMPACT_TILE - 1800)
+    add([E[1]] * 4500)
+    fill_to(pos + 50)
+    add([base + 33, A[0], B[0]])
+    t = np.concatenate([np.asarray(w, np.int32) for w in words] + [np.full(300, -1, np.int32)])
+    wid = np.concatenate([np.full(len(w), i, np.int32) for i, w in enumerate(words)]
+                         + [np.full(300, -1, np.int32)])
+    return t, wid, rng.integers(1, 6, len(words)).astype(np.int32), cands
+
+
+def compact_cands(t, wid, k: int = 16) -> list:
+    """Up to ``k`` candidates for the next edge round of a stream: its most
+    frequent pairs of one word (ties by key), no id in two of them."""
+    live = t >= 0
+    t, wid = t[live].astype(np.int64), wid[live]
+    same = wid[:-1] == wid[1:]
+    keys, cnt = np.unique((t[:-1][same] << 32) | t[1:][same], return_counts=True)
+    out, ids = [], set()
+    for j in np.lexsort((keys, -cnt)):
+        x, y = int(keys[j] >> 32), int(keys[j] & 0xFFFFFFFF)
+        if x in ids or y in ids:
+            continue
+        out.append((x, y))
+        ids |= {x, y}
+        if len(out) == k:
+            break
+    return out
+
+
+def row_edge_buckets(base: int, rng):
+    """v0's count edge rows, ids from ``base``, as buckets [(tokens [W, L],
+    freq [W])] laid out as the preprocessing lays them out (widths 8-1024,
+    then odd ones; a power of two of rows, at least 8, a bucket, its
+    padding rows of PAD at frequency 0 at its end): rows that fill their
+    width, many with the same id ending one row and starting the next (no
+    pair across), runs of equal ids (1-20) over six ids, rows of one id to
+    their width; words of 1025, 1031 and 1100 tokens (buckets of their own
+    odd widths, one with two words); an eighth of the words of frequency
+    0."""
+    out = []
+    for L, W, n in ((8, 64, 50), (16, 32, 30), (32, 16, 13), (1024, 8, 3), (1025, 8, 1),
+                    (1031, 8, 2), (1100, 8, 1)):
+        mat = np.full((W, L), -1, np.int32)
+        for r in range(n):
+            k = L if r % 3 != 1 else int(rng.integers(1, L + 1))
+            row = []
+            while len(row) < k:
+                row += [base + int(rng.integers(0, 6))] * int(rng.integers(1, 21))
+            if r % 5 == 0:
+                row = [base + 1] * k
+            mat[r, :k] = row[:k]
+        for r in range(0, n - 1, 3):  # the next row starts with this row's last id
+            mat[r + 1, 0] = mat[r, (mat[r] >= 0).sum() - 1]
+        freq = rng.integers(1, 6, W).astype(np.int32)
+        freq[rng.random(W) < 0.125] = 0
+        freq[n:] = 0
+        out.append((mat, freq))
+    return out
+
+
 FOLD_PARTS, FOLD_CAP = 3, 64  # the fold checks' mesh: parts of 21, 21 and 22 slots
 FOLD_CASES = ("scratch overflow", "parts union", "list drops claims")
 
@@ -1944,6 +2069,183 @@ def phase_stream_count_checks(main_st, dev) -> dict:
         f"again at {[c for c, _ in sizes[1:]]} slots it equals the main path's table "
         f"({time.perf_counter() - t0:.1f} s)")
     return {"streams": n, "regrown": sizes}
+
+
+def compact_round(ks, ps, cands, used: int, what: str, shards: bool) -> None:
+    """One round of v1's apply on kernel states ``ks`` (one launch for all
+    of them) and plain states ``ps``: each counted (which turns its
+    buffers), ``cands`` set as the round's accepted rows, applied; both
+    buffers, ctl, work and the tables (with the shards' lists) compared."""
+    from youtokentome_tpu_torch.ops import stream_train_kernels as stk
+
+    for a, b in zip(ks, ps):
+        stream_count(a, False)
+        stream_count(b, True)
+        set_round(a, cands, used)
+        set_round(b, cands, used)
+    stk.apply_compact(ks)
+    for b in ps:
+        stk.apply_compact_plain(b)
+    for i, (a, b) in enumerate(zip(ks, ps)):
+        label = f"{what}, shard {i}" if shards else what
+        if shards:
+            same_shard(a, b, label, buffers=False, stream=STREAM_BUFFERS)
+        else:
+            same_diff_state(a, b, label)
+        check(int(a.ctl[stk.NEXT_BUF]) != int(a.ctl[stk.BUF]),
+              f"{label}: the apply did not write the other buffer")
+    head = ks[0].tiles[:stk.TILE_SCRATCH].tolist()
+    check(head[:2] == [0, 0], f"{what}: the apply left its ticket and block count at {head[:2]}")
+
+
+def phase_compact_checks(dev) -> dict:
+    """v1's apply (csrc/train_stream.cu apply_compact) against its plain
+    version on ``compact_edge_stream`` (ids from 5 and 70000), COMPACT_ROUNDS
+    rounds (odd: the stream ends in the second buffer), each round's 16
+    candidates the edge stream's first, then ``compact_cands`` of the plain
+    stream: on one state, and on the stream cut at word boundaries into 3
+    shards with a fourth that holds no token, all 4 in one launch a round.
+    After every round both buffers, ctl (the buffers' turn, the live counts),
+    work and the tables agree, the other buffer still holds the round's
+    input, and the apply's ticket is back at 0 (on the card: its epoch
+    moved on once a round)."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import stream_train_kernels as stk
+
+    t0 = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    n = 0
+    for base in COUNT_BASES:
+        t, wid, freq, first = compact_edge_stream(base, np.random.default_rng(base + 5))
+        used0 = base + COMPACT_USED
+        vocab = used0 + 16 * COMPACT_ROUNDS + 16
+        rules = np.full((vocab, 4), -1, np.int32)
+        live = int((t >= 0).sum())
+        cuts = np.searchsorted(wid[:live], np.linspace(0, wid[live - 1] + 1, 4)[1:-1])
+        shard_of = [(np.r_[t[a:b], np.full(20, -1, np.int32)],
+                     np.r_[wid[a:b], np.full(20, -1, np.int32)])
+                    for a, b in zip(np.r_[0, cuts], np.r_[cuts, live])]
+        shard_of.append((np.full(16, -1, np.int32), np.full(16, -1, np.int32)))
+        for shards in (False, True):
+            if shards:
+                ks = [stream_shard_of(a, b, freq, dev, 1 << 14, len(shard_of))
+                      for a, b in shard_of]
+            else:
+                ks = [stk.StreamState(t, wid, freq, rules, used0, 1 << 16, dev)]
+            ps = [clone_state(st) for st in ks]
+            used, cands = used0, first
+            for r in range(COMPACT_ROUNDS):
+                if r:
+                    cur = [(p.t.cpu().numpy(), p.wid.cpu().numpy()) for p in ps]
+                    cands = compact_cands(np.concatenate([c[0] for c in cur]),
+                                          np.concatenate([c[1] for c in cur]))
+                what = (f"apply_compact, {'4 shards in one launch' if shards else 'one state'}, "
+                        f"ids from {base}, round {r + 1}")
+                compact_round(ks, ps, cands, used, what, shards)
+                used += len(cands)
+                n += 1
+            for a in ks:
+                check(int(a.ctl[stk.NEXT_BUF]) == COMPACT_ROUNDS % 2 and
+                      (not on_card or int(a.tiles[stk.TILE_SCRATCH - 1]) == COMPACT_ROUNDS),
+                      f"apply_compact after {COMPACT_ROUNDS} rounds: buffer "
+                      f"{int(a.ctl[stk.NEXT_BUF])}, epoch {int(a.tiles[stk.TILE_SCRATCH - 1])}")
+    log(f"[9] v1's apply == plain on {n} edge rounds ({COMPACT_ROUNDS} a stream, ids from "
+        f"{COUNT_BASES}): runs of hits across 128-slot chunk, 512-slot warp and "
+        f"{COMPACT_TILE}-slot tile edges, 16 candidates, a hit at the live end, one state and 4 "
+        f"shards (one empty) in one launch; both buffers, ctl and work after every round, the "
+        f"stream in the second buffer after the last ({time.perf_counter() - t0:.1f} s)")
+    return {"rounds": n}
+
+
+def bucket_count(st, plain: bool, blocks: int = 0) -> None:
+    """v0's count of ``st`` up to its rules' end: ``bucket_count`` on a
+    one-device state, ``bucket_shard_count`` on a shard (the kernel on at
+    most ``blocks`` blocks when > 0, else one wave: ``COUNT_BLOCKS``), or
+    their plain versions."""
+    from youtokentome_tpu_torch.ops import bucketed_kernels as bk
+    from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
+
+    v = st.rules.shape[0]
+    shard = isinstance(st, rsk.BucketedShardState)
+    if plain:
+        (rsk.bucket_shard_count_plain if shard else bk.bucket_count_plain)(st, v, v)
+        return
+    bk.COUNT_BLOCKS = blocks
+    try:
+        (rsk.bucket_shard_count if shard else bk.bucket_count)(st, v, v)
+    finally:
+        bk.COUNT_BLOCKS = 0
+
+
+def phase_row_count_checks(main_st, dev) -> dict:
+    """v0's count (csrc/train_bucketed.cu's flat walk into pair_count.cuh's
+    block table) through both entries, bucket_count and bucket_shard_count
+    (its scratch table listed among 3 parts), against their plain versions
+    on ``row_edge_buckets`` (ids from 5 and 70000: full rows with the same
+    id across their ends, runs, padding rows, odd widths past 1024) whole
+    and as the middle of 3 shards of its rows (odd slot counts a bucket), on
+    one wave of blocks and on one block (each warp walks many chunks), each
+    counted twice; then the main path's state into a table that overflows
+    at its first count, counted again at twice the size until it fits,
+    equal to the main path's table."""
+    from youtokentome_tpu_torch.ops import bucketed_kernels as bk
+    from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+    from youtokentome_tpu_torch.parallel.train_sharded import shard_rows
+
+    t0 = time.perf_counter()
+    n = 0
+    for base in COUNT_BASES:
+        buckets = row_edge_buckets(base, np.random.default_rng(base + 7))
+        vocab = base + 40
+        rules = np.full((vocab, 4), -1, np.int32)
+        for rows, parts in ((buckets, 0), (buckets, FOLD_PARTS),
+                            (shard_rows(buckets, FOLD_PARTS)[1], FOLD_PARTS)):
+            st = (rsk.BucketedShardState(rows, rules, vocab - 10, 1 << 12, dev, parts) if parts
+                  else bk.BucketedState(rows, rules, vocab - 10, 1 << 12, dev))
+            p_st = clone_state(st)
+            bucket_count(p_st, True)
+            for blocks in (0, 1):
+                k_st = clone_state(st)
+                for again in range(2):
+                    bucket_count(k_st, False, blocks)
+                    label = (f"{'bucket_shard_count' if parts else 'bucket_count'}, "
+                             f"{'a third of ' if rows is not buckets else ''}the edge rows, ids "
+                             f"from {base}, {blocks or 'a wave of'} blocks, count {again + 1}")
+                    if parts:
+                        same_shard(k_st, p_st, label, buffers=False)
+                        check(not int(k_st.ctl[rsk.ROVF]), f"{label}: overflowed")
+                    else:
+                        same_diff_state(k_st, p_st, label)
+                        check(not int(k_st.ctl[tk.OVERFLOW]), f"{label}: overflowed")
+            n += 1
+        log(f"[9] v0's count, the edge rows ({sum(m.size for m, _ in buckets)} slots, widths "
+            f"{[m.shape[1] for m, _ in buckets]}), ids from {base}: bucket_count and "
+            f"bucket_shard_count (lists of {FOLD_PARTS} parts; all rows and a third) == plain "
+            f"(one wave and one block, two counts each)")
+    k_st, p_st = clone_state(main_st), clone_state(main_st)
+    k_st.resize(COUNT_SMALL_CAP)
+    p_st.resize(COUNT_SMALL_CAP)
+    bucket_count(p_st, True)
+    check(int(p_st.ctl[tk.OVERFLOW]) == 1, "v0's plain count did not overflow its small table")
+    sizes = []
+    while True:
+        bucket_count(k_st, False)
+        sizes.append((k_st.cap, int(k_st.ctl[tk.OVERFLOW])))
+        if not sizes[-1][1]:
+            break
+        k_st.resize(k_st.cap * 2)
+        k_st.ctl[tk.OVERFLOW] = 0
+    check(sizes[0] == (COUNT_SMALL_CAP, 1), f"bucket_count into {COUNT_SMALL_CAP} slots: {sizes}")
+    main_keys, main_cnts = main_st.table()
+    keys, cnts = k_st.table()
+    check(np.array_equal(keys, main_keys) and np.array_equal(cnts, main_cnts)
+          and int(k_st.ctl[tk.OCC]) == keys.size, "v0's regrown count != the main path's count")
+    log(f"[9] v0's count == plain on {n} row sets; into {COUNT_SMALL_CAP} slots the main path's "
+        f"count sets OVERFLOW (kernel and plain), counted again at {[c for c, _ in sizes[1:]]} "
+        f"slots it equals the main path's table ({time.perf_counter() - t0:.1f} s)")
+    return {"row_sets": n, "regrown": sizes}
 
 
 def phase_train_kernels(buckets, used0: int, dev) -> dict:
@@ -3534,11 +3836,12 @@ def compare_tree(work: Path) -> dict:
     clock, then once traced (each wrapper's device ms and launches: the
     fold's and the recount's among them), and the sharded v3 loop
     (``compare_v3``); the trainers that recount every round: v1's loop and
-    the sharded v1 loop (4 shards) to vocab 30000 and the sharded v0 loop to
-    its first V0_MAIN_IDS ids, each twice by the host clock, then once
-    traced (each wrapper's device ms and launches, the count's and the
-    fold's device functions by name, in either tree).  The corpus is written to ``work`` by the first
-    caller and read by the others.  Prints and returns the numbers."""
+    the sharded v1 loop (4 shards) to vocab 30000 and v0's and the sharded
+    v0 loop to their first V0_MAIN_IDS ids, each twice by the host clock, then once
+    traced (each wrapper's device ms and launches, the count's, the
+    fold's and the apply's device functions by name, in either tree).  The
+    corpus is written to ``work`` by the first caller and read by the
+    others.  Prints and returns the numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3625,6 +3928,9 @@ def compare_tree(work: Path) -> dict:
         "v1": (lambda: diff_engine("stream", buckets, used0, TRAIN_VOCAB, dev),
                lambda e: run_diff(e, TRAIN_VOCAB, used0),
                {k: DIFF_DEVICE_FNS[("stream", k)] for k in DIFF_KERNELS["stream"]}),
+        "v0": (lambda: diff_engine("bucketed", buckets, used0, v0_vocab, dev),
+               lambda e: run_diff(e, v0_vocab, used0),
+               {k: DIFF_DEVICE_FNS[("bucketed", k)] for k in DIFF_KERNELS["bucketed"]}),
         "sharded_v1": (lambda: other_engine("stream", buckets, used0, TRAIN_VOCAB),
                        lambda e: ts.run_to_end(e, used0, TRAIN_VOCAB),
                        {k: OTHER_DEVICE_FNS[k] for k in OTHER_KERNELS["stream"]}),
@@ -3634,7 +3940,8 @@ def compare_tree(work: Path) -> dict:
     }
     for name, (engine, run, fns) in runs.items():
         fns = {k: fns[k] + COMPARE_RECOUNT_FNS.get(k, ()) for k in fns}
-        wrappers = {k: (diff_wrapper(diff_module("stream"), k) if name == "v1"
+        wrappers = {k: (diff_wrapper(diff_module({"v1": "stream", "v0": "bucketed"}[name]), k)
+                        if name in ("v1", "v0")
                         else other_wrapper("bucketed" if name == "sharded_v0" else "stream", k)[1])
                     for k in fns}
         loops = []
@@ -3645,7 +3952,7 @@ def compare_tree(work: Path) -> dict:
             run(e)
             torch.cuda.synchronize()
             loops.append(round(time.perf_counter() - t0, 4))
-        head = e.st if name == "v1" else e.shards[0]
+        head = e.st if name in ("v1", "v0") else e.shards[0]
         out[f"{name}_loop_s"] = loops
         out[f"{name}_rounds"], out[f"{name}_cap"] = int(head.ctl[v2.ROUND]), head.cap
         out[f"{name}_rules"] = int(torch.sum(e.rules[:, 0] >= 0))
@@ -4406,7 +4713,7 @@ DIFF_ROW_NAMES = {
 DIFF_DEVICE_FNS = {
     ("stream", "recount"): ("clear_kernel", "stream_count_kernel"),
     ("stream", "topk_accept"): ("topk_select_kernel",),
-    ("stream", "apply_compact"): ("hit_tiles_kernel", "select_tiles_kernel", "scatter_kernel"),
+    ("stream", "apply_compact"): ("apply_compact_kernel",),
     ("sparse", "sparse_count"): ("tomb_count_kernel",),
     ("sparse", "topk_accept"): ("topk_select_kernel",),
     ("sparse", "sparse_apply"): ("mark_live_words_kernel", "apply_words_kernel"),
@@ -4414,7 +4721,7 @@ DIFF_DEVICE_FNS = {
     ("block", "topk_accept"): ("topk_select_kernel",),
     ("block", "block_apply"): ("flag_rows_kernel", "apply_rows_kernel", "full_clear_kernel",
                                "full_recount_kernel"),
-    ("bucketed", "bucket_count"): ("clear_kernel", "count_rows_kernel"),
+    ("bucketed", "bucket_count"): ("clear_kernel", "rows_count_kernel"),
     ("bucketed", "topk_accept"): ("topk_select_kernel",),
     ("bucketed", "bucket_apply"): ("apply_rows_kernel",),
 }
@@ -4432,7 +4739,7 @@ DIFF_REPLACES = {
 }
 # scratch each plain/kernel comparison skips (filled in another order, or
 # kept only by the kernels)
-DIFF_SCRATCH = ("tmp_t", "tmp_w", "tiles", "blk_hi", "blk_lo", "aff", "wmark", "rows")
+DIFF_SCRATCH = ("tiles", "blk_hi", "blk_lo", "aff", "wmark", "rows")
 MID_SITE_CAPS = ("64", "256")  # v3's plain site buffers on the 10 MB prefix
 MID_KB = 4  # v4's gather bound on the 10 MB prefix: most rounds take the full path
 MID_V0_IDS = 500  # v0's lockstep depth on the 10 MB prefix (one merge a round)
@@ -4569,7 +4876,10 @@ def diff_round(name: str, mod, st, used0: int, plain: bool, kb: int = 0) -> None
     if name == "stream":
         (mod.recount_plain if plain else mod.recount)(st, V, V)
         topk(st, V, V, used0, 16)
-        (mod.apply_compact_plain if plain else mod.apply_compact)(st)
+        if plain:
+            mod.apply_compact_plain(st)
+        else:
+            mod.apply_compact([st])
     elif name == "bucketed":
         (mod.bucket_count_plain if plain else mod.bucket_count)(st, V, V)
         topk(st, V, V, used0, 1)
@@ -4611,13 +4921,16 @@ def phase_diff_kernels(buckets, used0: int, dev) -> None:
             phase_tomb_checks("sparse_count", st, [st], dev)
         if name == "stream":
             phase_stream_count_checks(st, dev)
+            phase_compact_checks(dev)
+        if name == "bucketed":
+            phase_row_count_checks(st, dev)
         k_st, p_st = clone_state(st), clone_state(st)
-        for r in range(2):
+        for r in range(3 if name == "stream" else 2):  # v1: odd, its stream in the second buffer
             diff_round(name, mod, k_st, used0, False, getattr(eng, "KB", 0))
             diff_round(name, mod, p_st, used0, True, getattr(eng, "KB", 0))
             same_diff_state(k_st, p_st, f"{name}: round {r}")
         log(f"[9] {name}: every kernel == its plain version on the 100 MB state "
-            f"(2 rounds, {int(k_st.ctl[tk.USED]) - used0} ids, table {st.cap} slots)")
+            f"({r + 1} rounds, {int(k_st.ctl[tk.USED]) - used0} ids, table {st.cap} slots)")
         if name == "block":
             block_path_rounds(mod, eng, used0)
 
@@ -4854,6 +5167,15 @@ def profiled(name: str, fn):
     return traced(fn, {k: DIFF_DEVICE_FNS[(name, k)] for k in DIFF_KERNELS[name]})
 
 
+def each_state(fn):
+    """A wrapper that takes the states of a card (v1's apply_compact) made
+    of ``fn``, the plain version that takes one."""
+    def run(states):
+        for st in states:
+            fn(st)
+    return run
+
+
 def plain_diff(name: str, engine, vocab: int, used0: int) -> dict:
     """ms of the plain versions of trainer ``name``'s wrappers over a run to
     ``vocab``, each call synchronised."""
@@ -4880,6 +5202,8 @@ def plain_diff(name: str, engine, vocab: int, used0: int) -> dict:
             repl[k] = timed(k, lambda st: count_plain(mod, name, st))
         elif k == "topk_accept":
             repl[k] = timed(k, lambda st, limit, v, u0, kk=16: tk.topk_accept_plain(st, limit, v, u0, kk))
+        elif k == "apply_compact":  # the wrapper takes the states of a card
+            repl[k] = timed(k, each_state(mod.apply_compact_plain))
         else:
             repl[k] = timed(k, getattr(mod, k + "_plain"))
     with swapped(mod, **repl):
@@ -5096,11 +5420,12 @@ COMPARE_SHARD_FNS = {
 }
 
 
-# the v1 and v0 counts' device functions in either tree that compare_tree may
-# run, besides their own: v1's count before its redesign
+# the device functions in either tree that compare_tree may run, besides
+# their own: v1's apply and v0's count before their redesign
 COMPARE_RECOUNT_FNS = {
-    "recount": ("eq_tiles_kernel", "count_tiles_kernel"),
-    "stream_shard_count": ("eq_tiles_kernel", "count_tiles_kernel"),
+    "apply_compact": ("hit_tiles_kernel", "select_tiles_kernel", "scatter_kernel"),
+    "bucket_count": ("count_rows_kernel",),
+    "bucket_shard_count": ("count_rows_kernel",),
 }
 
 
@@ -5938,8 +6263,8 @@ OTHER_DEVICE_FNS = {
     "sparse_emit": ("mark_live_words_kernel", "emit_live_words_kernel"),
     "sparse_shard_recount": ("recount_clear_kernel", "tomb_count_kernel"),
     "stream_shard_count": ("clear_kernel", "stream_count_kernel"),
-    "apply_compact": ("hit_tiles_kernel", "select_tiles_kernel", "scatter_kernel"),
-    "bucket_shard_count": ("clear_kernel", "count_rows_kernel"),
+    "apply_compact": ("apply_compact_kernel",),
+    "bucket_shard_count": ("clear_kernel", "rows_count_kernel"),
     "bucket_apply": ("apply_rows_kernel",),
 }
 OTHER_SOURCES = {
@@ -6011,7 +6336,8 @@ def other_round(name: str, ks, ps, used0: int, limit: int, what: str) -> bool:
     the branch that v3's fold took (the others fold in parts)."""
     from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
 
-    stream = OTHER_STREAMS[name]
+    # v1: both buffers (the one each round writes, the other that keeps its input)
+    stream = STREAM_BUFFERS if name == "stream" else OTHER_STREAMS[name]
     V, kb = TRAIN_VOCAB, (1 if name == "bucketed" else 16)
     for k in OTHER_KERNELS[name]:
         home, fn = other_wrapper(name, k)
@@ -6022,8 +6348,12 @@ def other_round(name: str, ks, ps, used0: int, limit: int, what: str) -> bool:
             fn(ks, ks)
             for b in ps:
                 plain(b, ps)
+        elif k == "apply_compact":  # every shard of the card in one launch
+            fn(ks)
+            for b in ps:
+                plain(b)
         for i, (a, b) in enumerate(zip(ks, ps)):
-            if k == "shard_fold":
+            if k in ("shard_fold", "apply_compact"):
                 pass
             elif k == "topk_accept":
                 fn(a, limit, V, used0, kb)
@@ -6054,7 +6384,7 @@ def part_fold_round(ks, ps, what: str) -> None:
             same_shard(a, b, f"{what}, {k} on replica {i}", buffers=False, stream=("t", "wid"))
 
 
-ROW_STAGE = 2048  # claims a block of v0's sharded count stages (csrc/train_bucketed.cu kRowStage)
+ROW_STAGE = 512  # claims a block of v0's sharded count stages (csrc/part_list.cuh kListStage)
 ROW_STAGE_IDS = 3000  # the ids of the rows that overfill it
 
 
@@ -6069,9 +6399,10 @@ def phase_part_fold_checks(dev) -> dict:
     replica, kernel and plain, and after a list dropped claims the next
     count still empties every scratch slot, those no list names too; last,
     v0's count on rows whose blocks claim more slots than their stage holds
-    (those claims listed one by one), lists and all."""
+    (those claims listed one by one; 4 blocks), lists and all."""
     import torch
 
+    from youtokentome_tpu_torch.ops import bucketed_kernels as bk
     from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
     from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
     from youtokentome_tpu_torch.ops import train_delta as td
@@ -6163,7 +6494,11 @@ def phase_part_fold_checks(dev) -> dict:
     k_st = rsk.BucketedShardState([(rows, freq)], np.full((vocab, 4), -1, np.int32), vocab - 16,
                                   1 << 21, dev, n)
     p_st = clone_state(k_st)
-    rsk.bucket_shard_count(k_st, vocab, vocab)
+    bk.COUNT_BLOCKS = 4
+    try:
+        rsk.bucket_shard_count(k_st, vocab, vocab)
+    finally:
+        bk.COUNT_BLOCKS = 0
     rsk.bucket_shard_count_plain(p_st, vocab, vocab)
     what = f"fold checks: v0's count of {rows.shape[0]} rows of {rows.shape[1]} random tokens"
     same_shard(k_st, p_st, what, buffers=False)
@@ -6205,14 +6540,16 @@ def phase_other_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
         branches = []
         for dcap in ((MID_DCAP, 1 << 22) if name == "sparse" else (0,)):
             ks, ps = clone_shards(eng.shards, dcap), clone_shards(eng.shards, dcap)
-            for r in range(2):
+            for r in range(3 if name == "stream" else 2):  # v1: odd, as in phase_diff_kernels
                 branches.append(other_round(name, ks, ps, used0, used0 + TRAIN_SEG,
                                             f"{name} sharded, dcap {dcap}, round {r}"))
-        want = ["recount"] * 2 + ["delta"] * 2 if name == "sparse" else ["parts"] * 2
+        want = (["recount"] * 2 + ["delta"] * 2 if name == "sparse"
+                else ["parts"] * (3 if name == "stream" else 2))
         check(branches == want, f"{name} sharded: the fold took {branches}, not {want}")
         sizes = [st.n_rows if name == "bucketed" else int((st.t >= 0).sum()) for st in eng.shards]
         log(f"[11] {name} sharded ({SHARDS} shards of {sizes} {'rows' if name == 'bucketed' else 'tokens'}, "
-            f"tables {eng.shards[0].cap} slots): every kernel == its plain version for 2 rounds "
+            f"tables {eng.shards[0].cap} slots): every kernel == its plain version for {r + 1} "
+            f"rounds "
             f"({branches})")
     log(f"[11] kernel checks: {time.perf_counter() - t0:.1f} s")
 
@@ -6388,9 +6725,13 @@ def plain_other(name: str, engine, vocab: int, used0: int):
             return out
         return run
 
-    plain = {k: timed(k, shard_plain(k) if k == "shard_fold" else
-                      getattr(other_wrapper(name, k)[0], k + "_plain"))
-             for k in OTHER_KERNELS[name]}
+    def plain_of(k):
+        if k == "shard_fold":
+            return shard_plain(k)
+        fn = getattr(other_wrapper(name, k)[0], k + "_plain")
+        return each_state(fn) if k == "apply_compact" else fn  # apply_compact: a card's states
+
+    plain = {k: timed(k, plain_of(k)) for k in OTHER_KERNELS[name]}
     mod = ssk if name == "sparse" else rsk  # where the engine finds its wrappers
     own = {k: f for k, f in plain.items() if k != "shard_fold"}
     with swapped(mod, **own), swapped(dsk, **{k: plain[k] for k in ("shard_fold",) if k in plain}):
@@ -6613,6 +6954,10 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
         launches = {k: other_wrapper(name, k)[1].launches for k in OTHER_KERNELS[name]}
         for k, n in launches.items():
             check(n > 0, f"the {name} sharded main path did not launch {k}")
+        if name == "stream" and torch.device(dev).type == "cuda":  # one launch a card a round
+            calls = sum(e.rounds for e in engines)
+            check(launches["apply_compact"] == calls,
+                  f"apply_compact launched {launches['apply_compact']} times in {calls} rounds")
         for k, v in kernel_ms.items():
             check(v > 0, f"the profiler recorded no device time for {name} sharded {k}")
         head = eng.shards[0]

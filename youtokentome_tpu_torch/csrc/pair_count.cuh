@@ -13,8 +13,10 @@
 //
 // The count has its own path (the applies and v5's and v4's counts keep
 // add_word and table_add; v3's counts walk the tombstoned stream with this
-// header's block table, tomb_count.cuh, and v1's its flat stream,
-// stream_count.cuh, whose sharded count also lists its claims by part):
+// header's block table, tomb_count.cuh, v1's its flat stream,
+// stream_count.cuh, and v0's its rows, train_bucketed.cu, whose sharded
+// counts also list their claims by part; all share chunk_counted's run
+// parity):
 //  * the stream is walked flat, not a word a warp: a warp takes a
 //    contiguous run of 128-slot chunks, a lane 4 slots by one 16-byte load
 //    of the tokens and one of pwid; a pair's weight is fw[pwid].  Run parity
@@ -66,6 +68,11 @@ namespace yttm {
 
 constexpr int kCountThreads = 256;
 constexpr int kCountSlots = 2048;  // a block's shared table
+// blocks of a count an SM that its registers must allow (48 a thread): left
+// to themselves the listed counts (v1's and v0's) took more, 4 blocks an
+// SM, and the sharded v1 count took 2168-2172 ms over the 100 MB run
+// against 1650-1688 at 5 (chip_smoke.compare_tree, H100 80GB HBM3, 700 W)
+constexpr int kCountBlocksSM = 5;
 
 // What a count does with a global slot it claims beyond counting it: nothing
 // (the counts into a replica's own table), or list it by its key's part
@@ -133,6 +140,37 @@ __device__ __forceinline__ void load4(const int32_t *v, int p, int n, int32_t pa
 #pragma unroll
     for (int j = 0; j < 4; ++j) out[j] = p + j < n ? __ldg(v + p + j) : pad;
   }
+}
+
+// The pairs a lane counts among its slots p .. p + 3 of a chunk of a flat
+// walk (a: their tokens; nb: each one's right neighbour; pv: the two form a
+// pair, two live tokens of one word or row), as bits 0-3: every pair but the
+// odd ones of a run of equal pairs (floor(r/2) pairs in a run of r equal
+// tokens).  carry: the last slot before the chunk that starts no equal pair
+// (-1: none), carried on to the chunk's.  All 32 lanes call it.
+__device__ __forceinline__ unsigned chunk_counted(int p, const int32_t (&a)[4],
+                                                  const int32_t (&nb)[4], const bool (&pv)[4],
+                                                  int &carry) {
+  bool eq[4];
+  int last_ne = -1;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    eq[j] = pv[j] && a[j] == nb[j];
+    if (!eq[j]) last_ne = p + j;
+  }
+  const int incl = warp_max_scan(last_ne);
+  int lne = __shfl_up_sync(kFullMask, incl, 1);
+  if ((threadIdx.x & 31) == 0) lne = -1;
+  lne = lne > carry ? lne : carry;
+  const int top = __shfl_sync(kFullMask, incl, 31);
+  carry = top > carry ? top : carry;
+  unsigned counted = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (!eq[j]) lne = p + j;
+    if (pv[j] && (!eq[j] || ((p + j - lne - 1) & 1) == 0)) counted |= 1u << j;
+  }
+  return counted;
 }
 
 // The count's gate: open when gate is null, or when one of the n_gate ctl
@@ -264,27 +302,16 @@ __global__ void __launch_bounds__(kCountThreads)
       int32_t after = __shfl_down_sync(kFullMask, a[0], 1);
       if (lane == 31) after = c * 128 + 128 < Mw ? __ldg(tok + c * 128 + 128) : kPad;
       const int32_t nb[4] = {a[1], a[2], a[3], after};
-      bool pv[4], eq[4];
-      int last_ne = -1;
+      bool pv[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        pv[j] = a[j] >= 0 && nb[j] >= 0;
-        eq[j] = pv[j] && a[j] == nb[j];
-        if (!eq[j]) last_ne = p + j;
-      }
-      const int incl = warp_max_scan(last_ne);
-      int lne = __shfl_up_sync(kFullMask, incl, 1);
-      if (lane == 0) lne = -1;
-      lne = lne > carry ? lne : carry;
-      const int top = __shfl_sync(kFullMask, incl, 31);
-      carry = top > carry ? top : carry;
+      for (int j = 0; j < 4; ++j) pv[j] = a[j] >= 0 && nb[j] >= 0;
+      const unsigned counted = chunk_counted(p, a, nb, pv, carry);
       unsigned long long key[4];
       int32_t f[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (!eq[j]) lne = p + j;
         key[j] = kEmpty;
-        if (!(pv[j] && (!eq[j] || ((p + j - lne - 1) & 1) == 0))) continue;
+        if (!((counted >> j) & 1u)) continue;
         key[j] = pair_key(a[j], nb[j]);
         f[j] = __ldg(fw + w[j]);
       }

@@ -25,6 +25,9 @@
 namespace yttm {
 
 constexpr int kMaxParts = 64;  // parts of a table: the shards of a mesh
+// claims a count block stages: beside its 24 KB table (pair_count.cuh
+// BlockTable), 8 blocks of the count still fit an SM
+constexpr int kListStage = 512;
 
 // The first slot of part p of a table of cap slots cut in n.
 __device__ __forceinline__ long long part_lo(int p, int cap, int n) {

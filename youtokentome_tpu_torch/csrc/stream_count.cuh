@@ -9,7 +9,9 @@
 //   :65 _segment_counts_flat (and the sharded program's, at
 //   youtokentome_tpu/parallel/train_stream_sharded.py:42):
 // the stream t / wid holds the live tokens front-compacted (t[0, live),
-// PAD after them) and no separator; (t[i], t[i+1]) is a pair when
+// PAD after them) and no separator, in the one of its two buffers that the
+// round reads (StreamCtl below: the apply writes the other); (t[i],
+// t[i+1]) is a pair when
 // wid[i] == wid[i+1] and i + 1 < live, it weighs freq[wid[i]] (not counted
 // at 0), and a run of r equal tokens inside a word counts floor(r/2).
 //
@@ -56,7 +58,20 @@
 
 namespace yttm {
 
-constexpr int kListStage = 512;  // claims a block stages: 8 blocks of the count still fit an SM
+// v1's slots of ctl past the shared ones (train_common.cuh Ctl): the live
+// tokens of the buffer the round reads (the count sets it from the next
+// one, which the apply writes), and past the sharded exchange's slots
+// (ops/delta_sharded_kernels.py CTL_N = 16) the stream's two buffers: the
+// one the round reads, the one the apply wrote (the count's clear makes it
+// the read one), and the live end that the other buffer still holds (its
+// slots past it are PAD).
+enum StreamCtl { kLive = CTL_OWN, kNextLive, kBuf = 16, kNextBuf, kPrevEnd, kStreamCtlN };
+
+// The stream's two buffers: tokens and word ids.
+struct StreamBufs {
+  int32_t *t[2];
+  int32_t *w[2];
+};
 
 // The last slot before p0 (0 < p0 < live) that starts no equal pair (-1:
 // none), by the whole warp, 32 slots a step back.  Every slot before p0 is
@@ -104,27 +119,16 @@ __device__ __forceinline__ void stream_count_block(const int32_t *t, const int32
       }
       const int32_t nb[4] = {a[1], a[2], a[3], after};
       const int32_t nw[4] = {w[1], w[2], w[3], after_w};
-      bool pv[4], eq[4];
-      int last_ne = -1;
+      bool pv[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        pv[j] = a[j] >= 0 && nb[j] >= 0 && w[j] == nw[j];
-        eq[j] = pv[j] && a[j] == nb[j];
-        if (!eq[j]) last_ne = p + j;
-      }
-      const int incl = warp_max_scan(last_ne);
-      int lne = __shfl_up_sync(kFullMask, incl, 1);
-      if (lane == 0) lne = -1;
-      lne = lne > carry ? lne : carry;
-      const int top = __shfl_sync(kFullMask, incl, 31);
-      carry = top > carry ? top : carry;
+      for (int j = 0; j < 4; ++j) pv[j] = a[j] >= 0 && nb[j] >= 0 && w[j] == nw[j];
+      const unsigned counted = chunk_counted(p, a, nb, pv, carry);
       unsigned long long key[4];
       int32_t f[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (!eq[j]) lne = p + j;
         key[j] = kEmpty;
-        if (!(pv[j] && (!eq[j] || ((p + j - lne - 1) & 1) == 0))) continue;
+        if (!((counted >> j) & 1u)) continue;
         f[j] = __ldg(freq + w[j]);
         if (f[j] > 0) key[j] = pair_key(a[j], nb[j]);
       }
@@ -134,22 +138,26 @@ __device__ __forceinline__ void stream_count_block(const int32_t *t, const int32
   block_table_close<OCC, OVF>(bt, claims, keys, cnts, cap, ctl, list);
 }
 
-// Counts every pair of the live prefix of t / wid (ctl[LIVE] slots; t and
-// wid 16-byte aligned) into keys / cnts, claims in ctl[OCC], a table more
-// than half full in ctl[OVF], and with kLists every claim listed in pl; a
-// no-op unless the round loop runs (block_active).  The table is empty
-// and ctl[OCC] = ctl[OVF] = 0 (the clear before it).  The BlockList is
-// built here, in the kernel, from its stage's address: returned by a
-// function (a factory, a lambda), the same list made the listed count fault
-// on the card (an illegal instruction and stray global writes; cause not
-// found), built in place it did not.
-template <int OCC, int OVF, int LIVE, bool kLists>
-__global__ void __launch_bounds__(kCountThreads)
-    stream_count_kernel(const int32_t *t, const int32_t *wid, const int32_t *freq,
-                        unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
-                        PartLists pl, int limit, int vocab) {
+// Counts every pair of the live prefix of the buffer the round reads
+// (ctl[kBuf]; ctl[kLive] slots, 16-byte aligned) into keys / cnts, claims
+// in ctl[OCC], a table more than half full in ctl[OVF], and with kLists
+// every claim listed in pl; a no-op unless the round loop runs
+// (block_active).  The table is empty and ctl[OCC] = ctl[OVF] = 0 (the
+// clear before it).  The BlockList is built here, in the kernel, from its
+// stage's address: returned by a function (a factory, a lambda), the same
+// list made the listed count fault on the card (an illegal instruction and
+// stray global writes; cause not found), built in place it did not.  The
+// count without lists takes 40 registers a thread: 6 blocks an SM.
+template <int OCC, int OVF, bool kLists>
+__global__ void
+__launch_bounds__(kCountThreads, kLists ? kCountBlocksSM : kCountBlocksSM + 1)
+    stream_count_kernel(StreamBufs bufs, const int32_t *freq, unsigned long long *keys,
+                        int32_t *cnts, int cap, int32_t *ctl, PartLists pl, int limit,
+                        int vocab) {
   if (!block_active(ctl, limit, vocab)) return;
-  const int n = ctl[LIVE];
+  const int n = ctl[kLive];
+  const bool b = ctl[kBuf];  // picked without indexing: no local copy of bufs
+  const int32_t *t = b ? bufs.t[1] : bufs.t[0], *wid = b ? bufs.w[1] : bufs.w[0];
   __shared__ BlockTable bt;
   if constexpr (kLists) {
     __shared__ ListStage<kListStage> stage;
@@ -162,17 +170,17 @@ __global__ void __launch_bounds__(kCountThreads)
   }
 }
 
-// The count's launch over a stream of M slots (the live prefix read from
-// ctl[LIVE] on the card), at most max_blocks blocks when that is > 0 (else
-// one wave).
-template <int OCC, int OVF, int LIVE, bool kLists>
-cudaError_t launch_stream_count(const int32_t *t, const int32_t *wid, const int32_t *freq, int M,
+// The count's launch over a stream of M slots a buffer (the live prefix
+// read from ctl[kLive] on the card), at most max_blocks blocks when that is
+// > 0 (else one wave).
+template <int OCC, int OVF, bool kLists>
+cudaError_t launch_stream_count(const StreamBufs &bufs, const int32_t *freq, int M,
                                 unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
                                 const PartLists &pl, int limit, int vocab, int max_blocks,
                                 cudaStream_t s) {
-  stream_count_kernel<OCC, OVF, LIVE, kLists>
-      <<<count_grid<stream_count_kernel<OCC, OVF, LIVE, kLists>>(M, max_blocks), kCountThreads, 0,
-         s>>>(t, wid, freq, keys, cnts, cap, ctl, pl, limit, vocab);
+  stream_count_kernel<OCC, OVF, kLists>
+      <<<count_grid<stream_count_kernel<OCC, OVF, kLists>>(M, max_blocks), kCountThreads, 0, s>>>(
+          bufs, freq, keys, cnts, cap, ctl, pl, limit, vocab);
   return cudaGetLastError();
 }
 

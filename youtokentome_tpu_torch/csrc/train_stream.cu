@@ -11,39 +11,73 @@
 // youtokentome_tpu_torch/ops/stream_train_kernels.py.
 //
 // State (all on the card; the host reads `ctl` once per batch of rounds):
-//   t, wid [M] int32   the JAX program's flat stream: the live tokens
-//                      front-compacted (t[0, live)), PAD (-1) after them; a
-//                      word is a run of one word id
-//   tmp_t, tmp_w [M]   the merged stream before its compaction
-//   tiles [2 * T]      the apply's scratch, per tile of 8192 positions: a
-//                      max (of the scans' positions) and a count (of the
-//                      kept positions)
+//   t0, w0, t1, w1 [M] int32
+//                      the JAX program's flat stream in two buffers: a round
+//                      reads one (ctl[kBuf]) and its apply writes the other.
+//                      Each holds its live tokens front-compacted, PAD (-1)
+//                      after them; a word is a run of one word id
+//   tiles [3 + T] u64  the apply's scratch: a ticket and a count of finished
+//                      blocks (the first shard's only), an epoch, and a
+//                      descriptor a tile of 4096 slots for the look-back
 //   keys [cap] u64, cnts [cap] int32
 //                      open-addressing pair-count table, key x << 32 | y,
 //                      emptied and counted again every round
-//   ctl [12] int32     used, done, overflow, round, n_acc, occupied, error
-//                      (train_common.cuh), live, next live
+//   ctl [19] int32     used, done, overflow, round, n_acc, occupied, error
+//                      (train_common.cuh), then stream_count.cuh StreamCtl:
+//                      live, next live, the read buffer, the written one, the
+//                      other buffer's live end
 //   work [8] int64     rounds, occupied slots, table slots scanned (the
 //                      top-k's), live tokens and kept tokens of the applied
 //                      rounds (summed over the rounds)
 //
 // Kernels:
-//   recount        clear: every slot emptied (and live <- next live);
-//                  count: stream_count.cuh's flat walk of the live prefix,
-//                  a warp a run of 128-slot chunks (16-byte loads of t and
-//                  wid), run parity from a warp max scan carried from chunk
-//                  to chunk (a run of equal tokens may span any number of
-//                  chunks, warps and blocks), each block counting into a
-//                  table of its own in shared memory, flushed once a key a
-//                  block, its claims counted once a block
+//   recount        clear: every slot emptied, and the buffers turned (the
+//                  one the last apply wrote is read from now on); count:
+//                  stream_count.cuh's flat walk of the live prefix, a warp a
+//                  run of 128-slot chunks (16-byte loads of t and wid), run
+//                  parity from a warp max scan carried from chunk to chunk,
+//                  each block counting into a table of its own in shared
+//                  memory, flushed once a key a block, its claims counted
+//                  once a block
 //   topk_accept    (train_topk.cu) the top 16 in the reference order and
 //                  accept_prefix; writes cand, rules, ctl, work
-//   apply_compact  hit tiles: each tile's last position without a hit;
-//                  select: parity along runs of hits from the carried scan,
-//                  z written at the selected starts, their right partners
-//                  marked dropped, each tile's kept count; scatter: the kept
-//                  tokens written in order at (earlier tiles' counts + a
-//                  block exclusive scan), PAD after the new live end
+//   apply_compact  one launch a round (a card's shards in one launch): the
+//                  merge and the compaction of the live prefix in one pass,
+//                  read from one buffer and written into the other
+//
+// The apply.  The old one made three launches a round over a grid sized to
+// the whole buffer (8192 slots a block of 1024 threads, each thread 8
+// consecutive slots), rebuilt the tile carries in every block, read each
+// live slot three times and wrote it twice (a killed-marked copy, then the
+// compacted stream): 837.9 ms over the 100 MB run's 3,320 rounds against a
+// bound of 61.2 (H100 80GB HBM3, 700 W).  This one:
+//  * a grid of one wave, sized by occupancy (3 blocks of 256 threads an
+//    SM, the registers held to 80 a thread); a block takes tiles of 4096
+//    slots of the live prefix from a ticket counter, so it only ever waits
+//    on tiles that running blocks hold.  A warp takes 4 chunks of 128
+//    slots of a tile, a lane 4 slots of a chunk with one 16-byte load of t
+//    and one of wid, all four chunks' loads in flight together;
+//  * a hit is (t[i], t[i+1]) equal to an accepted candidate (a 1024-bit
+//    filter of their first ids in shared memory, then the list), with
+//    wid[i] == wid[i+1] and i + 1 < live.  Its parity along a run of hits
+//    comes from a warp max scan of the last slot without a hit (the JAX
+//    cummax(where(hit, -1, idx))), carried from chunk to chunk; a warp's
+//    carry from the warps before it in the tile; the tile's from a walk
+//    back over the run of hits that crosses into it (a hit needs one word
+//    id, so the walk stops at that word's first token at the latest; the
+//    first step's loads are in flight with the tile's).  A slot is
+//    dropped when the one before it was selected;
+//  * with the parity found locally, a tile's kept count needs no carry:
+//    it publishes that count at once and resolves its offset by decoupled
+//    look-back over the tiles before it (descriptors tagged with the
+//    state's epoch, so that nothing clears them between rounds; published
+//    with release and read with acquire semantics).  The kept tokens are
+//    staged a warp's chunk in shared memory and written coalesced into the
+//    other buffer.  The block that ends last resets the ticket and moves the
+//    epochs on;
+//  * the destination is PAD from the new live end to its own old live end
+//    (the blocks that ran out of tiles write it once the last tile's offset
+//    is known); nothing is read after it is written, no marker is written.
 //
 // The sharded v1 engine (ops/recount_sharded_kernels.py, replacing
 // youtokentome_tpu/parallel/train_stream_sharded.py:42 _train_sharded) runs
@@ -53,8 +87,9 @@
 // block).
 // train_delta_sharded.cu's shard_part_fold rebuilds each replica's own part
 // from the N shards' lists of that part and shard_gather copies the other
-// parts in; the top-k runs on every replica and apply_compact on every
-// shard.
+// parts in; the top-k runs on every replica and apply_compact once a card
+// over every shard's stream (a tile is one shard's; the shards' tiles are
+// numbered one after the other).
 //
 // Every kernel does nothing once `done` or `overflow` is set or `used`
 // reached min(vocab, limit), so the host enqueues rounds in batches.  A count
@@ -63,18 +98,12 @@
 //
 // Bound.  A round reads the live stream in the count (t, wid: 8 B a token)
 // and the word frequencies (4 B a word, held in L2), fills the occupied
-// slots (12 B) and empties the table (12 B a slot); it reads the live stream
-// three times in the apply (t, wid) and writes it twice (tmp, then the
-// compacted stream).  What the design does about it:
-// no sort (the JAX program sorts the stream twice a round), every pass
-// coalesced over the live prefix only, the count one pass with its
-// same-key updates summed in shared memory; the recount of every pair every
-// round is v1's own rule.
+// slots (12 B) and empties the table (12 B a slot); the apply reads the
+// live stream once (8 B a token) and writes the kept tokens once (8 B each).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "encode_common.cuh"
 #include "part_list.cuh"
 #include "stream_count.cuh"
 #include "train_common.cuh"
@@ -82,50 +111,26 @@
 namespace {
 
 using namespace yttm;
-using yttm_enc::block_exclusive_scan;
-using yttm_enc::MaxOp;
-using yttm_enc::SumOp;
 
-enum { LIVE = CTL_OWN, NEXT_LIVE };
 enum { W_LIVE = W_OWN, W_KEEP };
-
-constexpr int kThreads = 1024;
-constexpr int kItems = 8;  // consecutive positions a thread owns
-constexpr int kTile = kThreads * kItems;
-constexpr int32_t kKill = -2;  // a dropped position in tmp_t
-
-// The block's reduction of v (every thread calls it).
-template <class Op>
-__device__ __forceinline__ int32_t block_reduce(int32_t v, int32_t identity, int32_t *wbuf, Op op) {
-  int32_t total;
-  block_exclusive_scan(v, identity, wbuf, &total, op);
-  return total;
-}
-
-// The carry of tile b: the reduction of vals[0, b) (every thread calls it).
-template <class Op>
-__device__ __forceinline__ int32_t tile_carry(const int32_t *vals, int b, int32_t identity,
-                                              int32_t *wbuf, Op op) {
-  int32_t c = identity;
-  for (int j = threadIdx.x; j < b; j += blockDim.x) c = op(c, vals[j]);
-  return block_reduce(c, identity, wbuf, op);
-}
-
-// (t[i], t[i+1]) is a pair of one word (i + 1 < n, the live end)
-__device__ __forceinline__ bool pair_at(const int32_t *wid, int i, int n) {
-  return i + 1 < n && wid[i] == wid[i + 1];
-}
 
 // -- recount -------------------------------------------------------------------
 
 // The clear before a count.  OCC_ and OVF_: the table's occupancy and
 // overflow slots (the state's own table; a shard's scratch table in the
 // sharded engine, whose overflow flag and part lists are cleared with it).
+// Block 0 turns the buffers first, when the last apply wrote the other one.
 template <int OCC_, int OVF_, bool kLists>
 __global__ void __launch_bounds__(256)
     clear_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl, PartLists pl,
                  int limit, int vocab) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) ctl[LIVE] = ctl[NEXT_LIVE];
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    if (ctl[kNextBuf] != ctl[kBuf]) {
+      ctl[kPrevEnd] = ctl[kLive];
+      ctl[kBuf] = ctl[kNextBuf];
+    }
+    ctl[kLive] = ctl[kNextLive];
+  }
   if (!round_active(ctl, limit, vocab)) return;
   for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < cap; s += gridDim.x * blockDim.x) {
     keys[s] = kEmpty;
@@ -140,190 +145,466 @@ __global__ void __launch_bounds__(256)
 
 // -- apply ---------------------------------------------------------------------
 
-// The index of the accepted candidate (a, b) is, or -1.
-__device__ __forceinline__ int match(const Cands &c, int n, int32_t a, int32_t b) {
-  int rix = -1;
-  for (int j = 0; j < n; ++j)
-    if (rix < 0 && a == c.x[j] && b == c.y[j]) rix = j;
-  return rix;
+constexpr int kApplyThreads = 256;
+constexpr int kApplyWarps = kApplyThreads / 32;
+constexpr int kWarpChunks = 4;  // 128-slot chunks a warp takes in a tile
+constexpr int kWarpSlots = 128 * kWarpChunks;
+constexpr int kTileSlots = kWarpSlots * kApplyWarps;
+constexpr int kMaxShards = kMaxParts;  // shards of a card in one launch
+// blocks an SM that the apply's registers must allow (80 a thread): with
+// its registers unbounded (2 blocks an SM) it took 246-247 ms over the 100
+// MB v1 run, at 3 blocks, with the walk back's loads in flight with the
+// tile's, 201.9 (chip_smoke.compare_tree, H100 80GB HBM3, 700 W)
+constexpr int kApplyBlocksSM = 3;
+// tiles[]: the ticket and the finished blocks (the first shard's), the epoch,
+// then the descriptors
+enum { kTicket = 0, kDone, kEpoch, kDesc };
+
+// One shard of an apply launch, as the host lays it out (8 int64).
+struct ApplyShard {
+  int32_t *t[2];
+  int32_t *w[2];
+  int32_t *ctl;
+  const int32_t *cand;
+  unsigned long long *tiles;
+  long long *work;
+};
+static_assert(sizeof(ApplyShard) == 8 * 8, "the host lays an apply shard out as 8 int64");
+
+// The shared state of an apply block.
+struct ApplyBlock {
+  int pre[kMaxShards + 1];  // each shard's first tile
+  int live[kMaxShards], prev[kMaxShards], buf[kMaxShards];
+  unsigned tag[kMaxShards];  // this launch's descriptor tag (the epoch + 1)
+  Cands c;
+  int n_cands;
+  unsigned xmask[32];  // bit x & 1023: some candidate's first id
+  int wlast[kApplyWarps];  // each warp's last slot without a hit (-1: none)
+  int whit[kApplyWarps];   // its last slot holds a hit
+  int wkeep[kApplyWarps];  // its kept tokens
+  int carry;      // the tile's last slot before it without a hit
+  int carry_hit;  // the slot before the tile holds a hit
+  int ticket, excl, live2;
+  int32_t st[kApplyWarps][128], sw[kApplyWarps][128];  // a warp's kept tokens of a chunk
+};
+
+__device__ __forceinline__ void publish(unsigned long long *d, unsigned tag, bool incl,
+                                        int value) {
+  const unsigned long long v =
+      ((unsigned long long)(tag * 2u + (incl ? 1u : 0u)) << 32) | (uint32_t)value;
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(d), "l"(v) : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
-    hit_tiles_kernel(const int32_t *t, const int32_t *wid, const int32_t *ctl,
-                     const int32_t *cand, int32_t *tiles) {
-  __shared__ Cands c;
-  __shared__ int32_t wbuf[kThreads / 32];
-  const int na = load_cands(c, ctl, cand);
-  if (na == 0) return;
-  const int n = ctl[LIVE];
-  const int base = blockIdx.x * kTile;
-  if (base >= n) return;
-  int32_t m = -1;
-  const int i0 = base + threadIdx.x * kItems;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = i0 + k;
-    if (i < n && !(pair_at(wid, i, n) && match(c, na, t[i], t[i + 1]) >= 0)) m = i;
-  }
-  m = block_reduce(m, -1, wbuf, MaxOp());
-  if (threadIdx.x == 0) tiles[blockIdx.x] = m;
+__device__ __forceinline__ unsigned long long peek(const unsigned long long *d) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(d) : "memory");
+  return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    select_tiles_kernel(const int32_t *t, const int32_t *wid, const int32_t *ctl,
-                        const int32_t *cand, int32_t *tiles, int n_tiles, int32_t *tmp_t,
-                        int32_t *tmp_w) {
-  __shared__ Cands c;
-  __shared__ int32_t wbuf[kThreads / 32];
-  const int na = load_cands(c, ctl, cand);
-  if (na == 0) return;
-  const int n = ctl[LIVE];
-  const int base = blockIdx.x * kTile;
-  if (base >= n) return;
-  const int32_t carry = tile_carry(tiles, blockIdx.x, -1, wbuf, MaxOp());
-  const int i0 = base + threadIdx.x * kItems;
-  int rix[kItems];
-  int32_t m = -1;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = i0 + k;
-    rix[k] = i < n && pair_at(wid, i, n) ? match(c, na, t[i], t[i + 1]) : -1;
-    if (i < n && rix[k] < 0) m = i;
-  }
-  int32_t total;
-  int32_t run = block_exclusive_scan(m, -1, wbuf, &total, MaxOp());
-  run = run > carry ? run : carry;  // the last position before i0 without a hit
-  // was the position before i0 selected?  If it holds a hit, it adds nothing
-  // to the scan, so `run` is its own last position without a hit
-  bool prev_sel = false;
-  if (i0 > 0 && i0 < n && pair_at(wid, i0 - 1, n) && match(c, na, t[i0 - 1], t[i0]) >= 0)
-    prev_sel = ((i0 - 1 - run - 1) & 1) == 0;
-  int32_t keeps = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = i0 + k;
-    if (i >= n) break;
-    if (rix[k] < 0) run = i;
-    const bool sel = rix[k] >= 0 && ((i - run - 1) & 1) == 0;
-    const bool keep = !prev_sel;
-    tmp_t[i] = keep ? (sel ? c.z[rix[k]] : t[i]) : kKill;
-    tmp_w[i] = wid[i];
-    keeps += keep;
-    prev_sel = sel;
-  }
-  keeps = block_reduce(keeps, 0, wbuf, SumOp());
-  if (threadIdx.x == 0) tiles[n_tiles + blockIdx.x] = keeps;
+// The index of the accepted candidate (a, b) is, or -1 (the filter first).
+__device__ __forceinline__ int match(const ApplyBlock &sb, int32_t a, int32_t b) {
+  if (a < 0 || !((sb.xmask[(a >> 5) & 31] >> (a & 31)) & 1u)) return -1;
+  for (int j = 0; j < sb.n_cands; ++j)
+    if (a == sb.c.x[j] && b == sb.c.y[j]) return j;
+  return -1;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    scatter_kernel(int32_t *t, int32_t *wid, int32_t *ctl, const int32_t *tiles, int n_tiles,
-                   const int32_t *tmp_t, const int32_t *tmp_w, long long *work) {
-  __shared__ int32_t wbuf[kThreads / 32];
-  if (ctl[NACC] == 0) return;
-  const int n = ctl[LIVE];
-  const int base = blockIdx.x * kTile;
-  if (base >= n) return;
-  const int used_tiles = (n + kTile - 1) / kTile;
-  const int32_t off = tile_carry(tiles + n_tiles, blockIdx.x, 0, wbuf, SumOp());
-  const int32_t live2 = tile_carry(tiles + n_tiles, used_tiles, 0, wbuf, SumOp());
-  const int i0 = base + threadIdx.x * kItems;
-  int32_t keeps = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) keeps += i0 + k < n && tmp_t[i0 + k] != kKill;
-  int32_t total;
-  int32_t o = off + block_exclusive_scan(keeps, 0, wbuf, &total, SumOp());
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = i0 + k;
-    if (i >= n) break;
-    const int32_t v = tmp_t[i];
-    if (v != kKill) {
-      t[o] = v;
-      wid[o] = tmp_w[i];
-      ++o;
+// (t[i], t[i+1]) is a hit (i + 1 < n: the word ids differ past the live end).
+__device__ __forceinline__ bool hit_at(const ApplyBlock &sb, const int32_t *t, const int32_t *w,
+                                       int i) {
+  return w[i] == w[i + 1] && match(sb, t[i], t[i + 1]) >= 0;
+}
+
+// The last slot before p0 (0 < p0 < n) without a hit (-1: none), by the
+// whole warp, 32 slots a step back.  A hit needs one word id on both sides,
+// so the walk ends at the latest at the first token of p0's word.
+__device__ inline int last_miss_before(const ApplyBlock &sb, const int32_t *t, const int32_t *w,
+                                       int p0) {
+  const int lane = threadIdx.x & 31;
+  for (int b = p0 - 32;; b -= 32) {
+    const int i = b + lane;
+    const unsigned m = __ballot_sync(kFullMask, i >= 0 && !hit_at(sb, t, w, i));
+    if (m) return b + 31 - __clz(m);
+    if (b <= 0) return -1;
+  }
+}
+
+// The candidates of shard `row` (every thread calls it).
+__device__ __forceinline__ void load_apply_cands(ApplyBlock &sb, const ApplyShard &row) {
+  __syncthreads();
+  const int n = row.ctl[NACC];
+  if (threadIdx.x < n) {
+    sb.c.x[threadIdx.x] = row.cand[threadIdx.x * 4];
+    sb.c.y[threadIdx.x] = row.cand[threadIdx.x * 4 + 1];
+    sb.c.z[threadIdx.x] = row.cand[threadIdx.x * 4 + 2];
+  }
+  if (threadIdx.x < 32) {
+    unsigned m = 0;
+    for (int j = 0; j < n; ++j) {
+      const int32_t x = row.cand[j * 4];
+      if (((x >> 5) & 31) == (int)threadIdx.x) m |= 1u << (x & 31);
     }
-    if (i >= live2) {  // never a destination: those lie below live2
-      t[i] = kPad;
-      wid[i] = kPad;
+    sb.xmask[threadIdx.x] = m;
+  }
+  if (threadIdx.x == 0) sb.n_cands = n;
+  __syncthreads();
+}
+
+// Tile k of shard s: merged, its kept count published, its offset resolved
+// by look-back, its kept tokens written into the other buffer; the shard's
+// last tile also writes the shard's next live count and buffer.
+__device__ __forceinline__ void apply_tile(ApplyBlock &sb, const ApplyShard &row, int s, int k,
+                                           int n_tiles) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = sb.live[s], b = sb.buf[s];
+  // the buffers picked without indexing: no local copy of the row
+  const int32_t *t = b ? row.t[1] : row.t[0], *w = b ? row.w[1] : row.w[0];
+  int32_t *dt = b ? row.t[0] : row.t[1], *dw = b ? row.w[0] : row.w[1];
+  const int s0 = k * kTileSlots;
+  const int p0 = s0 + warp * kWarpSlots;
+  int32_t a[kWarpChunks][4], wd[kWarpChunks][4];
+#pragma unroll
+  for (int c = 0; c < kWarpChunks; ++c) {
+    load4(t, p0 + c * 128 + 4 * lane, n, kPad, a[c]);
+    load4(w, p0 + c * 128 + 4 * lane, n, -1, wd[c]);
+  }
+  int32_t tail_t = kPad, tail_w = -1;  // the slot after the warp's (lane 31)
+  if (lane == 31 && p0 + kWarpSlots < n) {
+    tail_t = __ldg(t + p0 + kWarpSlots);
+    tail_w = __ldg(w + p0 + kWarpSlots);
+  }
+  // warp 0: the first step of the walk back from the tile's start (the 32
+  // slots before it and the pairs they start), in flight with the chunks
+  const bool walk = warp == 0 && s0 > 0 && s0 < n;
+  int32_t back_t[2] = {kPad, kPad}, back_w[2] = {-1, -2};
+  if (walk) {
+    const int i = s0 - 32 + lane;
+    back_t[0] = __ldg(t + i);
+    back_t[1] = __ldg(t + i + 1);
+    back_w[0] = __ldg(w + i);
+    back_w[1] = __ldg(w + i + 1);
+  }
+  // hits: bit 4c + j; rix: 4 bits a slot
+  unsigned hits = 0;
+  unsigned long long rix = 0;
+  int miss = -1;  // the lane's last slot without a hit
+#pragma unroll
+  for (int c = 0; c < kWarpChunks; ++c) {
+    int32_t nt = __shfl_down_sync(kFullMask, a[c][0], 1);
+    int32_t nw = __shfl_down_sync(kFullMask, wd[c][0], 1);
+    // the next chunk's first slot (lane 0's), for lane 31
+    const int cn = (c + 1) % kWarpChunks;
+    const int32_t ct = __shfl_sync(kFullMask, c + 1 < kWarpChunks ? a[cn][0] : 0, 0);
+    const int32_t cw = __shfl_sync(kFullMask, c + 1 < kWarpChunks ? wd[cn][0] : 0, 0);
+    if (lane == 31) {
+      nt = c + 1 < kWarpChunks ? ct : tail_t;
+      nw = c + 1 < kWarpChunks ? cw : tail_w;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int32_t bt = j < 3 ? a[c][j + 1] : nt;
+      const int32_t bw = j < 3 ? wd[c][j + 1] : nw;
+      const int r = wd[c][j] == bw ? match(sb, a[c][j], bt) : -1;
+      if (r >= 0) {
+        hits |= 1u << (4 * c + j);
+        rix |= (unsigned long long)r << (4 * (4 * c + j));
+      } else {
+        miss = p0 + c * 128 + 4 * lane + j;
+      }
     }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    ctl[NEXT_LIVE] = live2;
-    work[W_LIVE] += n;
-    work[W_KEEP] += live2;
+  // the warp's summary; warp 0 also walks back from the tile's start
+  {
+    int m = miss;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const int u = __shfl_xor_sync(kFullMask, m, o);
+      m = u > m ? u : m;
+    }
+    if (lane == 0) sb.wlast[warp] = m;
+    if (lane == 31) sb.whit[warp] = (hits >> (4 * kWarpChunks - 1)) & 1u;
+    if (warp == 0) {
+      int l = s0 - 1;
+      if (walk) {
+        const unsigned mb = __ballot_sync(
+            kFullMask, !(back_w[0] == back_w[1] && match(sb, back_t[0], back_t[1]) >= 0));
+        l = mb ? s0 - 32 + 31 - __clz(mb) : last_miss_before(sb, t, w, s0 - 32);
+      }
+      if (lane == 0) {
+        sb.carry = l;
+        sb.carry_hit = l != s0 - 1;
+      }
+    }
+  }
+  __syncthreads();
+  int carry = sb.carry;
+  for (int v = 0; v < warp; ++v) carry = sb.wlast[v] > carry ? sb.wlast[v] : carry;
+  const bool prev_hit = warp == 0 ? sb.carry_hit : sb.whit[warp - 1];
+  // the slot before the warp's selected: a hit at an even offset of its run
+  bool psel = prev_hit && ((p0 - 2 - carry) & 1) == 0;
+  unsigned keep = 0;  // bit 4c + j
+  int lane_at[kWarpChunks], chunk_n[kWarpChunks];
+  int kept = 0;
+#pragma unroll
+  for (int c = 0; c < kWarpChunks; ++c) {
+    const int p = p0 + c * 128 + 4 * lane;
+    int last = -1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (!((hits >> (4 * c + j)) & 1u)) last = p + j;
+    const int incl = warp_max_scan(last);
+    int run = __shfl_up_sync(kFullMask, incl, 1);
+    if (lane == 0) run = -1;
+    run = run > carry ? run : carry;
+    const int top = __shfl_sync(kFullMask, incl, 31);
+    carry = top > carry ? top : carry;
+    bool sel[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool h = (hits >> (4 * c + j)) & 1u;
+      if (!h) run = p + j;
+      sel[j] = h && ((p + j - run - 1) & 1) == 0;
+    }
+    bool before = __shfl_up_sync(kFullMask, sel[3], 1);
+    if (lane == 0) before = psel;
+    psel = __shfl_sync(kFullMask, sel[3], 31);
+    unsigned km = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool dropped = j == 0 ? before : sel[j - 1];
+      if (p + j < n && !dropped) km |= 1u << j;
+      if (sel[j]) a[c][j] = sb.c.z[(rix >> (4 * (4 * c + j))) & 15u];
+    }
+    keep |= km << (4 * c);
+    const int cnt = __popc(km);
+    int at = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFullMask, at, o);
+      if (lane >= o) at += u;
+    }
+    lane_at[c] = at - cnt;
+    chunk_n[c] = __shfl_sync(kFullMask, at, 31);
+    kept += chunk_n[c];
+  }
+  if (lane == 0) sb.wkeep[warp] = kept;
+  __syncthreads();
+  // the tile's kept count, published at once; its offset by look-back
+  if (warp == 0) {
+    int total = 0;
+    for (int v = 0; v < kApplyWarps; ++v) total += sb.wkeep[v];
+    unsigned long long *desc = row.tiles + kDesc;
+    const unsigned tag = sb.tag[s];
+    int excl = 0;
+    if (k == 0) {
+      if (lane == 0) publish(desc, tag, true, total);
+    } else {
+      if (lane == 0) publish(desc + k, tag, false, total);
+      for (int j = k - 1;; j -= 32) {
+        const int i = j - lane;
+        unsigned long long v = 0;
+        bool ok = i < 0;
+        while (!__all_sync(kFullMask, ok)) {
+          if (!ok) {
+            v = peek(desc + i);
+            ok = (unsigned)(v >> 33) == tag;
+          }
+        }
+        const bool incl = i >= 0 && ((v >> 32) & 1u);
+        const unsigned stop = __ballot_sync(kFullMask, incl);
+        const int upto = stop ? __ffs(stop) - 1 : 31;
+        int add = i >= 0 && lane <= upto ? (int)(uint32_t)v : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) add += __shfl_xor_sync(kFullMask, add, o);
+        excl += add;
+        if (stop) break;
+      }
+      if (lane == 0) publish(desc + k, tag, true, excl + total);
+    }
+    if (lane == 0) {
+      sb.excl = excl;
+      if (k == n_tiles - 1) {  // the shard's last tile: its next live count and buffer
+        row.ctl[kNextLive] = excl + total;
+        row.ctl[kNextBuf] = b ^ 1;
+        row.work[W_LIVE] += n;
+        row.work[W_KEEP] += excl + total;
+      }
+    }
+  }
+  __syncthreads();
+  int out = sb.excl;
+  for (int v = 0; v < warp; ++v) out += sb.wkeep[v];
+  int32_t *stt = sb.st[warp], *stw = sb.sw[warp];
+#pragma unroll
+  for (int c = 0; c < kWarpChunks; ++c) {
+    int at = lane_at[c];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if ((keep >> (4 * c + j)) & 1u) {
+        stt[at] = a[c][j];
+        stw[at] = wd[c][j];
+        ++at;
+      }
+    __syncwarp();
+    for (int q = lane; q < chunk_n[c]; q += 32) {
+      dt[out + q] = stt[q];
+      dw[out + q] = stw[q];
+    }
+    __syncwarp();
+    out += chunk_n[c];
   }
 }
 
-inline int n_tiles(int M) { return (M + kTile - 1) / kTile; }
+// The round's merge of the accepted candidates into the streams of n_sh
+// shards (one card's), each compacted into its other buffer (the module
+// note).
+__global__ void __launch_bounds__(kApplyThreads, kApplyBlocksSM)
+    apply_compact_kernel(const ApplyShard *rows, int n_sh) {
+  __shared__ ApplyBlock sb;
+  if (threadIdx.x < n_sh) {
+    const ApplyShard &r = rows[threadIdx.x];
+    const int n = r.ctl[kLive];
+    sb.live[threadIdx.x] = n;
+    sb.prev[threadIdx.x] = r.ctl[kPrevEnd];
+    sb.buf[threadIdx.x] = r.ctl[kBuf];
+    sb.tag[threadIdx.x] = (unsigned)r.tiles[kEpoch] + 1u;
+    // a tile at least for a shard without tokens: its count still turns
+    sb.pre[threadIdx.x + 1] = r.ctl[NACC] ? (n + kTileSlots - 1) / kTileSlots + (n == 0) : 0;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sb.pre[0] = 0;
+    for (int s = 0; s < n_sh; ++s) sb.pre[s + 1] += sb.pre[s];
+  }
+  __syncthreads();
+  const int total = sb.pre[n_sh];
+  if (total == 0) return;
+  unsigned long long *ctr = rows[0].tiles;
+  int cur = -1;  // the shard whose candidates are loaded
+  for (;;) {
+    __syncthreads();
+    if (threadIdx.x == 0) sb.ticket = (int)atomicAdd(ctr + kTicket, 1ull);
+    __syncthreads();
+    const int g = sb.ticket;
+    if (g >= total) break;
+    int s = 0;
+    while (sb.pre[s + 1] <= g) ++s;
+    const ApplyShard row = rows[s];
+    if (s != cur) {
+      load_apply_cands(sb, row);
+      cur = s;
+    }
+    apply_tile(sb, row, s, g - sb.pre[s], sb.pre[s + 1] - sb.pre[s]);
+  }
+  // out of tiles: PAD from each shard's new live end to its other buffer's
+  // old one, once the shard's last tile has resolved its offset
+  for (int s = 0; s < n_sh; ++s) {
+    const int nt = sb.pre[s + 1] - sb.pre[s];
+    if (nt == 0) continue;
+    const ApplyShard row = rows[s];
+    if (threadIdx.x == 0) {
+      const unsigned long long *d = row.tiles + kDesc + nt - 1;
+      unsigned long long v = peek(d);
+      while ((unsigned)(v >> 32) != sb.tag[s] * 2u + 1u) v = peek(d);
+      sb.live2 = (int)(uint32_t)v;
+    }
+    __syncthreads();
+    const int l2 = sb.live2, end = sb.prev[s];
+    int32_t *dt = sb.buf[s] ? row.t[0] : row.t[1], *dw = sb.buf[s] ? row.w[0] : row.w[1];
+    for (int q = l2 + blockIdx.x * blockDim.x + threadIdx.x; q < end;
+         q += gridDim.x * blockDim.x) {
+      dt[q] = kPad;
+      dw[q] = kPad;
+    }
+    __syncthreads();
+  }
+  // the last block to finish: every ticket is taken and every epoch read
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(ctr + kDone, 1ull) == gridDim.x - 1ull) {
+      ctr[kTicket] = 0;
+      ctr[kDone] = 0;
+      for (int s = 0; s < n_sh; ++s) rows[s].tiles[kEpoch] += 1;
+    }
+  }
+}
+
+// Blocks of the apply: one wave, at most a block a tile of the shards'
+// buffers.
+int apply_grid(long long slots) {
+  static int wave = 0;
+  if (!wave) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, apply_compact_kernel, kApplyThreads,
+                                                  0);
+    wave = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long need = (slots + kTileSlots - 1) / kTileSlots;
+  return (int)(need < 1 ? 1 : (need < wave ? need : wave));
+}
 
 template <int OCC_, int OVF_, bool kLists>
-int recount(const void *t, const void *wid, const void *freq, int M, void *keys, void *cnts,
-            int cap, void *ctl, const PartLists &pl, int limit, int vocab, int max_blocks,
-            void *stream) {
-  if (M <= 0 || cap <= 0 || (cap & (cap - 1)) != 0 || ((uintptr_t)t & 15u) ||
-      ((uintptr_t)wid & 15u))
-    return (int)cudaErrorInvalidValue;
+int recount(const StreamBufs &bufs, const void *freq, int M, void *keys, void *cnts, int cap,
+            void *ctl, const PartLists &pl, int limit, int vocab, int max_blocks, void *stream) {
+  if (M <= 0 || cap <= 0 || (cap & (cap - 1)) != 0) return (int)cudaErrorInvalidValue;
+  for (int b = 0; b < 2; ++b)
+    if (((uintptr_t)bufs.t[b] & 15u) || ((uintptr_t)bufs.w[b] & 15u))
+      return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   clear_kernel<OCC_, OVF_, kLists><<<grid_for(cap, 256), 256, 0, s>>>(
       (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, pl, limit, vocab);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_stream_count<OCC_, OVF_, LIVE, kLists>(
-      (const int32_t *)t, (const int32_t *)wid, (const int32_t *)freq, M,
-      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl, pl, limit, vocab,
-      max_blocks, s);
+  return (int)launch_stream_count<OCC_, OVF_, kLists>(
+      bufs, (const int32_t *)freq, M, (unsigned long long *)keys, (int32_t *)cnts, cap,
+      (int32_t *)ctl, pl, limit, vocab, max_blocks, s);
+}
+
+StreamBufs bufs_of(void *t0, void *w0, void *t1, void *w1) {
+  return StreamBufs{{(int32_t *)t0, (int32_t *)t1}, {(int32_t *)w0, (int32_t *)w1}};
 }
 
 }  // namespace
 
 extern "C" {
 
-// One round's count: the table emptied, every live pair counted into it
-// (t and wid 16-byte aligned; at most max_blocks blocks when > 0, else one
-// wave).
-int yttm_stream_recount(const void *t, const void *wid, const void *freq, int M, void *keys,
-                        void *cnts, int cap, void *ctl, int limit, int vocab, int max_blocks,
-                        void *stream) {
-  return recount<OCC, OVERFLOW, false>(t, wid, freq, M, keys, cnts, cap, ctl,
+// One round's count: the buffers turned, the table emptied, every live pair
+// of the read buffer counted into it (t0, w0, t1, w1 16-byte aligned; at
+// most max_blocks blocks when > 0, else one wave).
+int yttm_stream_recount(void *t0, void *w0, void *t1, void *w1, const void *freq, int M,
+                        void *keys, void *cnts, int cap, void *ctl, int limit, int vocab,
+                        int max_blocks, void *stream) {
+  return recount<OCC, OVERFLOW, false>(bufs_of(t0, w0, t1, w1), freq, M, keys, cnts, cap, ctl,
                                        PartLists{nullptr, nullptr, 0, cap}, limit, vocab,
                                        max_blocks, stream);
 }
 
-// The sharded v1 engine's count of one shard: its scratch table (rkeys,
-// rcnts) emptied and its live pairs counted into it, the occupancy and
-// overflow in ctl's scratch slots, every claimed slot listed in its key's
-// part among n_parts (plist [cap], pcnt [n_parts]); shard_part_fold then
-// rebuilds every replica.
-int yttm_stream_shard_count(const void *t, const void *wid, const void *freq, int M,
+// The sharded v1 engine's count of one shard: its buffers turned, its
+// scratch table (rkeys, rcnts) emptied and its live pairs counted into it,
+// the occupancy and overflow in ctl's scratch slots, every claimed slot
+// listed in its key's part among n_parts (plist [cap], pcnt [n_parts]);
+// shard_part_fold then rebuilds every replica.
+int yttm_stream_shard_count(void *t0, void *w0, void *t1, void *w1, const void *freq, int M,
                             void *rkeys, void *rcnts, int cap, void *ctl, void *plist, void *pcnt,
                             int n_parts, int limit, int vocab, int max_blocks, void *stream) {
   if (n_parts <= 0 || n_parts > kMaxParts || cap < n_parts || !plist || !pcnt)
     return (int)cudaErrorInvalidValue;
   return recount<kShardRocc, kShardRovf, true>(
-      t, wid, freq, M, rkeys, rcnts, cap, ctl,
+      bufs_of(t0, w0, t1, w1), freq, M, rkeys, rcnts, cap, ctl,
       PartLists{(int32_t *)plist, (int32_t *)pcnt, n_parts, cap}, limit, vocab, max_blocks,
       stream);
 }
 
-// One round's merge of the accepted candidates and the stream's compaction.
-int yttm_stream_apply(void *t, void *wid, int M, void *tmp_t, void *tmp_w, void *tiles, void *ctl,
-                      const void *cand, void *work, void *stream) {
-  if (M <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int nt = n_tiles(M);
-  hit_tiles_kernel<<<nt, kThreads, 0, s>>>((const int32_t *)t, (const int32_t *)wid,
-                                           (const int32_t *)ctl, (const int32_t *)cand,
-                                           (int32_t *)tiles);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  select_tiles_kernel<<<nt, kThreads, 0, s>>>((const int32_t *)t, (const int32_t *)wid,
-                                              (const int32_t *)ctl, (const int32_t *)cand,
-                                              (int32_t *)tiles, nt, (int32_t *)tmp_t,
-                                              (int32_t *)tmp_w);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  scatter_kernel<<<nt, kThreads, 0, s>>>((int32_t *)t, (int32_t *)wid, (int32_t *)ctl,
-                                         (const int32_t *)tiles, nt, (const int32_t *)tmp_t,
-                                         (const int32_t *)tmp_w, (long long *)work);
+// One round's merge of the accepted candidates into the streams of n_sh
+// shards of one card (rows: a device array of ApplyShard; the first one's
+// tiles hold the ticket), each compacted into its other buffer; slots: the
+// shards' buffer lengths summed.
+int yttm_stream_apply(const void *rows, int n_sh, long long slots, void *stream) {
+  if (n_sh <= 0 || n_sh > kMaxShards || slots <= 0) return (int)cudaErrorInvalidValue;
+  apply_compact_kernel<<<apply_grid(slots), kApplyThreads, 0, (cudaStream_t)stream>>>(
+      (const ApplyShard *)rows, n_sh);
   return (int)cudaGetLastError();
 }
 

@@ -168,14 +168,15 @@ def load_tiered() -> ctypes.CDLL:
 def load_stream_train() -> ctypes.CDLL:
     """Build (if needed) and load the v1 stream trainer's kernels."""
     return _load("train_stream.cu", "libtrain_stream.so", {
-        # t, wid, freq, M, keys, cnts, cap, ctl, limit, vocab, max_blocks, stream
-        "yttm_stream_recount": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _i, _i, _i, _p]),
-        # t, wid, freq, M, rkeys, rcnts, cap, ctl, plist, pcnt, n_parts, limit,
-        # vocab, max_blocks, stream
-        "yttm_stream_shard_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p, _p, _i, _i, _i, _i,
-                                         _p]),
-        # t, wid, M, tmp_t, tmp_w, tiles, ctl, cand, work, stream
-        "yttm_stream_apply": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p]),
+        # t0, w0, t1, w1, freq, M, keys, cnts, cap, ctl, limit, vocab, max_blocks,
+        # stream
+        "yttm_stream_recount": (_i, [_p, _p, _p, _p, _p, _i, _p, _p, _i, _p, _i, _i, _i, _p]),
+        # t0, w0, t1, w1, freq, M, rkeys, rcnts, cap, ctl, plist, pcnt, n_parts,
+        # limit, vocab, max_blocks, stream
+        "yttm_stream_shard_count": (_i, [_p, _p, _p, _p, _p, _i, _p, _p, _i, _p, _p, _p, _i, _i,
+                                         _i, _i, _p]),
+        # rows, n_sh, slots, stream
+        "yttm_stream_apply": (_i, [_p, _i, _l, _p]),
     })
 
 
@@ -204,11 +205,13 @@ def load_block() -> ctypes.CDLL:
 def load_bucketed() -> ctypes.CDLL:
     """Build (if needed) and load the v0 bucketed trainer's kernels."""
     return _load("train_bucketed.cu", "libtrain_bucketed.so", {
-        # tok, roff, rfreq, R, keys, cnts, cap, ctl, limit, vocab, stream
-        "yttm_bucket_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _i, _i, _p]),
-        # tok, roff, rfreq, R, rkeys, rcnts, cap, ctl, plist, pcnt, n_parts,
-        # limit, vocab, stream
-        "yttm_bucket_shard_count": (_i, [_p, _p, _p, _i, _p, _p, _i, _p, _p, _p, _i, _i, _i, _p]),
+        # tok, S, bk, nb, rfreq, keys, cnts, cap, ctl, limit, vocab, max_blocks,
+        # stream
+        "yttm_bucket_count": (_i, [_p, _i, _p, _i, _p, _p, _p, _i, _p, _i, _i, _i, _p]),
+        # tok, S, bk, nb, rfreq, rkeys, rcnts, cap, ctl, plist, pcnt, n_parts,
+        # limit, vocab, max_blocks, stream
+        "yttm_bucket_shard_count": (_i, [_p, _i, _p, _i, _p, _p, _p, _i, _p, _p, _p, _i, _i, _i,
+                                         _i, _p]),
         # tok, roff, R, ctl, cand, work, stream
         "yttm_bucket_apply": (_i, [_p, _p, _i, _p, _p, _p, _p]),
     })

@@ -9,9 +9,13 @@ roff[r+1])``, a bucket's ``[Wb, Lb]`` matrix flattened),
 and a fresh open-addressing pair-count table each round (int64 keys
 ``x << 32 | y``, int32 counts):
 
-  bucket_count   empty the table, then one warp a row adds the row's pairs
-                 (run parity inside runs of equal tokens), weighted by the
-                 word's frequency
+  bucket_count   empty the table, then a flat walk of the rows' slots (a
+                 warp a run of 128-slot chunks, a lane 4 slots; a slot's
+                 row and row end from the bucket table ``bk``) counts every
+                 pair of two live tokens of one row (run parity inside runs
+                 of equal tokens), weighted by the row's frequency, into a
+                 table of each block's own in shared memory, flushed once a
+                 key a block
   topk_accept    the top pair in the reference order, its rule row,
                  ``ctl`` (the trainers' shared wrapper, ``train_kernels``,
                  with k = 1)
@@ -59,6 +63,20 @@ from .train_kernels import (
 W_WRITES = W_OWN  # work: the slots the applies changed
 
 
+def bucket_table(shapes) -> np.ndarray:
+    """The count kernel's bucket table (``csrc/train_bucketed.cu``
+    RowBucket, int32 [n + 1, 4]) of buckets of ``shapes`` [(W, L)]: each
+    one's first slot, first row, width and log2 width (-1 when the width is
+    not a power of two), then the slots' and rows' end."""
+    rows, off, row0 = [], 0, 0
+    for w, l in shapes:
+        shift = l.bit_length() - 1 if l > 0 and l & (l - 1) == 0 else -1
+        rows.append((off, row0, l, shift))
+        off, row0 = off + w * l, row0 + w
+    rows.append((off, row0, 1, 0))
+    return np.asarray(rows, np.int32)
+
+
 class BucketedState(TableState):
     """The kernel trainer's state on one device (see the module note)."""
 
@@ -71,6 +89,7 @@ class BucketedState(TableState):
         roff = np.zeros(lens.size + 1, np.int64)
         np.cumsum(lens, out=roff[1:])
         self.n_rows = int(lens.size)
+        self.bk = torch.from_numpy(bucket_table(self.shapes)).to(dev)
         self.tok = torch.from_numpy(tok).to(dev)
         self.roff = torch.from_numpy(roff.astype(np.int32)).to(dev)
         self.rfreq = torch.from_numpy(
@@ -127,18 +146,33 @@ def bucket_apply_plain(st: BucketedState):
 # -- wrappers -----------------------------------------------------------------
 
 
+def check_aligned(st: BucketedState, what: str):
+    """The count's 16-byte loads need the rows and the bucket table 16-byte
+    aligned."""
+    if st.tok.data_ptr() % 16 or st.bk.data_ptr() % 16:
+        raise ValueError(f"{what} needs 16-byte aligned rows")
+
+
+# The v0 count's grid (bucket_count, recount_sharded_kernels.bucket_shard_count):
+# 0 is one wave of blocks, the trainers' grid; a check sets it > 0 to cap the
+# blocks, so that each warp walks many chunks of short rows.
+COUNT_BLOCKS = 0
+
+
 def bucket_count(st: BucketedState, limit: int, vocab_size: int):
     """Empty the table and count every row's pairs into it (a no-op once
     the round loop stopped); sets ``ctl[OVERFLOW]`` when the table holds
-    more than half its slots."""
+    more than half its slots.  The count's grid: COUNT_BLOCKS."""
     if not _on(st, "bucket_count"):
         return bucket_count_plain(st, limit, vocab_size)
+    check_aligned(st, "bucket_count")
     lib = _cuda.load_bucketed()
     with torch.cuda.device(st.device):
         err = lib.yttm_bucket_count(
-            st.tok.data_ptr(), st.roff.data_ptr(), st.rfreq.data_ptr(), st.n_rows,
-            st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(), int(limit),
-            int(vocab_size), _stream_ptr(st.device),
+            st.tok.data_ptr(), st.tok.shape[0], st.bk.data_ptr(), len(st.shapes),
+            st.rfreq.data_ptr(), st.keys.data_ptr(), st.cnts.data_ptr(), st.cap,
+            st.ctl.data_ptr(), int(limit), int(vocab_size), int(COUNT_BLOCKS),
+            _stream_ptr(st.device),
         )
     _check(err, "bucket_count")
     bucket_count.launches += 1

@@ -22,8 +22,9 @@ and the part is full).  A round, all in hand-written CUDA:
                       ``csrc/stream_count.cuh``: a flat walk into each
                       block's table in shared memory, the block's claims
                       listed by part once a block)
-  bucket_shard_count  (v0: ``csrc/train_bucketed.cu``'s count, a thread a
-                      row, its claims staged and listed once a block too)
+  bucket_shard_count  (v0: ``csrc/train_bucketed.cu``'s count, the same flat
+                      walk and block table over the shard's rows, its claims
+                      listed once a block too)
                       into the shard's scratch table, emptied first, its
                       occupancy and overflow in ``ctl``'s scratch slots
   shard_part_fold     on every replica (``csrc/train_delta_sharded.cu``):
@@ -38,7 +39,9 @@ and the part is full).  A round, all in hand-written CUDA:
                       OVERFLOW on every replica; the host doubles the tables
                       and the segment runs again, nothing applied)
   topk_accept         on every replica (k = 1 for v0)
-  apply_compact       on every shard (v0: ``bucket_apply``)
+  apply_compact       once a card over its shards' streams (each compacted
+                      into its other buffer; v0: ``bucket_apply`` on every
+                      shard)
 
 The host reads shard 0's ``ctl`` once per batch of rounds and checks that
 every replica's round control and rules agree at each segment end.  Each
@@ -52,6 +55,7 @@ import numpy as np
 import torch
 
 from . import _cuda
+from . import bucketed_kernels as bk
 from . import stream_train_kernels as stk
 from .bucketed_kernels import BucketedState, bucket_apply, row_pairs
 from .delta_sharded_kernels import (
@@ -65,12 +69,12 @@ from .delta_sharded_kernels import (
     shard_part_fold,
 )
 from .stream_train_kernels import (
-    LIVE,
-    NEXT_LIVE,
     StreamState,
     apply_compact,
+    bufs,
     check_aligned,
     live_pairs,
+    turn,
 )
 from .tiered_kernels import _hash_update
 from .train_kernels import (
@@ -88,7 +92,7 @@ from .train_kernels import (
 
 class RecountShard(Exchange):
     """A shard that counts into its scratch table every round: the top-k
-    zeroes none of its own slots (v1's LIVE and NEXT_LIVE carry over
+    zeroes none of its own slots (v1's live counts and buffers carry over
     rounds); its delta buffer (one entry) is never read.  Its scratch
     table's part lists among ``n_parts`` (the mesh's shards): ``plist``
     [cap] and ``pcnt`` [n_parts] (the module note), empty with the
@@ -152,11 +156,11 @@ def _list_parts(st):
 
 
 def stream_shard_count_plain(st: StreamShardState, limit: int, vocab_size: int):
-    st.ctl[LIVE] = st.ctl[NEXT_LIVE]
+    turn(st)
     if not round_active(st, limit, vocab_size):
         return
     _clear_scratch(st)
-    if int(st.ctl[LIVE]):
+    if int(st.ctl[stk.LIVE]):
         _hash_update(st.rkeys, st.rcnts, st.ctl, ROCC, ROVF, *live_pairs(st))
     _list_parts(st)
 
@@ -173,19 +177,20 @@ def bucket_shard_count_plain(st: BucketedShardState, limit: int, vocab_size: int
 
 
 def stream_shard_count(st: StreamShardState, limit: int, vocab_size: int):
-    """Empty the shard's scratch table and count its live stream into it,
-    each claimed slot listed in its key's part (a no-op once the round loop
-    stopped); sets ``ctl[ROVF]`` when the table holds more than half its
-    slots.  The count's grid: ``stream_train_kernels.COUNT_BLOCKS``."""
+    """Turn to the buffer the last apply wrote, empty the shard's scratch
+    table and count its live stream into it, each claimed slot listed in
+    its key's part (a no-op once the round loop stopped); sets
+    ``ctl[ROVF]`` when the table holds more than half its slots.  The
+    count's grid: ``stream_train_kernels.COUNT_BLOCKS``."""
     if not _on(st, "stream_shard_count"):
         return stream_shard_count_plain(st, limit, vocab_size)
     check_aligned(st, "stream_shard_count")
     lib = _cuda.load_stream_train()
     with torch.cuda.device(st.device):
         err = lib.yttm_stream_shard_count(
-            st.t.data_ptr(), st.wid.data_ptr(), st.freq.data_ptr(), st.t.shape[0],
-            st.rkeys.data_ptr(), st.rcnts.data_ptr(), st.cap, st.ctl.data_ptr(),
-            st.plist.data_ptr(), st.pcnt.data_ptr(), st.n_parts, int(limit), int(vocab_size),
+            *bufs(st), st.freq.data_ptr(), st.t0.shape[0], st.rkeys.data_ptr(),
+            st.rcnts.data_ptr(), st.cap, st.ctl.data_ptr(), st.plist.data_ptr(),
+            st.pcnt.data_ptr(), st.n_parts, int(limit), int(vocab_size),
             int(stk.COUNT_BLOCKS), _stream_ptr(st.device),
         )
     _check(err, "stream_shard_count")
@@ -196,16 +201,17 @@ def bucket_shard_count(st: BucketedShardState, limit: int, vocab_size: int):
     """Empty the shard's scratch table and count its rows' pairs into it,
     each claimed slot listed in its key's part (a no-op once the round loop
     stopped); sets ``ctl[ROVF]`` when the table holds more than half its
-    slots."""
+    slots.  The count's grid: ``bucketed_kernels.COUNT_BLOCKS``."""
     if not _on(st, "bucket_shard_count"):
         return bucket_shard_count_plain(st, limit, vocab_size)
+    bk.check_aligned(st, "bucket_shard_count")
     lib = _cuda.load_bucketed()
     with torch.cuda.device(st.device):
         err = lib.yttm_bucket_shard_count(
-            st.tok.data_ptr(), st.roff.data_ptr(), st.rfreq.data_ptr(), st.n_rows,
-            st.rkeys.data_ptr(), st.rcnts.data_ptr(), st.cap, st.ctl.data_ptr(),
-            st.plist.data_ptr(), st.pcnt.data_ptr(), st.n_parts, int(limit), int(vocab_size),
-            _stream_ptr(st.device),
+            st.tok.data_ptr(), st.tok.shape[0], st.bk.data_ptr(), len(st.shapes),
+            st.rfreq.data_ptr(), st.rkeys.data_ptr(), st.rcnts.data_ptr(), st.cap,
+            st.ctl.data_ptr(), st.plist.data_ptr(), st.pcnt.data_ptr(), st.n_parts, int(limit),
+            int(vocab_size), int(bk.COUNT_BLOCKS), _stream_ptr(st.device),
         )
     _check(err, "bucket_shard_count")
     bucket_shard_count.launches += 1
@@ -243,8 +249,7 @@ class RecountShardEngine(ShardEngine):
         self._exchange(limit)
         for st in self.shards:
             topk_accept(st, limit, self.vocab_size, self.used_ids0, self.batch_k)
-        for st in self.shards:
-            self.apply(st)
+        self.apply()
         self._barrier()
 
     def regrow(self):
@@ -276,8 +281,10 @@ class StreamShardedKernelEngine(RecountShardEngine):
     def recount(self, st, limit: int):
         stream_shard_count(st, limit, self.vocab_size)
 
-    def apply(self, st):
-        apply_compact(st)
+    def apply(self):
+        """One launch a card over its shards' streams."""
+        for dev in self._devices:
+            apply_compact([st for st in self.shards if st.device == dev])
 
 
 class BucketedShardedKernelEngine(RecountShardEngine):
@@ -299,5 +306,6 @@ class BucketedShardedKernelEngine(RecountShardEngine):
     def recount(self, st, limit: int):
         bucket_shard_count(st, limit, self.vocab_size)
 
-    def apply(self, st):
-        bucket_apply(st)
+    def apply(self):
+        for st in self.shards:
+            bucket_apply(st)

@@ -13,8 +13,8 @@ PyTorch counterparts of ``youtokentome_tpu/ops/segment.py``:
   apply).
 
 The CUDA encode kernel does the first and third inside a thread block, and
-``csrc/train_bucketed.cu`` the last two a warp a row; these are their
-plain versions.
+``csrc/train_bucketed.cu`` the last two (the count in a flat walk of the
+rows, the apply a warp a row); these are their plain versions.
 """
 
 from __future__ import annotations
