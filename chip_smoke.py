@@ -1614,6 +1614,79 @@ def row_edge_buckets(base: int, rng):
     return out
 
 
+# v0's apply edge rows: (width, rows, live rows) a bucket, the last an odd
+# width past 1024 (a word of its own width)
+APPLY_BUCKETS = ((8, 64, 48), (16, 32, 24), (128, 8, 6), (1024, 4, 3), (1029, 2, 2))
+APPLY_GRIDS = (0, 1, 3)  # the apply checks' grids: one wave, then 1 and 3 blocks
+
+
+def apply_edge_cands(base: int) -> list:
+    """The rounds (x, y, z) of v0's apply edge checks, ids from ``base``: a
+    pair of equal ids (E E), a pair of two (A B), then pairs of the merged
+    ids (runs of E E's merge, an odd run's merge before its last E, the
+    merged A B alternations) and a filler pair."""
+    E, A, B, F = base, base + 1, base + 2, base + 3
+    z = base + 40
+    return [(E, E, z), (A, B, z + 1), (z, z, z + 2), (z, E, z + 3), (z + 1, z + 1, z + 4),
+            (F, F + 1, z + 5)]
+
+
+def apply_edge_buckets(base: int, rng):
+    """v0's apply edge rows, ids from ``base``, as buckets [(tokens [W, L],
+    freq [W])] of APPLY_BUCKETS, laid out as the preprocessing lays them
+    out (padding rows of PAD at frequency 0 at each bucket's end): rows of
+    runs of E (1-21 tokens, odd and even), A B alternations and fillers;
+    rows that fill their width; rows of E to their width; rows whose last
+    pair is A B or E E (a hit at a row's last pair), full or ending before
+    PAD; full rows whose last id and the next row's first are A and B, or E
+    and E (no pair across rows)."""
+    E, A, B, F = base, base + 1, base + 2, base + 3
+
+    def segment():
+        k = int(rng.integers(0, 5))
+        if k == 0:
+            return [E] * int(rng.integers(1, 22))
+        if k == 1:
+            return [A, B] * int(rng.integers(1, 4))
+        if k == 2:
+            return [F, F + 1]
+        return [F + int(v) for v in rng.integers(0, 6, int(rng.integers(1, 6)))]
+
+    out = []
+    for L, W, n in APPLY_BUCKETS:
+        mat = np.full((W, L), -1, np.int32)
+        for r in range(n):
+            kind = r % 6
+            k = int(rng.integers(2, L + 1)) if kind in (1, 5) else L
+            row = [E] * k if kind == 2 else []
+            while len(row) < k:
+                row += segment()
+            row = row[:k]
+            if kind in (3, 5):
+                row[-2:] = [A, B]
+            elif kind == 4:
+                row[-3:] = [F, E, E]
+            mat[r, :k] = row
+        for r in range(0, n - 1, 3):  # a full row, and the next row's first id
+            if mat[r, -1] >= 0:
+                mat[r, -1], mat[r + 1, 0] = (A, B) if r % 2 else (E, E)
+        freq = rng.integers(1, 6, W).astype(np.int32)
+        freq[n:] = 0
+        out.append((mat, freq))
+    return out
+
+
+def apply_quiet_rows(base: int, rng):
+    """Rows (buckets of widths 8, 16 and 1029) of ids that no round of
+    ``apply_edge_cands`` merges: a shard without a hit."""
+    out = []
+    for L, W in ((8, 16), (16, 8), (1029, 1)):
+        mat = rng.integers(base + 20, base + 26, (W, L)).astype(np.int32)
+        mat[W // 2 :, L // 2 :] = -1
+        out.append((mat, rng.integers(1, 6, W).astype(np.int32)))
+    return out
+
+
 FOLD_PARTS, FOLD_CAP = 3, 64  # the fold checks' mesh: parts of 21, 21 and 22 slots
 FOLD_CASES = ("scratch overflow", "parts union", "list drops claims")
 
@@ -1654,6 +1727,30 @@ def fold_case_pairs(case: str) -> list:
         parts = [pairs_of_part(n, p, 24, 20 + p) for p in range(n)]
         return [np.concatenate([q[8 * s : 8 * s + 8] for q in parts]) for s in range(n)]
     return [pairs_of_part(n, 0, 30, 40)] + [pairs_of_part(n, 1, 4, 41)] * (n - 1)
+
+
+GATHER_ROUNDS = 5  # the listed gather's rounds: the tables regrow before round 2; round 4 fills a part
+
+
+def gather_round_pairs(r: int) -> list:
+    """Each shard's pairs (FOLD_PARTS shards) in round ``r`` of the listed
+    gather's checks: from a pool of 24 keys a part, a window of them a part
+    that moves from round to round (keys leave and join, so the filled slots
+    move), each key on one shard and the window's first on every shard
+    (counts summed); 8 and 6 keys a part in rounds 0-1 (tables of FOLD_CAP
+    slots), 10 and 18 in rounds 2-3 (tables regrown to twice that); in round 4, 45
+    keys of part 0 against its 42 slots (a full part)."""
+    n = FOLD_PARTS
+    if r == 4:
+        full = pairs_of_part(n, 0, 45, 70)
+        return [full[s::n] for s in range(n)]
+    pool = [pairs_of_part(n, p, 24, 60 + p) for p in range(n)]
+    lo, size = ((0, 8), (4, 6), (8, 10), (2, 18))[r]
+    out = []
+    for s in range(n):
+        mine = [q[lo : lo + size] for q in pool]
+        out.append(np.concatenate([np.concatenate([m[:1], m[1:][s::n]]) for m in mine]))
+    return out
 
 
 def stream_shard_of(t, wid, freq, dev, cap: int = FOLD_CAP, n: int = FOLD_PARTS):
@@ -2248,6 +2345,96 @@ def phase_row_count_checks(main_st, dev) -> dict:
     return {"row_sets": n, "regrown": sizes}
 
 
+def row_apply(states, blocks: int) -> None:
+    """v0's apply of one round on ``states`` (one card's), the kernel on at
+    most ``blocks`` blocks when > 0, else one wave (``APPLY_BLOCKS``)."""
+    from youtokentome_tpu_torch.ops import bucketed_kernels as bk
+
+    bk.APPLY_BLOCKS = blocks
+    try:
+        bk.bucket_apply(states)
+    finally:
+        bk.APPLY_BLOCKS = 0
+
+
+def same_rows(ks, ps, what: str) -> None:
+    """Kernel and plain v0 states agree after an apply: rows, ctl and work
+    (W_WRITES, the slots that changed)."""
+    import torch
+
+    for i, (a, b) in enumerate(zip(ks, ps)):
+        check(torch.equal(a.tok, b.tok), f"{what}: state {i}'s rows differ")
+        check(torch.equal(a.ctl, b.ctl), f"{what}: state {i}'s ctl {a.ctl.tolist()} != "
+              f"{b.ctl.tolist()}")
+        check(torch.equal(a.work, b.work), f"{what}: state {i}'s work {a.work.tolist()} != "
+              f"{b.work.tolist()}")
+
+
+def phase_row_apply_checks(main_st, used0: int, dev) -> dict:
+    """v0's apply (csrc/train_bucketed.cu's flat walk of the rows) against
+    its plain version, through both entries (one state; 4 states of a card
+    in one launch): on ``apply_edge_buckets`` (ids from 5 and 70000: widths
+    8-1024 and 1029, runs of equal ids, hits at rows' last pairs, full rows
+    whose ends meet the next row's same ids, padding rows) whole, and cut in
+    3 shards with a fourth that never holds a hit, the rounds of
+    ``apply_edge_cands`` in turn, on each grid of APPLY_GRIDS (one wave, then
+    1 and 3 blocks: warp runs that end inside rows, those of the odd width
+    too); rows, ctl and work (W_WRITES) after every round; then the main
+    path's state (the 100 MB rows) through one round on one wave and on 64
+    blocks."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import bucketed_kernels as bk
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+    from youtokentome_tpu_torch.parallel.train_sharded import shard_rows
+
+    t0 = time.perf_counter()
+    n, writes = 0, 0
+    for base in COUNT_BASES:
+        rng = np.random.default_rng(base + 11)
+        buckets = apply_edge_buckets(base, rng)
+        quiet = apply_quiet_rows(base, rng)
+        vocab = base + 64
+        rules = np.full((vocab, 4), -1, np.int32)
+        for label, parts in (("one state", [buckets]),
+                             ("4 states in one launch", shard_rows(buckets, 3) + [quiet])):
+            for blocks in APPLY_GRIDS:
+                ks = [bk.BucketedState(b, rules, vocab - 10, 1 << 10, dev) for b in parts]
+                ps = [clone_state(st) for st in ks]
+                for r, xyz in enumerate(apply_edge_cands(base)):
+                    for st in ks + ps:
+                        st.cand[0, :3] = torch.tensor(xyz, dtype=torch.int32, device=st.device)
+                        st.ctl[tk.NACC] = 1
+                    row_apply(ks, blocks)
+                    for st in ps:
+                        bk.bucket_apply_plain(st)
+                    same_rows(ks, ps, f"bucket_apply, the edge rows, ids from {base}, {label}, "
+                                      f"{blocks or 'a wave of'} blocks, round {r + 1} {xyz}")
+                    n += 1
+                writes += sum(int(st.work[bk.W_WRITES]) for st in ks)
+                if len(ks) > 1:
+                    check(int(ks[-1].work[bk.W_WRITES]) == 0, "the state without a hit was written")
+    check(writes > 0, "the apply's edge rounds wrote no slot")
+    base = clone_state(main_st)
+    v = int(base.rules.shape[0])
+    tk.topk_accept_plain(base, v, v, used0, 1)
+    check(int(base.ctl[tk.NACC]) == 1, "the main path's state accepted no pair")
+    main_writes = []
+    for blocks in (0, 64):
+        ks, ps = [clone_state(base)], [clone_state(base)]
+        row_apply(ks, blocks)
+        bk.bucket_apply_plain(ps[0])
+        same_rows(ks, ps, f"bucket_apply, the 100 MB rows, {blocks or 'a wave of'} blocks")
+        main_writes.append(int(ks[0].work[bk.W_WRITES]) - int(base.work[bk.W_WRITES]))
+    check(min(main_writes) > 0, "the main path's round wrote no slot")
+    log(f"[9] v0's apply == plain on {n} edge rounds (ids from {COUNT_BASES}, widths "
+        f"{[b[0] for b in APPLY_BUCKETS]}; one state, and 4 states in one launch, one without a "
+        f"hit; grids {APPLY_GRIDS}; {writes} slots written) and on the 100 MB rows "
+        f"({int(main_st.tok.shape[0])} slots, {main_writes[0]} written, one wave and 64 blocks) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"rounds": n, "writes": writes}
+
+
 def phase_train_kernels(buckets, used0: int, dev) -> dict:
     """Each training kernel against its plain version on the card, on the
     main path's state (the 100 MB corpus's stream and table)."""
@@ -2414,6 +2601,111 @@ def library_topk_ms(keys, cnts, k: int = 16) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b)
+
+
+LIBRARY_EVERY = 8  # rounds between two samples of a library yardstick on a main path
+
+
+def library_note(row: dict, sample) -> str:
+    """The log's words for a row's library yardstick."""
+    if row.get("library_ms") is None:
+        return ""
+    return (f"; library {row['library_ms']:.3f} ms ({len(sample.events)} samples, one every "
+            f"{LIBRARY_EVERY} rounds, scaled to the {row['launches']} launches)")
+
+
+class LibrarySample:
+    """A library yardstick timed on every LIBRARY_EVERY-th round of a run
+    and scaled to its wrapper's launches: each sample enqueues its PyTorch
+    calls between two CUDA events on the current stream, a sleep kernel
+    ahead of them, without a wait on the host, so that the run goes on as
+    it would (its device time grows by the samples' and the sleeps').  Its wrappers (``topk``, ``gather``, ``rounds``) are
+    swapped in for the names an engine module calls; they leave the launch
+    counts to the real wrappers."""
+
+    def __init__(self):
+        self.events, self.calls = [], 0
+
+    def _timed(self, fn):
+        import torch
+
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPLIT_SLEEP_CYCLES)  # so that the host's enqueue is not timed
+        a.record()
+        fn()
+        b.record()
+        self.events.append((a, b))
+
+    def topk_of(self, keys, cnts, k: int) -> None:
+        """A sample of library_topk_ms: one torch.topk over the table's words
+        (ordered outside the events)."""
+        import torch
+
+        from youtokentome_tpu_torch.ops import train_kernels as tk
+
+        live = keys != tk.EMPTY
+        zero = torch.zeros_like(keys)
+        words = tk.order_words(cnts, torch.where(live, keys >> 32, zero).to(torch.int32),
+                               torch.where(live, keys & 0xFFFFFFFF, zero).to(torch.int32))
+        self._timed(lambda: torch.topk(words, k))
+
+    def topk(self, real, per_round: int = 1):
+        """A topk_accept that samples the table of the first of the
+        ``per_round`` replicas that a round's calls take (they hold the same
+        table) every LIBRARY_EVERY rounds."""
+        def run(st, limit, vocab_size, used_ids0, k=16):
+            if self.calls % (LIBRARY_EVERY * per_round) == 0:
+                self.topk_of(st.keys, st.cnts, k)
+            self.calls += 1
+            return real(st, limit, vocab_size, used_ids0, k)
+        return run
+
+    def rounds(self, real):
+        """A shard_rounds (the round graph's route) cut at every
+        LIBRARY_EVERY-th replay, where it samples the head replica's table,
+        which the next replay's top-k reads."""
+        def run(eng, n: int, limit: int):
+            while n > 0:
+                if eng.replays % LIBRARY_EVERY == 0:
+                    self.topk_of(eng.head.keys, eng.head.cnts, eng.batch_k)
+                step = min(n, LIBRARY_EVERY - eng.replays % LIBRARY_EVERY)
+                real(eng, step, limit)
+                n -= step
+        return run
+
+    def gather(self, real):
+        """A shard_gather that, every LIBRARY_EVERY rounds, copies with
+        ``Tensor.copy_`` every other part of each replica of the card's
+        launch (keys and counts, N - 1 slices each) from its owner into
+        tables of its own (allocated outside the events)."""
+        import torch
+
+        from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+
+        def run(reps, shards):
+            if self.calls % LIBRARY_EVERY == 0:
+                n, cap = len(shards), shards[0].cap
+                into = [(torch.empty_like(st.keys), torch.empty_like(st.cnts)) for st in reps]
+
+                def copies():
+                    for st, (keys, cnts) in zip(reps, into):
+                        for p, o in enumerate(shards):
+                            if o is not st:
+                                lo, hi = dsk.part_lo(p, cap, n), dsk.part_lo(p + 1, cap, n)
+                                keys[lo:hi].copy_(o.keys[lo:hi])
+                                cnts[lo:hi].copy_(o.cnts[lo:hi])
+                self._timed(copies)
+            self.calls += 1
+            return real(reps, shards)
+        return run
+
+    def ms(self, launches: int):
+        """The samples' ms scaled to ``launches`` (a sample stands for one
+        launch), or None without a sample."""
+        if not self.events:
+            return None
+        self.events[-1][1].synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events) / len(self.events) * launches
 
 
 def selection_keys(cnts, k: int):
@@ -3824,7 +4116,7 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
     return {"rows": rows}
 
 
-def compare_tree(work: Path) -> dict:
+def compare_tree(work: Path, parts=("train", "sharded", "recount")) -> dict:
     """The numbers the training kernels' redesigns are held to, for the
     package of the current directory's tree (run it in the parent's
     unpacked tree and in the change's, in turns, from one process each,
@@ -3839,27 +4131,40 @@ def compare_tree(work: Path) -> dict:
     the sharded v1 loop (4 shards) to vocab 30000 and v0's and the sharded
     v0 loop to their first V0_MAIN_IDS ids, each twice by the host clock, then once
     traced (each wrapper's device ms and launches, the count's, the
-    fold's and the apply's device functions by name, in either tree).  The
-    corpus is written to ``work`` by the first caller and read by the
-    others.  Prints and returns the numbers."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
-    from youtokentome_tpu_torch.ops import tiered_kernels as tk
-    from youtokentome_tpu_torch.ops import train_kernels as v2
-    from youtokentome_tpu_torch.ops import train_stream as ts
-
-    dev = torch.device("cuda", 0)
+    fold's and the apply's device functions by name, in either tree).
+    ``parts`` picks the sections: "train" (the first five), "sharded" (the
+    sharded v2 and v3 loops), "recount" (the last).  The corpus is written
+    to ``work`` by the first caller and read by the others.  Prints and
+    returns the numbers."""
     work.mkdir(parents=True, exist_ok=True)
     corpus_path = work / "corpus_100mb.txt"
     if not corpus_path.exists():
         corpus_path.write_text("\n".join(build_corpus()[1]) + "\n")
     out = {"tree": os.getcwd(), "card": card_line()}
     buckets, _, used0 = training_buckets(corpus_path)
-    out["train_split"] = [train_split(corpus_path, work / f"cmp{i}.yttm")[1] for i in range(2)]
-    t, wid, freq, B = tiered_inputs(buckets)
     rules = np.full((TRAIN_VOCAB, 4), -1, np.int32)
+    if "train" in parts:
+        out.update(compare_train(corpus_path, work, buckets, used0, rules))
+    if "sharded" in parts:
+        out.update(compare_sharded(buckets, used0))
+    if "recount" in parts:
+        out.update(compare_recount(buckets, used0))
+    print("COMPARE " + json.dumps(out), flush=True)
+    return out
+
+
+def compare_train(corpus_path: Path, work: Path, buckets, used0: int, rules) -> dict:
+    """compare_tree's "train" section."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from youtokentome_tpu_torch.ops import tiered_kernels as tk
+    from youtokentome_tpu_torch.ops import train_kernels as v2
+    from youtokentome_tpu_torch.ops import train_stream as ts
+
+    dev = torch.device("cuda", 0)
+    out = {"train_split": [train_split(corpus_path, work / f"cmp{i}.yttm")[1] for i in range(2)]}
+    t, wid, freq, B = tiered_inputs(buckets)
 
     def engine():
         return tk.TieredKernelEngine(t, wid, freq, rules, used0, TRAIN_VOCAB, 16, B, dev)
@@ -3899,6 +4204,17 @@ def compare_tree(work: Path) -> dict:
     out["rows_ms"] = {
         name: round(sum(ms for k, (ms, _) in fns.items() if any(p in k for p in keys)), 4)
         for name, keys in sums.items()}
+    return out
+
+
+def compare_sharded(buckets, used0: int) -> dict:
+    """compare_tree's "sharded" section."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import train_kernels as v2
+
+    out = {}
     loops = []
     for _ in range(2):
         eng = shard_engine(buckets, used0, TRAIN_VOCAB)
@@ -3923,6 +4239,18 @@ def compare_tree(work: Path) -> dict:
                               for f in COMPARE_SHARD_FNS[k]})
     out["shard_launches"] = {k: w.launches for k, w in wrappers.items()}
     out.update(compare_v3(buckets, used0))
+    return out
+
+
+def compare_recount(buckets, used0: int) -> dict:
+    """compare_tree's "recount" section."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_kernels as v2
+    from youtokentome_tpu_torch.ops import train_stream as ts
+
+    dev = torch.device("cuda", 0)
+    out = {}
     v0_vocab = min(TRAIN_VOCAB, used0 + V0_MAIN_IDS)
     runs = {
         "v1": (lambda: diff_engine("stream", buckets, used0, TRAIN_VOCAB, dev),
@@ -3964,7 +4292,6 @@ def compare_tree(work: Path) -> dict:
         out[f"{name}_fns"] = {f: round(v, 4) for f, v in tr.ms(
             {f: (f,) for k in fns if k != "topk_accept" for f in fns[k]}).items() if v}
         out[f"{name}_launches"] = {k: w.launches for k, w in wrappers.items()}
-    print("COMPARE " + json.dumps(out), flush=True)
     return out
 
 
@@ -4883,7 +5210,10 @@ def diff_round(name: str, mod, st, used0: int, plain: bool, kb: int = 0) -> None
     elif name == "bucketed":
         (mod.bucket_count_plain if plain else mod.bucket_count)(st, V, V)
         topk(st, V, V, used0, 1)
-        (mod.bucket_apply_plain if plain else mod.bucket_apply)(st)
+        if plain:
+            mod.bucket_apply_plain(st)
+        else:
+            mod.bucket_apply([st])
     else:
         topk(st, V, V, used0, 16)
         if name == "sparse":
@@ -4924,6 +5254,7 @@ def phase_diff_kernels(buckets, used0: int, dev) -> None:
             phase_compact_checks(dev)
         if name == "bucketed":
             phase_row_count_checks(st, dev)
+            phase_row_apply_checks(st, used0, dev)
         k_st, p_st = clone_state(st), clone_state(st)
         for r in range(3 if name == "stream" else 2):  # v1: odd, its stream in the second buffer
             diff_round(name, mod, k_st, used0, False, getattr(eng, "KB", 0))
@@ -5073,14 +5404,22 @@ def diff_work(name: str, eng, count_calls, keys: int) -> tuple:
                 "topk_accept": topk,
                 "block_apply": (rounds * m * 8 + rows * st.B * 16,
                                 rounds * m * OPS_PER_POS // 2 + rows * st.B * OPS_PER_COUNTED)}
-    # apply: every slot and row offset read, the slots the merge changed
-    # written (most rows hold no hit)
+    # apply: every slot read, the slots the merge changed written (most rows
+    # hold no hit); no row offsets (the walk takes a slot's row from the
+    # bucket table)
     slots_rows = int(st.tok.shape[0])
     return {"bucket_count": (rounds * (slots_rows * 4 + st.n_rows * 8) + occ * 12,
                              rounds * slots_rows * OPS_PER_COUNTED),
             "topk_accept": (slots * 4 + keys * 8 + rounds * 16, slots * OPS_PER_SLOT),
-            "bucket_apply": (rounds * (slots_rows + st.n_rows + 1) * 4 + w[mod.W_WRITES] * 4,
+            "bucket_apply": (rounds * slots_rows * 4 + w[mod.W_WRITES] * 4,
                              rounds * slots_rows * OPS_PER_POS)}
+
+
+def offsets_bound_ms(rounds: int, rows: int, states: int) -> float:
+    """The bytes that v0's apply read before its redesign and no longer
+    needs, as ms at HBM_BYTES_PER_S: each state's row offsets, rows + 1 of
+    them, every round (the old bound held them)."""
+    return rounds * (rows + states) * 4 / HBM_BYTES_PER_S * 1e3
 
 
 class Tracer:
@@ -5168,8 +5507,8 @@ def profiled(name: str, fn):
 
 
 def each_state(fn):
-    """A wrapper that takes the states of a card (v1's apply_compact) made
-    of ``fn``, the plain version that takes one."""
+    """A wrapper that takes the states of a card (v1's apply_compact, v0's
+    bucket_apply) made of ``fn``, the plain version that takes one."""
     def run(states):
         for st in states:
             fn(st)
@@ -5202,8 +5541,8 @@ def plain_diff(name: str, engine, vocab: int, used0: int) -> dict:
             repl[k] = timed(k, lambda st: count_plain(mod, name, st))
         elif k == "topk_accept":
             repl[k] = timed(k, lambda st, limit, v, u0, kk=16: tk.topk_accept_plain(st, limit, v, u0, kk))
-        elif k == "apply_compact":  # the wrapper takes the states of a card
-            repl[k] = timed(k, each_state(mod.apply_compact_plain))
+        elif k in ("apply_compact", "bucket_apply"):  # the wrapper takes the states of a card
+            repl[k] = timed(k, each_state(getattr(mod, k + "_plain")))
         else:
             repl[k] = timed(k, getattr(mod, k + "_plain"))
     with swapped(mod, **repl):
@@ -5276,6 +5615,7 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
             return eng, run_diff(eng, vocab, used0)
 
         count_calls, count_ms = [], []
+        library = LibrarySample()  # torch.topk's yardstick, in the profiled run
         if name == "bucketed":
             # v0's main path is its merge loop alone (to V0_MAIN_IDS ids): it
             # runs once, under the profiler, which gives each kernel's device
@@ -5289,7 +5629,7 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
 
             tally = KeyTally(mod.topk_accept)
             v0_vocab = min(TRAIN_VOCAB, used0 + V0_MAIN_IDS)
-            with swapped(mod, BucketedKernelEngine=Recorded, topk_accept=tally):
+            with swapped(mod, BucketedKernelEngine=Recorded, topk_accept=library.topk(tally)):
                 kernel_ms, train_s, got = profiled(
                     name, lambda: tk0.run_training(buckets, used0, v0_vocab))
             check(got == v2_rules[: v0_vocab - used0],
@@ -5333,7 +5673,8 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
                 loop_s = time.perf_counter() - t0
             check(torch.equal(eng.rules[: used - used0, :3].cpu(), want_rules),
                   f"the timed {name} run's rules differ")
-            kernel_ms, prof_s, (p_eng, p_used) = profiled(name, lambda: replica(TRAIN_VOCAB))
+            with swapped(mod, topk_accept=library.topk(mod.topk_accept)):
+                kernel_ms, prof_s, (p_eng, p_used) = profiled(name, lambda: replica(TRAIN_VOCAB))
             check(torch.equal(p_eng.rules[: p_used - used0, :3].cpu(), want_rules),
                   f"the profiled {name} run's rules differ")
             log(f"[9] {name}: a replica of the merge loop under torch.profiler took {prof_s:.3f} s "
@@ -5380,11 +5721,18 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
             row = {"name": DIFF_ROW_NAMES.get((name, k), k), "trainer": name, "kernel": k,
                    "launches": launches[k], "ms": kernel_ms[k], "plain_ms": plain_ms[k],
                    "plain_ids": plain_vocab - used0, "prefix_ms": prefix_ms[k],
-                   "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+                   "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                   "library_ms": library.ms(launches[k]) if k == "topk_accept" else None}
             rows.append(row)
             log(f"[9] {row['name']}: {launches[k]} launches, {kernel_ms[k]:.3f} ms on the card, "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain {plain_ms[k]:.1f} ms "
-                f"over the first {row['plain_ids']} ids (kernel {prefix_ms[k]:.3f} ms) ({card})")
+                f"over the first {row['plain_ids']} ids (kernel {prefix_ms[k]:.3f} ms) ({card})"
+                + library_note(row, library))
+            if k == "bucket_apply":
+                row["offsets_bound_ms"] = max(
+                    b_ms + offsets_bound_ms(int(eng.st.work[tk.W_ROUNDS]), eng.st.n_rows, 1), o_ms)
+                log(f"[9] bucket_apply: {row['offsets_bound_ms']:.4f} ms with every row's offset "
+                    f"read each round, as the bound was before the flat walk ({card})")
         res[name] = {"train_s": train_s, "loop_s": loop_s, "rounds": rounds,
                      "merges_per_s": merges / loop_s}
         log(f"[9] times {name}: {what} {train_s:.2f} s, merge loop {loop_s:.3f} s, {rounds} "
@@ -6162,8 +6510,10 @@ def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
         return e, run_shards(e, vocab, used0)[0]
 
     tracer = Tracer()
-    kernel_ms, prof_s, (p_eng, p_used) = traced(lambda: replica(TRAIN_VOCAB), SHARD_DEVICE_FNS,
-                                                tracer)
+    library = LibrarySample()  # torch.topk's yardstick, in the traced run
+    with swapped(dsk, shard_rounds=library.rounds(dsk.shard_rounds)):
+        kernel_ms, prof_s, (p_eng, p_used) = traced(lambda: replica(TRAIN_VOCAB),
+                                                    SHARD_DEVICE_FNS, tracer)
     check(torch.equal(p_eng.rules[: p_used - used0, :3].cpu(), want_rules),
           "the profiled run's rules differ")
     # the records the tracer kept of the round graph's kernels, against their
@@ -6220,11 +6570,13 @@ def phase_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
         row = {"name": "topk_accept_sharded" if k == "topk_accept" else k, "kernel": k,
                "launches": launches[k], "ms": kernel_ms[k], "plain_ms": plain_ms[k],
                "plain_ids": SHARD_PLAIN_IDS, "prefix_ms": prefix_ms[k],
-               "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+               "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+               "library_ms": library.ms(launches[k]) if k == "topk_accept" else None}
         rows.append(row)
         log(f"[10] {row['name']}: {launches[k]} launches, {kernel_ms[k]:.3f} ms on the card, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {plain_ms[k]:.1f} ms over the "
-            f"first {SHARD_PLAIN_IDS} ids (kernel {prefix_ms[k]:.3f} ms) ({card})")
+            f"first {SHARD_PLAIN_IDS} ids (kernel {prefix_ms[k]:.3f} ms) ({card})"
+            + library_note(row, library))
     log(f"[10] the main path's timings took {time.perf_counter() - t_phase:.1f} s after train.train")
     return {"rows": rows, "train_s": train_s, "loop_s": loop_s, "loop2_s": loops[1],
             "busy_s": busy_s, "rounds": rounds, "merges_per_s": merges / loop_s, "recounts": nrec}
@@ -6343,22 +6695,22 @@ def other_round(name: str, ks, ps, used0: int, limit: int, what: str) -> bool:
         home, fn = other_wrapper(name, k)
         plain = getattr(home, k + "_plain")
         rec = any(int(a.ctl[dsk.DOVF]) for a in ks)
-        if k == "shard_fold":
-            # every replica of the card in one launch of each entry
+        if k in ("shard_fold", "shard_gather"):
+            # every replica of the card in one launch (of each entry)
             fn(ks, ks)
             for b in ps:
                 plain(b, ps)
-        elif k == "apply_compact":  # every shard of the card in one launch
+        elif k in ("apply_compact", "bucket_apply"):  # every shard of the card in one launch
             fn(ks)
             for b in ps:
                 plain(b)
         for i, (a, b) in enumerate(zip(ks, ps)):
-            if k in ("shard_fold", "apply_compact"):
+            if k in ("shard_fold", "shard_gather", "apply_compact", "bucket_apply"):
                 pass
             elif k == "topk_accept":
                 fn(a, limit, V, used0, kb)
                 plain(b, limit, V, used0, kb)
-            elif k in ("sparse_shard_recount", "shard_part_fold", "shard_gather"):
+            elif k in ("sparse_shard_recount", "shard_part_fold"):
                 fn(a, ks)
                 plain(b, ps)
             elif k in ("stream_shard_count", "bucket_shard_count"):
@@ -6377,11 +6729,127 @@ def part_fold_round(ks, ps, what: str) -> None:
     compared after each step."""
     from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
 
-    for k in ("shard_part_fold", "shard_gather"):
-        for i, (a, b) in enumerate(zip(ks, ps)):
-            getattr(dsk, k)(a, ks)
-            getattr(dsk, k + "_plain")(b, ps)
-            same_shard(a, b, f"{what}, {k} on replica {i}", buffers=False, stream=("t", "wid"))
+    for i, (a, b) in enumerate(zip(ks, ps)):
+        dsk.shard_part_fold(a, ks)
+        dsk.shard_part_fold_plain(b, ps)
+        same_shard(a, b, f"{what}, shard_part_fold on replica {i}", buffers=False,
+                   stream=("t", "wid"))
+    dsk.shard_gather(ks, ks)  # every replica of the card in one launch
+    for i, (a, b) in enumerate(zip(ks, ps)):
+        dsk.shard_gather_plain(b, ps)
+        same_shard(a, b, f"{what}, shard_gather on replica {i}", buffers=False, stream=("t", "wid"))
+
+
+def whole_part_copy(shards) -> list:
+    """Each replica's table (keys, counts) with every other part p copied
+    whole from replica p: what the gather must leave."""
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+
+    n, cap = len(shards), shards[0].cap
+    out = []
+    for r, st in enumerate(shards):
+        keys, cnts = st.keys.clone(), st.cnts.clone()
+        for p, o in enumerate(shards):
+            if p != r:
+                lo, hi = dsk.part_lo(p, cap, n), dsk.part_lo(p + 1, cap, n)
+                keys[lo:hi] = o.keys[lo:hi]
+                cnts[lo:hi] = o.cnts[lo:hi]
+        out.append((keys, cnts))
+    return out
+
+
+def gather_rounds(dev, kernel: bool) -> list:
+    """The listed gather over GATHER_ROUNDS rounds on a FOLD_PARTS-shard mesh
+    of sharded v1 shard states that persist over the rounds (their replica
+    tables and fill lists carry over): each round every shard's scratch
+    table and part lists are those of a fresh count of the round's pairs
+    (``gather_round_pairs``), then every replica's shard_part_fold and the
+    card's shard_gather, the kernels or (``kernel`` False) their plain
+    versions; the tables regrow before round 2, as the engine's ``regrow``
+    does.  After each gather every replica equals, slot for slot, the tables
+    that the folds left with every other part copied whole from its owner
+    (``whole_part_copy``); each replica's fill list of the round names the
+    slots its own part holds; OVERFLOW is set on every replica in round 4 (a
+    full part) and on none before.  Returns each round's replica tables and
+    ctl."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import delta_sharded_kernels as dsk
+    from youtokentome_tpu_torch.ops import recount_sharded_kernels as rsk
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    n, cap, shards, out = FOLD_PARTS, FOLD_CAP, None, []
+    how = "kernels" if kernel else "plain"
+    for r in range(GATHER_ROUNDS):
+        if r == 2:
+            cap *= 2
+            for st in shards:
+                st.resize(cap)
+                st.ctl[tk.OVERFLOW] = 0
+                st.ctl[rsk.ROVF] = 0
+        fresh = [stream_shard_of(*pair_words(q), dev, cap) for q in gather_round_pairs(r)]
+        for f in fresh:
+            stream_count(f, not kernel)
+        if shards is None:
+            shards = fresh
+        else:
+            for st, f in zip(shards, fresh):
+                for k in ("rkeys", "rcnts", "plist", "pcnt"):
+                    getattr(st, k).copy_(getattr(f, k))
+                st.ctl[rsk.ROCC] = f.ctl[rsk.ROCC]
+                st.ctl[rsk.ROVF] = f.ctl[rsk.ROVF]
+        for st in shards:
+            (dsk.shard_part_fold if kernel else dsk.shard_part_fold_plain)(st, shards)
+        want = whole_part_copy(shards)
+        if kernel:
+            dsk.shard_gather(shards, shards)
+        else:
+            for st in shards:
+                dsk.shard_gather_plain(st, shards)
+        what = f"the listed gather ({how}), round {r}, tables of {cap} slots"
+        for i, st in enumerate(shards):
+            check(torch.equal(st.keys, want[i][0]) and torch.equal(st.cnts, want[i][1]),
+                  f"{what}: replica {i} != the whole-part copy")
+            lo, hi = dsk.part_lo(i, cap, n), dsk.part_lo(i + 1, cap, n)
+            filled = torch.nonzero(st.keys[lo:hi] != tk.EMPTY).flatten() + lo
+            listed = st.fill_list(st.fill_next() ^ 1, i)  # the gather turned the lists
+            check(r == 4 or torch.equal(listed, filled),
+                  f"{what}: replica {i}'s fill list != its part's filled slots")
+        ovf = [int(st.ctl[tk.OVERFLOW]) for st in shards]
+        check(ovf == [int(r == 4)] * n, f"{what}: OVERFLOW {ovf}")
+        slots = torch.nonzero(shards[0].keys != tk.EMPTY).flatten()
+        check(r != 1 or not torch.equal(slots, out[-1][1]),
+              f"{what}: the filled slots did not move")
+        out.append(([(st.table(), st.ctl.clone()) for st in shards], slots))
+    return [tabs for tabs, _ in out]
+
+
+def phase_fill_gather_checks(dev) -> dict:
+    """The listed gather (``gather_rounds``) through the kernels and through
+    the plain versions: each equal to the whole-part copy slot for slot
+    every round, OVERFLOW in the full part's round only; kernel and plain
+    replicas the same tables (as multisets of entries) and ctl in every
+    round but the full part's; the filled slots move between rounds."""
+    import torch
+
+    t0 = time.perf_counter()
+    got, plain = gather_rounds(dev, True), gather_rounds(dev, False)
+    for r, (ka, pa) in enumerate(zip(got, plain)):
+        for i, (((kk, kc), kctl), ((pk, pc), pctl)) in enumerate(zip(ka, pa)):
+            # a full part holds whichever keys claimed its slots first, and
+            # its count stops at no fixed number
+            if r == 4:
+                continue
+            check(np.array_equal(kk, pk) and np.array_equal(kc, pc),
+                  f"the listed gather, round {r}: replica {i}'s table, kernels != plain")
+            check(torch.equal(kctl.cpu(), pctl.cpu()),
+                  f"the listed gather, round {r}: replica {i}'s ctl {kctl.tolist()} != "
+                  f"{pctl.tolist()}")
+    log(f"[11] the listed gather: {GATHER_ROUNDS} rounds on {FOLD_PARTS} replicas (keys leaving "
+        f"and joining, a regrow before round 2, a full part in round 4): every replica == the "
+        f"whole-part copy slot for slot, kernels and plain, kernels == plain "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"rounds": GATHER_ROUNDS}
 
 
 ROW_STAGE = 512  # claims a block of v0's sharded count stages (csrc/part_list.cuh kListStage)
@@ -6458,10 +6926,12 @@ def phase_part_fold_checks(dev) -> dict:
                        stream=("t", "wid"))
         rovf = [int(st.ctl[rsk.ROVF]) for st in ks]
         pcnt0 = int(ks[0].pcnt[0])
-        for k in ("shard_part_fold", "shard_gather"):
-            for a, b in zip(ks, ps):
-                getattr(dsk, k)(a, ks)
-                getattr(dsk, k + "_plain")(b, ps)
+        for a, b in zip(ks, ps):
+            dsk.shard_part_fold(a, ks)
+            dsk.shard_part_fold_plain(b, ps)
+        dsk.shard_gather(ks, ks)
+        for b in ps:
+            dsk.shard_gather_plain(b, ps)
         ovf = [int(st.ctl[tk.OVERFLOW]) for st in ks]
         check(ovf == [1] * n and [int(st.ctl[tk.OVERFLOW]) for st in ps] == [1] * n,
               f"fold checks, {case}: OVERFLOW kernel {ovf}, plain "
@@ -6507,6 +6977,7 @@ def phase_part_fold_checks(dev) -> dict:
           f"{what}: {rocc} claims over 4 blocks do not pass the stage's {ROW_STAGE} a block")
     log(f"[11] {what}: bucket_shard_count == plain, {rocc} claims over 4 blocks of 256 rows "
         f"(a block's stage holds {ROW_STAGE})")
+    phase_fill_gather_checks(dev)
     log(f"[11] fold checks: v1's edge stream in {n} shards folded == the host count table, every "
         f"replica's fold unchanged by poisoned unlisted slots; {len(FOLD_CASES)} overflow cases "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -6698,8 +7169,8 @@ def other_work(name: str, eng, keys: int) -> dict:
         rows = sum(st.n_rows for st in eng.shards)
         out["bucket_shard_count"] = (head_rounds * (slots_rows * 4 + rows * 8) + head_occ * 12,
                                      head_rounds * slots_rows * OPS_PER_COUNTED)
-        out["bucket_apply"] = (head_rounds * (slots_rows + rows + len(eng.shards)) * 4
-                               + int(w[bk.W_WRITES]) * 4, head_rounds * slots_rows * OPS_PER_POS)
+        out["bucket_apply"] = (head_rounds * slots_rows * 4 + int(w[bk.W_WRITES]) * 4,
+                               head_rounds * slots_rows * OPS_PER_POS)
     return out
 
 
@@ -6729,7 +7200,10 @@ def plain_other(name: str, engine, vocab: int, used0: int):
         if k == "shard_fold":
             return shard_plain(k)
         fn = getattr(other_wrapper(name, k)[0], k + "_plain")
-        return each_state(fn) if k == "apply_compact" else fn  # apply_compact: a card's states
+        if k == "shard_gather":  # the wrapper takes the replicas of a card
+            return lambda reps, shards: each_state(lambda st: fn(st, shards))(reps)
+        # apply_compact, bucket_apply: a card's states
+        return each_state(fn) if k in ("apply_compact", "bucket_apply") else fn
 
     plain = {k: timed(k, plain_of(k)) for k in OTHER_KERNELS[name]}
     mod = ssk if name == "sparse" else rsk  # where the engine finds its wrappers
@@ -6916,8 +7390,15 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
 
         mesh = card_mesh(dev=dev)
         vocab = min(TRAIN_VOCAB, used0 + V0_MAIN_IDS) if name == "bucketed" else TRAIN_VOCAB
+        # the library yardsticks, in the main run: torch.topk (v3 on the round
+        # graph's route), and Tensor.copy_ for the gather (v1, v0)
+        library, gather_library = LibrarySample(), LibrarySample()
+        samples = ({"shard_rounds": library.rounds(dsk.shard_rounds)} if name == "sparse" else
+                   {"topk_accept": library.topk(rsk.topk_accept, SHARDS),
+                    "shard_gather": gather_library.gather(rsk.shard_gather)})
         t0 = time.perf_counter()
-        with swapped(mod, **{cls_name: Recorded}):
+        with swapped(mod, **{cls_name: Recorded}), swapped(
+                dsk if name == "sparse" else rsk, **samples):
             if name == "sparse":
                 model_path = work / "trained30k_sparse_sharded.yttm"
                 calls = []
@@ -6954,10 +7435,13 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
         launches = {k: other_wrapper(name, k)[1].launches for k in OTHER_KERNELS[name]}
         for k, n in launches.items():
             check(n > 0, f"the {name} sharded main path did not launch {k}")
-        if name == "stream" and torch.device(dev).type == "cuda":  # one launch a card a round
+        if name != "sparse" and torch.device(dev).type == "cuda":  # one launch a card a round
             calls = sum(e.rounds for e in engines)
-            check(launches["apply_compact"] == calls,
-                  f"apply_compact launched {launches['apply_compact']} times in {calls} rounds")
+            exchanges = calls + sum(e.count_exchanges for e in engines)
+            apply = "apply_compact" if name == "stream" else "bucket_apply"
+            check(launches[apply] == calls and launches["shard_gather"] == exchanges,
+                  f"{apply} launched {launches[apply]} times in {calls} rounds, shard_gather "
+                  f"{launches['shard_gather']} times in {exchanges} exchanges")
         for k, v in kernel_ms.items():
             check(v > 0, f"the profiler recorded no device time for {name} sharded {k}")
         head = eng.shards[0]
@@ -7037,14 +7521,24 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
         for k in OTHER_KERNELS[name]:
             b, o = work_bo[k]
             b_ms, o_ms = b / HBM_BYTES_PER_S * 1e3, o / OPS_PER_S * 1e3
+            sample = {"topk_accept": library, "shard_gather": gather_library}.get(k)
             row = {"name": OTHER_ROW_NAMES.get((name, k), k), "trainer": name, "kernel": k,
                    "launches": launches[k], "ms": kernel_ms[k], "plain_ms": plain_ms[k],
                    "plain_ids": plain_ids, "prefix_ms": prefix_ms[k],
-                   "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+                   "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                   "library_ms": sample.ms(launches[k]) if sample else None}
             rows.append(row)
             log(f"[11] {row['name']}: {launches[k]} launches, {kernel_ms[k]:.3f} ms on the card, bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {plain_ms[k]:.1f} ms over the "
-                f"first {plain_ids} ids (kernel {prefix_ms[k]:.3f} ms) ({card})")
+                f"first {plain_ids} ids (kernel {prefix_ms[k]:.3f} ms) ({card})"
+                + (library_note(row, sample) if sample else ""))
+            if k == "bucket_apply":
+                head_rounds = int(eng.shards[0].work[tk.W_ROUNDS])
+                rows_all = sum(st.n_rows for st in eng.shards)
+                row["offsets_bound_ms"] = max(
+                    b_ms + offsets_bound_ms(head_rounds, rows_all, len(eng.shards)), o_ms)
+                log(f"[11] bucket_apply: {row['offsets_bound_ms']:.4f} ms with every row's offset "
+                    f"read each round, as the bound was before the flat walk ({card})")
         res[name] = {"train_s": train_s, "loop_s": loop_s, "rounds": rounds,
                      "merges_per_s": merges / loop_s, **res_extra}
         del engines[:]
@@ -7059,7 +7553,8 @@ def other_rows(other: dict) -> list:
             "replaces": OTHER_REPLACES[r["trainer"]], "launches": r["launches"], "max_abs_err": 0,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_ids": r["plain_ids"],
             "prefix_ms": r["prefix_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "equal": True,
+            "library_ms": r["library_ms"], "equal": True,
+            **{k: r[k] for k in ("offsets_bound_ms",) if k in r},
         }
         for r in other["rows"]
     ]
@@ -7492,7 +7987,8 @@ def main() -> int:
             "replaces": DIFF_REPLACES[r["trainer"]], "launches": r["launches"], "max_abs_err": 0,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_ids": r["plain_ids"],
             "prefix_ms": r["prefix_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "equal": True,
+            "library_ms": r["library_ms"], "equal": True,
+            **{k: r[k] for k in ("offsets_bound_ms",) if k in r},
         }
         for r in diff["rows"]
     ] + [
@@ -7510,7 +8006,7 @@ def main() -> int:
             "replaces": SHARD_REPLACES[r["kernel"]], "launches": r["launches"], "max_abs_err": 0,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_ids": r["plain_ids"],
             "prefix_ms": r["prefix_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "equal": True,
+            "library_ms": r["library_ms"], "equal": True,
         }
         for r in shard["rows"]
     ] + other_rows(other)

@@ -160,10 +160,10 @@ def test_bucket_shard_count_matches_jax(base, n):
 
 @pytest.mark.parametrize("n", [1, 3])
 def test_bucket_table_names_each_slot_row(n):
-    """The bucket table (RowBucket rows) gives every slot the row that
-    ``roff`` gives it, and marks a slot last of its row exactly where the
-    row ends: the kernel's walk, emulated on the host, shift and division
-    as it takes them."""
+    """The bucket table (RowBucket rows) gives every slot the row that the
+    rows' offsets (each bucket's width, row after row) give it, and marks a
+    slot last of its row exactly where the row ends: the kernel's walk,
+    emulated on the host, shift and division as it takes them."""
     st = rsk.BucketedShardState(shard_rows(_buckets(5), n)[0], _rules(50), 40, 1 << 12, "cpu", n)
     tab = st.bk.numpy()
     S = st.tok.shape[0]
@@ -173,7 +173,7 @@ def test_bucket_table_names_each_slot_row(n):
     off, row0, width, shift = (tab[b, k].astype(np.int64) for k in range(4))
     d = slot - off
     q = np.where(shift >= 0, d >> np.maximum(shift, 0), d // width)
-    roff = st.roff.numpy()
+    roff = np.r_[0, np.cumsum([l for w, l in st.shapes for _ in range(w)])]
     want_row = np.searchsorted(roff, slot, side="right") - 1
     np.testing.assert_array_equal(row0 + q, want_row)
     np.testing.assert_array_equal(d - q * width == width - 1, np.isin(slot + 1, roff))

@@ -68,10 +68,19 @@
 //                  the 100 MB sharded v1 run, H100 80GB HBM3, 700 W).  A
 //                  list that dropped claims (more keys of the part than the
 //                  part has slots) marks the part full, which skips its
-//                  fold.  Once every replica has folded, shard_gather
-//                  copies every other part p from replica p and sums the
-//                  parts' counts into OCC (more than half the table, or a
-//                  full part, sets OVERFLOW).
+//                  fold.  The fold lists every slot it claims in the
+//                  replica's fill list of the round (a replica keeps two,
+//                  this round's and the last's, turned by the fold on the
+//                  card).  Once every replica has folded, shard_gather, one
+//                  launch a card for its replicas, copies each other part p
+//                  from replica p at the slots of p's two fill lists: part
+//                  p was emptied and refilled, so it changed nowhere else
+//                  (the old gather copied every slot of the N - 1 other
+//                  parts, a launch a replica: 390.5 ms over 23,692 launches
+//                  against a bound of 46.98 on the 100 MB sharded v1 run,
+//                  H100 80GB HBM3, 700 W), and sums the parts' counts into
+//                  OCC (more than half the table, or a full part, sets
+//                  OVERFLOW).
 //   shard_relay    a plan and a scatter (relay.cuh's flat walks of the
 //                  stream and scan.cuh, the one-device v2 engine's too) that
 //                  lay a shard's stream out again over its live tokens: words
@@ -601,14 +610,15 @@ int fold_grid() {
 // -- partitioned fold (v1, v0) ---------------------------------------------------
 
 // Add `delta` to `key` in part [lo, lo + size) of the table: table_add's
-// probe, wrapped inside the part; returns 1 when the key claimed a slot (the
-// caller sums the claims into POCC).  A part with no free slot sets POCC
-// past its size (the host then doubles the tables).
+// probe, wrapped inside the part; returns the slot (from lo) that the key
+// claimed, or -1 (the caller sums the claims into POCC and lists them).  A
+// part with no free slot sets POCC past its size (the host then doubles the
+// tables).
 __device__ int part_add(unsigned long long *keys, int32_t *cnts, long long lo, int size,
                         int32_t *ctl, unsigned long long key, int32_t delta) {
   const unsigned h = (unsigned)hash64(key) % (unsigned)size;
   for (int p = 0; p < size; ++p) {
-    if ((p & 31) == 31 && __ldcg(ctl + POCC) > size) return 0;
+    if ((p & 31) == 31 && __ldcg(ctl + POCC) > size) return -1;
     unsigned s = h + (unsigned)p;
     if (s >= (unsigned)size) s -= (unsigned)size;
     unsigned long long *slot = keys + lo + s;
@@ -617,16 +627,16 @@ __device__ int part_add(unsigned long long *keys, int32_t *cnts, long long lo, i
       k = atomicCAS(slot, kEmpty, key);
       if (k == kEmpty) {
         atomicAdd(cnts + lo + s, delta);
-        return 1;
+        return (int)s;
       }
     }
     if (k == key) {
       atomicAdd(cnts + lo + s, delta);
-      return 0;
+      return -1;
     }
   }
   atomicExch(ctl + POCC, size + 1);
-  return 0;
+  return -1;
 }
 
 // Some shard's list of part `self` dropped claims: the part is full.
@@ -637,18 +647,35 @@ __device__ __forceinline__ bool part_lost(const int32_t *const *pcnts, int n_sh,
   return lost;
 }
 
-// Empties the replica's own part and opens the round's count of it (POCC
-// past the part's size when a list dropped claims).
+// A replica's fill lists: the slots of its own part that its fold claimed,
+// this round's and the last round's, as two bitmaps (bit i of a list: slot
+// part_lo(self) + i), fill_words(cap, n) words each, so that no list can
+// overflow; the word after them (kFillSel) picks the list that the next fold
+// fills.  The fold's prep empties that list, the fold sets a bit for each
+// slot it claims, and the gather, once it has read both lists, turns the
+// word for the replicas it wrote.
+__host__ __device__ __forceinline__ int fill_words(int cap, int n) {
+  return ((cap + n - 1) / n + 31) / 32;
+}
+__host__ __device__ __forceinline__ int fill_sel(int cap, int n) { return 2 * fill_words(cap, n); }
+
+// Empties the replica's own part and the fill list its fold fills, and
+// opens the round's count of the part (POCC past the part's size when a
+// list dropped claims).
 __global__ void __launch_bounds__(256)
     part_prep_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
                      const int32_t *const *ctls, const int32_t *const *pcnts, int n_sh, int self,
-                     long long *work) {
+                     uint32_t *fill, long long *work) {
   const long long lo = part_lo(self, cap, n_sh), hi = part_lo(self + 1, cap, n_sh);
-  for (long long s = lo + blockIdx.x * blockDim.x + threadIdx.x; s < hi;
-       s += (long long)gridDim.x * blockDim.x) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long s = lo + tid; s < hi; s += stride) {
     keys[s] = kEmpty;
     cnts[s] = 0;
   }
+  const int words = fill_words(cap, n_sh);
+  uint32_t *bits = fill + (long long)fill[fill_sel(cap, n_sh)] * words;
+  for (long long w = tid; w < words; w += stride) bits[w] = 0;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     ctl[POCC] = part_lost(pcnts, n_sh, self, hi - lo) ? (int32_t)(hi - lo + 1) : 0;
     ctl[NREC] += 1;
@@ -658,17 +685,18 @@ __global__ void __launch_bounds__(256)
 }
 
 // The entries of every shard's list of the replica's part, added into it
-// (nothing when a list dropped claims: the part is full); the claims are
-// summed a warp at a time into POCC (an atomic on one address for every
-// claim would serialise them).
+// (nothing when a list dropped claims: the part is full); each claimed slot
+// set in the round's fill list; the claims summed a warp at a time into
+// POCC (an atomic on one address for every claim would serialise them).
 __global__ void __launch_bounds__(256)
     part_fold_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
                      const unsigned long long *const *rkeys, const int32_t *const *rcnts,
                      const int32_t *const *plists, const int32_t *const *pcnts, int n_sh,
-                     int self) {
+                     int self, uint32_t *fill) {
   const long long lo = part_lo(self, cap, n_sh);
   const int size = (int)(part_lo(self + 1, cap, n_sh) - lo);
   if (part_lost(pcnts, n_sh, self, size)) return;
+  uint32_t *bits = fill + (long long)__ldg(fill + fill_sel(cap, n_sh)) * fill_words(cap, n_sh);
   const long long stride = (long long)gridDim.x * blockDim.x;
   int claims = 0;
   for (int s = 0; s < n_sh; ++s) {
@@ -679,32 +707,56 @@ __global__ void __launch_bounds__(256)
     for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < m; j += stride) {
       const int32_t slot = list[j];
       const int32_t c = rc[slot];
-      if (c > 0) claims += part_add(keys, cnts, lo, size, ctl, rk[slot], c);
+      if (c <= 0) continue;
+      const int at = part_add(keys, cnts, lo, size, ctl, rk[slot], c);
+      if (at >= 0) {
+        atomicOr(bits + (at >> 5), 1u << (at & 31));
+        ++claims;
+      }
     }
   }
   claims = __reduce_add_sync(0xFFFFFFFFu, claims);
   if ((threadIdx.x & 31) == 0 && claims) atomicAdd(ctl + POCC, claims);
 }
 
-// The other replicas' parts copied in; occupancy and overflow from every
-// part's count (the same on every replica).  Its bytes, the replica's live
-// entries written, are the occupancy that the next top-k sums (W_OCC).
+// The other replicas' parts copied into every replica of one card (reps),
+// each part p from replica p at the slots its two fill lists name: part p
+// was emptied and refilled, so it changed since the last round only there
+// (a slot of the last list alone now holds EMPTY and 0, which clears the
+// copies).  One pass over the slots in order, part by part, a thread a
+// slot: its bits read, its key and count read once and written to each
+// replica of the card but the part's owner.  Then each replica's occupancy
+// and overflow from every part's count (the same on every replica), and its
+// fill lists turned.  Its bytes, the replica's live entries written, are the
+// occupancy that the next top-k sums (W_OCC).
 __global__ void __launch_bounds__(256)
-    gather_kernel(unsigned long long *keys, int32_t *cnts, int cap, int32_t *ctl,
-                  const int32_t *const *ctls, const unsigned long long *const *pkeys,
-                  const int32_t *const *pcnts, int n_sh, int self) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
+    gather_kernel(const Replica *reps, int n_rep, int cap, const int32_t *const *ctls,
+                  const unsigned long long *const *tkeys, const int32_t *const *tcnts,
+                  uint32_t *const *fills, int n_sh) {
+  __shared__ Replica sr[kMaxShards];
+  load_replicas(sr, reps, n_rep);
+  __syncthreads();
+  const int words = fill_words(cap, n_sh);
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x, stride = gridDim.x * blockDim.x;
   for (int p = 0; p < n_sh; ++p) {
-    if (p == self) continue;
-    const long long lo = part_lo(p, cap, n_sh), hi = part_lo(p + 1, cap, n_sh);
-    const unsigned long long *pk = pkeys[p];
-    const int32_t *pc = pcnts[p];
-    for (long long j = lo + (long long)blockIdx.x * blockDim.x + threadIdx.x; j < hi; j += stride) {
-      keys[j] = pk[j];
-      cnts[j] = pc[j];
+    if (n_rep == 1 && sr[0].self == p) continue;
+    const int lo = (int)part_lo(p, cap, n_sh), size = (int)part_lo(p + 1, cap, n_sh) - lo;
+    const uint32_t *f = fills[p];
+    const unsigned long long *pk = tkeys[p] + lo;
+    const int32_t *pc = tcnts[p] + lo;
+    for (int i = tid; i < size; i += stride) {
+      if (!(((__ldcg(f + (i >> 5)) | __ldcg(f + words + (i >> 5))) >> (i & 31)) & 1u)) continue;
+      const unsigned long long k = __ldcg(pk + i);
+      const int32_t c = __ldcg(pc + i);
+      for (int r = 0; r < n_rep; ++r)
+        if (sr[r].self != p) {
+          sr[r].keys[lo + i] = k;
+          sr[r].cnts[lo + i] = c;
+        }
     }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+  if (blockIdx.x == 0 && threadIdx.x < n_rep) {
+    const Replica &q = sr[threadIdx.x];
     long long occ = 0;
     bool full = false;
     for (int p = 0; p < n_sh; ++p) {
@@ -712,8 +764,9 @@ __global__ void __launch_bounds__(256)
       full |= n > part_lo(p + 1, cap, n_sh) - part_lo(p, cap, n_sh);
       occ += n;
     }
-    ctl[OCC] = (int32_t)(occ < cap ? occ : cap);
-    if (full || 2 * occ > cap) ctl[OVERFLOW] = 1;
+    q.ctl[OCC] = (int32_t)(occ < cap ? occ : cap);
+    if (full || 2 * occ > cap) q.ctl[OVERFLOW] = 1;
+    fills[q.self][fill_sel(cap, n_sh)] ^= 1u;
   }
 }
 
@@ -864,42 +917,48 @@ int yttm_shard_graph_launch(void *graph, int n, void *stream) {
 
 // The partitioned fold's first half on the replica of shard `self` (the
 // engines that recount every round): its part emptied, then the entries of
-// every shard's list of that part added.  rkeys, rcnts, plists, pcnts:
-// device arrays of the n_sh scratch tables and their part lists
-// (part_list.cuh), as the shards' counts left them.  shard_gather follows
-// once every replica ran this.
+// every shard's list of that part added, each slot it claims set in the
+// replica's fill lists (fill: 2 * fill_words(cap, n_sh) + 1 int32, zeroed
+// with the table).  rkeys, rcnts, plists, pcnts: device arrays of the n_sh
+// scratch tables and their part lists (part_list.cuh), as the shards'
+// counts left them.  shard_gather follows once every replica ran this.
 int yttm_shard_part_fold(void *keys, void *cnts, int cap, void *ctl, const void *ctls,
                          const void *rkeys, const void *rcnts, const void *plists,
-                         const void *pcnts, int n_sh, int self, void *work, void *stream) {
+                         const void *pcnts, int n_sh, int self, void *fill, void *work,
+                         void *stream) {
   if (cap < n_sh || (cap & (cap - 1)) != 0 || n_sh <= 0 || n_sh > kMaxParts || self < 0 ||
-      self >= n_sh)
+      self >= n_sh || !fill)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int blocks = grid_for(cap / n_sh + 1, 256);
   part_prep_kernel<<<blocks, 256, 0, s>>>((unsigned long long *)keys, (int32_t *)cnts, cap,
                                           (int32_t *)ctl, (const int32_t *const *)ctls,
                                           (const int32_t *const *)pcnts, n_sh, self,
-                                          (long long *)work);
+                                          (uint32_t *)fill, (long long *)work);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   part_fold_kernel<<<blocks, 256, 0, s>>>(
       (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl,
       (const unsigned long long *const *)rkeys, (const int32_t *const *)rcnts,
-      (const int32_t *const *)plists, (const int32_t *const *)pcnts, n_sh, self);
+      (const int32_t *const *)plists, (const int32_t *const *)pcnts, n_sh, self,
+      (uint32_t *)fill);
   return (int)cudaGetLastError();
 }
 
-// The partitioned fold's second half on the replica of shard `self`: every
-// other replica's own part copied in.  pkeys, pcnts: device arrays of the
-// n_sh replicas' tables.
-int yttm_shard_gather(void *keys, void *cnts, int cap, void *ctl, const void *ctls,
-                      const void *pkeys, const void *pcnts, int n_sh, int self, void *stream) {
-  if (cap < n_sh || (cap & (cap - 1)) != 0 || n_sh <= 0 || self < 0 || self >= n_sh)
+// The partitioned fold's second half on the n_rep replicas of one card
+// (reps: a device array of Replica), one launch: every other replica's own
+// part copied in at the slots of its fill lists, which it then turns.  ctls,
+// tkeys, tcnts, fills: device arrays of the n_sh replicas' ctl, tables and
+// fill lists.
+int yttm_shard_gather(const void *reps, int n_rep, int cap, const void *ctls, const void *tkeys,
+                      const void *tcnts, const void *fills, int n_sh, void *stream) {
+  if (cap < n_sh || (cap & (cap - 1)) != 0 || n_sh <= 0 || n_sh > kMaxParts || n_rep <= 0 ||
+      n_rep > n_sh)
     return (int)cudaErrorInvalidValue;
-  gather_kernel<<<grid_for(cap, 256), 256, 0, (cudaStream_t)stream>>>(
-      (unsigned long long *)keys, (int32_t *)cnts, cap, (int32_t *)ctl,
-      (const int32_t *const *)ctls, (const unsigned long long *const *)pkeys,
-      (const int32_t *const *)pcnts, n_sh, self);
+  gather_kernel<<<fold_grid(), 256, 0, (cudaStream_t)stream>>>(
+      (const Replica *)reps, n_rep, cap, (const int32_t *const *)ctls,
+      (const unsigned long long *const *)tkeys, (const int32_t *const *)tcnts,
+      (uint32_t *const *)fills, n_sh);
   return (int)cudaGetLastError();
 }
 

@@ -212,8 +212,8 @@ def load_bucketed() -> ctypes.CDLL:
         # limit, vocab, max_blocks, stream
         "yttm_bucket_shard_count": (_i, [_p, _i, _p, _i, _p, _p, _p, _i, _p, _p, _p, _i, _i, _i,
                                          _i, _p]),
-        # tok, roff, R, ctl, cand, work, stream
-        "yttm_bucket_apply": (_i, [_p, _p, _i, _p, _p, _p, _p]),
+        # rows, n_sh, slots, max_blocks, stream
+        "yttm_bucket_apply": (_i, [_p, _i, _l, _i, _p]),
     })
 
 
@@ -236,10 +236,10 @@ def load_sharded() -> ctypes.CDLL:
         "yttm_shard_graph_launch": (_i, [_p, _i, _p]),
         "yttm_shard_graph_free": (_i, [_p]),
         # keys, cnts, cap, ctl, ctls, rkeys, rcnts, plists, pcnts, n_sh, self,
-        # work, stream
-        "yttm_shard_part_fold": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _i, _i, _p, _p]),
-        # keys, cnts, cap, ctl, ctls, pkeys, pcnts, n_sh, self, stream
-        "yttm_shard_gather": (_i, [_p, _p, _i, _p, _p, _p, _p, _i, _i, _p]),
+        # fill, work, stream
+        "yttm_shard_part_fold": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _i, _i, _p, _p, _p]),
+        # reps, n_rep, cap, ctls, tkeys, tcnts, fills, n_sh, stream
+        "yttm_shard_gather": (_i, [_p, _i, _i, _p, _p, _p, _p, _i, _p]),
         "yttm_shard_relay_scratch": (_l, [_i]),
         # tok, pwid, off, Mw, W, lens, keep, new_off, new_idx, scratch, totals,
         # stream

@@ -4,10 +4,10 @@ The JAX program ``youtokentome_tpu/ops/train_kernel.py:97 train_rounds``
 sorts every pair of every bucket each round to find one merge.  On a card
 the round is hand-written CUDA (``csrc/train_bucketed.cu``, and the shared
 top-k of ``csrc/train_topk.cu`` with k = 1) over the buckets themselves,
-kept on the card as one array of rows (row r is ``tok[roff[r],
-roff[r+1])``, a bucket's ``[Wb, Lb]`` matrix flattened),
-and a fresh open-addressing pair-count table each round (int64 keys
-``x << 32 | y``, int32 counts):
+kept on the card as one array of rows (each bucket's ``[Wb, Lb]`` matrix
+flattened, the buckets end to end; the bucket table ``bk`` gives each
+slot's row), and a fresh open-addressing pair-count table each round (int64
+keys ``x << 32 | y``, int32 counts):
 
   bucket_count   empty the table, then a flat walk of the rows' slots (a
                  warp a run of 128-slot chunks, a lane 4 slots; a slot's
@@ -19,9 +19,12 @@ and a fresh open-addressing pair-count table each round (int64 keys
   topk_accept    the top pair in the reference order, its rule row,
                  ``ctl`` (the trainers' shared wrapper, ``train_kernels``,
                  with k = 1)
-  bucket_apply   one warp a row merges the pair (even offsets inside runs
-                 of hits) and front-packs the row in place, writing only the
-                 slots whose value changes (counted in ``work``)
+  bucket_apply   one launch for the states of a card: a flat walk of their
+                 rows' slots (a warp a run of 128-slot chunks, rewriting the
+                 rows that start in it; a chunk without a hit is one load)
+                 merges the pair (even offsets inside runs of hits) and
+                 front-packs each row in place, writing only the slots whose
+                 value changes (counted in ``work``)
 
 ``ctl`` (int32 [8]) holds the round control on the card, so the host
 enqueues rounds in batches and reads ``ctl`` once per batch.  Each wrapper
@@ -80,18 +83,16 @@ def bucket_table(shapes) -> np.ndarray:
 class BucketedState(TableState):
     """The kernel trainer's state on one device (see the module note)."""
 
+    _rows = None  # the apply's device array of this card's states (``_apply_rows``)
+
     def __init__(self, buckets, rules, used: int, cap: int, device):
         dev = torch.device(device)
         self.device = dev
         self.shapes = [tuple(np.asarray(t).shape) for t, _ in buckets]
         tok = np.concatenate([np.asarray(t, np.int32).reshape(-1) for t, _ in buckets])
-        lens = np.concatenate([np.full(w, l, np.int64) for w, l in self.shapes])
-        roff = np.zeros(lens.size + 1, np.int64)
-        np.cumsum(lens, out=roff[1:])
-        self.n_rows = int(lens.size)
+        self.n_rows = sum(w for w, _ in self.shapes)
         self.bk = torch.from_numpy(bucket_table(self.shapes)).to(dev)
         self.tok = torch.from_numpy(tok).to(dev)
-        self.roff = torch.from_numpy(roff.astype(np.int32)).to(dev)
         self.rfreq = torch.from_numpy(
             np.concatenate([np.asarray(f, np.int32) for _, f in buckets])
         ).to(dev)
@@ -178,16 +179,42 @@ def bucket_count(st: BucketedState, limit: int, vocab_size: int):
     bucket_count.launches += 1
 
 
-def bucket_apply(st: BucketedState):
-    """Merge the round's pair in every row and front-pack the rows."""
-    if not _on(st, "bucket_apply"):
-        return bucket_apply_plain(st)
+# The apply's grid: 0 is one wave of blocks, the trainers' grid; a check
+# sets it > 0 to cap the blocks, so that warp runs end inside rows.
+APPLY_BLOCKS = 0
+
+
+def _apply_rows(states):
+    """A device array (on ``states[0]``'s device) of the states of one card,
+    a row each as ``csrc/train_bucketed.cu`` RowShard lays it out: tok, bk,
+    the buckets, the slots, ctl, cand, work.  Rebuilt when a buffer
+    moved."""
+    head = states[0]
+    for st in states:
+        if st.device != head.device:
+            raise ValueError("bucket_apply takes the states of one device")
+        check_aligned(st, "bucket_apply")
+    rows = [[st.tok.data_ptr(), st.bk.data_ptr(), len(st.shapes), st.tok.shape[0],
+             st.ctl.data_ptr(), st.cand.data_ptr(), st.work.data_ptr(), 0] for st in states]
+    if head._rows is None or head._rows[0] != rows:
+        head._rows = (rows, torch.tensor(rows, dtype=torch.int64, device=head.device))
+    return head._rows[1]
+
+
+def bucket_apply(states):
+    """Merge the round's pair in every row of ``states`` (one device's, one
+    for the one-device trainer) and front-pack the rows: one launch for all
+    of them.  The grid: APPLY_BLOCKS."""
+    if not _on(states[0], "bucket_apply"):
+        for st in states:
+            bucket_apply_plain(st)
+        return
+    rows = _apply_rows(states)
     lib = _cuda.load_bucketed()
-    with torch.cuda.device(st.device):
-        err = lib.yttm_bucket_apply(
-            st.tok.data_ptr(), st.roff.data_ptr(), st.n_rows, st.ctl.data_ptr(),
-            st.cand.data_ptr(), st.work.data_ptr(), _stream_ptr(st.device),
-        )
+    with torch.cuda.device(states[0].device):
+        err = lib.yttm_bucket_apply(rows.data_ptr(), len(states),
+                                    sum(st.tok.shape[0] for st in states), int(APPLY_BLOCKS),
+                                    _stream_ptr(states[0].device))
     _check(err, "bucket_apply")
     bucket_apply.launches += 1
 
@@ -235,7 +262,7 @@ class BucketedKernelEngine:
             for _ in range(n):
                 bucket_count(st, limit, self.vocab_size)
                 topk_accept(st, limit, self.vocab_size, self.used_ids0, 1)
-                bucket_apply(st)
+                bucket_apply([st])
             used, done, overflow = (int(v) for v in st.ctl[[USED, DONE, OVERFLOW]].tolist())
             if done or overflow or used >= min(limit, self.vocab_size):
                 return used, bool(done), bool(overflow)

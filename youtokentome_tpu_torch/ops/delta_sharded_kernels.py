@@ -297,6 +297,9 @@ def shard_part_fold_plain(st: ShardState, shards):
     if _any(shards, ROVF):
         st.ctl[OVERFLOW] = 1
     st.work[W_FOLD] += 12 * int(st.ctl[ROCC])
+    words = fill_words(cap, n)
+    bits = st.fill[int(st.fill[2 * words]) * words :][:words]
+    bits.zero_()
     if any(int(s.pcnt[r]) > hi - lo for s in shards):
         st.ctl[POCC] = hi - lo + 1
         return
@@ -310,16 +313,44 @@ def shard_part_fold_plain(st: ShardState, shards):
     st.keys[lo : lo + fit] = uk[:fit]
     st.cnts[lo : lo + fit] = uc[:fit].to(torch.int32)
     st.ctl[POCC] = uk.shape[0] if fit == uk.shape[0] else hi - lo + 1
+    set_bits(bits, torch.arange(fit, device=dev))
+
+
+def fill_words(cap: int, n: int) -> int:
+    """The int32 words of each of a replica's two fill lists, bitmaps of its
+    largest part's slots (csrc/train_delta_sharded.cu fill_words); the word
+    after both picks the one the next fold fills."""
+    return (-(-cap // n) + 31) // 32
+
+
+def set_bits(bits: torch.Tensor, i: torch.Tensor):
+    """Set bits ``i`` (distinct) of the int32 bitmap ``bits``."""
+    words = torch.zeros(bits.shape[0], dtype=torch.int64, device=bits.device)
+    words.index_add_(0, i // 32, torch.ones_like(i) << (i % 32))
+    bits |= torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def bit_slots(bits: torch.Tensor) -> torch.Tensor:
+    """The set bits of the int32 bitmap ``bits``, in order (int64)."""
+    b = bits.long() & 0xFFFFFFFF
+    on = ((b[:, None] >> torch.arange(32, device=bits.device)) & 1).bool()
+    return torch.nonzero(on.flatten()).flatten()
 
 
 def shard_gather_plain(st: ShardState, shards):
+    """Replica ``st`` takes every other replica p's own part at the slots
+    that p's two fill lists name (this round's claims, and the last round's,
+    which p's refold may have left empty): the only slots where p's part
+    changed since the last gather; then turns its own fill lists."""
     dev, n, cap = st.device, len(shards), st.cap
     r = _index(st, shards)
+    words = fill_words(cap, n)
     for p, o in enumerate(shards):
         if p != r:
-            lo, hi = part_lo(p, cap, n), part_lo(p + 1, cap, n)
-            st.keys[lo:hi] = o.keys[lo:hi].to(dev)
-            st.cnts[lo:hi] = o.cnts[lo:hi].to(dev)
+            slots = bit_slots(o.fill[:words] | o.fill[words : 2 * words]) + part_lo(p, cap, n)
+            st.keys[slots.to(dev)] = o.keys[slots].to(dev)
+            st.cnts[slots.to(dev)] = o.cnts[slots].to(dev)
+    st.fill[2 * words] ^= 1
     pocc = [int(o.ctl[POCC]) for o in shards]
     full = any(c > part_lo(p + 1, cap, n) - part_lo(p, cap, n) for p, c in enumerate(pocc))
     occ = sum(pocc)
@@ -382,7 +413,8 @@ def _links(st: ShardState, shards):
             [s.rcnts.data_ptr() for s in shards], [s.keys.data_ptr() for s in shards],
             [s.cnts.data_ptr() for s in shards]]
     if hasattr(st, "plist"):
-        ptrs += [[s.plist.data_ptr() for s in shards], [s.pcnt.data_ptr() for s in shards]]
+        ptrs += [[s.plist.data_ptr() for s in shards], [s.pcnt.data_ptr() for s in shards],
+                 [s.fill.data_ptr() for s in shards]]
     if st._links is None or st._links[0] != ptrs:
         st._links = (ptrs, [torch.tensor(p, dtype=torch.int64, device=st.device) for p in ptrs])
     return st._links[1]
@@ -496,7 +528,8 @@ def shard_fold(reps, shards, rebuild=None):
 def shard_part_fold(st: ShardState, shards):
     """The partitioned fold's first half (the engines that recount every
     round): empty the replica's own part and add the entries of every
-    shard's list of that part into it."""
+    shard's list of that part into it, each claimed slot set in the
+    replica's fill list of the round."""
     if not _on(st, "shard_part_fold"):
         return shard_part_fold_plain(st, shards)
     _check_parts(shards)
@@ -506,26 +539,31 @@ def shard_part_fold(st: ShardState, shards):
         err = lib.yttm_shard_part_fold(
             st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(),
             links[0].data_ptr(), links[3].data_ptr(), links[4].data_ptr(), links[7].data_ptr(),
-            links[8].data_ptr(), len(shards), _index(st, shards), st.work.data_ptr(),
-            _stream_ptr(st.device),
+            links[8].data_ptr(), len(shards), _index(st, shards), st.fill.data_ptr(),
+            st.work.data_ptr(), _stream_ptr(st.device),
         )
     _check(err, "shard_part_fold")
     shard_part_fold.launches += 1
 
 
-def shard_gather(st: ShardState, shards):
+def shard_gather(reps, shards):
     """The partitioned fold's second half, once every replica folded its
-    part: copy every other replica's own part in; the occupancy and
+    part, on the replicas ``reps`` (states of one device), one launch: each
+    copies every other replica's own part in at the slots that replica's
+    two fill lists name, then turns its own lists; the occupancy and
     overflow from every part's count."""
-    if not _on(st, "shard_gather"):
-        return shard_gather_plain(st, shards)
-    links = _links(st, shards)
+    if not _on(reps[0], "shard_gather"):
+        for st in reps:
+            shard_gather_plain(st, shards)
+        return
+    head = reps[0]
+    links = _links(head, shards)
+    rows = _replicas(reps, shards)
     lib = _cuda.load_sharded()
-    with torch.cuda.device(st.device):
+    with torch.cuda.device(head.device):
         err = lib.yttm_shard_gather(
-            st.keys.data_ptr(), st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(),
-            links[0].data_ptr(), links[5].data_ptr(), links[6].data_ptr(), len(shards),
-            _index(st, shards), _stream_ptr(st.device),
+            rows.data_ptr(), len(reps), head.cap, links[0].data_ptr(), links[5].data_ptr(),
+            links[6].data_ptr(), links[9].data_ptr(), len(shards), _stream_ptr(head.device),
         )
     _check(err, "shard_gather")
     shard_gather.launches += 1

@@ -16,7 +16,10 @@ slots is cut into N parts (``csrc/part_list.cuh``): part p is the slots
 ``key_part`` is p; part p's list, ``plist[p*cap/N, (p+1)*cap/N)``, holds the
 scratch slots that keys of part p claimed in the shard's last count, and
 ``pcnt[p]`` counts them (past the part's size they are counted and dropped,
-and the part is full).  A round, all in hand-written CUDA:
+and the part is full).  Replica r's fill lists, ``fill``, two bitmaps of
+its largest part's slots and the word that picks the next fold's, name the
+slots of its own part that its last two folds claimed.  A round, all in
+hand-written CUDA:
 
   stream_shard_count  on every shard: v1's count (``csrc/train_stream.cu``,
                       ``csrc/stream_count.cuh``: a flat walk into each
@@ -31,17 +34,20 @@ and the part is full).  A round, all in hand-written CUDA:
                       the replica's own part r of the table emptied and
                       rebuilt from the entries of every shard's part-r list,
                       so each entry is read and inserted once over all
-                      replicas
-  shard_gather        on every replica, once all parts are folded: every
-                      other replica's part copied in, the parts' counts
+                      replicas, each slot it claims set in its fill list
+  shard_gather        once a card over its replicas, once all parts are
+                      folded: every other replica p's part copied in at the
+                      slots that p's two fill lists name (the only slots
+                      where it changed since the last gather), in one pass
+                      over the slots in order; the parts' counts
                       summed into the occupancy (an overflowed scratch
                       table, a full part or a table more than half full sets
                       OVERFLOW on every replica; the host doubles the tables
                       and the segment runs again, nothing applied)
   topk_accept         on every replica (k = 1 for v0)
   apply_compact       once a card over its shards' streams (each compacted
-                      into its other buffer; v0: ``bucket_apply`` on every
-                      shard)
+                      into its other buffer; v0: ``bucket_apply``, once a
+                      card over its shards' rows)
 
 The host reads shard 0's ``ctl`` once per batch of rounds and checks that
 every replica's round control and rules agree at each segment end.  Each
@@ -63,6 +69,8 @@ from .delta_sharded_kernels import (
     ROVF,
     Exchange,
     ShardEngine,
+    bit_slots,
+    fill_words,
     key_part,
     part_lo,
     shard_gather,
@@ -93,17 +101,31 @@ from .train_kernels import (
 class RecountShard(Exchange):
     """A shard that counts into its scratch table every round: the top-k
     zeroes none of its own slots (v1's live counts and buffers carry over
-    rounds); its delta buffer (one entry) is never read.  Its scratch
-    table's part lists among ``n_parts`` (the mesh's shards): ``plist``
-    [cap] and ``pcnt`` [n_parts] (the module note), empty with the
-    table."""
+    rounds, and nothing but the fold writes a replica's table); its delta
+    buffer (one entry) is never read.  Its scratch table's part lists among
+    ``n_parts`` (the mesh's shards): ``plist`` [cap] and ``pcnt``
+    [n_parts]; its replica's fill lists, ``fill`` (the module note); all
+    empty with the table."""
 
     n_own = 0
 
     def resize(self, cap: int):
         super().resize(cap)
-        self.plist = torch.zeros(cap, dtype=torch.int32, device=self.device)
-        self.pcnt = torch.zeros(self.n_parts, dtype=torch.int32, device=self.device)
+        i32 = dict(dtype=torch.int32, device=self.device)
+        self.plist = torch.zeros(cap, **i32)
+        self.pcnt = torch.zeros(self.n_parts, **i32)
+        self.fill = torch.zeros(2 * fill_words(cap, self.n_parts) + 1, **i32)
+
+    def fill_list(self, l: int, r: int) -> torch.Tensor:
+        """The slots that fill list ``l`` names, in order (int64), this
+        state being replica ``r`` (its own part, part r)."""
+        words = fill_words(self.cap, self.n_parts)
+        return bit_slots(self.fill[l * words :][:words]) + part_lo(r, self.cap, self.n_parts)
+
+    def fill_next(self) -> int:
+        """The fill list that the next fold fills (the other holds the last
+        fold's claims once the gather has turned them)."""
+        return int(self.fill[2 * fill_words(self.cap, self.n_parts)])
 
     def part_list(self, p: int) -> torch.Tensor:
         """The scratch slots of part ``p``'s list (int64; the first ones,
@@ -241,8 +263,8 @@ class RecountShardEngine(ShardEngine):
         for st in shards:
             shard_part_fold(st, shards)
         self._barrier()
-        for st in shards:
-            shard_gather(st, shards)
+        for dev in self._devices:
+            shard_gather([st for st in shards if st.device == dev], shards)
         self._barrier()
 
     def round(self, limit: int):
@@ -307,5 +329,6 @@ class BucketedShardedKernelEngine(RecountShardEngine):
         bucket_shard_count(st, limit, self.vocab_size)
 
     def apply(self):
-        for st in self.shards:
-            bucket_apply(st)
+        """One launch a card over its shards' rows."""
+        for dev in self._devices:
+            bucket_apply([st for st in self.shards if st.device == dev])

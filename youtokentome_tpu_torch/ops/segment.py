@@ -14,7 +14,7 @@ PyTorch counterparts of ``youtokentome_tpu/ops/segment.py``:
 
 The CUDA encode kernel does the first and third inside a thread block, and
 ``csrc/train_bucketed.cu`` the last two (the count in a flat walk of the
-rows, the apply a warp a row); these are their plain versions.
+rows, the apply in a flat walk of them too); these are their plain versions.
 """
 
 from __future__ import annotations
