@@ -129,7 +129,13 @@ nonzero):
      (csrc/train_block.cu) and v0 bucketed (csrc/train_bucketed.cu), each
      with the shared top-k.  Each kernel equals its plain version on the
      100 MB corpus's state for two rounds, and v4's block_apply again past
-     its full-path rounds, through a round of its block path; v3's
+     its full-path rounds, through a round of its block path (that round
+     once more under torch.profiler: the flag walk and the apply, one launch
+     each, no clear or recount); block_apply on crafted rows
+     (``phase_block_apply_checks``: hits at slots B-2 and B-1, runs across
+     32-slot edges, rows of PAD gaps without a hit on full-path rounds, KB
+     at the rows with a hit and one less, ids from 5 and 70000, B = 128 and
+     512; the rows' extents the rows'); v3's
      sparse_count (csrc/tomb_count.cuh) on the tombstoned edge streams
      (``phase_tomb_checks``: tombstone runs across 128-slot chunks, equal
      runs split by tombstones, equal ids across word boundaries, words all
@@ -187,7 +193,13 @@ nonzero):
      with phase 10's shard_fold), v1 and v0 (their shard counts in
      csrc/train_stream.cu and csrc/train_bucketed.cu, the partitioned fold
      shard_part_fold and shard_gather, the top-k and the applies on every
-     shard).  The counts' part lists and the partitioned fold on crafted
+     shard).  sparse_emit (one launch for 1, 2 and 4 shards of the card, one
+     without words) against its plain version shard by shard on tombstoned
+     edge words (``phase_sparse_emit_checks``: pairs split by 1-300
+     tombstones across 16-byte groups, lanes' 8 positions, 32-slot chunks
+     and warps' 256 positions, runs split by tombstones, words of 1-600
+     positions, buffers that overflow partway).  The counts' part lists and
+     the partitioned fold on crafted
      shards of a 3-shard mesh (``phase_part_fold_checks``: a folded edge
      stream equal to the host count, each replica's fold unchanged by
      poisoned scratch slots that no part-r list names, and a scratch
@@ -208,7 +220,8 @@ nonzero):
      ``train.train`` with ``YTTM_TRAIN_IMPL=sparse`` on the mesh,
      ``run_training_stream_sharded`` and ``run_training_sharded`` (v0 to its
      first V0_MAIN_IDS ids), rules equal to phase 5's v2 rules (v3 through its round graph: launches
-     checked against replays, recount rounds and counts); times, bounds and
+     checked against replays, recount rounds and counts, one sparse_emit a
+     replay for the card); times, bounds and
      plain versions as in phase 10, and v3's merge loop twice more without
      the profiler, sparse_shard_recount by CUDA events at its runs, the v3
      kernels over the first ids by CUDA events, and sparse_shard_recount on
@@ -340,7 +353,9 @@ def phase_device_and_build() -> dict:
                                       "stream_count_kernel", "part_fold_kernel",
                                       "apply_compact_kernel", "rows_count_kernel",
                                       "encode_dropout_short_kernel", "encode_dropout_long_kernel",
-                                      "merge_words_kernel", "merge_long_words_kernel")):
+                                      "merge_words_kernel", "merge_long_words_kernel",
+                                      "sparse_emit_kernel", "flag_rows_kernel",
+                                      "apply_rows_kernel")):
         log(f"[1] {line}")
     log(f"[1] name maps: the {check_name_maps(libs)} device functions the phases time by name "
         f"are kernels of the built libraries")
@@ -1766,16 +1781,17 @@ def stream_shard_of(t, wid, freq, dev, cap: int = FOLD_CAP, n: int = FOLD_PARTS)
 TOMB_WORD_SLOTS = 5000  # the long words that are all tombstones but for a few tokens
 
 
-def tomb_lay(groups, base: int, rng):
+def tomb_lay(groups, base: int, rng, period: int = 128):
     """(t, wid, freq) of a v3 stream holding each group of words (lists of
     ids, -1 a tombstone) after a filler word of live random ids from
     ``base``: 2-130 of them, or, for a group given as (words, k), as many as
-    start the group k slots past a 128-slot chunk's first slot.  Seven
-    positions that belong to no word end the stream; weights 1-5."""
+    start the group k slots past a multiple of ``period`` (a 128-slot
+    chunk's first slot).  Seven positions that belong to no word end the
+    stream; weights 1-5."""
     words, pos = [], 0
     for g in groups:
         gw, k = g if isinstance(g, tuple) else (g, None)
-        n = int(rng.integers(2, 131)) if k is None else 2 + (k - pos - 2) % 128
+        n = int(rng.integers(2, 131)) if k is None else 2 + (k - pos - 2) % period
         words.append([base + int(v) for v in rng.integers(0, 6, n)])
         words += gw
         pos += n + sum(len(w) for w in gw)
@@ -4116,7 +4132,7 @@ def phase_tiered_main(corpus_path: Path, work: Path, sample, v2_rules) -> dict:
     return {"rows": rows}
 
 
-def compare_tree(work: Path, parts=("train", "sharded", "recount")) -> dict:
+def compare_tree(work: Path, parts=("train", "sharded", "recount", "v4")) -> dict:
     """The numbers the training kernels' redesigns are held to, for the
     package of the current directory's tree (run it in the parent's
     unpacked tree and in the change's, in turns, from one process each,
@@ -4131,9 +4147,10 @@ def compare_tree(work: Path, parts=("train", "sharded", "recount")) -> dict:
     the sharded v1 loop (4 shards) to vocab 30000 and v0's and the sharded
     v0 loop to their first V0_MAIN_IDS ids, each twice by the host clock, then once
     traced (each wrapper's device ms and launches, the count's, the
-    fold's and the apply's device functions by name, in either tree).
-    ``parts`` picks the sections: "train" (the first five), "sharded" (the
-    sharded v2 and v3 loops), "recount" (the last).  The corpus is written
+    fold's and the apply's device functions by name, in either tree); v4's
+    loop (``compare_v4``).  ``parts`` picks the sections: "train" (the first
+    five), "sharded" (the sharded v2 and v3 loops), "recount" (the
+    recounting trainers), "v4".  The corpus is written
     to ``work`` by the first caller and read by the others.  Prints and
     returns the numbers."""
     work.mkdir(parents=True, exist_ok=True)
@@ -4149,6 +4166,8 @@ def compare_tree(work: Path, parts=("train", "sharded", "recount")) -> dict:
         out.update(compare_sharded(buckets, used0))
     if "recount" in parts:
         out.update(compare_recount(buckets, used0))
+    if "v4" in parts:
+        out.update(compare_v4(buckets, used0))
     print("COMPARE " + json.dumps(out), flush=True)
     return out
 
@@ -4295,6 +4314,60 @@ def compare_recount(buckets, used0: int) -> dict:
     return out
 
 
+def launch_split(records, n_top: int) -> dict:
+    """The launches of a traced kernel (Tracer records) by device time: the
+    ms of the n_top longest, and the rest's ms and 10th, 50th and 90th
+    percentile us."""
+    us = np.sort(np.array([ns for _, ns in records], np.float64))[::-1] / 1e3
+    rest = us[n_top:]
+    return {"n": int(us.size), "top_ms": round(float(us[:n_top].sum()) / 1e3, 4),
+            "rest_ms": round(float(rest.sum()) / 1e3, 4),
+            "rest_us_p10_50_90": [round(float(np.percentile(rest, q)), 2) for q in (10, 50, 90)]
+            if rest.size else []}
+
+
+def compare_v4(buckets, used0: int) -> dict:
+    """compare_tree's "v4" section: v4's merge loop to vocab 30000 twice by
+    the host clock, then once traced: each wrapper's device ms and launches
+    and block_apply's device functions by name, in either tree
+    (COMPARE_V4_FNS); the rounds, and the block-path rows and full-path
+    rounds of the last timed run."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    dev = torch.device("cuda", 0)
+    mod = diff_module("block")
+    loops = []
+    for _ in range(2):
+        e = diff_engine("block", buckets, used0, TRAIN_VOCAB, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_diff(e, TRAIN_VOCAB, used0)
+        torch.cuda.synchronize()
+        loops.append(round(time.perf_counter() - t0, 4))
+    out = {"v4_loop_s": loops, "v4_rounds": int(e.st.ctl[tk.ROUND]),
+           "v4_rules": int(torch.sum(e.rules[:, 0] >= 0)),
+           "v4_rows_full": [int(e.st.work[mod.W_ROWS]), int(e.st.work[mod.W_FULL])],
+           "v4_work": e.st.work.tolist()}
+    wrappers = {k: diff_wrapper(mod, k) for k in DIFF_KERNELS["block"]}
+    for w in wrappers.values():
+        w.launches = 0
+    with Tracer(keep=("flag_rows_kernel", "apply_rows_kernel")) as tr:
+        run_diff(diff_engine("block", buckets, used0, TRAIN_VOCAB, dev), TRAIN_VOCAB, used0)
+    # the launches by their device time: the longest as many as the
+    # full-path rounds, and the rest
+    out["v4_split"] = {f: launch_split(tr.records.get(f, []), out["v4_rows_full"][1])
+                       for f in ("flag_rows_kernel", "apply_rows_kernel")}
+    out["v4_ms"] = {k: round(v, 4) for k, v in tr.ms(COMPARE_V4_FNS).items()}
+    out["v4_fns"] = {f: round(v, 4) for f, v in tr.ms(
+        {f: (f,) for f in COMPARE_V4_FNS["block_apply"]}).items() if v}
+    out["v4_records"] = {f: int(v) for f, v in tr.ms(
+        {f: (f,) for f in COMPARE_V4_FNS["block_apply"]}, counts=True).items() if v}
+    out["v4_launches"] = {k: w.launches for k, w in wrappers.items()}
+    return out
+
+
 def compare_emit(work: Path) -> dict:
     """The numbers sharded v2's per-card emit and the flat relays are held
     to, for the package of the current directory's tree (run it in the
@@ -4385,11 +4458,13 @@ def compare_v3(buckets, used0: int) -> dict:
     wrappers = {k: other_wrapper("sparse", k)[1] for k in OTHER_KERNELS["sparse"]}
     for w in wrappers.values():
         w.launches = 0
-    with Tracer() as tr:
+    with Tracer(keep=("sparse_emit_kernel",)) as tr:
         t0 = time.perf_counter()
         ts.run_to_end(other_engine("sparse", buckets, used0, TRAIN_VOCAB), used0, TRAIN_VOCAB)
         torch.cuda.synchronize()
         out["v3_traced_s"] = time.perf_counter() - t0
+    if "sparse_emit_kernel" in tr.records:  # the one launch a round: its rounds by device time
+        out["v3_emit_split"] = launch_split(tr.records["sparse_emit_kernel"], 0)
     out["v3_ms"] = {k: round(v, 4) for k, v in tr.ms(COMPARE_V3_FNS).items()}
     out["v3_fold_ms"] = out["v3_ms"]["shard_fold"]
     out["v3_fns"] = tr.ms({f: (f,) for k in ("shard_fold", "sparse_shard_recount")
@@ -4443,6 +4518,25 @@ def profiled_ms(prof, names) -> float:
         if any(n in ev.key for n in names):
             us += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
     return us / 1e3
+
+
+def traced_ms(run, names):
+    """(run(), the device ms of the functions whose names contain one of
+    ``names``, the timer, the profiler): torch.profiler's records of the
+    run; or, where it kept none of them (now and then late in this script,
+    cause not found), the run again between CUDA events (``event_ms``, a
+    span on the card's clock) and no profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    ms = profiled_ms(prof, names)
+    if ms > 0:
+        return out, ms, "torch.profiler", prof
+    return out, event_ms(run, 1), "CUDA events: torch.profiler kept no record", None
 
 
 def synced(fn):
@@ -4541,7 +4635,6 @@ def phase_dropout_main(main: dict, lines, card: str) -> dict:
     checks; then the kernel, its plain version and its work on every input
     the main path gave it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import youtokentome_tpu_torch as yttm
     from youtokentome_tpu_torch import encoder as encoder_mod
@@ -4594,12 +4687,10 @@ def phase_dropout_main(main: dict, lines, card: str) -> dict:
     # the kernel on every input of the main path, under the profiler; the
     # plain version on the same inputs, each call synchronised, equal
     tables = bpe._encoder.tables
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        outs = [real(tables, x, DROPOUT_P, seed, row0) for x, seed, row0 in calls]
-        torch.cuda.synchronize()
-    k_ms = profiled_ms(prof, DROPOUT_DEVICE_FNS)
-    check(k_ms > 0, "the profiler recorded no device time for encode_dropout")
+    outs, k_ms, timer, _ = traced_ms(
+        lambda: [real(tables, x, DROPOUT_P, seed, row0) for x, seed, row0 in calls],
+        DROPOUT_DEVICE_FNS)
+    check(k_ms > 0, "no device time for encode_dropout")
     p_ms, merges = 0.0, 0
     for (x, seed, row0), out in zip(calls, outs):
         want, ms = synced(lambda: ek.encode_dropout_plain(tables, x, DROPOUT_P, seed, row0))
@@ -4621,7 +4712,7 @@ def phase_dropout_main(main: dict, lines, card: str) -> dict:
     o_ms = ((pairs + 2 * merges) * OPS_PER_PAIR + coins * OPS_PER_COIN) / OPS_PER_S * 1e3
     log(f"[7] main-path inputs ({launches} launches, shapes {shapes}): kernel == plain on every "
         f"one; {pairs} pairs, {coins} coins, {merges} merges; kernel {k_ms:.3f} ms "
-        f"(torch.profiler), bytes bound {b_ms:.4f} ms, operations "
+        f"({timer}), bytes bound {b_ms:.4f} ms, operations "
         f"bound {o_ms:.4f} ms, plain {p_ms:.1f} ms ({card})")
     row = {"name": "encode_dropout", "launches": launches, "ms": k_ms, "plain_ms": p_ms,
            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
@@ -4793,7 +4884,6 @@ def phase_stream_main(main: dict, lines, card: str) -> dict:
     chunk of those lines: the kernel under the profiler, its plain version
     (equal, each call synchronised), and the work its data needs."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import youtokentome_tpu_torch as yttm
     from youtokentome_tpu_torch.encoder import Encoder
@@ -4829,23 +4919,23 @@ def phase_stream_main(main: dict, lines, card: str) -> dict:
     st, tables, dev = enc._stream, enc.tables, enc.device
     chunks = [torch.frombuffer(bytearray(c), dtype=torch.uint8).to(dev)
               for c in sk.StreamEncoder.chunks(blob, sk.DEFAULT_CHUNK)]
-    k_ms = {}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        built = [sk.stream_build(x, st.alpha_cps, st.alpha_ids, st.space_id) for x in chunks]
-        torch.cuda.synchronize()
-    k_ms["stream_build"] = profiled_ms(prof, STREAM_DEVICE_FNS["stream_build"] + STREAM_SHARED_FNS)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        words = [sk.stream_dedup(*b) for b in built]
-        torch.cuda.synchronize()
-    k_ms["stream_dedup"] = profiled_ms(prof, STREAM_DEVICE_FNS["stream_dedup"] + STREAM_SHARED_FNS)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        merged = [sk.stream_merge(tables, w, unk) for w in words]
-        torch.cuda.synchronize()
-    k_ms["stream_merge"] = profiled_ms(prof, STREAM_DEVICE_FNS["stream_merge"] + STREAM_SHARED_FNS)
-    words_ms = profiled_ms(prof, MERGE_WORDS_FNS)  # the merge itself; the rest expands
-    for name, v in k_ms.items():
-        check(v > 0, f"the profiler recorded no device time for {name}")
+    stages = {  # each stage over every chunk, from the last stage's results
+        "stream_build": lambda _: [sk.stream_build(x, st.alpha_cps, st.alpha_ids, st.space_id)
+                                   for x in chunks],
+        "stream_dedup": lambda built: [sk.stream_dedup(*b) for b in built],
+        "stream_merge": lambda words: [sk.stream_merge(tables, w, unk) for w in words],
+    }
+    k_ms, timer, results = {}, {}, [None]
+    for name, run in stages.items():
+        arg = results[-1]
+        out, k_ms[name], timer[name], prof = traced_ms(
+            lambda: run(arg), STREAM_DEVICE_FNS[name] + STREAM_SHARED_FNS)
+        results.append(out)
+        check(k_ms[name] > 0, f"no device time for {name}")
+    # the merge itself; the rest expands (events do not split it)
+    words_ms = profiled_ms(prof, MERGE_WORDS_FNS) if prof else None
+    built, words, merged = results[1:]
+    del results, out
 
     p_ms = dict.fromkeys(STREAM_KERNELS, 0.0)
     n = dict.fromkeys(("tokens", "unique_tokens", "words", "unique", "ids", "pairs"), 0)
@@ -4883,11 +4973,11 @@ def phase_stream_main(main: dict, lines, card: str) -> dict:
                      "plain_ms": p_ms[name], "bound_ms": max(b_ms, o_ms),
                      "bound_by": "bytes" if b_ms >= o_ms else "operations"})
         split = ""
-        if name == "stream_merge":
+        if name == "stream_merge" and words_ms is not None:
             rows[-1]["merge_words_ms"] = words_ms
             split = f" ({', '.join(MERGE_WORDS_FNS)} {words_ms:.3f}, the rest {k_ms[name] - words_ms:.3f})"
         log(f"[8] {name}: {launches[name]} launches, {k_ms[name]:.3f} ms on the card{split} "
-            f"(torch.profiler, {len(chunks)} chunks), bound {max(b_ms, o_ms):.4f} ms "
+            f"({timer[name]}, {len(chunks)} chunks), bound {max(b_ms, o_ms):.4f} ms "
             f"({rows[-1]['bound_by']}), plain {p_ms[name]:.1f} ms ({card})")
     return {"rows": rows, "api_mbps": n_bytes / 1e6 / api_s, "cli_mbps": n_bytes / 1e6 / cli_s}
 
@@ -5046,8 +5136,7 @@ DIFF_DEVICE_FNS = {
     ("sparse", "sparse_apply"): ("mark_live_words_kernel", "apply_words_kernel"),
     ("block", "block_count"): ("count_all_rows_kernel",),
     ("block", "topk_accept"): ("topk_select_kernel",),
-    ("block", "block_apply"): ("flag_rows_kernel", "apply_rows_kernel", "full_clear_kernel",
-                               "full_recount_kernel"),
+    ("block", "block_apply"): ("flag_rows_kernel", "apply_rows_kernel"),
     ("bucketed", "bucket_count"): ("clear_kernel", "rows_count_kernel"),
     ("bucketed", "topk_accept"): ("topk_select_kernel",),
     ("bucketed", "bucket_apply"): ("apply_rows_kernel",),
@@ -5255,6 +5344,8 @@ def phase_diff_kernels(buckets, used0: int, dev) -> None:
         if name == "bucketed":
             phase_row_count_checks(st, dev)
             phase_row_apply_checks(st, used0, dev)
+        if name == "block":
+            phase_block_apply_checks(dev)
         k_st, p_st = clone_state(st), clone_state(st)
         for r in range(3 if name == "stream" else 2):  # v1: odd, its stream in the second buffer
             diff_round(name, mod, k_st, used0, False, getattr(eng, "KB", 0))
@@ -5284,6 +5375,7 @@ def block_path_rounds(mod, eng, used0: int, most: int = 8) -> None:
     k_st, p_st = clone_state(eng.st), clone_state(eng.st)
     rows0, full0 = int(k_st.work[mod.W_ROWS]), int(k_st.work[mod.W_FULL])
     for r in range(most):
+        before = clone_state(k_st)
         diff_round("block", mod, k_st, used0, False, eng.KB)
         diff_round("block", mod, p_st, used0, True, eng.KB)
         same_diff_state(k_st, p_st, f"block: block-path round {r} from {used} ids")
@@ -5294,6 +5386,159 @@ def block_path_rounds(mod, eng, used0: int, most: int = 8) -> None:
     log(f"[9] block: block_apply == plain through {r + 1} rounds from {used} ids "
         f"({int(k_st.ctl[tk.USED]) - used} ids, {rows} block-path rows of at most KB = {eng.KB}, "
         f"{int(k_st.work[mod.W_FULL]) - full0} full-path rounds)")
+    if before.device.type == "cuda":
+        block_round_launches(mod, before, used0, eng.KB)
+
+
+def block_round_launches(mod, st, used0: int, kb: int) -> None:
+    """What a round of v4's block_apply enqueues, from ``st`` after its
+    top-k, at KB = ``kb`` (the block path) and 0 (the full path): the call
+    captured into a CUDA graph (libcuda's cuStreamBeginCapture; the graph is
+    never run) holds two kernel nodes, the walk and the apply, and nothing
+    else, so no clear or recount.  The entry picks no launch by the round's
+    data (the apply takes its path on the card), so the capture shows what
+    every round launches, without torch.profiler's records.  Then the round
+    itself, which must take the block path."""
+    import ctypes
+
+    import torch
+
+    from youtokentome_tpu_torch.ops import train_kernels as tk
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(res: int, what: str) -> None:
+        check(res == 0, f"{what}: CUresult {res}")
+
+    x = clone_state(st)
+    tk.topk_accept(x, TRAIN_VOCAB, TRAIN_VOCAB, used0, 16)
+    side = torch.cuda.Stream(x.device)
+    side.wait_stream(torch.cuda.current_stream(x.device))
+    torch.cuda.synchronize()
+    handle = ctypes.c_void_p(side.cuda_stream)
+    for k in (kb, 0):
+        graph = ctypes.c_void_p()
+        ok(cu.cuStreamBeginCapture_v2(handle, 2), "cuStreamBeginCapture")  # relaxed mode
+        try:
+            with torch.cuda.stream(side):
+                mod.block_apply(x, k)
+        finally:
+            ended = cu.cuStreamEndCapture(handle, ctypes.byref(graph))
+        ok(ended, "cuStreamEndCapture")
+        n = ctypes.c_size_t(0)
+        ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * n.value)()
+        ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+        kinds = []
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+            kinds.append(kind.value)
+        ok(cu.cuGraphDestroy(graph), "cuGraphDestroy")
+        want = len(DIFF_DEVICE_FNS[("block", "block_apply")])
+        check(kinds == [0] * want,  # CU_GRAPH_NODE_TYPE_KERNEL
+              f"block_apply at KB {k} enqueued nodes of types {kinds}, not {want} kernels")
+    full0 = int(x.work[mod.W_FULL])
+    mod.block_apply(x, kb)
+    check(int(x.work[mod.W_FULL]) == full0, "the captured round did not take the block path")
+    log(f"[9] block: a round of block_apply enqueues {want} kernels and nothing else on either "
+        f"path (its call captured into a CUDA graph at KB {kb} and at 0)")
+
+
+BLOCK_EDGE_BS = (128, 512)  # v4's row widths that the apply's edge checks take
+
+
+def block_edge_rows(B: int, base: int, rng):
+    """(t, wid, freq) of v4 rows of B slots for block_apply's edge checks,
+    ids from ``base``, each row a list of (first slot, word): words ending
+    at slots B-2 and B-1 whose last pair is a candidate of edge_rounds;
+    runs of (a, a) and chains (b, c, d, a) across a 32-slot edge; rows of
+    words of two rare ids (e, f) only, PAD between and inside their slots
+    (no candidate in any round: on a full-path round they are front-packed
+    all the same); a row of B tokens; random rows of words of 2-14 ids over
+    six, PAD gaps of 0-3 slots between them; then rows of PAD up to a power
+    of two."""
+    a, b, c, d = (base + i for i in range(4))
+    e, f = base + 6, base + 7
+    rows = [[(B - 3, [c, a, a])], [(0, [e, f]), (B - 2, [d, a])], [(B - 4, [b, c, d, a])],
+            [(20, [d] + [a] * 40 + [b])], [(31, [a, a, a])], [(30, [b, a, a, a, a, a])],
+            [(28, [b, c, d, a, a, b, c, d])], [(B // 4 + 8, [d] + [a] * 70 + [c])], [(0, [a] * B)]]
+    for k in range(6):
+        rows.append([(3 * k, [e, f, e]), (40 + k, [f, f, e, e, f][: 2 + k % 4]),
+                     (B // 2 + k, [e] * (k + 2))])
+    for _ in range(40):
+        row, at = [], int(rng.integers(0, 4))
+        while True:
+            n = int(rng.integers(2, 15))
+            if at + n > B:
+                break
+            row.append((at, [base + int(v) for v in rng.integers(0, 6, n)]))
+            at += n + int(rng.integers(0, 4))
+        rows.append(row)
+    NB = 1 << (len(rows) + 2).bit_length()
+    t = np.full((NB, B), -1, np.int32)
+    wid = np.full((NB, B), -1, np.int32)
+    k = 0
+    for r, row in enumerate(rows):
+        for at, w in row:
+            t[r, at : at + len(w)] = w
+            wid[r, at : at + len(w)] = k
+            k += 1
+    return t.reshape(-1), wid.reshape(-1), rng.integers(1, 6, k).astype(np.int32)
+
+
+def phase_block_apply_checks(dev) -> dict:
+    """block_apply against block_apply_plain on ``block_edge_rows`` (B =
+    128 and 512, ids from 5 and 70000), in each of ``edge_rounds``, at KB =
+    the round's rows with a hit (the block path) and one less (the full
+    path), from the rows' first count, and once more from each result in
+    the round that hits nearly every word: rows, extents, table, ctl and
+    work (the bytes each pass must move) equal, each extent the row's last
+    live slot + 1, the path the round took the plain version's."""
+    import torch
+
+    from youtokentome_tpu_torch.ops import block_kernels as bk
+
+    t0 = time.perf_counter()
+    n_checks, paths = 0, set()
+    for B in BLOCK_EDGE_BS:
+        for base in APPLY_BASES:
+            rng = np.random.default_rng(base + B)
+            t, wid, freq = block_edge_rows(B, base, rng)
+            rules = np.full((base + 200, 4), -1, np.int32)
+            st = bk.BlockState(t, wid, freq, rules, 0, B, 1 << 12, dev)
+            bk.block_count(st)
+            many = dict(edge_rounds(base))["nearly every word hit"]
+            for what, cands in edge_rounds(base):
+                probe = clone_state(st)
+                set_round(probe, cands, base + 100)
+                bk.block_apply_plain(probe, st.NB)
+                hits = int(probe.ctl[bk.NBAFF])
+                for kb in sorted({hits, max(hits - 1, 0)}):
+                    k_st, p_st = clone_state(st), clone_state(st)
+                    for r, (rw, cs) in enumerate(((what, cands), ("nearly every word hit", many))):
+                        for x in (k_st, p_st):
+                            set_round(x, cs, base + 100 + 20 * r)
+                            x.ctl[bk.NBAFF] = 0  # as the round's top-k leaves it
+                        full0 = int(k_st.work[bk.W_FULL])
+                        bk.block_apply(k_st, kb if r == 0 else st.NB)
+                        bk.block_apply_plain(p_st, kb if r == 0 else st.NB)
+                        label = (f"block_apply, B {B}, ids from {base}, {rw} (round {r}), "
+                                 f"KB {kb if r == 0 else st.NB}")
+                        same_diff_state(k_st, p_st, label)
+                        check(torch.equal(k_st.ext, bk.row_extents(k_st.tok, B)),
+                              f"{label}: the extents are not the rows'")
+                        full = int(k_st.work[bk.W_FULL]) > full0
+                        check(full == (int(k_st.ctl[bk.NBAFF]) > (kb if r == 0 else st.NB)),
+                              f"{label}: the path taken")
+                        paths.add((r == 0 and kb < hits, full))
+                        n_checks += 1
+    check({(True, True), (False, False)} <= paths, f"the edge checks missed a path: {paths}")
+    log(f"[9] block_apply == plain on {n_checks} edge rounds (B {BLOCK_EDGE_BS}, ids from "
+        f"{APPLY_BASES}; hits at slots B-2 and B-1, runs across 32-slot edges, rows of PAD "
+        f"gaps front-packed on full-path rounds, KB at the rows with a hit and one less; the "
+        f"extents the rows') ({time.perf_counter() - t0:.1f} s)")
+    return {"checks": n_checks}
 
 
 def crafted_buckets():
@@ -5399,11 +5644,16 @@ def diff_work(name: str, eng, count_calls, keys: int) -> tuple:
     if name == "block":
         m = st.NB * st.B
         count_b = sum(m * 8 + o * 12 for o in count_calls)
-        rows = w[mod.W_ROWS] + w[mod.W_FULL] * st.NB
+        # the apply: the bytes its flag walk and its row applies must move,
+        # summed by the kernels (W_READ: each filled row's extent and tokens
+        # below it, two word ids a candidate pair of tokens; W_APPLY: the
+        # applied rows below their extents read and written, a table entry a
+        # pair, the whole table on a full-path round)
+        read, apply = w[mod.W_READ], w[mod.W_APPLY]
         return {"block_count": (count_b, len(count_calls) * m * OPS_PER_COUNTED),
                 "topk_accept": topk,
-                "block_apply": (rounds * m * 8 + rows * st.B * 16,
-                                rounds * m * OPS_PER_POS // 2 + rows * st.B * OPS_PER_COUNTED)}
+                "block_apply": (read + apply, read // 4 * OPS_PER_POS // 2
+                                + apply // 16 * OPS_PER_COUNTED)}
     # apply: every slot read, the slots the merge changed written (most rows
     # hold no hit); no row offsets (the walk takes a slot's row from the
     # bucket table)
@@ -5413,13 +5663,6 @@ def diff_work(name: str, eng, count_calls, keys: int) -> tuple:
             "topk_accept": (slots * 4 + keys * 8 + rounds * 16, slots * OPS_PER_SLOT),
             "bucket_apply": (rounds * slots_rows * 4 + w[mod.W_WRITES] * 4,
                              rounds * slots_rows * OPS_PER_POS)}
-
-
-def offsets_bound_ms(rounds: int, rows: int, states: int) -> float:
-    """The bytes that v0's apply read before its redesign and no longer
-    needs, as ms at HBM_BYTES_PER_S: each state's row offsets, rows + 1 of
-    them, every round (the old bound held them)."""
-    return rounds * (rows + states) * 4 / HBM_BYTES_PER_S * 1e3
 
 
 class Tracer:
@@ -5728,11 +5971,6 @@ def phase_diff_main(corpus_path: Path, work: Path, sample, v2_rules, card: str,
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain {plain_ms[k]:.1f} ms "
                 f"over the first {row['plain_ids']} ids (kernel {prefix_ms[k]:.3f} ms) ({card})"
                 + library_note(row, library))
-            if k == "bucket_apply":
-                row["offsets_bound_ms"] = max(
-                    b_ms + offsets_bound_ms(int(eng.st.work[tk.W_ROUNDS]), eng.st.n_rows, 1), o_ms)
-                log(f"[9] bucket_apply: {row['offsets_bound_ms']:.4f} ms with every row's offset "
-                    f"read each round, as the bound was before the flat walk ({card})")
         res[name] = {"train_s": train_s, "loop_s": loop_s, "rounds": rounds,
                      "merges_per_s": merges / loop_s}
         log(f"[9] times {name}: {what} {train_s:.2f} s, merge loop {loop_s:.3f} s, {rounds} "
@@ -5768,6 +6006,15 @@ COMPARE_SHARD_FNS = {
 }
 
 
+# v4's device functions in either tree that compare_tree may run: the
+# apply's clear and recount before its redesign too
+COMPARE_V4_FNS = {
+    **{k: DIFF_DEVICE_FNS[("block", k)] for k in DIFF_KERNELS["block"]},
+    "block_apply": ("flag_rows_kernel", "apply_rows_kernel", "full_clear_kernel",
+                    "full_recount_kernel"),
+}
+
+
 # the device functions in either tree that compare_tree may run, besides
 # their own: v1's apply and v0's count before their redesign
 COMPARE_RECOUNT_FNS = {
@@ -5781,7 +6028,7 @@ COMPARE_RECOUNT_FNS = {
 # may run: the recount's before its redesign too
 COMPARE_V3_FNS = {
     "topk_accept": ("topk_select_kernel",),
-    "sparse_emit": ("mark_live_words_kernel", "emit_live_words_kernel"),
+    "sparse_emit": ("mark_live_words_kernel", "emit_live_words_kernel", "sparse_emit_kernel"),
     "sparse_shard_recount": ("sparse_recount_clear_kernel", "sparse_recount_kernel",
                              "recount_clear_kernel", "tomb_count_kernel"),
     "shard_fold": SHARD_FOLD_FNS,
@@ -5818,7 +6065,6 @@ def phase_shard_encode(main: dict, lines, times: list, card: str, dev="cuda:0") 
     over every SHARD_PLAIN_EVERY-th chunk beside the plain version's on
     those chunks' shards."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import youtokentome_tpu_torch as yttm
     from youtokentome_tpu_torch.encoder import DEVICE_BATCH, Encoder
@@ -5871,18 +6117,18 @@ def phase_shard_encode(main: dict, lines, times: list, card: str, dev="cuda:0") 
     # route and on one device over every main-path chunk, and through the
     # sharded route over every SHARD_PLAIN_EVERY-th chunk, the chunks the
     # plain version is timed on
+    timers = set()
+
     def merge_ms(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return profiled_ms(prof, ENCODE_DEVICE_FNS)
+        _, ms, timer, _ = traced_ms(fn, ENCODE_DEVICE_FNS)
+        timers.add(timer)
+        return ms
 
     k_ms = merge_ms(lambda: [es.encode_greedy_sharded_u16(tables, x, unk, mesh) for x in x16])
     one_ms = merge_ms(lambda: [ek.encode_greedy_u16(tables, x, unk) for x in x16])
     part = x16[::SHARD_PLAIN_EVERY]
     part_ms = merge_ms(lambda: [es.encode_greedy_sharded_u16(tables, x, unk, mesh) for x in part])
-    check(min(k_ms, one_ms, part_ms) > 0, "the profiler recorded no device time for the merge")
+    check(min(k_ms, one_ms, part_ms) > 0, "no device time for the merge")
     _, p_ms = synced(lambda: [ek.encode_greedy_u16_plain(tables, p, unk)
                               for x in part for p in x.chunk(SHARDS)])
     row2 = next(t for t in times if t["name"] == "encode_greedy_u16")
@@ -5893,7 +6139,8 @@ def phase_shard_encode(main: dict, lines, times: list, card: str, dev="cuda:0") 
            "plain_chunks": len(part), "prefix_ms": part_ms, "bound_ms": max(b_ms, ops_ms),
            "bound_by": "bytes" if b_ms >= ops_ms else "operations"}
     log(f"[10] sharded u16 merge over the main path's {len(x16)} chunks ({SHARDS * len(x16)} "
-        f"launches): kernel {k_ms:.4f} ms (torch.profiler; one device, same chunks: {one_ms:.4f} "
+        f"launches): kernel {k_ms:.4f} ms ({', '.join(sorted(timers))}; one device, same chunks: "
+        f"{one_ms:.4f} "
         f"ms), bound {row['bound_ms']:.5f} ms; plain {p_ms:.1f} ms over every "
         f"{SHARD_PLAIN_EVERY}th chunk ({len(part)} chunks; kernel {part_ms:.4f} ms) ({card})")
     return {"row": row, "mbps": n_bytes / 1e6 / enc_s}
@@ -6193,6 +6440,120 @@ def phase_emit_checks(dev) -> dict:
         f"to a warp's 256 positions (up to {most} words a shard a round), ids from {APPLY_BASES}; "
         f"{n_ovf} shards' buffers of {EMIT_SMALL_DCAP} passed partway, the counts past dcap "
         f"({time.perf_counter() - t0:.1f} s)")
+    return {"checks": n_checks, "overflows": n_ovf}
+
+
+SPARSE_EMIT_SPAN = 256  # positions of a warp's step of sparse_emit (csrc/sparse_word.cuh)
+SPARSE_EMIT_DEAD = 0.6  # the share of the random words' positions tombstoned
+
+
+def sparse_emit_groups(base: int, rng) -> list:
+    """Groups of tombstoned words (-1 a tombstone) for sparse_emit's edge
+    checks (``tomb_lay`` at SPARSE_EMIT_SPAN), ids from ``base``: pairs (a,
+    b) and (a, a) whose right token lies 1-300 tombstones past a left one
+    at the last slot of a 16-byte group, of a lane's 8 positions, of a
+    32-slot chunk and of a warp's 256 positions; runs of one id split by
+    tombstone runs; emit_edge_words (runs, chains, words of 1-600
+    positions) with SPARSE_EMIT_DEAD of their positions tombstoned, and the
+    600 words (a, b) live; words all tombstones."""
+    a, b, c = base, base + 1, base + 2
+    groups = []
+    for k in (3, 7, 31, 127, 255):
+        for gap in (1, 4, 8, 29, 32, 300):
+            groups.append(([[a] + [-1] * gap + [b]], k))
+            groups.append(([[c, a] + [-1] * gap + [a, -1, b]], k - 1))
+    for gaps in ([1], [3, 3], [40], [300, 1], [1, 130, 2], [255, 1, 256]):
+        for n_live in (2, 3, 4, 5):
+            w = [c]
+            for i in range(n_live):
+                w += [a] + [-1] * (gaps[i] if i < len(gaps) else 0)
+            groups.append(([w + [b]], int(rng.integers(0, SPARSE_EMIT_SPAN))))
+    words = emit_edge_words(base, rng)
+    for w in words[:-600]:
+        groups.append([[-1 if v else x for x, v in zip(w, rng.random(len(w)) < SPARSE_EMIT_DEAD)]])
+    groups += [words[-600:], [[-1] * 300], [[-1]]]
+    return groups
+
+
+def sparse_emit_shards(groups, base: int, n: int, rng, dev):
+    """n SparseShardStates (dcap 1) of ``groups`` in order, cut in n - 1
+    runs of groups with an empty shard among them (the first of 4, the
+    second of 2), or one shard holding them all."""
+    from youtokentome_tpu_torch.ops import sparse_sharded_kernels as ssk
+
+    parts = [list(c) for c in np.array_split(np.arange(len(groups)), max(n - 1, 1))]
+    if n > 1:
+        parts.insert(0 if n == 4 else 1, [])
+    out = []
+    for idx in parts:
+        if idx:
+            t, wid, freq = tomb_lay([groups[i] for i in idx], base, rng, SPARSE_EMIT_SPAN)
+        else:
+            t, wid, freq = (np.zeros(0, np.int32),) * 3
+        rules = np.full((int(max(t.max(initial=0), 0)) + 64, 4), -1, np.int32)
+        out.append(ssk.SparseShardState(t, wid, freq, rules, 0, 1 << 12, 1, dev))
+    return out
+
+
+def phase_sparse_emit_checks(dev) -> dict:
+    """sparse_emit, one launch for 1, 2 and 4 shards of the card (one of
+    them without words), against sparse_emit_plain shard by shard on
+    ``sparse_emit_groups`` (ids from 5 and 70000), in each of ``edge_rounds``
+    and a round of (a, b) and (a, a), with buffers that hold the round and
+    with EMIT_SMALL_DCAP entries a side, which the rounds that hit many
+    words pass partway: streams, ctl (NAFF, NPOS, DN_OLD and DN_NEW as full
+    counts, DOVF), work and each side of the buffer as a multiset; past
+    dcap, the kernel's entries a sub multiset of the round's."""
+    from youtokentome_tpu_torch.ops import sparse_sharded_kernels as ssk
+
+    t0 = time.perf_counter()
+    n_checks, n_ovf, most = 0, 0, 0
+    for base in APPLY_BASES:
+        groups = sparse_emit_groups(base, np.random.default_rng(base))
+        rounds = edge_rounds(base) + [("split pairs", [(base, base + 1), (base, base)])]
+        for n in EMIT_SHARDS:
+            shards = sparse_emit_shards(groups, base, n, np.random.default_rng(base + n), dev)
+            for what, cands in rounds:
+                full = None
+                for dcap in (1 << 20, EMIT_SMALL_DCAP):
+                    ks = clone_shards(shards, dcap)
+                    for st in ks:
+                        set_round(st, cands, base + 100)
+                    ps = clone_shards(ks)
+                    launches = ssk.sparse_emit.launches
+                    ssk.sparse_emit(ks)
+                    label = f"sparse_emit, {what}, {n} shards, ids from {base}, dcap {dcap}"
+                    check(ks[0].device.type != "cuda" or ssk.sparse_emit.launches == launches + 1,
+                          f"{label}: {ssk.sparse_emit.launches - launches} launches")
+                    check(all(a.ctl.numel() == ssk.EMIT_DONE + 1 and int(a.ctl[ssk.NPOS_RUN]) == 0
+                              and int(a.ctl[ssk.EMIT_DONE]) == 0 for a in ks),
+                          f"{label}: the emit's own ctl slots are not 0 after the launch")
+                    for i, (a, b) in enumerate(zip(ks, ps)):
+                        if b.n_words:
+                            ssk.sparse_emit_plain(b)
+                        same_shard(a, b, f"{label}, shard {i}", stream=("t",))
+                        if not int(a.ctl[ssk.DOVF]):
+                            continue
+                        n_ovf += 1
+                        for side in (0, 1):
+                            ka, va = (x.cpu().numpy() for x in a.buffer(side))
+                            kf, vf = full[i][side]
+                            check(sub_multiset(ka, va, kf, vf),
+                                  f"{label}, shard {i}: buffer side {side} is not a part of "
+                                  f"the round's entries")
+                    if dcap != EMIT_SMALL_DCAP:
+                        check(not any(int(a.ctl[ssk.DOVF]) for a in ks), f"{label}: overflow")
+                        full = [[tuple(x.cpu().numpy() for x in a.buffer(side)) for side in (0, 1)]
+                                for a in ks]
+                        most = max([most] + [int(a.ctl[ssk.NPOS]) for a in ks])
+                    n_checks += 1
+    check(n_ovf > 0, "no sparse_emit check passed its buffer")
+    log(f"[11] sparse_emit (one launch for {EMIT_SHARDS} shards, an empty one among them) == "
+        f"plain on {n_checks} edge rounds: tombstoned words of 1-600 positions, pairs split by "
+        f"1-300 tombstones across 16-byte groups, lanes' 8 positions, 32-slot chunks and warps' "
+        f"256 positions, runs split by tombstones, ids from {APPLY_BASES} (up to {most} "
+        f"positions a shard a round); {n_ovf} shards' buffers of {EMIT_SMALL_DCAP} passed "
+        f"partway ({time.perf_counter() - t0:.1f} s)")
     return {"checks": n_checks, "overflows": n_ovf}
 
 
@@ -6612,7 +6973,7 @@ OTHER_DEVICE_FNS = {
     "shard_fold": SHARD_FOLD_FNS,
     "shard_part_fold": ("part_prep_kernel", "part_fold_kernel"),
     "shard_gather": ("gather_kernel",),
-    "sparse_emit": ("mark_live_words_kernel", "emit_live_words_kernel"),
+    "sparse_emit": ("sparse_emit_kernel",),
     "sparse_shard_recount": ("recount_clear_kernel", "tomb_count_kernel"),
     "stream_shard_count": ("clear_kernel", "stream_count_kernel"),
     "apply_compact": ("apply_compact_kernel",),
@@ -6637,6 +6998,8 @@ OTHER_REPLACES = {
     "bucketed": "youtokentome_tpu/parallel/train_sharded.py:38",
 }
 OTHER_STREAMS = {"sparse": ("t",), "stream": ("t", "wid"), "bucketed": ("tok",)}
+# the shard-local wrappers that take every shard of a card (one launch)
+CARD_WRAPPERS = ("sparse_emit", "apply_compact", "bucket_apply")
 # v0's depth in the sharded 10 MB lockstep, and the ids the plain versions
 # are timed over (v0's below SHARD_PLAIN_IDS: one merge a round)
 OTHER_V0_IDS = 300
@@ -6700,12 +7063,13 @@ def other_round(name: str, ks, ps, used0: int, limit: int, what: str) -> bool:
             fn(ks, ks)
             for b in ps:
                 plain(b, ps)
-        elif k in ("apply_compact", "bucket_apply"):  # every shard of the card in one launch
+        elif k in CARD_WRAPPERS:  # every shard of the card in one launch
             fn(ks)
             for b in ps:
-                plain(b)
+                if k != "sparse_emit" or b.n_words:
+                    plain(b)
         for i, (a, b) in enumerate(zip(ks, ps)):
-            if k in ("shard_fold", "shard_gather", "apply_compact", "bucket_apply"):
+            if k in ("shard_fold", "shard_gather") + CARD_WRAPPERS:
                 pass
             elif k == "topk_accept":
                 fn(a, limit, V, used0, kb)
@@ -6998,6 +7362,7 @@ def phase_other_shard_kernels(buckets, used0: int, dev="cuda:0") -> None:
 
     t0 = time.perf_counter()
     phase_part_fold_checks(dev)
+    phase_sparse_emit_checks(dev)
     t, wid, freq = ts.flatten_word_buckets(buckets)
     uk, uc = sp._host_table_tomb(np.asarray(t), np.asarray(wid), np.asarray(freq))
     for name in OTHER_TRAINERS:
@@ -7202,8 +7567,8 @@ def plain_other(name: str, engine, vocab: int, used0: int):
         fn = getattr(other_wrapper(name, k)[0], k + "_plain")
         if k == "shard_gather":  # the wrapper takes the replicas of a card
             return lambda reps, shards: each_state(lambda st: fn(st, shards))(reps)
-        # apply_compact, bucket_apply: a card's states
-        return each_state(fn) if k in ("apply_compact", "bucket_apply") else fn
+        # the wrappers that take a card's states
+        return each_state(fn) if k in CARD_WRAPPERS else fn
 
     plain = {k: timed(k, plain_of(k)) for k in OTHER_KERNELS[name]}
     mod = ssk if name == "sparse" else rsk  # where the engine finds its wrappers
@@ -7231,13 +7596,13 @@ def check_sparse_route(eng, launches: dict, tracer, on_card: bool) -> None:
           f"{eng.count_exchanges} counts")
     check(launches["shard_fold"] == eng.replays + eng.count_exchanges
           and launches["topk_accept"] == eng.replays * SHARDS
-          and launches["sparse_emit"] == eng.replays * SHARDS and eng.gate_runs == eng.replays,
+          and launches["sparse_emit"] == eng.replays and eng.gate_runs == eng.replays,
           f"{launches} in {eng.replays} replays ({eng.gate_runs} gate runs) and "
           f"{eng.count_exchanges} counts")
     rebuilds = eng.rec_runs + eng.count_exchanges
     want = {"round_gate_kernel": eng.gate_runs, "fold_delta_kernel": eng.gate_runs - eng.rec_runs,
             "rebuild_add_kernel": rebuilds, "tomb_count_kernel": rebuilds * SHARDS,
-            "topk_select_kernel": eng.replays * SHARDS}
+            "topk_select_kernel": eng.replays * SHARDS, "sparse_emit_kernel": eng.replays}
     got = tracer.ms({f: (f,) for f in want}, counts=True)
     log(f"[11] the sharded v3 main path's route: {eng.replays} round graph replays "
         f"({eng.gate_runs} gate runs on the card) in {eng.graph_builds} graphs built "
@@ -7532,13 +7897,6 @@ def phase_other_shard_main(corpus_path: Path, work: Path, sample, v2_rules, card
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {plain_ms[k]:.1f} ms over the "
                 f"first {plain_ids} ids (kernel {prefix_ms[k]:.3f} ms) ({card})"
                 + (library_note(row, sample) if sample else ""))
-            if k == "bucket_apply":
-                head_rounds = int(eng.shards[0].work[tk.W_ROUNDS])
-                rows_all = sum(st.n_rows for st in eng.shards)
-                row["offsets_bound_ms"] = max(
-                    b_ms + offsets_bound_ms(head_rounds, rows_all, len(eng.shards)), o_ms)
-                log(f"[11] bucket_apply: {row['offsets_bound_ms']:.4f} ms with every row's offset "
-                    f"read each round, as the bound was before the flat walk ({card})")
         res[name] = {"train_s": train_s, "loop_s": loop_s, "rounds": rounds,
                      "merges_per_s": merges / loop_s, **res_extra}
         del engines[:]
@@ -7554,7 +7912,6 @@ def other_rows(other: dict) -> list:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_ids": r["plain_ids"],
             "prefix_ms": r["prefix_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "equal": True,
-            **{k: r[k] for k in ("offsets_bound_ms",) if k in r},
         }
         for r in other["rows"]
     ]
@@ -7988,7 +8345,6 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_ids": r["plain_ids"],
             "prefix_ms": r["prefix_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "equal": True,
-            **{k: r[k] for k in ("offsets_bound_ms",) if k in r},
         }
         for r in diff["rows"]
     ] + [

@@ -274,7 +274,7 @@ def test_one_round_buffers_match_jax(dcap):
                               dcap, "cpu")
     st.cand[: len(CAND), :3] = torch.tensor(CAND, dtype=torch.int32)
     st.ctl[tk.NACC] = len(CAND)
-    ssk.sparse_emit(st)
+    ssk.sparse_emit([st])
     np.testing.assert_array_equal(st.t.numpy(), t2)
     assert int(st.ctl[ssk.NPOS]) == n_aff and n_aff == 18
     assert int(st.ctl[ssk.DOVF]) == int(n_aff > dcap)

@@ -32,13 +32,12 @@ namespace yttm {
 
 // One shard's buffers and sizes for the round graph, as the host lays them
 // out: an int64 a field (pointers as addresses), in this order.  v3 puts its
-// tombstoned stream t, pw and its end off[W] in tok, pwid and Mw; aff is
-// v3's list of the round's words (v2's emit keeps none: 0).
+// tombstoned stream t, pw and its end off[W] in tok, pwid and Mw.
 struct GraphShard {
   long long keys, cnts, cap, blk_hi, blk_lo, n_blk, ticket, ctl, cand, rules, work, tok, pwid, Mw,
-      off, fw, W, aff, wmark, dk, dv, rkeys, rcnts;
+      off, fw, W, rkeys, rcnts;
 };
-static_assert(sizeof(GraphShard) == 23 * 8, "the host lays a graph shard out as 23 int64");
+static_assert(sizeof(GraphShard) == 19 * 8, "the host lays a graph shard out as 19 int64");
 
 // yttm_topk_accept's type (train_topk.cu)
 typedef int (*TopkFn)(const void *, const void *, int, void *, void *, int, void *, void *, void *,

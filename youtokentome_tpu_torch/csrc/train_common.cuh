@@ -76,6 +76,16 @@ inline int grid_for(long long n, int threads, int per_sm = 8) {
   return (int)(blocks < 1 ? 1 : (blocks < most ? blocks : most));
 }
 
+// Blocks of `threads` of `kernel` that the card holds at once (one wave).
+template <class K>
+int wave_blocks(K kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
 __device__ __forceinline__ unsigned long long hash64(unsigned long long k) {
   k ^= k >> 33;
   k *= 0xff51afd7ed558ccdull;

@@ -167,7 +167,7 @@ __device__ void apply_words(int w, int cnt, int32_t *tok, const int32_t *off, co
                             const CandSet &c, int n, int32_t *acc, unsigned long long *keys,
                             int32_t *cnts, int cap, int32_t *ctl) {
   for_word_packs(
-      w, cnt, tok, off, fw,
+      w, cnt, tok, off, fw, 1,
       [&](int base, int len, int32_t f, int start, int s, unsigned smask, int total) {
         apply_pack(tok, base, len, f, start, s, smask, total, c, n, acc, keys, cnts, cap, ctl);
       },
@@ -233,13 +233,7 @@ __global__ void __launch_bounds__(256, 8)
 // one wave, each thread walking its share of the stream.
 int apply_grid() {
   static int blocks = 0;
-  if (!blocks) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, delta_apply_kernel, 256, 0);
-    blocks = sms * (per_sm > 0 ? per_sm : 1);
-  }
+  if (!blocks) blocks = wave_blocks(delta_apply_kernel, 256);
   return blocks;
 }
 

@@ -158,144 +158,24 @@ using namespace yttm;
 //  * each word sends its whole old word's counted pairs (-f) and its whole
 //    new word's (+f), not net deltas: DN_OLD, DN_NEW and DOVF are the JAX
 //    _delta_contributions' counts and flags, which pick the round's branch;
-//  * a warp stages its entries in shared memory, kStage a side; the block
-//    reserves its staged entries with one atomicAdd a (shard, side) when its
-//    range moves to another shard and at its end, and a warp whose staging
-//    fills reserves and writes its own (so the counts pass dcap, setting
-//    DOVF, and the entries past dcap are dropped, wherever that falls).
-//    NAFF, LIVE, W_EMIT and W_ENTRIES are summed in shared memory and sent
-//    with the block's reservation.
+//  * entries staged a warp and reserved a block (shard_exchange.cuh's
+//    EmitStage, which sparse_emit shares); NAFF, LIVE, W_EMIT and W_ENTRIES
+//    are summed in shared memory and sent with the block's reservation.
 // Every replica takes the same candidates in the same round (all fold the
 // same entries: the header note), so the launch loads shard 0's ctl[NACC],
 // ctl[ROUND] and candidates once for the card.
 
-// A shard of the emit's card, as the host lays it out: 12 int64.
-struct EmitShard {
-  int32_t *tok;
-  const int32_t *pwid;
-  long long Mw;
-  const int32_t *off;
-  const int32_t *fw;
-  long long W;
-  int32_t *ctl;
-  const int32_t *cand;
-  int32_t *wmark;
-  unsigned long long *dk;
-  int32_t *dv;
-  long long *work;
-};
-static_assert(sizeof(EmitShard) == 12 * 8, "the host lays an emit shard out as 12 int64");
-
-constexpr int kMaxShards = 64;  // shards of a mesh (the emit's and the fold's shared prefix)
-constexpr int kEmitWarps = 8;   // 256 threads a block
 constexpr int kLaneGroups = 2;  // groups of 4 positions a lane takes a step
 constexpr int kWarpGroups = 32 * kLaneGroups;
 constexpr int kStepGroups = kWarpGroups * kEmitWarps;
-constexpr int kStage = 64;      // entries a warp stages a side
 
-// The shared state of an emit block.
+// The shared state of an emit block: the staging (shard_exchange.cuh), the
+// round's candidates and each warp's words of its step.
 struct EmitBlock {
   CandSet c;
-  EmitShard cur;                     // the shard of the block's current steps
-  int pre[kMaxShards + 1];           // each shard's first step
-  int32_t claimed[kEmitWarps][4 * kWarpGroups];  // a warp's words of its step
-  unsigned long long sk[kEmitWarps][2][kStage];  // a warp's staged entries, a side each
-  int32_t sv[kEmitWarps][2][kStage];
-  int sn[kEmitWarps][2];    // their numbers, at a reservation
-  int base[2];              // the block's reservation a side
-  int naff, live, slots, kept;  // the block's sums for the current shard
+  EmitStage st;
+  int32_t claimed[kEmitWarps][4 * kWarpGroups];
 };
-
-// The entries of a reservation [base, base + k) that fit below dcap.
-__device__ __forceinline__ int kept_of(int base, int k, int dcap) {
-  return base >= dcap ? 0 : (base + k > dcap ? dcap - base : k);
-}
-
-// A warp whose staging of `side` is full reserves its cnt entries and
-// writes them.  Called by all 32 lanes.
-__device__ void emit_flush_warp(EmitBlock &sb, int side, int cnt, int dcap) {
-  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
-  int base = 0;
-  if (lane == 0) {
-    base = atomicAdd(sb.cur.ctl + DN_OLD + side, cnt);
-    if (base + cnt > dcap) atomicExch(sb.cur.ctl + DOVF, 1);
-    atomicAdd(&sb.kept, kept_of(base, cnt, dcap));
-  }
-  base = __shfl_sync(kFullMask, base, 0);
-  __syncwarp();
-  for (int i = lane; i < cnt && base + i < dcap; i += 32) {
-    sb.cur.dk[side * dcap + base + i] = sb.sk[wi][side][i];
-    sb.cur.dv[side * dcap + base + i] = sb.sv[wi][side][i];
-  }
-  __syncwarp();
-}
-
-// Stages (key, val) of the lanes with pred on `side` (cnt: the warp's
-// staged entries there).  Called by all 32 lanes.
-__device__ __forceinline__ void emit_stage(EmitBlock &sb, bool pred, unsigned long long key,
-                                           int32_t val, int side, int &cnt, int dcap) {
-  const unsigned m = __ballot_sync(kFullMask, pred);
-  if (!m) return;
-  const int k = __popc(m);
-  if (cnt + k > kStage) {
-    emit_flush_warp(sb, side, cnt, dcap);
-    cnt = 0;
-  }
-  if (pred) {
-    const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
-    const int at = cnt + __popc(m & ((1u << lane) - 1u));
-    sb.sk[wi][side][at] = key;
-    sb.sv[wi][side][at] = val;
-  }
-  cnt += k;
-}
-
-// The block's reservation for its current shard: every warp's staged
-// entries (n_old, n_new: this warp's) reserved with one atomicAdd a side and
-// written, then the block's sums sent.  Called by every thread.
-__device__ void emit_flush_block(EmitBlock &sb, int &n_old, int &n_new, int dcap) {
-  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
-  if (lane == 0) {
-    sb.sn[wi][0] = n_old;
-    sb.sn[wi][1] = n_new;
-  }
-  n_old = n_new = 0;
-  __syncthreads();
-  if (threadIdx.x < 2) {
-    const int side = threadIdx.x;
-    int sum = 0;
-    for (int w = 0; w < kEmitWarps; ++w) sum += sb.sn[w][side];
-    int base = 0;
-    if (sum) {
-      base = atomicAdd(sb.cur.ctl + DN_OLD + side, sum);
-      if (base + sum > dcap) atomicExch(sb.cur.ctl + DOVF, 1);
-      atomicAdd(&sb.kept, kept_of(base, sum, dcap));
-    }
-    sb.base[side] = base;
-  }
-  __syncthreads();
-  for (int j = wi; j < 2 * kEmitWarps; j += kEmitWarps) {  // a warp a (side, warp)'s entries
-    const int side = j / kEmitWarps, w = j % kEmitWarps;
-    int at = sb.base[side];
-    for (int u = 0; u < w; ++u) at += sb.sn[u][side];
-    for (int i = lane; i < sb.sn[w][side] && at + i < dcap; i += 32) {
-      sb.cur.dk[side * dcap + at + i] = sb.sk[w][side][i];
-      sb.cur.dv[side * dcap + at + i] = sb.sv[w][side][i];
-    }
-  }
-  if (threadIdx.x == 0) {
-    int32_t *ctl = sb.cur.ctl;
-    long long *work = sb.cur.work;
-    if (sb.naff) atomicAdd(ctl + NAFF, sb.naff);
-    if (sb.live) atomicAdd(ctl + LIVE, sb.live);
-    // the listed words read and written (8 B a slot), the entries kept
-    const unsigned long long bytes = 8ull * sb.slots + 12ull * sb.kept;
-    if (bytes) atomicAdd((unsigned long long *)(work + W_EMIT), bytes);
-    if (sb.kept) atomicAdd((unsigned long long *)(work + W_ENTRIES), (unsigned long long)sb.kept);
-    sb.naff = sb.live = sb.slots = sb.kept = 0;
-  }
-  __syncthreads();
-}
 
 // A shard's steps: its groups of 4 positions (pairs start at 0 .. Mw - 2)
 // in steps of kStepGroups; none without words.
@@ -309,48 +189,24 @@ __global__ void __launch_bounds__(256, 4)
     delta_emit_kernel(const EmitShard *shards, int n_sh, int dcap) {
   __shared__ EmitBlock sb;
   const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
-  if (threadIdx.x < 32) {  // the shards' step prefix, a lane a shard
-    int carry = 0;
-    for (int b = 0; b < n_sh; b += 32) {
-      const int s = b + lane;
-      const int v = s < n_sh ? emit_steps(shards + s) : 0;
-      int incl = v;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int u = __shfl_up_sync(kFullMask, incl, d);
-        if (lane >= d) incl += u;
-      }
-      if (s < n_sh) sb.pre[s] = carry + incl - v;
-      carry += __shfl_sync(kFullMask, incl, 31);
-    }
-    if (lane == 0) {
-      sb.pre[n_sh] = carry;
-      sb.naff = sb.live = sb.slots = sb.kept = 0;
-    }
-  }
+  emit_open(sb.st, shards, n_sh, [](const EmitShard *sh) { return emit_steps(sh); });
   const int n = load_cand_set(sb.c, shards[0].ctl, shards[0].cand);  // its barriers order pre
   if (n == 0) return;
   if (blockIdx.x == 0 && threadIdx.x < n_sh && shards[threadIdx.x].W > 0)  // the walk's read
     atomicAdd((unsigned long long *)(shards[threadIdx.x].work + W_EMIT),
               4ull * shards[threadIdx.x].Mw);
   const int tag = shards[0].ctl[ROUND];
-  const int T = sb.pre[n_sh];
+  const int T = sb.st.pre[n_sh];
   const int lo = (int)((long long)blockIdx.x * T / gridDim.x);
   const int hi = (int)((long long)(blockIdx.x + 1) * T / gridDim.x);
   int cur = -1, n_old = 0, n_new = 0;  // n_old, n_new: this warp's staged entries
   for (int step = lo; step < hi; ++step) {
-    int s = cur < 0 ? 0 : cur;
-    while (sb.pre[s + 1] <= step) ++s;  // the same in every thread
-    if (s != cur) {
-      if (cur >= 0) emit_flush_block(sb, n_old, n_new, dcap);
-      if (threadIdx.x == 0) sb.cur = shards[s];
-      __syncthreads();
-      cur = s;
-    }
-    const int Mw = (int)sb.cur.Mw;
-    const int g0 = (step - sb.pre[cur]) * kStepGroups + wi * kWarpGroups;
+    cur = emit_shard<LIVE>(sb.st, shards, step, cur, n_old, n_new, dcap);
+    const EmitShard &sh = sb.st.cur;
+    const int Mw = (int)sh.Mw;
+    const int g0 = (step - sb.st.pre[cur]) * kStepGroups + wi * kWarpGroups;
     if (g0 >= ((Mw - 1 + 3) >> 2)) continue;  // past the shard's end: the warp waits
-    int32_t *tok = sb.cur.tok;
+    int32_t *tok = sh.tok;
     // a lane's groups, g0 + lane and 32 on: their loads in flight together
     int32_t t[kLaneGroups][5], w[kLaneGroups][4];
     unsigned mine[kLaneGroups];
@@ -359,8 +215,7 @@ __global__ void __launch_bounds__(256, 4)
     int claims = 0;
 #pragma unroll
     for (int j = 0; j < kLaneGroups; ++j) {
-      mine[j] = claim_words(t[j], sb.cur.pwid, Mw, g0 + 32 * j + lane, sb.c, n, tag,
-                            sb.cur.wmark, w[j]);
+      mine[j] = claim_words(t[j], sh.pwid, Mw, g0 + 32 * j + lane, sb.c, n, tag, sh.wmark, w[j]);
       claims += __popc(mine[j]);
     }
     int total;
@@ -377,11 +232,11 @@ __global__ void __launch_bounds__(256, 4)
     for (int b = 0; b < total; b += 32) {
       const int cnt = min(32, total - b);
       for_word_packs(
-          lane < cnt ? mine_w[b + lane] : -1, cnt, tok, sb.cur.off, sb.cur.fw,
+          lane < cnt ? mine_w[b + lane] : -1, cnt, tok, sh.off, sh.fw, 1,
           [&](int base, int len, int32_t f, int start, int ws, unsigned smask, int ptotal) {
             const PackLane p = pack_merge(tok, base, len, f, start, ws, smask, ptotal, sb.c, n);
-            emit_stage(sb, p.co && p.f > 0, pair_key(p.a, p.nb), -p.f, 0, n_old, dcap);
-            emit_stage(sb, p.cn && p.f > 0, pair_key(p.v, p.nbn), p.f, 1, n_new, dcap);
+            emit_stage(sb.st, p.co && p.f > 0, pair_key(p.a, p.nb), -p.f, 0, n_old, dcap);
+            emit_stage(sb.st, p.cn && p.f > 0, pair_key(p.v, p.nbn), p.f, 1, n_new, dcap);
             live -= __popc(__ballot_sync(kFullMask, p.a >= 0 && !p.keep));
             slots += ptotal;
             pack_write(p);
@@ -391,35 +246,24 @@ __global__ void __launch_bounds__(256, 4)
             for (int i = 0; i < len; i += 32)
               was += __popc(__ballot_sync(kFullMask, i + lane < len && tw[i + lane] >= 0));
             const int out = merge_word(tw, len, sb.c, n, [&](bool counted, unsigned long long key, int) {
-              emit_stage(sb, counted && f > 0, key, -f, 0, n_old, dcap);
+              emit_stage(sb.st, counted && f > 0, key, -f, 0, n_old, dcap);
             });
             for_word_pairs(tw, out, [&](bool counted, unsigned long long key) {
-              emit_stage(sb, counted && f > 0, key, f, 1, n_new, dcap);
+              emit_stage(sb.st, counted && f > 0, key, f, 1, n_new, dcap);
             });
             live += out - was;
             slots += len;
           });
     }
-    if (lane == 0) {
-      atomicAdd(&sb.naff, total);
-      atomicAdd(&sb.live, live);
-      atomicAdd(&sb.slots, slots);
-    }
-    __syncwarp();
+    emit_sums(sb.st, total, live, slots);
   }
-  if (cur >= 0) emit_flush_block(sb, n_old, n_new, dcap);
+  if (cur >= 0) emit_flush_block<LIVE>(sb.st, n_old, n_new, dcap);
 }
 
 // Blocks of delta_emit_kernel that the card holds at once.
 int emit_grid() {
   static int blocks = 0;
-  if (!blocks) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, delta_emit_kernel, 256, 0);
-    blocks = sms * (per_sm > 0 ? per_sm : 1);
-  }
+  if (!blocks) blocks = wave_blocks(delta_emit_kernel, kEmitWarps * 32);
   return blocks;
 }
 
@@ -597,13 +441,7 @@ __global__ void rebuild_done_kernel(const Replica *reps, int n_rep, const int32_
 // Blocks of fold_delta_kernel that the card holds at once.
 int fold_grid() {
   static int blocks = 0;
-  if (!blocks) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fold_delta_kernel, 256, 0);
-    blocks = sms * (per_sm > 0 ? per_sm : 1);
-  }
+  if (!blocks) blocks = wave_blocks(fold_delta_kernel, 256);
   return blocks;
 }
 

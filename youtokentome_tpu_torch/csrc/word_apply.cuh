@@ -203,16 +203,19 @@ __device__ __forceinline__ void pack_write(const PackLane &p) {
 // warp: short words packed side by side into the 32 lanes, pack(base, len,
 // f, start, s, smask, total) for each pack (pack_merge's arguments), and
 // long_word(t, len, f) for a word longer than 32 slots, on the whole warp.
+// Word w's slots are tok[off[w], off[w+1] - tail): tail 1 for the stream's
+// PAD separator (v2), 0 for v3's words laid end to end (sparse_word.cuh).
 // Called by all 32 lanes.
 template <class Pack, class Long>
 __device__ __forceinline__ void for_word_packs(int w, int cnt, int32_t *tok, const int32_t *off,
-                                               const int32_t *fw, Pack pack, Long long_word) {
+                                               const int32_t *fw, int tail, Pack pack,
+                                               Long long_word) {
   const int lane = threadIdx.x & 31;
   int base = 0, len = 0;
   int32_t f = 0;
   if (lane < cnt) {
     base = off[w];
-    len = off[w + 1] - 1 - base;
+    len = off[w + 1] - tail - base;
     f = fw[w];
   }
   int end = len;  // inclusive prefix of the lengths

@@ -196,9 +196,9 @@ def load_block() -> ctypes.CDLL:
     return _load("train_block.cu", "libtrain_block.so", {
         # tok, wid, freq, B, NB, keys, cnts, cap, ctl, stream
         "yttm_block_count": (_i, [_p, _p, _p, _i, _i, _p, _p, _i, _p, _p]),
-        # tok, wid, freq, B, NB, rows, KB, keys, cnts, cap, ctl, cand, work,
-        # stream
-        "yttm_block_apply": (_i, [_p, _p, _p, _i, _i, _p, _i, _p, _p, _i, _p, _p, _p, _p]),
+        # tok, wid, freq, B, NL, ext, rows, KB, keys, cnts, cap, ctl, cand,
+        # work, stream
+        "yttm_block_apply": (_i, [_p, _p, _p, _i, _i, _p, _p, _i, _p, _p, _i, _p, _p, _p, _p]),
     })
 
 
@@ -256,18 +256,18 @@ def load_sharded() -> ctypes.CDLL:
 def load_sparse_sharded() -> ctypes.CDLL:
     """Build (if needed) and load the sharded v3 trainer's kernels."""
     return _load("train_sparse_sharded.cu", "libtrain_sparse_sharded.so", {
-        # t, pw, off, fw, W, end, ctl, cand, aff, wmark, dk, dv, dcap, work,
-        # stream
-        "yttm_sparse_shard_emit": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _p, _i, _p,
-                                        _p]),
+        "yttm_sparse_shard_ctl_n": (_i, []),
+        # shards, n_sh, dcap, stream
+        "yttm_sparse_shard_emit_card": (_i, [_p, _i, _i, _p]),
         # t, pw, off, fw, W, end, rkeys, rcnts, cap, ctl, ctls, n_sh, work,
         # max_blocks, stream
         "yttm_sparse_shard_recount": (_i, [_p, _p, _p, _p, _i, _i, _p, _p, _i, _p, _p, _i, _p, _i,
                                            _p]),
         # out, shards, n_sh, reps, ctls, dks, dvs, rkeys, rcnts, dcap, topk,
-        # fold_delta, fold_rebuild, limit, vocab, used_ids0, k, n_own, runs
-        "yttm_sparse_shard_graph": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _i, _p, _p, _p, _i, _i,
-                                         _i, _i, _i, _p]),
+        # fold_delta, fold_rebuild, emit, limit, vocab, used_ids0, k, n_own,
+        # runs
+        "yttm_sparse_shard_graph": (_i, [_p, _p, _i, _p, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p,
+                                         _i, _i, _i, _i, _i, _p]),
         # graph, n, stream
         "yttm_sparse_shard_graph_launch": (_i, [_p, _i, _p]),
         "yttm_sparse_shard_graph_free": (_i, [_p]),

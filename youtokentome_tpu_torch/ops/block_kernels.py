@@ -14,13 +14,15 @@ slot at count 0 until the next rebuild):
                 rebuild after an overflow)
   topk_accept   top-16 live entries in the reference order, accept_prefix,
                 store_rules (the trainers' shared wrapper, ``train_kernels``)
-  block_apply   a warp a row flags the rows with a hit and lists them; with
-                at most KB listed (the block path) a warp a listed row takes
-                the row's pairs out, merges, front-packs the row in place and
+  block_apply   a flat walk of the rows that can hold tokens, each below
+                its live extent (``ext``), lists the rows with a hit; with at
+                most KB listed (the block path) a warp a listed row takes the
+                row's pairs out, merges, front-packs the row in place and
                 puts its pairs back; with more (the full path) every row is
-                merged and front-packed and the table counted again
+                merged, front-packed and counted into the emptied table, in
+                the same launch
 
-``ctl`` (int32 [12]) holds the round control on the card, so the host
+``ctl`` (int32 [10]) holds the round control on the card, so the host
 enqueues rounds in batches and reads ``ctl`` once per batch; ``work``
 (int64) sums what each round's data gives the kernels.  Each wrapper
 launches its kernels on a CUDA state (and counts the launch) and runs its
@@ -56,16 +58,18 @@ from .train_kernels import (
 )
 from .train_stream import pair_hits
 
-NBAFF, RECOUNT = CTL_OWN, CTL_OWN + 1  # the round's listed rows, its full path
-CTL_N = 12
-W_ROWS, W_FULL = W_OWN, W_OWN + 1  # work: block-path rows, full-path rounds
+NBAFF = CTL_OWN  # the round's listed rows
+CTL_N = CTL_OWN + 3  # the apply's grid barrier takes 2 slots after NBAFF (0 between launches)
+# work: block-path rows, full-path rounds, the bytes the flag walk and the
+# apply must move
+W_ROWS, W_FULL, W_READ, W_APPLY = range(W_OWN, W_OWN + 4)
 MAX_B = 512  # the widest row the kernels hold in shared memory
 
 
 class BlockState(TableState):
     """The kernel trainer's state on one device (see the module note)."""
 
-    n_own = 2  # NBAFF, RECOUNT
+    n_own = 1  # NBAFF
 
     def __init__(self, t, wid, freq, rules, used: int, B: int, cap: int, device):
         if B > MAX_B:
@@ -77,6 +81,11 @@ class BlockState(TableState):
         self.wid = torch.from_numpy(np.array(wid, np.int32)).to(dev)
         self.freq = torch.from_numpy(np.array(freq, np.int32)).to(dev)
         self.NB = self.tok.shape[0] // B
+        # each row's live extent (its last live slot + 1); the rows past NL
+        # hold no token and never will (the rows only lose tokens)
+        self.ext = row_extents(self.tok, B)
+        live_rows = torch.nonzero(self.ext).flatten()
+        self.NL = int(live_rows[-1]) + 1 if live_rows.numel() else 0
         self.rows = torch.zeros(max(self.NB, 1), dtype=torch.int32, device=dev)
         self.control(rules, used, CTL_N)
         self.resize(cap)
@@ -87,17 +96,40 @@ class BlockState(TableState):
 # -- plain torch versions -----------------------------------------------------
 
 
-def block_count_plain(st: BlockState):
+def row_extents(tok, B: int):
+    """Each [B] row's live extent: its last live slot + 1, 0 for a row of PAD."""
+    live = tok.view(-1, B) >= 0
+    at = torch.arange(1, B + 1, dtype=torch.int32, device=tok.device)
+    return (live * at).amax(dim=1).to(torch.int32)
+
+
+def block_count_plain(st: BlockState) -> int:
+    """Count the rows' pairs into the table; returns the pairs counted."""
     keys, w = _word_pairs(st.tok, st.wid, st.freq, st.tok >= 0)
     _hash_update(st.keys, st.cnts, st.ctl, OCC, OVERFLOW, keys, w)
+    return keys.numel()
+
+
+def _token_pairs(st: BlockState, cx, cy) -> int:
+    """The slots whose token and the next one in their row are an accepted
+    pair as tokens, word ids unread: where the flag walk reads two word ids."""
+    t2d = st.tok.view(st.NB, st.B)
+    a, b = t2d[:, :-1], t2d[:, 1:]
+    m = torch.zeros_like(a, dtype=torch.bool)
+    for x, y in zip(cx.tolist(), cy.tolist()):
+        m |= (a == x) & (b == y)
+    return int(m.sum())
 
 
 def block_apply_plain(st: BlockState, KB: int):
     n = int(st.ctl[NACC])
     if n == 0:
         return
-    B, NB = st.B, st.NB
+    B, NB, NL = st.B, st.NB, st.NL
     cx, cy, zs = st.cand[:n, 0], st.cand[:n, 1], st.cand[:n, 2]
+    # the flag walk: each row's extent, its tokens below it, two word ids
+    # where a pair of tokens is a candidate
+    st.work[W_READ] += 4 * NL + 4 * int(st.ext[:NL].sum()) + 8 * _token_pairs(st, cx, cy)
     acc = torch.ones(n, dtype=torch.bool, device=st.device)
     hit, rix = pair_hits(st.tok, st.wid, acc, cx, cy)
     rows = torch.nonzero(hit.reshape(NB, B).any(dim=1)).flatten()
@@ -117,17 +149,22 @@ def block_apply_plain(st: BlockState, KB: int):
         t2d[rows] = mt2.reshape(-1, B)
         w2d[rows] = mw2.reshape(-1, B)
         st.work[W_ROWS] += rows.numel()
+        # the listed rows below their extents read and written (tok and
+        # wid), a table entry a pair taken out or put back
+        st.work[W_APPLY] += 16 * int(st.ext[rows].sum()) + 12 * (old_k.numel() + new_k.numel())
+        st.ext[rows] = row_extents(mt2, B)
         return
     # the full path: every row merged and front-packed, the table counted again
     t2, w2, _ = _apply_rowwise(st.tok, st.wid, zero, hit, rix, zs, B)
     st.tok.copy_(t2)
     st.wid.copy_(w2)
-    st.ctl[RECOUNT] = 1
     st.keys.fill_(EMPTY)
     st.cnts.zero_()
     st.ctl[OCC] = 0
-    block_count_plain(st)
+    counted = block_count_plain(st)
     st.work[W_FULL] += 1
+    st.work[W_APPLY] += 16 * int(st.ext[:NL].sum()) + 12 * st.cap + 12 * counted
+    st.ext.copy_(row_extents(st.tok, B))
 
 
 # -- wrappers -----------------------------------------------------------------
@@ -156,16 +193,16 @@ def block_count(st: BlockState):
 def block_apply(st: BlockState, KB: int):
     """Merge the round's accepted candidates into the rows with a hit: the
     block path (at most ``KB`` rows, table deltas) or the full path (every
-    row, the table counted again)."""
+    row, the table counted again); the rows' extents follow."""
     if not _on(st, "block_apply"):
         return block_apply_plain(st, KB)
     lib = _cuda.load_block()
     with torch.cuda.device(st.device):
         err = lib.yttm_block_apply(
-            st.tok.data_ptr(), st.wid.data_ptr(), st.freq.data_ptr(), st.B, st.NB,
-            st.rows.data_ptr(), int(min(KB, st.NB)), st.keys.data_ptr(), st.cnts.data_ptr(),
-            st.cap, st.ctl.data_ptr(), st.cand.data_ptr(), st.work.data_ptr(),
-            _stream_ptr(st.device),
+            st.tok.data_ptr(), st.wid.data_ptr(), st.freq.data_ptr(), st.B, st.NL,
+            st.ext.data_ptr(), st.rows.data_ptr(), int(min(KB, st.NB)), st.keys.data_ptr(),
+            st.cnts.data_ptr(), st.cap, st.ctl.data_ptr(), st.cand.data_ptr(),
+            st.work.data_ptr(), _stream_ptr(st.device),
         )
     _check(err, "block_apply")
     block_apply.launches += 1

@@ -129,6 +129,17 @@ class Exchange:
         o = side * self.dcap
         return self.dk[o : o + n], self.dv[o : o + n]
 
+    def emit_row(self) -> list:
+        """The shard's row of its card's emit (``csrc/shard_exchange.cuh``
+        EmitShard): its stream, the word of each position and the stream's
+        end (``emit_stream``), then offsets, weights, word count, ctl,
+        candidates, claim marks, buffer and work."""
+        stream, words, end = self.emit_stream()
+        return [stream.data_ptr(), words.data_ptr(), end, self.off.data_ptr(),
+                self.fw.data_ptr(), self.n_words, self.ctl.data_ptr(), self.cand.data_ptr(),
+                self.wmark.data_ptr(), self.dk.data_ptr(), self.dv.data_ptr(),
+                self.work.data_ptr()]
+
 
 class ShardState(Exchange, TrainState):
     """One shard of the sharded v2 trainer on its device: the shard's
@@ -144,6 +155,9 @@ class ShardState(Exchange, TrainState):
     def stream(self):
         live = self.tok >= 0
         return self.tok[live], self.wid_dev[self.pwid[live].long()]
+
+    def emit_stream(self):
+        return self.tok, self.pwid, self.tok.shape[0]
 
 
 def _any(shards, slot: int) -> bool:
@@ -420,21 +434,17 @@ def _links(st: ShardState, shards):
     return st._links[1]
 
 
-def _emit_rows(states):
+def _emit_rows(states, name: str):
     """A device array (on ``states[0]``'s device) of the shards of one
-    card, a row each as ``csrc/train_delta_sharded.cu`` EmitShard lays it
-    out: tok, pwid, Mw, off, fw, W, ctl, cand, wmark, dk, dv, work.  Rebuilt
-    when a buffer moved or a size changed (a relay, a resize)."""
+    card, a row each (``emit_row``) for the emit ``name``.  Rebuilt when a
+    buffer moved or a size changed (a relay, a resize)."""
     head = states[0]
-    for st in states:
+    rows = [st.emit_row() for st in states]
+    for st, row in zip(states, rows):
         if st.device != head.device or st.dcap != head.dcap:
-            raise ValueError("delta_emit takes the shards of one device, with one dcap")
-        if st.tok.data_ptr() % 16:
-            raise ValueError("delta_emit needs a 16-byte aligned stream")
-    rows = [[st.tok.data_ptr(), st.pwid.data_ptr(), st.tok.shape[0], st.off.data_ptr(),
-             st.fw.data_ptr(), st.n_words, st.ctl.data_ptr(), st.cand.data_ptr(),
-             st.wmark.data_ptr(), st.dk.data_ptr(), st.dv.data_ptr(), st.work.data_ptr()]
-            for st in states]
+            raise ValueError(f"{name} takes the shards of one device, with one dcap")
+        if row[0] % 16:
+            raise ValueError(f"{name} needs a 16-byte aligned stream")
     if head._emit is None or head._emit[0] != rows:
         head._emit = (rows, torch.tensor(rows, dtype=torch.int64, device=head.device))
     return head._emit[1]
@@ -452,7 +462,7 @@ def delta_emit(states):
             if st.n_words:
                 delta_emit_plain(st)
         return
-    rows = _emit_rows(states)
+    rows = _emit_rows(states, "delta_emit")
     lib = _cuda.load_sharded()
     with torch.cuda.device(states[0].device):
         err = lib.yttm_shard_delta_emit_card(rows.data_ptr(), len(states), states[0].dcap,
@@ -631,8 +641,7 @@ def _graph_row(st: ShardState) -> list:
             st.blk_lo.data_ptr(), st.n_blk, st.ticket.data_ptr(), st.ctl.data_ptr(),
             st.cand.data_ptr(), st.rules.data_ptr(), st.work.data_ptr(), st.tok.data_ptr(),
             st.pwid.data_ptr(), st.tok.shape[0], st.off.data_ptr(), st.fw.data_ptr(),
-            st.n_words, 0, st.wmark.data_ptr(), st.dk.data_ptr(), st.dv.data_ptr(),
-            st.rkeys.data_ptr(), st.rcnts.data_ptr()]
+            st.n_words, st.rkeys.data_ptr(), st.rcnts.data_ptr()]
 
 
 def _address(fn) -> int:
@@ -977,7 +986,7 @@ class ShardedKernelEngine(ShardEngine):
     def graph_addresses(self) -> list:
         # the emit's shard array (its rows follow the graph rows' pointers
         # and sizes, which key the graph)
-        return [_emit_rows(self.shards).data_ptr()]
+        return [_emit_rows(self.shards, "delta_emit").data_ptr()]
 
     def graph_launched(self, n: int):
         if any(st.n_words for st in self.shards):

@@ -16,11 +16,12 @@ shared top-k of ``csrc/train_topk.cu`` and ``shard_fold`` of
 ``csrc/train_delta_sharded.cu``):
 
   topk_accept           on every replica (the shared top-k)
-  sparse_emit           on every shard: sparse_apply's merge, with the listed
-                        words' old and new contributions appended to the
-                        shard's buffer; DOVF in ``ctl`` when the listed words'
-                        positions, tombstones included, pass dcap (JAX's
-                        ``n_aff > dcap``)
+  sparse_emit           one launch for the shards of a card: sparse_apply's
+                        merge in one flat pass of the tombstoned streams, with
+                        the claimed words' old and new contributions appended
+                        to each shard's buffer; DOVF in ``ctl`` when a shard's
+                        claimed words' positions, tombstones included, pass
+                        dcap (JAX's ``n_aff > dcap``)
   sparse_shard_recount  on every shard, only when some shard's DOVF is set:
                         the shard's tombstoned stream counted into its scratch
                         table (``csrc/tomb_count.cuh``, the one-device
@@ -49,10 +50,12 @@ import torch
 
 from . import _cuda
 from .delta_sharded_kernels import (
+    CTL_N,
     DN_OLD,
     DOVF,
     LIVE,
     NAFF,
+    POCC,
     ROCC,
     ROVF,
     W_COUNT,
@@ -62,6 +65,7 @@ from .delta_sharded_kernels import (
     ShardEngine,
     _address,
     _any,
+    _emit_rows,
     _links,
 )
 from .sparse_kernels import SparseState
@@ -79,6 +83,11 @@ from .train_kernels import (
 from .train_sparse import _apply_tomb, _pairs_tomb
 
 NPOS = LIVE  # v3: the positions of the round's listed words, tombstones included
+# sparse_emit's ctl slots past the exchange's, 0 between launches: the
+# positions summed so far (a shard's), the blocks done (the card's first
+# shard's); csrc/train_sparse_sharded.cu derives them alike, and _lib checks
+# that its ctl holds as many slots
+NPOS_RUN, EMIT_DONE = POCC + 1, POCC + 2
 
 
 class SparseShardState(Exchange, SparseState):
@@ -88,6 +97,12 @@ class SparseShardState(Exchange, SparseState):
     def __init__(self, t, wid, freq, rules, used: int, cap: int, dcap: int, device):
         super().__init__(t, wid, freq, rules, used, cap, device)
         self.buffers(dcap)
+
+    def control(self, rules, used: int, ctl_n: int = CTL_N):
+        super().control(rules, used, EMIT_DONE + 1)
+
+    def emit_stream(self):
+        return self.t, self.pw, self.end
 
 
 # -- plain torch versions -----------------------------------------------------
@@ -145,22 +160,23 @@ def sparse_shard_recount_plain(st: SparseShardState, shards):
 # -- wrappers -----------------------------------------------------------------
 
 
-def sparse_emit(st: SparseShardState):
-    """Merge the round's accepted candidates into the shard's tombstoned
-    stream and append its listed words' old and new contributions to its
-    buffer."""
-    if st.n_words == 0:
+def sparse_emit(states):
+    """Merge the round's accepted candidates into the tombstoned streams of
+    ``states`` (the shards of one device, which took the same candidates)
+    and append each one's claimed words' old and new contributions to its
+    buffer: one launch for all of them; a shard without words is skipped."""
+    if not any(st.n_words for st in states):
         return
-    if not _on(st, "sparse_emit"):
-        return sparse_emit_plain(st)
-    lib = _cuda.load_sparse_sharded()
-    with torch.cuda.device(st.device):
-        err = lib.yttm_sparse_shard_emit(
-            st.t.data_ptr(), st.pw.data_ptr(), st.off.data_ptr(), st.fw.data_ptr(), st.n_words,
-            st.end, st.ctl.data_ptr(), st.cand.data_ptr(), st.aff.data_ptr(),
-            st.wmark.data_ptr(), st.dk.data_ptr(), st.dv.data_ptr(), st.dcap,
-            st.work.data_ptr(), _stream_ptr(st.device),
-        )
+    if not _on(states[0], "sparse_emit"):
+        for st in states:
+            if st.n_words:
+                sparse_emit_plain(st)
+        return
+    rows = _emit_rows(states, "sparse_emit")
+    lib = _lib()
+    with torch.cuda.device(states[0].device):
+        err = lib.yttm_sparse_shard_emit_card(rows.data_ptr(), len(states), states[0].dcap,
+                                              _stream_ptr(states[0].device))
     _check(err, "sparse_emit")
     sparse_emit.launches += 1
 
@@ -172,7 +188,7 @@ def sparse_shard_recount(st: SparseShardState, shards, blocks: int = 0):
     if not _on(st, "sparse_shard_recount"):
         return sparse_shard_recount_plain(st, shards)
     ctls = _links(st, shards)[0]
-    lib = _cuda.load_sparse_sharded()
+    lib = _lib()
     with torch.cuda.device(st.device):
         err = lib.yttm_sparse_shard_recount(
             st.t.data_ptr(), st.pw.data_ptr(), st.off.data_ptr(), st.fw.data_ptr(), st.n_words,
@@ -181,6 +197,16 @@ def sparse_shard_recount(st: SparseShardState, shards, blocks: int = 0):
         )
     _check(err, "sparse_shard_recount")
     sparse_shard_recount.launches += 1
+
+
+def _lib():
+    """The sharded v3 trainer's library, its ctl layout checked against
+    this module's: a launch past a shard's ctl would write outside it."""
+    lib = _cuda.load_sparse_sharded()
+    n = lib.yttm_sparse_shard_ctl_n()
+    if n != EMIT_DONE + 1:
+        raise RuntimeError(f"train_sparse_sharded.cu uses {n} ctl slots, this module {EMIT_DONE + 1}")
+    return lib
 
 
 # launches of the CUDA kernels through each wrapper (plain calls not counted)
@@ -201,7 +227,7 @@ class SparseShardedKernelEngine(ShardEngine):
     every shard is on one card) replays the round graph, False runs
     ``round`` through the per-call wrappers."""
 
-    graph_entry = (_cuda.load_sparse_sharded, "yttm_sparse_shard_graph")
+    graph_entry = (_lib, "yttm_sparse_shard_graph")
 
     def __init__(self, seg_t, seg_w, freq, rules, used_ids0: int, vocab_size: int, batch_k: int,
                  mesh, dcap: int, m: int):
@@ -223,16 +249,19 @@ class SparseShardedKernelEngine(ShardEngine):
                 st.blk_lo.data_ptr(), st.n_blk, st.ticket.data_ptr(), st.ctl.data_ptr(),
                 st.cand.data_ptr(), st.rules.data_ptr(), st.work.data_ptr(), st.t.data_ptr(),
                 st.pw.data_ptr(), st.end, st.off.data_ptr(), st.fw.data_ptr(), st.n_words,
-                st.aff.data_ptr(), st.wmark.data_ptr(), st.dk.data_ptr(), st.dv.data_ptr(),
                 st.rkeys.data_ptr(), st.rcnts.data_ptr()]
 
     def graph_addresses(self) -> list:
-        """The fold's two entries, which the graph captures by address."""
+        """The fold's two entries, which the graph captures by address, and
+        the emit's shard array (its rows follow the graph rows' pointers and
+        sizes, which key the graph)."""
         lib = _cuda.load_sharded()
-        return [_address(lib.yttm_shard_fold_delta), _address(lib.yttm_shard_fold_rebuild)]
+        return [_address(lib.yttm_shard_fold_delta), _address(lib.yttm_shard_fold_rebuild),
+                _emit_rows(self.shards, "sparse_emit").data_ptr()]
 
     def graph_launched(self, n: int):
-        sparse_emit.launches += n * sum(1 for st in self.shards if st.n_words)
+        if any(st.n_words for st in self.shards):
+            sparse_emit.launches += n
 
     def graph_recounted(self, runs: int):
         sparse_shard_recount.launches += runs * len(self.shards)
@@ -243,8 +272,8 @@ class SparseShardedKernelEngine(ShardEngine):
     def round(self, limit: int):
         for st in self.shards:
             topk_accept(st, limit, self.vocab_size, self.used_ids0, self.batch_k)
-        for st in self.shards:
-            sparse_emit(st)
+        for dev in self._devices:
+            sparse_emit([st for st in self.shards if st.device == dev])
         self._barrier()
         self._exchange(limit)
 
